@@ -1,0 +1,447 @@
+"""Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
+each against its plain PyTorch version at the main path's full-width
+shapes and times it, then drives the main path: full-width starcoder2_3b
+(random weights from seed 0), served with continuous batching and streamed
+decode, under `axle` (the fused decode kernel) and under `rp` (the partial
+kernel).  Every phase prints one line; any failure exits non-zero.  The
+last three lines are the kernels' JSON record, the card's name and power
+limit, and `{"ok": true, "device": {...}}`.
+
+Tolerances (bf16 inputs, f32 accumulation in both versions):
+  * attention outputs in bf16: |kernel - plain| <= 2e-2 — both round an
+    f32 result that differs in summation order only, so they differ by at
+    most one bf16 unit in the last place of values below 4 (0.0156);
+  * partial statistics in f32: |kernel - plain| <= 1e-3 + 1e-4 |plain|;
+  * paged == dense: bitwise;
+  * full-model logits, kernel path vs plain path: <= 0.25 absolute after
+    30 bf16 layers, and greedy tokens equal except where the two best
+    logits lie within 0.1 of each other (a near tie).
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
+BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
+ATOL_BF16 = 2e-2
+LOGIT_ATOL = 0.25
+NEAR_TIE = 0.1
+
+
+def fail(msg: str) -> None:
+    print(f"FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+if not torch.cuda.is_available():
+    fail("torch.cuda.is_available() is False: this script needs a GPU")
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+try:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models import transformer
+except ImportError as exc:
+    fail(f"the repro_torch package is not beside this script: {exc}")
+
+DEV = torch.device("cuda")
+ARCH = "starcoder2_3b"
+
+
+def time_ms(fn, iters: int = 20) -> float:
+    """Median device time of one call, CUDA events around each call, with
+    the 50 MB L2 flushed before it (the main path finds each layer's
+    cache cold)."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound_ms(n_bytes: float, flops: float) -> tuple:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+# --------------------------------------------------------------------------
+# 1. device
+# --------------------------------------------------------------------------
+
+smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                      "--format=csv,noheader"], capture_output=True,
+                     text=True, timeout=60)
+check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+SMI_LINE = smi.stdout.strip().splitlines()[0]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+print(SMI_LINE, flush=True)
+print(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}"
+      f" torch {torch.__version__} cuda {torch.version.cuda}; "
+      "TF32 off for matmul and cuDNN", flush=True)
+
+# --------------------------------------------------------------------------
+# 2. build
+# --------------------------------------------------------------------------
+
+t0 = time.perf_counter()
+lib = fa.build()
+print(f"[build] nvcc {lib.name} in {time.perf_counter() - t0:.2f} s",
+      flush=True)
+
+# --------------------------------------------------------------------------
+# 3. kernels against their plain versions, at main-path shapes
+# --------------------------------------------------------------------------
+
+cfg = get_config(ARCH)
+B, H, KH, HD = 4, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+S, PAGE = 1024, 128
+G = torch.Generator(device=DEV).manual_seed(0)
+
+
+def randn(*shape, dtype=torch.bfloat16):
+    return torch.randn(*shape, generator=G, device=DEV).to(dtype)
+
+
+records = {}
+
+# decode_attention_fused: paged pool with a permuted table, ragged pos
+q = randn(B, 1, H, HD)
+k_log, v_log = randn(B, KH, S, HD), randn(B, KH, S, HD)
+n_pages = S // PAGE
+table = torch.stack([torch.randperm(n_pages, generator=G, device=DEV)
+                     for _ in range(B)]).to(torch.int32)
+k_pool, v_pool = torch.empty_like(k_log), torch.empty_like(v_log)
+for b in range(B):
+    for j in range(n_pages):
+        p = int(table[b, j])
+        phys, logical = slice(p * PAGE, (p + 1) * PAGE), \
+            slice(j * PAGE, (j + 1) * PAGE)
+        k_pool[b, :, phys] = k_log[b, :, logical]
+        v_pool[b, :, phys] = v_log[b, :, logical]
+pos = torch.tensor([0, 130, 400, 1023], dtype=torch.int32, device=DEV)
+extra = (torch.randn(B, H, HD, generator=G, device=DEV),
+         torch.randn(B, H, generator=G, device=DEV),
+         torch.rand(B, H, generator=G, device=DEV) + 0.5)
+worst = 0.0
+for window in (0, 300):
+    for ex in (None, extra):
+        dense = fa.decode_attention_fused(q, k_log, v_log, pos, ex,
+                                          window=window, blk_c=PAGE)
+        paged = fa.decode_attention_fused(q, k_pool, v_pool, pos, ex,
+                                          window=window, blk_c=PAGE,
+                                          pages=table)
+        plain = ref.decode_fused_reference(q, k_pool, v_pool, pos, ex,
+                                           window=window, pages=table,
+                                           page_size=PAGE)
+        torch.cuda.synchronize()
+        err = (paged.float() - plain.float()).abs().max().item()
+        check(torch.equal(paged, dense),
+              f"decode_attention_fused: paged != dense (window {window})")
+        check(err <= ATOL_BF16, f"decode_attention_fused: err {err} "
+              f"(window {window}, extra {ex is not None})")
+        worst = max(worst, err)
+valid_slots = int((pos + 1).sum())          # window 0: slots 0..pos
+dec_bytes = (nbytes(q, pos, table, *extra) + q.numel() * 2
+             + 2 * valid_slots * KH * HD * 2)
+dec_flops = 4 * valid_slots * H * HD
+bnd, by = bound_ms(dec_bytes, dec_flops)
+k_gath = ref.gather_kv_pages(k_pool, table, PAGE)
+v_gath = ref.gather_kv_pages(v_pool, table, PAGE)
+sdpa_mask = ref.decode_valid_mask(pos, S, 0)[:, None, None, :]
+records["decode_attention_fused"] = dict(
+    name="decode_attention_fused", route="cuda",
+    source="src/repro_torch/kernels/csrc/attention.cu",
+    replaces="src/repro/kernels/flash_attention.py:313",
+    max_abs_err=worst,
+    ms=time_ms(lambda: fa.decode_attention_fused(
+        q, k_pool, v_pool, pos, extra, blk_c=PAGE, pages=table)),
+    plain_ms=time_ms(lambda: ref.decode_fused_reference(
+        q, k_pool, v_pool, pos, extra, pages=table, page_size=PAGE)),
+    bound_ms=bnd, bound_by=by,
+    library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k_gath, v_gath, attn_mask=sdpa_mask,
+        enable_gqa=True)))
+print(f"[kernel] decode_attention_fused B={B} H={H} KH={KH} hd={HD} S={S} "
+      f"page={PAGE} permuted table, pos={pos.tolist()}, window 0 and 300, "
+      f"extra on/off: max_abs_err {worst:.3g} <= {ATOL_BF16}; "
+      "paged == dense bitwise", flush=True)
+
+# flash_attention: prefill of one prompt, S = 8 and 512
+worst = 0.0
+for s in (8, 512):
+    qf, kf, vf = randn(1, s, H, HD), randn(1, s, KH, HD), randn(1, s, KH, HD)
+    out = fa.flash_attention(qf, kf, vf, causal=True)
+    plain = ref.mha_reference(qf, kf, vf, causal=True)
+    torch.cuda.synchronize()
+    err = (out.float() - plain.float()).abs().max().item()
+    check(err <= ATOL_BF16, f"flash_attention S={s}: err {err}")
+    worst = max(worst, err)
+    print(f"[kernel] flash_attention S={s} H={H} KH={KH} hd={HD} causal: "
+          f"max_abs_err {err:.3g} <= {ATOL_BF16}", flush=True)
+pairs = s * (s + 1) // 2                    # causal (q, k) pairs at S=512
+bnd, by = bound_ms(nbytes(qf, kf, vf) + nbytes(qf), 4 * pairs * H * HD)
+records["flash_attention"] = dict(
+    name="flash_attention", route="cuda",
+    source="src/repro_torch/kernels/csrc/attention.cu",
+    replaces="src/repro/kernels/flash_attention.py:98",
+    max_abs_err=worst,
+    ms=time_ms(lambda: fa.flash_attention(qf, kf, vf, causal=True)),
+    plain_ms=time_ms(lambda: ref.mha_reference(qf, kf, vf, causal=True)),
+    bound_ms=bnd, bound_by=by,
+    library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2),
+        is_causal=True, enable_gqa=True)))
+
+# decode_attention_partial: the rp path's one chunk over the whole cache,
+# row 1 fully masked
+valid = ref.decode_valid_mask(pos, S, 0)
+valid[1] = False
+acc, m, l = fa.decode_attention_partial(q, k_log, v_log, valid)
+acc_r, m_r, l_r = ref.decode_partial_reference(q, k_log, v_log, valid)
+torch.cuda.synchronize()
+check(torch.equal(torch.isinf(m), torch.isinf(m_r)) and bool(
+    torch.isinf(m[1]).all()) and bool((l[1] == 0).all()),
+      "decode_attention_partial: empty row must give m=-inf, l=0")
+fin = torch.isfinite(m_r)
+worst = 0.0
+for got, want in ((acc, acc_r), (m[fin], m_r[fin]), (l, l_r)):
+    diff = (got - want).abs()
+    check(bool((diff <= 1e-3 + 1e-4 * want.abs()).all()),
+          f"decode_attention_partial: err {diff.max().item()}")
+    worst = max(worst, diff.max().item())
+n_valid = int(valid.sum())
+bnd, by = bound_ms(nbytes(q, valid, acc, m, l) + 2 * n_valid * KH * HD * 2,
+                   4 * n_valid * H * HD)
+records["decode_attention_partial"] = dict(
+    name="decode_attention_partial", route="cuda",
+    source="src/repro_torch/kernels/csrc/attention.cu",
+    replaces="src/repro/kernels/flash_attention.py:192",
+    max_abs_err=worst,
+    ms=time_ms(lambda: fa.decode_attention_partial(q, k_log, v_log, valid)),
+    plain_ms=time_ms(lambda: ref.decode_partial_reference(
+        q, k_log, v_log, valid)),
+    bound_ms=bnd, bound_by=by,
+    library_ms=None)
+print(f"[kernel] decode_attention_partial B={B} C={S} row 1 empty: "
+      f"max_abs_err {worst:.3g} (<= 1e-3 + 1e-4|plain|); empty row m=-inf",
+      flush=True)
+del k_gath, v_gath
+
+# --------------------------------------------------------------------------
+# 4. serve: the main path at full width
+# --------------------------------------------------------------------------
+
+rng = np.random.default_rng(0)
+
+
+def make_requests(n, lo, hi, max_new):
+    out = []
+    for i in range(n):
+        plen = int(rng.integers(lo, hi + 1))
+        out.append(Request(i, rng.integers(1, cfg.vocab, plen).astype(
+            np.int32), max_new))
+    return out
+
+
+def serve(requests, params=None, **kw):
+    server = BatchedServer(ARCH, smoke=False, device="cuda", batch_slots=4,
+                           max_seq=S, seg_len=8, params=params, **kw)
+    for r in requests:
+        server.submit(r)
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t = time.perf_counter()
+    server.run_until_drained()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = dict(fa.LAUNCHES)
+    check(server.pages_allocated == server.pages_freed
+          and server.pages_resident == 0, "page ledger not closed")
+    toks = {r.rid: r.generated for r in server.completed}
+    check(len(toks) == len(requests), "not every request completed")
+    return server, toks, launches, dt
+
+
+main_reqs = make_requests(8, 64, 400, 64)
+srv, axle_toks, launches, dt = serve(main_reqs, protocol="axle",
+                                     stream=True)
+n_layers = cfg.n_layers
+n_tok = sum(len(t) for t in axle_toks.values())
+check(launches["decode_attention_fused"] == srv.steps * n_layers,
+      f"fused launches {launches} != {srv.steps} steps x {n_layers}")
+check(launches["flash_attention"] == srv.prefill_forwards * n_layers,
+      f"flash launches {launches} != {srv.prefill_forwards} x {n_layers}")
+check(all(len(t) == 64 for t in axle_toks.values()), "short stream")
+main_launches = launches
+print(f"[serve] {ARCH} full width, axle, streamed, 8 requests (prompts "
+      f"64-400, max_new 64), 4 slots, max_seq {S}, seg_len 8: {n_tok} "
+      f"tokens in {dt:.3f} s = {n_tok / dt:.1f} tok/s; syncs_per_token "
+      f"{srv.decode_syncs / n_tok:.4f}; decode steps {srv.steps}, "
+      f"prefills {srv.prefill_forwards}; launches {launches}; ledger "
+      f"closed ({srv.pages_allocated} pages)", flush=True)
+params = srv.params
+
+# where one streamed run's time goes: device time by kernel, and the
+# device's busy share of the wall time (one stream, so kernels do not
+# overlap); informational, the run's correctness gates are elsewhere
+prof_reqs = make_requests(4, 64, 400, 16)
+with torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]) as prof:
+    _, _, _, prof_dt = serve(prof_reqs, params=params, protocol="axle",
+                             stream=True)
+# the kernels' own entries only: a CPU op's row repeats the device time
+# of the kernels it launched
+by_op = sorted(((e.self_device_time_total, e.key)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA),
+               reverse=True)
+busy_ms = sum(t for t, _ in by_op) / 1e3
+top = "; ".join(f"{k[:48]} {t / 1e3:.1f} ms" for t, k in by_op[:6] if t)
+print(f"[profile] axle, 4 requests x 16 tokens, streamed: wall "
+      f"{prof_dt * 1e3:.1f} ms under the profiler, device busy "
+      f"{busy_ms:.1f} ms ({100 * busy_ms / (prof_dt * 1e3):.1f}%); top: "
+      f"{top or 'not measured (the profiler saw no device time)'}",
+      flush=True)
+
+pair = make_requests(2, 64, 200, 16)
+_, streamed, _, _ = serve([Request(r.rid, r.prompt, r.max_new) for r in pair],
+                          params=params, protocol="axle", stream=True)
+_, per_token, _, _ = serve([Request(r.rid, r.prompt, r.max_new)
+                            for r in pair], params=params, protocol="axle",
+                           stream=False)
+check(streamed == per_token, "streamed != per-token tokens")
+print("[serve] the same 2 requests streamed and per-token: identical tokens",
+      flush=True)
+
+# --------------------------------------------------------------------------
+# 5. reference check at full width
+# --------------------------------------------------------------------------
+
+
+def logits_along(prompts, steps, reference):
+    """Prefill each prompt into its own row, then `steps` greedy decode
+    steps; returns [prefill logits (B, V), step logits (B, V), ...] and
+    the greedy tokens, with the kernel path or (reference=True) the plain
+    path for the attention."""
+    cache = transformer.init_cache(cfg, len(prompts), S, device=DEV)
+    out = []
+    with (ops.reference_mode() if reference
+          else contextlib.nullcontext()):
+        first = []
+        for row, pr in enumerate(prompts):
+            lg, cache = transformer.prefill_into_cache(
+                cfg, params, cache, torch.from_numpy(pr).to(DEV), row,
+                len(pr))
+            first.append(lg)
+        out.append(torch.stack(first).float())
+        toks = out[-1].argmax(-1).to(torch.int32)[:, None]
+        pos_b = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                             device=DEV)
+        for _ in range(steps):
+            lg, cache = transformer.decode_step(cfg, params, cache, toks,
+                                                positions=pos_b)
+            out.append(lg[:, -1].float())
+            toks = out[-1].argmax(-1).to(torch.int32)[:, None]
+            pos_b = pos_b + 1
+    return out
+
+
+def near_tie_agree(a, b, what):
+    """argmax(a) == argmax(b) per row, except at a near tie in a."""
+    ia, ib = a.argmax(-1), b.argmax(-1)
+    for r in range(a.shape[0]):
+        if ia[r] != ib[r]:
+            gap = (a[r, ia[r]] - a[r, ib[r]]).item()
+            check(0.0 <= gap < NEAR_TIE, f"{what}: row {r} argmax "
+                  f"{ia[r].item()} vs {ib[r].item()}, gap {gap}")
+
+
+prompts = [r.prompt for r in make_requests(4, 64, 400, 1)]
+kern = logits_along(prompts, 4, reference=False)
+plain = logits_along(prompts, 4, reference=True)
+worst = max((a - b).abs().max().item() for a, b in zip(kern, plain))
+check(all(bool(torch.isfinite(a).all()) for a in kern), "non-finite logits")
+check(worst <= LOGIT_ATOL, f"logits kernel vs plain: {worst}")
+for i, (a, b) in enumerate(zip(kern, plain)):
+    near_tie_agree(b, a, f"step {i}")
+print(f"[reference] {ARCH} full width, 4 rows, prefill + 4 decode steps, "
+      f"kernels vs plain versions: logits max_abs_err {worst:.4g} <= "
+      f"{LOGIT_ATOL}; greedy tokens agree (near-tie gate {NEAR_TIE})",
+      flush=True)
+
+rp_reqs = [Request(r.rid, r.prompt, r.max_new) for r in pair]
+_, rp_toks, rp_launches, _ = serve(rp_reqs, params=params, protocol="rp",
+                                   stream=True)
+check(rp_launches["decode_attention_partial"] > 0
+      and rp_launches["decode_attention_fused"] == 0,
+      f"rp run launches {rp_launches}")
+for rid, toks in rp_toks.items():
+    ref_toks = streamed[rid]
+    if toks != ref_toks:
+        t = next(i for i, (x, y) in enumerate(zip(toks, ref_toks)) if x != y)
+        pr = pair[rid].prompt
+        # replay the axle stream up to the first divergence: the two
+        # choices there must be a near tie
+        lg = logits_along([np.concatenate([pr, np.asarray(
+            ref_toks[:t], np.int32)])], 0, reference=False)[0][0]
+        gap = (lg[ref_toks[t]] - lg[toks[t]]).item()
+        check(0.0 <= gap < NEAR_TIE,
+              f"rp vs axle request {rid}: token {t} differs, gap {gap}")
+print(f"[reference] protocol rp, same 2 requests: launches {rp_launches}; "
+      f"tokens {'equal to' if rp_toks == streamed else 'near-tie equal to'}"
+      " the axle run's", flush=True)
+
+# --------------------------------------------------------------------------
+# 6. result
+# --------------------------------------------------------------------------
+
+records["decode_attention_fused"]["launches"] = \
+    main_launches["decode_attention_fused"]
+records["flash_attention"]["launches"] = main_launches["flash_attention"]
+records["decode_attention_partial"]["launches"] = \
+    rp_launches["decode_attention_partial"]
+for name, rec in records.items():
+    check(rec["launches"] > 0, f"{name} never launched on the main path")
+keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+print(json.dumps({"kernels": [{k: rec[k] for k in keys}
+                              for rec in records.values()]}))
+print(SMI_LINE)
+print(json.dumps({"ok": True, "device": {
+    "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+    "count": torch.cuda.device_count()}}))

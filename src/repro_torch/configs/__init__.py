@@ -1,0 +1,53 @@
+"""Architecture configs of the port: `get_config(arch_id)` returns the full
+ArchConfig, `get_smoke_config(arch_id)` the CPU-sized reduction.  Each
+ported arch has its own module, copied from `repro/configs/<arch>.py`;
+an arch whose layers are not ported yet raises NotImplementedError naming
+the ROADMAP item that ports it."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ArchConfig
+
+ARCH_IDS = (
+    "phi3_5_moe_42b",
+    "granite_moe_3b",
+    "mistral_nemo_12b",
+    "starcoder2_3b",
+    "gemma3_12b",
+    "minitron_4b",
+    "qwen2_vl_2b",
+    "jamba_1_5_large",
+    "mamba2_370m",
+    "whisper_large_v3",
+    "opt_2_7b",
+)
+
+PORTED = ("starcoder2_3b",)
+
+# ROADMAP.md queue 1 item that ports each arch not yet ported
+_ROADMAP_ITEM = {
+    "gemma3_12b": 9, "mistral_nemo_12b": 9, "opt_2_7b": 9,
+    "minitron_4b": 9, "qwen2_vl_2b": 9,
+    "granite_moe_3b": 10, "phi3_5_moe_42b": 10,
+    "mamba2_370m": 12, "jamba_1_5_large": 12,
+    "whisper_large_v3": 13,
+}
+
+
+def _module(arch_id: str):
+    if arch_id in PORTED:
+        return importlib.import_module(f"repro_torch.configs.{arch_id}")
+    if arch_id in _ROADMAP_ITEM:
+        raise NotImplementedError(
+            f"{arch_id} is not ported yet: ROADMAP.md queue 1 item "
+            f"{_ROADMAP_ITEM[arch_id]}")
+    raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    return _module(arch_id).CONFIG
+
+
+def get_smoke_config(arch_id: str) -> ArchConfig:
+    return _module(arch_id).SMOKE

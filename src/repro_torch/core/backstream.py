@@ -1,0 +1,157 @@
+"""Decode attention under the offload protocols, single device: the port of
+the main-path part of `repro/core/backstream.py`.
+
+The paper's protocols (RP, BS, AXLE) differ in how the partial-attention
+statistics (acc, m, l) of the KV chunks reach the consumer.  On one device:
+
+  BS, AXLE — the fused one-shot decode kernel: produce, merge and
+             normalise in one launch, reading paged caches through the
+             page table.
+  RP       — and `OffloadConfig(fused=False)`: one partial-kernel launch
+             per chunk, then a separate merge.
+
+The mesh schedules (the AXLE ring, head-group gathering) are ROADMAP
+queue 1 item 17.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import enum
+import threading
+from typing import Iterator, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.ref import decode_valid_mask as _decode_valid_mask
+from repro_torch.models import layers as L
+
+
+class OffloadProtocol(enum.Enum):
+    RP = "rp"
+    BS = "bs"
+    AXLE = "axle"
+
+
+@dataclasses.dataclass(frozen=True)
+class OffloadConfig:
+    protocol: OffloadProtocol = OffloadProtocol.AXLE
+    # chunks per shard of the chunked merge (one shard on one device)
+    chunks_per_shard: int = 1
+    # fused one-shot decode kernel; False takes the chunked schedule
+    fused: bool = True
+
+
+_state = threading.local()
+
+
+def current_offload() -> OffloadConfig:
+    return getattr(_state, "cfg", None) or OffloadConfig()
+
+
+@contextlib.contextmanager
+def use_offload(cfg: OffloadConfig) -> Iterator[None]:
+    prev = getattr(_state, "cfg", None)
+    _state.cfg = cfg
+    try:
+        yield
+    finally:
+        _state.cfg = prev
+
+
+def cache_update_stacked(cache: torch.Tensor, new: torch.Tensor,
+                         slot: torch.Tensor) -> torch.Tensor:
+    """Ring-slot write of one token for ALL layers at once, IN PLACE:
+    cache (L,B,KH,S,hd), new (L,B,KH,1,hd), slot a scalar or a (B,)
+    vector of per-row physical rows.  Returns `cache`."""
+    nl, b, kh, s, hd = cache.shape
+    slot = torch.as_tensor(slot, device=cache.device).long()
+    if slot.dim() == 0:
+        slot = slot.expand(b)
+    val = new.to(cache.dtype)[:, :, :, 0, :]              # (L,B,KH,hd)
+    rows = torch.arange(b, device=cache.device)
+    cache[:, rows, :, slot, :] = val.permute(1, 0, 2, 3)
+    return cache
+
+
+def physical_slots(pages: torch.Tensor, slots: torch.Tensor,
+                   page_size: int) -> torch.Tensor:
+    """Translate LOGICAL cache slots to PHYSICAL pool rows through the
+    page table.  pages: (B, n_pages) int32; slots: (B,) or (B, T)."""
+    b = pages.shape[0]
+    flat = slots.reshape(b, -1).long()
+    phys_page = torch.gather(pages.long(), 1, flat // page_size)
+    return (phys_page * page_size + flat % page_size).reshape(
+        slots.shape).to(torch.int32)
+
+
+def _partials_over_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          kv_valid: torch.Tensor, n_chunks: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Split the KV sequence into n_chunks and compute partial attention
+    for each (one partial-kernel launch per chunk on the card): returns
+    acc (n,B,H,hd), m (n,B,H), l (n,B,H).  k/v: (B,KH,S,hd)."""
+    s = k.shape[2]
+    assert s % n_chunks == 0, (s, n_chunks)
+    c = s // n_chunks
+    accs, ms, ls = [], [], []
+    for i in range(n_chunks):
+        sl = slice(i * c, (i + 1) * c)
+        acc, m, l = ops.decode_attention_partial(
+            q, k[:, :, sl].contiguous(), v[:, :, sl].contiguous(),
+            kv_valid[:, sl].contiguous())
+        accs.append(acc)
+        ms.append(m)
+        ls.append(l)
+    return torch.stack(accs), torch.stack(ms), torch.stack(ls)
+
+
+def decode_attention_combined(q: torch.Tensor, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor, pos: torch.Tensor, *,
+                              window: int = 0,
+                              extra=None,
+                              pages: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Single-step attention of q (B,1,H,hd) against the KV cache
+    (B,KH,S,hd), combined under the active offload protocol.  `pos` is the
+    last valid cache slot, a scalar or (B,) per-row.  `pages`: optional
+    (B, n_pages) page table; the cache panels are then page pools.
+    Returns (B,1,H,hd)."""
+    cfg = current_offload()
+    b, kh, s, hd = k_cache.shape
+    page_size = 0
+    if pages is not None:
+        assert s % pages.shape[1] == 0, (s, tuple(pages.shape))
+        page_size = s // pages.shape[1]
+    pos_b = torch.as_tensor(pos, device=q.device).to(
+        torch.int32).reshape(-1).expand(b).contiguous()
+    n_chunks = min(max(1, cfg.chunks_per_shard), s)
+
+    if cfg.fused and cfg.protocol != OffloadProtocol.RP:
+        if pages is not None:
+            # the kernel chunk IS the page; the table drives its reads
+            return ops.decode_attention_fused(q, k_cache, v_cache, pos_b,
+                                              extra, pages, window=window,
+                                              blk_c=page_size)
+        blk_c = max(1, min(128, s // n_chunks))
+        return ops.decode_attention_fused(q, k_cache, v_cache, pos_b, extra,
+                                          window=window, blk_c=blk_c)
+
+    # chunked schedule (RP, fused=False): per-chunk partials + one merge
+    if pages is not None:
+        k_cache = _ref.gather_kv_pages(k_cache, pages, page_size)
+        v_cache = _ref.gather_kv_pages(v_cache, pages, page_size)
+    kv_valid = _decode_valid_mask(pos_b, s, window)
+    accs, ms, ls = _partials_over_chunks(q, k_cache, v_cache, kv_valid,
+                                         n_chunks)
+    if extra is not None:
+        acc_e, m_e, l_e = extra
+        accs = torch.cat([accs, acc_e[None]], dim=0)
+        ms = torch.cat([ms, m_e[None]], dim=0)
+        ls = torch.cat([ls, l_e[None]], dim=0)
+    out = L.merge_attention_partials(accs, ms, ls)        # (B,H,hd)
+    return out[:, None].to(q.dtype)
+

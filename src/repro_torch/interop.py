@@ -1,0 +1,48 @@
+"""The weight bridge: JAX parameter and cache pytrees, handed over as numpy
+arrays, become the port's tensors.
+
+The tests call it; nothing on the card does (that machine has no JAX).
+bf16 crosses as raw 16-bit words, so no bf16 numpy type is needed here:
+`arr.view(np.uint16)` on this side, `.view(torch.bfloat16)` on the other.
+The layout stays the reference's: `embed`, `final_ln`, and
+`blocks[i]["attn"|"ffn"][name]` stacked over n_blocks.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Union
+
+import numpy as np
+import torch
+
+
+def tensor_from_numpy(arr: np.ndarray,
+                      device: Union[str, torch.device]) -> torch.Tensor:
+    """One array; bf16 (the ml_dtypes type JAX hands out) by its bits."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.uint16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def tree_from_numpy(tree: Any, device: Union[str, torch.device]) -> Any:
+    """A nested dict / tuple / list of arrays; tuples become lists (the
+    reference's `blocks` tuple is the port's list)."""
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return [tree_from_numpy(v, device) for v in tree]
+    return tensor_from_numpy(tree, device)
+
+
+def params_from_jax(np_params: Dict[str, Any],
+                    device: Union[str, torch.device]) -> Dict[str, Any]:
+    """`repro.models.transformer.init_params` output, as numpy arrays."""
+    return tree_from_numpy(np_params, device)
+
+
+def cache_from_jax(np_cache: Dict[str, Any],
+                   device: Union[str, torch.device]) -> Dict[str, Any]:
+    """`repro.models.transformer.init_cache` output (pos, k*/v* panels,
+    page_table), as numpy arrays."""
+    return {k: tensor_from_numpy(v, device) for k, v in np_cache.items()}

@@ -1,0 +1,73 @@
+"""Dispatch for the attention kernels, with the signatures of
+`repro/kernels/ops.py`.
+
+A CUDA tensor goes to the hand-written CUDA kernel (`flash_attention.py`);
+a CPU tensor goes to the plain PyTorch version (`ref.py`).  Inside
+`reference_mode()` CUDA tensors take the plain versions too: that is how
+`chip_smoke.py` and the tests hold the kernel path against the plain path
+on the card.  The server never enters it.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Iterator, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ref as _ref
+
+_state = threading.local()
+
+
+@contextlib.contextmanager
+def reference_mode() -> Iterator[None]:
+    """Route CUDA tensors to the plain PyTorch versions while active."""
+    prev = getattr(_state, "reference", False)
+    _state.reference = True
+    try:
+        yield
+    finally:
+        _state.reference = prev
+
+
+def _use_kernel(t: torch.Tensor) -> bool:
+    return t.is_cuda and not getattr(_state, "reference", False)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B,S,H,hd); k,v: (B,S,KH,hd) -> (B,S,H,hd)."""
+    if _use_kernel(q):
+        return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    return _ref.mha_reference(q, k, v, causal=causal, window=window)
+
+
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, valid: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """q: (B,1,H,hd); k,v: (B,KH,C,hd); valid (B,C) bool -> f32 (acc, m, l)."""
+    if _use_kernel(q):
+        return _fa.decode_attention_partial(q, k, v, valid)
+    return _ref.decode_partial_reference(q, k, v, valid)
+
+
+def decode_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           pos: torch.Tensor,
+                           extra: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                                 torch.Tensor]] = None,
+                           pages: Optional[torch.Tensor] = None, *,
+                           window: int = 0, blk_c: int = 128) -> torch.Tensor:
+    """Fused one-shot flash decode.  q: (B,1,H,hd); k,v: (B,KH,S,hd); pos:
+    (B,) per-row last valid slot; extra: optional (acc, m, l) partial of the
+    current token.  `pages`: optional (B, n_log) int32 page table — k/v are
+    then physical page pools, `blk_c` is the exact page size, and `pos`
+    keeps its logical meaning.  Returns (B,1,H,hd)."""
+    if _use_kernel(q):
+        return _fa.decode_attention_fused(q, k, v, pos, extra, window=window,
+                                          blk_c=blk_c, pages=pages)
+    page_size = blk_c if pages is not None else 0
+    return _ref.decode_fused_reference(q, k, v, pos, extra, window=window,
+                                       pages=pages, page_size=page_size)

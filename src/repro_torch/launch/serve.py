@@ -1,0 +1,411 @@
+"""Batched greedy serving with offload-protocol selection and a streamed
+hot loop: the main-path slice of `repro/launch/serve.py`.
+
+`--protocol {bs,axle,rp}` selects the partial-attention merge schedule
+(`core/backstream.py`): on one device `bs` and `axle` take the fused
+one-shot decode kernel, `rp` the per-chunk partial kernel plus a merge.
+
+Requests are continuously batched over `batch_slots` cache rows, each with
+its own position clock.  Two host loops over the same decode segments:
+
+  per-token (`step`)       — one dispatch and one host sync per token.
+  streamed  (`run_stream`) — `seg_len`-token segments; segment i+1 is
+                             dispatched before segment i's tokens are read
+                             back (their copy to pinned host memory is
+                             queued right behind segment i), so the host
+                             syncs once per segment.
+
+Both loops emit identical tokens.  Sampling, speculation, the host tier,
+chunked prefill, quantization and the mesh are later slices (ROADMAP.md
+queue 1); their options are absent here, not ignored.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.backstream import (OffloadConfig, OffloadProtocol,
+                                         use_offload)
+from repro_torch.launch import steps as steps_lib
+from repro_torch.models import transformer
+
+PROTOCOLS = {"bs": OffloadProtocol.BS, "axle": OffloadProtocol.AXLE,
+             "rp": OffloadProtocol.RP}
+
+
+@dataclasses.dataclass
+class Request:
+    """One greedy serving request.
+
+    prompt      — (prompt_len,) int32 token ids.
+    max_new     — token budget; the first token comes from the prefill.
+    stop_tokens — ids that end the request (at most
+                  steps.MAX_STOP_TOKENS); the stop token itself is the
+                  last generated token.
+    generated   — filled by the server, in order."""
+    rid: int
+    prompt: np.ndarray
+    max_new: int
+    stop_tokens: Tuple[int, ...] = ()
+    generated: Optional[List[int]] = None
+
+
+def _prefill_bucket(n: int, cap: int) -> int:
+    """Pad prompt lengths to powers of two (>= 8), capped at `cap`."""
+    p = 8
+    while p < n:
+        p *= 2
+    return min(p, cap)
+
+
+class BatchedServer:
+    """Slot-based continuous batching over a fixed decode batch.
+
+    Each of `batch_slots` cache rows is a serving slot: a queued Request
+    is admitted into a free slot by a real prefill, decodes greedily until
+    its budget is spent or it emits a stop token, then retires and frees
+    the slot.  `positions[s]` is the position of the token in `tokens[s]`:
+    it starts at len(prompt) and advances per row, so a request's tokens
+    do not depend on its slot or its batch-mates.
+
+    A row WITHOUT stop tokens ends only by budget, which the host knows at
+    dispatch: it retires then.  A row WITH stop tokens ends when the
+    device says so; the host learns it one segment later.
+
+    `params` are the weights to serve in the reference's layout; None
+    draws the port's own from seed 0 on `device`."""
+
+    def __init__(self, arch_id: str, *, smoke: bool = True,
+                 device: Optional[str] = None, batch_slots: int = 4,
+                 max_seq: int = 256, protocol: str = "axle",
+                 chunks_per_shard: int = 1, seg_len: int = 8,
+                 stream: bool = False, page_size: Optional[int] = None,
+                 params: Optional[Dict[str, Any]] = None):
+        self.device = resolve_device(device)
+        self.cfg = (get_smoke_config(arch_id) if smoke
+                    else get_config(arch_id))
+        self.batch = batch_slots
+        self.max_seq = max_seq
+        self.seg_len = seg_len
+        self.stream = stream
+        self.offload = OffloadConfig(protocol=PROTOCOLS[protocol],
+                                     chunks_per_shard=chunks_per_shard)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            params = transformer.init_params(self.cfg, gen, self.device)
+        self.params = params
+        self.cache = transformer.init_cache(self.cfg, batch_slots, max_seq,
+                                            device=self.device,
+                                            page_size=page_size)
+        # page ledger: one page = `page_size` positions of one slot row,
+        # charged as the position clock advances and released at
+        # retirement; allocated == freed + resident at every tick
+        self.page_size = transformer.cache_page_size(self.cache)
+        self.pages_allocated = 0
+        self.pages_freed = 0
+        self.pages_resident_peak = 0
+        self.slot_pages = np.zeros((batch_slots,), np.int64)
+        self.step_fn = steps_lib.make_decode_segment(self.cfg, 1)
+        self.step_plain_fn = steps_lib.make_decode_segment(self.cfg, 1,
+                                                           plain=True)
+        self.segment_fn = steps_lib.make_decode_segment(self.cfg, seg_len)
+        self.segment_plain_fn = steps_lib.make_decode_segment(
+            self.cfg, seg_len, plain=True)
+        self.prefill_fn = steps_lib.make_prefill_into_cache(self.cfg)
+        self.state = steps_lib.init_slot_state(batch_slots, self.device)
+        self.queue: List[Request] = []
+        self.active: List[Optional[Request]] = [None] * batch_slots
+        # host mirrors of the device state for dispatch-time accounting
+        self.positions = np.zeros((batch_slots,), np.int32)
+        self.remaining = np.zeros((batch_slots,), np.int32)
+        self.completed: List[Request] = []
+        self.steps = 0                 # decode token-steps issued
+        self.segments_dispatched = 0
+        self.prefill_forwards = 0
+        self.host_syncs = 0            # every host<->device sync
+        self.decode_syncs = 0          # the decode loop's share
+        self.tokens_emitted = 0
+
+    # -- admission ---------------------------------------------------------
+
+    def submit(self, req: Request) -> None:
+        assert len(req.stop_tokens) <= steps_lib.MAX_STOP_TOKENS, req
+        req.generated = []
+        self.queue.append(req)
+
+    # -- page ledger -------------------------------------------------------
+
+    def _pages_for(self, footprint: int) -> int:
+        """Page span of a `footprint`-position row, clamped to the ring."""
+        return -(-min(int(footprint), self.max_seq) // self.page_size)
+
+    def _set_pages(self, slot: int, n: int) -> None:
+        """Set slot's resident page count to exactly `n`, charging or
+        releasing the difference."""
+        cur = int(self.slot_pages[slot])
+        assert n >= 0, (slot, n)
+        if n > cur:
+            self.pages_allocated += n - cur
+        else:
+            self.pages_freed += cur - n
+        self.slot_pages[slot] = n
+        self.pages_resident_peak = max(self.pages_resident_peak,
+                                       self.pages_resident)
+
+    def _free_pages(self, slot: int) -> None:
+        self._set_pages(slot, 0)
+
+    @property
+    def pages_resident(self) -> int:
+        return int(self.slot_pages.sum())
+
+    def assert_ledger(self) -> None:
+        """Every page charged is freed or resident in an occupied slot, and
+        no free slot holds pages."""
+        assert self.pages_allocated == self.pages_freed \
+            + self.pages_resident, (self.pages_allocated, self.pages_freed,
+                                    self.pages_resident)
+        for s in range(self.batch):
+            if self.active[s] is None:
+                assert self.slot_pages[s] == 0, (s, self.slot_pages[s])
+
+    def _prefill(self, slot: int, req: Request) -> torch.Tensor:
+        """The whole prompt through the prefill step, its K/V written into
+        this slot's cache rows.  Returns the last prompt position's logits
+        (on the device, no sync)."""
+        plen = len(req.prompt)
+        assert plen <= self.max_seq, (plen, self.max_seq)
+        padded = np.zeros((_prefill_bucket(plen, self.max_seq),), np.int32)
+        padded[:plen] = req.prompt
+        tokens = torch.from_numpy(padded).to(self.device)
+        with use_offload(self.offload):
+            logits, self.cache = self.prefill_fn(self.params, self.cache,
+                                                 tokens, slot, plen)
+        self.prefill_forwards += 1
+        return logits
+
+    def _admit(self, slot: int, req: Request) -> bool:
+        """Prefill, first token, device state seeding.  Returns False if
+        the request finished on its first token."""
+        logits = self._prefill(slot, req)
+        self._set_pages(slot, self._pages_for(len(req.prompt)))
+        return self._finish_admit(slot, req, logits)
+
+    def _finish_admit(self, slot: int, req: Request,
+                      logits: torch.Tensor) -> bool:
+        """Greedy first token from the prompt's last logits (the one
+        admission host sync) and the slot's device state."""
+        first = int(logits.argmax())
+        self.host_syncs += 1
+        req.generated.append(first)
+        self.tokens_emitted += 1
+        remaining = req.max_new - 1
+        if remaining <= 0 or first in req.stop_tokens:
+            return False
+        self.positions[slot] = len(req.prompt)
+        self.remaining[slot] = remaining
+        self.state = steps_lib.admit_slot(
+            self.state, slot, token=first, position=len(req.prompt),
+            remaining=remaining, stop=req.stop_tokens)
+        return True
+
+    def _fill_slots(self) -> None:
+        """Admit queued requests into free slots."""
+        for s in range(self.batch):
+            if self.active[s] is not None or not self.queue:
+                continue
+            req = self.queue.pop(0)
+            self.active[s] = req
+            if not self._admit(s, req):
+                self.completed.append(req)
+                self.active[s] = None
+                self._free_pages(s)
+
+    def _dispatch_rows(self, seg_len: int
+                       ) -> Tuple[Dict[int, Tuple[Request, Optional[int]]],
+                                  bool]:
+        """Slot accounting at dispatch.  A row without stop tokens takes
+        `take = min(seg_len, remaining)` tokens, known now: it retires
+        at once if that spends its budget, and its slot refills while the
+        segment is in flight.  A row with stop tokens is `(req, None)`:
+        the device decides, and `_consume_segment` retires it.
+
+        Returns (rows, plain): `plain` when no dispatched row has a stop
+        set, so the segment can skip the write mask and the stop test."""
+        rows: Dict[int, Tuple[Request, Optional[int]]] = {}
+        plain = True
+        for s in range(self.batch):
+            req = self.active[s]
+            if req is None:
+                continue
+            if req.stop_tokens:
+                plain = False
+                # charge the full segment span, trimmed back at consume
+                self._set_pages(s, max(
+                    int(self.slot_pages[s]),
+                    self._pages_for(self.positions[s] + seg_len)))
+                rows[s] = (req, None)
+                continue
+            take = int(min(seg_len, self.remaining[s]))
+            self.remaining[s] -= take
+            self._set_pages(s, max(int(self.slot_pages[s]),
+                                   self._pages_for(self.positions[s]
+                                                   + take)))
+            rows[s] = (req, take)
+            if self.remaining[s] <= 0:
+                self.completed.append(req)
+                self.active[s] = None
+                self._free_pages(s)
+        return rows, plain
+
+    def _run_segment(self, fn) -> Tuple[Any, ...]:
+        """Dispatch one segment and queue the copy of what the host needs
+        from it (tokens, emit masks, alive, remaining, positions) to host
+        memory.  Returns (host tensors, event to wait on or None)."""
+        with use_offload(self.offload):
+            seg, emit, self.state, self.cache = fn(self.params, self.cache,
+                                                   self.state)
+        st = self.state
+        fetch = (seg, emit, st.alive, st.remaining, st.positions)
+        if self.device.type != "cuda":
+            return fetch, None
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     .copy_(t, non_blocking=True) for t in fetch)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    # -- per-token loop ------------------------------------------------------
+
+    def step(self) -> None:
+        """One token for every active slot: a one-step segment consumed
+        at once — one dispatch and one host sync per token."""
+        self._fill_slots()
+        self.assert_ledger()
+        if all(r is None for r in self.active):
+            return
+        rows, plain = self._dispatch_rows(1)
+        fetched = self._run_segment(self.step_plain_fn if plain
+                                    else self.step_fn)
+        self.steps += 1
+        self._consume_segment(fetched, rows)
+        self.assert_ledger()
+
+    # -- streamed loop -------------------------------------------------------
+
+    def run_stream(self, max_steps: int = 10_000) -> None:
+        """Decode in `seg_len`-token segments, reading each segment's
+        tokens back only after the next segment is dispatched: one host
+        sync per segment, overlapped with the device's work."""
+        pending = None
+        while True:
+            self._fill_slots()
+            nxt_pending = None
+            if self.steps < max_steps \
+                    and any(r is not None for r in self.active):
+                rows, plain = self._dispatch_rows(self.seg_len)
+                fetched = self._run_segment(self.segment_plain_fn if plain
+                                            else self.segment_fn)
+                self.steps += self.seg_len
+                self.segments_dispatched += 1
+                nxt_pending = (fetched, rows)
+            if pending is not None:
+                self._consume_segment(*pending)
+            self.assert_ledger()
+            pending = nxt_pending
+            if pending is not None:
+                continue
+            if self.steps >= max_steps:
+                return          # step cap: remaining requests stay active
+            if not self.queue and all(r is None for r in self.active):
+                return
+
+    def _consume_segment(self, fetched, rows) -> None:
+        """Deliver one segment's tokens and apply the device's verdicts
+        (the one host sync of the segment)."""
+        host, done = fetched
+        if done is not None:
+            done.synchronize()
+        arr, em, alive, rem, pos = (t.numpy() for t in host)
+        self.host_syncs += 1
+        self.decode_syncs += 1
+        for s, (req, take) in rows.items():
+            toks = arr[s][em[s].astype(bool)]
+            req.generated.extend(int(t) for t in toks)
+            self.tokens_emitted += len(toks)
+            if take is not None:
+                # the device's budget accounting agrees with the host's
+                assert len(toks) == take, (s, len(toks), take)
+            if self.active[s] is req:
+                assert pos[s] == self.positions[s] + len(toks), \
+                    (s, pos[s], self.positions[s], len(toks))
+                self.positions[s] = int(pos[s])
+                self._set_pages(s, self._pages_for(self.positions[s]))
+                if take is None:
+                    self.remaining[s] = int(rem[s])
+                    if not alive[s]:
+                        self.completed.append(req)
+                        self.active[s] = None
+                        self._free_pages(s)
+
+    def run_until_drained(self, max_steps: int = 10_000) -> None:
+        if self.stream:
+            self.run_stream(max_steps)
+            return
+        while (self.queue or any(r is not None for r in self.active)) \
+                and self.steps < max_steps:
+            self.step()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="starcoder2_3b")
+    ap.add_argument("--full", action="store_true",
+                    help="the full-width config (default: the smoke one)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda; 'cpu' to run here)")
+    ap.add_argument("--protocol", default="axle", choices=list(PROTOCOLS))
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-seq", type=int, default=256)
+    ap.add_argument("--stream", action="store_true",
+                    help="segment-streaming loop (default: per-token)")
+    ap.add_argument("--seg-len", type=int, default=8)
+    args = ap.parse_args()
+
+    server = BatchedServer(args.arch, smoke=not args.full,
+                           device=args.device, batch_slots=args.slots,
+                           max_seq=args.max_seq, protocol=args.protocol,
+                           seg_len=args.seg_len, stream=args.stream)
+    rng = np.random.default_rng(0)
+    for i in range(args.requests):
+        plen = int(rng.integers(4, 12))
+        prompt = rng.integers(1, server.cfg.vocab, plen).astype(np.int32)
+        server.submit(Request(i, prompt, args.max_new))
+    t0 = time.perf_counter()
+    server.run_until_drained()
+    if server.device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    server.assert_ledger()
+    toks = sum(len(r.generated) for r in server.completed)
+    mode = "stream" if args.stream else "per-token"
+    print(f"[serve] arch={server.cfg.arch_id} protocol={args.protocol} "
+          f"mode={mode} requests={len(server.completed)} tokens={toks} "
+          f"steps={server.steps} "
+          f"syncs/token={server.decode_syncs / max(1, toks):.4f} "
+          f"({toks / dt:.1f} tok/s on {server.device})")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

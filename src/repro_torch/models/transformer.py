@@ -1,0 +1,319 @@
+"""Decoder-only transformer of the main path, ported from
+`repro/models/transformer.py`: init, the paged KV cache, the single-token
+decode step and the prompt prefill into one cache row.
+
+Parameters keep the reference's pytree layout, with the per-layer leaves
+stacked over `n_blocks`:
+
+    {"embed": (V, D), "final_ln": (D,),
+     "blocks": [{"attn": {ln, wq, wk, wv, wo}, "ffn": {ln, w_gate, w_up,
+                 w_down}}]}            # one dict per block_pattern position
+
+`jax.lax.scan` over the stacked blocks becomes a Python loop over layers.
+Caches are updated IN PLACE (the reference donates them to jit for the
+same effect); every function that takes a cache returns it too.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.core.backstream import (cache_update_stacked,
+                                         decode_attention_combined,
+                                         physical_slots)
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models.config import ArchConfig
+
+Params = Dict[str, Any]
+
+
+def _dtype(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+def _check_supported(cfg: ArchConfig) -> None:
+    """The layer kinds this slice ports: dense full attention + gated MLP."""
+    if (cfg.enc_dec or cfg.is_moe or cfg.mrope
+            or any(k != "full" for k in cfg.block_pattern)):
+        raise NotImplementedError(
+            f"{cfg.arch_id}: only dense full-attention decoders are ported "
+            "(ROADMAP.md queue 1 items 9-13)")
+
+
+# --------------------------------------------------------------------------
+# Initialization
+# --------------------------------------------------------------------------
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                device: torch.device) -> Params:
+    """The port's own weight draw, with the reference's shapes, dtypes and
+    scales (normal draws scaled by fan-in^-0.5, zero norm scales).  Not
+    bit-equal to the JAX draw: parity tests cross JAX weights through
+    `repro_torch.interop` instead."""
+    _check_supported(cfg)
+    dt = _dtype(cfg.dtype)
+    d, h, kh, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim_, cfg.d_ff)
+    nb = cfg.n_blocks
+
+    def normal(shape, scale):
+        out = torch.randn(shape, generator=generator, device=device,
+                          dtype=torch.float32)
+        return out.mul_(scale).to(dt)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    blocks = []
+    for _ in cfg.block_pattern:
+        blocks.append({
+            "attn": {"ln": zeros(nb, d),
+                     "wq": normal((nb, d, h * hd), d ** -0.5),
+                     "wk": normal((nb, d, kh * hd), d ** -0.5),
+                     "wv": normal((nb, d, kh * hd), d ** -0.5),
+                     "wo": normal((nb, h * hd, d), (h * hd) ** -0.5)},
+            "ffn": {"ln": zeros(nb, d),
+                    "w_gate": normal((nb, d, f), d ** -0.5),
+                    "w_up": normal((nb, d, f), d ** -0.5),
+                    "w_down": normal((nb, f, d), f ** -0.5)},
+        })
+    return {"embed": normal((cfg.padded_vocab, d), d ** -0.5),
+            "blocks": blocks, "final_ln": zeros(d)}
+
+
+class _Tree(nn.Module):
+    """Registers a nested dict of tensors as buffers, one submodule per
+    dict level, so `state_dict()` keys are the JAX pytree paths."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        for key, val in tree.items():
+            if isinstance(val, torch.Tensor):
+                self.register_buffer(key, val)
+            else:
+                self.add_module(key, _Tree(val))
+
+    def tree(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = dict(self.named_buffers(recurse=False))
+        for key, mod in self.named_children():
+            out[key] = mod.tree()
+        return out
+
+
+class Transformer(nn.Module):
+    """A thin module over the stacked parameters: buffers named by their
+    JAX pytree paths ("blocks.0.attn.wq", ...), and the main-path
+    functions of this module as methods."""
+
+    def __init__(self, cfg: ArchConfig, params: Params):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.register_buffer("embed", params["embed"])
+        self.register_buffer("final_ln", params["final_ln"])
+        self.blocks = nn.ModuleList(_Tree(b) for b in params["blocks"])
+
+    @property
+    def params(self) -> Params:
+        return {"embed": self.embed, "final_ln": self.final_ln,
+                "blocks": [b.tree() for b in self.blocks]}
+
+    def prefill_into_cache(self, cache, tokens, row, length):
+        return prefill_into_cache(self.cfg, self.params, cache, tokens, row,
+                                  length)
+
+    def decode_step(self, cache, tokens, positions=None, write_mask=None):
+        return decode_step(self.cfg, self.params, cache, tokens, positions,
+                           write_mask)
+
+
+def _layer(block: Dict[str, Dict[str, torch.Tensor]], i: int
+           ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Layer i's weights: views into the stacked leaves."""
+    return {sub: {k: w[i] for k, w in leaves.items()}
+            for sub, leaves in block.items()}
+
+
+# --------------------------------------------------------------------------
+# Layer applications
+# --------------------------------------------------------------------------
+
+def _qkv(cfg: ArchConfig, p: Params, x: torch.Tensor,
+         positions: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    b, s, _ = x.shape
+    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    hx = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    q = (hx @ p["wq"]).reshape(b, s, h, hd)
+    k = (hx @ p["wk"]).reshape(b, s, kh, hd)
+    v = (hx @ p["wv"]).reshape(b, s, kh, hd)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def ffn_layer(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Dense gated-MLP sublayer with its residual."""
+    hx = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    return x + L.gated_mlp(hx, p["w_gate"], p["w_up"], p["w_down"])
+
+
+# --------------------------------------------------------------------------
+# Decode: caches + single-token step
+# --------------------------------------------------------------------------
+
+def default_page_size(max_seq: int) -> int:
+    """The largest divisor of max_seq not above 128: the dense fused
+    decode's chunk rule, so the identity page table reproduces the dense
+    kernel's walk (and its bits) exactly."""
+    ps = max(1, min(128, max_seq))
+    while max_seq % ps:
+        ps -= 1
+    return ps
+
+
+def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int, *,
+               device: torch.device, dtype: Optional[str] = None,
+               page_size: Optional[int] = None) -> Dict[str, Any]:
+    """KV caches stacked over n_blocks, in the flash-decoding layout
+    (L, B, KH, S, hd), plus a (B, n_pages) int32 `page_table` (identity at
+    init): logical row r of batch row b lives at physical row
+    `table[b, r // page] * page + r % page` of the same panel."""
+    _check_supported(cfg)
+    dt = _dtype(dtype or cfg.dtype)
+    nb, kh, hd = cfg.n_blocks, cfg.n_kv_heads, cfg.head_dim_
+    ps = page_size or default_page_size(max_seq)
+    assert max_seq % ps == 0, (max_seq, ps)
+    cache: Dict[str, Any] = {
+        "pos": torch.zeros((), dtype=torch.int32, device=device)}
+    for i in range(len(cfg.block_pattern)):
+        for name in (f"k{i}", f"v{i}"):
+            cache[name] = torch.zeros((nb, batch_size, kh, max_seq, hd),
+                                      dtype=dt, device=device)
+    cache["page_table"] = torch.arange(
+        max_seq // ps, dtype=torch.int32, device=device).repeat(
+            batch_size, 1)
+    return cache
+
+
+def cache_page_size(cache: Dict[str, Any]) -> int:
+    """Page size of a cache: the seq axis of a KV leaf over the page count."""
+    return cache["k0"].shape[3] // cache["page_table"].shape[1]
+
+
+def _decode_attn(cfg: ArchConfig, p: Params, x: torch.Tensor,
+                 k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 pos: torch.Tensor, pages: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token attention against one layer's cache (B,KH,S,hd).  The
+    cache is READ-ONLY here: it holds tokens [0, pos), and the current
+    token's own contribution arrives as the merged `extra` partial; the
+    returned (k_new, v_new) (B,KH,1,hd) are written for all layers after
+    the layer loop."""
+    b = x.shape[0]
+    positions = pos.reshape(-1, 1).expand(b, 1).to(torch.int32)
+    q, k_new, v_new = _qkv(cfg, p, x, positions)
+    extra = L.single_kv_partial(q, k_new, v_new)
+    o = decode_attention_combined(q, k_cache, v_cache, pos - 1, window=0,
+                                  extra=extra, pages=pages)
+    o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim_)
+    return (x + o @ p["wo"], k_new.transpose(1, 2), v_new.transpose(1, 2))
+
+
+def masked_kv_update(cache: torch.Tensor, new: torch.Tensor,
+                     slot_b: torch.Tensor,
+                     write_mask: torch.Tensor) -> torch.Tensor:
+    """Replace masked-out rows of a stacked one-token K/V update with the
+    cache's current value at each row's slot, so the write that follows
+    is a no-op for them.  cache (L,B,KH,S,hd); new (L,B,KH,1,hd); slot_b,
+    write_mask (B,)."""
+    b = cache.shape[1]
+    rows = torch.arange(b, device=cache.device)
+    old = cache[:, rows, :, slot_b.long(), :]            # (B,L,KH,hd)
+    old = old.permute(1, 0, 2, 3)[:, :, :, None, :]      # (L,B,KH,1,hd)
+    return torch.where(write_mask[None, :, None, None, None], new,
+                       old.to(new.dtype))
+
+
+def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
+                tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                write_mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decoding step.  tokens: (B, 1) int.  `positions`: optional (B,)
+    per-row token positions; defaults to the cache's scalar step counter.
+    `write_mask`: optional (B,) bool; rows where it is False compute
+    logits but leave their cached K/V untouched.  Returns (logits (B,1,V),
+    cache), the cache updated IN PLACE: all layers' new K/V are written
+    at each row's ring slot after the layer loop, through the page table.
+    """
+    x = params["embed"][tokens]                           # (B,1,D)
+    pos = cache["pos"] if positions is None else positions.to(torch.int32)
+    pages = cache.get("page_table")
+    b = x.shape[0]
+    new_kv: Dict[str, List[torch.Tensor]] = {}
+    for i in range(cfg.n_blocks):
+        for pi, block in enumerate(params["blocks"]):
+            p = _layer(block, i)
+            x, knew, vnew = _decode_attn(cfg, p["attn"], x, cache[f"k{pi}"][i],
+                                         cache[f"v{pi}"][i], pos, pages)
+            new_kv.setdefault(f"k{pi}", []).append(knew)
+            new_kv.setdefault(f"v{pi}", []).append(vnew)
+            x = ffn_layer(cfg, p["ffn"], x)
+    x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
+    logits = x @ params["embed"].T
+
+    max_seq = cache["k0"].shape[3]
+    slot = (pos % max_seq).to(torch.int32).reshape(-1).expand(b)
+    if pages is not None:
+        slot = physical_slots(pages, slot, max_seq // pages.shape[1])
+    for key, rows in new_kv.items():
+        new = torch.stack(rows)                           # (L,B,KH,1,hd)
+        if write_mask is not None:
+            new = masked_kv_update(cache[key], new, slot, write_mask)
+        cache_update_stacked(cache[key], new, slot)
+    cache["pos"] = cache["pos"] + 1
+    return logits, cache
+
+
+def prefill_into_cache(cfg: ArchConfig, params: Params,
+                       cache: Dict[str, Any], tokens: torch.Tensor,
+                       row: int, length: int
+                       ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Teacher-forced prefill of ONE request's prompt into batch row `row`
+    of the decode cache.  tokens: (P,) padded prompt; junk past `length`
+    lands at slots >= length, which the per-row validity clock keeps
+    invisible until decode overwrites them.  Attention runs through the
+    flash_attention kernel.  Returns (last-token logits (V,), cache), the
+    cache's row written IN PLACE through its page table."""
+    p_len = tokens.shape[0]
+    x = params["embed"][tokens[None]]                     # (1,P,D)
+    positions = torch.arange(p_len, dtype=torch.int32,
+                             device=x.device)[None]
+    states: Dict[str, List[torch.Tensor]] = {}
+    for i in range(cfg.n_blocks):
+        for pi, block in enumerate(params["blocks"]):
+            p = _layer(block, i)
+            q, k, v = _qkv(cfg, p["attn"], x, positions)
+            o = ops.flash_attention(q, k, v, causal=True, window=0)
+            o = o.reshape(1, p_len, cfg.n_heads * cfg.head_dim_)
+            x = x + o @ p["attn"]["wo"]
+            states.setdefault(f"k{pi}", []).append(k[0].transpose(0, 1))
+            states.setdefault(f"v{pi}", []).append(v[0].transpose(0, 1))
+            x = ffn_layer(cfg, p["ffn"], x)
+    x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
+    logits = x[0, length - 1] @ params["embed"].T         # (V,)
+
+    pt = cache["page_table"]
+    max_seq = cache["k0"].shape[3]
+    assert p_len <= max_seq, (p_len, max_seq)
+    ps = max_seq // pt.shape[1]
+    lrows = torch.arange(p_len, device=pt.device)
+    phys = pt[row].long()[lrows // ps] * ps + lrows % ps
+    for key, per_layer in states.items():
+        upd = torch.stack(per_layer).to(cache[key].dtype)  # (L,KH,P,hd)
+        cache[key][:, row].index_copy_(2, phys, upd)
+    return logits, cache
