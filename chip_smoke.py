@@ -3,13 +3,17 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
-each against its plain PyTorch version at the main path's full-width
-shapes and times it, then drives the main path: full-width starcoder2_3b
-(random weights from seed 0), served with continuous batching and streamed
-decode, under `axle` (the fused decode kernel) and under `rp` (the partial
-kernel).  Every phase prints one line; any failure exits non-zero.  The
-last three lines are the kernels' JSON record, the card's name and power
-limit, and `{"ok": true, "device": {...}}`.
+each against its plain PyTorch version at the full-width shapes of the
+paths that run it and times it, then drives the two ported serve paths
+with random weights from seed 0, each with continuous batching and
+streamed decode:
+  * full-width starcoder2_3b, under `axle` (the fused decode kernel, with
+    the flash prefill kernel) and under `rp` (the partial kernel);
+  * full-width mamba2_370m (the SSD scan kernel in every prefill; its
+    decode is plain torch, as the reference's is plain XLA).
+Every phase prints one line; any failure exits non-zero.  The last three
+lines are the kernels' JSON record, the card's name and power limit, and
+`{"ok": true, "device": {...}}`.
 
 Tolerances (bf16 inputs, f32 accumulation in both versions):
   * attention outputs in bf16: |kernel - plain| <= 2e-2 — both round an
@@ -17,13 +21,29 @@ Tolerances (bf16 inputs, f32 accumulation in both versions):
     most one bf16 unit in the last place of values below 4 (0.0156);
   * partial statistics in f32: |kernel - plain| <= 1e-3 + 1e-4 |plain|;
   * paged == dense: bitwise;
-  * full-model logits, kernel path vs plain path: <= 0.25 absolute after
-    30 bf16 layers, and greedy tokens equal except where the two best
-    logits lie within 0.1 of each other (a near tie).
+  * the SSD scan against the sequential recurrence: |kernel - plain| <=
+    1e-3 + 1e-3 |plain| on the f32 state and on an f32 y, and one bf16
+    unit more (rtol 1e-2) on a bf16 y — the chunked form sums in another
+    order and forms its decays as exponentials of cumsum differences;
+  * starcoder2_3b logits, kernel path vs plain path: <= 0.25 absolute
+    after 30 bf16 layers, and greedy tokens equal except where the two
+    best logits lie within 0.1 of each other (a near tie);
+  * mamba2_370m: in bf16, every layer's scan of the served model is held
+    to the plain version on that layer's own inputs, with the scan
+    tolerance above.  Its logits are held in f32 arithmetic (the same
+    weights, cast): <= 1e-2 absolute after 48 layers, and the near-tie
+    gate on greedy tokens.  Not in bf16: the two paths differ only in the
+    scan's y, by one bf16 unit here and there, and the random-weight
+    48-layer stack amplifies such a difference until the bf16 logits of
+    the two paths part by units (the line prints by how much, and does
+    not gate it).  In f32 the scans differ in the last bits of an f32
+    sum instead of a bf16 unit (2^-8), so the same stack stays within
+    1e-2.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -38,6 +58,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
 ATOL_BF16 = 2e-2
 LOGIT_ATOL = 0.25
+LOGIT_ATOL_F32 = 1e-2
 NEAR_TIE = 0.1
 
 
@@ -56,8 +77,10 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 try:
     from repro_torch.configs import get_config
+    from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd as kssd
     from repro_torch.launch.serve import BatchedServer, Request
     from repro_torch.models import transformer
 except ImportError as exc:
@@ -65,6 +88,7 @@ except ImportError as exc:
 
 DEV = torch.device("cuda")
 ARCH = "starcoder2_3b"
+MAMBA = "mamba2_370m"
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -93,6 +117,27 @@ def bound_ms(n_bytes: float, flops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ptxas_summary(log: str) -> str:
+    """`-Xptxas -v`'s registers and spills of each kernel, one item per
+    compiled kernel, named by its mangled name's kernel and type."""
+    out, name = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            kind = next((k for k in ("ssd_kernel", "decode_kernel",
+                                     "flash_kernel") if k in mangled),
+                        mangled)
+            name = f"{kind}<{'bf16' if 'bfloat16' in mangled else 'f32'}"
+            name += ",partial>" if "Lb1E" in mangled else ">"
+        elif name and "spill stores" in ln:
+            spill = ln.split(",")[1].strip()
+        elif name and "Used" in ln and "registers" in ln:
+            regs = ln.split("Used")[1].split(",")[0].strip()
+            out.append(f"{name} {regs}, {spill}")
+            name = None
+    return "; ".join(out) or "not in the build log"
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -118,8 +163,9 @@ print(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}"
 # --------------------------------------------------------------------------
 
 t0 = time.perf_counter()
-lib = fa.build()
-print(f"[build] nvcc {lib.name} in {time.perf_counter() - t0:.2f} s",
+lib = kbuild.build()
+print(f"[build] nvcc {lib.name} in {time.perf_counter() - t0:.2f} s; "
+      f"ptxas: {ptxas_summary(lib.with_suffix('.log').read_text())}",
       flush=True)
 
 # --------------------------------------------------------------------------
@@ -261,34 +307,117 @@ print(f"[kernel] decode_attention_partial B={B} C={S} row 1 empty: "
       flush=True)
 del k_gath, v_gath
 
+# ssd_scan: one prompt of the mamba2_370m prefill at its full width, with
+# the full-width draw of dt (softplus(N(0,1)) ~ 0.8) and A = -1 (A_log =
+# 0), where a chunk's cumsum reaches ~-50: in bf16 (the model's dtype)
+# and f32, a padded tail (dt = 0 past 300) and the init_state handoff
+mcfg = get_config(MAMBA)
+SH, SP, SN, SS = mcfg.n_ssm_heads, mcfg.ssm_head_dim, mcfg.ssm_state, 512
+
+
+def ssd_inputs(dtype):
+    x = randn(1, SS, SH, SP, dtype=dtype)
+    dt = torch.nn.functional.softplus(torch.randn(1, SS, SH, generator=G,
+                                                  device=DEV))
+    return (x, dt, -torch.ones(SH, device=DEV),
+            randn(1, SS, SN, dtype=dtype), randn(1, SS, SN, dtype=dtype))
+
+
+def ssd_err(got, want, dtype):
+    """Max abs error of (y, state); fails past the stated tolerance."""
+    rtol = 1e-2 if dtype == torch.bfloat16 else 1e-3
+    worst = 0.0
+    for g, w, rt in ((got[0], want[0], rtol), (got[1], want[1], 1e-3)):
+        g, w = g.float(), w.float()
+        check(bool(torch.isfinite(g).all()), "ssd_scan: non-finite output")
+        diff = (g - w).abs()
+        check(bool((diff <= 1e-3 + rt * w.abs()).all()),
+              f"ssd_scan: err {diff.max().item()} ({dtype})")
+        worst = max(worst, diff.max().item())
+    return worst
+
+
+worst = 0.0
+HALF = 233
+for dtype in (torch.bfloat16, torch.float32):
+    sx, sdt, sA, sB, sC = ssd_inputs(dtype)
+    got = kssd.ssd_scan(sx, sdt, sA, sB, sC)
+    torch.cuda.synchronize()
+    worst = max(worst, ssd_err(got, ref.ssd_reference(sx, sdt, sA, sB, sC),
+                               dtype))
+    dt_pad = sdt.clone()
+    dt_pad[:, 300:] = 0.0
+    got = kssd.ssd_scan(sx, dt_pad, sA, sB, sC)
+    want = ref.ssd_reference(*(t[:, :300].contiguous() for t in (sx, sdt)),
+                             sA, *(t[:, :300].contiguous() for t in (sB, sC)))
+    torch.cuda.synchronize()
+    worst = max(worst, ssd_err((got[0][:, :300], got[1]), want, dtype))
+    first = kssd.ssd_scan(*(t[:, :HALF].contiguous() for t in (sx, sdt)), sA,
+                          *(t[:, :HALF].contiguous() for t in (sB, sC)))
+    second = kssd.ssd_scan(*(t[:, HALF:].contiguous() for t in (sx, sdt)),
+                           sA, *(t[:, HALF:].contiguous() for t in (sB, sC)),
+                           init_state=first[1])
+    torch.cuda.synchronize()
+    worst = max(worst, ssd_err((torch.cat([first[0], second[0]], 1),
+                                second[1]),
+                               ref.ssd_reference(sx, sdt, sA, sB, sC), dtype))
+# timed and bounded in bf16, the main path's dtype
+sx, sdt, sA, sB, sC = ssd_inputs(torch.bfloat16)
+s_y, s_fin = kssd.ssd_scan(sx, sdt, sA, sB, sC)
+Q = 64                                   # the kernel's chunk length
+n_chunks = -(-SS // Q)
+# the chunked form's products: C B^T once per chunk (one group shared by
+# every head), then per head G x, C state^T and the state update
+ssd_flops = n_chunks * (Q * (Q + 1) * SN
+                        + SH * (Q * (Q + 1) * SP + 4 * Q * SN * SP))
+bnd, by = bound_ms(nbytes(sx, sdt, sA, sB, sC, s_y, s_fin), ssd_flops)
+records["ssd_scan"] = dict(
+    name="ssd_scan", route="cuda",
+    source="src/repro_torch/kernels/csrc/ssd.cu",
+    replaces="src/repro/kernels/ssd.py:74",
+    max_abs_err=worst,
+    ms=time_ms(lambda: kssd.ssd_scan(sx, sdt, sA, sB, sC)),
+    plain_ms=time_ms(lambda: ref.ssd_reference(sx, sdt, sA, sB, sC)),
+    bound_ms=bnd, bound_by=by,
+    library_ms=None)    # no PyTorch call computes the SSD scan
+print(f"[kernel] ssd_scan S={SS} H={SH} P={SP} N={SN}, dt=softplus(N(0,1)), "
+      f"A=-1, bf16 and f32, dt=0 past 300, init_state handoff at {HALF}: "
+      f"max_abs_err {worst:.3g} (<= 1e-3 + rtol |plain|)", flush=True)
+
 # --------------------------------------------------------------------------
-# 4. serve: the main path at full width
+# 4. serve: the starcoder2_3b path at full width
 # --------------------------------------------------------------------------
 
 rng = np.random.default_rng(0)
 
 
-def make_requests(n, lo, hi, max_new):
+def make_requests(n, lo, hi, max_new, vocab=cfg.vocab):
     out = []
     for i in range(n):
         plen = int(rng.integers(lo, hi + 1))
-        out.append(Request(i, rng.integers(1, cfg.vocab, plen).astype(
+        out.append(Request(i, rng.integers(1, vocab, plen).astype(
             np.int32), max_new))
     return out
 
 
-def serve(requests, params=None, **kw):
-    server = BatchedServer(ARCH, smoke=False, device="cuda", batch_slots=4,
+def copies(reqs):
+    return [Request(r.rid, r.prompt, r.max_new) for r in reqs]
+
+
+def serve(requests, params=None, arch=ARCH, **kw):
+    """One drained run; the launch counts are set to 0 just before it and
+    read just after."""
+    server = BatchedServer(arch, smoke=False, device="cuda", batch_slots=4,
                            max_seq=S, seg_len=8, params=params, **kw)
     for r in requests:
         server.submit(r)
     torch.cuda.synchronize()
-    fa.reset_launch_counts()
+    kbuild.reset_launch_counts()
     t = time.perf_counter()
     server.run_until_drained()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t
-    launches = dict(fa.LAUNCHES)
+    launches = dict(kbuild.LAUNCHES)
     check(server.pages_allocated == server.pages_freed
           and server.pages_resident == 0, "page ledger not closed")
     toks = {r.rid: r.generated for r in server.completed}
@@ -296,76 +425,90 @@ def serve(requests, params=None, **kw):
     return server, toks, launches, dt
 
 
+def serve_line(arch, protocol, srv, toks, launches, dt):
+    n_tok = sum(len(t) for t in toks.values())
+    check(all(len(t) == 64 for t in toks.values()), "short stream")
+    print(f"[serve] {arch} full width, {protocol}, streamed, 8 requests "
+          f"(prompts 64-400, max_new 64), 4 slots, max_seq {S}, seg_len 8: "
+          f"{n_tok} tokens in {dt:.3f} s = {n_tok / dt:.1f} tok/s; "
+          f"syncs_per_token {srv.decode_syncs / n_tok:.4f}; decode steps "
+          f"{srv.steps}, prefills {srv.prefill_forwards}; launches "
+          f"{launches}; ledger closed ({srv.pages_allocated} pages)",
+          flush=True)
+
+
+def profile(arch, params, vocab):
+    """Where one streamed run's time goes: device time by kernel, and the
+    device's busy share of the wall time (one stream, so kernels do not
+    overlap); informational, the run's correctness gates are elsewhere."""
+    reqs = make_requests(4, 64, 400, 16, vocab)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, _, _, prof_dt = serve(reqs, params=params, arch=arch,
+                                 protocol="axle", stream=True)
+    # the kernels' own entries only: a CPU op's row repeats the device
+    # time of the kernels it launched
+    by_op = sorted(((e.self_device_time_total, e.key)
+                    for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA),
+                   reverse=True)
+    busy_ms = sum(t for t, _ in by_op) / 1e3
+    top = "; ".join(f"{k[:48]} {t / 1e3:.1f} ms" for t, k in by_op[:6] if t)
+    print(f"[profile] {arch}, axle, 4 requests x 16 tokens, streamed: wall "
+          f"{prof_dt * 1e3:.1f} ms under the profiler, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / (prof_dt * 1e3):.1f}%); top: "
+          f"{top or 'not measured (the profiler saw no device time)'}",
+          flush=True)
+
+
+def streamed_equals_per_token(arch, params, reqs):
+    _, streamed, _, _ = serve(copies(reqs), params=params, arch=arch,
+                              protocol="axle", stream=True)
+    _, per_token, _, _ = serve(copies(reqs), params=params, arch=arch,
+                               protocol="axle", stream=False)
+    check(streamed == per_token, f"{arch}: streamed != per-token tokens")
+    print(f"[serve] {arch}: the same {len(reqs)} requests streamed and "
+          "per-token: identical tokens", flush=True)
+    return streamed
+
+
 main_reqs = make_requests(8, 64, 400, 64)
 srv, axle_toks, launches, dt = serve(main_reqs, protocol="axle",
                                      stream=True)
 n_layers = cfg.n_layers
-n_tok = sum(len(t) for t in axle_toks.values())
 check(launches["decode_attention_fused"] == srv.steps * n_layers,
       f"fused launches {launches} != {srv.steps} steps x {n_layers}")
 check(launches["flash_attention"] == srv.prefill_forwards * n_layers,
       f"flash launches {launches} != {srv.prefill_forwards} x {n_layers}")
-check(all(len(t) == 64 for t in axle_toks.values()), "short stream")
+check(launches["ssd_scan"] == 0, f"ssd_scan launched: {launches}")
+serve_line(ARCH, "axle", srv, axle_toks, launches, dt)
 main_launches = launches
-print(f"[serve] {ARCH} full width, axle, streamed, 8 requests (prompts "
-      f"64-400, max_new 64), 4 slots, max_seq {S}, seg_len 8: {n_tok} "
-      f"tokens in {dt:.3f} s = {n_tok / dt:.1f} tok/s; syncs_per_token "
-      f"{srv.decode_syncs / n_tok:.4f}; decode steps {srv.steps}, "
-      f"prefills {srv.prefill_forwards}; launches {launches}; ledger "
-      f"closed ({srv.pages_allocated} pages)", flush=True)
 params = srv.params
-
-# where one streamed run's time goes: device time by kernel, and the
-# device's busy share of the wall time (one stream, so kernels do not
-# overlap); informational, the run's correctness gates are elsewhere
-prof_reqs = make_requests(4, 64, 400, 16)
-with torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA]) as prof:
-    _, _, _, prof_dt = serve(prof_reqs, params=params, protocol="axle",
-                             stream=True)
-# the kernels' own entries only: a CPU op's row repeats the device time
-# of the kernels it launched
-by_op = sorted(((e.self_device_time_total, e.key)
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA),
-               reverse=True)
-busy_ms = sum(t for t, _ in by_op) / 1e3
-top = "; ".join(f"{k[:48]} {t / 1e3:.1f} ms" for t, k in by_op[:6] if t)
-print(f"[profile] axle, 4 requests x 16 tokens, streamed: wall "
-      f"{prof_dt * 1e3:.1f} ms under the profiler, device busy "
-      f"{busy_ms:.1f} ms ({100 * busy_ms / (prof_dt * 1e3):.1f}%); top: "
-      f"{top or 'not measured (the profiler saw no device time)'}",
-      flush=True)
-
+del srv
+profile(ARCH, params, cfg.vocab)
 pair = make_requests(2, 64, 200, 16)
-_, streamed, _, _ = serve([Request(r.rid, r.prompt, r.max_new) for r in pair],
-                          params=params, protocol="axle", stream=True)
-_, per_token, _, _ = serve([Request(r.rid, r.prompt, r.max_new)
-                            for r in pair], params=params, protocol="axle",
-                           stream=False)
-check(streamed == per_token, "streamed != per-token tokens")
-print("[serve] the same 2 requests streamed and per-token: identical tokens",
-      flush=True)
+streamed = streamed_equals_per_token(ARCH, params, pair)
 
 # --------------------------------------------------------------------------
 # 5. reference check at full width
 # --------------------------------------------------------------------------
 
 
-def logits_along(prompts, steps, reference):
+def logits_along(prompts, steps, reference, arch_cfg=cfg, weights=None):
     """Prefill each prompt into its own row, then `steps` greedy decode
     steps; returns [prefill logits (B, V), step logits (B, V), ...] and
     the greedy tokens, with the kernel path or (reference=True) the plain
-    path for the attention."""
-    cache = transformer.init_cache(cfg, len(prompts), S, device=DEV)
+    path for every kernel."""
+    weights = params if weights is None else weights
+    cache = transformer.init_cache(arch_cfg, len(prompts), S, device=DEV)
     out = []
     with (ops.reference_mode() if reference
           else contextlib.nullcontext()):
         first = []
         for row, pr in enumerate(prompts):
             lg, cache = transformer.prefill_into_cache(
-                cfg, params, cache, torch.from_numpy(pr).to(DEV), row,
+                arch_cfg, weights, cache, torch.from_numpy(pr).to(DEV), row,
                 len(pr))
             first.append(lg)
         out.append(torch.stack(first).float())
@@ -373,8 +516,8 @@ def logits_along(prompts, steps, reference):
         pos_b = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
                              device=DEV)
         for _ in range(steps):
-            lg, cache = transformer.decode_step(cfg, params, cache, toks,
-                                                positions=pos_b)
+            lg, cache = transformer.decode_step(arch_cfg, weights, cache,
+                                                toks, positions=pos_b)
             out.append(lg[:, -1].float())
             toks = out[-1].argmax(-1).to(torch.int32)[:, None]
             pos_b = pos_b + 1
@@ -391,21 +534,24 @@ def near_tie_agree(a, b, what):
                   f"{ia[r].item()} vs {ib[r].item()}, gap {gap}")
 
 
-prompts = [r.prompt for r in make_requests(4, 64, 400, 1)]
-kern = logits_along(prompts, 4, reference=False)
-plain = logits_along(prompts, 4, reference=True)
-worst = max((a - b).abs().max().item() for a, b in zip(kern, plain))
-check(all(bool(torch.isfinite(a).all()) for a in kern), "non-finite logits")
-check(worst <= LOGIT_ATOL, f"logits kernel vs plain: {worst}")
-for i, (a, b) in enumerate(zip(kern, plain)):
-    near_tie_agree(b, a, f"step {i}")
-print(f"[reference] {ARCH} full width, 4 rows, prefill + 4 decode steps, "
-      f"kernels vs plain versions: logits max_abs_err {worst:.4g} <= "
-      f"{LOGIT_ATOL}; greedy tokens agree (near-tie gate {NEAR_TIE})",
-      flush=True)
+def kernels_against_plain(arch, prompts, atol=LOGIT_ATOL, **kw):
+    kern = logits_along(prompts, 4, reference=False, **kw)
+    plain = logits_along(prompts, 4, reference=True, **kw)
+    worst = max((a - b).abs().max().item() for a, b in zip(kern, plain))
+    check(all(bool(torch.isfinite(a).all()) for a in kern),
+          f"{arch}: non-finite logits")
+    check(worst <= atol, f"{arch}: logits kernel vs plain: {worst}")
+    for i, (a, b) in enumerate(zip(kern, plain)):
+        near_tie_agree(b, a, f"{arch} step {i}")
+    print(f"[reference] {arch} full width, {len(prompts)} rows, prefill + 4 "
+          f"decode steps, kernels vs plain versions: logits max_abs_err "
+          f"{worst:.4g} <= {atol}; greedy tokens agree (near-tie gate "
+          f"{NEAR_TIE})", flush=True)
 
-rp_reqs = [Request(r.rid, r.prompt, r.max_new) for r in pair]
-_, rp_toks, rp_launches, _ = serve(rp_reqs, params=params, protocol="rp",
+
+kernels_against_plain(ARCH, [r.prompt for r in make_requests(4, 64, 400, 1)])
+
+_, rp_toks, rp_launches, _ = serve(copies(pair), params=params, protocol="rp",
                                    stream=True)
 check(rp_launches["decode_attention_partial"] > 0
       and rp_launches["decode_attention_fused"] == 0,
@@ -425,9 +571,70 @@ for rid, toks in rp_toks.items():
 print(f"[reference] protocol rp, same 2 requests: launches {rp_launches}; "
       f"tokens {'equal to' if rp_toks == streamed else 'near-tie equal to'}"
       " the axle run's", flush=True)
+del params
 
 # --------------------------------------------------------------------------
-# 6. result
+# 6. serve: the mamba2_370m path at full width
+# --------------------------------------------------------------------------
+
+mamba_reqs = make_requests(8, 64, 400, 64, mcfg.vocab)
+srv, mamba_toks, launches, dt = serve(mamba_reqs, arch=MAMBA,
+                                      protocol="axle", stream=True)
+check("page_table" not in srv.cache, "mamba cache has a page table")
+check(launches["ssd_scan"] == srv.prefill_forwards * mcfg.n_layers,
+      f"ssd_scan launches {launches} != {srv.prefill_forwards} x "
+      f"{mcfg.n_layers}")
+check(all(n == 0 for k, n in launches.items() if k != "ssd_scan"),
+      f"an attention kernel launched in the mamba run: {launches}")
+serve_line(MAMBA, "axle", srv, mamba_toks, launches, dt)
+mamba_launches = launches
+mparams = srv.params
+del srv
+profile(MAMBA, mparams, mcfg.vocab)
+streamed_equals_per_token(MAMBA, mparams,
+                          make_requests(2, 64, 200, 16, mcfg.vocab))
+mprompts = [r.prompt for r in make_requests(4, 64, 400, 1, mcfg.vocab)]
+# bf16: each layer's scan of the served model against the plain version
+# on the same inputs (these comparison launches are outside any serve run)
+held = []
+
+
+def held_scan(*args):
+    got = kssd.ssd_scan(*args)
+    held.append(ssd_err(got, ref.ssd_reference(*args), args[0].dtype))
+    return got
+
+
+served_scan = ops.ssd_scan
+ops.ssd_scan = held_scan
+kern = logits_along(mprompts, 4, False, arch_cfg=mcfg, weights=mparams)
+ops.ssd_scan = served_scan
+check(len(held) == len(mprompts) * mcfg.n_layers, f"{len(held)} scans held")
+plain = logits_along(mprompts, 4, True, arch_cfg=mcfg, weights=mparams)
+apart = max((a - b).abs().max().item() for a, b in zip(kern, plain))
+print(f"[reference] {MAMBA} full width, bf16, {len(mprompts)} rows: each of "
+      f"the {len(held)} prefill scans against the plain version on its own "
+      f"inputs: max_abs_err {max(held):.3g} (<= 1e-3 + rtol |plain|); "
+      f"logits after prefill + 4 decode steps part by {apart:.4g} "
+      "(not gated: the random-weight stack amplifies one-unit bf16 "
+      "differences)", flush=True)
+
+
+def as_f32(tree):
+    if isinstance(tree, dict):
+        return {k: as_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [as_f32(v) for v in tree]
+    return tree.float()
+
+
+kernels_against_plain(f"{MAMBA} in f32 arithmetic", mprompts,
+                      atol=LOGIT_ATOL_F32,
+                      arch_cfg=dataclasses.replace(mcfg, dtype="float32"),
+                      weights=as_f32(mparams))
+
+# --------------------------------------------------------------------------
+# 7. result
 # --------------------------------------------------------------------------
 
 records["decode_attention_fused"]["launches"] = \
@@ -435,6 +642,7 @@ records["decode_attention_fused"]["launches"] = \
 records["flash_attention"]["launches"] = main_launches["flash_attention"]
 records["decode_attention_partial"]["launches"] = \
     rp_launches["decode_attention_partial"]
+records["ssd_scan"]["launches"] = mamba_launches["ssd_scan"]
 for name, rec in records.items():
     check(rec["launches"] > 0, f"{name} never launched on the main path")
 keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -23,15 +23,16 @@ ARCH_IDS = (
     "opt_2_7b",
 )
 
-PORTED = ("starcoder2_3b",)
+PORTED = ("starcoder2_3b", "mamba2_370m")
 
-# ROADMAP.md queue 1 item that ports each arch not yet ported
+# ROADMAP.md queue 1 items that port each arch not yet ported
 _ROADMAP_ITEM = {
-    "gemma3_12b": 9, "mistral_nemo_12b": 9, "opt_2_7b": 9,
-    "minitron_4b": 9, "qwen2_vl_2b": 9,
-    "granite_moe_3b": 10, "phi3_5_moe_42b": 10,
-    "mamba2_370m": 12, "jamba_1_5_large": 12,
-    "whisper_large_v3": 13,
+    "gemma3_12b": "item 9", "mistral_nemo_12b": "item 9",
+    "opt_2_7b": "item 9", "minitron_4b": "item 9", "qwen2_vl_2b": "item 9",
+    "granite_moe_3b": "item 10", "phi3_5_moe_42b": "item 10",
+    # hybrid: its mamba layers are ported, its MoE layers are not
+    "jamba_1_5_large": "items 10 and 12",
+    "whisper_large_v3": "item 13",
 }
 
 
@@ -40,7 +41,7 @@ def _module(arch_id: str):
         return importlib.import_module(f"repro_torch.configs.{arch_id}")
     if arch_id in _ROADMAP_ITEM:
         raise NotImplementedError(
-            f"{arch_id} is not ported yet: ROADMAP.md queue 1 item "
+            f"{arch_id} is not ported yet: ROADMAP.md queue 1 "
             f"{_ROADMAP_ITEM[arch_id]}")
     raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
 

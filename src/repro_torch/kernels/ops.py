@@ -1,8 +1,8 @@
-"""Dispatch for the attention kernels, with the signatures of
+"""Dispatch for the port's kernels, with the signatures of
 `repro/kernels/ops.py`.
 
-A CUDA tensor goes to the hand-written CUDA kernel (`flash_attention.py`);
-a CPU tensor goes to the plain PyTorch version (`ref.py`).  Inside
+A CUDA tensor goes to the hand-written CUDA kernel (`flash_attention.py`,
+`ssd.py`); a CPU tensor goes to the plain PyTorch version (`ref.py`).  Inside
 `reference_mode()` CUDA tensors take the plain versions too: that is how
 `chip_smoke.py` and the tests hold the kernel path against the plain path
 on the card.  The server never enters it.
@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd as _ssd
 
 _state = threading.local()
 
@@ -71,3 +72,15 @@ def decode_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     page_size = blk_c if pages is not None else 0
     return _ref.decode_fused_reference(q, k, v, pos, extra, window=window,
                                        pages=pages, page_size=page_size)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor,
+             init_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD scan.  x: (b,s,h,p); dt: (b,s,h) f32; A: (h,) f32;
+    B, C: (b,s,n); init_state: optional (b,h,p,n) f32.  Returns
+    (y (b,s,h,p) in x's dtype, final_state (b,h,p,n) f32)."""
+    if _use_kernel(x):
+        return _ssd.ssd_scan(x, dt, A, B, C, init_state)
+    return _ref.ssd_reference(x, dt, A, B, C, init_state)

@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the attention kernels, mirroring
-`repro/kernels/ref.py` (without the int8 `kv_scales` branch, which waits
-for the quantization slice).
+"""Plain PyTorch versions of the port's kernels, mirroring
+`repro/kernels/ref.py`: the attention kernels (without the int8
+`kv_scales` branch, which waits for the quantization slice) and the
+Mamba2 SSD scan.
 
 They are the numerical ground truth the CUDA kernels are held to on the
 card, and the path `ops.py` takes for tensors on the CPU.  All arithmetic
@@ -152,3 +153,30 @@ def decode_fused_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     acc, _, l = decode_fused_partial_reference(
         q, k, v, pos, extra, window=window, pages=pages, page_size=page_size)
     return normalize_fused_partial(acc, l, q.dtype)
+
+
+def ssd_reference(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor,
+                  init_state: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sequential (not chunked) SSD recurrence, the exact oracle:
+        state_t = exp(dt_t A) state_{t-1} + (dt_t x_t) B_t^T
+        y_t = state_t C_t
+    x: (b,s,h,p); dt: (b,s,h) f32; A: (h,) f32; B, C: (b,s,n), shared by
+    every head; init_state: optional (b,h,p,n) (zeros when None).  One
+    step of the loop covers every (b, h) at once.  Returns (y (b,s,h,p)
+    in x's dtype, final_state (b,h,p,n) f32)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    decay = torch.exp(dtf * A.float())                    # (b,s,h)
+    state = (init_state.float() if init_state is not None
+             else torch.zeros((b, h, p, n), dtype=torch.float32,
+                              device=x.device))
+    ys = []
+    for t in range(s):
+        upd = torch.einsum("bhp,bn->bhpn", xf[:, t] * dtf[:, t, :, None],
+                           Bf[:, t])
+        state = state * decay[:, t, :, None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", state, Cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), state

@@ -4,6 +4,9 @@ hot loop: the main-path slice of `repro/launch/serve.py`.
 `--protocol {bs,axle,rp}` selects the partial-attention merge schedule
 (`core/backstream.py`): on one device `bs` and `axle` take the fused
 one-shot decode kernel, `rp` the per-chunk partial kernel plus a merge.
+A model without attention layers (`--arch mamba2_370m`) accepts it and
+runs no attention at all: its decode state is the recurrent conv and SSM
+state of each layer, written in place.
 
 Requests are continuously batched over `batch_slots` cache rows, each with
 its own position clock.  Two host loops over the same decode segments:
@@ -107,8 +110,13 @@ class BatchedServer:
                                             page_size=page_size)
         # page ledger: one page = `page_size` positions of one slot row,
         # charged as the position clock advances and released at
-        # retirement; allocated == freed + resident at every tick
-        self.page_size = transformer.cache_page_size(self.cache)
+        # retirement; allocated == freed + resident at every tick.  A
+        # cache without attention has no page table: the ledger still
+        # tracks the logical span at the default page size, as the
+        # reference's does
+        self.page_size = (transformer.cache_page_size(self.cache)
+                          if "page_table" in self.cache
+                          else transformer.default_page_size(max_seq))
         self.pages_allocated = 0
         self.pages_freed = 0
         self.pages_resident_peak = 0

@@ -1,6 +1,7 @@
-"""Model layers of the main path, ported from `repro/models/layers.py`:
+"""Model layers of the ported serve paths, from `repro/models/layers.py`:
 norm, rotary embedding, the decode token's own attention partial, the
-partial merge, and the gated MLP.
+partial merge, the gated MLP, and the Mamba2 single-token SSD step and
+causal depthwise conv (plain XLA in the reference, plain torch here).
 
 Conventions as in the reference: activations x (B, S, D) in the model
 dtype; attention q (B, S, H, hd), k/v (B, S, KH, hd); softmax and norm
@@ -81,3 +82,38 @@ def gated_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
               w_down: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ w_gate) * (x @ w_up)
     return h @ w_down
+
+
+def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
+                    A: torch.Tensor, B: torch.Tensor, C: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token SSD update.  state: (b,h,p,n) f32; x: (b,h,p);
+    dt: (b,h); B, C: (b,n).  Returns (y (b,h,p) in x's dtype, new_state
+    f32)."""
+    dtf = dt.float()
+    dA = torch.exp(dtf * A.float())                       # (b,h)
+    xB = torch.einsum("bhp,bn->bhpn", x.float(), B.float())
+    new_state = state * dA[..., None, None] + dtf[..., None, None] * xB
+    y = torch.einsum("bhpn,bn->bhp", new_state, C.float())
+    return y.to(x.dtype), new_state
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv with silu: x (b,s,c), w (width,c), state
+    (b,width-1,c) the inputs before x (zeros when None).  Accumulates in
+    f32.  Returns (y (b,s,c) in x's dtype, new state = the last width-1
+    inputs).  y is contiguous."""
+    width = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], width - 1, x.shape[2]),
+                            dtype=x.dtype, device=x.device)
+    xp = torch.cat([state, x], dim=1)                     # (b,s+w-1,c)
+    idx = (torch.arange(x.shape[1], device=x.device)[:, None]
+           + torch.arange(width, device=x.device)[None, :])
+    windows = xp[:, idx]                                  # (b,s,w,c)
+    y = torch.einsum("bswc,wc->bsc", windows.float(), w.float())
+    # einsum may hand back a (b, c, s)-major layout; the SSD kernel reads
+    # y as (b, s, h, p) rows
+    return F.silu(y).to(x.dtype).contiguous(), xp[:, -(width - 1):]

@@ -1,13 +1,16 @@
-"""Decoder-only transformer of the main path, ported from
-`repro/models/transformer.py`: init, the paged KV cache, the single-token
-decode step and the prompt prefill into one cache row.
+"""Decoder-only models of the ported serve paths, from
+`repro/models/transformer.py`: init, the decode cache (a paged KV cache
+for attention layers, conv and SSM states for mamba layers), the
+single-token decode step and the prompt prefill into one cache row.
 
 Parameters keep the reference's pytree layout, with the per-layer leaves
 stacked over `n_blocks`:
 
     {"embed": (V, D), "final_ln": (D,),
-     "blocks": [{"attn": {ln, wq, wk, wv, wo}, "ffn": {ln, w_gate, w_up,
-                 w_down}}]}            # one dict per block_pattern position
+     "blocks": [{"attn": {ln, wq, wk, wv, wo}       # a "full" position
+                 | "mamba": {ln, w_z, w_x, w_B, w_C, w_dt, dt_bias, A_log,
+                             D, conv_w, out_proj},  # a "mamba" position
+                 "ffn": {ln, w_gate, w_up, w_down}}]}   # when d_ff > 0
 
 `jax.lax.scan` over the stacked blocks becomes a Python loop over layers.
 Caches are updated IN PLACE (the reference donates them to jit for the
@@ -18,6 +21,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.backstream import (cache_update_stacked,
@@ -35,12 +39,13 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    """The layer kinds this slice ports: dense full attention + gated MLP."""
+    """The layer kinds ported so far: full attention, mamba, dense MLP."""
     if (cfg.enc_dec or cfg.is_moe or cfg.mrope
-            or any(k != "full" for k in cfg.block_pattern)):
+            or any(k not in ("full", "mamba") for k in cfg.block_pattern)):
         raise NotImplementedError(
-            f"{cfg.arch_id}: only dense full-attention decoders are ported "
-            "(ROADMAP.md queue 1 items 9-13)")
+            f"{cfg.arch_id}: only decoders of full-attention and mamba "
+            "layers with dense MLPs are ported (ROADMAP.md queue 1 items "
+            "9-13)")
 
 
 # --------------------------------------------------------------------------
@@ -67,19 +72,42 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     def zeros(*shape):
         return torch.zeros(shape, dtype=dt, device=device)
 
+    def f32(value, *shape):
+        return torch.full(shape, value, dtype=torch.float32, device=device)
+
+    def mamba():
+        di, n, nh, w = (cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads,
+                        cfg.conv_width)
+        return {"ln": zeros(nb, d),
+                "w_z": normal((nb, d, di), d ** -0.5),
+                "w_x": normal((nb, d, di), d ** -0.5),
+                "w_B": normal((nb, d, n), d ** -0.5),
+                "w_C": normal((nb, d, n), d ** -0.5),
+                "w_dt": normal((nb, d, nh), d ** -0.5),
+                "dt_bias": f32(0.0, nb, nh),
+                "A_log": f32(0.0, nb, nh),              # A = -exp(0) = -1
+                "D": f32(1.0, nb, nh),
+                "conv_w": normal((nb, w, di), w ** -0.5),
+                "out_proj": normal((nb, di, d), di ** -0.5)}
+
     blocks = []
-    for _ in cfg.block_pattern:
-        blocks.append({
-            "attn": {"ln": zeros(nb, d),
-                     "wq": normal((nb, d, h * hd), d ** -0.5),
-                     "wk": normal((nb, d, kh * hd), d ** -0.5),
-                     "wv": normal((nb, d, kh * hd), d ** -0.5),
-                     "wo": normal((nb, h * hd, d), (h * hd) ** -0.5)},
-            "ffn": {"ln": zeros(nb, d),
-                    "w_gate": normal((nb, d, f), d ** -0.5),
-                    "w_up": normal((nb, d, f), d ** -0.5),
-                    "w_down": normal((nb, f, d), f ** -0.5)},
-        })
+    for kind in cfg.block_pattern:
+        layer: Params = {}
+        if kind == "mamba":
+            layer["mamba"] = mamba()
+        else:
+            layer["attn"] = {"ln": zeros(nb, d),
+                             "wq": normal((nb, d, h * hd), d ** -0.5),
+                             "wk": normal((nb, d, kh * hd), d ** -0.5),
+                             "wv": normal((nb, d, kh * hd), d ** -0.5),
+                             "wo": normal((nb, h * hd, d),
+                                          (h * hd) ** -0.5)}
+        if f > 0:
+            layer["ffn"] = {"ln": zeros(nb, d),
+                            "w_gate": normal((nb, d, f), d ** -0.5),
+                            "w_up": normal((nb, d, f), d ** -0.5),
+                            "w_down": normal((nb, f, d), f ** -0.5)}
+        blocks.append(layer)
     return {"embed": normal((cfg.padded_vocab, d), d ** -0.5),
             "blocks": blocks, "final_ln": zeros(d)}
 
@@ -161,6 +189,31 @@ def ffn_layer(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return x + L.gated_mlp(hx, p["w_gate"], p["w_up"], p["w_down"])
 
 
+def _mamba_proj(cfg: ArchConfig, p: Params, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, ...]:
+    """The mamba sublayer's input projections: (z gate, conv INPUT, B, C,
+    dt (softplus, f32), A) for the decode and prefill variants, which
+    differ only in how they run the conv and the SSD recurrence."""
+    hx = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    z = F.silu(hx @ p["w_z"])
+    xin = hx @ p["w_x"]
+    Bm = hx @ p["w_B"]
+    Cm = hx @ p["w_C"]
+    dt = F.softplus((hx @ p["w_dt"]).float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    return z, xin, Bm, Cm, dt, A
+
+
+def _mamba_out(p: Params, x: torch.Tensor, y: torch.Tensor,
+               xc: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """y (b,s,nh,hp) plus the D skip of the conv output xc, gated by z,
+    projected back and added to the residual x."""
+    b, s = x.shape[:2]
+    y = y + xc.reshape(y.shape) * p["D"][:, None].to(xc.dtype)
+    y = (y.reshape(b, s, -1) * z).to(x.dtype)
+    return x + y @ p["out_proj"]
+
+
 # --------------------------------------------------------------------------
 # Decode: caches + single-token step
 # --------------------------------------------------------------------------
@@ -178,24 +231,37 @@ def default_page_size(max_seq: int) -> int:
 def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int, *,
                device: torch.device, dtype: Optional[str] = None,
                page_size: Optional[int] = None) -> Dict[str, Any]:
-    """KV caches stacked over n_blocks, in the flash-decoding layout
-    (L, B, KH, S, hd), plus a (B, n_pages) int32 `page_table` (identity at
+    """Decode caches stacked over n_blocks.  An attention position i has
+    K/V caches `k{i}`/`v{i}` in the flash-decoding layout (L, B, KH, S,
+    hd), and the cache a (B, n_pages) int32 `page_table` (identity at
     init): logical row r of batch row b lives at physical row
-    `table[b, r // page] * page + r % page` of the same panel."""
+    `table[b, r // page] * page + r % page` of the same panel.  A mamba
+    position i has `conv{i}` (L, B, W-1, d_inner) in the model dtype and
+    `ssm{i}` (L, B, NH, P, N) f32; a cache without attention has no
+    page table."""
     _check_supported(cfg)
     dt = _dtype(dtype or cfg.dtype)
     nb, kh, hd = cfg.n_blocks, cfg.n_kv_heads, cfg.head_dim_
-    ps = page_size or default_page_size(max_seq)
-    assert max_seq % ps == 0, (max_seq, ps)
     cache: Dict[str, Any] = {
         "pos": torch.zeros((), dtype=torch.int32, device=device)}
-    for i in range(len(cfg.block_pattern)):
+    for i, kind in enumerate(cfg.block_pattern):
+        if kind == "mamba":
+            cache[f"conv{i}"] = torch.zeros(
+                (nb, batch_size, cfg.conv_width - 1, cfg.d_inner),
+                dtype=dt, device=device)
+            cache[f"ssm{i}"] = torch.zeros(
+                (nb, batch_size, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                 cfg.ssm_state), dtype=torch.float32, device=device)
+            continue
         for name in (f"k{i}", f"v{i}"):
             cache[name] = torch.zeros((nb, batch_size, kh, max_seq, hd),
                                       dtype=dt, device=device)
-    cache["page_table"] = torch.arange(
-        max_seq // ps, dtype=torch.int32, device=device).repeat(
-            batch_size, 1)
+    if "full" in cfg.block_pattern:
+        ps = page_size or default_page_size(max_seq)
+        assert max_seq % ps == 0, (max_seq, ps)
+        cache["page_table"] = torch.arange(
+            max_seq // ps, dtype=torch.int32, device=device).repeat(
+                batch_size, 1)
     return cache
 
 
@@ -223,6 +289,32 @@ def _decode_attn(cfg: ArchConfig, p: Params, x: torch.Tensor,
     return (x + o @ p["wo"], k_new.transpose(1, 2), v_new.transpose(1, 2))
 
 
+def _decode_mamba(cfg: ArchConfig, p: Params, x: torch.Tensor,
+                  conv_state: torch.Tensor, ssm_state: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One token through a mamba sublayer: x (B,1,D) against one layer's
+    conv (B,W-1,d_inner) and SSM (B,NH,P,N) states, which are read only.
+    Returns (x, new conv state, new SSM state)."""
+    b = x.shape[0]
+    nh, hp = cfg.n_ssm_heads, cfg.ssm_head_dim
+    z, xin, Bm, Cm, dt, A = _mamba_proj(cfg, p, x)
+    xc, conv_state = L.causal_conv1d(xin, p["conv_w"], conv_state)
+    y, ssm_state = L.ssd_decode_step(
+        ssm_state, xc[:, 0].reshape(b, nh, hp), dt[:, 0], A, Bm[:, 0],
+        Cm[:, 0])
+    return (_mamba_out(p, x, y[:, None], xc, z), conv_state, ssm_state)
+
+
+def _write_state(cache: torch.Tensor, new: torch.Tensor,
+                 write_mask: Optional[torch.Tensor]) -> None:
+    """Write one layer's new recurrent state (B, ...) over its cache slice
+    IN PLACE; rows where `write_mask` is False keep their old value."""
+    if write_mask is not None:
+        keep = write_mask.reshape((-1,) + (1,) * (new.dim() - 1))
+        new = torch.where(keep, new.to(cache.dtype), cache)
+    cache.copy_(new)
+
+
 def masked_kv_update(cache: torch.Tensor, new: torch.Tensor,
                      slot_b: torch.Tensor,
                      write_mask: torch.Tensor) -> torch.Tensor:
@@ -248,7 +340,9 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
     `write_mask`: optional (B,) bool; rows where it is False compute
     logits but leave their cached K/V untouched.  Returns (logits (B,1,V),
     cache), the cache updated IN PLACE: all layers' new K/V are written
-    at each row's ring slot after the layer loop, through the page table.
+    at each row's ring slot after the layer loop, through the page table;
+    a mamba layer's new conv and SSM states replace its own (which no
+    other layer reads) as soon as it has run, under the same mask.
     """
     x = params["embed"][tokens]                           # (B,1,D)
     pos = cache["pos"] if positions is None else positions.to(torch.int32)
@@ -256,20 +350,30 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
     b = x.shape[0]
     new_kv: Dict[str, List[torch.Tensor]] = {}
     for i in range(cfg.n_blocks):
-        for pi, block in enumerate(params["blocks"]):
+        for pi, (kind, block) in enumerate(zip(cfg.block_pattern,
+                                               params["blocks"])):
             p = _layer(block, i)
-            x, knew, vnew = _decode_attn(cfg, p["attn"], x, cache[f"k{pi}"][i],
-                                         cache[f"v{pi}"][i], pos, pages)
-            new_kv.setdefault(f"k{pi}", []).append(knew)
-            new_kv.setdefault(f"v{pi}", []).append(vnew)
-            x = ffn_layer(cfg, p["ffn"], x)
+            if kind == "mamba":
+                conv, ssm = cache[f"conv{pi}"][i], cache[f"ssm{pi}"][i]
+                x, cnew, snew = _decode_mamba(cfg, p["mamba"], x, conv, ssm)
+                _write_state(conv, cnew, write_mask)
+                _write_state(ssm, snew, write_mask)
+            else:
+                x, knew, vnew = _decode_attn(cfg, p["attn"], x,
+                                             cache[f"k{pi}"][i],
+                                             cache[f"v{pi}"][i], pos, pages)
+                new_kv.setdefault(f"k{pi}", []).append(knew)
+                new_kv.setdefault(f"v{pi}", []).append(vnew)
+            if cfg.d_ff > 0:
+                x = ffn_layer(cfg, p["ffn"], x)
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = x @ params["embed"].T
 
-    max_seq = cache["k0"].shape[3]
-    slot = (pos % max_seq).to(torch.int32).reshape(-1).expand(b)
-    if pages is not None:
-        slot = physical_slots(pages, slot, max_seq // pages.shape[1])
+    if new_kv:                          # the attention layers' K/V
+        max_seq = cache[next(iter(new_kv))].shape[3]
+        slot = (pos % max_seq).to(torch.int32).reshape(-1).expand(b)
+        if pages is not None:
+            slot = physical_slots(pages, slot, max_seq // pages.shape[1])
     for key, rows in new_kv.items():
         new = torch.stack(rows)                           # (L,B,KH,1,hd)
         if write_mask is not None:
@@ -279,40 +383,81 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
     return logits, cache
 
 
+def _prefill_mamba(cfg: ArchConfig, p: Params, x: torch.Tensor, length: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The whole prompt through a mamba sublayer, capturing its recurrent
+    state: the SSD scan (`ops.ssd_scan`) returns its final (NH, P, N)
+    state and the conv its trailing width-1 input window, so that decode
+    resumes from token `length` where `ssd_decode_step` would have landed
+    stepping the prompt one token at a time.
+
+    x is the PADDED prompt (B, S, D).  dt is zeroed past `length`, which
+    makes the SSD update a no-op there (decay exp(0) = 1, update 0), and
+    the conv state is the window ending at `length` (zero-padded on the
+    left for prompts shorter than the conv width, as the per-token path's
+    zero initial state is).  Returns (x (B,S,D), conv_state
+    (B,W-1,d_inner), ssm_state (B,NH,P,N) f32)."""
+    b, s, _ = x.shape
+    nh, hp, width = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.conv_width
+    z, xin, Bm, Cm, dt, A = _mamba_proj(cfg, p, x)
+    pad = torch.cat([xin.new_zeros((b, width - 1, xin.shape[-1])), xin],
+                    dim=1)
+    conv_state = pad[:, length:length + width - 1]
+    xc, _ = L.causal_conv1d(xin, p["conv_w"])
+    in_prompt = torch.arange(s, device=x.device) < length
+    dt = torch.where(in_prompt[None, :, None], dt, torch.zeros_like(dt))
+    y, ssm_state = ops.ssd_scan(xc.reshape(b, s, nh, hp), dt, A, Bm, Cm)
+    return _mamba_out(p, x, y, xc, z), conv_state, ssm_state
+
+
 def prefill_into_cache(cfg: ArchConfig, params: Params,
                        cache: Dict[str, Any], tokens: torch.Tensor,
                        row: int, length: int
                        ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Teacher-forced prefill of ONE request's prompt into batch row `row`
-    of the decode cache.  tokens: (P,) padded prompt; junk past `length`
-    lands at slots >= length, which the per-row validity clock keeps
-    invisible until decode overwrites them.  Attention runs through the
-    flash_attention kernel.  Returns (last-token logits (V,), cache), the
-    cache's row written IN PLACE through its page table."""
+    of the decode cache.  tokens: (P,) padded prompt.  Junk past `length`
+    is harmless for both layer kinds: in attention layers it lands at
+    slots >= length, which the per-row validity clock keeps invisible
+    until decode overwrites them; mamba layers mask it out of the
+    recurrence itself (`_prefill_mamba`).  Attention runs through the
+    flash_attention kernel, the SSD recurrence through the ssd_scan
+    kernel.  Returns (last-token logits (V,), cache), the cache's row
+    written IN PLACE (K/V through its page table)."""
     p_len = tokens.shape[0]
     x = params["embed"][tokens[None]]                     # (1,P,D)
     positions = torch.arange(p_len, dtype=torch.int32,
                              device=x.device)[None]
     states: Dict[str, List[torch.Tensor]] = {}
     for i in range(cfg.n_blocks):
-        for pi, block in enumerate(params["blocks"]):
+        for pi, (kind, block) in enumerate(zip(cfg.block_pattern,
+                                               params["blocks"])):
             p = _layer(block, i)
-            q, k, v = _qkv(cfg, p["attn"], x, positions)
-            o = ops.flash_attention(q, k, v, causal=True, window=0)
-            o = o.reshape(1, p_len, cfg.n_heads * cfg.head_dim_)
-            x = x + o @ p["attn"]["wo"]
-            states.setdefault(f"k{pi}", []).append(k[0].transpose(0, 1))
-            states.setdefault(f"v{pi}", []).append(v[0].transpose(0, 1))
-            x = ffn_layer(cfg, p["ffn"], x)
+            if kind == "mamba":
+                x, conv_s, ssm_s = _prefill_mamba(cfg, p["mamba"], x,
+                                                  length)
+                cache[f"conv{pi}"][i, row] = conv_s[0]
+                cache[f"ssm{pi}"][i, row] = ssm_s[0]
+            else:
+                q, k, v = _qkv(cfg, p["attn"], x, positions)
+                o = ops.flash_attention(q, k, v, causal=True, window=0)
+                o = o.reshape(1, p_len, cfg.n_heads * cfg.head_dim_)
+                x = x + o @ p["attn"]["wo"]
+                states.setdefault(f"k{pi}", []).append(
+                    k[0].transpose(0, 1))
+                states.setdefault(f"v{pi}", []).append(
+                    v[0].transpose(0, 1))
+            if cfg.d_ff > 0:
+                x = ffn_layer(cfg, p["ffn"], x)
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = x[0, length - 1] @ params["embed"].T         # (V,)
 
-    pt = cache["page_table"]
-    max_seq = cache["k0"].shape[3]
-    assert p_len <= max_seq, (p_len, max_seq)
-    ps = max_seq // pt.shape[1]
-    lrows = torch.arange(p_len, device=pt.device)
-    phys = pt[row].long()[lrows // ps] * ps + lrows % ps
+    if states:                          # the attention layers' K/V
+        pt = cache["page_table"]
+        max_seq = cache[next(iter(states))].shape[3]
+        assert p_len <= max_seq, (p_len, max_seq)
+        ps = max_seq // pt.shape[1]
+        lrows = torch.arange(p_len, device=pt.device)
+        phys = pt[row].long()[lrows // ps] * ps + lrows % ps
     for key, per_layer in states.items():
         upd = torch.stack(per_layer).to(cache[key].dtype)  # (L,KH,P,hd)
         cache[key][:, row].index_copy_(2, phys, upd)
