@@ -4,11 +4,15 @@
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
 each against its plain PyTorch version at the full-width shapes of the
-paths that run it and times it, then drives the two ported serve paths
-with random weights from seed 0, each with continuous batching and
-streamed decode:
+paths that run it and times it, then drives the ported serve paths with
+random weights from seed 0, each with continuous batching and streamed
+decode:
   * full-width starcoder2_3b, under `axle` (the fused decode kernel, with
     the flash prefill kernel) and under `rp` (the partial kernel);
+  * full-width starcoder2_3b quantized: q8_0 weights and an int8 KV cache
+    under `axle` (the dequant-fused matmul kernel in every projection,
+    the int8 fused decode kernel), and short runs under q4_k weights and
+    under `rp` (int8 pools dequantized up front);
   * full-width mamba2_370m (the SSD scan kernel in every prefill; its
     decode is plain torch, as the reference's is plain XLA).
 Every phase prints one line; any failure exits non-zero.  The last three
@@ -20,7 +24,10 @@ Tolerances (bf16 inputs, f32 accumulation in both versions):
     f32 result that differs in summation order only, so they differ by at
     most one bf16 unit in the last place of values below 4 (0.0156);
   * partial statistics in f32: |kernel - plain| <= 1e-3 + 1e-4 |plain|;
-  * paged == dense: bitwise;
+  * paged == dense: bitwise, for fp and for int8 pools;
+  * quant_matmul against x @ dequantize(W) in f32: |kernel - plain| <=
+    1e-5 (|x| @ |W|) + one bf16 unit of the plain value — the same
+    products summed in another order, then rounded to bf16;
   * the SSD scan against the sequential recurrence: |kernel - plain| <=
     1e-3 + 1e-3 |plain| on the f32 state and on an f32 y, and one bf16
     unit more (rtol 1e-2) on a bf16 y — the chunked form sums in another
@@ -28,6 +35,15 @@ Tolerances (bf16 inputs, f32 accumulation in both versions):
   * starcoder2_3b logits, kernel path vs plain path: <= 0.25 absolute
     after 30 bf16 layers, and greedy tokens equal except where the two
     best logits lie within 0.1 of each other (a near tie);
+  * quantized starcoder2_3b (q8_0 weights, int8 KV): in bf16, each of the
+    served model's quant_matmul and int8 fused-decode launches is held to
+    its plain version on that launch's own inputs, with the kernel
+    tolerances above; the logits are held in f32 arithmetic (the same
+    quantized weights, fp leaves cast): <= 1e-2 absolute with fp and with
+    int8 KV, and the near-tie gate.  Not in bf16: every one of the 210
+    products then differs from the plain path by a bf16 unit here and
+    there, and the random-weight stack amplifies that past 0.25 (the line
+    prints by how much, and does not gate it);
   * mamba2_370m: in bf16, every layer's scan of the served model is held
     to the plain version on that layer's own inputs, with the scan
     tolerance above.  Its logits are held in f32 arithmetic (the same
@@ -45,6 +61,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -80,8 +97,10 @@ try:
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import quant as kquant
     from repro_torch.kernels import ssd as kssd
     from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.launch.steps import QuantConfig
     from repro_torch.models import transformer
 except ImportError as exc:
     fail(f"the repro_torch package is not beside this script: {exc}")
@@ -117,18 +136,27 @@ def bound_ms(n_bytes: float, flops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+KERNEL_KINDS = ("ssd_kernel", "decode_kernel", "flash_kernel",
+                "skinny_kernel", "tiled_kernel", "splitk_reduce")
+TEMPLATE_ARGS = {"13__nv_bfloat16": "bf16", "S1_": "bf16", "f": "f32",
+                 "a": "i8",
+                 "Lb0E": "0", "Lb1E": "1", "Li0E": "0", "Li1E": "1"}
+
+
 def ptxas_summary(log: str) -> str:
     """`-Xptxas -v`'s registers and spills of each kernel, one item per
-    compiled kernel, named by its mangled name's kernel and type."""
+    compiled kernel, named by its mangled name's kernel and template
+    arguments (types, then flags and formats as 0 / 1 in source order)."""
     out, name = [], None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
-            kind = next((k for k in ("ssd_kernel", "decode_kernel",
-                                     "flash_kernel") if k in mangled),
-                        mangled)
-            name = f"{kind}<{'bf16' if 'bfloat16' in mangled else 'f32'}"
-            name += ",partial>" if "Lb1E" in mangled else ">"
+            kind = next((k for k in KERNEL_KINDS if k in mangled), mangled)
+            tmpl = mangled.split(kind, 1)[-1]
+            tmpl = tmpl[1:tmpl.find("EEv") + 1] if tmpl.startswith("I") \
+                else ""
+            args = re.findall("|".join(map(re.escape, TEMPLATE_ARGS)), tmpl)
+            name = f"{kind}<{','.join(TEMPLATE_ARGS[a] for a in args)}>"
         elif name and "spill stores" in ln:
             spill = ln.split(",")[1].strip()
         elif name and "Used" in ln and "registers" in ln:
@@ -384,6 +412,114 @@ print(f"[kernel] ssd_scan S={SS} H={SH} P={SP} N={SN}, dt=softplus(N(0,1)), "
       f"A=-1, bf16 and f32, dt=0 past 300, init_state handoff at {HALF}: "
       f"max_abs_err {worst:.3g} (<= 1e-3 + rtol |plain|)", flush=True)
 
+# decode_attention_fused[int8]: the fp row's shapes and data, on int8 pools
+# from quantize_kv_pages (quantization is page-local, so the physical
+# pool's quants and scales are the logical ones, permuted)
+(k8_log, ks_log), (v8_log, vs_log) = (ref.quantize_kv_pages(t, PAGE)
+                                      for t in (k_log, v_log))
+(k8_pool, ks_pool), (v8_pool, vs_pool) = (ref.quantize_kv_pages(t, PAGE)
+                                          for t in (k_pool, v_pool))
+sc_log, sc_pool = (ks_log, vs_log), (ks_pool, vs_pool)
+worst = 0.0
+for window in (0, 300):
+    for ex in (None, extra):
+        dense = fa.decode_attention_fused(q, k8_log, v8_log, pos, ex,
+                                          window=window, kv_scales=sc_log)
+        paged = fa.decode_attention_fused(q, k8_pool, v8_pool, pos, ex,
+                                          window=window, blk_c=PAGE,
+                                          pages=table, kv_scales=sc_pool)
+        plain = ref.decode_fused_reference(q, k8_pool, v8_pool, pos, ex,
+                                           window=window, pages=table,
+                                           page_size=PAGE, kv_scales=sc_pool)
+        torch.cuda.synchronize()
+        err = (paged.float() - plain.float()).abs().max().item()
+        check(torch.equal(paged, dense),
+              f"decode_attention_fused[int8]: paged != dense (window {window})")
+        check(err <= ATOL_BF16, f"decode_attention_fused[int8]: err {err} "
+              f"(window {window}, extra {ex is not None})")
+        worst = max(worst, err)
+valid_pages = int(((pos + PAGE) // PAGE).sum())      # pages holding slots
+dec8_bytes = (nbytes(q, pos, table, *extra) + q.numel() * 2
+              + 2 * valid_slots * KH * HD + 2 * valid_pages * KH * 4)
+bnd, by = bound_ms(dec8_bytes, dec_flops)
+records["decode_attention_fused[int8]"] = dict(
+    name="decode_attention_fused[int8]", route="cuda",
+    source="src/repro_torch/kernels/csrc/attention.cu",
+    replaces="src/repro/kernels/flash_attention.py:252",
+    max_abs_err=worst,
+    ms=time_ms(lambda: fa.decode_attention_fused(
+        q, k8_pool, v8_pool, pos, extra, blk_c=PAGE, pages=table,
+        kv_scales=sc_pool)),
+    plain_ms=time_ms(lambda: ref.decode_fused_reference(
+        q, k8_pool, v8_pool, pos, extra, pages=table, page_size=PAGE,
+        kv_scales=sc_pool)),
+    bound_ms=bnd, bound_by=by,
+    library_ms=None)    # no PyTorch call attends over int8 pages with scales
+print(f"[kernel] decode_attention_fused[int8] B={B} H={H} KH={KH} hd={HD} "
+      f"S={S} page={PAGE} permuted table, pos={pos.tolist()}, window 0 and "
+      f"300, extra on/off, pools from quantize_kv_pages: max_abs_err "
+      f"{worst:.3g} <= {ATOL_BF16}; paged == dense bitwise", flush=True)
+del k8_log, v8_log, k8_pool, v8_pool
+
+
+def quant_err(got, x, qt):
+    """Max |kernel - plain|; fails past 1e-5 (|x| @ |W|) + one bf16 unit
+    of the plain value."""
+    want = ref.quant_matmul_reference(x, qt).float()
+    tol = 1e-5 * (x.float().abs() @ kquant.dequantize_tensor(qt).abs())
+    _, e = torch.frexp(want)
+    tol += torch.ldexp(torch.ones_like(want), e - 8)
+    diff = (got.float() - want).abs()
+    check(bool(torch.isfinite(got.float()).all()), "quant_matmul: non-finite")
+    check(bool((diff <= tol).all()),
+          f"quant_matmul[{qt.fmt}] {tuple(x.shape)}: err {diff.max().item()} "
+          f"past its tolerance by {(diff - tol).max().item()}")
+    return diff.max().item()
+
+
+# quant_matmul: the main path's products, bf16 x against weights drawn at
+# the model's init scale (fan-in^-0.5) and quantized: decode (m = 4 slots)
+# against w_gate and w_down, prefill (m = 512) against w_gate.  The record
+# is the decode w_gate product; the line prints all three, with the
+# yardstick torch.matmul(x, W) on the weight dequantized to bf16 before
+# the timing (not a port of the product, not gated)
+QSHAPES = (("decode w_gate", 4, cfg.d_model, cfg.d_ff),
+           ("decode w_down", 4, cfg.d_ff, cfg.d_model),
+           ("prefill w_gate", 512, cfg.d_model, cfg.d_ff))
+for fmt in kquant.WEIGHT_FORMATS:
+    parts, worst = [], 0.0
+    for label, m, d, n in QSHAPES:
+        qt = kquant.quantize_tensor(randn(d, n) * d ** -0.5, fmt)
+        x = randn(m, d)
+        got = kquant.quant_matmul(x, qt)
+        again = kquant.quant_matmul(x, qt)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"quant_matmul[{fmt}]: not repeatable")
+        err = quant_err(got, x, qt)
+        worst = max(worst, err)
+        w_bf16 = kquant.dequantize_tensor(qt).to(torch.bfloat16)
+        bnd, by = bound_ms(nbytes(x, got) + qt.nbytes, 2 * m * d * n)
+        rec = dict(ms=time_ms(lambda: kquant.quant_matmul(x, qt)),
+                   plain_ms=time_ms(lambda: ref.quant_matmul_reference(x, qt)),
+                   bound_ms=bnd, bound_by=by)
+        yard = time_ms(lambda: torch.matmul(x, w_bf16))
+        parts.append(f"{label} ({m}x{d})@({d}x{n}) err {err:.3g}, "
+                     f"{rec['ms']:.4f} ms, bound {bnd:.4f} ms ({by}), plain "
+                     f"{rec['plain_ms']:.4f} ms, yardstick bf16 matmul "
+                     f"{yard:.4f} ms")
+        if label == "decode w_gate":
+            records[f"quant_matmul[{fmt}]"] = dict(
+                name=f"quant_matmul[{fmt}]", route="cuda",
+                source="src/repro_torch/kernels/csrc/quant.cu",
+                replaces=("src/repro/kernels/quant.py:118" if fmt == "q8_0"
+                          else "src/repro/kernels/quant.py:134"),
+                **rec, library_ms=None)   # no PyTorch call dequantizes blocks
+        del qt, w_bf16
+    records[f"quant_matmul[{fmt}]"]["max_abs_err"] = worst
+    print(f"[kernel] quant_matmul[{fmt}] bf16 x: " + "; ".join(parts)
+          + " (tolerance 1e-5 (|x|@|W|) + 1 bf16 unit; repeat runs bitwise "
+          "equal)", flush=True)
+
 # --------------------------------------------------------------------------
 # 4. serve: the starcoder2_3b path at full width
 # --------------------------------------------------------------------------
@@ -428,6 +564,8 @@ def serve(requests, params=None, arch=ARCH, **kw):
 def serve_line(arch, protocol, srv, toks, launches, dt):
     n_tok = sum(len(t) for t in toks.values())
     check(all(len(t) == 64 for t in toks.values()), "short stream")
+    check(srv.decode_syncs / n_tok == 1 / (8 * 4),
+          f"syncs_per_token {srv.decode_syncs / n_tok}")
     print(f"[serve] {arch} full width, {protocol}, streamed, 8 requests "
           f"(prompts 64-400, max_new 64), 4 slots, max_seq {S}, seg_len 8: "
           f"{n_tok} tokens in {dt:.3f} s = {n_tok / dt:.1f} tok/s; "
@@ -437,7 +575,7 @@ def serve_line(arch, protocol, srv, toks, launches, dt):
           flush=True)
 
 
-def profile(arch, params, vocab):
+def profile(arch, params, vocab, label="", **kw):
     """Where one streamed run's time goes: device time by kernel, and the
     device's busy share of the wall time (one stream, so kernels do not
     overlap); informational, the run's correctness gates are elsewhere."""
@@ -446,7 +584,7 @@ def profile(arch, params, vocab):
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         _, _, _, prof_dt = serve(reqs, params=params, arch=arch,
-                                 protocol="axle", stream=True)
+                                 protocol="axle", stream=True, **kw)
     # the kernels' own entries only: a CPU op's row repeats the device
     # time of the kernels it launched
     by_op = sorted(((e.self_device_time_total, e.key)
@@ -455,21 +593,21 @@ def profile(arch, params, vocab):
                    reverse=True)
     busy_ms = sum(t for t, _ in by_op) / 1e3
     top = "; ".join(f"{k[:48]} {t / 1e3:.1f} ms" for t, k in by_op[:6] if t)
-    print(f"[profile] {arch}, axle, 4 requests x 16 tokens, streamed: wall "
+    print(f"[profile] {arch}{label}, axle, 4 requests x 16 tokens, streamed: wall "
           f"{prof_dt * 1e3:.1f} ms under the profiler, device busy "
           f"{busy_ms:.1f} ms ({100 * busy_ms / (prof_dt * 1e3):.1f}%); top: "
           f"{top or 'not measured (the profiler saw no device time)'}",
           flush=True)
 
 
-def streamed_equals_per_token(arch, params, reqs):
+def streamed_equals_per_token(arch, params, reqs, label="", **kw):
     _, streamed, _, _ = serve(copies(reqs), params=params, arch=arch,
-                              protocol="axle", stream=True)
+                              protocol="axle", stream=True, **kw)
     _, per_token, _, _ = serve(copies(reqs), params=params, arch=arch,
-                               protocol="axle", stream=False)
-    check(streamed == per_token, f"{arch}: streamed != per-token tokens")
-    print(f"[serve] {arch}: the same {len(reqs)} requests streamed and "
-          "per-token: identical tokens", flush=True)
+                               protocol="axle", stream=False, **kw)
+    check(streamed == per_token, f"{arch}{label}: streamed != per-token")
+    print(f"[serve] {arch}{label}: the same {len(reqs)} requests streamed "
+          "and per-token: identical tokens", flush=True)
     return streamed
 
 
@@ -495,13 +633,15 @@ streamed = streamed_equals_per_token(ARCH, params, pair)
 # --------------------------------------------------------------------------
 
 
-def logits_along(prompts, steps, reference, arch_cfg=cfg, weights=None):
+def logits_along(prompts, steps, reference, arch_cfg=cfg, weights=None,
+                 kv_quant=None):
     """Prefill each prompt into its own row, then `steps` greedy decode
     steps; returns [prefill logits (B, V), step logits (B, V), ...] and
     the greedy tokens, with the kernel path or (reference=True) the plain
     path for every kernel."""
     weights = params if weights is None else weights
-    cache = transformer.init_cache(arch_cfg, len(prompts), S, device=DEV)
+    cache = transformer.init_cache(arch_cfg, len(prompts), S, device=DEV,
+                                   kv_quant=kv_quant)
     out = []
     with (ops.reference_mode() if reference
           else contextlib.nullcontext()):
@@ -556,22 +696,167 @@ _, rp_toks, rp_launches, _ = serve(copies(pair), params=params, protocol="rp",
 check(rp_launches["decode_attention_partial"] > 0
       and rp_launches["decode_attention_fused"] == 0,
       f"rp run launches {rp_launches}")
-for rid, toks in rp_toks.items():
-    ref_toks = streamed[rid]
-    if toks != ref_toks:
-        t = next(i for i, (x, y) in enumerate(zip(toks, ref_toks)) if x != y)
-        pr = pair[rid].prompt
-        # replay the axle stream up to the first divergence: the two
-        # choices there must be a near tie
-        lg = logits_along([np.concatenate([pr, np.asarray(
-            ref_toks[:t], np.int32)])], 0, reference=False)[0][0]
-        gap = (lg[ref_toks[t]] - lg[toks[t]]).item()
-        check(0.0 <= gap < NEAR_TIE,
-              f"rp vs axle request {rid}: token {t} differs, gap {gap}")
+
+
+def rp_agrees(rp_toks, axle_toks, reqs, **kw):
+    """rp tokens equal the axle run's, or part from it at a near tie: the
+    axle stream replayed up to the first divergence, where the two
+    choices must lie within NEAR_TIE."""
+    for rid, toks in rp_toks.items():
+        ref_toks = axle_toks[rid]
+        if toks != ref_toks:
+            t = next(i for i, (x, y) in enumerate(zip(toks, ref_toks))
+                     if x != y)
+            lg = logits_along([np.concatenate([reqs[rid].prompt, np.asarray(
+                ref_toks[:t], np.int32)])], 0, reference=False, **kw)[0][0]
+            gap = (lg[ref_toks[t]] - lg[toks[t]]).item()
+            check(0.0 <= gap < NEAR_TIE,
+                  f"rp vs axle request {rid}: token {t} differs, gap {gap}")
+    return "equal to" if rp_toks == axle_toks else "near-tie equal to"
+
+
 print(f"[reference] protocol rp, same 2 requests: launches {rp_launches}; "
-      f"tokens {'equal to' if rp_toks == streamed else 'near-tie equal to'}"
-      " the axle run's", flush=True)
+      f"tokens {rp_agrees(rp_toks, streamed, pair)} the axle run's",
+      flush=True)
 del params
+
+# --------------------------------------------------------------------------
+# 5b. serve: the quantized starcoder2_3b path at full width
+# --------------------------------------------------------------------------
+
+Q8_INT8 = QuantConfig(weights="q8_0", kv="int8")
+n_proj = 7                   # wq wk wv wo w_gate w_up w_down in every layer
+srv, q_toks, launches, dt = serve(make_requests(8, 64, 400, 64),
+                                  protocol="axle", stream=True,
+                                  quant=Q8_INT8)
+forwards = srv.steps + srv.prefill_forwards
+check(launches["quant_matmul[q8_0]"] == forwards * n_proj * n_layers,
+      f"quant_matmul launches {launches} != {forwards} forwards x "
+      f"{n_proj} x {n_layers}")
+check(launches["decode_attention_fused[int8]"] == srv.steps * n_layers,
+      f"int8 fused launches {launches} != {srv.steps} steps x {n_layers}")
+check(launches["flash_attention"] == srv.prefill_forwards * n_layers,
+      f"flash launches {launches} != {srv.prefill_forwards} x {n_layers}")
+check(launches["decode_attention_fused"] == 0
+      and launches["quant_matmul[q4_k]"] == 0, f"fp kernels ran: {launches}")
+check(srv.cache["k0"].dtype == torch.int8 and "kscale0" in srv.cache,
+      "the quantized serve's KV pools are not int8")
+q_params = srv.params
+q_bytes = sum(w.nbytes for blk in q_params["blocks"] for sub in blk.values()
+              for w in sub.values() if isinstance(w, kquant.QTensor))
+fp_bytes = sum(w.numel() * w.element_size() for w in
+               [q_params["embed"], q_params["final_ln"]]
+               + [w for blk in q_params["blocks"] for sub in blk.values()
+                  for w in sub.values() if isinstance(w, torch.Tensor)])
+serve_line(ARCH, "axle, q8_0 weights + int8 KV", srv, q_toks, launches, dt)
+print(f"[serve] {ARCH} q8_0: weight bytes resident {q_bytes / 1e9:.3f} GB "
+      f"of quants and scales in the {n_proj * n_layers} projection "
+      f"matrices, plus "
+      f"{fp_bytes / 1e9:.3f} GB fp (embedding, norms); int8 KV pools and "
+      f"scales {sum(t.numel() * t.element_size() for k, t in srv.cache.items() if k[0] in 'kv') / 1e9:.3f} GB",
+      flush=True)
+quant_launches = launches
+del srv
+profile(ARCH, q_params, cfg.vocab, label=" q8_0 + int8 KV",
+        quant=QuantConfig(kv="int8"))
+# the quantized weights of that run, with an int8 cache, for what follows
+INT8 = dict(quant=QuantConfig(kv="int8"))
+q_streamed = streamed_equals_per_token(ARCH, q_params, pair,
+                                       label=" q8_0 + int8 KV", **INT8)
+_, q_rp_toks, q_rp_launches, _ = serve(copies(pair), params=q_params,
+                                       protocol="rp", stream=True, **INT8)
+check(q_rp_launches["decode_attention_partial"] > 0
+      and q_rp_launches["decode_attention_fused[int8]"] == 0
+      and q_rp_launches["quant_matmul[q8_0]"] > 0,
+      f"quantized rp run launches {q_rp_launches}")
+print(f"[reference] {ARCH} q8_0 + int8 KV, protocol rp (pools dequantized up "
+      f"front), same 2 requests: launches {q_rp_launches}; tokens "
+      f"{rp_agrees(q_rp_toks, q_streamed, pair, weights=q_params, kv_quant='int8')}"
+      " the axle run's", flush=True)
+
+# bf16: every quant_matmul and int8 fused-decode launch of the served
+# model against its plain version on that launch's own inputs (these
+# comparison launches are outside any serve run)
+q_prompts = [r.prompt for r in make_requests(4, 64, 400, 1)]
+held_q = {"quant_matmul[q8_0]": [], "decode_attention_fused[int8]": []}
+served_kernels = (kquant.quant_matmul, fa.decode_attention_fused)
+
+
+def held_quant_matmul(x, qt):
+    got = served_kernels[0](x, qt)
+    held_q["quant_matmul[q8_0]"].append(quant_err(got, x, qt))
+    return got
+
+
+def held_decode(q, k, v, pos, extra=None, *, window=0, blk_c=128,
+                pages=None, kv_scales=None):
+    got = served_kernels[1](q, k, v, pos, extra, window=window, blk_c=blk_c,
+                            pages=pages, kv_scales=kv_scales)
+    plain = ref.decode_fused_reference(
+        q, k, v, pos, extra, window=window, pages=pages,
+        page_size=blk_c if pages is not None else 0, kv_scales=kv_scales)
+    err = (got.float() - plain.float()).abs().max().item()
+    check(err <= ATOL_BF16, f"served int8 fused decode: err {err}")
+    held_q["decode_attention_fused[int8]"].append(err)
+    return got
+
+
+kquant.quant_matmul, fa.decode_attention_fused = held_quant_matmul, \
+    held_decode
+kern = logits_along(q_prompts, 4, False, weights=q_params, kv_quant="int8")
+kquant.quant_matmul, fa.decode_attention_fused = served_kernels
+plain = logits_along(q_prompts, 4, True, weights=q_params, kv_quant="int8")
+check(len(held_q["quant_matmul[q8_0]"])
+      == (len(q_prompts) + 4) * n_proj * n_layers
+      and len(held_q["decode_attention_fused[int8]"]) == 4 * n_layers,
+      f"held launches: { {k: len(v) for k, v in held_q.items()} }")
+apart = max((a - b).abs().max().item() for a, b in zip(kern, plain))
+print(f"[reference] {ARCH} q8_0 + int8 KV full width, bf16, "
+      f"{len(q_prompts)} rows: each of the "
+      f"{len(held_q['quant_matmul[q8_0]'])} quant_matmul launches against "
+      f"the plain version on its own inputs: max_abs_err "
+      f"{max(held_q['quant_matmul[q8_0]']):.3g} (<= 1e-5 (|x|@|W|) + 1 bf16 "
+      f"unit); each of the {len(held_q['decode_attention_fused[int8]'])} "
+      f"int8 fused decodes: max_abs_err "
+      f"{max(held_q['decode_attention_fused[int8]']):.3g} <= {ATOL_BF16}; "
+      f"logits after prefill + 4 decode steps part by {apart:.4g} (not "
+      "gated: the random-weight stack amplifies one-unit bf16 differences)",
+      flush=True)
+del kern, plain
+
+
+def as_f32(tree):
+    """The same weights in f32 arithmetic (a QTensor's scales are f32
+    already; its quants stay as they are)."""
+    if isinstance(tree, dict):
+        return {k: as_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [as_f32(v) for v in tree]
+    if isinstance(tree, kquant.QTensor):
+        return tree
+    return tree.float()
+
+
+cfg32 = dataclasses.replace(cfg, dtype="float32")
+for kvq in (None, "int8"):
+    kernels_against_plain(
+        f"{ARCH} q8_0 + {kvq or 'fp'} KV in f32 arithmetic", q_prompts,
+        atol=LOGIT_ATOL_F32, arch_cfg=cfg32, weights=as_f32(q_params),
+        kv_quant=kvq)
+del q_params
+
+# q4_k: its own weights from seed 0, quantized at construction
+_, q4_toks, q4_launches, _ = serve(copies(pair), protocol="axle",
+                                   stream=True,
+                                   quant=QuantConfig(weights="q4_k",
+                                                     kv="int8"))
+check(q4_launches["quant_matmul[q4_k]"] > 0
+      and q4_launches["quant_matmul[q8_0]"] == 0
+      and q4_launches["decode_attention_fused[int8]"] > 0,
+      f"q4_k run launches {q4_launches}")
+check(all(len(t) == 16 for t in q4_toks.values()), "q4_k: short stream")
+print(f"[serve] {ARCH} full width, axle, q4_k weights + int8 KV, 2 requests "
+      f"x 16 tokens: launches {q4_launches}", flush=True)
 
 # --------------------------------------------------------------------------
 # 6. serve: the mamba2_370m path at full width
@@ -620,14 +905,6 @@ print(f"[reference] {MAMBA} full width, bf16, {len(mprompts)} rows: each of "
       "differences)", flush=True)
 
 
-def as_f32(tree):
-    if isinstance(tree, dict):
-        return {k: as_f32(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [as_f32(v) for v in tree]
-    return tree.float()
-
-
 kernels_against_plain(f"{MAMBA} in f32 arithmetic", mprompts,
                       atol=LOGIT_ATOL_F32,
                       arch_cfg=dataclasses.replace(mcfg, dtype="float32"),
@@ -643,6 +920,9 @@ records["flash_attention"]["launches"] = main_launches["flash_attention"]
 records["decode_attention_partial"]["launches"] = \
     rp_launches["decode_attention_partial"]
 records["ssd_scan"]["launches"] = mamba_launches["ssd_scan"]
+for name in ("decode_attention_fused[int8]", "quant_matmul[q8_0]"):
+    records[name]["launches"] = quant_launches[name]
+records["quant_matmul[q4_k]"]["launches"] = q4_launches["quant_matmul[q4_k]"]
 for name, rec in records.items():
     check(rec["launches"] > 0, f"{name} never launched on the main path")
 keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -10,6 +10,10 @@ statistics (acc, m, l) of the KV chunks reach the consumer.  On one device:
   RP       — and `OffloadConfig(fused=False)`: one partial-kernel launch
              per chunk, then a separate merge.
 
+An int8 KV cache (per-page `kv_scales`) is dequantized inside the fused
+kernel; the chunked schedule dequantizes the pools up front in plain
+torch, as the reference does in plain XLA.
+
 The mesh schedules (the AXLE ring, head-group gathering) are ROADMAP
 queue 1 item 17.
 """
@@ -113,13 +117,16 @@ def decode_attention_combined(q: torch.Tensor, k_cache: torch.Tensor,
                               v_cache: torch.Tensor, pos: torch.Tensor, *,
                               window: int = 0,
                               extra=None,
-                              pages: Optional[torch.Tensor] = None
+                              pages: Optional[torch.Tensor] = None,
+                              kv_scales: Optional[Tuple[torch.Tensor,
+                                                        torch.Tensor]] = None
                               ) -> torch.Tensor:
     """Single-step attention of q (B,1,H,hd) against the KV cache
     (B,KH,S,hd), combined under the active offload protocol.  `pos` is the
     last valid cache slot, a scalar or (B,) per-row.  `pages`: optional
     (B, n_pages) page table; the cache panels are then page pools.
-    Returns (B,1,H,hd)."""
+    `kv_scales`: optional (k_scales, v_scales) (B,KH,n_pages) f32 per
+    physical page of int8 pools.  Returns (B,1,H,hd)."""
     cfg = current_offload()
     b, kh, s, hd = k_cache.shape
     page_size = 0
@@ -134,18 +141,27 @@ def decode_attention_combined(q: torch.Tensor, k_cache: torch.Tensor,
         if pages is not None:
             # the kernel chunk IS the page; the table drives its reads
             return ops.decode_attention_fused(q, k_cache, v_cache, pos_b,
-                                              extra, pages, window=window,
-                                              blk_c=page_size)
+                                              extra, pages, kv_scales,
+                                              window=window, blk_c=page_size)
+        # (over int8 pools the kernel takes the scale page as its chunk)
         blk_c = max(1, min(128, s // n_chunks))
         return ops.decode_attention_fused(q, k_cache, v_cache, pos_b, extra,
+                                          kv_scales=kv_scales,
                                           window=window, blk_c=blk_c)
 
     # chunked schedule (RP, fused=False): per-chunk partials + one merge
+    q_in = q
+    if kv_scales is not None:
+        # f32 pools, and q in f32 with them (exact: the partial takes q
+        # to f32 before its dots either way)
+        k_cache = _ref.dequantize_kv_pages(k_cache, kv_scales[0])
+        v_cache = _ref.dequantize_kv_pages(v_cache, kv_scales[1])
+        q_in = q.float()
     if pages is not None:
         k_cache = _ref.gather_kv_pages(k_cache, pages, page_size)
         v_cache = _ref.gather_kv_pages(v_cache, pages, page_size)
     kv_valid = _decode_valid_mask(pos_b, s, window)
-    accs, ms, ls = _partials_over_chunks(q, k_cache, v_cache, kv_valid,
+    accs, ms, ls = _partials_over_chunks(q_in, k_cache, v_cache, kv_valid,
                                          n_chunks)
     if extra is not None:
         acc_e, m_e, l_e = extra

@@ -5,7 +5,9 @@ The tests call it; nothing on the card does (that machine has no JAX).
 bf16 crosses as raw 16-bit words, so no bf16 numpy type is needed here:
 `arr.view(np.uint16)` on this side, `.view(torch.bfloat16)` on the other.
 The layout stays the reference's: `embed`, `final_ln`, and
-`blocks[i]["attn"|"ffn"][name]` stacked over n_blocks.
+`blocks[i]["attn"|"ffn"][name]` stacked over n_blocks.  A quantized tree's
+leaves (the reference's `QTensor`, its arrays mapped to numpy) become the
+port's `QTensor`, recognised by their attributes.
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ from typing import Any, Dict, Union
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.quant import QTensor
 
 
 def tensor_from_numpy(arr: np.ndarray,
@@ -25,9 +29,22 @@ def tensor_from_numpy(arr: np.ndarray,
     return torch.from_numpy(np.array(arr)).to(device)
 
 
+def _is_qtensor(leaf: Any) -> bool:
+    return all(hasattr(leaf, a)
+               for a in ("scales", "quants", "mins", "fmt", "d_in"))
+
+
 def tree_from_numpy(tree: Any, device: Union[str, torch.device]) -> Any:
     """A nested dict / tuple / list of arrays; tuples become lists (the
-    reference's `blocks` tuple is the port's list)."""
+    reference's `blocks` tuple is the port's list), quantized leaves the
+    port's `QTensor`."""
+    if _is_qtensor(tree):
+        return QTensor(
+            tensor_from_numpy(tree.scales, device),
+            tensor_from_numpy(tree.quants, device),
+            None if tree.mins is None else tensor_from_numpy(tree.mins,
+                                                             device),
+            str(tree.fmt), int(tree.d_in))
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):

@@ -34,9 +34,12 @@ COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {"decode_attention_fused": 0,
+                            "decode_attention_fused[int8]": 0,
                             "flash_attention": 0,
                             "decode_attention_partial": 0,
-                            "ssd_scan": 0}
+                            "ssd_scan": 0,
+                            "quant_matmul[q8_0]": 0,
+                            "quant_matmul[q4_k]": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _fns: Dict[str, Callable[..., int]] = {}

@@ -9,7 +9,13 @@
 //       the current token's `extra` partial is merged in the epilogue and
 //       the normalised output is written once.  Dense or paged (per-row
 //       page table indexing the row's own (KH, S, hd) panel), per-row
-//       `pos`, optional sliding window, GQA.
+//       `pos`, optional sliding window, GQA.  Its int8 variant (the
+//       `has_scales` branch of the Pallas kernel) reads int8 K/V pools
+//       and multiplies each tile by its page's f32 scale as it lands in
+//       shared memory, before the dots; the scale is looked up through
+//       the same indirection as the tile (physical page pages[b, j] when
+//       paged, page j when dense).  A tile never straddles a page, so it
+//       has one scale, and paged == dense holds bitwise as for fp pools.
 //   decode_partial_kernel <- _decode_partial_kernel / decode_attention_partial
 //       The raw, unnormalised (acc, m, l) of one query token over a KV
 //       chunk under an explicit (B, C) mask; m = -inf for an empty row.
@@ -25,7 +31,7 @@
 //
 // What bounds them on an H100: decode reads every valid K/V byte once and
 // does 4 flops per byte pair, far below the 295 flop/byte ridge, so it is
-// bound by HBM bytes (3.35 TB/s).  At the main path's shapes it has only
+// bound by HBM bytes (3.35 TB/s); the int8 variant halves those bytes.  At the main path's shapes it has only
 // B*KH = 8 blocks for 132 SMs, so it runs far from that bound: a split
 // over the sequence would fix that, and is left out on purpose, because
 // a paged walk and a dense walk over the same logical data must take the
@@ -44,6 +50,7 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
@@ -55,6 +62,9 @@ template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+template <> __device__ __forceinline__ float to_f<int8_t>(int8_t x) {
+  return (float)x;
 }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -87,6 +97,9 @@ struct DecodeArgs {
   const float* acc_e;          // fused: optional extra partial (B, H, hd)
   const float* m_e;            //   (B, H)
   const float* l_e;            //   (B, H)
+  const float* k_scale;        // fused, int8 K/V: (B, KH, n_sc) per
+  const float* v_scale;        //   physical page
+  int n_sc;
   void* out;                   // fused: (B, 1, H, hd) in the input type
   float* acc_out;              // partial: (B, H, hd)
   float* m_out;                // partial: (B, H)
@@ -98,8 +111,11 @@ struct DecodeArgs {
   float scale;
 };
 
-template <typename T, bool PARTIAL>
+// T: the type of q and out; KV: the type of the K/V pools, T or int8_t
+// (then with per-page scales).
+template <typename T, typename KV, bool PARTIAL>
 __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
+  constexpr bool SCALED = std::is_same<KV, int8_t>::value;
   extern __shared__ float sm[];
   const int b = blockIdx.x / a.KH, kh = blockIdx.x % a.KH;
   const int G = a.H / a.KH, HD = a.HD, TK = a.tile, LD = HD + 1;
@@ -115,8 +131,8 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
 
   const T* qg = static_cast<const T*>(a.q) + ((size_t)b * a.H + (size_t)kh * G) * HD;
   const size_t panel = ((size_t)b * a.KH + kh) * (size_t)a.S * HD;
-  const T* kb = static_cast<const T*>(a.k) + panel;
-  const T* vb = static_cast<const T*>(a.v) + panel;
+  const KV* kb = static_cast<const KV*>(a.k) + panel;
+  const KV* vb = static_cast<const KV*>(a.v) + panel;
 
   for (int i = tid; i < G * HD; i += NT) {
     q_s[i] = to_f(qg[i]) * a.scale;
@@ -149,10 +165,16 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
       for (int r = tid; r < nr; r += NT) any |= vrow[L0 + r];
       if (!__syncthreads_or(any)) continue;   // uniform across the block
     }
-    int phys0 = L0;
+    int phys0 = L0, page = L0 / a.blk_c;
     if (!PARTIAL && a.pages) {
-      const int j = L0 / a.blk_c;
-      phys0 = a.pages[(size_t)b * a.n_log + j] * a.blk_c + (L0 % a.blk_c);
+      page = a.pages[(size_t)b * a.n_log + page];
+      phys0 = page * a.blk_c + (L0 % a.blk_c);
+    }
+    float ksc = 1.f, vsc = 1.f;
+    if (SCALED) {
+      const size_t si = ((size_t)b * a.KH + kh) * a.n_sc + page;
+      ksc = a.k_scale[si];
+      vsc = a.v_scale[si];
     }
     for (int i = tid; i < TK * HD; i += NT) {
       const int r = i / HD, d = i % HD;
@@ -161,6 +183,10 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
         const size_t off = (size_t)(phys0 + r) * HD + d;
         kv = to_f(kb[off]);
         vv = to_f(vb[off]);
+        if (SCALED) {             // the reference's quants * scale, in f32
+          kv = __fmul_rn(kv, ksc);
+          vv = __fmul_rn(vv, vsc);
+        }
       }
       k_s[r * LD + d] = kv;
       v_s[r * LD + d] = vv;
@@ -381,10 +407,10 @@ size_t decode_smem(int G, int HD, int TK) {
                           (size_t)G * TK + 3 * (size_t)G);
 }
 
-template <typename T, bool PARTIAL>
+template <typename T, typename KV, bool PARTIAL>
 int run_decode(const DecodeArgs& a, int B, cudaStream_t stream) {
   const size_t smem = decode_smem(a.H / a.KH, a.HD, a.tile);
-  auto kernel = decode_kernel<T, PARTIAL>;
+  auto kernel = decode_kernel<T, KV, PARTIAL>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(B * a.KH), NT, smem, stream>>>(a);
@@ -409,20 +435,27 @@ int run_flash(const FlashArgs& a, int B, cudaStream_t stream) {
 // dtype codes shared with the Python wrappers: 0 = float32, 1 = bfloat16.
 extern "C" {
 
+// k_scale / v_scale non-null: k and v are int8 pools with n_sc scales per
+// (row, KV head), one per physical page of blk_c rows.
 int rt_decode_fused(int dtype, const void* q, const void* k, const void* v,
                     const int* pos, const int* pages, int n_log,
                     const float* acc_e, const float* m_e, const float* l_e,
+                    const float* k_scale, const float* v_scale, int n_sc,
                     void* out, int B, int H, int KH, int S, int HD,
                     int blk_c, int tile, int window, float scale,
                     void* stream) {
   DecodeArgs a = {};
   a.q = q; a.k = k; a.v = v; a.pos = pos; a.pages = pages; a.n_log = n_log;
   a.acc_e = acc_e; a.m_e = m_e; a.l_e = l_e; a.out = out;
+  a.k_scale = k_scale; a.v_scale = v_scale; a.n_sc = n_sc;
   a.H = H; a.KH = KH; a.S = S; a.HD = HD; a.blk_c = blk_c; a.tile = tile;
   a.window = window; a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? run_decode<__nv_bfloat16, false>(a, B, s)
-                    : run_decode<float, false>(a, B, s);
+  if (k_scale)
+    return dtype == 1 ? run_decode<__nv_bfloat16, int8_t, false>(a, B, s)
+                      : run_decode<float, int8_t, false>(a, B, s);
+  return dtype == 1 ? run_decode<__nv_bfloat16, __nv_bfloat16, false>(a, B, s)
+                    : run_decode<float, float, false>(a, B, s);
 }
 
 int rt_decode_partial(int dtype, const void* q, const void* k, const void* v,
@@ -435,8 +468,8 @@ int rt_decode_partial(int dtype, const void* q, const void* k, const void* v,
   a.H = H; a.KH = KH; a.S = C; a.HD = HD; a.blk_c = C; a.tile = tile;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? run_decode<__nv_bfloat16, true>(a, B, s)
-                    : run_decode<float, true>(a, B, s);
+  return dtype == 1 ? run_decode<__nv_bfloat16, __nv_bfloat16, true>(a, B, s)
+                    : run_decode<float, float, true>(a, B, s);
 }
 
 int rt_flash_attention(int dtype, const void* q, const void* k, const void* v,

@@ -26,8 +26,8 @@ from repro_torch.kernels.build import (DTYPE_CODE, LAUNCHES, check,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "rt_decode_fused": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "rt_decode_fused": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                        _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "rt_decode_partial": [_I, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _F, _P],
     "rt_flash_attention": [_I, _P, _P, _P, _P,
@@ -62,17 +62,29 @@ def decode_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            extra: Optional[Tuple[torch.Tensor, torch.Tensor,
                                                  torch.Tensor]] = None,
                            *, window: int = 0, blk_c: int = 128,
-                           pages: Optional[torch.Tensor] = None
+                           pages: Optional[torch.Tensor] = None,
+                           kv_scales: Optional[Tuple[torch.Tensor,
+                                                     torch.Tensor]] = None
                            ) -> torch.Tensor:
     """One-shot flash decode on the card: q (B,1,H,hd) against the whole
     cache k/v (B,KH,S,hd), per-row last valid slot pos (B,) int32, slots
     `pos-window < slot <= pos` attended (window 0: no lower bound).
     `extra`: optional f32 (acc (B,H,hd), m (B,H), l (B,H)) merged in the
     epilogue.  `pages`: optional (B, n_log) int32 page table into each
-    row's own panel; `blk_c` is then the exact page size.  Returns
-    (B,1,H,hd) in q's dtype."""
-    name = "decode_attention_fused"
-    check_inputs(name, q, k, v)
+    row's own panel; `blk_c` is then the exact page size.  `kv_scales`:
+    optional (k_scales, v_scales), each (B,KH,S/page) f32 per PHYSICAL
+    page; k/v are then int8 pools, and the page (S / n_scales) is the
+    chunk: it replaces `blk_c` when dense and must equal it when paged.
+    Returns (B,1,H,hd) in q's dtype."""
+    name = ("decode_attention_fused" if kv_scales is None
+            else "decode_attention_fused[int8]")
+    if kv_scales is None:
+        check_inputs(name, q, k, v)
+    else:
+        check_inputs(name, q)
+        check(all(t.is_cuda and t.dtype == torch.int8 and t.is_contiguous()
+                  and t.device == q.device for t in (k, v)),
+              f"{name}: k/v must be contiguous int8 pools on q's device")
     b, one, h, hd = q.shape
     check(one == 1 and k.dim() == 4 and k.shape == v.shape,
            f"{name}: q (B,1,H,hd), k/v (B,KH,S,hd) expected")
@@ -81,6 +93,19 @@ def decode_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)}")
     check(pos.is_cuda and pos.dtype == torch.int32 and pos.shape == (b,)
            and pos.is_contiguous(), f"{name}: pos must be (B,) int32 CUDA")
+    n_sc = 0
+    if kv_scales is not None:
+        n_sc = kv_scales[0].shape[-1]
+        for t in kv_scales:
+            check(t.device == q.device and t.dtype == torch.float32
+                  and tuple(t.shape) == (b, kh, n_sc) and t.is_contiguous(),
+                  f"{name}: kv_scales must be contiguous f32 (B,KH,n_pages)")
+        check(n_sc > 0 and s % n_sc == 0,
+              f"{name}: {n_sc} scale pages must divide S={s}")
+        if pages is None:
+            blk_c = s // n_sc         # the scale page IS the kernel chunk
+        check(blk_c == s // n_sc,
+              f"{name}: page size {blk_c} != S / n_scales = {s // n_sc}")
     if pages is None:
         blk_c = dense_chunk(s, blk_c)
         n_log = 0
@@ -109,6 +134,8 @@ def decode_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         None if acc_e is None else acc_e.data_ptr(),
         None if m_e is None else m_e.data_ptr(),
         None if l_e is None else l_e.data_ptr(),
+        None if kv_scales is None else kv_scales[0].data_ptr(),
+        None if kv_scales is None else kv_scales[1].data_ptr(), n_sc,
         out.data_ptr(), b, h, kh, s, hd, blk_c, decode_tile(blk_c),
         int(window), float(hd ** -0.5), stream())
     raise_on(err, name)

@@ -2,10 +2,10 @@
 `repro/kernels/ops.py`.
 
 A CUDA tensor goes to the hand-written CUDA kernel (`flash_attention.py`,
-`ssd.py`); a CPU tensor goes to the plain PyTorch version (`ref.py`).  Inside
-`reference_mode()` CUDA tensors take the plain versions too: that is how
-`chip_smoke.py` and the tests hold the kernel path against the plain path
-on the card.  The server never enters it.
+`ssd.py`, `quant.py`); a CPU tensor goes to the plain PyTorch version
+(`ref.py`).  Inside `reference_mode()` CUDA tensors take the plain
+versions too: that is how `chip_smoke.py` and the tests hold the kernel
+path against the plain path on the card.  The server never enters it.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from typing import Iterator, Optional, Tuple
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import quant as _quant
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd as _ssd
 
@@ -59,19 +60,31 @@ def decode_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            pos: torch.Tensor,
                            extra: Optional[Tuple[torch.Tensor, torch.Tensor,
                                                  torch.Tensor]] = None,
-                           pages: Optional[torch.Tensor] = None, *,
-                           window: int = 0, blk_c: int = 128) -> torch.Tensor:
+                           pages: Optional[torch.Tensor] = None,
+                           kv_scales: Optional[Tuple[torch.Tensor,
+                                                     torch.Tensor]] = None,
+                           *, window: int = 0, blk_c: int = 128
+                           ) -> torch.Tensor:
     """Fused one-shot flash decode.  q: (B,1,H,hd); k,v: (B,KH,S,hd); pos:
     (B,) per-row last valid slot; extra: optional (acc, m, l) partial of the
     current token.  `pages`: optional (B, n_log) int32 page table — k/v are
     then physical page pools, `blk_c` is the exact page size, and `pos`
-    keeps its logical meaning.  Returns (B,1,H,hd)."""
+    keeps its logical meaning.  `kv_scales`: optional (k_scales,
+    v_scales), each (B,KH,S/page) f32 — k/v are then int8 pools
+    dequantized per page; the scale page replaces `blk_c` when dense and
+    must equal it when paged.  Returns (B,1,H,hd)."""
     if _use_kernel(q):
         return _fa.decode_attention_fused(q, k, v, pos, extra, window=window,
-                                          blk_c=blk_c, pages=pages)
+                                          blk_c=blk_c, pages=pages,
+                                          kv_scales=kv_scales)
     page_size = blk_c if pages is not None else 0
+    if page_size and kv_scales is not None \
+            and page_size != k.shape[2] // kv_scales[0].shape[-1]:
+        raise ValueError(f"page size {page_size} != S / n_scales "
+                         f"({k.shape[2]} / {kv_scales[0].shape[-1]})")
     return _ref.decode_fused_reference(q, k, v, pos, extra, window=window,
-                                       pages=pages, page_size=page_size)
+                                       pages=pages, page_size=page_size,
+                                       kv_scales=kv_scales)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -84,3 +97,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if _use_kernel(x):
         return _ssd.ssd_scan(x, dt, A, B, C, init_state)
     return _ref.ssd_reference(x, dt, A, B, C, init_state)
+
+
+def quant_matmul(x: torch.Tensor, qt: "_quant.QTensor") -> torch.Tensor:
+    """x (..., d_in) @ dequantize(qt) -> (..., n) in x's dtype, `qt`
+    unstacked.  On the card the dequantization is fused into the matmul
+    kernel; the plain version multiplies against the dequantized weight
+    in f32."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    if _use_kernel(x2):
+        out = _quant.quant_matmul(x2.contiguous(), qt)
+    else:
+        out = _ref.quant_matmul_reference(x2, qt)
+    return out.reshape(shape[:-1] + (out.shape[-1],))

@@ -1,0 +1,179 @@
+"""Block-quantized weights and the Hopper dequant-fused matmul, the port of
+`repro/kernels/quant.py`.
+
+Weights live on the card as packed per-block quants plus f32 scales (q8_0:
+32 int8 and one scale per (block, column); q4_k: 32 nibbles, one scale and
+one min) and are dequantized inside the matmul kernel (`csrc/quant.cu`),
+so the fp weight never exists in device memory.  `build.py` compiles the
+kernel with the port's others at first use; nothing is built when this
+module is imported.
+
+`QTensor` is a plain dataclass of tensors.  A stacked one (a leading
+n_blocks axis) is sliced per layer with `layer(i)`, a view of each leaf.
+
+The wrapper `quant_matmul` takes CUDA tensors only, checks device, dtype,
+shape and contiguity, allocates its output and any split-K workspace with
+`torch.empty`, launches on `torch.cuda.current_stream()`, raises if the
+launch fails and adds one to `build.LAUNCHES["quant_matmul[<fmt>]"]`.
+`ops.quant_matmul` sends CPU tensors to `ref.quant_matmul_reference`
+before the wrapper is reached.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.build import (DTYPE_CODE, LAUNCHES, check,
+                                       check_inputs, function, raise_on,
+                                       stream)
+
+QUANT_BLOCK = _ref.QUANT_BLOCK
+WEIGHT_FORMATS = ("q8_0", "q4_k")
+FMT_CODE = {"q8_0": 0, "q4_k": 1}
+
+# the kernels' tiles (csrc/quant.cu): a skinny block covers 4 rows of x and
+# 128 columns, a tiled block 64 rows and 128 columns
+SKINNY_MAX_M = 16
+SKINNY_ROWS, TILED_ROWS, TILE_COLS = 4, 64, 128
+SMS = 132                    # streaming multiprocessors of an H100 SXM
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURE = [_I, _I, _P, _P, _P, _P, _P, _P,
+              _I, _I, _I, _I, _I, _I, _I, _I, _P]
+
+
+@dataclasses.dataclass
+class QTensor:
+    """A block-quantized (..., d_in, n) weight, leading axes stacked.
+
+    scales: (..., nB, n) f32        per (block, column) scale
+    quants: (..., nB, 32, n) int8   (q8_0)
+            (..., nB, 16, n) uint8  (q4_k, two nibbles a byte)
+    mins:   (..., nB, n) f32        (q4_k; None for q8_0)
+    fmt:    "q8_0" | "q4_k"
+    d_in:   the input width before block padding"""
+    scales: torch.Tensor
+    quants: torch.Tensor
+    mins: Optional[torch.Tensor]
+    fmt: str
+    d_in: int
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self.scales.shape[:-2]) + (self.d_in,
+                                                self.scales.shape[-1])
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.scales, self.quants, self.mins)
+                   if t is not None)
+
+    def layer(self, i: int) -> "QTensor":
+        """Layer i of a stacked weight: a view of each leaf."""
+        return QTensor(self.scales[i], self.quants[i],
+                       None if self.mins is None else self.mins[i],
+                       self.fmt, self.d_in)
+
+
+def quantize_tensor(w: torch.Tensor, fmt: str,
+                    block: int = QUANT_BLOCK) -> QTensor:
+    """Quantize a (..., d, n) weight into the given block format."""
+    if fmt == "q8_0":
+        scales, quants = _ref.quantize_q8_0(w, block)
+        return QTensor(scales, quants, None, fmt, w.shape[-2])
+    if fmt == "q4_k":
+        scales, mins, quants = _ref.quantize_q4_k(w, block)
+        return QTensor(scales, quants, mins, fmt, w.shape[-2])
+    raise ValueError(f"unknown quant format: {fmt}")
+
+
+def dequantize_tensor(qt: QTensor) -> torch.Tensor:
+    """The f32 (..., d_in, n) weight (the plain path)."""
+    return _ref.dequantize_weight(qt.fmt, qt.scales, qt.quants, qt.mins,
+                                  qt.d_in)
+
+
+def quant_plan(m: int, n: int, n_blocks: int) -> Tuple[bool, int, int]:
+    """The kernel's launch shape, a function of the problem's shape only:
+    (skinny, splits, blocks per split).  m <= 16 (decode) takes the skinny
+    kernel, whose block gives each of its 32 k-lanes one quant block of a
+    128-column tile; larger m the 64 x 128 tiled kernel.  The 32-row blocks
+    of d are split across thread blocks until the grid covers the SMs; the
+    splits' f32 partials are summed by a second pass in split order, so the
+    result does not depend on timing (no float atomics)."""
+    col_tiles = -(-n // TILE_COLS)
+    skinny = m <= SKINNY_MAX_M
+    tiles = col_tiles * -(-m // (SKINNY_ROWS if skinny else TILED_ROWS))
+    if skinny:
+        per_split = 32
+        while per_split > 4 and tiles * -(-n_blocks // per_split) < SMS:
+            per_split //= 2
+    else:
+        splits = 1
+        if tiles < SMS:
+            splits = max(1, min(-(-2 * SMS // tiles), n_blocks // 8))
+        per_split = -(-n_blocks // splits)
+    per_split = min(per_split, n_blocks)
+    return skinny, -(-n_blocks // per_split), per_split
+
+
+def check_args(x: torch.Tensor, qt: QTensor) -> Tuple[int, int, int]:
+    """Everything the kernel asks of its inputs apart from the device:
+    shapes, dtypes, contiguity, one device.  Returns (m, n, nB)."""
+    name = f"quant_matmul[{qt.fmt}]"
+    check(qt.fmt in FMT_CODE, f"unknown quant format: {qt.fmt}")
+    check(x.dim() == 2 and x.shape[0] >= 1,
+          f"{name}: x must be (m, d_in), m >= 1; got {tuple(x.shape)}")
+    check(qt.scales.dim() == 2,
+          f"{name}: an unstacked QTensor is expected (slice it per layer)")
+    m, d = x.shape
+    nb, n = qt.scales.shape
+    check(d == qt.d_in and nb == -(-d // QUANT_BLOCK),
+          f"{name}: x width {d} against a weight of d_in {qt.d_in}, "
+          f"{nb} blocks")
+    qdt, rows = ((torch.int8, QUANT_BLOCK) if qt.fmt == "q8_0"
+                 else (torch.uint8, QUANT_BLOCK // 2))
+    check(qt.quants.dtype == qdt and tuple(qt.quants.shape) == (nb, rows, n),
+          f"{name}: quants must be {qdt} ({nb}, {rows}, {n})")
+    per_column = [qt.scales]
+    if qt.fmt == "q4_k":
+        check(qt.mins is not None, f"{name}: q4_k needs mins")
+        per_column.append(qt.mins)
+    for t in per_column:
+        check(t.dtype == torch.float32 and tuple(t.shape) == (nb, n),
+              f"{name}: scales and mins must be f32 ({nb}, {n})")
+    for t in per_column + [qt.quants]:
+        check(t.device == x.device and t.is_contiguous(),
+              f"{name}: weight leaves must be contiguous, on x's device")
+    return m, n, nb
+
+
+def quant_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """x (m, d_in) @ dequantize(qt) (d_in, n) -> (m, n) in x's dtype (bf16
+    or f32) on the card, with f32 accumulation.  The ragged edges of m, n
+    and d are masked inside the kernel: lanes of x past d_in count as
+    zero, so a q4_k padded lane (which dequantizes to its min) adds
+    nothing."""
+    name = f"quant_matmul[{qt.fmt}]"
+    check_inputs(name, x)
+    m, n, nb = check_args(x, qt)
+    skinny, splits, per_split = quant_plan(m, n, nb)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
+    leaves = [t for t in (qt.quants, qt.scales, qt.mins) if t is not None]
+    vec = n % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in leaves)
+    err = function("rt_quant_matmul", _SIGNATURE)(
+        DTYPE_CODE[x.dtype], FMT_CODE[qt.fmt], x.data_ptr(),
+        qt.quants.data_ptr(), qt.scales.data_ptr(),
+        None if qt.mins is None else qt.mins.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), m, x.shape[1], n, nb,
+        splits, per_split, int(skinny), int(vec), stream())
+    raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out

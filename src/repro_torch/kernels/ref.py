@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the port's kernels, mirroring
-`repro/kernels/ref.py`: the attention kernels (without the int8
-`kv_scales` branch, which waits for the quantization slice) and the
-Mamba2 SSD scan.
+`repro/kernels/ref.py`: the attention kernels (with the int8 `kv_scales`
+branch of the fused decode), the Mamba2 SSD scan, and the block
+quantizers with the dequantize-then-matmul `quant_matmul_reference`.
 
 They are the numerical ground truth the CUDA kernels are held to on the
 card, and the path `ops.py` takes for tensors on the CPU.  All arithmetic
@@ -124,9 +124,16 @@ def decode_fused_partial_reference(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         pos: torch.Tensor, extra: Optional[Partial] = None, *,
         window: int = 0, pages: Optional[torch.Tensor] = None,
-        page_size: int = 0) -> Partial:
+        page_size: int = 0,
+        kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        ) -> Partial:
     """`decode_fused_reference` minus the final normalisation: the raw
-    merged statistics (acc (B,H,hd), m (B,H), l (B,H))."""
+    merged statistics (acc (B,H,hd), m (B,H), l (B,H)).  With `kv_scales`
+    (k_scales, v_scales), each (B,KH,S/page) f32 per PHYSICAL page, k/v
+    are int8 pools, dequantized before the pages are gathered."""
+    if kv_scales is not None:
+        k = dequantize_kv_pages(k, kv_scales[0])
+        v = dequantize_kv_pages(v, kv_scales[1])
     if pages is not None:
         assert page_size > 0, "page_size required with pages"
         k = gather_kv_pages(k, pages, page_size)
@@ -145,13 +152,18 @@ def decode_fused_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            pos: torch.Tensor, extra: Optional[Partial] = None,
                            *, window: int = 0,
                            pages: Optional[torch.Tensor] = None,
-                           page_size: int = 0) -> torch.Tensor:
+                           page_size: int = 0,
+                           kv_scales: Optional[Tuple[torch.Tensor,
+                                                     torch.Tensor]] = None
+                           ) -> torch.Tensor:
     """Plain version of the fused one-shot flash decode.  q: (B,1,H,hd);
-    k,v: (B,KH,S,hd) (physical pools when `pages` is given); pos: (B,) or
-    scalar last valid logical slot; `extra` merged before normalisation.
-    Returns (B,1,H,hd) in q's dtype."""
+    k,v: (B,KH,S,hd) (physical pools when `pages` is given; int8 pools
+    with per-page `kv_scales`); pos: (B,) or scalar last valid logical
+    slot; `extra` merged before normalisation.  Returns (B,1,H,hd) in q's
+    dtype."""
     acc, _, l = decode_fused_partial_reference(
-        q, k, v, pos, extra, window=window, pages=pages, page_size=page_size)
+        q, k, v, pos, extra, window=window, pages=pages, page_size=page_size,
+        kv_scales=kv_scales)
     return normalize_fused_partial(acc, l, q.dtype)
 
 
@@ -180,3 +192,133 @@ def ssd_reference(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         state = state * decay[:, t, :, None, None] + upd
         ys.append(torch.einsum("bhpn,bn->bhp", state, Cf[:, t]))
     return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+# --------------------------------------------------------------------------
+# Block quantization: q8_0 / q4_k weights, int8 KV pages
+# --------------------------------------------------------------------------
+#
+# Bit for bit the reference's quantizers: the same f32 divisions by 127.0
+# and 15.0, and rounding half to even (torch.round, as jnp.round).
+
+QUANT_BLOCK = 32
+
+
+def _pad_blocks(w: torch.Tensor, block: int) -> Tuple[torch.Tensor, int]:
+    """Zero-pad the input axis of w (..., d, n) up to a multiple of
+    `block`; returns the blocked f32 view (..., nB, block, n) and the pad."""
+    d, n = w.shape[-2], w.shape[-1]
+    nb = -(-d // block)
+    pad = nb * block - d
+    wf = w.float()
+    if pad:
+        wf = torch.cat([wf, wf.new_zeros(w.shape[:-2] + (pad, n))], dim=-2)
+    return wf.reshape(w.shape[:-2] + (nb, block, n)), pad
+
+
+def quantize_q8_0(w: torch.Tensor, block: int = QUANT_BLOCK
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric 8-bit block quantization along the input axis.  w (..., d,
+    n) -> (scales (..., nB, n) f32 = absmax / 127, quants (..., nB, block,
+    n) int8), nB = ceil(d / block), the ragged last block zero-padded."""
+    wb, _ = _pad_blocks(w, block)
+    scales = wb.abs().amax(dim=-2) / 127.0
+    safe = torch.where(scales > 0, scales, torch.ones_like(scales))
+    q = torch.clamp(torch.round(wb / safe[..., None, :]), -127, 127)
+    return scales, q.to(torch.int8)
+
+
+def dequantize_q8_0(scales: torch.Tensor, quants: torch.Tensor,
+                    d: int) -> torch.Tensor:
+    """Inverse of `quantize_q8_0` -> (..., d, n) f32."""
+    w = quants.float() * scales[..., None, :]
+    nb, block, n = w.shape[-3:]
+    return w.reshape(w.shape[:-3] + (nb * block, n))[..., :d, :]
+
+
+def quantize_q4_k(w: torch.Tensor, block: int = QUANT_BLOCK
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Asymmetric 4-bit block quantization: one f32 scale = (max - min) /
+    15 and one f32 min per block, q = round((w - min) / scale) in [0, 15],
+    two per byte (element 2j in the low nibble, 2j+1 in the high).  Min
+    and max over the valid lanes only.  Returns (scales, mins, packed
+    (..., nB, block // 2, n) uint8)."""
+    d = w.shape[-2]
+    wb, pad = _pad_blocks(w, block)
+    if pad:
+        lane = torch.arange(wb.shape[-3] * block, device=w.device).reshape(
+            wb.shape[-3], block)
+        vmask = (lane < d)[..., None]                     # (nB, block, 1)
+        wmax = wb.masked_fill(~vmask, float("-inf")).amax(dim=-2)
+        wmin = wb.masked_fill(~vmask, float("inf")).amin(dim=-2)
+    else:
+        wmax = wb.amax(dim=-2)
+        wmin = wb.amin(dim=-2)
+    scales = (wmax - wmin) / 15.0
+    safe = torch.where(scales > 0, scales, torch.ones_like(scales))
+    q = torch.clamp(torch.round((wb - wmin[..., None, :])
+                                / safe[..., None, :]), 0, 15).to(torch.uint8)
+    packed = q[..., 0::2, :] | (q[..., 1::2, :] << 4)
+    return scales, wmin, packed
+
+
+def dequantize_q4_k(scales: torch.Tensor, mins: torch.Tensor,
+                    packed: torch.Tensor, d: int) -> torch.Tensor:
+    """Inverse of `quantize_q4_k` -> (..., d, n) f32: nibble * scale + min,
+    a product and a sum, each rounded."""
+    lo = (packed & 0xF).float()
+    hi = (packed >> 4).float()
+    q = torch.stack([lo, hi], dim=-2)                     # (..., nB, hb, 2, n)
+    nb, hb, _, n = q.shape[-4:]
+    q = q.reshape(q.shape[:-4] + (nb, hb * 2, n))
+    w = q * scales[..., None, :] + mins[..., None, :]
+    return w.reshape(w.shape[:-3] + (nb * hb * 2, n))[..., :d, :]
+
+
+def quant_error_bound(fmt: str, scales: torch.Tensor) -> torch.Tensor:
+    """Worst-case |dequant(quant(w)) - w| per (block, column): half a step
+    of the format's grid."""
+    if fmt in ("q8_0", "q4_k"):
+        return scales * 0.5
+    raise ValueError(f"unknown quant format: {fmt}")
+
+
+def dequantize_weight(fmt: str, scales: torch.Tensor, quants: torch.Tensor,
+                      mins: Optional[torch.Tensor], d: int) -> torch.Tensor:
+    """The f32 (..., d, n) weight of a block-quantized one."""
+    if fmt == "q8_0":
+        return dequantize_q8_0(scales, quants, d)
+    if fmt == "q4_k":
+        return dequantize_q4_k(scales, mins, quants, d)
+    raise ValueError(f"unknown quant format: {fmt}")
+
+
+def quant_matmul_reference(x: torch.Tensor, qt) -> torch.Tensor:
+    """Plain version of the dequant-fused matmul: x (m, d_in) against the
+    dequantized (d_in, n) weight of the unstacked `quant.QTensor` qt, in
+    f32, returned in x's dtype."""
+    w = dequantize_weight(qt.fmt, qt.scales, qt.quants, qt.mins, qt.d_in)
+    return (x.float() @ w).to(x.dtype)
+
+
+def quantize_kv_pages(kv: torch.Tensor, page_size: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Int8 KV pages with one f32 scale per (row, head, page): kv (B, KH,
+    S, hd) -> (int8 quants of the same shape, scales (B, KH, S / page) =
+    the page's absmax / 127)."""
+    b, kh, s, hd = kv.shape
+    assert s % page_size == 0, (s, page_size)
+    kr = kv.float().reshape(b, kh, s // page_size, page_size, hd)
+    scales = kr.abs().amax(dim=(-2, -1)) / 127.0
+    safe = torch.where(scales > 0, scales, torch.ones_like(scales))
+    q = torch.clamp(torch.round(kr / safe[..., None, None]), -127, 127)
+    return q.to(torch.int8).reshape(b, kh, s, hd), scales
+
+
+def dequantize_kv_pages(quants: torch.Tensor,
+                        scales: torch.Tensor) -> torch.Tensor:
+    """Inverse of `quantize_kv_pages`: each page slab times its scale."""
+    b, kh, s, hd = quants.shape
+    n_pages = scales.shape[-1]
+    kr = quants.float().reshape(b, kh, n_pages, s // n_pages, hd)
+    return (kr * scales[..., None, None]).reshape(b, kh, s, hd)

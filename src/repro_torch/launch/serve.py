@@ -18,9 +18,14 @@ its own position clock.  Two host loops over the same decode segments:
                              queued right behind segment i), so the host
                              syncs once per segment.
 
+`--quant-weights {q8_0,q4_k}` serves block-quantized projection weights
+through the dequant-fused matmul kernel, and `--quant-kv int8` an int8 KV
+cache with one scale per (layer, row, KV head, page), dequantized inside
+the fused decode kernel.
+
 Both loops emit identical tokens.  Sampling, speculation, the host tier,
-chunked prefill, quantization and the mesh are later slices (ROADMAP.md
-queue 1); their options are absent here, not ignored.
+chunked prefill and the mesh are later slices (ROADMAP.md queue 1); their
+options are absent here, not ignored.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from repro_torch.core.backstream import (OffloadConfig, OffloadProtocol,
                                          use_offload)
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import transformer
+from repro_torch.models.quantize import quantize_params
 
 PROTOCOLS = {"bs": OffloadProtocol.BS, "axle": OffloadProtocol.AXLE,
              "rp": OffloadProtocol.RP}
@@ -84,14 +90,17 @@ class BatchedServer:
     device says so; the host learns it one segment later.
 
     `params` are the weights to serve in the reference's layout; None
-    draws the port's own from seed 0 on `device`."""
+    draws the port's own from seed 0 on `device`.  `quant` quantizes
+    them once, here (the server then holds no fp projection stack of its
+    own), and gives the cache int8 K/V pools."""
 
     def __init__(self, arch_id: str, *, smoke: bool = True,
                  device: Optional[str] = None, batch_slots: int = 4,
                  max_seq: int = 256, protocol: str = "axle",
                  chunks_per_shard: int = 1, seg_len: int = 8,
                  stream: bool = False, page_size: Optional[int] = None,
-                 params: Optional[Dict[str, Any]] = None):
+                 params: Optional[Dict[str, Any]] = None,
+                 quant: Optional[steps_lib.QuantConfig] = None):
         self.device = resolve_device(device)
         self.cfg = (get_smoke_config(arch_id) if smoke
                     else get_config(arch_id))
@@ -104,10 +113,14 @@ class BatchedServer:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
             params = transformer.init_params(self.cfg, gen, self.device)
+        self.quant = quant or steps_lib.QuantConfig()
+        if self.quant.weights is not None:
+            params = quantize_params(params, self.quant.weights)
         self.params = params
         self.cache = transformer.init_cache(self.cfg, batch_slots, max_seq,
                                             device=self.device,
-                                            page_size=page_size)
+                                            page_size=page_size,
+                                            kv_quant=self.quant.kv)
         # page ledger: one page = `page_size` positions of one slot row,
         # charged as the position clock advances and released at
         # retirement; allocated == freed + resident at every tick.  A
@@ -388,12 +401,19 @@ def main() -> int:
     ap.add_argument("--stream", action="store_true",
                     help="segment-streaming loop (default: per-token)")
     ap.add_argument("--seg-len", type=int, default=8)
+    ap.add_argument("--quant-weights", default=None, choices=["q8_0", "q4_k"],
+                    help="block-quantize the dense projection stacks")
+    ap.add_argument("--quant-kv", default=None, choices=["int8"],
+                    help="int8 KV cache with per-page scales")
     args = ap.parse_args()
 
     server = BatchedServer(args.arch, smoke=not args.full,
                            device=args.device, batch_slots=args.slots,
                            max_seq=args.max_seq, protocol=args.protocol,
-                           seg_len=args.seg_len, stream=args.stream)
+                           seg_len=args.seg_len, stream=args.stream,
+                           quant=steps_lib.QuantConfig(
+                               weights=args.quant_weights,
+                               kv=args.quant_kv))
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         plen = int(rng.integers(4, 12))
@@ -408,6 +428,7 @@ def main() -> int:
     toks = sum(len(r.generated) for r in server.completed)
     mode = "stream" if args.stream else "per-token"
     print(f"[serve] arch={server.cfg.arch_id} protocol={args.protocol} "
+          f"quant={args.quant_weights or 'fp'}/{args.quant_kv or 'fp'} "
           f"mode={mode} requests={len(server.completed)} tokens={toks} "
           f"steps={server.steps} "
           f"syncs/token={server.decode_syncs / max(1, toks):.4f} "

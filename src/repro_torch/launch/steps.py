@@ -1,6 +1,6 @@
 """Serving steps of the main path, ported from `repro/launch/steps.py`: the
-device-side per-slot decode state, slot admission, the prompt prefill and
-the multi-token decode segment.
+serving-time quantization choice, the device-side per-slot decode state,
+slot admission, the prompt prefill and the multi-token decode segment.
 
 The reference's jitted `lax.scan` with a donated cache becomes a Python
 loop of `seg_len` decode steps that updates the cache IN PLACE.  The slot
@@ -12,7 +12,7 @@ loop reads it one segment later).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -21,6 +21,30 @@ from repro_torch.models.config import ArchConfig
 
 # stop-token slots per serving request (padded with -1)
 MAX_STOP_TOKENS = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    """Serving-time quantization.
+
+    weights — "q8_0" (int8, one symmetric scale per 32-row block) or
+              "q4_k" (packed int4, a scale and a min per block): every
+              dense projection stack is block-quantized once, and the
+              dequant-fused matmul kernel reads only the packed blocks.
+    kv      — "int8": the KV panels are int8 pools with one f32 scale per
+              (layer, row, KV head, physical page); decode and prefill
+              write quantized rows and the fused decode kernel applies
+              the page scale to each tile.
+
+    Either may be None (fp weights, fp KV); QuantConfig() is all fp."""
+    weights: Optional[str] = None   # None | "q8_0" | "q4_k"
+    kv: Optional[str] = None        # None | "int8"
+
+    def __post_init__(self):
+        if self.weights not in (None, "q8_0", "q4_k"):
+            raise ValueError(f"unknown weight format: {self.weights}")
+        if self.kv not in (None, "int8"):
+            raise ValueError(f"unknown KV format: {self.kv}")
 
 
 @dataclasses.dataclass(frozen=True)

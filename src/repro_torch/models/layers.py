@@ -15,6 +15,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.quantize import matmul
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
@@ -78,10 +80,11 @@ def merge_attention_partials(accs: torch.Tensor, ms: torch.Tensor,
     return acc / torch.clamp(l, min=1e-20)[..., None]
 
 
-def gated_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-              w_down: torch.Tensor) -> torch.Tensor:
-    h = F.silu(x @ w_gate) * (x @ w_up)
-    return h @ w_down
+def gated_mlp(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+    """silu(x w_gate) * (x w_up) projected by w_down; each weight a tensor
+    or a `QTensor` (through the dequant-fused matmul)."""
+    h = F.silu(matmul(x, w_gate)) * matmul(x, w_up)
+    return matmul(h, w_down)
 
 
 def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,

@@ -12,6 +12,12 @@ stacked over `n_blocks`:
                              D, conv_w, out_proj},  # a "mamba" position
                  "ffn": {ln, w_gate, w_up, w_down}}]}   # when d_ff > 0
 
+A quantized tree (`models.quantize.quantize_params`) has a block-quantized
+`QTensor` in place of each dense projection stack; every product against
+such a leaf goes through `quantize.matmul`.  An int8 KV cache
+(`init_cache(kv_quant="int8")`) holds int8 K/V pools and one f32 scale per
+(layer, row, KV head, physical page).
+
 `jax.lax.scan` over the stacked blocks becomes a Python loop over layers.
 Caches are updated IN PLACE (the reference donates them to jit for the
 same effect); every function that takes a cache returns it too.
@@ -28,8 +34,10 @@ from repro_torch.core.backstream import (cache_update_stacked,
                                          decode_attention_combined,
                                          physical_slots)
 from repro_torch.kernels import ops
+from repro_torch.kernels.quant import QTensor
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.quantize import matmul
 
 Params = Dict[str, Any]
 
@@ -112,15 +120,34 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
             "blocks": blocks, "final_ln": zeros(d)}
 
 
+class _QLeaf(nn.Module):
+    """A QTensor leaf: its tensors as buffers ("<path>.scales", ...), its
+    format and input width as attributes."""
+
+    def __init__(self, qt: QTensor):
+        super().__init__()
+        self.fmt, self.d_in = qt.fmt, qt.d_in
+        self.register_buffer("scales", qt.scales)
+        self.register_buffer("quants", qt.quants)
+        self.register_buffer("mins", qt.mins)
+
+    def tree(self) -> QTensor:
+        return QTensor(self.scales, self.quants, self.mins, self.fmt,
+                       self.d_in)
+
+
 class _Tree(nn.Module):
-    """Registers a nested dict of tensors as buffers, one submodule per
-    dict level, so `state_dict()` keys are the JAX pytree paths."""
+    """Registers a nested dict of tensors (or QTensors) as buffers, one
+    submodule per dict level, so `state_dict()` keys are the JAX pytree
+    paths."""
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
         for key, val in tree.items():
             if isinstance(val, torch.Tensor):
                 self.register_buffer(key, val)
+            elif isinstance(val, QTensor):
+                self.add_module(key, _QLeaf(val))
             else:
                 self.add_module(key, _Tree(val))
 
@@ -158,10 +185,12 @@ class Transformer(nn.Module):
                            write_mask)
 
 
-def _layer(block: Dict[str, Dict[str, torch.Tensor]], i: int
-           ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Layer i's weights: views into the stacked leaves."""
-    return {sub: {k: w[i] for k, w in leaves.items()}
+def _layer(block: Dict[str, Dict[str, Any]], i: int
+           ) -> Dict[str, Dict[str, Any]]:
+    """Layer i's weights: views into the stacked leaves (of each of a
+    QTensor's tensors, keeping its format and input width)."""
+    return {sub: {k: w.layer(i) if isinstance(w, QTensor) else w[i]
+                  for k, w in leaves.items()}
             for sub, leaves in block.items()}
 
 
@@ -175,9 +204,9 @@ def _qkv(cfg: ArchConfig, p: Params, x: torch.Tensor,
     b, s, _ = x.shape
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     hx = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    q = (hx @ p["wq"]).reshape(b, s, h, hd)
-    k = (hx @ p["wk"]).reshape(b, s, kh, hd)
-    v = (hx @ p["wv"]).reshape(b, s, kh, hd)
+    q = matmul(hx, p["wq"]).reshape(b, s, h, hd)
+    k = matmul(hx, p["wk"]).reshape(b, s, kh, hd)
+    v = matmul(hx, p["wv"]).reshape(b, s, kh, hd)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -195,8 +224,8 @@ def _mamba_proj(cfg: ArchConfig, p: Params, x: torch.Tensor
     dt (softplus, f32), A) for the decode and prefill variants, which
     differ only in how they run the conv and the SSD recurrence."""
     hx = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    z = F.silu(hx @ p["w_z"])
-    xin = hx @ p["w_x"]
+    z = F.silu(matmul(hx, p["w_z"]))
+    xin = matmul(hx, p["w_x"])
     Bm = hx @ p["w_B"]
     Cm = hx @ p["w_C"]
     dt = F.softplus((hx @ p["w_dt"]).float() + p["dt_bias"])
@@ -211,7 +240,7 @@ def _mamba_out(p: Params, x: torch.Tensor, y: torch.Tensor,
     b, s = x.shape[:2]
     y = y + xc.reshape(y.shape) * p["D"][:, None].to(xc.dtype)
     y = (y.reshape(b, s, -1) * z).to(x.dtype)
-    return x + y @ p["out_proj"]
+    return x + matmul(y, p["out_proj"])
 
 
 # --------------------------------------------------------------------------
@@ -230,7 +259,8 @@ def default_page_size(max_seq: int) -> int:
 
 def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int, *,
                device: torch.device, dtype: Optional[str] = None,
-               page_size: Optional[int] = None) -> Dict[str, Any]:
+               page_size: Optional[int] = None,
+               kv_quant: Optional[str] = None) -> Dict[str, Any]:
     """Decode caches stacked over n_blocks.  An attention position i has
     K/V caches `k{i}`/`v{i}` in the flash-decoding layout (L, B, KH, S,
     hd), and the cache a (B, n_pages) int32 `page_table` (identity at
@@ -238,10 +268,21 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int, *,
     `table[b, r // page] * page + r % page` of the same panel.  A mamba
     position i has `conv{i}` (L, B, W-1, d_inner) in the model dtype and
     `ssm{i}` (L, B, NH, P, N) f32; a cache without attention has no
-    page table."""
+    page table.
+
+    `kv_quant="int8"`: the K/V panels are int8 pools, each with one f32
+    scale per (layer, row, KV head, PHYSICAL page) in `kscale{i}` /
+    `vscale{i}` (L, B, KH, n_pages); recurrent states stay fp."""
     _check_supported(cfg)
+    if kv_quant not in (None, "int8"):
+        raise ValueError(f"unknown KV format: {kv_quant}")
     dt = _dtype(dtype or cfg.dtype)
     nb, kh, hd = cfg.n_blocks, cfg.n_kv_heads, cfg.head_dim_
+    ps = 0
+    if "full" in cfg.block_pattern:
+        ps = page_size or default_page_size(max_seq)
+        assert max_seq % ps == 0, (max_seq, ps)
+    kv_dt = torch.int8 if kv_quant else dt
     cache: Dict[str, Any] = {
         "pos": torch.zeros((), dtype=torch.int32, device=device)}
     for i, kind in enumerate(cfg.block_pattern):
@@ -255,14 +296,27 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int, *,
             continue
         for name in (f"k{i}", f"v{i}"):
             cache[name] = torch.zeros((nb, batch_size, kh, max_seq, hd),
-                                      dtype=dt, device=device)
-    if "full" in cfg.block_pattern:
-        ps = page_size or default_page_size(max_seq)
-        assert max_seq % ps == 0, (max_seq, ps)
+                                      dtype=kv_dt, device=device)
+            if kv_quant:
+                cache[scale_key(name)] = torch.zeros(
+                    (nb, batch_size, kh, max_seq // ps),
+                    dtype=torch.float32, device=device)
+    if ps:
         cache["page_table"] = torch.arange(
             max_seq // ps, dtype=torch.int32, device=device).repeat(
                 batch_size, 1)
     return cache
+
+
+def scale_key(kv_key: str) -> str:
+    """The scale leaf of an int8 K/V leaf: k{i} -> kscale{i}."""
+    return kv_key[0] + "scale" + kv_key[1:]
+
+
+def cache_kv_quant(cache: Dict[str, Any]) -> Optional[str]:
+    """The cache's KV quantization mode, read from its scale leaves."""
+    return "int8" if any(k[:6] in ("kscale", "vscale") for k in cache) \
+        else None
 
 
 def cache_page_size(cache: Dict[str, Any]) -> int:
@@ -272,21 +326,26 @@ def cache_page_size(cache: Dict[str, Any]) -> int:
 
 def _decode_attn(cfg: ArchConfig, p: Params, x: torch.Tensor,
                  k_cache: torch.Tensor, v_cache: torch.Tensor,
-                 pos: torch.Tensor, pages: Optional[torch.Tensor]
+                 pos: torch.Tensor, pages: Optional[torch.Tensor],
+                 kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                 = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One-token attention against one layer's cache (B,KH,S,hd).  The
-    cache is READ-ONLY here: it holds tokens [0, pos), and the current
-    token's own contribution arrives as the merged `extra` partial; the
-    returned (k_new, v_new) (B,KH,1,hd) are written for all layers after
-    the layer loop."""
+    """One-token attention against one layer's cache (B,KH,S,hd), int8
+    pools when `kv_scales` (B,KH,n_pages) are given.  The cache is
+    READ-ONLY here: it holds tokens [0, pos), and the current token's own
+    contribution arrives as the merged `extra` partial, always fp (its
+    K/V is not written yet); the returned (k_new, v_new) (B,KH,1,hd) are
+    written for all layers after the layer loop."""
     b = x.shape[0]
     positions = pos.reshape(-1, 1).expand(b, 1).to(torch.int32)
     q, k_new, v_new = _qkv(cfg, p, x, positions)
     extra = L.single_kv_partial(q, k_new, v_new)
     o = decode_attention_combined(q, k_cache, v_cache, pos - 1, window=0,
-                                  extra=extra, pages=pages)
+                                  extra=extra, pages=pages,
+                                  kv_scales=kv_scales)
     o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim_)
-    return (x + o @ p["wo"], k_new.transpose(1, 2), v_new.transpose(1, 2))
+    return (x + matmul(o, p["wo"]), k_new.transpose(1, 2),
+            v_new.transpose(1, 2))
 
 
 def _decode_mamba(cfg: ArchConfig, p: Params, x: torch.Tensor,
@@ -359,9 +418,14 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
                 _write_state(conv, cnew, write_mask)
                 _write_state(ssm, snew, write_mask)
             else:
+                kv_scales = None
+                if scale_key(f"k{pi}") in cache:
+                    kv_scales = (cache[scale_key(f"k{pi}")][i],
+                                 cache[scale_key(f"v{pi}")][i])
                 x, knew, vnew = _decode_attn(cfg, p["attn"], x,
                                              cache[f"k{pi}"][i],
-                                             cache[f"v{pi}"][i], pos, pages)
+                                             cache[f"v{pi}"][i], pos, pages,
+                                             kv_scales)
                 new_kv.setdefault(f"k{pi}", []).append(knew)
                 new_kv.setdefault(f"v{pi}", []).append(vnew)
             if cfg.d_ff > 0:
@@ -376,6 +440,11 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
             slot = physical_slots(pages, slot, max_seq // pages.shape[1])
     for key, rows in new_kv.items():
         new = torch.stack(rows)                           # (L,B,KH,1,hd)
+        if scale_key(key) in cache:
+            # int8 pool: page-scale merge and masked rows inside
+            quant_kv_update_stacked(cache[key], cache[scale_key(key)], new,
+                                    slot, write_mask)
+            continue
         if write_mask is not None:
             new = masked_kv_update(cache[key], new, slot, write_mask)
         cache_update_stacked(cache[key], new, slot)
@@ -441,7 +510,7 @@ def prefill_into_cache(cfg: ArchConfig, params: Params,
                 q, k, v = _qkv(cfg, p["attn"], x, positions)
                 o = ops.flash_attention(q, k, v, causal=True, window=0)
                 o = o.reshape(1, p_len, cfg.n_heads * cfg.head_dim_)
-                x = x + o @ p["attn"]["wo"]
+                x = x + matmul(o, p["attn"]["wo"])
                 states.setdefault(f"k{pi}", []).append(
                     k[0].transpose(0, 1))
                 states.setdefault(f"v{pi}", []).append(
@@ -459,6 +528,107 @@ def prefill_into_cache(cfg: ArchConfig, params: Params,
         lrows = torch.arange(p_len, device=pt.device)
         phys = pt[row].long()[lrows // ps] * ps + lrows % ps
     for key, per_layer in states.items():
-        upd = torch.stack(per_layer).to(cache[key].dtype)  # (L,KH,P,hd)
-        cache[key][:, row].index_copy_(2, phys, upd)
+        upd = torch.stack(per_layer)                      # (L,KH,P,hd)
+        if scale_key(key) in cache:
+            # int8 pool: per-page quantize-scatter of the P prompt rows
+            quant_kv_write_rows(cache[key], cache[scale_key(key)],
+                                upd.transpose(1, 2), row, pt[row], ps)
+            continue
+        cache[key][:, row].index_copy_(2, phys, upd.to(cache[key].dtype))
     return logits, cache
+
+
+# --------------------------------------------------------------------------
+# Int8 KV cache writes
+# --------------------------------------------------------------------------
+#
+# As in the reference: the fp value of cached row r is quants[r] *
+# scale[page(r)].  A page's scale only grows while the page is live (a
+# token with a larger absmax re-quantizes the page's rows to the merged
+# scale), and a page whose first row is written gets a fresh scale, which
+# clears the previous occupant's rows (rescale ratio 0).  When the token
+# fits under the current scale the ratio is exactly 1.0 and the page's
+# rows round-trip bit for bit.
+#
+# The reference runs these writes inside jit, where XLA turns the division
+# of the absmax by the constant 127 into a product with the constant's f32
+# reciprocal; the port takes the same product, so its pools and scales
+# are the reference's bit for bit.
+
+_SCALE_EPS = 1e-30
+_INV_127 = 1.0 / 127.0
+
+
+def quant_kv_update_stacked(pool: torch.Tensor, scales: torch.Tensor,
+                            new: torch.Tensor, slot_b: torch.Tensor,
+                            write_mask: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-token ring write into an int8 KV pool, IN PLACE, for all layers
+    at once.  pool: (L,B,KH,S,hd) int8; scales: (L,B,KH,n_pages) f32 per
+    PHYSICAL page; new: (L,B,KH,1,hd) fp; slot_b: scalar or (B,) PHYSICAL
+    rows; write_mask: (B,) bool or None — masked rows leave pool and
+    scales bitwise untouched.  Rewrites each row's whole page (rescaled
+    rows and the token's).  Returns (pool, scales)."""
+    l, b, kh, s, hd = pool.shape
+    ps = s // scales.shape[3]
+    dev = pool.device
+    slot_b = torch.as_tensor(slot_b, device=dev).long().reshape(-1)
+    slot_b = slot_b.expand(b)
+    page, off = slot_b // ps, slot_b % ps
+    bidx = torch.arange(b, device=dev)
+    newf = new.float()[:, :, :, 0]                        # (L,B,KH,hd)
+    cand = newf.abs().amax(dim=-1) * _INV_127            # (L,B,KH)
+    # non-adjacent advanced indices (axes 1, 3) put the (B,) dim first
+    old_s = scales[:, bidx, :, page].permute(1, 0, 2)     # (L,B,KH)
+    new_s = torch.maximum(old_s, cand)
+    if write_mask is not None:
+        new_s = torch.where(write_mask[None, :, None], new_s, old_s)
+    # ratio 1.0 exactly when the scale is unchanged, 0 on a fresh page
+    floor = torch.clamp(new_s, min=_SCALE_EPS)
+    r = old_s / floor
+    rows = page[:, None] * ps + torch.arange(ps, device=dev)[None]
+    blk = pool[:, bidx[:, None], :, rows]                 # (B,ps,L,KH,hd)
+    blk_r = torch.round(blk.float()
+                        * r.permute(1, 0, 2)[:, None, :, :, None])
+    q_tok = torch.clamp(torch.round(newf / floor[..., None]), -127, 127)
+    tok = q_tok.permute(1, 0, 2, 3)                       # (B,L,KH,hd)
+    if write_mask is not None:
+        old_tok = blk[bidx, off]                          # (B,L,KH,hd)
+        tok = torch.where(write_mask[:, None, None, None], tok,
+                          old_tok.float())
+    sel = torch.arange(ps, device=dev)[None, :] == off[:, None]   # (B,ps)
+    blk_new = torch.where(sel[:, :, None, None, None], tok[:, None], blk_r)
+    pool[:, bidx[:, None], :, rows] = torch.clamp(
+        blk_new, -127, 127).to(pool.dtype)
+    scales[:, bidx, :, page] = new_s.permute(1, 0, 2)
+    return pool, scales
+
+
+def quant_kv_write_rows(pool: torch.Tensor, scales: torch.Tensor,
+                        vals: torch.Tensor, row: int, prow: torch.Tensor,
+                        ps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scatter the T LOGICAL rows [0, T) of batch row `row` into an int8
+    pool and its page scales, IN PLACE: the prefill's write.  pool:
+    (L,B,KH,S,hd) int8; scales: (L,B,KH,n_pages); vals: (L,T,KH,hd) fp;
+    prow: (n_pages,) the row's logical -> physical page map; ps: the page
+    size.  Every page the rows touch starts fresh (the reference's start
+    = 0 case): its scale is its rows' absmax / 127, and the rows of its
+    last page past T are cleared.  Pages past the rows are untouched.
+    Returns (pool, scales)."""
+    l, b, kh, s, hd = pool.shape
+    t = vals.shape[1]
+    n_live = -(-t // ps)
+    vf = vals.float()                                     # (L,T,KH,hd)
+    amax = F.pad(vf.abs().amax(dim=-1), (0, 0, 0, n_live * ps - t))
+    new_s = amax.reshape(l, n_live, ps, kh).amax(dim=2) * _INV_127
+    scale_t = new_s.repeat_interleave(ps, dim=1)[:, :t]   # (L,T,KH)
+    q_rows = torch.clamp(
+        torch.round(vf / torch.clamp(scale_t, min=_SCALE_EPS)[..., None]),
+        -127, 127)
+    blk = F.pad(q_rows, (0, 0, 0, 0, 0, n_live * ps - t))  # (L,n*ps,KH,hd)
+    phys_pages = prow[:n_live].long()
+    rows_ph = (phys_pages[:, None] * ps
+               + torch.arange(ps, device=pool.device)[None]).reshape(-1)
+    pool[:, row][:, :, rows_ph] = blk.transpose(1, 2).to(pool.dtype)
+    scales[:, row][:, :, phys_pages] = new_s.transpose(1, 2)
+    return pool, scales

@@ -12,7 +12,12 @@ over up to 64 slots); paged == dense bitwise.  The SSD scan against the
 sequential recurrence: atol = rtol = 1e-3 on y and on the f32 state
 (the kernel's chunked form sums in another order and forms its decays
 as exponentials of cumsum differences), plus one bf16 unit (rtol 1e-2)
-on a bf16 y."""
+on a bf16 y.  The dequant-fused matmul against x @ dequantize(W) in f32:
+|kernel - plain| <= 1e-5 (|x| @ |W|) (the same products summed in
+another order; the sum of their magnitudes bounds what the order can
+move), plus one bf16 unit of the plain value for a bf16 output; equal
+inputs give equal bits.  The int8 fused decode: the fp tolerances above,
+and paged == dense bitwise."""
 import numpy as np
 import pytest
 
@@ -20,6 +25,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import build as kbuild               # noqa: E402
 from repro_torch.kernels import flash_attention as fa         # noqa: E402
+from repro_torch.kernels import quant as kquant               # noqa: E402
 from repro_torch.kernels import ref                           # noqa: E402
 from repro_torch.kernels import ssd as kssd                   # noqa: E402
 
@@ -205,3 +211,123 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         kssd.ssd_scan(x, dt, A, B, C,
                       init_state=torch.zeros((1, 4, 128, 64),
                                              device=cuda).transpose(2, 3))
+
+
+# ------------------------------------------------ dequant-fused matmul
+
+def _quant_close(got, x, qt):
+    w = kquant.dequantize_tensor(qt)
+    want = ref.quant_matmul_reference(x, qt).float()
+    mag = x.float().abs() @ w.abs()
+    tol = 1e-5 * mag
+    if x.dtype == torch.bfloat16:
+        _, e = torch.frexp(want)
+        tol = tol + torch.ldexp(torch.ones_like(want), e - 8)
+    err = (got.float() - want).abs()
+    assert bool((err <= tol).all()), (err - tol).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fmt", ["q8_0", "q4_k"])
+@pytest.mark.parametrize("m,d,n", [
+    (4, 3072, 12288),      # decode: w_gate, skinny, 3 splits
+    (4, 12288, 3072),      # decode: w_down, 12 splits
+    (4, 3072, 256),        # decode: wk, 48 splits of 2 column tiles
+    (7, 80, 48),           # ragged m and d (16 padded lanes), one split
+    (3, 200, 37),          # ragged n: byte loads
+    (512, 3072, 1024),     # prefill: tiled, no split
+    (64, 3072, 256),       # prefill: tiled, split
+    (100, 97, 130),        # tiled, ragged m, d and n
+])
+def test_quant_matmul_kernel(cuda, fmt, dtype, m, d, n):
+    gen = torch.Generator(device=cuda).manual_seed(m + d + n)
+    w = torch.randn((d, n), generator=gen, device=cuda) * 0.05
+    qt = kquant.quantize_tensor(w, fmt)
+    x = _rand(gen, (m, d), dtype, cuda)
+    name = f"quant_matmul[{fmt}]"
+    launches = kbuild.LAUNCHES[name]
+    got = kquant.quant_matmul(x, qt)
+    again = kquant.quant_matmul(x, qt)
+    torch.cuda.synchronize()
+    assert kbuild.LAUNCHES[name] == launches + 2
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert torch.equal(got, again)
+    _quant_close(got, x, qt)
+
+
+def test_quant_matmul_on_a_layer_slice(cuda):
+    """A layer of a stacked weight (a view at an offset) goes through the
+    16-byte loads as the whole stack's first layer does."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    qt = kquant.quantize_tensor(
+        torch.randn((3, 256, 512), generator=gen, device=cuda), "q4_k")
+    x = _rand(gen, (4, 256), torch.bfloat16, cuda)
+    for i in range(3):
+        _quant_close(kquant.quant_matmul(x, qt.layer(i)), x, qt.layer(i))
+
+
+def test_quant_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    qt = kquant.quantize_tensor(torch.randn((64, 32), device=cuda), "q8_0")
+    with pytest.raises(ValueError, match="dtype"):
+        kquant.quant_matmul(torch.zeros((4, 64), device=cuda).half(), qt)
+    with pytest.raises(ValueError, match="contiguous"):
+        kquant.quant_matmul(torch.zeros((64, 4), device=cuda).t(), qt)
+    with pytest.raises(ValueError, match="device"):
+        kquant.quant_matmul(torch.zeros((4, 64), device=cuda),
+                            kquant.quantize_tensor(torch.randn(64, 32),
+                                                   "q8_0"))
+
+
+# --------------------------------------------- int8 fused decode kernel
+
+def _int8_pools(k, v, table):
+    """Logical int8 pools with per-page scales, and the physical pools and
+    scales a shuffled table places them in."""
+    (k8, ks), (v8, vs) = (ref.quantize_kv_pages(t, PAGE) for t in (k, v))
+    pk, pv = torch.empty_like(k8), torch.empty_like(v8)
+    pks, pvs = torch.empty_like(ks), torch.empty_like(vs)
+    for b in range(B):
+        for j in range(S // PAGE):
+            p = int(table[b, j])
+            pk[b, :, p * PAGE:(p + 1) * PAGE] = k8[b, :, j * PAGE:(j + 1) * PAGE]
+            pv[b, :, p * PAGE:(p + 1) * PAGE] = v8[b, :, j * PAGE:(j + 1) * PAGE]
+            pks[b, :, p], pvs[b, :, p] = ks[b, :, j], vs[b, :, j]
+    return (k8, v8, (ks, vs)), (pk, pv, (pks, pvs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 12])
+def test_decode_fused_int8_kernel(cuda, dtype, group):
+    q, k, v, _, _, table, extra = _paged_case(cuda, dtype, group, group + 20)
+    (k8, v8, sc), (pk, pv, psc) = _int8_pools(k, v, table)
+    pos = torch.tensor([0, 70, S - 1], dtype=torch.int32, device=cuda)
+    name = "decode_attention_fused[int8]"
+    launches = kbuild.LAUNCHES[name]
+    for window in (0, 50):
+        for ex in (None, extra):
+            dense = fa.decode_attention_fused(q, k8, v8, pos, ex,
+                                              window=window, kv_scales=sc)
+            paged = fa.decode_attention_fused(q, pk, pv, pos, ex,
+                                              window=window, blk_c=PAGE,
+                                              pages=table, kv_scales=psc)
+            want = ref.decode_fused_reference(q, pk, pv, pos, ex,
+                                              window=window, pages=table,
+                                              page_size=PAGE, kv_scales=psc)
+            torch.cuda.synchronize()
+            assert torch.equal(dense, paged)
+            _close(paged, want, dtype)
+    assert kbuild.LAUNCHES[name] == launches + 8
+
+
+def test_int8_decode_wrapper_refuses_mismatched_scales(cuda):
+    q, k, v, _, _, table, _ = _paged_case(cuda, torch.float32, 4, 1)
+    (k8, v8, (ks, vs)), _ = _int8_pools(k, v, table)
+    pos = torch.zeros(B, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int8"):
+        fa.decode_attention_fused(q, k, v, pos, kv_scales=(ks, vs))
+    with pytest.raises(ValueError, match="page size"):
+        fa.decode_attention_fused(q, k8, v8, pos, blk_c=PAGE // 2,
+                                  pages=table, kv_scales=(ks, vs))
+    with pytest.raises(ValueError, match="kv_scales"):
+        fa.decode_attention_fused(q, k8, v8, pos,
+                                  kv_scales=(ks.double(), vs))
