@@ -15,6 +15,13 @@ decode:
     under `rp` (int8 pools dequantized up front);
   * full-width mamba2_370m (the SSD scan kernel in every prefill; its
     decode is plain torch, as the reference's is plain XLA).
+Before serving, it drives the paper's two offload workloads through
+`stream_offload` under BS, RP and AXLE, data from seed 0 on the card:
+  * KNN (VectorDB): 256 queries against a 1,000,000 x 1024 bf16 database
+    in 8 chunks (the distance kernel per chunk, the top-8 merge on the
+    consumer side), and the port's `knn_offload` example;
+  * SLS (DLRM): 4096 bags of up to 100 slots over a 1,000,000 x 256 f32
+    table in 8 chunks of 512 bags (the SLS kernel per chunk).
 Every phase prints one line; any failure exits non-zero.  The last three
 lines are the kernels' JSON record, the card's name and power limit, and
 `{"ok": true, "device": {...}}`.
@@ -32,6 +39,18 @@ Tolerances (bf16 inputs, f32 accumulation in both versions):
     1e-3 + 1e-3 |plain| on the f32 state and on an f32 y, and one bf16
     unit more (rtol 1e-2) on a bf16 y — the chunked form sums in another
     order and forms its decays as exponentials of cumsum differences;
+  * KNN distances in f32: |kernel - plain| <= 1e-5 (|q| + |x|)^2 — the
+    same f32 products summed in another order, and (|q| + |x|)^2 bounds
+    every term of |q|^2 - 2 q.x + |x|^2; over the whole database the
+    bound of a query's row, 1e-5 (|q| + max |x|)^2, holds the top-8
+    distances, and the ids equal the plain path's except at near ties
+    (the plain distance of the streamed id within that bound of the
+    plain top-8 distance at its place); BS, RP and AXLE bitwise equal,
+    and equal to one kernel call over the whole database;
+  * SLS in f32: |kernel - plain| <= 1e-5 sum |w row| — both walk a bag in
+    slot order with the same roundings, so they are expected bitwise
+    equal (the line says whether they are); BS, RP and AXLE bitwise
+    equal, and equal to one kernel call over all bags;
   * starcoder2_3b logits, kernel path vs plain path: <= 0.25 absolute
     after 30 bf16 layers, and greedy tokens equal except where the two
     best logits lie within 0.1 of each other (a near tie);
@@ -60,6 +79,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import re
 import statistics
@@ -94,10 +114,15 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 try:
     from repro_torch.configs import get_config
+    from repro_torch.core.backstream import (OffloadConfig, OffloadProtocol,
+                                             stream_offload, use_offload)
+    from repro_torch.examples import knn_offload
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import knn as kknn
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import quant as kquant
+    from repro_torch.kernels import sls as ksls
     from repro_torch.kernels import ssd as kssd
     from repro_torch.launch.serve import BatchedServer, Request
     from repro_torch.launch.steps import QuantConfig
@@ -137,7 +162,8 @@ def bound_ms(n_bytes: float, flops: float) -> tuple:
 
 
 KERNEL_KINDS = ("ssd_kernel", "decode_kernel", "flash_kernel",
-                "skinny_kernel", "tiled_kernel", "splitk_reduce")
+                "skinny_kernel", "tiled_kernel", "splitk_reduce",
+                "knn_kernel", "sls_kernel")
 TEMPLATE_ARGS = {"13__nv_bfloat16": "bf16", "S1_": "bf16", "f": "f32",
                  "a": "i8",
                  "Lb0E": "0", "Lb1E": "1", "Li0E": "0", "Li1E": "1"}
@@ -519,6 +545,228 @@ for fmt in kquant.WEIGHT_FORMATS:
     print(f"[kernel] quant_matmul[{fmt}] bf16 x: " + "; ".join(parts)
           + " (tolerance 1e-5 (|x|@|W|) + 1 bf16 unit; repeat runs bitwise "
           "equal)", flush=True)
+
+# knn_distances: 256 queries (a batch) against one chunk of a
+# 1,000,000-row database, in bf16, at the dimension of the paper's KNN
+# workload (b) (D = 1024, src/repro/core/workloads.py:94)
+KNN_Q, KNN_N, KNN_D, KNN_K, CHUNKS = 256, 1_000_000, 1024, 8, 8
+KNN_CHUNK = KNN_N // CHUNKS
+knn_q, knn_db = randn(KNN_Q, KNN_D), randn(KNN_N, KNN_D)
+chunk = knn_db[:KNN_CHUNK]
+got = kknn.knn_distances(knn_q, chunk)
+plain = ref.knn_distances_reference(knn_q, chunk)
+torch.cuda.synchronize()
+tol = 1e-5 * (knn_q.float().norm(dim=1)[:, None]
+              + chunk.float().norm(dim=1)[None, :]) ** 2
+diff = (got - plain).abs()
+check(bool(torch.isfinite(got).all()), "knn_distances: non-finite output")
+check(bool((diff <= tol).all()), f"knn_distances: err {diff.max().item()} "
+      f"past 1e-5 (|q| + |x|)^2 by {(diff - tol).max().item()}")
+check(torch.equal(kknn.knn_distances(knn_q, chunk), got),
+      "knn_distances: not repeatable")
+knn_flops = (2 * KNN_Q * KNN_CHUNK * KNN_D + 2 * (KNN_Q + KNN_CHUNK) * KNN_D
+             + 3 * KNN_Q * KNN_CHUNK)
+bnd, by = bound_ms(nbytes(knn_q, chunk, got), knn_flops)
+# the yardstick: one addmm (cuBLAS) on the bf16 q and x with an f32
+# output, on the tensor cores, the norms' sum q2 + x2 precomputed outside
+# the timed call (bf16 products are exact in f32, so this is the same
+# function); the f32 addmm (TF32 off) on f32 copies of q and x, timed
+# beside it, runs on the CUDA cores
+qf, xf = knn_q.float(), chunk.float()
+q2x2 = (qf * qf).sum(-1, keepdim=True) + (xf * xf).sum(-1)[None, :]
+lib = torch.addmm(q2x2, knn_q, chunk.T, alpha=-2.0, out_dtype=torch.float32)
+torch.cuda.synchronize()
+check(bool(((lib - plain).abs() <= tol).all()),
+      "knn_distances: the bf16 addmm yardstick is not the same function")
+del lib
+records["knn_distances"] = dict(
+    name="knn_distances", route="cuda",
+    source="src/repro_torch/kernels/csrc/knn.cu",
+    replaces="src/repro/kernels/knn.py:39",
+    max_abs_err=diff.max().item(),
+    ms=time_ms(lambda: kknn.knn_distances(knn_q, chunk)),
+    plain_ms=time_ms(lambda: ref.knn_distances_reference(knn_q, chunk)),
+    bound_ms=bnd, bound_by=by,
+    library_ms=time_ms(lambda: torch.addmm(q2x2, knn_q, chunk.T, alpha=-2.0,
+                                           out_dtype=torch.float32)))
+rec = records["knn_distances"]
+f32_lib_ms = time_ms(lambda: torch.addmm(q2x2, qf, xf.T, alpha=-2.0))
+print(f"[kernel] knn_distances Q={KNN_Q} N={KNN_CHUNK} D={KNN_D} bf16: "
+      f"max_abs_err {rec['max_abs_err']:.4g} (<= 1e-5 (|q|+|x|)^2, at most "
+      f"{(diff / tol).max().item():.3g} of it); {rec['ms']:.4f} ms = "
+      f"{knn_flops / rec['ms'] / 1e9:.1f} TFLOP/s, bound {bnd:.4f} ms "
+      f"({by}), plain {rec['plain_ms']:.4f} ms, library (bf16 addmm, f32 "
+      f"out) {rec['library_ms']:.4f} ms (f32 addmm on f32 copies "
+      f"{f32_lib_ms:.4f} ms)", flush=True)
+del got, plain, tol, diff, qf, xf, q2x2
+
+# sls: the paper's DLRM / Criteo workload (i) (a 1,000,000 x 256 table,
+# src/repro/core/workloads.py:148): 4096 bags of up to L = 100 slots (the
+# largest multi-hot size of MLPerf's DLRM-DCNv2 Criteo setup), lengths
+# uniform in 1..100 padded with -1, uniform indices (the 1 GB table
+# defeats the 50 MB L2), per-sample weights in [0, 1)
+SLS_V, SLS_D, SLS_B, SLS_L = 1_000_000, 256, 4096, 100
+SLS_CHUNK = SLS_B // CHUNKS
+sls_table = randn(SLS_V, SLS_D, dtype=torch.float32)
+sls_idx = torch.randint(0, SLS_V, (SLS_B, SLS_L), generator=G, device=DEV,
+                        dtype=torch.int32)
+sls_len = torch.randint(1, SLS_L + 1, (SLS_B, 1), generator=G, device=DEV)
+sls_idx[torch.arange(SLS_L, device=DEV)[None, :] >= sls_len] = -1
+sls_w = torch.rand((SLS_B, SLS_L), generator=G, device=DEV)
+sls_valid = sls_idx >= 0
+n_valid = int(sls_valid.sum())
+
+
+def sls_err(got, table, idx, w):
+    """Max |kernel - plain| and whether they are bitwise equal; fails past
+    1e-5 sum |w row|."""
+    want = ref.sls_reference(table, idx, w)
+    tol = 1e-5 * ref.sls_reference(table.abs(), idx,
+                                   None if w is None else w.abs())
+    diff = (got - want).abs()
+    check(bool(torch.isfinite(got).all()), "sls: non-finite output")
+    check(bool((diff <= tol).all()), f"sls ({table.dtype}, weights "
+          f"{w is not None}): err {diff.max().item()} past 1e-5 sum |w row|")
+    return diff.max().item(), torch.equal(got, want)
+
+
+sls_once = ksls.sls(sls_table, sls_idx, sls_w)
+torch.cuda.synchronize()
+parts, worst = [], 0.0
+for label, table, w in (("f32, weighted", sls_table, sls_w),
+                        ("f32, weights=None", sls_table, None),
+                        ("bf16 table, weighted",
+                         sls_table.to(torch.bfloat16), sls_w)):
+    got = sls_once if w is sls_w and table is sls_table \
+        else ksls.sls(table, sls_idx, w)
+    torch.cuda.synchronize()
+    err, same = sls_err(got, table, sls_idx, w)
+    worst = max(worst, err)
+    parts.append(f"{label} err {err:.3g}{' (bitwise)' if same else ''}")
+    del table, got
+# the bytes the function needs: each distinct row of the drawn bags once
+# (a row that two slots draw is read once; the timing runs with a cold
+# L2), every index, the weights of the valid slots and the output
+n_rows = int(torch.unique(sls_idx[sls_valid]).numel())
+bnd, by = bound_ms(n_rows * SLS_D * 4 + n_valid * 4
+                   + nbytes(sls_idx, sls_once), 2 * n_valid * SLS_D)
+flat_idx = sls_idx[sls_valid].long()
+offsets = torch.cat([torch.zeros(1, dtype=torch.long, device=DEV),
+                     sls_valid.sum(1).cumsum(0)[:-1]])
+flat_w = sls_w[sls_valid]
+records["sls"] = dict(
+    name="sls", route="cuda", source="src/repro_torch/kernels/csrc/sls.cu",
+    replaces="src/repro/kernels/sls.py:48", max_abs_err=worst,
+    ms=time_ms(lambda: ksls.sls(sls_table, sls_idx, sls_w)),
+    plain_ms=time_ms(lambda: ref.sls_reference(sls_table, sls_idx, sls_w)),
+    bound_ms=bnd, bound_by=by,
+    library_ms=time_ms(lambda: torch.nn.functional.embedding_bag(
+        flat_idx, sls_table, offsets, mode="sum",
+        per_sample_weights=flat_w)))
+rec = records["sls"]
+print(f"[kernel] sls V={SLS_V} D={SLS_D} B={SLS_B} L={SLS_L}, {n_valid} "
+      f"valid slots on {n_rows} distinct rows: " + "; ".join(parts) + f" (<= 1e-5 sum |w row|); "
+      f"{rec['ms']:.4f} ms, bound {bnd:.4f} ms ({by}), plain "
+      f"{rec['plain_ms']:.4f} ms, library (embedding_bag, flat valid "
+      f"indices) {rec['library_ms']:.4f} ms", flush=True)
+del flat_idx, offsets, flat_w
+
+# --------------------------------------------------------------------------
+# 3b. the paper's offload workloads through stream_offload
+# --------------------------------------------------------------------------
+
+PROTOCOLS = (OffloadProtocol.BS, OffloadProtocol.RP, OffloadProtocol.AXLE)
+
+
+def offload_runs(run, kernel):
+    """`run(protocol)` under BS, RP and AXLE (ring_depth 2) after one
+    warm-up; the launch counts are set to 0 just before each run and read
+    just after.  Checks that each run launched `kernel` once per chunk and
+    nothing else, and that the three outputs are bitwise equal.  Returns
+    the AXLE output, its launches and each protocol's wall time."""
+    outs, walls, launches = {}, {}, {}
+    for proto in (OffloadProtocol.AXLE,) + PROTOCOLS:
+        with use_offload(OffloadConfig(protocol=proto, ring_depth=2)):
+            torch.cuda.synchronize()
+            kbuild.reset_launch_counts()
+            t = time.perf_counter()
+            outs[proto] = run(proto)
+            torch.cuda.synchronize()
+            walls[proto] = time.perf_counter() - t
+            launches[proto] = dict(kbuild.LAUNCHES)
+    for proto in PROTOCOLS:
+        check(launches[proto][kernel] == CHUNKS
+              and sum(launches[proto].values()) == CHUNKS,
+              f"{kernel} {proto.name} run launches {launches[proto]}")
+        check(all(torch.equal(a, b) for a, b in zip(
+            outs[proto], outs[OffloadProtocol.BS])),
+            f"{kernel}: {proto.name} differs from BS")
+    axle = OffloadProtocol.AXLE
+    wall = ", ".join(f"{p.name} {walls[p] * 1e3:.2f} ms" for p in PROTOCOLS)
+    return outs[axle], launches[axle], wall
+
+
+knn_out, knn_launches, wall = offload_runs(
+    lambda proto: knn_offload.knn_stream(knn_q, knn_db, KNN_K, CHUNKS, proto,
+                                         global_ids=True), "knn_distances")
+whole = ops.knn_topk(knn_q, knn_db, KNN_K)
+with ops.reference_mode():
+    plain_full = ops.knn_distances(knn_q, knn_db)
+plain_d, plain_ids = ref.smallest_k(plain_full, KNN_K)
+torch.cuda.synchronize()
+check(torch.equal(knn_out[0], whole[0]) and torch.equal(knn_out[1], whole[1]),
+      "knn offload: streamed top-k != one kernel call over the database")
+row_tol = 1e-5 * (knn_q.float().norm(dim=1)[:, None]
+                  + knn_db.float().norm(dim=1).max()) ** 2
+d_err = (knn_out[0] - plain_d).abs()
+check(bool((d_err <= row_tol).all()),
+      f"knn offload: top-{KNN_K} distances off the plain path's by "
+      f"{d_err.max().item()}")
+id_gap = (plain_full.gather(1, knn_out[1]) - plain_d).abs()
+check(bool((id_gap <= row_tol).all()),
+      f"knn offload: an id differs from the plain path's at a gap of "
+      f"{id_gap.max().item()} (no near tie)")
+n_diff = int((knn_out[1] != plain_ids).sum())
+print(f"[offload] knn Q={KNN_Q} N={KNN_N} D={KNN_D} bf16, top-{KNN_K}, "
+      f"{CHUNKS} chunks of {KNN_CHUNK}, global ids, on "
+      f"{torch.cuda.get_device_name(0)}: wall {wall}; launches {knn_launches}"
+      f" per run; BS == RP == AXLE == one kernel call bitwise; top-{KNN_K} "
+      f"distances vs the plain path max_abs_err {d_err.max().item():.4g} "
+      f"(<= 1e-5 (|q|+max|x|)^2); {n_diff} of {knn_out[1].numel()} ids "
+      "differ from the plain path's, each at a near tie", flush=True)
+del knn_db, plain_full, whole, knn_out
+
+
+def sls_stream(proto):
+    def producer(i):
+        rows = slice(i * SLS_CHUNK, (i + 1) * SLS_CHUNK)
+        return i, ops.sls(sls_table, sls_idx[rows], sls_w[rows])
+
+    def consumer(out, partial):
+        i, pooled = partial
+        out[i * SLS_CHUNK:(i + 1) * SLS_CHUNK] = pooled
+        return out
+
+    return (stream_offload(producer, consumer,
+                           torch.zeros((SLS_B, SLS_D), device=DEV), CHUNKS,
+                           proto),)
+
+
+(sls_out,), sls_launches, wall = offload_runs(sls_stream, "sls")
+check(torch.equal(sls_out, sls_once),
+      "sls offload: streamed bags != one kernel call over all bags")
+print(f"[offload] sls V={SLS_V} D={SLS_D} f32, B={SLS_B} L={SLS_L} in "
+      f"{CHUNKS} chunks of {SLS_CHUNK}, on {torch.cuda.get_device_name(0)}: "
+      f"wall {wall}; launches {sls_launches} per run; BS == RP == AXLE == "
+      "one kernel call bitwise", flush=True)
+del sls_table, sls_idx, sls_w, sls_valid, sls_once, sls_out
+
+example_out = io.StringIO()
+with contextlib.redirect_stdout(example_out):
+    knn_offload.main([])
+print("[example] python -m repro_torch.examples.knn_offload: "
+      + "; ".join(ln.strip() for ln in example_out.getvalue().splitlines()),
+      flush=True)
 
 # --------------------------------------------------------------------------
 # 4. serve: the starcoder2_3b path at full width
@@ -923,6 +1171,8 @@ records["ssd_scan"]["launches"] = mamba_launches["ssd_scan"]
 for name in ("decode_attention_fused[int8]", "quant_matmul[q8_0]"):
     records[name]["launches"] = quant_launches[name]
 records["quant_matmul[q4_k]"]["launches"] = q4_launches["quant_matmul[q4_k]"]
+records["knn_distances"]["launches"] = knn_launches["knn_distances"]
+records["sls"]["launches"] = sls_launches["sls"]
 for name, rec in records.items():
     check(rec["launches"] > 0, f"{name} never launched on the main path")
 keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

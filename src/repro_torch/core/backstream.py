@@ -1,5 +1,12 @@
-"""Decode attention under the offload protocols, single device: the port of
-the main-path part of `repro/core/backstream.py`.
+"""The offload protocols on one device: the port of the main-path part of
+`repro/core/backstream.py`.
+
+`stream_offload` is the paper's generic producer -> consumer combinator
+(the KNN and SLS offload paths run through it): chunk i's producer is the
+memory-side task, the consumer folds its result into a carry, and the
+protocol fixes the schedule (BS: produce all, then fold; RP: produce one,
+fold it, in turn; AXLE: the producer runs `ring_depth - 1` chunks ahead of
+the consumer, on its own CUDA stream when the carry lies on a GPU).
 
 The paper's protocols (RP, BS, AXLE) differ in how the partial-attention
 statistics (acc, m, l) of the KV chunks reach the consumer.  On one device:
@@ -19,11 +26,12 @@ queue 1 item 17.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import enum
 import threading
-from typing import Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -44,6 +52,9 @@ class OffloadConfig:
     protocol: OffloadProtocol = OffloadProtocol.AXLE
     # chunks per shard of the chunked merge (one shard on one device)
     chunks_per_shard: int = 1
+    # ring depth of `stream_offload` (flow-control credits): AXLE issues
+    # producer(i + max(1, ring_depth - 1)) before consumer(i)
+    ring_depth: int = 2
     # fused one-shot decode kernel; False takes the chunked schedule
     fused: bool = True
 
@@ -63,6 +74,100 @@ def use_offload(cfg: OffloadConfig) -> Iterator[None]:
         yield
     finally:
         _state.cfg = prev
+
+
+# AXLE's producer stream, one per device for the life of the process: the
+# caching allocator keeps freed blocks per stream, so a fresh stream for
+# every call would find none and allocate each partial anew
+_side_streams: Dict[int, "torch.cuda.Stream"] = {}
+_side_lock = threading.Lock()
+
+
+def _side_stream(device: torch.device) -> "torch.cuda.Stream":
+    with _side_lock:
+        side = _side_streams.get(device.index)
+        if side is None:
+            side = _side_streams[device.index] = torch.cuda.Stream(device)
+        return side
+
+
+def _cuda_leaves(tree: Any) -> Iterator[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        if tree.is_cuda:
+            yield tree
+    elif isinstance(tree, (tuple, list)):
+        for item in tree:
+            yield from _cuda_leaves(item)
+
+
+def stream_offload(producer: Callable[[int], Any],
+                   consumer: Callable[[Any, Any], Any], init: Any,
+                   num_chunks: int,
+                   protocol: OffloadProtocol = OffloadProtocol.AXLE) -> Any:
+    """Run `num_chunks` producer tasks and fold their results through
+    `consumer` in chunk order, under the protocol's schedule, with the
+    reference's semantics:
+
+      producer(i) -> partial_i          the memory-side task
+      consumer(carry, partial_i) -> carry
+
+      BS   : produce every chunk, then fold them in order;
+      RP   : produce chunk i, then fold it, one chunk at a time;
+      AXLE : producer(i + depth) is issued before consumer(i), depth =
+             max(1, ring_depth - 1) of the active `OffloadConfig`.
+
+    Every protocol produces each chunk exactly once (the reference's AXLE
+    recomputes the last chunk at the tail, an artifact of its traced
+    index), and the fold order is the same, so the three give equal
+    carries.  When `init` holds a CUDA tensor, AXLE issues the producers
+    on a side CUDA stream of its device (else it runs the plain loop):
+    each ring slot's partial carries an event, the consumer's stream
+    waits on it before the fold, and the partial's tensors are recorded
+    on the consumer's stream, so the caching allocator does not hand
+    their memory back to the producer until the fold that read them has
+    run.  The producer reads nothing the consumer writes (under AXLE it
+    runs ahead of it).  Nothing here syncs the host."""
+    if protocol == OffloadProtocol.BS:
+        partials = [producer(i) for i in range(num_chunks)]
+        carry = init
+        for partial in partials:
+            carry = consumer(carry, partial)
+        return carry
+    if protocol == OffloadProtocol.RP:
+        carry = init
+        for i in range(num_chunks):
+            carry = consumer(carry, producer(i))
+        return carry
+
+    depth = max(1, current_offload().ring_depth - 1)
+    side = main = None
+    on_card = next(_cuda_leaves(init), None)
+    if on_card is not None:
+        main = torch.cuda.current_stream(on_card.device)
+        side = _side_stream(on_card.device)
+        side.wait_stream(main)          # the producer's inputs are ready
+
+    def issue(i: int):
+        if side is None:
+            return producer(i), None
+        with torch.cuda.stream(side):
+            partial = producer(i)
+            done = torch.cuda.Event()
+            done.record(side)
+        return partial, done
+
+    ring = collections.deque(issue(i) for i in range(min(depth, num_chunks)))
+    carry = init
+    for i in range(num_chunks):
+        partial, done = ring.popleft()
+        if i + depth < num_chunks:
+            ring.append(issue(i + depth))
+        if done is not None:
+            main.wait_event(done)
+            for t in _cuda_leaves(partial):
+                t.record_stream(main)
+        carry = consumer(carry, partial)
+    return carry
 
 
 def cache_update_stacked(cache: torch.Tensor, new: torch.Tensor,

@@ -39,7 +39,9 @@ LAUNCHES: Dict[str, int] = {"decode_attention_fused": 0,
                             "decode_attention_partial": 0,
                             "ssd_scan": 0,
                             "quant_matmul[q8_0]": 0,
-                            "quant_matmul[q4_k]": 0}
+                            "quant_matmul[q4_k]": 0,
+                            "knn_distances": 0,
+                            "sls": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _fns: Dict[str, Callable[..., int]] = {}

@@ -2,10 +2,12 @@
 `repro/kernels/ops.py`.
 
 A CUDA tensor goes to the hand-written CUDA kernel (`flash_attention.py`,
-`ssd.py`, `quant.py`); a CPU tensor goes to the plain PyTorch version
-(`ref.py`).  Inside `reference_mode()` CUDA tensors take the plain
-versions too: that is how `chip_smoke.py` and the tests hold the kernel
-path against the plain path on the card.  The server never enters it.
+`ssd.py`, `quant.py`, `knn.py`, `sls.py`); a CPU tensor goes to the plain
+PyTorch version (`ref.py`).  The Pallas kernels' tile arguments (`blk_*`,
+`interpret`) have no counterpart: the CUDA kernels take any shape.
+Inside `reference_mode()` CUDA tensors take the plain versions too: that
+is how `chip_smoke.py` and the tests hold the kernel path against the
+plain path on the card.  The server never enters it.
 """
 from __future__ import annotations
 
@@ -16,8 +18,10 @@ from typing import Iterator, Optional, Tuple
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import knn as _knn
 from repro_torch.kernels import quant as _quant
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import sls as _sls
 from repro_torch.kernels import ssd as _ssd
 
 _state = threading.local()
@@ -111,3 +115,28 @@ def quant_matmul(x: torch.Tensor, qt: "_quant.QTensor") -> torch.Tensor:
     else:
         out = _ref.quant_matmul_reference(x2, qt)
     return out.reshape(shape[:-1] + (out.shape[-1],))
+
+
+def knn_distances(queries: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+    """Squared L2 distances.  queries (Q,D), db (N,D) -> (Q,N) f32."""
+    if _use_kernel(queries):
+        return _knn.knn_distances(queries, db)
+    return _ref.knn_distances_reference(queries, db)
+
+
+def knn_topk(queries: torch.Tensor, db: torch.Tensor, k: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k nearest db rows of each query: the distances of
+    `knn_distances`, then the k smallest of each row on the same device,
+    ties lowest id first as `jax.lax.top_k` breaks them.  Returns (dists
+    (Q,k) f32, ids (Q,k) int64)."""
+    return _ref.smallest_k(knn_distances(queries, db), k)
+
+
+def sls(table: torch.Tensor, indices: torch.Tensor,
+        weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pooled embedding bags.  table (V,D); indices (B,L) int32, -1 pads;
+    weights (B,L) f32 or None -> (B,D) f32."""
+    if _use_kernel(table):
+        return _sls.sls(table, indices, weights)
+    return _ref.sls_reference(table, indices, weights)

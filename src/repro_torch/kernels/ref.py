@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels, mirroring
 `repro/kernels/ref.py`: the attention kernels (with the int8 `kv_scales`
-branch of the fused decode), the Mamba2 SSD scan, and the block
-quantizers with the dequantize-then-matmul `quant_matmul_reference`.
+branch of the fused decode), the Mamba2 SSD scan, the block quantizers
+with the dequantize-then-matmul `quant_matmul_reference`, the KNN
+distances with their top-k, and the SLS embedding bags.
 
 They are the numerical ground truth the CUDA kernels are held to on the
 card, and the path `ops.py` takes for tensors on the CPU.  All arithmetic
@@ -322,3 +323,74 @@ def dequantize_kv_pages(quants: torch.Tensor,
     n_pages = scales.shape[-1]
     kr = quants.float().reshape(b, kh, n_pages, s // n_pages, hd)
     return (kr * scales[..., None, None]).reshape(b, kh, s, hd)
+
+
+# --------------------------------------------------------------------------
+# KNN distances (VectorDB offload target)
+# --------------------------------------------------------------------------
+
+def knn_distances_reference(queries: torch.Tensor,
+                            db: torch.Tensor) -> torch.Tensor:
+    """Squared L2 distances in the matmul form q2 - 2 q.x + x2, in f32.
+    queries: (Q,D), db: (N,D) -> (Q,N) float32."""
+    qf, xf = queries.float(), db.float()
+    q2 = (qf * qf).sum(-1, keepdim=True)                 # (Q,1)
+    x2 = (xf * xf).sum(-1)                               # (N,)
+    return q2 - 2.0 * (qf @ xf.T) + x2[None, :]
+
+
+def smallest_k(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest entries of each row of the f32 matrix d, ascending,
+    ties broken lowest column first, as `jax.lax.top_k(-d, k)` breaks
+    them (and in its total order, where -0.0 comes before +0.0).  Returns
+    (values (R,k) f32, columns (R,k) int64).
+
+    `torch.topk` promises no order among equal values, so it runs over
+    keys that are unique: the float's bits, mapped to an int32 that sorts
+    as the float does, times 2^32, plus the column."""
+    bits = d.float().contiguous().view(torch.int32)
+    order = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
+    cols = torch.arange(d.shape[-1], device=d.device)
+    keys = order * (1 << 32) + cols
+    top = torch.topk(keys, k, dim=-1, largest=False, sorted=True).values
+    idx = torch.remainder(top, 1 << 32)
+    return torch.gather(d, -1, idx), idx
+
+
+def knn_topk_reference(queries: torch.Tensor, db: torch.Tensor, k: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k nearest db rows of each query by squared L2: (dists (Q,k) f32,
+    ids (Q,k) int64), nearest first, ties lowest id first."""
+    return smallest_k(knn_distances_reference(queries, db), k)
+
+
+# --------------------------------------------------------------------------
+# Sparse Length Sum (DLRM offload target)
+# --------------------------------------------------------------------------
+
+def sls_reference(table: torch.Tensor, indices: torch.Tensor,
+                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Embedding-bag pooled sum, walking each bag's slots in order as the
+    Pallas kernel does: acc += row * w, both roundings in f32.  table:
+    (V,D); indices: (B,L) int32; weights: (B,L) or None (all ones) ->
+    (B,D) float32.
+
+    An index outside [0, V) adds nothing: -1 is padding.  This follows
+    the Pallas kernel (`repro/kernels/sls.py`), which masks -1, and not
+    `repro/kernels/ref.py::sls_reference`, whose `jnp.take` wraps -1 to
+    the table's last row (and fills an index >= V with nan, where the
+    kernel in interpret mode clamps it to the last row): the kernel's
+    docstring defines -1 as padding, and a kernel that reads no row
+    outside the table defines the rest."""
+    v = table.shape[0]
+    idx = indices.long()
+    valid = (idx >= 0) & (idx < v)
+    rows_at = idx.clamp(0, v - 1)
+    acc = torch.zeros((indices.shape[0], table.shape[1]),
+                      dtype=torch.float32, device=table.device)
+    for slot in range(indices.shape[1]):
+        row = table[rows_at[:, slot]].float()
+        if weights is not None:
+            row = row * weights[:, slot, None].float()
+        acc = acc + torch.where(valid[:, slot, None], row, 0.0)
+    return acc

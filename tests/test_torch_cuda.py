@@ -17,16 +17,28 @@ on a bf16 y.  The dequant-fused matmul against x @ dequantize(W) in f32:
 another order; the sum of their magnitudes bounds what the order can
 move), plus one bf16 unit of the plain value for a bf16 output; equal
 inputs give equal bits.  The int8 fused decode: the fp tolerances above,
-and paged == dense bitwise."""
+and paged == dense bitwise.  The KNN distances against the plain version
+(f32 products summed in another order, then q2 - 2 q.x + x2):
+|kernel - plain| <= 1e-5 (|q| + |x|)^2, the square bounding every term of
+the sum; a chunk of db gives the bits of the same columns of the whole.
+The SLS kernel walks each bag in slot order with the plain version's
+roundings (row * w, then acc + that, in f32), so it equals the plain
+version bitwise.  `stream_offload` on the card: BS, RP and AXLE (whose
+producers run on a side stream) give equal bits, one launch per chunk."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import build as kbuild               # noqa: E402
+from repro_torch.core import backstream as bs                 # noqa: E402
+from repro_torch.examples import knn_offload                  # noqa: E402
 from repro_torch.kernels import flash_attention as fa         # noqa: E402
+from repro_torch.kernels import knn as kknn                   # noqa: E402
+from repro_torch.kernels import ops                           # noqa: E402
 from repro_torch.kernels import quant as kquant               # noqa: E402
 from repro_torch.kernels import ref                           # noqa: E402
+from repro_torch.kernels import sls as ksls                   # noqa: E402
 from repro_torch.kernels import ssd as kssd                   # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -331,3 +343,148 @@ def test_int8_decode_wrapper_refuses_mismatched_scales(cuda):
     with pytest.raises(ValueError, match="kv_scales"):
         fa.decode_attention_fused(q, k8, v8, pos,
                                   kv_scales=(ks.double(), vs))
+
+
+# ------------------------------------------------------------ knn and sls
+
+def _knn_close(got, queries, db):
+    want = ref.knn_distances_reference(queries, db)
+    qn = queries.float().norm(dim=1)[:, None]
+    xn = db.float().norm(dim=1)[None, :]
+    err = (got - want).abs()
+    assert bool((err <= 1e-5 * (qn + xn) ** 2).all()), err.max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q,n,d", [(1, 1, 1), (3, 70, 33), (64, 128, 256),
+                                   (65, 129, 40), (100, 1000, 1024)])
+def test_knn_kernel(cuda, dtype, q, n, d):
+    """Ragged Q, N and D (scalar loads when D % 8 != 0), and a chunk of
+    db giving the same columns' bits."""
+    gen = torch.Generator(device=cuda).manual_seed(q + n + d)
+    queries, db = _rand(gen, (q, d), dtype, cuda), _rand(gen, (n, d), dtype,
+                                                         cuda)
+    launches = kbuild.LAUNCHES["knn_distances"]
+    got = kknn.knn_distances(queries, db)
+    part = kknn.knn_distances(queries, db[n // 3:].contiguous())
+    torch.cuda.synchronize()
+    assert kbuild.LAUNCHES["knn_distances"] == launches + 2
+    assert got.dtype == torch.float32 and tuple(got.shape) == (q, n)
+    _knn_close(got, queries, db)
+    assert torch.equal(part, got[:, n // 3:])
+
+
+def test_knn_topk_ties_on_the_card(cuda):
+    """Exact distances (small integers) tying in threes: the kernel path's
+    ids are the plain path's, lowest id first."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    base = torch.randint(-3, 4, (10, 16), generator=gen, device=cuda).float()
+    db = torch.cat([base, base, base])
+    queries = torch.randint(-3, 4, (12, 16), generator=gen,
+                            device=cuda).float()
+    got = ops.knn_topk(queries, db, 8)
+    with ops.reference_mode():
+        want = ops.knn_topk(queries, db, 8)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _sls_bags(dev, dtype, v, d, b, l, seed):
+    """Padded bags (lengths uniform in 1..l, -1 after), with some indices
+    past the table and below -1, and weights in [0, 1)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    table = _rand(gen, (v, d), dtype, dev)
+    idx = torch.randint(0, v, (b, l), generator=gen, device=dev,
+                        dtype=torch.int32)
+    lengths = torch.randint(1, l + 1, (b, 1), generator=gen, device=dev)
+    idx[torch.arange(l, device=dev)[None, :] >= lengths] = -1
+    idx[0, 0] = v
+    idx[-1, -1] = -7
+    w = torch.rand((b, l), generator=gen, device=dev)
+    return table, idx, w
+
+
+@pytest.mark.parametrize("weighted", [True, False], ids=["w", "no_w"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v,d,b,l", [(1000, 256, 13, 100), (500, 100, 7, 5),
+                                     (300, 600, 9, 33), (50, 8, 1, 1)])
+def test_sls_kernel(cuda, dtype, weighted, v, d, b, l):
+    """Any B, ragged D (scalar loads when D % 8 != 0), D over several
+    256-column slices, and indices outside the table adding nothing."""
+    table, idx, w = _sls_bags(cuda, dtype, v, d, b, l, seed=v + d + b)
+    w = w if weighted else None
+    launches = kbuild.LAUNCHES["sls"]
+    got = ksls.sls(table, idx, w)
+    want = ref.sls_reference(table, idx, w)
+    torch.cuda.synchronize()
+    assert kbuild.LAUNCHES["sls"] == launches + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, d)
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+def test_knn_and_sls_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((4, 8), device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        kknn.knn_distances(x, x.cpu())
+    with pytest.raises(ValueError, match="one dtype"):
+        kknn.knn_distances(x, x.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        kknn.knn_distances(x, torch.zeros((8, 4), device=cuda).T)
+    idx = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="one device"):
+        ksls.sls(x, idx.cpu())
+    with pytest.raises(ValueError, match="int32"):
+        ksls.sls(x, idx.long())
+    with pytest.raises(ValueError, match="weights"):
+        ksls.sls(x, idx, torch.zeros((2, 3), device=cuda).half())
+
+
+def test_stream_offload_on_the_card(cuda):
+    """KNN and SLS streamed in chunks: BS, RP and AXLE give equal bits
+    with one launch per chunk; AXLE's producers ran on a side stream,
+    the same one in a second AXLE call; the streamed results equal one
+    call over the whole input."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    queries = _rand(gen, (48, 96), torch.bfloat16, cuda)
+    db = _rand(gen, (6000, 96), torch.bfloat16, cuda)
+    table, idx, w = _sls_bags(cuda, torch.float32, 5000, 256, 1000, 20, 6)
+    main = torch.cuda.current_stream()
+    knn_out, sls_out, streams, side = {}, {}, [], set()
+
+    def sls_producer(i):
+        streams.append(torch.cuda.current_stream())
+        rows = slice(i * 125, (i + 1) * 125)
+        return i, ops.sls(table, idx[rows], w[rows])
+
+    def sls_consumer(out, partial):
+        i, pooled = partial
+        out[i * 125:(i + 1) * 125] = pooled
+        return out
+
+    for proto in bs.OffloadProtocol:
+        with bs.use_offload(bs.OffloadConfig(protocol=proto, ring_depth=3)):
+            kbuild.reset_launch_counts()
+            knn_out[proto] = knn_offload.knn_stream(queries, db, 8, 6, proto,
+                                                    global_ids=True)
+            streams.clear()
+            sls_out[proto] = bs.stream_offload(
+                sls_producer, sls_consumer,
+                torch.zeros((1000, 256), device=cuda), 8, proto)
+            torch.cuda.synchronize()
+            assert kbuild.LAUNCHES["knn_distances"] == 6
+            assert kbuild.LAUNCHES["sls"] == 8
+            on_side = [s != main for s in streams]
+            assert all(on_side) if proto == bs.OffloadProtocol.AXLE \
+                else not any(on_side)
+            side.update(s for s in streams if s != main)
+    streams.clear()
+    bs.stream_offload(sls_producer, sls_consumer,
+                      torch.zeros((1000, 256), device=cuda), 8,
+                      bs.OffloadProtocol.AXLE)
+    assert len(side) == 1 and set(streams) == side
+    whole_knn = ops.knn_topk(queries, db, 8)
+    whole_sls = ops.sls(table, idx, w)
+    torch.cuda.synchronize()
+    for proto in bs.OffloadProtocol:
+        assert torch.equal(knn_out[proto][0], whole_knn[0])
+        assert torch.equal(knn_out[proto][1], whole_knn[1])
+        assert torch.equal(sls_out[proto], whole_sls)
