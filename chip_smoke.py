@@ -26,10 +26,22 @@ Every phase prints one line; any failure exits non-zero.  The last three
 lines are the kernels' JSON record, the card's name and power limit, and
 `{"ok": true, "device": {...}}`.
 
+Two functions have a tensor-core kernel beside their CUDA-core one:
+bf16 flash_attention at hd 128 (`flash_tc_kernel`, mma.sync) and bf16
+knn_distances with D % 8 == 0 (`knn_wgmma_kernel`, TMA and wgmma).  The
+`[build]` line fails unless their SASS holds HMMA and HGMMA; the kernel
+phases, the serves and the KNN offload fail unless every launch of those
+functions took the tensor-core kernel (`LAUNCHES["flash_attention_tc"]`,
+`LAUNCHES["knn_distances_wgmma"]`).  Their records in the JSON line
+describe the tensor-core kernels.  The CUDA-core kernels, which take f32,
+are held against the plain versions on f32 copies of the same inputs:
+flash at S = 512 within 1e-5, knn on the offload's chunk at the knn bound.
+
 Tolerances (bf16 inputs, f32 accumulation in both versions):
   * attention outputs in bf16: |kernel - plain| <= 2e-2 — both round an
-    f32 result that differs in summation order only, so they differ by at
-    most one bf16 unit in the last place of values below 4 (0.0156);
+    f32 result that differs in summation order only (the tensor-core
+    prefill keeps P to ~16 bits as a bf16 hi and lo pair), so they differ
+    by at most one bf16 unit in the last place of values below 4 (0.0156);
   * partial statistics in f32: |kernel - plain| <= 1e-3 + 1e-4 |plain|;
   * paged == dense: bitwise, for fp and for int8 pools;
   * quant_matmul against x @ dequantize(W) in f32: |kernel - plain| <=
@@ -155,6 +167,23 @@ def time_ms(fn, iters: int = 20) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call: every kernel, memset and copy it runs, from
+    torch.profiler over `iters` back-to-back calls (warm L2), divided by
+    `iters`; no host time in it, where time_ms's events also see the
+    host's launch when it is slower than the device."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total_us / iters / 1e3
+
+
 def bound_ms(n_bytes: float, flops: float) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
@@ -162,11 +191,14 @@ def bound_ms(n_bytes: float, flops: float) -> tuple:
 
 
 KERNEL_KINDS = ("ssd_kernel", "decode_kernel", "flash_kernel",
-                "skinny_kernel", "tiled_kernel", "splitk_reduce",
-                "knn_kernel", "sls_kernel")
+                "flash_tc_kernel", "skinny_kernel", "tiled_kernel",
+                "splitk_reduce", "knn_kernel", "knn_wgmma_kernel",
+                "sls_kernel")
 TEMPLATE_ARGS = {"13__nv_bfloat16": "bf16", "S1_": "bf16", "f": "f32",
-                 "a": "i8",
+                 "a": "i8", "Li64E": "64", "Li128E": "128",
                  "Lb0E": "0", "Lb1E": "1", "Li0E": "0", "Li1E": "1"}
+# the tensor-core kernels and the instruction their SASS must hold
+TENSOR_CORE_SASS = {"flash_tc_kernel": "HMMA", "knn_wgmma_kernel": "HGMMA"}
 
 
 def ptxas_summary(log: str) -> str:
@@ -190,6 +222,26 @@ def ptxas_summary(log: str) -> str:
             out.append(f"{name} {regs}, {spill}")
             name = None
     return "; ".join(out) or "not in the build log"
+
+
+def sass_check(lib: Path) -> str:
+    """`cuobjdump -sass` on the built library: every compiled function of
+    each TENSOR_CORE_SASS kernel holds its tensor-core instruction; fails
+    if one does not."""
+    cuobjdump = Path(kbuild.nvcc_path()).with_name("cuobjdump")
+    proc = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"cuobjdump -sass failed: {proc.stderr}")
+    funcs = re.split(r"\n\s*Function : ", proc.stdout)[1:]
+    parts = []
+    for kernel, op in TENSOR_CORE_SASS.items():
+        bodies = [f for f in funcs if kernel in f.split("\n", 1)[0]]
+        counts = [f.count(op) for f in bodies]
+        check(bodies and all(counts),
+              f"{kernel}: {op} not in its SASS ({counts} in {len(bodies)} "
+              "compiled functions)")
+        parts.append(f"{kernel} {op} x{'/'.join(map(str, counts))}")
+    return "; ".join(parts)
 
 
 def nbytes(*ts) -> int:
@@ -219,8 +271,8 @@ print(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}"
 t0 = time.perf_counter()
 lib = kbuild.build()
 print(f"[build] nvcc {lib.name} in {time.perf_counter() - t0:.2f} s; "
-      f"ptxas: {ptxas_summary(lib.with_suffix('.log').read_text())}",
-      flush=True)
+      f"ptxas: {ptxas_summary(lib.with_suffix('.log').read_text())}; "
+      f"SASS: {sass_check(lib)}", flush=True)
 
 # --------------------------------------------------------------------------
 # 3. kernels against their plain versions, at main-path shapes
@@ -300,18 +352,28 @@ print(f"[kernel] decode_attention_fused B={B} H={H} KH={KH} hd={HD} S={S} "
       f"extra on/off: max_abs_err {worst:.3g} <= {ATOL_BF16}; "
       "paged == dense bitwise", flush=True)
 
-# flash_attention: prefill of one prompt, S = 8 and 512
+# flash_attention: prefill of one prompt, S = 8, 300 (ragged) and 512,
+# causal, and a window of 300 at S = 512; bf16 at hd 128 takes the
+# tensor-core kernel (flash_route)
 worst = 0.0
-for s in (8, 512):
+for s, window in ((8, 0), (300, 0), (512, 300), (512, 0)):
     qf, kf, vf = randn(1, s, H, HD), randn(1, s, KH, HD), randn(1, s, KH, HD)
-    out = fa.flash_attention(qf, kf, vf, causal=True)
-    plain = ref.mha_reference(qf, kf, vf, causal=True)
+    kbuild.reset_launch_counts()
+    out = fa.flash_attention(qf, kf, vf, causal=True, window=window)
+    variants = {k: kbuild.LAUNCHES[k]
+                for k in ("flash_attention", "flash_attention_tc")}
+    plain = ref.mha_reference(qf, kf, vf, causal=True, window=window)
     torch.cuda.synchronize()
     err = (out.float() - plain.float()).abs().max().item()
-    check(err <= ATOL_BF16, f"flash_attention S={s}: err {err}")
+    check(err <= ATOL_BF16, f"flash_attention S={s} window {window}: err "
+          f"{err}")
+    check(variants == {"flash_attention": 1, "flash_attention_tc": 1},
+          f"flash_attention S={s}: launches {variants}, not the tensor-core "
+          "kernel")
     worst = max(worst, err)
-    print(f"[kernel] flash_attention S={s} H={H} KH={KH} hd={HD} causal: "
-          f"max_abs_err {err:.3g} <= {ATOL_BF16}", flush=True)
+    print(f"[kernel] flash_attention S={s} H={H} KH={KH} hd={HD} causal, "
+          f"window {window}: max_abs_err {err:.3g} <= {ATOL_BF16}; launches "
+          f"{variants}", flush=True)
 pairs = s * (s + 1) // 2                    # causal (q, k) pairs at S=512
 bnd, by = bound_ms(nbytes(qf, kf, vf) + nbytes(qf), 4 * pairs * H * HD)
 records["flash_attention"] = dict(
@@ -325,6 +387,44 @@ records["flash_attention"] = dict(
     library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2),
         is_causal=True, enable_gqa=True)))
+rec = records["flash_attention"]
+flash_flops = 4 * pairs * H * HD
+dev_k = device_ms(lambda: fa.flash_attention(qf, kf, vf, causal=True))
+dev_l = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+    qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2),
+    is_causal=True, enable_gqa=True))
+# what bounds it at this size: the same prompt with H = KH (16 blocks, one
+# per SM) times one block's chain of KV tiles alone
+q_kh = randn(1, s, KH, HD)
+dev_chain = device_ms(lambda: fa.flash_attention(q_kh, kf, vf, causal=True))
+print(f"[kernel] flash_attention S={s} causal, timed: {rec['ms']:.4f} ms = "
+      f"{flash_flops / rec['ms'] / 1e9:.2f} TFLOP/s, bound {bnd:.5f} ms "
+      f"({by}), plain {rec['plain_ms']:.4f} ms, library (SDPA causal GQA) "
+      f"{rec['library_ms']:.4f} ms: {rec['ms'] / rec['library_ms']:.2f}x it; "
+      f"device time (torch.profiler, warm L2) {dev_k:.4f} ms = "
+      f"{flash_flops / dev_k / 1e9:.2f} TFLOP/s, the library's {dev_l:.4f} "
+      f"ms: {dev_k / dev_l:.2f}x it; with H = KH = {KH} (one block per SM) "
+      f"{dev_chain:.4f} ms", flush=True)
+del q_kh
+# the CUDA-core flash_kernel, which takes f32 (and the bf16 head dims the
+# tensor-core kernel has no instantiation for): the S = 512 prompt in f32,
+# against the plain version within 1e-5 (the GPU tests' f32 tolerance)
+q32, k32, v32 = qf.float(), kf.float(), vf.float()
+kbuild.reset_launch_counts()
+out = fa.flash_attention(q32, k32, v32, causal=True)
+variants = {k: kbuild.LAUNCHES[k]
+            for k in ("flash_attention", "flash_attention_tc")}
+plain = ref.mha_reference(q32, k32, v32, causal=True)
+torch.cuda.synchronize()
+err = (out - plain).abs().max().item()
+check(variants == {"flash_attention": 1, "flash_attention_tc": 0},
+      f"flash_attention f32: launches {variants}, not the CUDA-core kernel")
+check(err <= 1e-5, f"flash_attention f32 S={s}: err {err}")
+print(f"[kernel] flash_attention S={s} H={H} KH={KH} hd={HD} causal f32: "
+      f"max_abs_err {err:.3g} <= 1e-5; launches {variants}; the CUDA-core "
+      f"kernel, {time_ms(lambda: fa.flash_attention(q32, k32, v32)):.4f} ms",
+      flush=True)
+del q32, k32, v32, out, plain
 
 # decode_attention_partial: the rp path's one chunk over the whole cache,
 # row 1 fully masked
@@ -553,7 +653,10 @@ KNN_Q, KNN_N, KNN_D, KNN_K, CHUNKS = 256, 1_000_000, 1024, 8, 8
 KNN_CHUNK = KNN_N // CHUNKS
 knn_q, knn_db = randn(KNN_Q, KNN_D), randn(KNN_N, KNN_D)
 chunk = knn_db[:KNN_CHUNK]
+kbuild.reset_launch_counts()
 got = kknn.knn_distances(knn_q, chunk)
+check(kbuild.LAUNCHES["knn_distances_wgmma"] == 1,
+      f"knn_distances: launches {kbuild.LAUNCHES}, not the wgmma kernel")
 plain = ref.knn_distances_reference(knn_q, chunk)
 torch.cuda.synchronize()
 tol = 1e-5 * (knn_q.float().norm(dim=1)[:, None]
@@ -591,13 +694,43 @@ records["knn_distances"] = dict(
                                            out_dtype=torch.float32)))
 rec = records["knn_distances"]
 f32_lib_ms = time_ms(lambda: torch.addmm(q2x2, qf, xf.T, alpha=-2.0))
+dev_k = device_ms(lambda: kknn.knn_distances(knn_q, chunk))
+dev_l = device_ms(lambda: torch.addmm(q2x2, knn_q, chunk.T, alpha=-2.0,
+                                      out_dtype=torch.float32))
 print(f"[kernel] knn_distances Q={KNN_Q} N={KNN_CHUNK} D={KNN_D} bf16: "
       f"max_abs_err {rec['max_abs_err']:.4g} (<= 1e-5 (|q|+|x|)^2, at most "
       f"{(diff / tol).max().item():.3g} of it); {rec['ms']:.4f} ms = "
       f"{knn_flops / rec['ms'] / 1e9:.1f} TFLOP/s, bound {bnd:.4f} ms "
       f"({by}), plain {rec['plain_ms']:.4f} ms, library (bf16 addmm, f32 "
-      f"out) {rec['library_ms']:.4f} ms (f32 addmm on f32 copies "
-      f"{f32_lib_ms:.4f} ms)", flush=True)
+      f"out) {rec['library_ms']:.4f} ms: {rec['ms'] / rec['library_ms']:.2f}x"
+      f" it (f32 addmm on f32 copies {f32_lib_ms:.4f} ms); the wgmma kernel; "
+      f"device time (torch.profiler, warm L2) {dev_k:.4f} ms = "
+      f"{knn_flops / dev_k / 1e9:.1f} TFLOP/s, the library's {dev_l:.4f} ms: "
+      f"{dev_k / dev_l:.2f}x it", flush=True)
+del got, plain, diff
+# the CUDA-core knn_kernel, which takes f32 (and bf16 the wgmma kernel does
+# not take): the same chunk in f32, against the plain version at the same
+# tolerance (the f32 copies hold the bf16 values exactly)
+kbuild.reset_launch_counts()
+got = kknn.knn_distances(qf, xf)
+check(kbuild.LAUNCHES["knn_distances"] == 1
+      and kbuild.LAUNCHES["knn_distances_wgmma"] == 0,
+      f"knn_distances f32: launches {kbuild.LAUNCHES}, not the CUDA-core "
+      "kernel")
+plain = ref.knn_distances_reference(qf, xf)
+torch.cuda.synchronize()
+diff = (got - plain).abs()
+check(bool(torch.isfinite(got).all()), "knn_distances f32: non-finite output")
+check(bool((diff <= tol).all()), f"knn_distances f32: err "
+      f"{diff.max().item()} past 1e-5 (|q| + |x|)^2 by "
+      f"{(diff - tol).max().item()}")
+check(torch.equal(kknn.knn_distances(qf, xf), got),
+      "knn_distances f32: not repeatable")
+f32_ms = time_ms(lambda: kknn.knn_distances(qf, xf))
+print(f"[kernel] knn_distances Q={KNN_Q} N={KNN_CHUNK} D={KNN_D} f32: "
+      f"max_abs_err {diff.max().item():.4g} (<= 1e-5 (|q|+|x|)^2, at most "
+      f"{(diff / tol).max().item():.3g} of it), repeatable; the CUDA-core "
+      f"kernel, {f32_ms:.4f} ms (f32 addmm {f32_lib_ms:.4f} ms)", flush=True)
 del got, plain, tol, diff, qf, xf, q2x2
 
 # sls: the paper's DLRM / Criteo workload (i) (a 1,000,000 x 256 table,
@@ -678,12 +811,13 @@ del flat_idx, offsets, flat_w
 PROTOCOLS = (OffloadProtocol.BS, OffloadProtocol.RP, OffloadProtocol.AXLE)
 
 
-def offload_runs(run, kernel):
+def offload_runs(run, kernel, variant=None):
     """`run(protocol)` under BS, RP and AXLE (ring_depth 2) after one
     warm-up; the launch counts are set to 0 just before each run and read
     just after.  Checks that each run launched `kernel` once per chunk and
-    nothing else, and that the three outputs are bitwise equal.  Returns
-    the AXLE output, its launches and each protocol's wall time."""
+    nothing else, every one of them its `variant` kernel where one is
+    named, and that the three outputs are bitwise equal.  Returns the AXLE
+    output, its launches and each protocol's wall time."""
     outs, walls, launches = {}, {}, {}
     for proto in (OffloadProtocol.AXLE,) + PROTOCOLS:
         with use_offload(OffloadConfig(protocol=proto, ring_depth=2)):
@@ -695,9 +829,13 @@ def offload_runs(run, kernel):
             walls[proto] = time.perf_counter() - t
             launches[proto] = dict(kbuild.LAUNCHES)
     for proto in PROTOCOLS:
-        check(launches[proto][kernel] == CHUNKS
-              and sum(launches[proto].values()) == CHUNKS,
-              f"{kernel} {proto.name} run launches {launches[proto]}")
+        counts = launches[proto]
+        check(counts[kernel] == CHUNKS
+              and sum(n for k, n in counts.items()
+                      if k not in kbuild.VARIANTS) == CHUNKS
+              and all(counts[k] == (CHUNKS if k == variant else 0)
+                      for k in kbuild.VARIANTS),
+              f"{kernel} {proto.name} run launches {counts}")
         check(all(torch.equal(a, b) for a, b in zip(
             outs[proto], outs[OffloadProtocol.BS])),
             f"{kernel}: {proto.name} differs from BS")
@@ -708,7 +846,8 @@ def offload_runs(run, kernel):
 
 knn_out, knn_launches, wall = offload_runs(
     lambda proto: knn_offload.knn_stream(knn_q, knn_db, KNN_K, CHUNKS, proto,
-                                         global_ids=True), "knn_distances")
+                                         global_ids=True), "knn_distances",
+    "knn_distances_wgmma")
 whole = ops.knn_topk(knn_q, knn_db, KNN_K)
 with ops.reference_mode():
     plain_full = ops.knn_distances(knn_q, knn_db)
@@ -730,7 +869,8 @@ n_diff = int((knn_out[1] != plain_ids).sum())
 print(f"[offload] knn Q={KNN_Q} N={KNN_N} D={KNN_D} bf16, top-{KNN_K}, "
       f"{CHUNKS} chunks of {KNN_CHUNK}, global ids, on "
       f"{torch.cuda.get_device_name(0)}: wall {wall}; launches {knn_launches}"
-      f" per run; BS == RP == AXLE == one kernel call bitwise; top-{KNN_K} "
+      f" per run, all on the wgmma kernel; BS == RP == AXLE == one kernel "
+      f"call bitwise; top-{KNN_K} "
       f"distances vs the plain path max_abs_err {d_err.max().item():.4g} "
       f"(<= 1e-5 (|q|+max|x|)^2); {n_diff} of {knn_out[1].numel()} ids "
       "differ from the plain path's, each at a near tie", flush=True)
@@ -865,8 +1005,10 @@ srv, axle_toks, launches, dt = serve(main_reqs, protocol="axle",
 n_layers = cfg.n_layers
 check(launches["decode_attention_fused"] == srv.steps * n_layers,
       f"fused launches {launches} != {srv.steps} steps x {n_layers}")
-check(launches["flash_attention"] == srv.prefill_forwards * n_layers,
-      f"flash launches {launches} != {srv.prefill_forwards} x {n_layers}")
+check(launches["flash_attention"] == srv.prefill_forwards * n_layers
+      and launches["flash_attention_tc"] == launches["flash_attention"],
+      f"flash launches {launches} != {srv.prefill_forwards} x {n_layers}, "
+      "all on the tensor-core kernel")
 check(launches["ssd_scan"] == 0, f"ssd_scan launched: {launches}")
 serve_line(ARCH, "axle", srv, axle_toks, launches, dt)
 main_launches = launches
@@ -983,8 +1125,10 @@ check(launches["quant_matmul[q8_0]"] == forwards * n_proj * n_layers,
       f"{n_proj} x {n_layers}")
 check(launches["decode_attention_fused[int8]"] == srv.steps * n_layers,
       f"int8 fused launches {launches} != {srv.steps} steps x {n_layers}")
-check(launches["flash_attention"] == srv.prefill_forwards * n_layers,
-      f"flash launches {launches} != {srv.prefill_forwards} x {n_layers}")
+check(launches["flash_attention"] == srv.prefill_forwards * n_layers
+      and launches["flash_attention_tc"] == launches["flash_attention"],
+      f"flash launches {launches} != {srv.prefill_forwards} x {n_layers}, "
+      "all on the tensor-core kernel")
 check(launches["decode_attention_fused"] == 0
       and launches["quant_matmul[q4_k]"] == 0, f"fp kernels ran: {launches}")
 check(srv.cache["k0"].dtype == torch.int8 and "kscale0" in srv.cache,

@@ -8,7 +8,9 @@ when a module is imported.
 
 `LAUNCHES` counts the launches of every kernel, one per wrapper call that
 reaches its kernel and nowhere else; the wrappers add to it and
-`reset_launch_counts()` sets every count to 0.
+`reset_launch_counts()` sets every count to 0.  A function with two
+kernels counts every launch under its own name and, in `VARIANTS`, the
+launches that took its tensor-core kernel.
 """
 from __future__ import annotations
 
@@ -41,7 +43,12 @@ LAUNCHES: Dict[str, int] = {"decode_attention_fused": 0,
                             "quant_matmul[q8_0]": 0,
                             "quant_matmul[q4_k]": 0,
                             "knn_distances": 0,
-                            "sls": 0}
+                            "sls": 0,
+                            "flash_attention_tc": 0,
+                            "knn_distances_wgmma": 0}
+# the counters of a function's tensor-core kernel: parts of the counts of
+# flash_attention and knn_distances, not kernels of their own
+VARIANTS = ("flash_attention_tc", "knn_distances_wgmma")
 
 _lib: Optional[ctypes.CDLL] = None
 _fns: Dict[str, Callable[..., int]] = {}
@@ -165,5 +172,9 @@ def raise_on(err: int, name: str) -> None:
 
 
 def stream() -> int:
-    """The current PyTorch stream, as the kernels' C interface takes it."""
-    return torch.cuda.current_stream().cuda_stream
+    """The current PyTorch stream of the current device, as the kernels' C
+    interface takes it: its raw cudaStream_t, from PyTorch's own accessor
+    (the one its Triton launcher uses), which costs a launch far less host
+    time than building a `torch.cuda.Stream` with
+    `torch.cuda.current_stream()`."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())

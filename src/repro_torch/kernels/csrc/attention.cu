@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) attention kernels of the serving main path.
 //
-// Three kernels, each the port of one Pallas TPU kernel in
+// Four kernels, each the port of one Pallas TPU kernel in
 // src/repro/kernels/flash_attention.py:
 //
 //   decode_fused_kernel   <- _decode_fused_kernel / decode_attention_fused
@@ -20,7 +20,12 @@
 //       The raw, unnormalised (acc, m, l) of one query token over a KV
 //       chunk under an explicit (B, C) mask; m = -inf for an empty row.
 //   flash_kernel          <- _flash_kernel / flash_attention
-//       Causal / sliding-window GQA prefill attention with online softmax.
+//       Causal / sliding-window GQA prefill attention with online softmax,
+//       on the CUDA cores in f32: the kernel for f32 inputs and for head
+//       dims the tensor-core kernel does not take.
+//   flash_tc_kernel<HD>   <- _flash_kernel / flash_attention
+//       The same function on the tensor cores, for bf16 with HD 64 or
+//       128 (see its own note below).
 //
 // Translation from the TPU: the Pallas grids run their innermost KV axis in
 // order on one core and carry (acc, m, l) in VMEM scratch between grid
@@ -36,9 +41,9 @@
 // over the sequence would fix that, and is left out on purpose, because
 // a paged walk and a dense walk over the same logical data must take the
 // identical reduction order (paged == dense, bitwise).  Prefill is bound
-// by operations (989 TFLOP/s bf16 on the tensor cores); this kernel does
-// its products on the CUDA cores in f32, far below that bound.  wgmma,
-// TMA and split-K are later work.
+// by operations (989 TFLOP/s bf16 on the tensor cores); flash_kernel does
+// its products on the CUDA cores in f32, far below that bound, and
+// flash_tc_kernel on the tensor cores.
 //
 // Tiles that the mask empties entirely are skipped.  That is bitwise the
 // same as visiting them: a fully masked tile leaves m unchanged, so alpha
@@ -395,6 +400,385 @@ __global__ void __launch_bounds__(NT) flash_kernel(FlashArgs a) {
   }
 }
 
+// --------------------------------------------------------------------------
+// Prefill on the tensor cores: flash_tc_kernel<HD>, bf16, HD 64 or 128.
+//
+// The FlashAttention-2 layout.  One block of 4 warps per (row b, head h,
+// q tile of 64 rows); each warp owns 16 query rows.  The q tiles are
+// launched longest causal range first (blockIdx.y = 0 is the last tile),
+// so the long tiles do not trail the grid.  The block reads its KV head
+// h / (H / KH) straight from the (B, S, KH, hd) layout.
+//   * K/V tiles of 64 rows are copied by cp.async (16 bytes a thread,
+//     zero-filled past S) into a double-buffered ring in shared memory:
+//     the next tile lands while the current one is multiplied.  Rows are
+//     padded by 16 bytes, so every ldmatrix of 8 rows hits 8 distinct
+//     bank groups and every shared address is a per-thread base plus a
+//     constant.  K and V fragments are double-buffered in registers, so
+//     the next step's ldmatrix is in flight while this step's mmas run.
+//   * S = Q K^T with mma.sync m16n8k16 (bf16 operands, f32 accumulators);
+//     Q's A fragments stay in registers for the whole KV loop.  The f32
+//     scores are multiplied by hd^-0.5 after the product (the Pallas
+//     kernel scales q in f32 first: one f32 rounding of the score apart).
+//   * The causal, window and ragged-S masks and the online softmax run in
+//     registers; a row's (m, l) are reduced over the 4 threads of a quad
+//     with shuffles.  No score goes through shared memory.  The masks are
+//     applied only to tiles that a warp's rows see in part (the diagonal,
+//     the window's edge, the ragged end); the exponentials are ex2 of
+//     scores in log2 units.
+//   * O += P V keeps P's precision: p_hi = bf16(p) and p_lo = bf16(p -
+//     p_hi) go through two mmas into the same f32 accumulator, so P keeps
+//     ~16 bits, where bf16 alone would keep 8 (the plain version and the
+//     Pallas kernel keep P in f32, and the split keeps the kernel no
+//     less precise than them; it costs 1.5x the tensor-core FLOPs, a
+//     size this latency-bound barely feels).  P's C fragments are the
+//     next mma's A fragments register for register; V's B fragments come
+//     from ldmatrix.trans.
+//   * The epilogue multiplies by 1 / max(l, 1e-20) (the plain version
+//     divides: one f32 rounding apart), rounds to bf16 and stores through
+//     shared memory as 16-byte rows.
+// Fully masked tiles are skipped as in flash_kernel; within a visited
+// tile a warp's fully masked rows add p = 0 and keep their (m, l, O).
+// What bounds it: at a prefill of S = 512 one block's serial chain of
+// S / 64 KV tiles does, not the card's throughput (the same prompt with
+// one block per SM takes ~3/4 of the full grid's time; PERF.md).
+// --------------------------------------------------------------------------
+
+constexpr int TC_BQ = 64;            // query rows per block (16 per warp)
+constexpr int TC_BK = 64;            // KV rows per tile
+constexpr int TC_NT = 128;           // 4 warps
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled when !full
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in bits 0-15
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The split of two f32 weights into bf16 hi = bf16(x) and lo =
+// bf16(x - hi) halves, each pair packed (x in bits 0-15).
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = pack_bf16(x, y);
+  lo = pack_bf16(x - __uint_as_float(hi << 16),
+                 y - __uint_as_float(hi & 0xffff0000u));
+}
+
+// 2^x, one MUFU op; 2^(-huge) = +0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One KV tile's online softmax for a thread's two rows (qpos), in
+// registers.  s holds the raw scores of its 8 n-tiles on entry (element e
+// of n-tile j: row qpos[e >> 1], column c0 + 8 j + (e & 1)) and the
+// weights p on exit.  Scores are taken in log2 units, s * hd^-0.5 *
+// log2(e), so that p = 2^(s2 - m) is one ex2; (m, l) are reduced over the
+// quad with shuffles, l kept as this thread's partial sum.  MASK: apply
+// the causal, window and ragged-S masks (a tile the rows see only partly).
+// A row with no valid score yet keeps l = 0 and o = 0 whatever its m.
+template <bool MASK>
+__device__ __forceinline__ void tile_softmax(float (&s)[8][4], float (&m_r)[2],
+                                             float (&l_r)[2], float (&alpha)[2],
+                                             const int (&qpos)[2], int c0,
+                                             const FlashArgs& a, float scale2) {
+  auto valid = [&](int j, int e) -> bool {
+    if (!MASK) return true;
+    const int kpos = c0 + 8 * j + (e & 1), qp = qpos[e >> 1];
+    bool ok = kpos < a.S;
+    if (a.causal) ok = ok && kpos <= qp;
+    if (a.window > 0) ok = ok && kpos > qp - a.window;
+    return ok;
+  };
+  // the max over the raw scores (scale2 > 0 keeps their order), as a tree
+  if (MASK) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (!valid(j, e)) s[j][e] = NEG_INF;
+  }
+  float mx[2], rsum[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float t4[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      t4[j] = fmaxf(fmaxf(s[2 * j][2 * i], s[2 * j][2 * i + 1]),
+                    fmaxf(s[2 * j + 1][2 * i], s[2 * j + 1][2 * i + 1]));
+    mx[i] = fmaxf(fmaxf(t4[0], t4[1]), fmaxf(t4[2], t4[3]));
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m_r[i], mx[i] * scale2);
+    alpha[i] = ex2(m_r[i] - m_new);
+    m_r[i] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[j][e] = valid(j, e) ? ex2(fmaf(s[j][e], scale2, -m_r[e >> 1])) : 0.f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float t4[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      t4[j] = (s[2 * j][2 * i] + s[2 * j][2 * i + 1]) +
+              (s[2 * j + 1][2 * i] + s[2 * j + 1][2 * i + 1]);
+    rsum[i] = (t4[0] + t4[1]) + (t4[2] + t4[3]);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l_r[i] = l_r[i] * alpha[i] + rsum[i];
+}
+
+// Bytes of one shared-memory row of a (rows, HD) bf16 tile: padded by 16
+// bytes, so the 8 rows an ldmatrix reads start 4 banks apart and hit 8
+// distinct bank groups, and every address is a base plus a constant.
+template <int HD>
+__host__ __device__ constexpr int tc_row_bytes() { return (HD + 8) * 2; }
+
+template <int HD>
+__global__ void __launch_bounds__(TC_NT) flash_tc_kernel(FlashArgs a) {
+  static_assert(HD % 64 == 0, "HD: 64 or 128");
+  constexpr int CH = HD / 8;             // 16-byte chunks per row
+  constexpr int KSTEP = HD / 16;         // k steps of Q K^T; n-tile pairs of P V
+  constexpr int RB = tc_row_bytes<HD>();
+  constexpr int TILE_B = TC_BK * RB;     // one K or V tile
+  constexpr int RPI = TC_NT / CH;        // rows one pass of copies covers
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // Q tile (later the output tile), then 2 stages of (K tile, V tile)
+  const uint32_t q_sa = smem_u32(smem_raw), kv_sa = q_sa + TC_BQ * RB;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
+  const int kh = h / (a.H / a.KH);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_BQ;
+  const int S = a.S;
+  const size_t q_row = (size_t)a.H * HD, kv_row = (size_t)a.KH * HD;
+
+  // copies: this thread moves chunk cc of rows cr + RPI i of every tile
+  const int cr = tid / CH, cc = tid % CH;
+  const uint32_t cp_off = cr * RB + cc * 16;
+  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q) +
+                            ((size_t)b * S * a.H + h) * HD + cc * 8;
+  const size_t kv0 = ((size_t)b * S * a.KH + kh) * HD + cc * 8;
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + kv0;
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + kv0;
+#pragma unroll
+  for (int i = 0; i < TC_BQ / RPI; ++i) {
+    const int qp = q0 + cr + RPI * i;
+    const bool ok = qp < S;
+    cp_async16(q_sa + cp_off + i * RPI * RB, qg + (size_t)(ok ? qp : 0) * q_row,
+               ok);
+  }
+  auto load_kv = [&](int t, int stage) {
+    const uint32_t dst = kv_sa + stage * 2 * TILE_B + cp_off;
+#pragma unroll
+    for (int i = 0; i < TC_BK / RPI; ++i) {
+      const int kpos = t * TC_BK + cr + RPI * i;
+      const bool ok = kpos < S;
+      const size_t off = (size_t)(ok ? kpos : 0) * kv_row;
+      cp_async16(dst + i * RPI * RB, kg + off, ok);
+      cp_async16(dst + TILE_B + i * RPI * RB, vg + off, ok);
+    }
+  };
+
+  const int q_last = min(q0 + TC_BQ, S) - 1;
+  const int k_hi = a.causal ? q_last + 1 : S;                       // exclusive
+  const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;   // inclusive
+  const int t_lo = k_lo / TC_BK, t_hi = (k_hi + TC_BK - 1) / TC_BK;
+  load_kv(t_lo, 0);
+  cp_async_commit();                    // Q and the first K/V tile
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // ldmatrix.x4: lanes 8m..8m+7 give the row addresses of matrix m
+  const int mi = lane >> 3, l7 = lane & 7;
+  // Q's A fragments: a0..a3 = (rows 0-7 | 8-15) x (k 0-7 | 8-15)
+  uint32_t qf[KSTEP][4];
+  {
+    const uint32_t qa =
+        q_sa + (warp * 16 + (mi & 1) * 8 + l7) * RB + (mi >> 1) * 16;
+#pragma unroll
+    for (int kk = 0; kk < KSTEP; ++kk) ldsm_x4(qa + kk * 32, qf[kk]);
+  }
+  // K's B fragments for n-tiles (2p, 2p+1) and k step kk: + p 16 RB + kk 32
+  const uint32_t k_off = ((mi >> 1) * 8 + l7) * RB + (mi & 1) * 16;
+  // V's (transposed) for KV rows 16 kk.. and n-tiles (2p, 2p+1):
+  // + kk 16 RB + p 32
+  const uint32_t v_off = TILE_B + ((mi & 1) * 8 + l7) * RB + (mi >> 1) * 16;
+
+  float o[2 * KSTEP][4];
+#pragma unroll
+  for (int j = 0; j < 2 * KSTEP; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+  const int qpos[2] = {q0 + warp * 16 + (lane >> 2),
+                       q0 + warp * 16 + (lane >> 2) + 8};
+  const float scale2 = a.scale * 1.4426950408889634f;   // hd^-0.5 log2(e)
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int stage = (t - t_lo) & 1;
+    if (t + 1 < t_hi) {
+      load_kv(t + 1, stage ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t st_sa = kv_sa + stage * 2 * TILE_B;
+
+    // the masks apply only where the tile is not wholly inside every
+    // row's range for this warp's 16 rows
+    const int c0 = t * TC_BK + 2 * (lane & 3);
+    const int w_lo = q0 + warp * 16, k_last = t * TC_BK + TC_BK - 1;
+    const bool full = k_last < S && (!a.causal || k_last <= w_lo) &&
+                      (a.window <= 0 || t * TC_BK > w_lo + 15 - a.window);
+
+    // S = Q K^T: 8 n-tiles of 8 KV rows
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    {
+      // K fragments double-buffered over k steps: step kk + 1's loads are
+      // in flight while step kk's mmas run
+      uint32_t kb[2][4][4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        ldsm_x4(st_sa + k_off + p * 16 * RB, kb[0][p]);
+#pragma unroll
+      for (int kk = 0; kk < KSTEP; ++kk) {
+        if (kk + 1 < KSTEP) {
+#pragma unroll
+          for (int p = 0; p < 4; ++p)
+            ldsm_x4(st_sa + k_off + p * 16 * RB + (kk + 1) * 32,
+                    kb[(kk + 1) & 1][p]);
+        }
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          mma_bf16(s[2 * p], qf[kk], kb[kk & 1][p][0], kb[kk & 1][p][1]);
+          mma_bf16(s[2 * p + 1], qf[kk], kb[kk & 1][p][2], kb[kk & 1][p][3]);
+        }
+      }
+    }
+
+    // the online softmax
+    float alpha[2];
+    if (full)
+      tile_softmax<false>(s, m_r, l_r, alpha, qpos, c0, a, scale2);
+    else
+      tile_softmax<true>(s, m_r, l_r, alpha, qpos, c0, a, scale2);
+#pragma unroll
+    for (int j = 0; j < 2 * KSTEP; ++j) {
+      o[j][0] *= alpha[0]; o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1]; o[j][3] *= alpha[1];
+    }
+
+    // O += P V over 4 k steps of 16 KV rows; P's A fragment for k step kk
+    // is n-tiles 2kk and 2kk+1 of S, split into bf16 hi and lo
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+      // V fragments double-buffered over n-tile pairs
+      uint32_t vb[2][4];
+      ldsm_x4_trans(st_sa + v_off + kk * 16 * RB, vb[0]);
+#pragma unroll
+      for (int p = 0; p < KSTEP; ++p) {
+        if (p + 1 < KSTEP)
+          ldsm_x4_trans(st_sa + v_off + kk * 16 * RB + (p + 1) * 32,
+                        vb[(p + 1) & 1]);
+        const uint32_t* b = vb[p & 1];
+        mma_bf16(o[2 * p], ph, b[0], b[1]);
+        mma_bf16(o[2 * p + 1], ph, b[2], b[3]);
+        mma_bf16(o[2 * p], pl, b[0], b[1]);
+        mma_bf16(o[2 * p + 1], pl, b[2], b[3]);
+      }
+    }
+    __syncthreads();                    // the stage is free for tile t + 2
+  }
+
+  // epilogue: the warp's 16 rows, normalised, through its own rows of the
+  // Q tile
+  float l_inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_r[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l_inv[i] = 1.f / fmaxf(l, 1e-20f);
+  }
+  unsigned char* row0 = smem_raw + (warp * 16 + (lane >> 2)) * RB +
+                        4 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 2 * KSTEP; ++j) {
+    *reinterpret_cast<uint32_t*>(row0 + j * 16) =
+        pack_bf16(o[j][0] * l_inv[0], o[j][1] * l_inv[0]);
+    *reinterpret_cast<uint32_t*>(row0 + 8 * RB + j * 16) =
+        pack_bf16(o[j][2] * l_inv[1], o[j][3] * l_inv[1]);
+  }
+  __syncwarp();
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.out) +
+                      ((size_t)b * S * a.H + h) * HD;
+#pragma unroll
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = warp * 16 + i / CH, c = i % CH;
+    if (q0 + r < S)
+      *reinterpret_cast<uint4*>(og + (size_t)(q0 + r) * q_row + c * 8) =
+          *reinterpret_cast<const uint4*>(smem_raw + r * RB + c * 16);
+  }
+}
+
 // Shared memory above 48 KB must be opted into per kernel.
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
@@ -427,6 +811,17 @@ int run_flash(const FlashArgs& a, int B, cudaStream_t stream) {
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, NT, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int run_flash_tc(const FlashArgs& a, int B, cudaStream_t stream) {
+  const size_t smem = (size_t)(TC_BQ + 4 * TC_BK) * tc_row_bytes<HD>();
+  auto kernel = flash_tc_kernel<HD>;
+  dim3 grid(B * a.H, (a.S + TC_BQ - 1) / TC_BQ);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, TC_NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -482,6 +877,21 @@ int rt_flash_attention(int dtype, const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 1 ? run_flash<__nv_bfloat16>(a, B, s)
                     : run_flash<float>(a, B, s);
+}
+
+// bf16 only, HD 64 or 128, 16-byte-aligned bases (the wrapper's route);
+// any other HD is refused with cudaErrorInvalidValue.
+int rt_flash_attention_tc(const void* q, const void* k, const void* v,
+                          void* out, int B, int S, int H, int KH, int HD,
+                          int causal, int window, float scale, void* stream) {
+  FlashArgs a = {};
+  a.q = q; a.k = k; a.v = v; a.out = out;
+  a.S = S; a.H = H; a.KH = KH; a.HD = HD; a.causal = causal;
+  a.window = window; a.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (HD == 128) return run_flash_tc<128>(a, B, s);
+  if (HD == 64) return run_flash_tc<64>(a, B, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -12,6 +12,11 @@ contiguity, allocates its outputs with `torch.empty`, launches on
 falls back to the plain PyTorch version: `ops.py` dispatches CPU tensors
 there before a wrapper is reached.  Each launch adds one to its kernel's
 count in `build.LAUNCHES`.
+
+Prefill has two kernels: `flash_tc_kernel` on the tensor cores takes bf16
+with a head dim of 64 or 128 and 16-byte-aligned bases, `flash_kernel` on
+the CUDA cores takes the rest.  `flash_route` is that rule, a dispatch on
+what each kernel takes: a refused launch of either still raises.
 """
 from __future__ import annotations
 
@@ -32,7 +37,11 @@ _SIGNATURES = {
                           _I, _I, _I, _I, _I, _I, _F, _P],
     "rt_flash_attention": [_I, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "rt_flash_attention_tc": [_P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _F, _P],
 }
+# head dims the tensor-core prefill kernel is compiled for
+TC_HEAD_DIMS = (64, 128)
 
 
 def _fn(name: str):
@@ -173,25 +182,44 @@ def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
     return acc, m, l
 
 
+def flash_route(dtype: torch.dtype, hd: int, aligned: bool = True) -> str:
+    """The prefill kernel that takes these inputs: "tensor_core" for bf16
+    with hd in TC_HEAD_DIMS and 16-byte-aligned q, k, v (`aligned`), else
+    "cuda_core"."""
+    if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS and aligned:
+        return "tensor_core"
+    return "cuda_core"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Prefill flash attention on the card: q (B,S,H,hd), k/v (B,S,KH,hd)
-    -> (B,S,H,hd), causal and/or sliding window, GQA.  Any S: the kernel
-    masks the ragged edge of its tiles itself."""
+    -> (B,S,H,hd), causal and/or sliding window, GQA.  Any S: the kernels
+    mask the ragged edge of their tiles themselves.  The kernel is the one
+    `flash_route` names."""
     name = "flash_attention"
     check_inputs(name, q, k, v)
-    check(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape,
-           f"{name}: q (B,S,H,hd), k/v (B,S,KH,hd) expected")
+    # every prefill layer calls this: the messages are formatted only on
+    # failure
+    if not (q.dim() == 4 and k.dim() == 4 and k.shape == v.shape):
+        raise ValueError(f"{name}: q (B,S,H,hd), k/v (B,S,KH,hd) expected")
     b, s, h, hd = q.shape
     kh = k.shape[2]
-    check(k.shape[0] == b and k.shape[1] == s and k.shape[3] == hd
-           and h % kh == 0,
-           f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)}")
+    if not (k.shape[0] == b and k.shape[1] == s and k.shape[3] == hd
+            and h % kh == 0):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)}")
     out = torch.empty_like(q)
-    err = _fn("rt_flash_attention")(
-        DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, s, h, kh, hd, int(causal), int(window),
-        float(hd ** -0.5), stream())
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    args = (qp, kp, vp, out.data_ptr(), b, s, h, kh, hd, int(causal),
+            int(window), float(hd ** -0.5), stream())
+    tc = flash_route(q.dtype, hd, (qp | kp | vp) % 16 == 0) == "tensor_core"
+    if tc:
+        err = _fn("rt_flash_attention_tc")(*args)
+    else:
+        err = _fn("rt_flash_attention")(DTYPE_CODE[q.dtype], *args)
     raise_on(err, name)
     LAUNCHES[name] += 1
+    if tc:
+        LAUNCHES["flash_attention_tc"] += 1
     return out

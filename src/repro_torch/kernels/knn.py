@@ -10,7 +10,14 @@ contiguity, allocates its output with `torch.empty`, launches on
 `torch.cuda.current_stream()` and raises if the launch fails.  It never
 falls back to the plain PyTorch version: `ops.knn_distances` dispatches
 CPU tensors there before the wrapper is reached.  Each launch adds one to
-`build.LAUNCHES["knn_distances"]`.
+`build.LAUNCHES["knn_distances"]`, and one to
+`build.LAUNCHES["knn_distances_wgmma"]` when it took the tensor-core
+kernel.
+
+Two kernels: `knn_wgmma_kernel` (TMA and wgmma) takes bf16 with D % 8 == 0
+and 16-byte-aligned bases, `knn_kernel` on the CUDA cores takes the rest.
+`knn_route` is that rule, a dispatch on what each kernel takes: a refused
+launch of either still raises.
 """
 from __future__ import annotations
 
@@ -30,6 +37,15 @@ MAX_INT = 2 ** 31 - 1
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURE = [_I, _P, _P, _P, _I, _I, _I, _P]
+
+
+def knn_route(dtype: torch.dtype, d: int, aligned: bool = True) -> str:
+    """The distance kernel that takes these inputs: "wgmma" for bf16 with
+    D a multiple of 8 (TMA wants a row stride of a multiple of 16 bytes)
+    and 16-byte-aligned queries and db (`aligned`), else "cuda_core"."""
+    if dtype == torch.bfloat16 and d % 8 == 0 and aligned:
+        return "wgmma"
+    return "cuda_core"
 
 
 def check_args(queries: torch.Tensor, db: torch.Tensor
@@ -66,9 +82,16 @@ def knn_distances(queries: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     check_inputs(name, queries, db)
     nq, n, d = check_args(queries, db)
     out = torch.empty((nq, n), dtype=torch.float32, device=queries.device)
-    err = function("rt_knn_distances", _SIGNATURE)(
-        DTYPE_CODE[queries.dtype], queries.data_ptr(), db.data_ptr(),
-        out.data_ptr(), nq, n, d, stream())
+    qp, xp = queries.data_ptr(), db.data_ptr()
+    args = (qp, xp, out.data_ptr(), nq, n, d, stream())
+    wgmma = knn_route(queries.dtype, d, (qp | xp) % 16 == 0) == "wgmma"
+    if wgmma:
+        err = function("rt_knn_distances_wgmma", _SIGNATURE[1:])(*args)
+    else:
+        err = function("rt_knn_distances", _SIGNATURE)(
+            DTYPE_CODE[queries.dtype], *args)
     raise_on(err, name)
     LAUNCHES[name] += 1
+    if wgmma:
+        LAUNCHES["knn_distances_wgmma"] += 1
     return out

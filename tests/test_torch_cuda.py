@@ -21,6 +21,10 @@ and paged == dense bitwise.  The KNN distances against the plain version
 (f32 products summed in another order, then q2 - 2 q.x + x2):
 |kernel - plain| <= 1e-5 (|q| + |x|)^2, the square bounding every term of
 the sum; a chunk of db gives the bits of the same columns of the whole.
+The tensor-core kernels (bf16 flash attention with hd 64 or 128, bf16 KNN
+with D % 8 == 0) are held to the same tolerances: their bf16 products are
+exact in f32 and the flash kernel keeps P to ~16 bits (a hi and a lo bf16
+half), so they too differ from the plain versions in f32 summation order.
 The SLS kernel walks each bag in slot order with the plain version's
 roundings (row * w, then acc + that, in f32), so it equals the plain
 version bitwise.  `stream_offload` on the card: BS, RP and AXLE (whose
@@ -121,17 +125,63 @@ def test_decode_partial_kernel(cuda, dtype):
         assert torch.allclose(got, want, atol=1e-4, rtol=1e-5)
 
 
+def _flash_case(dev, dtype, s, window, hd=HD, causal=True, kh=2, group=12,
+                seed=None):
+    """B = 2, `group` query heads per KV head (12 by default); returns the
+    launch counts the call added (all, tensor-core)."""
+    seed = s + window + hd if seed is None else seed
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = _rand(gen, (2, s, group * kh, hd), dtype, dev)
+    k = _rand(gen, (2, s, kh, hd), dtype, dev)
+    v = _rand(gen, (2, s, kh, hd), dtype, dev)
+    before = (kbuild.LAUNCHES["flash_attention"],
+              kbuild.LAUNCHES["flash_attention_tc"])
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.mha_reference(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, want, dtype)
+    return (kbuild.LAUNCHES["flash_attention"] - before[0],
+            kbuild.LAUNCHES["flash_attention_tc"] - before[1])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s,window", [(8, 0), (40, 0), (200, 0), (200, 33)])
 def test_flash_attention_kernel(cuda, dtype, s, window):
-    gen = torch.Generator(device=cuda).manual_seed(s + window)
-    q = _rand(gen, (2, s, 12, HD), dtype, cuda)
-    k = _rand(gen, (2, s, 2, HD), dtype, cuda)
-    v = _rand(gen, (2, s, 2, HD), dtype, cuda)
-    got = fa.flash_attention(q, k, v, causal=True, window=window)
-    want = ref.mha_reference(q, k, v, causal=True, window=window)
-    torch.cuda.synchronize()
-    _close(got, want, dtype)
+    """q (2,s,12,HD) on 2 KV heads (a group of 6): f32 takes the CUDA-core
+    kernel, bf16 the tensor-core one."""
+    tc = int(dtype == torch.bfloat16)
+    assert _flash_case(cuda, dtype, s, window, group=6,
+                       seed=s + window) == (1, tc)
+
+
+@pytest.mark.parametrize("s,window", [(8, 0), (200, 33), (512, 0)])
+def test_flash_attention_kernel_f32_group_12(cuda, s, window):
+    """starcoder2_3b's group of 12 on the f32 CUDA-core kernel."""
+    assert _flash_case(cuda, torch.float32, s, window) == (1, 0)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("window", [0, 33])
+@pytest.mark.parametrize("s", [1, 8, 63, 65, 200, 512, 1000])
+def test_flash_attention_tensor_core_kernel(cuda, hd, s, window):
+    """bf16 with hd 64 and 128: ragged S around the 64-row tiles, a
+    window that empties whole KV tiles; every launch on the tensor cores."""
+    assert _flash_case(cuda, torch.bfloat16, s, window, hd=hd) == (1, 1)
+
+
+@pytest.mark.parametrize("window", [0, 100])
+def test_flash_attention_tensor_core_kernel_non_causal(cuda, window):
+    assert _flash_case(cuda, torch.bfloat16, 300, window, causal=False,
+                       kh=1) == (1, 1)
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 96),
+                                      (torch.bfloat16, 32),
+                                      (torch.float32, 64)])
+def test_flash_attention_other_inputs_take_the_cuda_core_kernel(cuda, dtype,
+                                                                hd):
+    assert _flash_case(cuda, dtype, 130, 0, hd=hd) == (1, 0)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -357,21 +407,46 @@ def _knn_close(got, queries, db):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("q,n,d", [(1, 1, 1), (3, 70, 33), (64, 128, 256),
-                                   (65, 129, 40), (100, 1000, 1024)])
+                                   (65, 129, 40), (100, 1000, 1024),
+                                   (1, 1, 64), (65, 129, 1024),
+                                   (256, 5000, 1024), (300, 1000, 72)])
 def test_knn_kernel(cuda, dtype, q, n, d):
-    """Ragged Q, N and D (scalar loads when D % 8 != 0), and a chunk of
-    db giving the same columns' bits."""
+    """Ragged Q, N and D (scalar loads when D % 8 != 0; TMA zero fill past
+    the edges on the tensor cores), repeat calls and a chunk of db giving
+    the same columns' bits; bf16 with D % 8 == 0 takes the wgmma kernel,
+    everything else the CUDA-core one."""
     gen = torch.Generator(device=cuda).manual_seed(q + n + d)
     queries, db = _rand(gen, (q, d), dtype, cuda), _rand(gen, (n, d), dtype,
                                                          cuda)
-    launches = kbuild.LAUNCHES["knn_distances"]
+    wgmma = int(dtype == torch.bfloat16 and d % 8 == 0)
+    assert kknn.knn_route(dtype, d) == ("wgmma" if wgmma else "cuda_core")
+    launches = (kbuild.LAUNCHES["knn_distances"],
+                kbuild.LAUNCHES["knn_distances_wgmma"])
     got = kknn.knn_distances(queries, db)
+    again = kknn.knn_distances(queries, db)
     part = kknn.knn_distances(queries, db[n // 3:].contiguous())
     torch.cuda.synchronize()
-    assert kbuild.LAUNCHES["knn_distances"] == launches + 2
+    assert (kbuild.LAUNCHES["knn_distances"],
+            kbuild.LAUNCHES["knn_distances_wgmma"]) == (launches[0] + 3,
+                                                        launches[1] + 3 * wgmma)
     assert got.dtype == torch.float32 and tuple(got.shape) == (q, n)
     _knn_close(got, queries, db)
+    assert torch.equal(again, got)
     assert torch.equal(part, got[:, n // 3:])
+
+
+def test_knn_unaligned_bf16_takes_the_cuda_core_kernel(cuda):
+    """A contiguous view 8 bytes into its storage: no TMA, same values."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    flat = _rand(gen, (4 + 70 * 64,), torch.bfloat16, cuda)
+    db = flat[4:].view(70, 64)
+    queries = _rand(gen, (5, 64), torch.bfloat16, cuda)
+    assert db.is_contiguous() and db.data_ptr() % 16 != 0
+    launches = kbuild.LAUNCHES["knn_distances_wgmma"]
+    got = kknn.knn_distances(queries, db)
+    torch.cuda.synchronize()
+    assert kbuild.LAUNCHES["knn_distances_wgmma"] == launches
+    _knn_close(got, queries, db)
 
 
 def test_knn_topk_ties_on_the_card(cuda):
@@ -471,6 +546,7 @@ def test_stream_offload_on_the_card(cuda):
                 torch.zeros((1000, 256), device=cuda), 8, proto)
             torch.cuda.synchronize()
             assert kbuild.LAUNCHES["knn_distances"] == 6
+            assert kbuild.LAUNCHES["knn_distances_wgmma"] == 6
             assert kbuild.LAUNCHES["sls"] == 8
             on_side = [s != main for s in streams]
             assert all(on_side) if proto == bs.OffloadProtocol.AXLE \
