@@ -26,16 +26,25 @@ Every phase prints one line; any failure exits non-zero.  The last three
 lines are the kernels' JSON record, the card's name and power limit, and
 `{"ok": true, "device": {...}}`.
 
-Two functions have a tensor-core kernel beside their CUDA-core one:
-bf16 flash_attention at hd 128 (`flash_tc_kernel`, mma.sync) and bf16
-knn_distances with D % 8 == 0 (`knn_wgmma_kernel`, TMA and wgmma).  The
-`[build]` line fails unless their SASS holds HMMA and HGMMA; the kernel
-phases, the serves and the KNN offload fail unless every launch of those
-functions took the tensor-core kernel (`LAUNCHES["flash_attention_tc"]`,
-`LAUNCHES["knn_distances_wgmma"]`).  Their records in the JSON line
-describe the tensor-core kernels.  The CUDA-core kernels, which take f32,
-are held against the plain versions on f32 copies of the same inputs:
-flash at S = 512 within 1e-5, knn on the offload's chunk at the knn bound.
+Four functions have a tensor-core kernel beside their CUDA-core one:
+bf16 flash_attention at hd 128 (`flash_tc_kernel`, mma.sync), bf16
+knn_distances with D % 8 == 0 (`knn_wgmma_kernel`, TMA and wgmma), the
+bf16 decode (fused, int8 pools and partial: `decode_split_tc_kernel`, a
+split of the KV range merged in order by `decode_merge_kernel`) and bf16
+prefill quant_matmul (`quant_tc_kernel`, mma.sync).  The `[build]` line
+fails unless their SASS holds HMMA or HGMMA; the kernel phases, the serves
+and the KNN offload fail unless every launch of those functions that
+should take the tensor-core kernel did (the `LAUNCHES["<name>_tc"]` and
+`LAUNCHES["knn_distances_wgmma"]` counters).  Their records in the JSON
+line describe the tensor-core kernels; quant_matmul has two records per
+format, the decode product (`skinny_kernel`) and the prefill product
+(`quant_matmul[<fmt>]_tc`).  The CUDA-core kernels, which take f32, are
+held against the plain versions on f32 copies of the same inputs: flash
+at S = 512 and the decode within 1e-5, the partial at its tolerance
+below, knn on the offload's chunk at the knn bound, quant_matmul on the
+prefill shape within 1e-5 (|x| @ |W|).  Every `[kernel]` row also prints
+its device time (`device_ms`, torch.profiler, kernels only) beside the
+library call's or the yardstick's, and the JSON records carry both.
 
 Tolerances (bf16 inputs, f32 accumulation in both versions):
   * attention outputs in bf16: |kernel - plain| <= 2e-2 — both round an
@@ -43,7 +52,8 @@ Tolerances (bf16 inputs, f32 accumulation in both versions):
     prefill keeps P to ~16 bits as a bf16 hi and lo pair), so they differ
     by at most one bf16 unit in the last place of values below 4 (0.0156);
   * partial statistics in f32: |kernel - plain| <= 1e-3 + 1e-4 |plain|;
-  * paged == dense: bitwise, for fp and for int8 pools;
+  * paged == dense: bitwise, for fp and for int8 pools; a decode row run
+    alone == that row in the batch, bitwise (the split is per row);
   * quant_matmul against x @ dequantize(W) in f32: |kernel - plain| <=
     1e-5 (|x| @ |W|) + one bf16 unit of the plain value — the same
     products summed in another order, then rounded to bf16;
@@ -63,9 +73,11 @@ Tolerances (bf16 inputs, f32 accumulation in both versions):
     slot order with the same roundings, so they are expected bitwise
     equal (the line says whether they are); BS, RP and AXLE bitwise
     equal, and equal to one kernel call over all bags;
-  * starcoder2_3b logits, kernel path vs plain path: <= 0.25 absolute
-    after 30 bf16 layers, and greedy tokens equal except where the two
-    best logits lie within 0.1 of each other (a near tie);
+  * starcoder2_3b logits, kernel path vs plain path, prefill and 4
+    decode steps on the same tokens (both paths decode the plain path's
+    greedy tokens): <= 0.25 absolute after 30 bf16 layers, and each
+    step's greedy tokens equal except where the two best logits lie
+    within 0.1 of each other (a near tie);
   * quantized starcoder2_3b (q8_0 weights, int8 KV): in bf16, each of the
     served model's quant_matmul and int8 fused-decode launches is held to
     its plain version on that launch's own inputs, with the kernel
@@ -167,21 +179,52 @@ def time_ms(fn, iters: int = 20) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, attempts: int = 5):
     """Device time of one call: every kernel, memset and copy it runs, from
     torch.profiler over `iters` back-to-back calls (warm L2), divided by
     `iters`; no host time in it, where time_ms's events also see the
-    host's launch when it is slower than the device."""
+    host's launch when it is slower than the device.  The profiler now and
+    then drops part of a window, or all of it: a window is kept only when
+    every kernel in it ran a whole multiple of `iters` times (each call
+    launches the same kernels), else it is taken again, up to `attempts`
+    times, and None ("not measured") is returned if none was whole."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total_us / iters / 1e3
+    for _ in range(attempts):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        total_us = sum(e.self_device_time_total for e in events)
+        if total_us > 0 and all(e.count % iters == 0 for e in events):
+            return total_us / iters / 1e3
+    return None
+
+
+def show(x, spec: str = ".4f") -> str:
+    return "not measured" if x is None else format(x, spec)
+
+
+def div(a, b):
+    return None if a is None or not b else a / b
+
+
+def timings(kernel, plain, library=None) -> dict:
+    """A record's times: time_ms of the kernel, its plain version and the
+    library call, and device_ms of the kernel and the library call."""
+    return dict(ms=time_ms(kernel), plain_ms=time_ms(plain),
+                library_ms=None if library is None else time_ms(library),
+                device_ms=device_ms(kernel),
+                library_device_ms=None if library is None
+                else device_ms(library))
+
+
+def routes(*names) -> dict:
+    """The launch counts of `names` and their tensor-core counters."""
+    return {k: kbuild.LAUNCHES[k] for n in names for k in (n, n + "_tc")}
 
 
 def bound_ms(n_bytes: float, flops: float) -> tuple:
@@ -190,15 +233,18 @@ def bound_ms(n_bytes: float, flops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-KERNEL_KINDS = ("ssd_kernel", "decode_kernel", "flash_kernel",
-                "flash_tc_kernel", "skinny_kernel", "tiled_kernel",
+KERNEL_KINDS = ("ssd_kernel", "decode_split_tc_kernel", "decode_split_kernel",
+                "decode_merge_kernel", "flash_kernel", "flash_tc_kernel",
+                "skinny_kernel", "tiled_kernel", "quant_tc_kernel",
                 "splitk_reduce", "knn_kernel", "knn_wgmma_kernel",
                 "sls_kernel")
 TEMPLATE_ARGS = {"13__nv_bfloat16": "bf16", "S1_": "bf16", "f": "f32",
                  "a": "i8", "Li64E": "64", "Li128E": "128",
                  "Lb0E": "0", "Lb1E": "1", "Li0E": "0", "Li1E": "1"}
 # the tensor-core kernels and the instruction their SASS must hold
-TENSOR_CORE_SASS = {"flash_tc_kernel": "HMMA", "knn_wgmma_kernel": "HGMMA"}
+TENSOR_CORE_SASS = {"flash_tc_kernel": "HMMA", "knn_wgmma_kernel": "HGMMA",
+                    "decode_split_tc_kernel": "HMMA",
+                    "quant_tc_kernel": "HMMA"}
 
 
 def ptxas_summary(log: str) -> str:
@@ -308,7 +354,25 @@ pos = torch.tensor([0, 130, 400, 1023], dtype=torch.int32, device=DEV)
 extra = (torch.randn(B, H, HD, generator=G, device=DEV),
          torch.randn(B, H, generator=G, device=DEV),
          torch.rand(B, H, generator=G, device=DEV) + 0.5)
+
+
+def rows_alone(call, out, what):
+    """Each row of the batch run alone (B = 1) gives that row's bits of the
+    batched call: `call(b)` runs row b alone."""
+    for b in range((out[0] if isinstance(out, tuple) else out).shape[0]):
+        got = call(b)
+        check(all(torch.equal(g, o[b:b + 1]) for g, o in zip(
+            got if isinstance(got, tuple) else (got,),
+            out if isinstance(out, tuple) else (out,))),
+            f"{what}: row {b} alone != row {b} in the batch")
+
+
+def one_row(b, *ts):
+    return tuple(None if t is None else t[b:b + 1] for t in ts)
+
+
 worst = 0.0
+kbuild.reset_launch_counts()
 for window in (0, 300):
     for ex in (None, extra):
         dense = fa.decode_attention_fused(q, k_log, v_log, pos, ex,
@@ -326,6 +390,13 @@ for window in (0, 300):
         check(err <= ATOL_BF16, f"decode_attention_fused: err {err} "
               f"(window {window}, extra {ex is not None})")
         worst = max(worst, err)
+variants = routes("decode_attention_fused")
+check(variants == {"decode_attention_fused": 8,
+                   "decode_attention_fused_tc": 8},
+      f"decode_attention_fused: launches {variants}, not the tensor-core split")
+rows_alone(lambda b: fa.decode_attention_fused(
+    *one_row(b, q, k_pool, v_pool, pos), one_row(b, *extra), window=300,
+    blk_c=PAGE, pages=table[b:b + 1]), paged, "decode_attention_fused")
 valid_slots = int((pos + 1).sum())          # window 0: slots 0..pos
 dec_bytes = (nbytes(q, pos, table, *extra) + q.numel() * 2
              + 2 * valid_slots * KH * HD * 2)
@@ -338,19 +409,53 @@ records["decode_attention_fused"] = dict(
     name="decode_attention_fused", route="cuda",
     source="src/repro_torch/kernels/csrc/attention.cu",
     replaces="src/repro/kernels/flash_attention.py:313",
-    max_abs_err=worst,
-    ms=time_ms(lambda: fa.decode_attention_fused(
-        q, k_pool, v_pool, pos, extra, blk_c=PAGE, pages=table)),
-    plain_ms=time_ms(lambda: ref.decode_fused_reference(
-        q, k_pool, v_pool, pos, extra, pages=table, page_size=PAGE)),
-    bound_ms=bnd, bound_by=by,
-    library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q.transpose(1, 2), k_gath, v_gath, attn_mask=sdpa_mask,
-        enable_gqa=True)))
+    max_abs_err=worst, bound_ms=bnd, bound_by=by,
+    **timings(lambda: fa.decode_attention_fused(
+        q, k_pool, v_pool, pos, extra, blk_c=PAGE, pages=table),
+        lambda: ref.decode_fused_reference(
+            q, k_pool, v_pool, pos, extra, pages=table, page_size=PAGE),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k_gath, v_gath, attn_mask=sdpa_mask,
+            enable_gqa=True)))
+rec = records["decode_attention_fused"]
+split, n_split = fa.decode_split(S, PAGE)
 print(f"[kernel] decode_attention_fused B={B} H={H} KH={KH} hd={HD} S={S} "
       f"page={PAGE} permuted table, pos={pos.tolist()}, window 0 and 300, "
-      f"extra on/off: max_abs_err {worst:.3g} <= {ATOL_BF16}; "
-      "paged == dense bitwise", flush=True)
+      f"extra on/off: max_abs_err {worst:.3g} <= {ATOL_BF16}; paged == dense "
+      f"bitwise; each row alone == its row in the batch bitwise; launches "
+      f"{variants} ({n_split} splits of {split} rows, the tensor-core split); "
+      f"{rec['ms']:.4f} ms, bound {bnd:.6f} ms ({by}), plain "
+      f"{rec['plain_ms']:.4f} ms, library (SDPA on the gathered cache, "
+      f"without extra) {rec['library_ms']:.4f} ms; device time "
+      f"(torch.profiler, warm L2) {show(rec['device_ms'])} ms, the "
+      f"library's {show(rec['library_device_ms'])} ms: "
+      f"{show(div(rec['device_ms'], rec['library_device_ms']), '.2f')}x it",
+      flush=True)
+# the CUDA-core split, which takes f32: the same data in f32, paged and
+# dense, against the plain version within 1e-5
+q32, kl32, vl32, kp32, vp32 = (t.float() for t in (q, k_log, v_log, k_pool,
+                                                   v_pool))
+kbuild.reset_launch_counts()
+out = fa.decode_attention_fused(q32, kp32, vp32, pos, extra, window=300,
+                                blk_c=PAGE, pages=table)
+dense = fa.decode_attention_fused(q32, kl32, vl32, pos, extra, window=300,
+                                  blk_c=PAGE)
+variants = routes("decode_attention_fused")
+plain = ref.decode_fused_reference(q32, kp32, vp32, pos, extra, window=300,
+                                   pages=table, page_size=PAGE)
+torch.cuda.synchronize()
+err = (out - plain).abs().max().item()
+check(variants == {"decode_attention_fused": 2,
+                   "decode_attention_fused_tc": 0},
+      f"decode_attention_fused f32: launches {variants}, not the CUDA-core "
+      "split")
+check(torch.equal(out, dense), "decode_attention_fused f32: paged != dense")
+check(err <= 1e-5, f"decode_attention_fused f32: err {err}")
+print(f"[kernel] decode_attention_fused f32, window 300, extra: max_abs_err "
+      f"{err:.3g} <= 1e-5; paged == dense bitwise; launches {variants}; the "
+      f"CUDA-core split, {time_ms(lambda: fa.decode_attention_fused(q32, kp32, vp32, pos, extra, blk_c=PAGE, pages=table)):.4f} ms",
+      flush=True)
+del q32, kl32, vl32, kp32, vp32, out, dense, plain
 
 # flash_attention: prefill of one prompt, S = 8, 300 (ragged) and 512,
 # causal, and a window of 300 at S = 512; bf16 at hd 128 takes the
@@ -393,6 +498,7 @@ dev_k = device_ms(lambda: fa.flash_attention(qf, kf, vf, causal=True))
 dev_l = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
     qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2),
     is_causal=True, enable_gqa=True))
+rec.update(device_ms=dev_k, library_device_ms=dev_l)
 # what bounds it at this size: the same prompt with H = KH (16 blocks, one
 # per SM) times one block's chain of KV tiles alone
 q_kh = randn(1, s, KH, HD)
@@ -401,10 +507,10 @@ print(f"[kernel] flash_attention S={s} causal, timed: {rec['ms']:.4f} ms = "
       f"{flash_flops / rec['ms'] / 1e9:.2f} TFLOP/s, bound {bnd:.5f} ms "
       f"({by}), plain {rec['plain_ms']:.4f} ms, library (SDPA causal GQA) "
       f"{rec['library_ms']:.4f} ms: {rec['ms'] / rec['library_ms']:.2f}x it; "
-      f"device time (torch.profiler, warm L2) {dev_k:.4f} ms = "
-      f"{flash_flops / dev_k / 1e9:.2f} TFLOP/s, the library's {dev_l:.4f} "
-      f"ms: {dev_k / dev_l:.2f}x it; with H = KH = {KH} (one block per SM) "
-      f"{dev_chain:.4f} ms", flush=True)
+      f"device time (torch.profiler, warm L2) {show(dev_k)} ms = "
+      f"{show(div(flash_flops / 1e9, dev_k), '.2f')} TFLOP/s, the library's "
+      f"{show(dev_l)} ms: {show(div(dev_k, dev_l), '.2f')}x it; with H = KH = "
+      f"{KH} (one block per SM) {show(dev_chain)} ms", flush=True)
 del q_kh
 # the CUDA-core flash_kernel, which takes f32 (and the bf16 head dims the
 # tensor-core kernel has no instantiation for): the S = 512 prompt in f32,
@@ -427,22 +533,42 @@ print(f"[kernel] flash_attention S={s} H={H} KH={KH} hd={HD} causal f32: "
 del q32, k32, v32, out, plain
 
 # decode_attention_partial: the rp path's one chunk over the whole cache,
-# row 1 fully masked
+# row 1 fully masked (and the splits past pos of the other rows)
 valid = ref.decode_valid_mask(pos, S, 0)
 valid[1] = False
-acc, m, l = fa.decode_attention_partial(q, k_log, v_log, valid)
-acc_r, m_r, l_r = ref.decode_partial_reference(q, k_log, v_log, valid)
+
+
+def partial_err(got, want, what):
+    """Max error of the partial statistics; fails past 1e-3 + 1e-4 |plain|
+    and unless the empty rows match (m = -inf, l = 0)."""
+    (acc, m, l), (acc_r, m_r, l_r) = got, want
+    check(torch.equal(torch.isinf(m), torch.isinf(m_r)) and bool(
+        torch.isinf(m[1]).all()) and bool((l[1] == 0).all()),
+          f"{what}: empty row must give m=-inf, l=0")
+    fin = torch.isfinite(m_r)
+    worst = 0.0
+    for g, w in ((acc, acc_r), (m[fin], m_r[fin]), (l, l_r)):
+        diff = (g - w).abs()
+        check(bool((diff <= 1e-3 + 1e-4 * w.abs()).all()),
+              f"{what}: err {diff.max().item()}")
+        worst = max(worst, diff.max().item())
+    return worst
+
+
+kbuild.reset_launch_counts()
+part = fa.decode_attention_partial(q, k_log, v_log, valid)
+variants = routes("decode_attention_partial")
 torch.cuda.synchronize()
-check(torch.equal(torch.isinf(m), torch.isinf(m_r)) and bool(
-    torch.isinf(m[1]).all()) and bool((l[1] == 0).all()),
-      "decode_attention_partial: empty row must give m=-inf, l=0")
-fin = torch.isfinite(m_r)
-worst = 0.0
-for got, want in ((acc, acc_r), (m[fin], m_r[fin]), (l, l_r)):
-    diff = (got - want).abs()
-    check(bool((diff <= 1e-3 + 1e-4 * want.abs()).all()),
-          f"decode_attention_partial: err {diff.max().item()}")
-    worst = max(worst, diff.max().item())
+worst = partial_err(part, ref.decode_partial_reference(q, k_log, v_log,
+                                                       valid),
+                    "decode_attention_partial")
+check(variants == {"decode_attention_partial": 1,
+                   "decode_attention_partial_tc": 1},
+      f"decode_attention_partial: launches {variants}, not the tensor-core "
+      "split")
+rows_alone(lambda b: fa.decode_attention_partial(
+    *one_row(b, q, k_log, v_log, valid)), part, "decode_attention_partial")
+acc, m, l = part
 n_valid = int(valid.sum())
 bnd, by = bound_ms(nbytes(q, valid, acc, m, l) + 2 * n_valid * KH * HD * 2,
                    4 * n_valid * H * HD)
@@ -450,16 +576,32 @@ records["decode_attention_partial"] = dict(
     name="decode_attention_partial", route="cuda",
     source="src/repro_torch/kernels/csrc/attention.cu",
     replaces="src/repro/kernels/flash_attention.py:192",
-    max_abs_err=worst,
-    ms=time_ms(lambda: fa.decode_attention_partial(q, k_log, v_log, valid)),
-    plain_ms=time_ms(lambda: ref.decode_partial_reference(
-        q, k_log, v_log, valid)),
-    bound_ms=bnd, bound_by=by,
-    library_ms=None)
+    max_abs_err=worst, bound_ms=bnd, bound_by=by,
+    **timings(lambda: fa.decode_attention_partial(q, k_log, v_log, valid),
+              lambda: ref.decode_partial_reference(q, k_log, v_log, valid)))
+rec = records["decode_attention_partial"]
+# the CUDA-core split in f32, at the same tolerance
+q32, kl32, vl32 = q.float(), k_log.float(), v_log.float()
+kbuild.reset_launch_counts()
+part32 = fa.decode_attention_partial(q32, kl32, vl32, valid)
+variants32 = routes("decode_attention_partial")
+torch.cuda.synchronize()
+err32 = partial_err(part32, ref.decode_partial_reference(q32, kl32, vl32,
+                                                         valid),
+                    "decode_attention_partial f32")
+check(variants32 == {"decode_attention_partial": 1,
+                     "decode_attention_partial_tc": 0},
+      f"decode_attention_partial f32: launches {variants32}")
 print(f"[kernel] decode_attention_partial B={B} C={S} row 1 empty: "
-      f"max_abs_err {worst:.3g} (<= 1e-3 + 1e-4|plain|); empty row m=-inf",
+      f"max_abs_err {worst:.3g} (<= 1e-3 + 1e-4|plain|); empty row m=-inf; "
+      f"each row alone == its row in the batch bitwise; launches {variants} "
+      f"(the tensor-core split); {rec['ms']:.4f} ms, bound {bnd:.6f} ms "
+      f"({by}), plain {rec['plain_ms']:.4f} ms, device time "
+      f"{show(rec['device_ms'])} ms; f32 copies on the CUDA-core split: "
+      f"max_abs_err {err32:.3g}, launches {variants32}, "
+      f"{time_ms(lambda: fa.decode_attention_partial(q32, kl32, vl32, valid)):.4f} ms",
       flush=True)
-del k_gath, v_gath
+del k_gath, v_gath, q32, kl32, vl32, part32
 
 # ssd_scan: one prompt of the mamba2_370m prefill at its full width, with
 # the full-width draw of dt (softplus(N(0,1)) ~ 0.8) and A = -1 (A_log =
@@ -529,14 +671,16 @@ records["ssd_scan"] = dict(
     name="ssd_scan", route="cuda",
     source="src/repro_torch/kernels/csrc/ssd.cu",
     replaces="src/repro/kernels/ssd.py:74",
-    max_abs_err=worst,
-    ms=time_ms(lambda: kssd.ssd_scan(sx, sdt, sA, sB, sC)),
-    plain_ms=time_ms(lambda: ref.ssd_reference(sx, sdt, sA, sB, sC)),
-    bound_ms=bnd, bound_by=by,
-    library_ms=None)    # no PyTorch call computes the SSD scan
+    max_abs_err=worst, bound_ms=bnd, bound_by=by,
+    # no PyTorch call computes the SSD scan: no library call
+    **timings(lambda: kssd.ssd_scan(sx, sdt, sA, sB, sC),
+              lambda: ref.ssd_reference(sx, sdt, sA, sB, sC)))
+rec = records["ssd_scan"]
 print(f"[kernel] ssd_scan S={SS} H={SH} P={SP} N={SN}, dt=softplus(N(0,1)), "
       f"A=-1, bf16 and f32, dt=0 past 300, init_state handoff at {HALF}: "
-      f"max_abs_err {worst:.3g} (<= 1e-3 + rtol |plain|)", flush=True)
+      f"max_abs_err {worst:.3g} (<= 1e-3 + rtol |plain|); {rec['ms']:.4f} "
+      f"ms, bound {bnd:.6f} ms ({by}), plain {rec['plain_ms']:.4f} ms, "
+      f"device time {show(rec['device_ms'])} ms", flush=True)
 
 # decode_attention_fused[int8]: the fp row's shapes and data, on int8 pools
 # from quantize_kv_pages (quantization is page-local, so the physical
@@ -547,6 +691,7 @@ print(f"[kernel] ssd_scan S={SS} H={SH} P={SP} N={SN}, dt=softplus(N(0,1)), "
                                           for t in (k_pool, v_pool))
 sc_log, sc_pool = (ks_log, vs_log), (ks_pool, vs_pool)
 worst = 0.0
+kbuild.reset_launch_counts()
 for window in (0, 300):
     for ex in (None, extra):
         dense = fa.decode_attention_fused(q, k8_log, v8_log, pos, ex,
@@ -564,6 +709,15 @@ for window in (0, 300):
         check(err <= ATOL_BF16, f"decode_attention_fused[int8]: err {err} "
               f"(window {window}, extra {ex is not None})")
         worst = max(worst, err)
+variants = routes("decode_attention_fused[int8]")
+check(variants == {"decode_attention_fused[int8]": 8,
+                   "decode_attention_fused[int8]_tc": 8},
+      f"decode_attention_fused[int8]: launches {variants}, not the "
+      "tensor-core split")
+rows_alone(lambda b: fa.decode_attention_fused(
+    *one_row(b, q, k8_pool, v8_pool, pos), one_row(b, *extra), window=300,
+    blk_c=PAGE, pages=table[b:b + 1], kv_scales=one_row(b, *sc_pool)),
+    paged, "decode_attention_fused[int8]")
 valid_pages = int(((pos + PAGE) // PAGE).sum())      # pages holding slots
 dec8_bytes = (nbytes(q, pos, table, *extra) + q.numel() * 2
               + 2 * valid_slots * KH * HD + 2 * valid_pages * KH * 4)
@@ -572,77 +726,139 @@ records["decode_attention_fused[int8]"] = dict(
     name="decode_attention_fused[int8]", route="cuda",
     source="src/repro_torch/kernels/csrc/attention.cu",
     replaces="src/repro/kernels/flash_attention.py:252",
-    max_abs_err=worst,
-    ms=time_ms(lambda: fa.decode_attention_fused(
+    max_abs_err=worst, bound_ms=bnd, bound_by=by,
+    # no PyTorch call attends over int8 pages with scales: no library call
+    **timings(lambda: fa.decode_attention_fused(
         q, k8_pool, v8_pool, pos, extra, blk_c=PAGE, pages=table,
-        kv_scales=sc_pool)),
-    plain_ms=time_ms(lambda: ref.decode_fused_reference(
-        q, k8_pool, v8_pool, pos, extra, pages=table, page_size=PAGE,
-        kv_scales=sc_pool)),
-    bound_ms=bnd, bound_by=by,
-    library_ms=None)    # no PyTorch call attends over int8 pages with scales
+        kv_scales=sc_pool),
+        lambda: ref.decode_fused_reference(
+            q, k8_pool, v8_pool, pos, extra, pages=table, page_size=PAGE,
+            kv_scales=sc_pool)))
+rec = records["decode_attention_fused[int8]"]
+# f32 q over the same int8 pools takes the CUDA-core split
+kbuild.reset_launch_counts()
+out = fa.decode_attention_fused(q.float(), k8_pool, v8_pool, pos, extra,
+                                window=300, blk_c=PAGE, pages=table,
+                                kv_scales=sc_pool)
+variants32 = routes("decode_attention_fused[int8]")
+plain = ref.decode_fused_reference(q.float(), k8_pool, v8_pool, pos, extra,
+                                   window=300, pages=table, page_size=PAGE,
+                                   kv_scales=sc_pool)
+torch.cuda.synchronize()
+err32 = (out - plain).abs().max().item()
+check(variants32 == {"decode_attention_fused[int8]": 1,
+                     "decode_attention_fused[int8]_tc": 0},
+      f"decode_attention_fused[int8] f32: launches {variants32}")
+check(err32 <= 1e-5, f"decode_attention_fused[int8] f32: err {err32}")
 print(f"[kernel] decode_attention_fused[int8] B={B} H={H} KH={KH} hd={HD} "
       f"S={S} page={PAGE} permuted table, pos={pos.tolist()}, window 0 and "
       f"300, extra on/off, pools from quantize_kv_pages: max_abs_err "
-      f"{worst:.3g} <= {ATOL_BF16}; paged == dense bitwise", flush=True)
-del k8_log, v8_log, k8_pool, v8_pool
+      f"{worst:.3g} <= {ATOL_BF16}; paged == dense bitwise; each row alone "
+      f"== its row in the batch bitwise; launches {variants} (the "
+      f"tensor-core split); {rec['ms']:.4f} ms, bound {bnd:.6f} ms ({by}), "
+      f"plain {rec['plain_ms']:.4f} ms, device time {show(rec['device_ms'])} "
+      f"ms; f32 q on the CUDA-core split: max_abs_err {err32:.3g} <= 1e-5, "
+      f"launches {variants32}", flush=True)
+del k8_log, v8_log, k8_pool, v8_pool, out, plain
 
 
 def quant_err(got, x, qt):
-    """Max |kernel - plain|; fails past 1e-5 (|x| @ |W|) + one bf16 unit
-    of the plain value."""
+    """Max |kernel - plain|; fails past 1e-5 (|x| @ |W|), plus one bf16
+    unit of the plain value for a bf16 output."""
     want = ref.quant_matmul_reference(x, qt).float()
     tol = 1e-5 * (x.float().abs() @ kquant.dequantize_tensor(qt).abs())
-    _, e = torch.frexp(want)
-    tol += torch.ldexp(torch.ones_like(want), e - 8)
+    if got.dtype == torch.bfloat16:
+        _, e = torch.frexp(want)
+        tol += torch.ldexp(torch.ones_like(want), e - 8)
     diff = (got.float() - want).abs()
     check(bool(torch.isfinite(got.float()).all()), "quant_matmul: non-finite")
     check(bool((diff <= tol).all()),
-          f"quant_matmul[{qt.fmt}] {tuple(x.shape)}: err {diff.max().item()} "
-          f"past its tolerance by {(diff - tol).max().item()}")
+          f"quant_matmul[{qt.fmt}] {tuple(x.shape)} {x.dtype}: err "
+          f"{diff.max().item()} past its tolerance by "
+          f"{(diff - tol).max().item()}")
     return diff.max().item()
 
 
 # quant_matmul: the main path's products, bf16 x against weights drawn at
-# the model's init scale (fan-in^-0.5) and quantized: decode (m = 4 slots)
-# against w_gate and w_down, prefill (m = 512) against w_gate.  The record
-# is the decode w_gate product; the line prints all three, with the
+# the model's init scale (fan-in^-0.5) and quantized: decode (m = 4 slots,
+# the skinny kernel) against w_gate and w_down, prefill (m = 512, the
+# tensor-core kernel) against w_gate.  The records are the decode w_gate
+# product (`quant_matmul[<fmt>]`) and the prefill one
+# (`quant_matmul[<fmt>]_tc`); the line prints all three, with the
 # yardstick torch.matmul(x, W) on the weight dequantized to bf16 before
-# the timing (not a port of the product, not gated)
+# the timing (not a port of the product, not gated).  The prefill shape is
+# also held in f32 (f32 copies of x), which takes the CUDA-core tiled
+# kernel.
 QSHAPES = (("decode w_gate", 4, cfg.d_model, cfg.d_ff),
            ("decode w_down", 4, cfg.d_ff, cfg.d_model),
            ("prefill w_gate", 512, cfg.d_model, cfg.d_ff))
 for fmt in kquant.WEIGHT_FORMATS:
     parts, worst = [], 0.0
+    name = f"quant_matmul[{fmt}]"
     for label, m, d, n in QSHAPES:
         qt = kquant.quantize_tensor(randn(d, n) * d ** -0.5, fmt)
         x = randn(m, d)
+        kbuild.reset_launch_counts()
         got = kquant.quant_matmul(x, qt)
         again = kquant.quant_matmul(x, qt)
+        variants = routes(name)
         torch.cuda.synchronize()
-        check(torch.equal(got, again), f"quant_matmul[{fmt}]: not repeatable")
+        check(torch.equal(got, again), f"{name}: not repeatable")
+        prefill = label.startswith("prefill")
+        check(variants == {name: 2, name + "_tc": 2 * prefill},
+              f"{name} {label}: launches {variants}")
         err = quant_err(got, x, qt)
-        worst = max(worst, err)
         w_bf16 = kquant.dequantize_tensor(qt).to(torch.bfloat16)
-        bnd, by = bound_ms(nbytes(x, got) + qt.nbytes, 2 * m * d * n)
-        rec = dict(ms=time_ms(lambda: kquant.quant_matmul(x, qt)),
-                   plain_ms=time_ms(lambda: ref.quant_matmul_reference(x, qt)),
-                   bound_ms=bnd, bound_by=by)
+        flops = 2 * m * d * n
+        bnd, by = bound_ms(nbytes(x, got) + qt.nbytes, flops)
+        # no PyTorch call dequantizes blocks: no library call; the
+        # yardstick's times are printed
+        rec = dict(max_abs_err=err, bound_ms=bnd, bound_by=by,
+                   **timings(lambda: kquant.quant_matmul(x, qt),
+                             lambda: ref.quant_matmul_reference(x, qt)))
         yard = time_ms(lambda: torch.matmul(x, w_bf16))
-        parts.append(f"{label} ({m}x{d})@({d}x{n}) err {err:.3g}, "
-                     f"{rec['ms']:.4f} ms, bound {bnd:.4f} ms ({by}), plain "
-                     f"{rec['plain_ms']:.4f} ms, yardstick bf16 matmul "
-                     f"{yard:.4f} ms")
-        if label == "decode w_gate":
-            records[f"quant_matmul[{fmt}]"] = dict(
-                name=f"quant_matmul[{fmt}]", route="cuda",
+        yard_dev = device_ms(lambda: torch.matmul(x, w_bf16))
+        part = (f"{label} ({m}x{d})@({d}x{n}) err {err:.3g}, "
+                f"{rec['ms']:.4f} ms, device {show(rec['device_ms'])} ms = "
+                f"{show(div(flops / 1e9, rec['device_ms']), '.1f')} TFLOP/s, "
+                f"bound "
+                f"{bnd:.4f} ms ({by}), plain {rec['plain_ms']:.4f} ms, "
+                f"yardstick bf16 matmul {yard:.4f} ms, device {show(yard_dev)} "
+                f"ms")
+        if prefill:
+            # the same product in f32 on the CUDA-core tiled kernel
+            x32 = x.float()
+            kbuild.reset_launch_counts()
+            got32 = kquant.quant_matmul(x32, qt)
+            variants32 = routes(name)
+            torch.cuda.synchronize()
+            check(variants32 == {name: 1, name + "_tc": 0},
+                  f"{name} f32 prefill: launches {variants32}")
+            err32 = quant_err(got32, x32, qt)
+            part += (f"; the tensor-core kernel; f32 copies on the tiled "
+                     f"kernel: err {err32:.3g} (<= 1e-5 (|x|@|W|)), "
+                     f"{time_ms(lambda: kquant.quant_matmul(x32, qt)):.4f} "
+                     f"ms, device "
+                     f"{show(device_ms(lambda: kquant.quant_matmul(x32, qt)))}"
+                     " ms")
+            del x32, got32
+            records[name + "_tc"] = dict(
+                name=name + "_tc", route="cuda",
                 source="src/repro_torch/kernels/csrc/quant.cu",
                 replaces=("src/repro/kernels/quant.py:118" if fmt == "q8_0"
-                          else "src/repro/kernels/quant.py:134"),
-                **rec, library_ms=None)   # no PyTorch call dequantizes blocks
+                          else "src/repro/kernels/quant.py:134"), **rec)
+        else:
+            worst = max(worst, err)
+        parts.append(part)
+        if label == "decode w_gate":
+            records[name] = dict(
+                name=name, route="cuda",
+                source="src/repro_torch/kernels/csrc/quant.cu",
+                replaces=("src/repro/kernels/quant.py:118" if fmt == "q8_0"
+                          else "src/repro/kernels/quant.py:134"), **rec)
         del qt, w_bf16
-    records[f"quant_matmul[{fmt}]"]["max_abs_err"] = worst
-    print(f"[kernel] quant_matmul[{fmt}] bf16 x: " + "; ".join(parts)
+    records[name]["max_abs_err"] = worst
+    print(f"[kernel] {name} bf16 x: " + "; ".join(parts)
           + " (tolerance 1e-5 (|x|@|W|) + 1 bf16 unit; repeat runs bitwise "
           "equal)", flush=True)
 
@@ -697,6 +913,7 @@ f32_lib_ms = time_ms(lambda: torch.addmm(q2x2, qf, xf.T, alpha=-2.0))
 dev_k = device_ms(lambda: kknn.knn_distances(knn_q, chunk))
 dev_l = device_ms(lambda: torch.addmm(q2x2, knn_q, chunk.T, alpha=-2.0,
                                       out_dtype=torch.float32))
+rec.update(device_ms=dev_k, library_device_ms=dev_l)
 print(f"[kernel] knn_distances Q={KNN_Q} N={KNN_CHUNK} D={KNN_D} bf16: "
       f"max_abs_err {rec['max_abs_err']:.4g} (<= 1e-5 (|q|+|x|)^2, at most "
       f"{(diff / tol).max().item():.3g} of it); {rec['ms']:.4f} ms = "
@@ -704,9 +921,9 @@ print(f"[kernel] knn_distances Q={KNN_Q} N={KNN_CHUNK} D={KNN_D} bf16: "
       f"({by}), plain {rec['plain_ms']:.4f} ms, library (bf16 addmm, f32 "
       f"out) {rec['library_ms']:.4f} ms: {rec['ms'] / rec['library_ms']:.2f}x"
       f" it (f32 addmm on f32 copies {f32_lib_ms:.4f} ms); the wgmma kernel; "
-      f"device time (torch.profiler, warm L2) {dev_k:.4f} ms = "
-      f"{knn_flops / dev_k / 1e9:.1f} TFLOP/s, the library's {dev_l:.4f} ms: "
-      f"{dev_k / dev_l:.2f}x it", flush=True)
+      f"device time (torch.profiler, warm L2) {show(dev_k)} ms = "
+      f"{show(div(knn_flops / 1e9, dev_k), '.1f')} TFLOP/s, the library's "
+      f"{show(dev_l)} ms: {show(div(dev_k, dev_l), '.2f')}x it", flush=True)
 del got, plain, diff
 # the CUDA-core knn_kernel, which takes f32 (and bf16 the wgmma kernel does
 # not take): the same chunk in f32, against the plain version at the same
@@ -790,18 +1007,20 @@ flat_w = sls_w[sls_valid]
 records["sls"] = dict(
     name="sls", route="cuda", source="src/repro_torch/kernels/csrc/sls.cu",
     replaces="src/repro/kernels/sls.py:48", max_abs_err=worst,
-    ms=time_ms(lambda: ksls.sls(sls_table, sls_idx, sls_w)),
-    plain_ms=time_ms(lambda: ref.sls_reference(sls_table, sls_idx, sls_w)),
     bound_ms=bnd, bound_by=by,
-    library_ms=time_ms(lambda: torch.nn.functional.embedding_bag(
-        flat_idx, sls_table, offsets, mode="sum",
-        per_sample_weights=flat_w)))
+    **timings(lambda: ksls.sls(sls_table, sls_idx, sls_w),
+              lambda: ref.sls_reference(sls_table, sls_idx, sls_w),
+              lambda: torch.nn.functional.embedding_bag(
+                  flat_idx, sls_table, offsets, mode="sum",
+                  per_sample_weights=flat_w)))
 rec = records["sls"]
 print(f"[kernel] sls V={SLS_V} D={SLS_D} B={SLS_B} L={SLS_L}, {n_valid} "
-      f"valid slots on {n_rows} distinct rows: " + "; ".join(parts) + f" (<= 1e-5 sum |w row|); "
-      f"{rec['ms']:.4f} ms, bound {bnd:.4f} ms ({by}), plain "
-      f"{rec['plain_ms']:.4f} ms, library (embedding_bag, flat valid "
-      f"indices) {rec['library_ms']:.4f} ms", flush=True)
+      f"valid slots on {n_rows} distinct rows: " + "; ".join(parts)
+      + f" (<= 1e-5 sum |w row|); {rec['ms']:.4f} ms, bound {bnd:.4f} ms "
+      f"({by}), plain {rec['plain_ms']:.4f} ms, library (embedding_bag, "
+      f"flat valid indices) {rec['library_ms']:.4f} ms; device time "
+      f"(torch.profiler, warm L2) {show(rec['device_ms'])} ms, the "
+      f"library's {show(rec['library_device_ms'])} ms", flush=True)
 del flat_idx, offsets, flat_w
 
 # --------------------------------------------------------------------------
@@ -811,23 +1030,35 @@ del flat_idx, offsets, flat_w
 PROTOCOLS = (OffloadProtocol.BS, OffloadProtocol.RP, OffloadProtocol.AXLE)
 
 
+OFFLOAD_REPEATS = 10
+
+
 def offload_runs(run, kernel, variant=None):
     """`run(protocol)` under BS, RP and AXLE (ring_depth 2) after one
     warm-up; the launch counts are set to 0 just before each run and read
     just after.  Checks that each run launched `kernel` once per chunk and
     nothing else, every one of them its `variant` kernel where one is
-    named, and that the three outputs are bitwise equal.  Returns the AXLE
-    output, its launches and each protocol's wall time."""
+    named, and that the three outputs are bitwise equal.  Then each
+    protocol runs OFFLOAD_REPEATS times more, timed.  Returns the AXLE
+    output, its launches and each protocol's wall times (min / median /
+    max over the repeats)."""
     outs, walls, launches = {}, {}, {}
     for proto in (OffloadProtocol.AXLE,) + PROTOCOLS:
         with use_offload(OffloadConfig(protocol=proto, ring_depth=2)):
             torch.cuda.synchronize()
             kbuild.reset_launch_counts()
-            t = time.perf_counter()
             outs[proto] = run(proto)
             torch.cuda.synchronize()
-            walls[proto] = time.perf_counter() - t
             launches[proto] = dict(kbuild.LAUNCHES)
+    for proto in PROTOCOLS:
+        walls[proto] = []
+        with use_offload(OffloadConfig(protocol=proto, ring_depth=2)):
+            for _ in range(OFFLOAD_REPEATS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                run(proto)
+                torch.cuda.synchronize()
+                walls[proto].append((time.perf_counter() - t) * 1e3)
     for proto in PROTOCOLS:
         counts = launches[proto]
         check(counts[kernel] == CHUNKS
@@ -840,8 +1071,11 @@ def offload_runs(run, kernel, variant=None):
             outs[proto], outs[OffloadProtocol.BS])),
             f"{kernel}: {proto.name} differs from BS")
     axle = OffloadProtocol.AXLE
-    wall = ", ".join(f"{p.name} {walls[p] * 1e3:.2f} ms" for p in PROTOCOLS)
-    return outs[axle], launches[axle], wall
+    wall = ", ".join(
+        f"{p.name} {min(walls[p]):.2f} / {statistics.median(walls[p]):.2f} / "
+        f"{max(walls[p]):.2f} ms" for p in PROTOCOLS)
+    return outs[axle], launches[axle], \
+        f"(min / median / max of {OFFLOAD_REPEATS}) {wall}"
 
 
 knn_out, knn_launches, wall = offload_runs(
@@ -874,7 +1108,27 @@ print(f"[offload] knn Q={KNN_Q} N={KNN_N} D={KNN_D} bf16, top-{KNN_K}, "
       f"distances vs the plain path max_abs_err {d_err.max().item():.4g} "
       f"(<= 1e-5 (|q|+max|x|)^2); {n_diff} of {knn_out[1].numel()} ids "
       "differ from the plain path's, each at a near tie", flush=True)
-del knn_db, plain_full, whole, knn_out
+# one AXLE call under torch.profiler: where its wall goes
+with use_offload(OffloadConfig(protocol=OffloadProtocol.AXLE, ring_depth=2)):
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        knn_offload.knn_stream(knn_q, knn_db, KNN_K, CHUNKS,
+                               OffloadProtocol.AXLE, global_ids=True)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t) * 1e3
+dev = sorted(((e.self_device_time_total, e.count, e.key)
+              for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA),
+             reverse=True)
+busy = sum(t for t, _, _ in dev) / 1e3
+print(f"[offload] knn AXLE, one call under torch.profiler: wall "
+      f"{prof_wall:.2f} ms, device busy {busy:.2f} ms (kernels, memsets and "
+      f"copies); top: " + "; ".join(f"{k[:48]} x{n} {t / 1e3:.2f} ms"
+                                    for t, n, k in dev[:5]), flush=True)
+del knn_db, plain_full, whole, knn_out, prof, dev
 
 
 def sls_stream(proto):
@@ -963,6 +1217,16 @@ def serve_line(arch, protocol, srv, toks, launches, dt):
           flush=True)
 
 
+PROFILE_GROUPS = (
+    ("decode (split + merge)", ("decode_split", "decode_merge")),
+    ("flash prefill", ("flash_tc_kernel", "flash_kernel")),
+    ("quant_matmul tensor-core", ("quant_tc_kernel",)),
+    ("quant_matmul skinny", ("skinny_kernel",)),
+    ("quant_matmul tiled", ("tiled_kernel",)),
+    ("splitk_reduce", ("splitk_reduce",)),
+    ("ssd_scan", ("ssd_kernel",)))
+
+
 def profile(arch, params, vocab, label="", **kw):
     """Where one streamed run's time goes: device time by kernel, and the
     device's busy share of the wall time (one stream, so kernels do not
@@ -975,17 +1239,25 @@ def profile(arch, params, vocab, label="", **kw):
                                  protocol="axle", stream=True, **kw)
     # the kernels' own entries only: a CPU op's row repeats the device
     # time of the kernels it launched
-    by_op = sorted(((e.self_device_time_total, e.key)
+    by_op = sorted(((e.self_device_time_total, e.key, e.count)
                     for e in prof.key_averages()
                     if e.device_type == torch.autograd.DeviceType.CUDA),
                    reverse=True)
-    busy_ms = sum(t for t, _ in by_op) / 1e3
-    top = "; ".join(f"{k[:48]} {t / 1e3:.1f} ms" for t, k in by_op[:6] if t)
-    print(f"[profile] {arch}{label}, axle, 4 requests x 16 tokens, streamed: wall "
-          f"{prof_dt * 1e3:.1f} ms under the profiler, device busy "
+    busy_ms = sum(t for t, _, _ in by_op) / 1e3
+    top = "; ".join(f"{k[:48]} {t / 1e3:.1f} ms" for t, k, _ in by_op[:6]
+                    if t)
+    # the port's kernels by function and route: device ms and launches
+    groups = []
+    for label_g, kinds in PROFILE_GROUPS:
+        hits = [(t, n) for t, k, n in by_op if any(x in k for x in kinds)]
+        if hits:
+            groups.append(f"{label_g} {sum(t for t, _ in hits) / 1e3:.1f} ms "
+                          f"/ {sum(n for _, n in hits)} kernel launches")
+    print(f"[profile] {arch}{label}, axle, 4 requests x 16 tokens, streamed: "
+          f"wall {prof_dt * 1e3:.1f} ms under the profiler, device busy "
           f"{busy_ms:.1f} ms ({100 * busy_ms / (prof_dt * 1e3):.1f}%); top: "
-          f"{top or 'not measured (the profiler saw no device time)'}",
-          flush=True)
+          f"{top or 'not measured (the profiler saw no device time)'}; the "
+          f"port's kernels: {'; '.join(groups) or 'none seen'}", flush=True)
 
 
 def streamed_equals_per_token(arch, params, reqs, label="", **kw):
@@ -1003,8 +1275,11 @@ main_reqs = make_requests(8, 64, 400, 64)
 srv, axle_toks, launches, dt = serve(main_reqs, protocol="axle",
                                      stream=True)
 n_layers = cfg.n_layers
-check(launches["decode_attention_fused"] == srv.steps * n_layers,
-      f"fused launches {launches} != {srv.steps} steps x {n_layers}")
+check(launches["decode_attention_fused"] == srv.steps * n_layers
+      and launches["decode_attention_fused_tc"]
+      == launches["decode_attention_fused"],
+      f"fused launches {launches} != {srv.steps} steps x {n_layers}, all on "
+      "the tensor-core split")
 check(launches["flash_attention"] == srv.prefill_forwards * n_layers
       and launches["flash_attention_tc"] == launches["flash_attention"],
       f"flash launches {launches} != {srv.prefill_forwards} x {n_layers}, "
@@ -1024,11 +1299,12 @@ streamed = streamed_equals_per_token(ARCH, params, pair)
 
 
 def logits_along(prompts, steps, reference, arch_cfg=cfg, weights=None,
-                 kv_quant=None):
-    """Prefill each prompt into its own row, then `steps` greedy decode
-    steps; returns [prefill logits (B, V), step logits (B, V), ...] and
-    the greedy tokens, with the kernel path or (reference=True) the plain
-    path for every kernel."""
+                 kv_quant=None, feed=None):
+    """Prefill each prompt into its own row, then `steps` decode steps;
+    returns [prefill logits (B, V), step logits (B, V), ...], with the
+    kernel path or (reference=True) the plain path for every kernel.
+    Step i decodes feed[i] ((B, 1) int32) where `feed` is given, else the
+    greedy tokens of the logits before it."""
     weights = params if weights is None else weights
     cache = transformer.init_cache(arch_cfg, len(prompts), S, device=DEV,
                                    kv_quant=kv_quant)
@@ -1045,7 +1321,9 @@ def logits_along(prompts, steps, reference, arch_cfg=cfg, weights=None,
         toks = out[-1].argmax(-1).to(torch.int32)[:, None]
         pos_b = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
                              device=DEV)
-        for _ in range(steps):
+        for i in range(steps):
+            if feed is not None:
+                toks = feed[i]
             lg, cache = transformer.decode_step(arch_cfg, weights, cache,
                                                 toks, positions=pos_b)
             out.append(lg[:, -1].float())
@@ -1065,18 +1343,26 @@ def near_tie_agree(a, b, what):
 
 
 def kernels_against_plain(arch, prompts, atol=LOGIT_ATOL, **kw):
-    kern = logits_along(prompts, 4, reference=False, **kw)
+    """The kernel path's logits against the plain path's, step by step on
+    the same tokens: both decode the plain path's greedy tokens, so a
+    near-tie flip of one step's argmax (which the near-tie gate accepts)
+    does not hand the two paths different inputs for the steps after."""
     plain = logits_along(prompts, 4, reference=True, **kw)
+    feed = [lg.argmax(-1).to(torch.int32)[:, None] for lg in plain[:-1]]
+    kern = logits_along(prompts, 4, reference=False, feed=feed, **kw)
     worst = max((a - b).abs().max().item() for a, b in zip(kern, plain))
     check(all(bool(torch.isfinite(a).all()) for a in kern),
           f"{arch}: non-finite logits")
     check(worst <= atol, f"{arch}: logits kernel vs plain: {worst}")
+    flips = 0
     for i, (a, b) in enumerate(zip(kern, plain)):
         near_tie_agree(b, a, f"{arch} step {i}")
+        flips += int((a.argmax(-1) != b.argmax(-1)).sum())
     print(f"[reference] {arch} full width, {len(prompts)} rows, prefill + 4 "
-          f"decode steps, kernels vs plain versions: logits max_abs_err "
-          f"{worst:.4g} <= {atol}; greedy tokens agree (near-tie gate "
-          f"{NEAR_TIE})", flush=True)
+          f"decode steps on the plain path's greedy tokens, kernels vs plain "
+          f"versions: logits max_abs_err {worst:.4g} <= {atol}; greedy "
+          f"tokens agree (near-tie gate {NEAR_TIE}; {flips} near-tie flips)",
+          flush=True)
 
 
 kernels_against_plain(ARCH, [r.prompt for r in make_requests(4, 64, 400, 1)])
@@ -1084,14 +1370,20 @@ kernels_against_plain(ARCH, [r.prompt for r in make_requests(4, 64, 400, 1)])
 _, rp_toks, rp_launches, _ = serve(copies(pair), params=params, protocol="rp",
                                    stream=True)
 check(rp_launches["decode_attention_partial"] > 0
+      and rp_launches["decode_attention_partial_tc"]
+      == rp_launches["decode_attention_partial"]
       and rp_launches["decode_attention_fused"] == 0,
-      f"rp run launches {rp_launches}")
+      f"rp run launches {rp_launches}, the partials not all on the "
+      "tensor-core split")
 
 
 def rp_agrees(rp_toks, axle_toks, reqs, **kw):
     """rp tokens equal the axle run's, or part from it at a near tie: the
-    axle stream replayed up to the first divergence, where the two
-    choices must lie within NEAR_TIE."""
+    axle stream replayed up to the first divergence (one prefill of the
+    prompt and the tokens before it), where both choices must lie within
+    NEAR_TIE of the replay's best logit.  The replay is a prefill and the
+    run decoded step by step, so at a near tie the replay may order the
+    two choices either way; it is not held to the axle run's order."""
     for rid, toks in rp_toks.items():
         ref_toks = axle_toks[rid]
         if toks != ref_toks:
@@ -1099,9 +1391,12 @@ def rp_agrees(rp_toks, axle_toks, reqs, **kw):
                      if x != y)
             lg = logits_along([np.concatenate([reqs[rid].prompt, np.asarray(
                 ref_toks[:t], np.int32)])], 0, reference=False, **kw)[0][0]
-            gap = (lg[ref_toks[t]] - lg[toks[t]]).item()
-            check(0.0 <= gap < NEAR_TIE,
-                  f"rp vs axle request {rid}: token {t} differs, gap {gap}")
+            best = lg.max()
+            gaps = [(best - lg[c]).item() for c in (ref_toks[t], toks[t])]
+            check(max(gaps) < NEAR_TIE,
+                  f"rp vs axle request {rid}: token {t} differs, the axle "
+                  f"and rp choices {gaps[0]} and {gaps[1]} below the best "
+                  "logit")
     return "equal to" if rp_toks == axle_toks else "near-tie equal to"
 
 
@@ -1120,11 +1415,17 @@ srv, q_toks, launches, dt = serve(make_requests(8, 64, 400, 64),
                                   protocol="axle", stream=True,
                                   quant=Q8_INT8)
 forwards = srv.steps + srv.prefill_forwards
-check(launches["quant_matmul[q8_0]"] == forwards * n_proj * n_layers,
+check(launches["quant_matmul[q8_0]"] == forwards * n_proj * n_layers
+      and launches["quant_matmul[q8_0]_tc"]
+      == srv.prefill_forwards * n_proj * n_layers,
       f"quant_matmul launches {launches} != {forwards} forwards x "
-      f"{n_proj} x {n_layers}")
-check(launches["decode_attention_fused[int8]"] == srv.steps * n_layers,
-      f"int8 fused launches {launches} != {srv.steps} steps x {n_layers}")
+      f"{n_proj} x {n_layers}, the {srv.prefill_forwards} prefills' all on "
+      "the tensor-core kernel")
+check(launches["decode_attention_fused[int8]"] == srv.steps * n_layers
+      and launches["decode_attention_fused[int8]_tc"]
+      == launches["decode_attention_fused[int8]"],
+      f"int8 fused launches {launches} != {srv.steps} steps x {n_layers}, "
+      "all on the tensor-core split")
 check(launches["flash_attention"] == srv.prefill_forwards * n_layers
       and launches["flash_attention_tc"] == launches["flash_attention"],
       f"flash launches {launches} != {srv.prefill_forwards} x {n_layers}, "
@@ -1141,6 +1442,10 @@ fp_bytes = sum(w.numel() * w.element_size() for w in
                + [w for blk in q_params["blocks"] for sub in blk.values()
                   for w in sub.values() if isinstance(w, torch.Tensor)])
 serve_line(ARCH, "axle, q8_0 weights + int8 KV", srv, q_toks, launches, dt)
+print(f"[serve] {ARCH} q8_0: quant_matmul by route: skinny (decode) "
+      f"{launches['quant_matmul[q8_0]'] - launches['quant_matmul[q8_0]_tc']}"
+      f", tensor-core (prefill) {launches['quant_matmul[q8_0]_tc']}, tiled 0",
+      flush=True)
 print(f"[serve] {ARCH} q8_0: weight bytes resident {q_bytes / 1e9:.3f} GB "
       f"of quants and scales in the {n_proj * n_layers} projection "
       f"matrices, plus "
@@ -1157,7 +1462,10 @@ q_streamed = streamed_equals_per_token(ARCH, q_params, pair,
                                        label=" q8_0 + int8 KV", **INT8)
 _, q_rp_toks, q_rp_launches, _ = serve(copies(pair), params=q_params,
                                        protocol="rp", stream=True, **INT8)
+# the rp path dequantizes int8 pools up front and takes q to f32 with them
+# (core/backstream.py), so its partials run the f32 CUDA-core split
 check(q_rp_launches["decode_attention_partial"] > 0
+      and q_rp_launches["decode_attention_partial_tc"] == 0
       and q_rp_launches["decode_attention_fused[int8]"] == 0
       and q_rp_launches["quant_matmul[q8_0]"] > 0,
       f"quantized rp run launches {q_rp_launches}")
@@ -1238,14 +1546,20 @@ for kvq in (None, "int8"):
 del q_params
 
 # q4_k: its own weights from seed 0, quantized at construction
-_, q4_toks, q4_launches, _ = serve(copies(pair), protocol="axle",
-                                   stream=True,
-                                   quant=QuantConfig(weights="q4_k",
-                                                     kv="int8"))
+srv, q4_toks, q4_launches, _ = serve(copies(pair), protocol="axle",
+                                     stream=True,
+                                     quant=QuantConfig(weights="q4_k",
+                                                       kv="int8"))
 check(q4_launches["quant_matmul[q4_k]"] > 0
+      and q4_launches["quant_matmul[q4_k]_tc"]
+      == srv.prefill_forwards * n_proj * n_layers
       and q4_launches["quant_matmul[q8_0]"] == 0
-      and q4_launches["decode_attention_fused[int8]"] > 0,
-      f"q4_k run launches {q4_launches}")
+      and q4_launches["decode_attention_fused[int8]"] > 0
+      and q4_launches["decode_attention_fused[int8]_tc"]
+      == q4_launches["decode_attention_fused[int8]"],
+      f"q4_k run launches {q4_launches}: the prefills' quant_matmul and the "
+      "decodes not all on the tensor cores")
+del srv
 check(all(len(t) == 16 for t in q4_toks.values()), "q4_k: short stream")
 print(f"[serve] {ARCH} full width, axle, q4_k weights + int8 KV, 2 requests "
       f"x 16 tokens: launches {q4_launches}", flush=True)
@@ -1312,15 +1626,21 @@ records["flash_attention"]["launches"] = main_launches["flash_attention"]
 records["decode_attention_partial"]["launches"] = \
     rp_launches["decode_attention_partial"]
 records["ssd_scan"]["launches"] = mamba_launches["ssd_scan"]
-for name in ("decode_attention_fused[int8]", "quant_matmul[q8_0]"):
+for name in ("decode_attention_fused[int8]", "quant_matmul[q8_0]_tc"):
     records[name]["launches"] = quant_launches[name]
-records["quant_matmul[q4_k]"]["launches"] = q4_launches["quant_matmul[q4_k]"]
+records["quant_matmul[q4_k]_tc"]["launches"] = \
+    q4_launches["quant_matmul[q4_k]_tc"]
+# the skinny (decode) route's launches: the function's, less the prefills'
+for fmt, counts in (("q8_0", quant_launches), ("q4_k", q4_launches)):
+    name = f"quant_matmul[{fmt}]"
+    records[name]["launches"] = counts[name] - counts[name + "_tc"]
 records["knn_distances"]["launches"] = knn_launches["knn_distances"]
 records["sls"]["launches"] = sls_launches["sls"]
 for name, rec in records.items():
     check(rec["launches"] > 0, f"{name} never launched on the main path")
 keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+        "library_device_ms")
 print(json.dumps({"kernels": [{k: rec[k] for k in keys}
                               for rec in records.values()]}))
 print(SMI_LINE)

@@ -45,10 +45,18 @@ LAUNCHES: Dict[str, int] = {"decode_attention_fused": 0,
                             "knn_distances": 0,
                             "sls": 0,
                             "flash_attention_tc": 0,
-                            "knn_distances_wgmma": 0}
+                            "knn_distances_wgmma": 0,
+                            "decode_attention_fused_tc": 0,
+                            "decode_attention_fused[int8]_tc": 0,
+                            "decode_attention_partial_tc": 0,
+                            "quant_matmul[q8_0]_tc": 0,
+                            "quant_matmul[q4_k]_tc": 0}
 # the counters of a function's tensor-core kernel: parts of the counts of
-# flash_attention and knn_distances, not kernels of their own
-VARIANTS = ("flash_attention_tc", "knn_distances_wgmma")
+# the function they name, not kernels of their own
+VARIANTS = ("flash_attention_tc", "knn_distances_wgmma",
+            "decode_attention_fused_tc", "decode_attention_fused[int8]_tc",
+            "decode_attention_partial_tc", "quant_matmul[q8_0]_tc",
+            "quant_matmul[q4_k]_tc")
 
 _lib: Optional[ctypes.CDLL] = None
 _fns: Dict[str, Callable[..., int]] = {}
@@ -73,10 +81,11 @@ def nvcc_path() -> str:
 
 
 def library_path() -> Path:
-    """Where the build of the current sources goes: keyed by their hash, so
-    an edited source is never served by a stale library."""
+    """Where the build of the current sources goes: keyed by the hash of
+    every source and header, so an edited one is never served by a stale
+    library."""
     digest = hashlib.sha256()
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         digest.update(src.read_bytes())
     digest.update(" ".join(COMPILE_FLAGS).encode())
     return BUILD_DIR / f"libkernels_{digest.hexdigest()[:16]}.so"

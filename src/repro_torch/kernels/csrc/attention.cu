@@ -1,24 +1,26 @@
 // Hand-written Hopper (sm_90a) attention kernels of the serving main path.
 //
-// Four kernels, each the port of one Pallas TPU kernel in
+// Each is the port of one Pallas TPU kernel in
 // src/repro/kernels/flash_attention.py:
 //
-//   decode_fused_kernel   <- _decode_fused_kernel / decode_attention_fused
-//       One-shot flash decode of one query token per row against the whole
-//       KV cache: (acc, m, l) accumulate over the cache inside one block,
-//       the current token's `extra` partial is merged in the epilogue and
-//       the normalised output is written once.  Dense or paged (per-row
-//       page table indexing the row's own (KH, S, hd) panel), per-row
-//       `pos`, optional sliding window, GQA.  Its int8 variant (the
-//       `has_scales` branch of the Pallas kernel) reads int8 K/V pools
-//       and multiplies each tile by its page's f32 scale as it lands in
-//       shared memory, before the dots; the scale is looked up through
-//       the same indirection as the tile (physical page pages[b, j] when
-//       paged, page j when dense).  A tile never straddles a page, so it
-//       has one scale, and paged == dense holds bitwise as for fp pools.
-//   decode_partial_kernel <- _decode_partial_kernel / decode_attention_partial
-//       The raw, unnormalised (acc, m, l) of one query token over a KV
-//       chunk under an explicit (B, C) mask; m = -inf for an empty row.
+//   decode_split_tc_kernel<HD, KV, PARTIAL>, decode_split_kernel<T, KV,
+//   PARTIAL>, then decode_merge_kernel<T, PARTIAL>
+//       <- _decode_fused_kernel / decode_attention_fused (PARTIAL = false)
+//       <- _decode_partial_kernel / decode_attention_partial (PARTIAL)
+//       Flash decode of one query token per row.  The fused variant runs
+//       against the whole KV cache: dense or paged (a per-row page table
+//       indexing the row's own (KH, S, hd) panel), per-row `pos`, optional
+//       sliding window, GQA, the current token's `extra` partial merged
+//       before the normalisation.  Its int8 variant (the `has_scales`
+//       branch of the Pallas kernel) reads int8 K/V pools with one f32
+//       scale per physical page, looked up through the same indirection
+//       as the rows.  The partial variant writes the raw, unnormalised
+//       (acc, m, l) of a KV chunk under an explicit (B, C) mask, m = -inf
+//       for an empty row.  The KV range is split across blocks at fixed
+//       logical rows and merged in split order (see the note above the
+//       kernels); the split runs on the tensor cores for bf16 q with HD 64
+//       or 128 and at most 16 query heads per KV head, on the CUDA cores
+//       for the rest (f32).
 //   flash_kernel          <- _flash_kernel / flash_attention
 //       Causal / sliding-window GQA prefill attention with online softmax,
 //       on the CUDA cores in f32: the kernel for f32 inputs and for head
@@ -29,33 +31,39 @@
 //
 // Translation from the TPU: the Pallas grids run their innermost KV axis in
 // order on one core and carry (acc, m, l) in VMEM scratch between grid
-// steps.  Here one thread block owns one (row, KV head) for decode and one
-// (row, head, q tile) for prefill, and a loop over KV tiles inside the
-// block takes the place of the sequential grid axis; (acc, m, l) live in
-// shared memory in f32.  bf16 or f32 I/O, converted with the intrinsics.
+// steps.  For prefill one thread block owns one (row, head, q tile), and a
+// loop over KV tiles inside the block takes the place of the sequential
+// grid axis.  For decode the KV axis is split across blocks instead, each
+// writing its split's (acc, m, l) in f32, and a second kernel merges them
+// in split order.  bf16 or f32 I/O, converted with the intrinsics.
 //
 // What bounds them on an H100: decode reads every valid K/V byte once and
 // does 4 flops per byte pair, far below the 295 flop/byte ridge, so it is
-// bound by HBM bytes (3.35 TB/s); the int8 variant halves those bytes.  At the main path's shapes it has only
-// B*KH = 8 blocks for 132 SMs, so it runs far from that bound: a split
-// over the sequence would fix that, and is left out on purpose, because
-// a paged walk and a dense walk over the same logical data must take the
-// identical reduction order (paged == dense, bitwise).  Prefill is bound
-// by operations (989 TFLOP/s bf16 on the tensor cores); flash_kernel does
-// its products on the CUDA cores in f32, far below that bound, and
-// flash_tc_kernel on the tensor cores.
+// bound by HBM bytes (3.35 TB/s); the int8 variant halves those bytes.
+// At the main path's shapes (B = 4, KH = 2, S = 1024) those bytes are a
+// few hundred KB, far too few for the bound to show: one block per
+// (row, KV head) walking the whole cache left 124 of 132 SMs idle, so the
+// split puts every 64-row split on a block of its own (up to 128 blocks),
+// and a block's latency (copies, a few dozen mmas, barriers) and the two
+// launches set the time.  Prefill is bound by operations (989 TFLOP/s
+// bf16 on the tensor cores); flash_kernel does its products on the CUDA
+// cores in f32, far below that bound, and flash_tc_kernel on the tensor
+// cores.
 //
-// Tiles that the mask empties entirely are skipped.  That is bitwise the
-// same as visiting them: a fully masked tile leaves m unchanged, so alpha
-// is exp(0) = 1 and p = 0, and acc * 1 + 0 and l * 1 + 0 are exact.
+// Prefill tiles that the mask empties entirely are skipped.  That is
+// bitwise the same as visiting them: a fully masked tile leaves m
+// unchanged, so alpha is exp(0) = 1 and p = 0, and acc * 1 + 0 and l * 1 +
+// 0 are exact.
 //
-// Each entry point returns the cudaError_t of its launch (0 = success).
+// Each entry point returns the cudaError_t of its launches (0 = success).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 #include <type_traits>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -84,192 +92,6 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// --------------------------------------------------------------------------
-// Decode: one block per (row b, KV head kh); the G = H / KH query heads of
-// the group share every K/V tile.
-// --------------------------------------------------------------------------
-
-struct DecodeArgs {
-  const void* q;               // (B, 1, H, hd)
-  const void* k;               // (B, KH, S, hd)
-  const void* v;
-  const int* pos;              // fused: (B,) last valid logical slot
-  const uint8_t* valid;        // partial: (B, S) mask
-  const int* pages;            // fused, paged: (B, n_log) physical page ids
-  int n_log;
-  const float* acc_e;          // fused: optional extra partial (B, H, hd)
-  const float* m_e;            //   (B, H)
-  const float* l_e;            //   (B, H)
-  const float* k_scale;        // fused, int8 K/V: (B, KH, n_sc) per
-  const float* v_scale;        //   physical page
-  int n_sc;
-  void* out;                   // fused: (B, 1, H, hd) in the input type
-  float* acc_out;              // partial: (B, H, hd)
-  float* m_out;                // partial: (B, H)
-  float* l_out;                // partial: (B, H)
-  int H, KH, S, HD;
-  int blk_c;                   // fused: chunk (= page) length
-  int tile;                    // rows per KV tile; divides blk_c when fused
-  int window;                  // fused: 0 = no lower bound
-  float scale;
-};
-
-// T: the type of q and out; KV: the type of the K/V pools, T or int8_t
-// (then with per-page scales).
-template <typename T, typename KV, bool PARTIAL>
-__global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
-  constexpr bool SCALED = std::is_same<KV, int8_t>::value;
-  extern __shared__ float sm[];
-  const int b = blockIdx.x / a.KH, kh = blockIdx.x % a.KH;
-  const int G = a.H / a.KH, HD = a.HD, TK = a.tile, LD = HD + 1;
-  float* q_s = sm;                    // G * HD, pre-scaled query
-  float* k_s = q_s + G * HD;          // TK * LD
-  float* v_s = k_s + TK * LD;         // TK * LD
-  float* p_s = v_s + TK * LD;         // G * TK scores, then probabilities
-  float* acc_s = p_s + G * TK;        // G * HD
-  float* m_s = acc_s + G * HD;        // G
-  float* l_s = m_s + G;               // G
-  float* al_s = l_s + G;              // G
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  const T* qg = static_cast<const T*>(a.q) + ((size_t)b * a.H + (size_t)kh * G) * HD;
-  const size_t panel = ((size_t)b * a.KH + kh) * (size_t)a.S * HD;
-  const KV* kb = static_cast<const KV*>(a.k) + panel;
-  const KV* vb = static_cast<const KV*>(a.v) + panel;
-
-  for (int i = tid; i < G * HD; i += NT) {
-    q_s[i] = to_f(qg[i]) * a.scale;
-    acc_s[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += NT) { m_s[g] = NEG_INF; l_s[g] = 0.f; }
-
-  // logical rows visited: [lo, hi)
-  const int n_rows = PARTIAL ? a.S : (a.pages ? a.n_log * a.blk_c : a.S);
-  int lo = 0, hi = n_rows, pos = 0;
-  if (!PARTIAL) {
-    pos = a.pos[b];
-    hi = min(hi, pos + 1);
-    if (a.window > 0) lo = max(0, pos - a.window + 1);
-  }
-  const int t0 = lo / TK;
-  const int t1 = hi > lo ? (hi + TK - 1) / TK : t0;
-  const uint8_t* vrow = PARTIAL ? a.valid + (size_t)b * a.S : nullptr;
-  auto is_valid = [&](int kpos) -> bool {
-    if (PARTIAL) return kpos < n_rows && vrow[kpos] != 0;
-    return kpos <= pos && (a.window <= 0 || kpos > pos - a.window);
-  };
-  __syncthreads();
-
-  for (int t = t0; t < t1; ++t) {
-    const int L0 = t * TK;
-    const int nr = min(TK, n_rows - L0);
-    if (PARTIAL) {
-      int any = 0;
-      for (int r = tid; r < nr; r += NT) any |= vrow[L0 + r];
-      if (!__syncthreads_or(any)) continue;   // uniform across the block
-    }
-    int phys0 = L0, page = L0 / a.blk_c;
-    if (!PARTIAL && a.pages) {
-      page = a.pages[(size_t)b * a.n_log + page];
-      phys0 = page * a.blk_c + (L0 % a.blk_c);
-    }
-    float ksc = 1.f, vsc = 1.f;
-    if (SCALED) {
-      const size_t si = ((size_t)b * a.KH + kh) * a.n_sc + page;
-      ksc = a.k_scale[si];
-      vsc = a.v_scale[si];
-    }
-    for (int i = tid; i < TK * HD; i += NT) {
-      const int r = i / HD, d = i % HD;
-      float kv = 0.f, vv = 0.f;
-      if (r < nr) {
-        const size_t off = (size_t)(phys0 + r) * HD + d;
-        kv = to_f(kb[off]);
-        vv = to_f(vb[off]);
-        if (SCALED) {             // the reference's quants * scale, in f32
-          kv = __fmul_rn(kv, ksc);
-          vv = __fmul_rn(vv, vsc);
-        }
-      }
-      k_s[r * LD + d] = kv;
-      v_s[r * LD + d] = vv;
-    }
-    __syncthreads();
-
-    for (int i = tid; i < G * TK; i += NT) {
-      const int g = i / TK, c = i % TK;
-      float s = NEG_INF;
-      if (c < nr && is_valid(L0 + c)) {
-        const float* qq = q_s + g * HD;
-        const float* kk = k_s + c * LD;
-        float acc = 0.f;
-        for (int d = 0; d < HD; ++d) acc = fmaf(qq[d], kk[d], acc);
-        s = acc;
-      }
-      p_s[i] = s;
-    }
-    __syncthreads();
-
-    for (int g = warp; g < G; g += NWARP) {
-      float mx = NEG_INF;
-      for (int c = lane; c < TK; c += 32) mx = fmaxf(mx, p_s[g * TK + c]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int c = lane; c < TK; c += 32) {
-        const bool ok = c < nr && is_valid(L0 + c);
-        const float p = ok ? expf(p_s[g * TK + c] - m_new) : 0.f;
-        p_s[g * TK + c] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float al = expf(m_prev - m_new);
-        al_s[g] = al;
-        l_s[g] = l_s[g] * al + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < G * HD; i += NT) {
-      const int g = i / HD, d = i % HD;
-      const float* pp = p_s + g * TK;
-      float s = 0.f;
-      for (int c = 0; c < TK; ++c) s = fmaf(pp[c], v_s[c * LD + d], s);
-      acc_s[i] = acc_s[i] * al_s[g] + s;
-    }
-    __syncthreads();
-  }
-
-  const size_t head0 = (size_t)b * a.H + (size_t)kh * G;
-  if (PARTIAL) {
-    for (int i = tid; i < G * HD; i += NT) a.acc_out[head0 * HD + i] = acc_s[i];
-    for (int g = tid; g < G; g += NT) {
-      const float m = m_s[g];
-      // NEG_INF sentinel -> -inf so a merge ignores empty partials
-      a.m_out[head0 + g] = m <= NEG_INF / 2 ? -INFINITY : m;
-      a.l_out[head0 + g] = l_s[g];
-    }
-    return;
-  }
-  T* out = static_cast<T*>(a.out) + head0 * HD;
-  for (int i = tid; i < G * HD; i += NT) {
-    const int g = i / HD, d = i % HD;
-    float acc = acc_s[i], l = l_s[g];
-    if (a.acc_e) {
-      // the current token's (acc, m, l), merged before normalisation
-      const float m = m_s[g], me = a.m_e[head0 + g];
-      const float mm = fmaxf(m, me);
-      const float a1 = expf(m - mm), a2 = expf(me - mm);
-      acc = acc * a1 + a.acc_e[(head0 + g) * HD + d] * a2;
-      l = l * a1 + a.l_e[head0 + g] * a2;
-    }
-    out[i] = from_f<T>(acc / fmaxf(l, 1e-20f));
-  }
 }
 
 // --------------------------------------------------------------------------
@@ -446,53 +268,6 @@ __global__ void __launch_bounds__(NT) flash_kernel(FlashArgs a) {
 constexpr int TC_BQ = 64;            // query rows per block (16 per warp)
 constexpr int TC_BK = 64;            // KV rows per tile
 constexpr int TC_NT = 128;           // 4 warps
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled when !full
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t* r) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in bits 0-15
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // The split of two f32 weights into bf16 hi = bf16(x) and lo =
 // bf16(x - hi) halves, each pair packed (x in bits 0-15).
@@ -779,6 +554,505 @@ __global__ void __launch_bounds__(TC_NT) flash_tc_kernel(FlashArgs a) {
   }
 }
 
+// --------------------------------------------------------------------------
+// Decode, split over the KV sequence: decode_split_tc_kernel (bf16 q, bf16
+// or int8 pools, HD 64 / 128, G <= 16) or decode_split_kernel (the rest),
+// then decode_merge_kernel.
+//
+// The grid is (B * KH, n_split): block (b kh, j) owns the logical KV rows
+// [j split, j split + split) of row b, KV head kh, for the G = H / KH query
+// heads of the group.  split = decode_tile(blk_c) divides the page, so a
+// split lies inside one page: one page-table lookup gives its physical
+// base, and an int8 split has one K and one V scale.  n_split =
+// ceil(rows / split) comes from the cache's length alone, never from B or
+// from pos, so every decode step launches the same grid.  Each block writes
+// its split's raw (acc, m, l) to a workspace.  A block whose rows all lie
+// outside the row's [lo, hi) (for the partial: whose rows the mask
+// empties) writes the empty partial m = NEG_INF, l = 0, acc = 0 and reads
+// nothing else.  decode_merge_kernel then folds the splits of each (row,
+// head) in split order, skipping the empty ones; the fused variant merges
+// `extra` and normalises, the partial writes the raw (acc, m, l).  No
+// float atomics: the order of every sum is fixed by the logical rows, so a
+// paged and a dense walk over the same logical data give the same bits,
+// and a row's output does not depend on the other rows of the batch.
+// --------------------------------------------------------------------------
+
+struct DecodeArgs {
+  const void* q;               // (B, 1, H, hd)
+  const void* k;               // (B, KH, S, hd), T or int8
+  const void* v;
+  const int* pos;              // fused: (B,) last valid logical slot
+  const uint8_t* valid;        // partial: (B, S) mask
+  const int* pages;            // fused, paged: (B, n_log) physical page ids
+  int n_log;
+  const float* acc_e;          // fused: optional extra partial (B, H, hd)
+  const float* m_e;            //   (B, H)
+  const float* l_e;            //   (B, H)
+  const float* k_scale;        // fused, int8 K/V: (B, KH, n_sc) per
+  const float* v_scale;        //   physical page
+  int n_sc;
+  void* out;                   // fused: (B, 1, H, hd) in q's type
+  float* acc_out;              // partial: (B, H, hd)
+  float* m_out;                // partial: (B, H)
+  float* l_out;                // partial: (B, H)
+  float* ws_acc;               // (B, KH, n_split, G, hd) split partials
+  float* ws_m;                 // (B, KH, n_split, G)
+  float* ws_l;                 // (B, KH, n_split, G)
+  int H, KH, S, HD;
+  int blk_c;                   // fused: chunk (= page) length
+  int split, n_split;          // rows per split (<= 64, divides blk_c)
+  int window;                  // fused: 0 = no lower bound
+  float scale;
+};
+
+constexpr int DS_ROWS = 64;          // most rows a split holds
+constexpr int DS_NT = 128;           // tensor-core split: 4 warps x 16 rows
+constexpr int DS_GMAX = 16;          // query heads of a group, padded to 16
+
+// Block (blockIdx.x, blockIdx.y)'s rows: logical [L0, L0 + len) of row b,
+// and the row's attended range [lo, hi) (the partial's mask is per slot).
+template <bool PARTIAL>
+__device__ __forceinline__ void split_rows(const DecodeArgs& a, int b,
+                                           int& L0, int& len, int& lo,
+                                           int& hi) {
+  const int n_rows = (!PARTIAL && a.pages) ? a.n_log * a.blk_c : a.S;
+  L0 = blockIdx.y * a.split;
+  len = min(a.split, n_rows - L0);
+  lo = 0;
+  hi = n_rows;
+  if (!PARTIAL) {
+    const int pos = a.pos[b];
+    hi = min(hi, pos + 1);
+    if (a.window > 0) lo = max(0, pos - a.window + 1);
+  }
+}
+
+// The split's physical first row and its page (the scale's index).
+__device__ __forceinline__ int split_page(const DecodeArgs& a, bool paged,
+                                          int b, int L0, int& phys0) {
+  int page = L0 / a.blk_c;
+  phys0 = L0;
+  if (paged) {
+    page = a.pages[(size_t)b * a.n_log + page];
+    phys0 = page * a.blk_c + L0 % a.blk_c;
+  }
+  return page;
+}
+
+// Whether the block has any row to attend: the fused range test, or the
+// partial's mask over the split (uniform across the block).
+template <bool PARTIAL>
+__device__ __forceinline__ bool split_any(const DecodeArgs& a, int b, int L0,
+                                          int len, int lo, int hi) {
+  if (!PARTIAL) return max(lo, L0) < min(hi, L0 + len);
+  const uint8_t* vrow = a.valid + (size_t)b * a.S + L0;
+  int any = 0;
+  for (int r = threadIdx.x; r < len; r += blockDim.x) any |= vrow[r];
+  return __syncthreads_or(any) != 0;
+}
+
+template <bool PARTIAL>
+__device__ __forceinline__ bool slot_valid(const DecodeArgs& a, int b,
+                                           int kpos, int lo, int hi) {
+  if (PARTIAL) return a.valid[(size_t)b * a.S + kpos] != 0;
+  return kpos >= lo && kpos < hi;
+}
+
+// The empty partial of a split with nothing to attend.
+__device__ __forceinline__ void write_empty(const DecodeArgs& a, size_t part0,
+                                            int G) {
+  for (int i = threadIdx.x; i < G * a.HD; i += blockDim.x)
+    a.ws_acc[part0 * a.HD + i] = 0.f;
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    a.ws_m[part0 + g] = NEG_INF;
+    a.ws_l[part0 + g] = 0.f;
+  }
+}
+
+// CUDA-core split: the f32 route (and the shapes the tensor-core kernel
+// does not take).  T: the type of q; KV: the type of the pools, T or int8_t
+// (then each element is dequantized as q * scale in f32, as the plain
+// version does).  The G x len scores, then G x HD sums, on the CUDA cores.
+template <typename T, typename KV, bool PARTIAL>
+__global__ void __launch_bounds__(NT) decode_split_kernel(DecodeArgs a) {
+  constexpr bool SCALED = std::is_same<KV, int8_t>::value;
+  extern __shared__ float sm[];
+  const int b = blockIdx.x / a.KH, kh = blockIdx.x % a.KH;
+  const int G = a.H / a.KH, HD = a.HD, TK = a.split, LD = HD + 1;
+  float* q_s = sm;                    // G * HD, pre-scaled query
+  float* k_s = q_s + G * HD;          // TK * LD
+  float* v_s = k_s + TK * LD;         // TK * LD
+  float* p_s = v_s + TK * LD;         // G * TK scores, then probabilities
+  float* m_s = p_s + G * TK;          // G
+  float* l_s = m_s + G;               // G
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const size_t part0 = ((size_t)blockIdx.x * a.n_split + blockIdx.y) * G;
+
+  int L0, len, lo, hi;
+  split_rows<PARTIAL>(a, b, L0, len, lo, hi);
+  if (!split_any<PARTIAL>(a, b, L0, len, lo, hi)) {
+    write_empty(a, part0, G);
+    return;
+  }
+  int phys0;
+  const int page = split_page(a, !PARTIAL && a.pages, b, L0, phys0);
+  float ksc = 1.f, vsc = 1.f;
+  if (SCALED) {
+    const size_t si = ((size_t)b * a.KH + kh) * a.n_sc + page;
+    ksc = a.k_scale[si];
+    vsc = a.v_scale[si];
+  }
+  const T* qg = static_cast<const T*>(a.q) + ((size_t)b * a.H + (size_t)kh * G) * HD;
+  const size_t base = (((size_t)b * a.KH + kh) * a.S + phys0) * HD;
+  const KV* kb = static_cast<const KV*>(a.k) + base;
+  const KV* vb = static_cast<const KV*>(a.v) + base;
+  for (int i = tid; i < G * HD; i += NT) q_s[i] = to_f(qg[i]) * a.scale;
+  for (int i = tid; i < len * HD; i += NT) {
+    const int r = i / HD, d = i % HD;
+    float kv = to_f(kb[i]), vv = to_f(vb[i]);
+    if (SCALED) {                 // the reference's quants * scale, in f32
+      kv = __fmul_rn(kv, ksc);
+      vv = __fmul_rn(vv, vsc);
+    }
+    k_s[r * LD + d] = kv;
+    v_s[r * LD + d] = vv;
+  }
+  __syncthreads();
+
+  for (int i = tid; i < G * TK; i += NT) {
+    const int g = i / TK, c = i % TK;
+    float s = NEG_INF;
+    if (c < len && slot_valid<PARTIAL>(a, b, L0 + c, lo, hi)) {
+      const float* qq = q_s + g * HD;
+      const float* kk = k_s + c * LD;
+      float acc = 0.f;
+      for (int d = 0; d < HD; ++d) acc = fmaf(qq[d], kk[d], acc);
+      s = acc;
+    }
+    p_s[i] = s;
+  }
+  __syncthreads();
+
+  for (int g = warp; g < G; g += NWARP) {
+    float mx = NEG_INF;
+    for (int c = lane; c < len; c += 32) mx = fmaxf(mx, p_s[g * TK + c]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int c = lane; c < len; c += 32) {
+      const bool ok = slot_valid<PARTIAL>(a, b, L0 + c, lo, hi);
+      const float p = ok ? expf(p_s[g * TK + c] - mx) : 0.f;
+      p_s[g * TK + c] = p;
+      sum += p;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      m_s[g] = mx;
+      l_s[g] = sum;
+    }
+  }
+  __syncthreads();
+
+  for (int i = tid; i < G * HD; i += NT) {
+    const int g = i / HD, d = i % HD;
+    const float* pp = p_s + g * TK;
+    float s = 0.f;
+    for (int c = 0; c < len; ++c) s = fmaf(pp[c], v_s[c * LD + d], s);
+    a.ws_acc[part0 * HD + i] = s;
+  }
+  for (int g = tid; g < G; g += NT) {
+    a.ws_m[part0 + g] = m_s[g];
+    a.ws_l[part0 + g] = l_s[g];
+  }
+}
+
+// Tensor-core split, after flash_tc_kernel: 4 warps, warp w owns the
+// split's KV rows 16 w .. 16 w + 15.
+//   * The G query heads, padded with zero rows to 16, are the A operand of
+//     mma.sync m16n8k16 (bf16 in, f32 accumulators); K and V come from
+//     shared memory through ldmatrix (V transposed), rows padded by 16
+//     bytes.  Q and K arrive by 16-byte cp.async in one group, V in a
+//     second, so V lands while the scores are formed; rows past the split
+//     are zero-filled.
+//   * int8 pools: the int8 rows are copied as they are and widened to bf16
+//     in shared memory (exact: int8 values are bf16 integers).  The
+//     split's page has one K and one V scale: the K scale multiplies the
+//     f32 scores after the product, the V scale the split's f32 P V.  No
+//     dequantized q * scale is ever rounded to bf16.
+//   * The scores are multiplied by hd^-0.5 after the product (the plain
+//     version scales q in f32 first: one f32 rounding apart).  The row
+//     max and sum of the 64 scores go over a quad by shuffles, then over
+//     the 4 warps through shared memory, in warp order.
+//   * P V keeps P's precision as flash_tc_kernel does: p_hi = bf16(p) and
+//     p_lo = bf16(p - p_hi) through two mmas into one f32 accumulator.
+//     Each warp's 16 x HD product over its 16 rows is summed with the
+//     other warps' through shared memory in warp order.
+// What bounds it: at the main path's shapes (a 64-row split, 32 KB of K/V
+// in bf16) one block's latency: its copies, then ~50 mmas per warp and
+// three block barriers.  The merge is a second, small launch.
+template <int HD, typename KV, bool PARTIAL>
+__global__ void __launch_bounds__(DS_NT) decode_split_tc_kernel(DecodeArgs a) {
+  static_assert(HD % 64 == 0, "HD: 64 or 128");
+  constexpr bool I8 = std::is_same<KV, int8_t>::value;
+  constexpr int RB = tc_row_bytes<HD>();       // padded bf16 row
+  constexpr int CH = HD / 8;                   // 16-byte chunks, bf16 row
+  constexpr int KSTEP = HD / 16;               // k steps of Q K^T
+  constexpr int RB8 = HD + 16;                 // padded int8 row
+  constexpr int CH8 = HD / 16;                 // 16-byte chunks, int8 row
+  constexpr int TILE = DS_ROWS * RB;
+  constexpr int OLD = HD + 8;                  // padded f32 row of O
+  // Q tile, K tile, V tile (bf16), int8 staging (K, V), max and sum
+  // partials per warp; O's per-warp products reuse the K and V tiles
+  constexpr int K_OFF = DS_GMAX * RB, V_OFF = K_OFF + TILE;
+  constexpr int ST_OFF = V_OFF + TILE;
+  constexpr int RED_OFF = ST_OFF + (I8 ? 2 * DS_ROWS * RB8 : 0);
+  static_assert(4 * 16 * OLD * 4 <= 2 * TILE, "O reduction fits K and V");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t sa = smem_u32(smem_raw);
+  float* red_m = reinterpret_cast<float*>(smem_raw + RED_OFF);   // [4][16]
+  float* red_l = red_m + 4 * 16;                                 // [4][16]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.x / a.KH, kh = blockIdx.x % a.KH;
+  const int G = a.H / a.KH;
+  const size_t part0 = ((size_t)blockIdx.x * a.n_split + blockIdx.y) * G;
+
+  int L0, len, lo, hi;
+  split_rows<PARTIAL>(a, b, L0, len, lo, hi);
+  if (!split_any<PARTIAL>(a, b, L0, len, lo, hi)) {
+    write_empty(a, part0, G);
+    return;
+  }
+  int phys0;
+  const int page = split_page(a, !PARTIAL && a.pages, b, L0, phys0);
+
+  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q) +
+                            ((size_t)b * a.H + (size_t)kh * G) * HD;
+  for (int c = tid; c < DS_GMAX * CH; c += DS_NT) {
+    const int r = c / CH, cc = c % CH;
+    const bool ok = r < G;
+    cp_async16(sa + r * RB + cc * 16, qg + (size_t)(ok ? r : 0) * HD + cc * 8,
+               ok);
+  }
+  const size_t base = (((size_t)b * a.KH + kh) * a.S + phys0) * HD;
+  auto load = [&](const void* src, int off) {
+    if (I8) {
+      const int8_t* g = static_cast<const int8_t*>(src) + base;
+      for (int c = tid; c < DS_ROWS * CH8; c += DS_NT) {
+        const int r = c / CH8, cc = c % CH8;
+        const bool ok = r < len;
+        cp_async16(sa + off + r * RB8 + cc * 16,
+                   g + (size_t)(ok ? r : 0) * HD + cc * 16, ok);
+      }
+    } else {
+      const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(src) + base;
+      for (int c = tid; c < DS_ROWS * CH; c += DS_NT) {
+        const int r = c / CH, cc = c % CH;
+        const bool ok = r < len;
+        cp_async16(sa + off + r * RB + cc * 16,
+                   g + (size_t)(ok ? r : 0) * HD + cc * 8, ok);
+      }
+    }
+  };
+  load(a.k, I8 ? ST_OFF : K_OFF);
+  cp_async_commit();                           // Q and K
+  load(a.v, I8 ? ST_OFF + DS_ROWS * RB8 : V_OFF);
+  cp_async_commit();                           // V
+  // int8 rows -> bf16 rows, 16 values a step
+  auto widen = [&](int src_off, int dst_off) {
+    for (int c = tid; c < DS_ROWS * CH8; c += DS_NT) {
+      const int r = c / CH8, cc = c % CH8;
+      const uint4 w = *reinterpret_cast<const uint4*>(
+          smem_raw + src_off + r * RB8 + cc * 16);
+      const uint32_t wd[4] = {w.x, w.y, w.z, w.w};
+      uint32_t o[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // byte e of the word, sign-extended: (int)(w << (24 - 8 e)) >> 24
+        const uint32_t x = wd[i];
+        o[2 * i] = pack_bf16((float)(static_cast<int>(x << 24) >> 24),
+                             (float)(static_cast<int>(x << 16) >> 24));
+        o[2 * i + 1] = pack_bf16((float)(static_cast<int>(x << 8) >> 24),
+                                 (float)(static_cast<int>(x) >> 24));
+      }
+      uint4* dst = reinterpret_cast<uint4*>(smem_raw + dst_off + r * RB + cc * 32);
+      dst[0] = make_uint4(o[0], o[1], o[2], o[3]);
+      dst[1] = make_uint4(o[4], o[5], o[6], o[7]);
+    }
+  };
+  float ksc = 1.f, vsc = 1.f;
+  if (I8) {
+    const size_t si = ((size_t)b * a.KH + kh) * a.n_sc + page;
+    ksc = a.k_scale[si];
+    vsc = a.v_scale[si];
+  }
+  cp_async_wait<1>();
+  __syncthreads();
+  if (I8) {
+    widen(ST_OFF, K_OFF);
+    __syncthreads();
+  }
+
+  // S = Q K^T over the warp's 16 rows: 2 n-tiles of 8
+  const int mi = lane >> 3, l7 = lane & 7;
+  float s[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  {
+    const uint32_t qa = sa + ((mi & 1) * 8 + l7) * RB + (mi >> 1) * 16;
+    const uint32_t ka =
+        sa + K_OFF + (warp * 16 + (mi >> 1) * 8 + l7) * RB + (mi & 1) * 16;
+#pragma unroll
+    for (int kk = 0; kk < KSTEP; ++kk) {
+      uint32_t qf[4], kf[4];
+      ldsm_x4(qa + kk * 32, qf);
+      ldsm_x4(ka + kk * 32, kf);
+      mma_bf16(s[0], qf, kf[0], kf[1]);
+      mma_bf16(s[1], qf, kf[2], kf[3]);
+    }
+  }
+  // element e of n-tile j: head (lane >> 2) + 8 (e >> 1), split row
+  // 16 warp + 8 j + 2 (lane & 3) + (e & 1)
+  const float qk = a.scale;
+  bool ok[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = warp * 16 + 8 * j + 2 * (lane & 3) + (e & 1);
+      ok[j][e] = c < len && slot_valid<PARTIAL>(a, b, L0 + c, lo, hi);
+      s[j][e] = ok[j][e] ? (I8 ? s[j][e] * ksc * qk : s[j][e] * qk) : NEG_INF;
+    }
+  const int row[2] = {lane >> 2, (lane >> 2) + 8};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = fmaxf(fmaxf(s[0][2 * i], s[0][2 * i + 1]),
+                     fmaxf(s[1][2 * i], s[1][2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    if ((lane & 3) == 0) red_m[warp * 16 + row[i]] = mx;
+  }
+  __syncthreads();
+  float m_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    m_r[i] = fmaxf(fmaxf(red_m[row[i]], red_m[16 + row[i]]),
+                   fmaxf(red_m[32 + row[i]], red_m[48 + row[i]]));
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[j][e] = ok[j][e] ? expf(s[j][e] - m_r[e >> 1]) : 0.f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float sum = (s[0][2 * i] + s[0][2 * i + 1]) + (s[1][2 * i] + s[1][2 * i + 1]);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if ((lane & 3) == 0) red_l[warp * 16 + row[i]] = sum;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (I8) {
+    widen(ST_OFF + DS_ROWS * RB8, V_OFF);
+    __syncthreads();
+  }
+
+  // O_w = P V over the warp's 16 rows (one k step), P split into hi / lo
+  uint32_t ph[4], pl[4];
+  split_bf16(s[0][0], s[0][1], ph[0], pl[0]);
+  split_bf16(s[0][2], s[0][3], ph[1], pl[1]);
+  split_bf16(s[1][0], s[1][1], ph[2], pl[2]);
+  split_bf16(s[1][2], s[1][3], ph[3], pl[3]);
+  float o[2 * KSTEP][4];
+#pragma unroll
+  for (int j = 0; j < 2 * KSTEP; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  {
+    const uint32_t va =
+        sa + V_OFF + (warp * 16 + (mi & 1) * 8 + l7) * RB + (mi >> 1) * 16;
+#pragma unroll
+    for (int p = 0; p < KSTEP; ++p) {
+      uint32_t vf[4];
+      ldsm_x4_trans(va + p * 32, vf);
+      mma_bf16(o[2 * p], ph, vf[0], vf[1]);
+      mma_bf16(o[2 * p + 1], ph, vf[2], vf[3]);
+      mma_bf16(o[2 * p], pl, vf[0], vf[1]);
+      mma_bf16(o[2 * p + 1], pl, vf[2], vf[3]);
+    }
+  }
+  __syncthreads();                             // K and V are read
+  float* red_o = reinterpret_cast<float*>(smem_raw + K_OFF);   // [4][16][OLD]
+#pragma unroll
+  for (int j = 0; j < 2 * KSTEP; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    *reinterpret_cast<float2*>(red_o + (warp * 16 + row[0]) * OLD + col) =
+        make_float2(o[j][0], o[j][1]);
+    *reinterpret_cast<float2*>(red_o + (warp * 16 + row[1]) * OLD + col) =
+        make_float2(o[j][2], o[j][3]);
+  }
+  __syncthreads();
+  for (int i = tid; i < G * HD; i += DS_NT) {
+    const int g = i / HD, d = i % HD;
+    const float acc = ((red_o[g * OLD + d] + red_o[(16 + g) * OLD + d]) +
+                       red_o[(32 + g) * OLD + d]) +
+                      red_o[(48 + g) * OLD + d];
+    a.ws_acc[part0 * HD + i] = I8 ? acc * vsc : acc;
+  }
+  for (int g = tid; g < G; g += DS_NT) {
+    a.ws_m[part0 + g] = fmaxf(fmaxf(red_m[g], red_m[16 + g]),
+                              fmaxf(red_m[32 + g], red_m[48 + g]));
+    a.ws_l[part0 + g] = ((red_l[g] + red_l[16 + g]) + red_l[32 + g]) +
+                        red_l[48 + g];
+  }
+}
+
+// The splits of one (row b, head h), in split order: the largest m, then
+// acc and l of every non-empty split weighted by exp(m_j - m).  Fused: the
+// current token's (acc, m, l) merged, then normalised; partial: the raw
+// (acc, m, l), m = -inf when every split is empty.  One block per (b, h).
+constexpr int DM_NT = 128;
+
+template <typename T, bool PARTIAL>
+__global__ void __launch_bounds__(DM_NT) decode_merge_kernel(DecodeArgs a) {
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
+  const int G = a.H / a.KH, kh = h / G, g = h % G;
+  const size_t first = ((size_t)b * a.KH + kh) * a.n_split * G + g;
+  const size_t head = (size_t)b * a.H + h;
+  float m = NEG_INF;
+  for (int j = 0; j < a.n_split; ++j)
+    m = fmaxf(m, a.ws_m[first + (size_t)j * G]);
+  for (int d = threadIdx.x; d < a.HD; d += DM_NT) {
+    float acc = 0.f, l = 0.f;
+    for (int j = 0; j < a.n_split; ++j) {
+      const size_t p = first + (size_t)j * G;
+      const float mj = a.ws_m[p];
+      if (mj <= NEG_INF / 2) continue;         // an empty split
+      const float w = expf(mj - m);
+      acc = fmaf(a.ws_acc[p * a.HD + d], w, acc);
+      l = fmaf(a.ws_l[p], w, l);
+    }
+    if (PARTIAL) {
+      a.acc_out[head * a.HD + d] = acc;
+      if (d == 0) {
+        // NEG_INF sentinel -> -inf so a merge ignores empty partials
+        a.m_out[head] = m <= NEG_INF / 2 ? -INFINITY : m;
+        a.l_out[head] = l;
+      }
+      continue;
+    }
+    if (a.acc_e) {
+      // the current token's (acc, m, l), merged before normalisation
+      const float me = a.m_e[head];
+      const float mm = fmaxf(m, me);
+      const float a1 = expf(m - mm), a2 = expf(me - mm);
+      acc = acc * a1 + a.acc_e[head * a.HD + d] * a2;
+      l = l * a1 + a.l_e[head] * a2;
+    }
+    static_cast<T*>(a.out)[head * a.HD + d] = from_f<T>(acc / fmaxf(l, 1e-20f));
+  }
+}
+
 // Shared memory above 48 KB must be opted into per kernel.
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
@@ -786,19 +1060,61 @@ cudaError_t allow_smem(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// The CUDA-core split's shared memory: q, K, V, scores, (m, l).
 size_t decode_smem(int G, int HD, int TK) {
-  return sizeof(float) * ((size_t)2 * G * HD + (size_t)2 * TK * (HD + 1) +
-                          (size_t)G * TK + 3 * (size_t)G);
+  return sizeof(float) * ((size_t)G * HD + (size_t)2 * TK * (HD + 1) +
+                          (size_t)G * TK + 2 * (size_t)G);
 }
 
+template <int HD, bool I8>
+constexpr size_t decode_tc_smem() {
+  return (size_t)(DS_GMAX + 2 * DS_ROWS) * tc_row_bytes<HD>() +
+         (I8 ? (size_t)2 * DS_ROWS * (HD + 16) : 0) + 2 * 4 * 16 * sizeof(float);
+}
+
+// The split kernel on the grid (B * KH, n_split), then the merge on B * H
+// blocks.  tc: the tensor-core split (bf16 q, HD 64 or 128, G <= 16);
+// anything else it is asked for is refused with cudaErrorInvalidValue.
 template <typename T, typename KV, bool PARTIAL>
-int run_decode(const DecodeArgs& a, int B, cudaStream_t stream) {
-  const size_t smem = decode_smem(a.H / a.KH, a.HD, a.tile);
-  auto kernel = decode_kernel<T, KV, PARTIAL>;
-  cudaError_t err = allow_smem(kernel, smem);
+int run_decode(const DecodeArgs& a, int B, int tc, cudaStream_t stream) {
+  const dim3 grid(B * a.KH, a.n_split);
+  cudaError_t err;
+  if (a.split < 1 || a.split > DS_ROWS) return (int)cudaErrorInvalidValue;
+  if (tc) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      constexpr bool I8 = std::is_same<KV, int8_t>::value;
+      if (a.H / a.KH > DS_GMAX || (a.HD != 64 && a.HD != 128))
+        return (int)cudaErrorInvalidValue;
+      auto kernel = a.HD == 128 ? decode_split_tc_kernel<128, KV, PARTIAL>
+                                : decode_split_tc_kernel<64, KV, PARTIAL>;
+      const size_t smem = a.HD == 128 ? decode_tc_smem<128, I8>()
+                                      : decode_tc_smem<64, I8>();
+      err = allow_smem(kernel, smem);
+      if (err != cudaSuccess) return (int)err;
+      kernel<<<grid, DS_NT, smem, stream>>>(a);
+    } else {
+      return (int)cudaErrorInvalidValue;      // bf16 q only
+    }
+  } else {
+    const size_t smem = decode_smem(a.H / a.KH, a.HD, a.split);
+    auto kernel = decode_split_kernel<T, KV, PARTIAL>;
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, NT, smem, stream>>>(a);
+  }
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(B * a.KH), NT, smem, stream>>>(a);
+  decode_merge_kernel<T, PARTIAL><<<B * a.H, DM_NT, 0, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The workspace of B * KH * n_split * G rows: acc (hd floats a row), then
+// m, then l.
+void set_workspace(DecodeArgs& a, float* ws, int B) {
+  const size_t rows = (size_t)B * a.KH * a.n_split * (a.H / a.KH);
+  a.ws_acc = ws;
+  a.ws_m = ws + rows * a.HD;
+  a.ws_l = a.ws_m + rows;
 }
 
 template <typename T>
@@ -831,40 +1147,46 @@ int run_flash_tc(const FlashArgs& a, int B, cudaStream_t stream) {
 extern "C" {
 
 // k_scale / v_scale non-null: k and v are int8 pools with n_sc scales per
-// (row, KV head), one per physical page of blk_c rows.
-int rt_decode_fused(int dtype, const void* q, const void* k, const void* v,
-                    const int* pos, const int* pages, int n_log,
+// (row, KV head), one per physical page of blk_c rows.  ws: f32 workspace
+// of B * KH * n_split * G * (hd + 2) floats.  tc: 1 = the tensor-core split.
+int rt_decode_fused(int dtype, int tc, const void* q, const void* k,
+                    const void* v, const int* pos, const int* pages, int n_log,
                     const float* acc_e, const float* m_e, const float* l_e,
                     const float* k_scale, const float* v_scale, int n_sc,
-                    void* out, int B, int H, int KH, int S, int HD,
-                    int blk_c, int tile, int window, float scale,
+                    void* out, float* ws, int B, int H, int KH, int S, int HD,
+                    int blk_c, int split, int n_split, int window, float scale,
                     void* stream) {
   DecodeArgs a = {};
   a.q = q; a.k = k; a.v = v; a.pos = pos; a.pages = pages; a.n_log = n_log;
   a.acc_e = acc_e; a.m_e = m_e; a.l_e = l_e; a.out = out;
   a.k_scale = k_scale; a.v_scale = v_scale; a.n_sc = n_sc;
-  a.H = H; a.KH = KH; a.S = S; a.HD = HD; a.blk_c = blk_c; a.tile = tile;
-  a.window = window; a.scale = scale;
+  a.H = H; a.KH = KH; a.S = S; a.HD = HD; a.blk_c = blk_c;
+  a.split = split; a.n_split = n_split; a.window = window; a.scale = scale;
+  set_workspace(a, ws, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k_scale)
-    return dtype == 1 ? run_decode<__nv_bfloat16, int8_t, false>(a, B, s)
-                      : run_decode<float, int8_t, false>(a, B, s);
-  return dtype == 1 ? run_decode<__nv_bfloat16, __nv_bfloat16, false>(a, B, s)
-                    : run_decode<float, float, false>(a, B, s);
+    return dtype == 1 ? run_decode<__nv_bfloat16, int8_t, false>(a, B, tc, s)
+                      : run_decode<float, int8_t, false>(a, B, tc, s);
+  return dtype == 1
+             ? run_decode<__nv_bfloat16, __nv_bfloat16, false>(a, B, tc, s)
+             : run_decode<float, float, false>(a, B, tc, s);
 }
 
-int rt_decode_partial(int dtype, const void* q, const void* k, const void* v,
-                      const uint8_t* valid, float* acc, float* m, float* l,
-                      int B, int H, int KH, int C, int HD, int tile,
-                      float scale, void* stream) {
+int rt_decode_partial(int dtype, int tc, const void* q, const void* k,
+                      const void* v, const uint8_t* valid, float* acc,
+                      float* m, float* l, float* ws, int B, int H, int KH,
+                      int C, int HD, int split, int n_split, float scale,
+                      void* stream) {
   DecodeArgs a = {};
   a.q = q; a.k = k; a.v = v; a.valid = valid;
   a.acc_out = acc; a.m_out = m; a.l_out = l;
-  a.H = H; a.KH = KH; a.S = C; a.HD = HD; a.blk_c = C; a.tile = tile;
-  a.scale = scale;
+  a.H = H; a.KH = KH; a.S = C; a.HD = HD; a.blk_c = C;
+  a.split = split; a.n_split = n_split; a.scale = scale;
+  set_workspace(a, ws, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? run_decode<__nv_bfloat16, __nv_bfloat16, true>(a, B, s)
-                    : run_decode<float, float, true>(a, B, s);
+  return dtype == 1
+             ? run_decode<__nv_bfloat16, __nv_bfloat16, true>(a, B, tc, s)
+             : run_decode<float, float, true>(a, B, tc, s);
 }
 
 int rt_flash_attention(int dtype, const void* q, const void* k, const void* v,

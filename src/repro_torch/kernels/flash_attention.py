@@ -16,7 +16,13 @@ count in `build.LAUNCHES`.
 Prefill has two kernels: `flash_tc_kernel` on the tensor cores takes bf16
 with a head dim of 64 or 128 and 16-byte-aligned bases, `flash_kernel` on
 the CUDA cores takes the rest.  `flash_route` is that rule, a dispatch on
-what each kernel takes: a refused launch of either still raises.
+what each kernel takes: a refused launch of either still raises.  Decode
+(fused and partial) splits the KV range as `decode_split` says, runs each
+split on `decode_split_tc_kernel` (the tensor cores) where `decode_route`
+says so and on `decode_split_kernel` (the CUDA cores, f32) otherwise, and
+merges the splits in order with a second kernel; the wrapper allocates the
+splits' workspace.  A launch on the tensor-core route also counts under
+`<name>_tc` (`build.VARIANTS`).
 """
 from __future__ import annotations
 
@@ -31,17 +37,21 @@ from repro_torch.kernels.build import (DTYPE_CODE, LAUNCHES, check,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "rt_decode_fused": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                        _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    "rt_decode_partial": [_I, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _F, _P],
+    "rt_decode_fused": [_I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                        _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                        _P],
+    "rt_decode_partial": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "rt_flash_attention": [_I, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "rt_flash_attention_tc": [_P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _F, _P],
 }
-# head dims the tensor-core prefill kernel is compiled for
+# head dims the tensor-core prefill and decode kernels are compiled for
 TC_HEAD_DIMS = (64, 128)
+# query heads per KV head the tensor-core decode split takes (the mma's 16
+# rows)
+DECODE_TC_MAX_GROUP = 16
 
 
 def _fn(name: str):
@@ -49,12 +59,42 @@ def _fn(name: str):
 
 
 def decode_tile(blk_c: int) -> int:
-    """KV rows per tile of the decode kernels: the largest divisor of the
-    chunk not above 64, so that a tile never straddles a page."""
+    """KV rows per split of the decode kernels: the largest divisor of the
+    chunk not above 64, so that a split never straddles a page."""
     tile = min(64, blk_c)
     while blk_c % tile:
         tile -= 1
     return tile
+
+
+def decode_split(n_rows: int, blk_c: int) -> Tuple[int, int]:
+    """The decode kernels' split of the KV range, a function of the cache's
+    logical length and its chunk (page) alone: (rows per split, n_split).
+    Split j holds logical rows [j split, min((j + 1) split, n_rows)); the
+    kernels put each on a block of its own and merge the splits in this
+    order."""
+    split = decode_tile(blk_c)
+    return split, -(-n_rows // split)
+
+
+def decode_route(dtype: torch.dtype, hd: int, group: int,
+                 aligned: bool = True) -> str:
+    """The decode split kernel that takes these inputs: "tensor_core" for
+    bf16 q with hd in TC_HEAD_DIMS, at most DECODE_TC_MAX_GROUP query heads
+    per KV head and 16-byte-aligned q, k, v (`aligned`; bf16 or int8
+    pools), else "cuda_core"."""
+    if (dtype == torch.bfloat16 and hd in TC_HEAD_DIMS
+            and group <= DECODE_TC_MAX_GROUP and aligned):
+        return "tensor_core"
+    return "cuda_core"
+
+
+def _workspace(b: int, kh: int, n_split: int, group: int, hd: int,
+               device: torch.device) -> torch.Tensor:
+    """The splits' f32 (acc, m, l), one allocation: B KH n_split G rows of
+    hd + 2 floats."""
+    return torch.empty(b * kh * n_split * group * (hd + 2),
+                       dtype=torch.float32, device=device)
 
 
 def dense_chunk(s: int, blk_c: int) -> int:
@@ -137,18 +177,24 @@ def decode_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    f"{name}: extra must be contiguous f32 CUDA "
                    "(B,H,hd), (B,H), (B,H)")
     out = torch.empty_like(q)
+    split, n_split = decode_split(n_log * blk_c if n_log else s, blk_c)
+    ws = _workspace(b, kh, n_split, h // kh, hd, q.device)
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    tc = decode_route(q.dtype, hd, h // kh,
+                      (qp | kp | vp) % 16 == 0) == "tensor_core"
     err = _fn("rt_decode_fused")(
-        DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        pos.data_ptr(), pages_ptr, n_log,
-        None if acc_e is None else acc_e.data_ptr(),
+        DTYPE_CODE[q.dtype], int(tc), qp, kp, vp, pos.data_ptr(), pages_ptr,
+        n_log, None if acc_e is None else acc_e.data_ptr(),
         None if m_e is None else m_e.data_ptr(),
         None if l_e is None else l_e.data_ptr(),
         None if kv_scales is None else kv_scales[0].data_ptr(),
         None if kv_scales is None else kv_scales[1].data_ptr(), n_sc,
-        out.data_ptr(), b, h, kh, s, hd, blk_c, decode_tile(blk_c),
-        int(window), float(hd ** -0.5), stream())
+        out.data_ptr(), ws.data_ptr(), b, h, kh, s, hd, blk_c, split,
+        n_split, int(window), float(hd ** -0.5), stream())
     raise_on(err, name)
     LAUNCHES[name] += 1
+    if tc:
+        LAUNCHES[name + "_tc"] += 1
     return out
 
 
@@ -173,12 +219,19 @@ def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
     acc = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
     m = torch.empty((b, h), dtype=torch.float32, device=q.device)
     l = torch.empty((b, h), dtype=torch.float32, device=q.device)
+    split, n_split = decode_split(c, 64)
+    ws = _workspace(b, kh, n_split, h // kh, hd, q.device)
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    tc = decode_route(q.dtype, hd, h // kh,
+                      (qp | kp | vp) % 16 == 0) == "tensor_core"
     err = _fn("rt_decode_partial")(
-        DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        valid.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        b, h, kh, c, hd, 64, float(hd ** -0.5), stream())
+        DTYPE_CODE[q.dtype], int(tc), qp, kp, vp, valid.data_ptr(),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), ws.data_ptr(),
+        b, h, kh, c, hd, split, n_split, float(hd ** -0.5), stream())
     raise_on(err, name)
     LAUNCHES[name] += 1
+    if tc:
+        LAUNCHES[name + "_tc"] += 1
     return acc, m, l
 
 

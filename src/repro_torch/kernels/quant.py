@@ -14,7 +14,12 @@ n_blocks axis) is sliced per layer with `layer(i)`, a view of each leaf.
 The wrapper `quant_matmul` takes CUDA tensors only, checks device, dtype,
 shape and contiguity, allocates its output and any split-K workspace with
 `torch.empty`, launches on `torch.cuda.current_stream()`, raises if the
-launch fails and adds one to `build.LAUNCHES["quant_matmul[<fmt>]"]`.
+launch fails and adds one to `build.LAUNCHES["quant_matmul[<fmt>]"]` (and
+to `"quant_matmul[<fmt>]_tc"` when it took the tensor-core kernel).
+`quant_route` picks the kernel from the shape, dtype and alignment:
+`skinny_kernel` for decode (m <= 16), `quant_tc_kernel` on the tensor
+cores for bf16 prefill, `tiled_kernel` on the CUDA cores for the rest
+(f32).
 `ops.quant_matmul` sends CPU tensors to `ref.quant_matmul_reference`
 before the wrapper is reached.
 """
@@ -36,10 +41,13 @@ WEIGHT_FORMATS = ("q8_0", "q4_k")
 FMT_CODE = {"q8_0": 0, "q4_k": 1}
 
 # the kernels' tiles (csrc/quant.cu): a skinny block covers 4 rows of x and
-# 128 columns, a tiled block 64 rows and 128 columns
+# 128 columns, a tiled block 64 rows and 128 columns, a tensor-core block
+# 128 rows and 128 columns
 SKINNY_MAX_M = 16
-SKINNY_ROWS, TILED_ROWS, TILE_COLS = 4, 64, 128
+SKINNY_ROWS, TILED_ROWS, TC_ROWS, TILE_COLS = 4, 64, 128, 128
 SMS = 132                    # streaming multiprocessors of an H100 SXM
+ROUTES = ("skinny", "tiled", "tensor_core")
+ROUTE_CODE = {r: i for i, r in enumerate(ROUTES)}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURE = [_I, _I, _P, _P, _P, _P, _P, _P,
@@ -98,18 +106,35 @@ def dequantize_tensor(qt: QTensor) -> torch.Tensor:
                                   qt.d_in)
 
 
-def quant_plan(m: int, n: int, n_blocks: int) -> Tuple[bool, int, int]:
-    """The kernel's launch shape, a function of the problem's shape only:
-    (skinny, splits, blocks per split).  m <= 16 (decode) takes the skinny
-    kernel, whose block gives each of its 32 k-lanes one quant block of a
-    128-column tile; larger m the 64 x 128 tiled kernel.  The 32-row blocks
-    of d are split across thread blocks until the grid covers the SMs; the
+def quant_route(dtype: torch.dtype, m: int, d: int, n: int,
+                aligned: bool = True) -> str:
+    """The kernel that takes these inputs: "skinny" for m <= 16 (decode);
+    else "tensor_core" for bf16 x with d % 8 == 0, n % 16 == 0 and
+    16-byte-aligned x and weight leaves (`aligned`), the whole-chunk
+    copies of `quant_tc_kernel`; else "tiled" (the CUDA cores: f32 and
+    the rest)."""
+    if m <= SKINNY_MAX_M:
+        return "skinny"
+    if dtype == torch.bfloat16 and d % 8 == 0 and n % 16 == 0 and aligned:
+        return "tensor_core"
+    return "tiled"
+
+
+def quant_plan(m: int, n: int, n_blocks: int,
+               route: str) -> Tuple[int, int]:
+    """The kernel's split of d, a function of the problem's shape and route
+    only: (splits, blocks per split).  The skinny kernel's block gives each
+    of its 32 k-lanes one quant block of a 128-column tile; the tiled and
+    tensor-core kernels walk their blocks of d in order.  The 32-row blocks
+    of d are split across thread blocks until the grid covers the SMs
+    (for the tiled kernels only where the output tiles alone do not); the
     splits' f32 partials are summed by a second pass in split order, so the
     result does not depend on timing (no float atomics)."""
     col_tiles = -(-n // TILE_COLS)
-    skinny = m <= SKINNY_MAX_M
-    tiles = col_tiles * -(-m // (SKINNY_ROWS if skinny else TILED_ROWS))
-    if skinny:
+    rows = {"skinny": SKINNY_ROWS, "tiled": TILED_ROWS,
+            "tensor_core": TC_ROWS}[route]
+    tiles = col_tiles * -(-m // rows)
+    if route == "skinny":
         per_split = 32
         while per_split > 4 and tiles * -(-n_blocks // per_split) < SMS:
             per_split //= 2
@@ -119,7 +144,7 @@ def quant_plan(m: int, n: int, n_blocks: int) -> Tuple[bool, int, int]:
             splits = max(1, min(-(-2 * SMS // tiles), n_blocks // 8))
         per_split = -(-n_blocks // splits)
     per_split = min(per_split, n_blocks)
-    return skinny, -(-n_blocks // per_split), per_split
+    return -(-n_blocks // per_split), per_split
 
 
 def check_args(x: torch.Tensor, qt: QTensor) -> Tuple[int, int, int]:
@@ -162,18 +187,22 @@ def quant_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     name = f"quant_matmul[{qt.fmt}]"
     check_inputs(name, x)
     m, n, nb = check_args(x, qt)
-    skinny, splits, per_split = quant_plan(m, n, nb)
+    d = x.shape[1]
+    leaves = [t for t in (qt.quants, qt.scales, qt.mins) if t is not None]
+    vec = n % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in leaves)
+    route = quant_route(x.dtype, m, d, n, vec and x.data_ptr() % 16 == 0)
+    splits, per_split = quant_plan(m, n, nb, route)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
           if splits > 1 else None)
-    leaves = [t for t in (qt.quants, qt.scales, qt.mins) if t is not None]
-    vec = n % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in leaves)
     err = function("rt_quant_matmul", _SIGNATURE)(
         DTYPE_CODE[x.dtype], FMT_CODE[qt.fmt], x.data_ptr(),
         qt.quants.data_ptr(), qt.scales.data_ptr(),
         None if qt.mins is None else qt.mins.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), m, x.shape[1], n, nb,
-        splits, per_split, int(skinny), int(vec), stream())
+        None if ws is None else ws.data_ptr(), m, d, n, nb,
+        splits, per_split, ROUTE_CODE[route], int(vec), stream())
     raise_on(err, name)
     LAUNCHES[name] += 1
+    if route == "tensor_core":
+        LAUNCHES[name + "_tc"] += 1
     return out

@@ -22,9 +22,13 @@ and paged == dense bitwise.  The KNN distances against the plain version
 |kernel - plain| <= 1e-5 (|q| + |x|)^2, the square bounding every term of
 the sum; a chunk of db gives the bits of the same columns of the whole.
 The tensor-core kernels (bf16 flash attention with hd 64 or 128, bf16 KNN
-with D % 8 == 0) are held to the same tolerances: their bf16 products are
-exact in f32 and the flash kernel keeps P to ~16 bits (a hi and a lo bf16
-half), so they too differ from the plain versions in f32 summation order.
+with D % 8 == 0, the bf16 decode split, bf16 prefill quant_matmul) are
+held to the same tolerances: their bf16 products are exact in f32 (int8
+and 4-bit quants are exact in bf16, their scales applied in f32) and the
+attention kernels keep P to ~16 bits (a hi and a lo bf16 half), so they
+too differ from the plain versions in f32 summation order.  The decode
+splits the KV range at fixed logical rows and merges in split order, so
+paged == dense and a row run alone == that row in the batch, bitwise.
 The SLS kernel walks each bag in slot order with the plain version's
 roundings (row * w, then acc + that, in f32), so it equals the plain
 version bitwise.  `stream_offload` on the card: BS, RP and AXLE (whose
@@ -123,6 +127,147 @@ def test_decode_partial_kernel(cuda, dtype):
     fin = torch.isfinite(m_r)
     for got, want in ((acc, acc_r), (m[fin], m_r[fin]), (l, l_r)):
         assert torch.allclose(got, want, atol=1e-4, rtol=1e-5)
+
+
+# ------------------------------------------- split-KV decode at its edges
+
+# one row per position: the first row, either side of a 64-row split and
+# of a 128-row page, the cache's last slot
+SPLIT_POS = (0, 63, 64, 127, 128, 1023)
+
+
+def _split_case(dev, dtype, hd, group, seed, kv="fp", s=1024, page=128):
+    """len(SPLIT_POS) rows, 2 KV heads, a shuffled page table: (q, logical
+    k, v, physical k, v, table, extra, logical scales, physical scales);
+    int8 pools (kv="int8") from quantize_kv_pages."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, kh = len(SPLIT_POS), 2
+    h = kh * group
+    q = _rand(gen, (b, 1, h, hd), dtype, dev)
+    k = _rand(gen, (b, kh, s, hd), dtype, dev)
+    v = _rand(gen, (b, kh, s, hd), dtype, dev)
+    n = s // page
+    table = torch.stack([torch.randperm(n, generator=gen, device=dev)
+                         for _ in range(b)]).to(torch.int32)
+    sc = psc = None
+    if kv == "int8":
+        (k, ks), (v, vs) = (ref.quantize_kv_pages(t, page) for t in (k, v))
+        sc = (ks, vs)
+        psc = (torch.empty_like(ks), torch.empty_like(vs))
+    pk, pv = torch.empty_like(k), torch.empty_like(v)
+    for r in range(b):
+        for j in range(n):
+            p = int(table[r, j])
+            phys, log = slice(p * page, (p + 1) * page), \
+                slice(j * page, (j + 1) * page)
+            pk[r, :, phys], pv[r, :, phys] = k[r, :, log], v[r, :, log]
+            if sc is not None:
+                psc[0][r, :, p], psc[1][r, :, p] = sc[0][r, :, j], sc[1][r, :, j]
+    extra = (torch.randn((b, h, hd), generator=gen, device=dev),
+             torch.randn((b, h), generator=gen, device=dev),
+             torch.rand((b, h), generator=gen, device=dev) + 0.5)
+    return q, k, v, pk, pv, table, extra, sc, psc
+
+
+@pytest.mark.parametrize("kv", ["fp", "int8"])
+@pytest.mark.parametrize("dtype,hd,group", [
+    (torch.bfloat16, 128, 12),      # starcoder2_3b: the tensor-core split
+    (torch.bfloat16, 64, 1),
+    (torch.bfloat16, 128, 20),      # more heads than the mma's 16 rows
+    (torch.bfloat16, 96, 4),        # no tensor-core instantiation
+    (torch.float32, 128, 12),       # the f32 CUDA-core split
+])
+@pytest.mark.parametrize("window", [0, 100])
+def test_decode_split_edges(cuda, kv, dtype, hd, group, window):
+    """pos on both sides of the 64-row splits and the 128-row pages, a
+    window crossing splits: paged == dense bitwise, each row run alone ==
+    that row in the batch bitwise, close to the plain version; the route
+    is the one decode_route names."""
+    q, k, v, pk, pv, table, extra, sc, psc = _split_case(
+        cuda, dtype, hd, group, seed=hd + group + window, kv=kv)
+    pos = torch.tensor(SPLIT_POS, dtype=torch.int32, device=cuda)
+    name = ("decode_attention_fused" if kv == "fp"
+            else "decode_attention_fused[int8]")
+    tc = fa.decode_route(dtype, hd, group) == "tensor_core"
+    assert tc == (dtype == torch.bfloat16 and hd in (64, 128)
+                  and group <= 16)
+    before = (kbuild.LAUNCHES[name], kbuild.LAUNCHES[name + "_tc"])
+    dense = fa.decode_attention_fused(q, k, v, pos, extra, window=window,
+                                      blk_c=128, kv_scales=sc)
+    paged = fa.decode_attention_fused(q, pk, pv, pos, extra, window=window,
+                                      blk_c=128, pages=table, kv_scales=psc)
+    want = ref.decode_fused_reference(q, pk, pv, pos, extra, window=window,
+                                      pages=table, page_size=128,
+                                      kv_scales=psc)
+    alone = [fa.decode_attention_fused(
+        q[r:r + 1], pk[r:r + 1], pv[r:r + 1], pos[r:r + 1],
+        tuple(t[r:r + 1] for t in extra), window=window, blk_c=128,
+        pages=table[r:r + 1],
+        kv_scales=None if psc is None else tuple(t[r:r + 1] for t in psc))
+        for r in range(len(SPLIT_POS))]
+    torch.cuda.synchronize()
+    calls = 2 + len(SPLIT_POS)
+    assert (kbuild.LAUNCHES[name] - before[0],
+            kbuild.LAUNCHES[name + "_tc"] - before[1]) == (calls, calls * tc)
+    assert torch.equal(dense, paged)
+    _close(paged, want, dtype)
+    for r, one in enumerate(alone):
+        assert torch.equal(one, paged[r:r + 1]), r
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_partial_empty_splits_and_rows(cuda, dtype):
+    """C = 1024: row 0 fully masked, row 1 valid in two splits and at the
+    last slot only, row 2 random with its first five splits masked; the
+    raw (acc, m, l) against the plain version, empty rows m = -inf and
+    l = 0, each row alone == that row in the batch bitwise."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    b, kh, c, hd, group = 3, 2, 1024, 128, 12
+    q = _rand(gen, (b, 1, kh * group, hd), dtype, cuda)
+    k = _rand(gen, (b, kh, c, hd), dtype, cuda)
+    v = _rand(gen, (b, kh, c, hd), dtype, cuda)
+    valid = torch.rand((b, c), generator=gen, device=cuda) < 0.5
+    valid[0] = False
+    valid[1] = False
+    valid[1, 192:256] = True
+    valid[1, 650:660] = True
+    valid[1, 1023] = True
+    valid[2, :320] = False
+    name = "decode_attention_partial"
+    before = (kbuild.LAUNCHES[name], kbuild.LAUNCHES[name + "_tc"])
+    acc, m, l = fa.decode_attention_partial(q, k, v, valid)
+    alone = [fa.decode_attention_partial(q[r:r + 1], k[r:r + 1], v[r:r + 1],
+                                         valid[r:r + 1]) for r in range(b)]
+    acc_r, m_r, l_r = ref.decode_partial_reference(q, k, v, valid)
+    torch.cuda.synchronize()
+    tc = int(dtype == torch.bfloat16)
+    assert (kbuild.LAUNCHES[name] - before[0],
+            kbuild.LAUNCHES[name + "_tc"] - before[1]) == (1 + b, (1 + b) * tc)
+    assert torch.isinf(m[0]).all() and (m[0] < 0).all()
+    assert (l[0] == 0).all() and (acc[0] == 0).all()
+    assert torch.equal(torch.isinf(m), torch.isinf(m_r))
+    fin = torch.isfinite(m_r)
+    for got, want in ((acc, acc_r), (m[fin], m_r[fin]), (l, l_r)):
+        assert torch.allclose(got, want, atol=1e-4, rtol=1e-5)
+    for r, (a1, m1, l1) in enumerate(alone):
+        assert torch.equal(a1, acc[r:r + 1]) and torch.equal(l1, l[r:r + 1])
+        assert torch.equal(m1, m[r:r + 1])
+
+
+def test_decode_kernels_refuse_the_tensor_core_route_for_f32(cuda):
+    """The C entry points refuse a tensor-core split they have no kernel
+    for (f32 q) instead of running another kernel."""
+    q, k, v, _, _, _, _ = _paged_case(cuda, torch.float32, 4, 2)
+    pos = torch.zeros(B, dtype=torch.int32, device=cuda)
+    out = torch.empty_like(q)
+    split, n_split = fa.decode_split(S, PAGE)
+    ws = torch.empty(B * KH * n_split * 4 * (HD + 2), device=cuda)
+    err = fa._fn("rt_decode_fused")(
+        0, 1, q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+        None, 0, None, None, None, None, None, 0, out.data_ptr(),
+        ws.data_ptr(), B, 4 * KH, KH, S, HD, PAGE, split, n_split, 0,
+        HD ** -0.5, kbuild.stream())
+    assert err != 0
 
 
 def _flash_case(dev, dtype, s, window, hd=HD, causal=True, kh=2, group=12,
@@ -315,6 +460,70 @@ def test_quant_matmul_kernel(cuda, fmt, dtype, m, d, n):
     assert got.dtype == dtype and got.shape == (m, n)
     assert torch.equal(got, again)
     _quant_close(got, x, qt)
+
+
+@pytest.mark.parametrize("fmt", ["q8_0", "q4_k"])
+@pytest.mark.parametrize("m", [17, 64, 300, 512])
+@pytest.mark.parametrize("d,n", [
+    (3072, 1040),          # ragged n: 8 column tiles and 16 columns
+    (200, 272),            # ragged d: a last block of 8 lanes
+    (3072, 256),           # wk / wv: split over d
+])
+def test_quant_matmul_tensor_core_route(cuda, fmt, m, d, n):
+    """bf16 x with m > 16 takes tc_kernel: within the tolerance of the
+    plain version, repeat calls bitwise, one tensor-core launch each."""
+    gen = torch.Generator(device=cuda).manual_seed(m + d + n)
+    w = torch.randn((d, n), generator=gen, device=cuda) * d ** -0.5
+    qt = kquant.quantize_tensor(w, fmt)
+    x = _rand(gen, (m, d), torch.bfloat16, cuda)
+    assert kquant.quant_route(x.dtype, m, d, n) == "tensor_core"
+    name = f"quant_matmul[{fmt}]"
+    before = (kbuild.LAUNCHES[name], kbuild.LAUNCHES[name + "_tc"])
+    got = kquant.quant_matmul(x, qt)
+    again = kquant.quant_matmul(x, qt)
+    torch.cuda.synchronize()
+    assert (kbuild.LAUNCHES[name] - before[0],
+            kbuild.LAUNCHES[name + "_tc"] - before[1]) == (2, 2)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    assert torch.equal(got, again)
+    _quant_close(got, x, qt)
+
+
+@pytest.mark.parametrize("fmt", ["q8_0", "q4_k"])
+@pytest.mark.parametrize("case", ["f32", "d_not_8", "unaligned"])
+def test_quant_matmul_other_prefill_inputs_take_the_tiled_kernel(cuda, fmt,
+                                                                 case):
+    """f32 x, d % 8 != 0 and an x 2 bytes into its storage stay on the
+    CUDA-core tiled kernel, with its tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    m, d, n = 300, 100 if case == "d_not_8" else 512, 384
+    qt = kquant.quantize_tensor(torch.randn((d, n), generator=gen,
+                                            device=cuda) * 0.05, fmt)
+    if case == "f32":
+        x = _rand(gen, (m, d), torch.float32, cuda)
+    elif case == "unaligned":
+        x = _rand(gen, (m * d + 1,), torch.bfloat16, cuda)[1:].view(m, d)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    else:
+        x = _rand(gen, (m, d), torch.bfloat16, cuda)
+    name = f"quant_matmul[{fmt}]"
+    before = (kbuild.LAUNCHES[name], kbuild.LAUNCHES[name + "_tc"])
+    got = kquant.quant_matmul(x, qt)
+    torch.cuda.synchronize()
+    assert (kbuild.LAUNCHES[name] - before[0],
+            kbuild.LAUNCHES[name + "_tc"] - before[1]) == (1, 0)
+    _quant_close(got, x, qt)
+
+
+def test_quant_kernel_refuses_the_tensor_core_route_for_f32(cuda):
+    qt = kquant.quantize_tensor(torch.randn((64, 32), device=cuda), "q8_0")
+    x = torch.zeros((32, 64), device=cuda)
+    out = torch.empty((32, 32), device=cuda)
+    err = kquant.function("rt_quant_matmul", kquant._SIGNATURE)(
+        0, 0, x.data_ptr(), qt.quants.data_ptr(), qt.scales.data_ptr(), None,
+        out.data_ptr(), None, 32, 64, 32, 2, 1, 2,
+        kquant.ROUTE_CODE["tensor_core"], 1, kbuild.stream())
+    assert err != 0
 
 
 def test_quant_matmul_on_a_layer_slice(cuda):

@@ -1,9 +1,11 @@
 """Which hand-written kernel takes which inputs, and the arithmetic of the
 tensor-core flash kernel's P split, on the CPU.
 
-`flash_route` and `knn_route` are the wrappers' dispatch between a
-tensor-core kernel and the CUDA-core kernel of the same function: a rule
-on what each kernel takes, never a fallback on failure.  The P split
+`flash_route`, `decode_route` and `knn_route` are the wrappers' dispatch
+between a tensor-core kernel and the CUDA-core kernel of the same
+function (`quant.quant_route`, tested in test_torch_quant.py, does the
+same for quant_matmul): a rule on what each kernel takes, never a
+fallback on failure.  The P split
 (`csrc/attention.cu`, flash_tc_kernel) feeds the softmax weights to the
 bf16 tensor cores as p_hi = bf16(p) and p_lo = bf16(p - p_hi), two
 products into one f32 accumulator; the model here is that arithmetic in
@@ -54,6 +56,19 @@ def test_flash_route_names_the_compiled_head_dims():
 ])
 def test_knn_route(dtype, d, aligned, route):
     assert kknn.knn_route(dtype, d, aligned) == route
+
+
+@pytest.mark.parametrize("dtype,hd,group,aligned,route", [
+    (BF16, 128, 12, True, "tensor_core"),  # starcoder2_3b
+    (BF16, 64, 1, True, "tensor_core"),
+    (BF16, 128, 16, True, "tensor_core"),  # the mma's 16 rows, full
+    (BF16, 128, 17, True, "cuda_core"),    # more heads than 16 rows
+    (BF16, 128, 12, False, "cuda_core"),   # cp.async needs 16-byte bases
+    (BF16, 96, 4, True, "cuda_core"),      # no instantiation for 96
+    (F32, 128, 12, True, "cuda_core"),     # f32 keeps the CUDA-core split
+])
+def test_decode_route(dtype, hd, group, aligned, route):
+    assert fa.decode_route(dtype, hd, group, aligned) == route
 
 
 def _p_and_v(seed, rows, kv, hd):

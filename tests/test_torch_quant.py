@@ -198,23 +198,85 @@ def test_layer_slices_are_views():
                        quant.dequantize_tensor(qt)[1])
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,n,d", [(4, 12288, 3072), (4, 3072, 12288),
                                    (4, 256, 3072), (4, 3072, 3072),
                                    (512, 12288, 3072), (64, 256, 3072),
-                                   (7, 37, 80), (1, 16, 32)])
-def test_quant_plan_covers_every_block_once(m, n, d):
-    """The kernel's split of d: a function of the shape only, every quant
-    block in exactly one split, and the main path's decode products
-    spread over at least the card's SMs."""
+                                   (7, 37, 80), (1, 16, 32),
+                                   (512, 3072, 3072), (512, 256, 3072),
+                                   (17, 1040, 200), (300, 3072, 12288),
+                                   (100, 130, 97)])
+def test_quant_plan_covers_every_block_once(m, n, d, dtype):
+    """The kernel's route and split of d: a function of the shape (and for
+    the route, the dtype) only, every quant block in exactly one split,
+    the main path's decode products spread over at least the card's SMs,
+    and its bf16 prefill products on the tensor cores, split over d only
+    where the output tiles alone leave SMs idle."""
     nb = -(-d // quant.QUANT_BLOCK)
-    skinny, splits, per = quant.quant_plan(m, n, nb)
-    assert quant.quant_plan(m, n, nb) == (skinny, splits, per)
-    assert skinny == (m <= quant.SKINNY_MAX_M)
+    route = quant.quant_route(dtype, m, d, n)
+    assert quant.quant_route(dtype, m, d, n) == route
+    if m <= quant.SKINNY_MAX_M:
+        assert route == "skinny"
+    elif dtype == torch.bfloat16 and d % 8 == 0 and n % 16 == 0:
+        assert route == "tensor_core"
+        assert quant.quant_route(dtype, m, d, n, aligned=False) == "tiled"
+    else:
+        assert route == "tiled"
+    splits, per = quant.quant_plan(m, n, nb, route)
+    assert quant.quant_plan(m, n, nb, route) == (splits, per)
     assert 1 <= per <= nb and (splits - 1) * per < nb <= splits * per
     cols = -(-n // quant.TILE_COLS)
-    rows = -(-m // (quant.SKINNY_ROWS if skinny else quant.TILED_ROWS))
+    rows = -(-m // {"skinny": quant.SKINNY_ROWS, "tiled": quant.TILED_ROWS,
+                    "tensor_core": quant.TC_ROWS}[route])
     if (m, d) in ((4, 3072), (4, 12288)) and n >= 3072:
         assert cols * rows * splits >= quant.SMS
+    if route != "skinny" and cols * rows >= quant.SMS:
+        assert splits == 1
+
+
+def fold_per_block(x, qt):
+    """The tensor-core route's arithmetic in plain torch: per 32-row quant
+    block kb, part = x_kb @ q_kb (the integer quants, exact as bf16), then
+    acc += scale[kb] * part (+ min[kb] * rowsum(x_kb) for q4_k), in f32."""
+    m, d = x.shape
+    nb, n = qt.scales.shape
+    block = quant.QUANT_BLOCK
+    xf = torch.cat([x.float(), x.new_zeros((m, nb * block - d)).float()], 1)
+    if qt.fmt == "q8_0":
+        q = qt.quants.float()
+    else:
+        q = torch.stack([(qt.quants & 0xF).float(),
+                         (qt.quants >> 4).float()], 2).reshape(nb, block, n)
+    acc = torch.zeros((m, n))
+    for kb in range(nb):
+        xb = xf[:, kb * block:(kb + 1) * block]
+        acc = acc + qt.scales[kb] * (xb @ q[kb])
+        if qt.fmt == "q4_k":
+            acc = acc + qt.mins[kb] * xb.sum(1, keepdim=True)
+    return acc
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("m,d,n", [(17, 200, 48), (5, 80, 37), (33, 97, 130),
+                                   (64, 256, 16)])
+def test_per_block_scale_fold_matches_the_plain_version(fmt, m, d, n):
+    """sum_kb s (x q)_kb [+ min sum x] against x @ dequantize(W) (the plain
+    version, f32) and the Pallas kernel in interpret mode, within
+    1e-5 (|x| @ |W|): the same function regrouped per block, the products
+    exact, each scale applied in f32; ragged d pads its last block."""
+    rng = np.random.default_rng(m + d + n)
+    w = _weight(rng, (d, n), "float32")
+    x = jnp.asarray(rng.standard_normal((m, d)), "bfloat16").astype(
+        jnp.float32)
+    jq = jquant.quantize_tensor(w, fmt)
+    tq = quant.quantize_tensor(_t(w), fmt)
+    got = fold_per_block(_t(x), tq)
+    w_deq = np.asarray(jquant.dequantize_tensor(jq))
+    mag = np.abs(np.asarray(x)) @ np.abs(w_deq)
+    for want in (ref.quant_matmul_reference(_t(x), tq),
+                 jquant.quant_matmul(x, jq, interpret=True)):
+        err = np.abs(got.numpy() - np.asarray(want, np.float32))
+        assert np.all(err <= 1e-5 * mag), (err - 1e-5 * mag).max()
 
 
 def test_cuda_wrapper_refuses_cpu_tensors_and_bad_shapes():
