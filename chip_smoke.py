@@ -26,16 +26,27 @@ Every phase prints one line; any failure exits non-zero.  The last three
 lines are the kernels' JSON record, the card's name and power limit, and
 `{"ok": true, "device": {...}}`.
 
-Four functions have a tensor-core kernel beside their CUDA-core one:
+Five functions have a tensor-core kernel beside their CUDA-core one:
 bf16 flash_attention at hd 128 (`flash_tc_kernel`, mma.sync), bf16
 knn_distances with D % 8 == 0 (`knn_wgmma_kernel`, TMA and wgmma), the
 bf16 decode (fused, int8 pools and partial: `decode_split_tc_kernel`, a
-split of the KV range merged in order by `decode_merge_kernel`) and bf16
-prefill quant_matmul (`quant_tc_kernel`, mma.sync).  The `[build]` line
-fails unless their SASS holds HMMA or HGMMA; the kernel phases, the serves
-and the KNN offload fail unless every launch of those functions that
-should take the tensor-core kernel did (the `LAUNCHES["<name>_tc"]` and
-`LAUNCHES["knn_distances_wgmma"]` counters).  Their records in the JSON
+split of the KV range merged in order by `decode_merge_kernel`), bf16
+prefill quant_matmul (`quant_tc_kernel`, mma.sync) and the bf16 SSD scan
+at P = 64, N = 128 (`ssd_chunk_tc_kernel`, `ssd_pass_kernel`,
+`ssd_out_tc_kernel`: chunk states, an ordered pass, outputs).  The
+`[build]` line fails unless their SASS holds HMMA or HGMMA; the kernel
+phases, the serves and the KNN offload fail unless every launch of those
+functions that should take the tensor-core kernel did (the
+`LAUNCHES["<name>_tc"]` and `LAUNCHES["knn_distances_wgmma"]` counters).
+Decode quant_matmul (m <= 16) runs in one launch, its splits reduced
+inside a thread-block cluster: bf16 x with at least 8 column tiles of 128
+on the tensor cores (`skinny_tc_kernel`, mma.sync), the rest (f32 x, wk /
+wv) on the CUDA cores (`skinny_kernel`): the kernel phase and the
+quantized serves fail unless every decode product took it
+(`LAUNCHES["quant_matmul[<fmt>]_skinny"]`) and no split-K pass ran
+outside the prefills (`LAUNCHES["quant_matmul[<fmt>]_splitk"]`); its
+records' `device_ms` is taken cold (calls rotating over copies of the
+weight larger than the L2 together), the warm reading printed beside it.  Their records in the JSON
 line describe the tensor-core kernels; quant_matmul has two records per
 format, the decode product (`skinny_kernel`) and the prefill product
 (`quant_matmul[<fmt>]_tc`).  The CUDA-core kernels, which take f32, are
@@ -233,18 +244,22 @@ def bound_ms(n_bytes: float, flops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-KERNEL_KINDS = ("ssd_kernel", "decode_split_tc_kernel", "decode_split_kernel",
-                "decode_merge_kernel", "flash_kernel", "flash_tc_kernel",
-                "skinny_kernel", "tiled_kernel", "quant_tc_kernel",
-                "splitk_reduce", "knn_kernel", "knn_wgmma_kernel",
-                "sls_kernel")
+KERNEL_KINDS = ("ssd_kernel", "ssd_chunk_tc_kernel", "ssd_pass_kernel",
+                "ssd_out_tc_kernel", "decode_split_tc_kernel",
+                "decode_split_kernel", "decode_merge_kernel", "flash_kernel",
+                "flash_tc_kernel", "skinny_kernel", "skinny_tc_kernel",
+                "tiled_kernel",
+                "quant_tc_kernel", "splitk_reduce", "knn_kernel",
+                "knn_wgmma_kernel", "sls_kernel")
 TEMPLATE_ARGS = {"13__nv_bfloat16": "bf16", "S1_": "bf16", "f": "f32",
-                 "a": "i8", "Li64E": "64", "Li128E": "128",
+                 "a": "i8", "Li32E": "32", "Li64E": "64", "Li128E": "128",
                  "Lb0E": "0", "Lb1E": "1", "Li0E": "0", "Li1E": "1"}
 # the tensor-core kernels and the instruction their SASS must hold
 TENSOR_CORE_SASS = {"flash_tc_kernel": "HMMA", "knn_wgmma_kernel": "HGMMA",
                     "decode_split_tc_kernel": "HMMA",
-                    "quant_tc_kernel": "HMMA"}
+                    "quant_tc_kernel": "HMMA", "skinny_tc_kernel": "HMMA",
+                    "ssd_chunk_tc_kernel": "HMMA",
+                    "ssd_out_tc_kernel": "HMMA"}
 
 
 def ptxas_summary(log: str) -> str:
@@ -635,10 +650,14 @@ def ssd_err(got, want, dtype):
 
 worst = 0.0
 HALF = 233
+kbuild.reset_launch_counts()
 for dtype in (torch.bfloat16, torch.float32):
     sx, sdt, sA, sB, sC = ssd_inputs(dtype)
     got = kssd.ssd_scan(sx, sdt, sA, sB, sC)
+    again = kssd.ssd_scan(sx, sdt, sA, sB, sC)
     torch.cuda.synchronize()
+    check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+          f"ssd_scan ({dtype}): not repeatable")
     worst = max(worst, ssd_err(got, ref.ssd_reference(sx, sdt, sA, sB, sC),
                                dtype))
     dt_pad = sdt.clone()
@@ -657,6 +676,24 @@ for dtype in (torch.bfloat16, torch.float32):
     worst = max(worst, ssd_err((torch.cat([first[0], second[0]], 1),
                                 second[1]),
                                ref.ssd_reference(sx, sdt, sA, sB, sC), dtype))
+    # B = 2 (this prompt and its reverse, a handed-in state on each row):
+    # each row alone gives that row's bits
+    x2, dt2, B2, C2 = (torch.cat([t, t.flip(1)]).contiguous()
+                       for t in (sx, sdt, sB, sC))
+    init2 = torch.cat([first[1], second[1]])
+    both = kssd.ssd_scan(x2, dt2, sA, B2, C2, init_state=init2)
+    rows_alone(lambda b: kssd.ssd_scan(
+        *(t[b:b + 1].contiguous() for t in (x2, dt2)), sA,
+        *(t[b:b + 1].contiguous() for t in (B2, C2)),
+        init_state=init2[b:b + 1].contiguous()), both, f"ssd_scan ({dtype})")
+    worst = max(worst, ssd_err(both, ref.ssd_reference(
+        x2, dt2, sA, B2, C2, init_state=init2), dtype))
+ssd_variants = routes("ssd_scan")
+# per dtype: 2 scans, the padded one, the two halves, B = 2 and its 2 rows
+check(ssd_variants == {"ssd_scan": 16, "ssd_scan_tc": 8},
+      f"ssd_scan: launches {ssd_variants}: bf16 not on the tensor cores or "
+      "f32 not on the CUDA cores")
+del x2, dt2, B2, C2, init2, both
 # timed and bounded in bf16, the main path's dtype
 sx, sdt, sA, sB, sC = ssd_inputs(torch.bfloat16)
 s_y, s_fin = kssd.ssd_scan(sx, sdt, sA, sB, sC)
@@ -676,11 +713,17 @@ records["ssd_scan"] = dict(
     **timings(lambda: kssd.ssd_scan(sx, sdt, sA, sB, sC),
               lambda: ref.ssd_reference(sx, sdt, sA, sB, sC)))
 rec = records["ssd_scan"]
+ssd_f32 = ssd_inputs(torch.float32)
 print(f"[kernel] ssd_scan S={SS} H={SH} P={SP} N={SN}, dt=softplus(N(0,1)), "
-      f"A=-1, bf16 and f32, dt=0 past 300, init_state handoff at {HALF}: "
-      f"max_abs_err {worst:.3g} (<= 1e-3 + rtol |plain|); {rec['ms']:.4f} "
-      f"ms, bound {bnd:.6f} ms ({by}), plain {rec['plain_ms']:.4f} ms, "
-      f"device time {show(rec['device_ms'])} ms", flush=True)
+      f"A=-1, bf16 (tensor cores) and f32 (CUDA cores), dt=0 past 300, "
+      f"init_state handoff at {HALF}, B=2 rows alone == rows in the batch "
+      f"bitwise, repeats bitwise: max_abs_err {worst:.3g} (<= 1e-3 + rtol "
+      f"|plain|); launches {ssd_variants}; {rec['ms']:.4f} ms, bound "
+      f"{bnd:.6f} ms ({by}), plain {rec['plain_ms']:.4f} ms, device time "
+      f"{show(rec['device_ms'])} ms (three kernels), the f32 CUDA-core "
+      f"kernel's {show(device_ms(lambda: kssd.ssd_scan(*ssd_f32)))} ms",
+      flush=True)
+del ssd_f32
 
 # decode_attention_fused[int8]: the fp row's shapes and data, on int8 pools
 # from quantize_kv_pages (quantization is page-local, so the physical
@@ -789,9 +832,49 @@ def quant_err(got, x, qt):
 # the timing (not a port of the product, not gated).  The prefill shape is
 # also held in f32 (f32 copies of x), which takes the CUDA-core tiled
 # kernel.
+# The decode products run the skinny kernel in one launch (no split-K
+# pass); their device time is taken cold, the calls rotating over copies
+# of the weight that together exceed the 50 MB L2 (a served layer's weight
+# is not in L2 when its turn comes), with the warm reading (20 calls on one
+# copy) beside it.  wq and wk show the floor of a launch: the device time
+# of a one-block fill kernel is printed with them.
 QSHAPES = (("decode w_gate", 4, cfg.d_model, cfg.d_ff),
            ("decode w_down", 4, cfg.d_ff, cfg.d_model),
+           ("decode wq", 4, cfg.d_model, cfg.n_heads * HD),
+           ("decode wk", 4, cfg.d_model, KH * HD),
            ("prefill w_gate", 512, cfg.d_model, cfg.d_ff))
+L2_BYTES = 50 << 20
+
+
+def cold_copies(qt):
+    """Copies of a quantized weight, as many as it takes for 3 x the L2 to
+    pass between two uses of one copy when the calls rotate over them."""
+    return [kquant.QTensor(qt.scales.clone(), qt.quants.clone(),
+                           None if qt.mins is None else qt.mins.clone(),
+                           qt.fmt, qt.d_in)
+            for _ in range(max(2, -(-3 * L2_BYTES // qt.nbytes) + 1))]
+
+
+def skinny_cuda_core(x, qt):
+    """The CUDA-core skinny kernel on bf16 inputs that the serve sends to
+    the tensor-core one: the A/B of the decode route's two kernels, a
+    comparison launch that no counter sees."""
+    m, d = x.shape
+    nb, n = qt.scales.shape
+    out = torch.empty((m, n), dtype=x.dtype, device=DEV)
+    tile, splits, per, ks = kquant.skinny_plan(n, nb)
+    err = kquant.function("rt_quant_skinny", kquant._SKINNY_SIGNATURE)(
+        kbuild.DTYPE_CODE[x.dtype], kquant.FMT_CODE[qt.fmt], x.data_ptr(),
+        qt.quants.data_ptr(), qt.scales.data_ptr(),
+        None if qt.mins is None else qt.mins.data_ptr(), out.data_ptr(), m,
+        d, n, nb, tile, splits, per, ks, 1, 0, kbuild.stream())
+    kbuild.raise_on(err, "skinny_kernel")
+    return out
+
+
+fill = torch.empty((4, KH * HD), dtype=torch.bfloat16, device=DEV)
+floor_ms = device_ms(lambda: fill.zero_())
+del fill
 for fmt in kquant.WEIGHT_FORMATS:
     parts, worst = [], 0.0
     name = f"quant_matmul[{fmt}]"
@@ -802,11 +885,19 @@ for fmt in kquant.WEIGHT_FORMATS:
         got = kquant.quant_matmul(x, qt)
         again = kquant.quant_matmul(x, qt)
         variants = routes(name)
+        one_launch = {k: kbuild.LAUNCHES[name + k]
+                      for k in ("_skinny", "_splitk")}
         torch.cuda.synchronize()
         check(torch.equal(got, again), f"{name}: not repeatable")
         prefill = label.startswith("prefill")
         check(variants == {name: 2, name + "_tc": 2 * prefill},
               f"{name} {label}: launches {variants}")
+        if not prefill:
+            check(one_launch == {"_skinny": 2, "_splitk": 0},
+                  f"{name} {label}: not the one-launch skinny kernel: "
+                  f"{one_launch}")
+            rows_alone(lambda i: kquant.quant_matmul(x[i:i + 1], qt), got,
+                       f"{name} {label}")
         err = quant_err(got, x, qt)
         w_bf16 = kquant.dequantize_tensor(qt).to(torch.bfloat16)
         flops = 2 * m * d * n
@@ -818,8 +909,32 @@ for fmt in kquant.WEIGHT_FORMATS:
                              lambda: ref.quant_matmul_reference(x, qt)))
         yard = time_ms(lambda: torch.matmul(x, w_bf16))
         yard_dev = device_ms(lambda: torch.matmul(x, w_bf16))
-        part = (f"{label} ({m}x{d})@({d}x{n}) err {err:.3g}, "
-                f"{rec['ms']:.4f} ms, device {show(rec['device_ms'])} ms = "
+        kernel = ("skinny_tc_kernel" if kquant.skinny_tensor_core(
+            x.dtype, d, n, True) else "skinny_kernel") if not prefill \
+            else "quant_tc_kernel"
+        device = f"device {show(rec['device_ms'])} ms"
+        if not prefill:
+            pool = cold_copies(qt)
+            turn = iter(pool * 4)
+            warm = rec["device_ms"]
+            rec["device_ms"] = device_ms(
+                lambda: kquant.quant_matmul(x, next(turn)), iters=len(pool),
+                attempts=3)
+            device = (f"device cold {show(rec['device_ms'])} ms "
+                      f"({show(div(rec['device_ms'], bnd), '.2f')}x the bound;"
+                      f" {len(pool)} copies), warm {show(warm)} ms")
+            if kernel == "skinny_tc_kernel":
+                # the CUDA-core kernel on the same inputs, within the same
+                # tolerance, timed cold the same way
+                cc_err = quant_err(skinny_cuda_core(x, qt), x, qt)
+                turn = iter(pool * 4)
+                cc_dev = device_ms(lambda: skinny_cuda_core(x, next(turn)),
+                                   iters=len(pool), attempts=3)
+                device += (f" (skinny_kernel on the CUDA cores, same inputs: "
+                           f"err {cc_err:.3g}, device cold {show(cc_dev)} ms)")
+            del pool, turn
+        part = (f"{label} ({m}x{d})@({d}x{n}) {kernel} err {err:.3g}, "
+                f"{rec['ms']:.4f} ms, {device} = "
                 f"{show(div(flops / 1e9, rec['device_ms']), '.1f')} TFLOP/s, "
                 f"bound "
                 f"{bnd:.4f} ms ({by}), plain {rec['plain_ms']:.4f} ms, "
@@ -860,7 +975,9 @@ for fmt in kquant.WEIGHT_FORMATS:
     records[name]["max_abs_err"] = worst
     print(f"[kernel] {name} bf16 x: " + "; ".join(parts)
           + " (tolerance 1e-5 (|x|@|W|) + 1 bf16 unit; repeat runs bitwise "
-          "equal)", flush=True)
+          "equal; decode: one launch of the skinny kernel, each row alone "
+          f"== its row in the batch bitwise; a one-block fill kernel takes "
+          f"{show(floor_ms)} ms of device time)", flush=True)
 
 # knn_distances: 256 queries (a batch) against one chunk of a
 # 1,000,000-row database, in bf16, at the dimension of the paper's KNN
@@ -1221,10 +1338,11 @@ PROFILE_GROUPS = (
     ("decode (split + merge)", ("decode_split", "decode_merge")),
     ("flash prefill", ("flash_tc_kernel", "flash_kernel")),
     ("quant_matmul tensor-core", ("quant_tc_kernel",)),
-    ("quant_matmul skinny", ("skinny_kernel",)),
+    ("quant_matmul skinny", ("skinny_kernel", "skinny_tc_kernel")),
     ("quant_matmul tiled", ("tiled_kernel",)),
     ("splitk_reduce", ("splitk_reduce",)),
-    ("ssd_scan", ("ssd_kernel",)))
+    ("ssd_scan", ("ssd_kernel", "ssd_chunk_tc_kernel", "ssd_pass_kernel",
+                  "ssd_out_tc_kernel")))
 
 
 def profile(arch, params, vocab, label="", **kw):
@@ -1421,6 +1539,12 @@ check(launches["quant_matmul[q8_0]"] == forwards * n_proj * n_layers
       f"quant_matmul launches {launches} != {forwards} forwards x "
       f"{n_proj} x {n_layers}, the {srv.prefill_forwards} prefills' all on "
       "the tensor-core kernel")
+check(launches["quant_matmul[q8_0]_skinny"] == srv.steps * n_proj * n_layers
+      and launches["quant_matmul[q8_0]_splitk"]
+      <= launches["quant_matmul[q8_0]_tc"],
+      f"quant_matmul launches {launches}: the {srv.steps} decode steps' not "
+      "all on the one-launch skinny kernel, or a split-K pass outside the "
+      "prefills")
 check(launches["decode_attention_fused[int8]"] == srv.steps * n_layers
       and launches["decode_attention_fused[int8]_tc"]
       == launches["decode_attention_fused[int8]"],
@@ -1442,9 +1566,10 @@ fp_bytes = sum(w.numel() * w.element_size() for w in
                + [w for blk in q_params["blocks"] for sub in blk.values()
                   for w in sub.values() if isinstance(w, torch.Tensor)])
 serve_line(ARCH, "axle, q8_0 weights + int8 KV", srv, q_toks, launches, dt)
-print(f"[serve] {ARCH} q8_0: quant_matmul by route: skinny (decode) "
-      f"{launches['quant_matmul[q8_0]'] - launches['quant_matmul[q8_0]_tc']}"
-      f", tensor-core (prefill) {launches['quant_matmul[q8_0]_tc']}, tiled 0",
+print(f"[serve] {ARCH} q8_0: quant_matmul by route: skinny (decode, one "
+      f"launch each) {launches['quant_matmul[q8_0]_skinny']}, tensor-core "
+      f"(prefill) {launches['quant_matmul[q8_0]_tc']}, tiled 0; split-K "
+      f"passes {launches['quant_matmul[q8_0]_splitk']}, all in prefills",
       flush=True)
 print(f"[serve] {ARCH} q8_0: weight bytes resident {q_bytes / 1e9:.3f} GB "
       f"of quants and scales in the {n_proj * n_layers} projection "
@@ -1553,6 +1678,11 @@ srv, q4_toks, q4_launches, _ = serve(copies(pair), protocol="axle",
 check(q4_launches["quant_matmul[q4_k]"] > 0
       and q4_launches["quant_matmul[q4_k]_tc"]
       == srv.prefill_forwards * n_proj * n_layers
+      and q4_launches["quant_matmul[q4_k]_skinny"]
+      == q4_launches["quant_matmul[q4_k]"]
+      - q4_launches["quant_matmul[q4_k]_tc"]
+      and q4_launches["quant_matmul[q4_k]_splitk"]
+      <= q4_launches["quant_matmul[q4_k]_tc"]
       and q4_launches["quant_matmul[q8_0]"] == 0
       and q4_launches["decode_attention_fused[int8]"] > 0
       and q4_launches["decode_attention_fused[int8]_tc"]
@@ -1575,7 +1705,10 @@ check("page_table" not in srv.cache, "mamba cache has a page table")
 check(launches["ssd_scan"] == srv.prefill_forwards * mcfg.n_layers,
       f"ssd_scan launches {launches} != {srv.prefill_forwards} x "
       f"{mcfg.n_layers}")
-check(all(n == 0 for k, n in launches.items() if k != "ssd_scan"),
+check(launches["ssd_scan_tc"] == launches["ssd_scan"],
+      f"ssd_scan launches {launches}: not all on the tensor-core route")
+check(all(n == 0 for k, n in launches.items()
+          if k not in ("ssd_scan", "ssd_scan_tc")),
       f"an attention kernel launched in the mamba run: {launches}")
 serve_line(MAMBA, "axle", srv, mamba_toks, launches, dt)
 mamba_launches = launches
@@ -1630,10 +1763,10 @@ for name in ("decode_attention_fused[int8]", "quant_matmul[q8_0]_tc"):
     records[name]["launches"] = quant_launches[name]
 records["quant_matmul[q4_k]_tc"]["launches"] = \
     q4_launches["quant_matmul[q4_k]_tc"]
-# the skinny (decode) route's launches: the function's, less the prefills'
+# the skinny (decode) route's launches
 for fmt, counts in (("q8_0", quant_launches), ("q4_k", q4_launches)):
     name = f"quant_matmul[{fmt}]"
-    records[name]["launches"] = counts[name] - counts[name + "_tc"]
+    records[name]["launches"] = counts[name + "_skinny"]
 records["knn_distances"]["launches"] = knn_launches["knn_distances"]
 records["sls"]["launches"] = sls_launches["sls"]
 for name, rec in records.items():

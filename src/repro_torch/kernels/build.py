@@ -8,9 +8,10 @@ when a module is imported.
 
 `LAUNCHES` counts the launches of every kernel, one per wrapper call that
 reaches its kernel and nowhere else; the wrappers add to it and
-`reset_launch_counts()` sets every count to 0.  A function with two
+`reset_launch_counts()` sets every count to 0.  A function with several
 kernels counts every launch under its own name and, in `VARIANTS`, the
-launches that took its tensor-core kernel.
+launches that took one of its routes (its tensor-core kernel, the skinny
+decode kernel) or also ran a split-K reduction pass.
 """
 from __future__ import annotations
 
@@ -50,13 +51,21 @@ LAUNCHES: Dict[str, int] = {"decode_attention_fused": 0,
                             "decode_attention_fused[int8]_tc": 0,
                             "decode_attention_partial_tc": 0,
                             "quant_matmul[q8_0]_tc": 0,
-                            "quant_matmul[q4_k]_tc": 0}
-# the counters of a function's tensor-core kernel: parts of the counts of
+                            "quant_matmul[q4_k]_tc": 0,
+                            "quant_matmul[q8_0]_skinny": 0,
+                            "quant_matmul[q4_k]_skinny": 0,
+                            "quant_matmul[q8_0]_splitk": 0,
+                            "quant_matmul[q4_k]_splitk": 0,
+                            "ssd_scan_tc": 0}
+# the counters of a function's routes (its tensor-core kernel, the skinny
+# decode kernel) and of its split-K reduction pass: parts of the counts of
 # the function they name, not kernels of their own
 VARIANTS = ("flash_attention_tc", "knn_distances_wgmma",
             "decode_attention_fused_tc", "decode_attention_fused[int8]_tc",
             "decode_attention_partial_tc", "quant_matmul[q8_0]_tc",
-            "quant_matmul[q4_k]_tc")
+            "quant_matmul[q4_k]_tc", "quant_matmul[q8_0]_skinny",
+            "quant_matmul[q4_k]_skinny", "quant_matmul[q8_0]_splitk",
+            "quant_matmul[q4_k]_splitk", "ssd_scan_tc")
 
 _lib: Optional[ctypes.CDLL] = None
 _fns: Dict[str, Callable[..., int]] = {}

@@ -9,34 +9,47 @@
 //   q8_0: quants (nB, 32, n) int8,  w = q * scale[kb, c]
 //   q4_k: quants (nB, 16, n) uint8, byte j of a block holds row 2j in its
 //         low nibble and row 2j+1 in its high one; w = q * scale + min.
-// The CUDA-core kernels (skinny, tiled) dequantize each weight exactly as
-// the plain version does it: a product and, for q4_k, a sum, each rounded
-// on its own (__fmul_rn, __fadd_rn: never contracted into an FMA), so they
-// and ref.quant_matmul_reference differ only in the order of the f32 sum.
-// The tensor-core kernel (quant_tc_kernel) regroups the sum per quant block
-// instead: sum_kb s[kb, c] (x q)_kb [+ min[kb, c] sum_k x], with exact bf16
-// products and every scale applied in f32; against the plain version it
-// differs by f32 roundings of the same size (see its note).
+// The tiled kernel (f32 prefill) dequantizes each weight exactly as the
+// plain version does it: a product and, for q4_k, a sum, each rounded on
+// its own (__fmul_rn, __fadd_rn: never contracted into an FMA), so it and
+// ref.quant_matmul_reference differ only in the order of the f32 sum.
+// The skinny kernel (decode) and the tensor-core kernel (bf16 prefill)
+// regroup the sum per quant block instead: sum_kb s[kb, c] (x q)_kb
+// [+ min[kb, c] sum_k x], the integer quants exact, every scale applied in
+// f32 (exact products for bf16 x); against the plain version they differ
+// by f32 roundings of the same size, within 1e-5 (|x| @ |W|).
 //
 // Translation from the TPU: the Pallas grid (m/bm, n/bn, nB) walks the
 // blocks of d in order on one core, accumulating in VMEM scratch.  Here the
-// blocks of d are split across thread blocks ("splits", chosen in
-// quant.quant_plan from the shape alone); each split writes its f32 partial
-// sums to a workspace and a second pass (splitk_reduce) adds them in split
-// order.  No float atomics: the sum's order is fixed, so equal inputs give
-// equal bits on every run, which keeps the port's bitwise invariants
-// (streamed == per-token, paged == dense) under quantization.
+// blocks of d are split across thread blocks ("splits", chosen from the
+// shape alone by quant.quant_plan and quant.skinny_plan).  The skinny
+// kernel adds its splits' partials inside one launch: its splits are the
+// blocks of a thread-block cluster, which add each other's partials in
+// rank order through distributed shared memory.  The tiled and tensor-core
+// kernels write f32 partials to a workspace and a second pass
+// (splitk_reduce) adds them in split order.  No float atomics: the sum's
+// order is fixed, so equal inputs give equal bits on every run, which
+// keeps the port's bitwise invariants (streamed == per-token, paged ==
+// dense) under quantization.
 //
 // What bounds it on an H100:
 //   decode (m = 4): a GEMV.  Every packed weight byte is read once and used
 //   for 4 rows: 8 flops per q8_0 byte, far below the 295 flop/byte ridge,
 //   so it is bound by HBM bytes (3.35 TB/s); w_gate in q8_0 (37.7 MB of
-//   quants + 4.7 MB of scales) has a 12.7 us bound.  The skinny kernel
-//   reads the quants with 16-byte loads, neighbouring threads on
-//   neighbouring columns, and converts bytes to floats with the 2^23 trick
-//   (a logic op and a subtraction) instead of the quarter-rate I2F.
-//   wk / wv (n = 256) give only 2 column tiles, so the split over d is what
-//   fills the card.
+//   quants + 4.7 MB of scales) has a 12.7 us bound.  Two ceilings follow:
+//   bytes in flight, and instruction issue.  Both skinny kernels keep up
+//   to three 8 KB stages of cp.async in flight a block and add their
+//   splits inside one launch.  On the CUDA cores (skinny_kernel) each byte
+//   costs a byte permute, a subtraction and 4 FMAs (~8 us of issue at
+//   w_gate at full rate; measured, the kernel reached no more than the
+//   PR 13 kernel: latency, not issue, held it, PERF.md); its grid is one
+//   wave of three blocks a SM (quant.skinny_plan: 384 blocks at the wide
+//   decode shapes, 64 at wk / wv).  On the tensor cores (skinny_tc_kernel,
+//   bf16 x) a weight costs ~2 logic ops and half a bf16 add, the products
+//   and their sums going to mma.sync: it is the decode route of the
+//   served bf16 model, ~1.4x the CUDA-core kernel's speed at w_gate.
+//   wk / wv (n = 256) move 0.9 MB: launch latency, not bytes, sets their
+//   time, and the CUDA-core kernel's narrower tiles give it more blocks.
 //   prefill (m <= 512): bound by operations (2 m d n flops; 989 TFLOP/s
 //   bf16 on the tensor cores).  bf16 x takes quant_tc_kernel: mma.sync on
 //   the tensor cores, 128 x 128 output tiles, cp.async into a 3-stage
@@ -51,11 +64,13 @@
 // nor stored.  16-byte loads are used only when n % 16 == 0 and the weight
 // leaves are 16-byte aligned (VEC); otherwise bytes are loaded one by one.
 // VEC changes the loads only, never the arithmetic.  The route (skinny,
-// tiled, tensor cores) and the splits come from quant.quant_route and
-// quant.quant_plan, from the shape, dtype and alignment alone.
+// tiled, tensor cores) and the splits come from quant.quant_route,
+// quant.quant_plan and quant.skinny_plan, from the shape, dtype and
+// alignment alone.
 //
 // The entry point returns the cudaError_t of its launches (0 = success).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -138,123 +153,589 @@ __device__ __forceinline__ void store_out(const QArgs& a, int split, int row, in
 }
 
 // --------------------------------------------------------------------------
-// Skinny (m <= 16, decode): grid (n / 128, splits, m / 4).  Thread (kl, cg)
-// of a block owns 16 columns (cg of 8) and, in each pass, one quant block
-// (kl of 32) of the split: it walks the block's 32 rows with one 16-byte
-// load each and keeps 4 x 16 f32 sums.  The 32 k-lanes are then added in
-// a fixed tree: shuffles inside a warp, then the 8 warps in order.
+// Skinny (m <= 16, decode): skinny_kernel<T, FMT, VEC, TN>, one launch.
+// Grid (column tiles x splits, m / 4), launched as clusters of `splits`
+// blocks along x: the blocks of a cluster share one TN-column tile and
+// take consecutive ranges of `per_split` quant blocks of d.  128 threads:
+// thread (cg, rg) owns TN / 16 columns (cg of 16) and rows
+// [4 rg, 4 rg + 4) of every quant block of its range (rg of 8), so every
+// thread works on every quant block, whatever the range or the tile.
+//   * cp.async brings `ks` quant blocks a stage (their quant rows, scale
+//     row and, for q4_k, min row) into a ring of SK_STAGES stages; the
+//     rows of x of the range are widened to f32 once, four rows of x per
+//     k as one float4, into shared memory (in windows of SK_XW blocks);
+//   * per quant block, part = x q over the thread's 4 rows, the integer
+//     quants widened exactly (2^23 + byte, less the bias), then
+//     acc += scale part (+ min sum x): the products are exact for bf16 x
+//     and every scale is applied in f32, as in quant_tc_kernel;
+//   * the 8 row groups' sums are added in order in shared memory, then
+//     the cluster's blocks add their partials in rank order through
+//     distributed shared memory (rank r adds a slice of the columns) and
+//     write the output.  No workspace, no second launch, no atomics.
+// The split is quant.skinny_plan(n, nB): a function of n and the number
+// of quant blocks only, never of m or of the other rows of x, so a row's
+// bits do not depend on the batch it is in.
 // --------------------------------------------------------------------------
 
-constexpr int SK_R = 4;                 // rows of x per block
-constexpr int SK_CG = 8;                // column groups of 16: 128 columns
-constexpr int SK_KL = NT / SK_CG;       // 32 k-lanes
-constexpr int SK_XLD = QB + 1;          // padded row of x in shared memory
+constexpr int SK_T = 128;               // threads a block
+constexpr int SK_M = 4;                 // rows of x a block
+constexpr int SK_CG = 16;               // column groups
+constexpr int SK_RG = SK_T / SK_CG;     // 8 row groups
+constexpr int SK_WR = QB / SK_RG;       // 4 rows of each quant block a thread
+constexpr int SK_STAGES = 4;
+constexpr int SK_XW = 64;               // quant blocks of x in shared memory
 
-template <typename T, int FMT, bool VEC>
-__global__ void __launch_bounds__(NT) skinny_kernel(QArgs a) {
-  __shared__ float x_s[SK_R][SK_KL * SK_XLD];
-  __shared__ float red[NT / 32][SK_R][SK_CG * 16];
-  const int tid = threadIdx.x, cg = tid % SK_CG, kl = tid / SK_CG;
-  const int lane = tid % 32, warp = tid / 32;
-  const int col0 = blockIdx.x * (SK_CG * 16) + cg * 16;
-  const int row0 = blockIdx.z * SK_R;
-  const int kb0 = blockIdx.y * a.per_split;
-  const int kb1 = min(a.nB, kb0 + a.per_split);
-  const int valid = a.n - col0;           // columns of this thread in range
-  const T* x = static_cast<const T*>(a.x);
+struct SkinnyLayout {                   // bytes of dynamic shared memory
+  int q_b, s_b, stage, xs_off, total;
+};
 
-  float acc[SK_R][16];
+__host__ __device__ inline SkinnyLayout skinny_layout(int fmt, int tn, int ks,
+                                                      int per) {
+  SkinnyLayout L;
+  L.q_b = ks * (fmt == FMT_Q8 ? QB : QB / 2) * tn;
+  L.s_b = ks * tn * 4;
+  L.stage = L.q_b + L.s_b * (fmt == FMT_Q4 ? 2 : 1);
+  const int ring = SK_STAGES * L.stage;
+  const int red = (SK_RG + 1) * SK_M * tn * 4;   // the sums, then the partial
+  L.xs_off = ring > red ? ring : red;
+  L.total = L.xs_off + (per < SK_XW ? per : SK_XW) * QB * SK_M * 4;
+  return L;
+}
+
+// N = 2, 4 or 8 bytes of shared memory as words
+template <int N>
+__device__ __forceinline__ void load_bytes(const unsigned char* p,
+                                           uint32_t wd[(N + 3) / 4]) {
+  if constexpr (N == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    wd[0] = v.x;
+    wd[1] = v.y;
+  } else if constexpr (N == 4) {
+    wd[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else {
+    wd[0] = *reinterpret_cast<const unsigned short*>(p);
+  }
+}
+
+// q8_0: the N bytes of a quant row piece as exact floats: 2^23 + (q + 128)
+// is a float whose low byte is q ^ 0x80 (one byte permute), less 2^23 + 128
+template <int N>
+__device__ __forceinline__ void widen_q8(const unsigned char* p, float w[N]) {
+  uint32_t wd[(N + 3) / 4];
+  load_bytes<N>(p, wd);
 #pragma unroll
-  for (int i = 0; i < SK_R; ++i)
+  for (int i = 0; i < (N + 3) / 4; ++i) wd[i] ^= 0x80808080u;
 #pragma unroll
-    for (int c = 0; c < 16; ++c) acc[i][c] = 0.f;
+  for (int c = 0; c < N; ++c)
+    w[c] = __int_as_float(__byte_perm(wd[c / 4], 0x4B000000u, 0x7540u | (c % 4)))
+           - 8388736.f;
+}
 
-  for (int cb = kb0; cb < kb1; cb += SK_KL) {
-    const int nkb = min(SK_KL, kb1 - cb);
-    __syncthreads();
-    for (int e = tid; e < SK_R * nkb * QB; e += NT) {
-      const int i = e / (nkb * QB), kk = e % (nkb * QB);
-      const int row = row0 + i, k = cb * QB + kk;
-      float v = 0.f;
-      if (row < a.m && k < a.d) v = to_f(x[(size_t)row * a.d + k]);
-      x_s[i][(kk / QB) * SK_XLD + kk % QB] = v;
+// q4_k: byte c of the piece holds row 2j (low nibble) and 2j + 1 (high)
+template <int N>
+__device__ __forceinline__ void widen_q4(const unsigned char* p, float lo[N],
+                                         float hi[N]) {
+  uint32_t wd[(N + 3) / 4];
+  load_bytes<N>(p, wd);
+#pragma unroll
+  for (int i = 0; i < (N + 3) / 4; ++i) {
+    const uint32_t l = wd[i] & 0x0F0F0F0Fu, h = (wd[i] >> 4) & 0x0F0F0F0Fu;
+#pragma unroll
+    for (int c = 0; c < 4 && 4 * i + c < N; ++c) {
+      lo[4 * i + c] = __int_as_float(__byte_perm(l, 0x4B000000u, 0x7540u | c)) - 8388608.f;
+      hi[4 * i + c] = __int_as_float(__byte_perm(h, 0x4B000000u, 0x7540u | c)) - 8388608.f;
     }
-    __syncthreads();
-    if (kl >= nkb || valid <= 0) continue;
-    const int kb = cb + kl;
-    const float* xs = &x_s[0][kl * SK_XLD];
-    float s[16], mn[16];
-    load16f<VEC>(a.scales + (size_t)kb * a.n + col0, valid, s);
-    if (FMT == FMT_Q4) load16f<VEC>(a.mins + (size_t)kb * a.n + col0, valid, mn);
-    if (FMT == FMT_Q8) {
-      const uint8_t* qp = a.q + (size_t)kb * QB * a.n + col0;
-#pragma unroll 4
-      for (int r = 0; r < QB; ++r) {
-        uint32_t w4[4];
-        load16<VEC>(qp + (size_t)r * a.n, valid, w4);
-        float xv[SK_R];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void lds_f(const float* p, float v[N]) {
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-        for (int i = 0; i < SK_R; ++i) xv[i] = xs[i * SK_KL * SK_XLD + r];
+    for (int i = 0; i < N / 4; ++i) {
+      const float4 f = reinterpret_cast<const float4*>(p)[i];
+      v[4 * i] = f.x; v[4 * i + 1] = f.y; v[4 * i + 2] = f.z; v[4 * i + 3] = f.w;
+    }
+  } else {
 #pragma unroll
-        for (int c = 0; c < 16; ++c) {
-          const float w = __fmul_rn(i8f(byte_of(w4, c)), s[c]);
-#pragma unroll
-          for (int i = 0; i < SK_R; ++i) acc[i][c] = fmaf(xv[i], w, acc[i][c]);
-        }
+    for (int i = 0; i < N / 2; ++i) {
+      const float2 f = reinterpret_cast<const float2*>(p)[i];
+      v[2 * i] = f.x; v[2 * i + 1] = f.y;
+    }
+  }
+}
+
+template <typename T, int FMT, bool VEC, int TN>
+__global__ void __launch_bounds__(SK_T, 3) skinny_kernel(QArgs a, int ks, int cs) {
+  constexpr int CPT = TN / SK_CG;       // columns a thread
+  constexpr int QROWS = FMT == FMT_Q8 ? QB : QB / 2;
+  constexpr int NSC = FMT == FMT_Q4 ? 2 : 1;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const SkinnyLayout L = skinny_layout(FMT, TN, ks, a.per_split);
+  const int tid = threadIdx.x, cg = tid % SK_CG, rg = tid / SK_CG;
+  const int rank = blockIdx.x % cs, n0 = (blockIdx.x / cs) * TN;
+  const int row0 = blockIdx.y * SK_M;
+  const int kb0 = rank * a.per_split, kb1 = min(a.nB, kb0 + a.per_split);
+  const int nst = (kb1 - kb0 + ks - 1) / ks;
+  const T* x = static_cast<const T*>(a.x);
+  float4* xs = reinterpret_cast<float4*>(smem_raw + L.xs_off);
+
+  // stage t: quant blocks [kb0 + t ks, + ks) into ring slot t % SK_STAGES;
+  // rows past kb1 and columns past n are zero-filled
+  auto load = [&](int t) {
+    unsigned char* st = smem_raw + (t % SK_STAGES) * L.stage;
+    const int kbs = kb0 + t * ks, nk = min(ks, kb1 - kbs);
+    if (VEC) {
+      constexpr int QCH = TN / 16, SCH = TN / 4;
+      const uint32_t sa = smem_u32(st);
+      for (int c = tid; c < ks * QROWS * QCH; c += SK_T) {
+        const int r = c / QCH, col = n0 + (c % QCH) * 16;
+        const bool ok = r < nk * QROWS && col < a.n;
+        cp_async16(sa + c * 16,
+                   ok ? a.q + ((size_t)kbs * QROWS + r) * a.n + col : a.q, ok);
+      }
+      for (int c = tid; c < NSC * ks * SCH; c += SK_T) {
+        const int which = c / (ks * SCH), kbl = (c / SCH) % ks;
+        const int col = n0 + (c % SCH) * 4;
+        const bool ok = kbl < nk && col < a.n;
+        const float* src = which ? a.mins : a.scales;
+        cp_async16(sa + L.q_b + c * 16,
+                   ok ? src + (size_t)(kbs + kbl) * a.n + col : src, ok);
       }
     } else {
-      const uint8_t* qp = a.q + (size_t)kb * (QB / 2) * a.n + col0;
-#pragma unroll 2
-      for (int j = 0; j < QB / 2; ++j) {
-        uint32_t w4[4];
-        load16<VEC>(qp + (size_t)j * a.n, valid, w4);
-        float x0[SK_R], x1[SK_R];
+      for (int e = tid; e < ks * QROWS * TN; e += SK_T) {
+        const int r = e / TN, col = n0 + e % TN;
+        st[e] = (r < nk * QROWS && col < a.n)
+                    ? a.q[((size_t)kbs * QROWS + r) * a.n + col] : 0;
+      }
+      float* sc = reinterpret_cast<float*>(st + L.q_b);
+      for (int e = tid; e < NSC * ks * TN; e += SK_T) {
+        const int which = e / (ks * TN), kbl = (e / TN) % ks, col = n0 + e % TN;
+        const float* src = which ? a.mins : a.scales;
+        sc[e] = (kbl < nk && col < a.n) ? src[(size_t)(kbs + kbl) * a.n + col] : 0.f;
+      }
+    }
+  };
+  // the window of x from quant block kbw on, four rows a float4, zero
+  // past m and past d
+  auto load_x = [&](int kbw) {
+    const int nk = min(SK_XW, kb1 - kbw);
+    for (int e = tid; e < nk * QB; e += SK_T) {
+      const int k = kbw * QB + e;
+      float v[SK_M];
 #pragma unroll
-        for (int i = 0; i < SK_R; ++i) {
-          x0[i] = xs[i * SK_KL * SK_XLD + 2 * j];
-          x1[i] = xs[i * SK_KL * SK_XLD + 2 * j + 1];
+      for (int i = 0; i < SK_M; ++i) {
+        const int row = row0 + i;
+        v[i] = (row < a.m && k < a.d) ? to_f(x[(size_t)row * a.d + k]) : 0.f;
+      }
+      xs[e] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  };
+
+  float acc[SK_M][CPT];
+#pragma unroll
+  for (int i = 0; i < SK_M; ++i)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+
+#pragma unroll
+  for (int t = 0; t < SK_STAGES - 1; ++t) {
+    if (t < nst) load(t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < nst; ++t) {
+    cp_async_wait<SK_STAGES - 2>();
+    __syncthreads();                      // stage t landed; t - 1 and the window read
+    if (t + SK_STAGES - 1 < nst) load(t + SK_STAGES - 1);
+    cp_async_commit();
+    if ((t * ks) % SK_XW == 0) {
+      load_x(kb0 + t * ks);
+      __syncthreads();
+    }
+    const unsigned char* st = smem_raw + (t % SK_STAGES) * L.stage;
+    const float* sc = reinterpret_cast<const float*>(st + L.q_b);
+    const int nk = min(ks, kb1 - (kb0 + t * ks));
+    const float4* xw = xs + ((t * ks) % SK_XW) * QB + rg * SK_WR;
+    for (int kbl = 0; kbl < nk; ++kbl) {
+      const float4* xk = xw + kbl * QB;
+      float s[CPT], part[SK_M][CPT];
+      lds_f<CPT>(sc + kbl * TN + cg * CPT, s);
+      if (FMT == FMT_Q8) {
+        const unsigned char* qr = st + (kbl * QB + rg * SK_WR) * TN + cg * CPT;
+#pragma unroll
+        for (int j = 0; j < SK_WR; ++j) {
+          const float4 xv = xk[j];
+          const float xa[SK_M] = {xv.x, xv.y, xv.z, xv.w};
+          float w[CPT];
+          widen_q8<CPT>(qr + j * TN, w);
+#pragma unroll
+          for (int i = 0; i < SK_M; ++i)
+#pragma unroll
+            for (int c = 0; c < CPT; ++c)
+              part[i][c] = j == 0 ? xa[i] * w[c] : fmaf(xa[i], w[c], part[i][c]);
         }
 #pragma unroll
-        for (int c = 0; c < 16; ++c) {
-          const uint32_t b = byte_of(w4, c);
-          const float w0 = __fadd_rn(__fmul_rn(u4f(b & 0xFu), s[c]), mn[c]);
-          const float w1 = __fadd_rn(__fmul_rn(u4f(b >> 4), s[c]), mn[c]);
+        for (int i = 0; i < SK_M; ++i)
 #pragma unroll
-          for (int i = 0; i < SK_R; ++i) {
-            acc[i][c] = fmaf(x0[i], w0, acc[i][c]);
-            acc[i][c] = fmaf(x1[i], w1, acc[i][c]);
+          for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(s[c], part[i][c], acc[i][c]);
+      } else {
+        float mn[CPT], px[SK_M];
+        lds_f<CPT>(sc + ks * TN + kbl * TN + cg * CPT, mn);
+        const unsigned char* qr =
+            st + (kbl * (QB / 2) + rg * (SK_WR / 2)) * TN + cg * CPT;
+#pragma unroll
+        for (int j = 0; j < SK_WR / 2; ++j) {
+          const float4 v0 = xk[2 * j], v1 = xk[2 * j + 1];
+          const float x0[SK_M] = {v0.x, v0.y, v0.z, v0.w};
+          const float x1[SK_M] = {v1.x, v1.y, v1.z, v1.w};
+          float lo[CPT], hi[CPT];
+          widen_q4<CPT>(qr + j * TN, lo, hi);
+#pragma unroll
+          for (int i = 0; i < SK_M; ++i) {
+            px[i] = j == 0 ? x0[i] + x1[i] : (px[i] + x0[i]) + x1[i];
+#pragma unroll
+            for (int c = 0; c < CPT; ++c) {
+              part[i][c] = j == 0 ? x0[i] * lo[c] : fmaf(x0[i], lo[c], part[i][c]);
+              part[i][c] = fmaf(x1[i], hi[c], part[i][c]);
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < SK_M; ++i)
+#pragma unroll
+          for (int c = 0; c < CPT; ++c) {
+            acc[i][c] = fmaf(s[c], part[i][c], acc[i][c]);
+            acc[i][c] = fmaf(mn[c], px[i], acc[i][c]);
+          }
+      }
+    }
+  }
+
+  // the row groups' sums, added in order, into this block's partial
+  cp_async_wait<0>();
+  __syncthreads();                        // the ring is free
+  float* red = reinterpret_cast<float*>(smem_raw);            // [RG][M][TN]
+  float* part = red + SK_RG * SK_M * TN;                 // [M][TN]
+#pragma unroll
+  for (int i = 0; i < SK_M; ++i)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c)
+      red[(rg * SK_M + i) * TN + cg * CPT + c] = acc[i][c];
+  __syncthreads();
+  T* out = static_cast<T*>(a.out);
+  for (int e = tid; e < SK_M * TN; e += SK_T) {
+    float v = red[e];
+#pragma unroll
+    for (int g = 1; g < SK_RG; ++g) v += red[g * SK_M * TN + e];
+    const int row = row0 + e / TN, col = n0 + e % TN;
+    if (cs == 1) {
+      if (row < a.m && col < a.n) out[(size_t)row * a.n + col] = from_f<T>(v);
+    } else {
+      part[e] = v;
+    }
+  }
+  if (cs == 1) return;
+  // the cluster's partials, in rank order; rank r writes its slice
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  cluster.sync();
+  const int slice = SK_M * TN / cs;
+  for (int e = rank * slice + tid; e < (rank + 1) * slice; e += SK_T) {
+    float v = 0.f;
+    for (int q = 0; q < cs; ++q) v += cluster.map_shared_rank(part, q)[e];
+    const int row = row0 + e / TN, col = n0 + e % TN;
+    if (row < a.m && col < a.n) out[(size_t)row * a.n + col] = from_f<T>(v);
+  }
+  cluster.sync();                         // no block leaves while read
+}
+
+// --------------------------------------------------------------------------
+// Skinny on the tensor cores (bf16 x, 16-byte-aligned x and weight leaves,
+// d % 8 == 0): skinny_tc_kernel<FMT>, the same grid, clusters, ring and
+// reduction as skinny_kernel, with 128-column tiles and the products on
+// mma.sync m16n8k16: A = the block's 4 rows of x (rows 4..15 zero), B = the
+// quants.  Warp w owns columns [32 w, 32 w + 32) of the tile and every
+// quant block of the split.  The quant rows sit in the ring as bytes (rows
+// padded to 144 bytes); ldmatrix.trans on them, read as 16-bit pairs,
+// gives lane (g, t) bytes (2t, 2g), (2t, 2g + 1), (2t + 1, 2g),
+// (2t + 1, 2g + 1) of an 8 x 16-byte matrix: the even bytes are the B
+// fragment of column 2g, the odd bytes that of column 2g + 1, so one load
+// feeds two mmas (even and odd columns).  The bytes are widened to bf16 in
+// registers, exactly: q8_0 as (128 + q & 127) - (128 + q & 128) (two
+// logic ops and a bf16 addition a pair, q in [-128, 127]); q4_k as
+// (128 + nibble) - 128, a byte giving the pair (row 2j, row 2j + 1) of one
+// column (the A fragment takes the matching 4 lanes of x).  Per quant
+// block, part = x q over its 32 rows (two k steps into zeroed
+// accumulators), then acc += scale part (+ min sum x), as in skinny_kernel.
+// A stage holds STC_KS quant blocks, unrolled: 2 where the grid is more
+// than a wave (w_gate: 768 blocks), 4 where it is less (w_down, wq: 192),
+// so each block keeps more bytes in flight (quant.skinny_plan; measured,
+// PERF.md).
+// --------------------------------------------------------------------------
+
+constexpr int STC_N = 128;              // columns a tile
+constexpr int STC_QRS = STC_N + 16;     // bytes of a padded quant row
+
+struct SkinnyTcLayout {                 // bytes of dynamic shared memory
+  int q_b, s_b, stage, part_off, x_off, xrs, xsum_off, total;
+};
+
+__host__ __device__ inline SkinnyTcLayout skinny_tc_layout(int fmt, int ks,
+                                                           int per) {
+  SkinnyTcLayout L;
+  const int xw = per < SK_XW ? per : SK_XW;
+  L.q_b = ks * (fmt == FMT_Q8 ? QB : QB / 2) * STC_QRS;
+  L.s_b = ks * STC_N * 4;
+  L.stage = L.q_b + L.s_b * (fmt == FMT_Q4 ? 2 : 1);
+  L.part_off = SK_STAGES * L.stage;                 // [M][N] f32
+  L.x_off = L.part_off + SK_M * STC_N * 4;          // [M][xrs] bf16
+  L.xrs = xw * QB * 2 + 16;
+  L.xsum_off = L.x_off + SK_M * L.xrs;              // [M][SK_XW] f32
+  L.total = L.xsum_off + (fmt == FMT_Q4 ? SK_M * SK_XW * 4 : 0);
+  return L;
+}
+
+// a + b on bf16 pairs; exact here: every sum is a small integer
+__device__ __forceinline__ uint32_t hadd_bf16x2(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 d = __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+// bytes 0 and 2 of w (int8 quants) as an exact bf16 pair:
+// (128 + (q & 127)) + -(128 + (q & 128)), the second term's sign bit set
+// in the same logic op that builds it
+__device__ __forceinline__ uint32_t q8_pair(uint32_t w) {
+  return hadd_bf16x2((w & 0x007F007Fu) | 0x43004300u,
+                     (w & 0x00800080u) | 0xC300C300u);
+}
+
+// byte p of w (two q4_k nibbles: rows 2j, 2j + 1) as an exact bf16 pair:
+// (128 + nibble) + -128
+template <int P>
+__device__ __forceinline__ uint32_t q4_pair(uint32_t w, uint32_t w4) {
+  constexpr uint32_t SEL = P | (P << 4) | ((4 + P) << 8) | ((4 + P) << 12);
+  return hadd_bf16x2((__byte_perm(w, w4, SEL) & 0x000F000Fu) | 0x43004300u,
+                     0xC300C300u);
+}
+
+template <int FMT, int STC_KS>       // STC_KS: quant blocks a stage, 2 or 4
+__global__ void __launch_bounds__(SK_T, 8 / STC_KS) skinny_tc_kernel(QArgs a, int cs) {
+  constexpr int QROWS = FMT == FMT_Q8 ? QB : QB / 2;
+  constexpr int NSC = FMT == FMT_Q4 ? 2 : 1;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const SkinnyTcLayout L = skinny_tc_layout(FMT, STC_KS, a.per_split);
+  const uint32_t sa = smem_u32(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3, mi = lane >> 3, l7 = lane & 7;
+  const int rank = blockIdx.x % cs, n0 = (blockIdx.x / cs) * STC_N;
+  const int row0 = blockIdx.y * SK_M;
+  const int kb0 = rank * a.per_split, kb1 = min(a.nB, kb0 + a.per_split);
+  const int nst = (kb1 - kb0 + STC_KS - 1) / STC_KS;
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
+  float* xsum = reinterpret_cast<float*>(smem_raw + L.xsum_off);
+
+  auto load = [&](int t) {
+    const uint32_t st = sa + (t % SK_STAGES) * L.stage;
+    const int kbs = kb0 + t * STC_KS, nk = min(STC_KS, kb1 - kbs);
+    constexpr int QCH = STC_N / 16, SCH = STC_N / 4;
+#pragma unroll
+    for (int c = tid; c < STC_KS * QROWS * QCH; c += SK_T) {
+      const int r = c / QCH, cc = c % QCH, col = n0 + cc * 16;
+      const bool ok = r < nk * QROWS && col < a.n;
+      cp_async16(st + r * STC_QRS + cc * 16,
+                 ok ? a.q + ((size_t)kbs * QROWS + r) * a.n + col : a.q, ok);
+    }
+    for (int c = tid; c < NSC * STC_KS * SCH; c += SK_T) {
+      const int which = c / (STC_KS * SCH), kbl = (c / SCH) % STC_KS;
+      const int col = n0 + (c % SCH) * 4;
+      const bool ok = kbl < nk && col < a.n;
+      const float* src = which ? a.mins : a.scales;
+      cp_async16(st + L.q_b + c * 16,
+                 ok ? src + (size_t)(kbs + kbl) * a.n + col : src, ok);
+    }
+  };
+  // the window of x from quant block kbw on: 4 rows of bf16, zero past m
+  // and past d (d % 8 == 0, so a 16-byte piece is all in or all out)
+  auto load_x = [&](int kbw) {
+    const int nch = min(SK_XW, kb1 - kbw) * (QB / 8);
+    for (int c = tid; c < SK_M * nch; c += SK_T) {
+      const int i = c / nch, k = kbw * QB + (c % nch) * 8, row = row0 + i;
+      const bool ok = row < a.m && k < a.d;
+      cp_async16(sa + L.x_off + i * L.xrs + (c % nch) * 16,
+                 ok ? x + (size_t)row * a.d + k : x, ok);
+    }
+  };
+  // q4_k: each row of x summed over each quant block of the window, in order
+  auto sum_x = [&](int kbw) {
+    const int nk = min(SK_XW, kb1 - kbw);
+    for (int e = tid; e < SK_M * nk; e += SK_T) {
+      const int i = e / nk, kbl = e % nk;
+      const uint4* p = reinterpret_cast<const uint4*>(
+          smem_raw + L.x_off + i * L.xrs + kbl * QB * 2);
+      float s = 0.f;
+#pragma unroll
+      for (int v = 0; v < QB / 8; ++v) {
+        const uint4 q = p[v];
+        const uint32_t wd[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          s += __uint_as_float(wd[h] << 16);
+          s += __uint_as_float(wd[h] & 0xffff0000u);
+        }
+      }
+      xsum[i * SK_XW + kbl] = s;
+    }
+  };
+
+  float acc[2][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[h][j] = 0.f;
+
+  load_x(kb0);
+#pragma unroll
+  for (int t = 0; t < SK_STAGES - 1; ++t) {
+    if (t < nst) load(t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < nst; ++t) {
+    cp_async_wait<SK_STAGES - 2>();
+    __syncthreads();                      // stage t (and the window) landed
+    if (t + SK_STAGES - 1 < nst) load(t + SK_STAGES - 1);
+    cp_async_commit();
+    const int kw = (t * STC_KS) % SK_XW;  // this stage's place in the window
+    if (kw == 0) {
+      if (t > 0) {                        // a later window: d > 64 blocks a split
+        load_x(kb0 + t * STC_KS);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      if (FMT == FMT_Q4) {
+        sum_x(kb0 + t * STC_KS);
+        __syncthreads();
+      }
+    }
+    const uint32_t st = sa + (t % SK_STAGES) * L.stage;
+    const float4* sc = reinterpret_cast<const float4*>(
+        smem_raw + (t % SK_STAGES) * L.stage + L.q_b);
+    const int nk = min(STC_KS, kb1 - (kb0 + t * STC_KS));
+    const uint32_t xa = sa + L.x_off + g * L.xrs;
+    // the stage's B fragments first (both quant blocks), then its A
+    // fragments, so the loads of one block overlap the mmas of the other
+    constexpr int NLD = FMT == FMT_Q8 ? 2 : 1;
+    uint32_t r[STC_KS][NLD][4];
+#pragma unroll
+    for (int kbl = 0; kbl < STC_KS; ++kbl)
+#pragma unroll
+      for (int s = 0; s < NLD; ++s) {
+        if (FMT == FMT_Q8)
+          ldsm_x4_trans(st + (kbl * QB + 16 * s + (mi & 1) * 8 + l7) * STC_QRS +
+                            warp * 32 + (mi >> 1) * 16, r[kbl][s]);
+        else
+          ldsm_x4_trans(st + (kbl * (QB / 2) + (mi >> 1) * 8 + l7) * STC_QRS +
+                            warp * 32 + (mi & 1) * 16, r[kbl][s]);
+      }
+    uint32_t af[STC_KS][2][2];            // [block][k step][a0, a2]
+#pragma unroll
+    for (int kbl = 0; kbl < STC_KS; ++kbl)
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        af[kbl][s][0] = af[kbl][s][1] = 0u;
+        const int kx = (kw + kbl) * QB + 16 * s;   // k in the window
+        if (g < SK_M && kbl < nk) {
+          if (FMT == FMT_Q8) {
+            asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(af[kbl][s][0])
+                         : "r"(xa + (kx + 2 * t4) * 2));
+            asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(af[kbl][s][1])
+                         : "r"(xa + (kx + 8 + 2 * t4) * 2));
+          } else {
+            asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+                         : "=r"(af[kbl][s][0]), "=r"(af[kbl][s][1])
+                         : "r"(xa + (kx + 4 * t4) * 2));
           }
         }
       }
+#pragma unroll
+    for (int kbl = 0; kbl < STC_KS; ++kbl) {
+      if (kbl >= nk) break;
+      float part[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) part[i][j] = 0.f;
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const uint32_t a4[4] = {af[kbl][s][0], 0u, af[kbl][s][1], 0u};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (FMT == FMT_Q8) {
+            const uint32_t lo = r[kbl][s][2 * h], hi = r[kbl][s][2 * h + 1];
+            mma_bf16(part[2 * h], a4, q8_pair(lo), q8_pair(hi));
+            mma_bf16(part[2 * h + 1], a4, q8_pair(lo >> 8), q8_pair(hi >> 8));
+          } else {
+            const uint32_t w = r[kbl][0][2 * s + h], w4 = w >> 4;
+            mma_bf16(part[2 * h], a4, q4_pair<0>(w, w4), q4_pair<2>(w, w4));
+            mma_bf16(part[2 * h + 1], a4, q4_pair<1>(w, w4), q4_pair<3>(w, w4));
+          }
+        }
+      }
+      // lane (g, t): row g, columns 32 warp + 16 h + 4 t + (0, 1, 2, 3) =
+      // even c0, odd c0, even c1, odd c1
+      const float xs = FMT == FMT_Q4 && g < SK_M ? xsum[g * SK_XW + kw + kbl] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 s4 = sc[kbl * (STC_N / 4) + warp * 8 + 4 * h + t4];
+        acc[h][0] = fmaf(s4.x, part[2 * h][0], acc[h][0]);
+        acc[h][1] = fmaf(s4.y, part[2 * h + 1][0], acc[h][1]);
+        acc[h][2] = fmaf(s4.z, part[2 * h][1], acc[h][2]);
+        acc[h][3] = fmaf(s4.w, part[2 * h + 1][1], acc[h][3]);
+        if (FMT == FMT_Q4) {
+          const float4 m4 = sc[(STC_KS + kbl) * (STC_N / 4) + warp * 8 + 4 * h + t4];
+          acc[h][0] = fmaf(m4.x, xs, acc[h][0]);
+          acc[h][1] = fmaf(m4.y, xs, acc[h][1]);
+          acc[h][2] = fmaf(m4.z, xs, acc[h][2]);
+          acc[h][3] = fmaf(m4.w, xs, acc[h][3]);
+        }
+      }
     }
   }
 
-  // the 4 k-lanes of a warp (lanes cg, cg+8, cg+16, cg+24) ...
+  cp_async_wait<0>();
+  float* part = reinterpret_cast<float*>(smem_raw + L.part_off);   // [M][N]
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+  if (cs == 1) {
+    if (g < SK_M && row0 + g < a.m) {
 #pragma unroll
-  for (int i = 0; i < SK_R; ++i)
+      for (int h = 0; h < 2; ++h) {
+        const int col = n0 + warp * 32 + 16 * h + 4 * t4;
 #pragma unroll
-    for (int c = 0; c < 16; ++c) {
-      float v = acc[i][c];
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      acc[i][c] = v;
+        for (int j = 0; j < 4; ++j)
+          if (col + j < a.n)
+            out[(size_t)(row0 + g) * a.n + col + j] = __float2bfloat16(acc[h][j]);
+      }
     }
-  if (lane < SK_CG) {
-#pragma unroll
-    for (int i = 0; i < SK_R; ++i)
-#pragma unroll
-      for (int c = 0; c < 16; ++c) red[warp][i][cg * 16 + c] = acc[i][c];
+    return;
   }
-  __syncthreads();
-  // ... then the 8 warps, in order
-  for (int e = tid; e < SK_R * SK_CG * 16; e += NT) {
-    const int i = e / (SK_CG * 16), c = e % (SK_CG * 16);
-    const int row = row0 + i, col = blockIdx.x * (SK_CG * 16) + c;
-    if (row >= a.m || col >= a.n) continue;
+  if (g < SK_M) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float4*>(part + g * STC_N + warp * 32 + 16 * h + 4 * t4) =
+          make_float4(acc[h][0], acc[h][1], acc[h][2], acc[h][3]);
+  }
+  // the cluster's partials, in rank order; rank r writes its slice
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  cluster.sync();
+  const int slice = SK_M * STC_N / cs;
+  for (int e = rank * slice + tid; e < (rank + 1) * slice; e += SK_T) {
     float v = 0.f;
-    for (int w = 0; w < NT / 32; ++w) v += red[w][i][c];
-    store_out<T>(a, blockIdx.y, row, col, v);
+    for (int q = 0; q < cs; ++q) v += cluster.map_shared_rank(part, q)[e];
+    const int row = row0 + e / STC_N, col = n0 + e % STC_N;
+    if (row < a.m && col < a.n) out[(size_t)row * a.n + col] = __float2bfloat16(v);
   }
+  cluster.sync();                         // no block leaves while read
 }
 
 // --------------------------------------------------------------------------
@@ -681,7 +1162,7 @@ __global__ void __launch_bounds__(NT) splitk_reduce(const float* ws, void* out,
   static_cast<T*>(out)[e] = from_f<T>(v);
 }
 
-constexpr int ROUTE_SKINNY = 0, ROUTE_TILED = 1, ROUTE_TC = 2;
+constexpr int ROUTE_TILED = 1, ROUTE_TC = 2;   // 0, the skinny route: its own entry
 
 // The splits' reduction, when there are splits.
 template <typename T>
@@ -709,12 +1190,11 @@ int launch(const QArgs& a, int splits, int route, cudaStream_t stream) {
     } else {
       return (int)cudaErrorInvalidValue;
     }
-  } else if (route == ROUTE_SKINNY) {
-    dim3 grid(col_tiles, splits, (a.m + SK_R - 1) / SK_R);
-    skinny_kernel<T, FMT, VEC><<<grid, NT, 0, stream>>>(a);
-  } else {
+  } else if (route == ROUTE_TILED) {
     dim3 grid(col_tiles, splits, (a.m + TB_M - 1) / TB_M);
     tiled_kernel<T, FMT, VEC><<<grid, NT, 0, stream>>>(a);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
   return reduce<T>(a, splits, stream);
 }
@@ -729,12 +1209,101 @@ int dispatch(const QArgs& a, int fmt, int splits, int route, int vec,
              : launch<T, FMT_Q4, false>(a, splits, route, s);
 }
 
+// The skinny route: one launch of clusters of `cs` blocks.
+template <typename T, int FMT, bool VEC, int TN>
+int launch_skinny(const QArgs& a, int cs, int ks, cudaStream_t stream) {
+  const SkinnyLayout L = skinny_layout(FMT, TN, ks, a.per_split);
+  auto kernel = skinny_kernel<T, FMT, VEC, TN>;
+  static int opted = 48 << 10;            // shared memory opted into so far
+  if (L.total > opted) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+    if (err != cudaSuccess) return (int)err;
+    opted = L.total;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((a.n + TN - 1) / TN) * cs, (a.m + SK_M - 1) / SK_M, 1);
+  cfg.blockDim = dim3(SK_T, 1, 1);
+  cfg.dynamicSmemBytes = L.total;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a, ks, cs);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <typename T, int FMT, bool VEC>
+int skinny_tile(const QArgs& a, int tn, int cs, int ks, cudaStream_t s) {
+  switch (tn) {
+    case 128: return launch_skinny<T, FMT, VEC, 128>(a, cs, ks, s);
+    case 64: return launch_skinny<T, FMT, VEC, 64>(a, cs, ks, s);
+    case 32: return launch_skinny<T, FMT, VEC, 32>(a, cs, ks, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The tensor-core skinny route: bf16 x, the 16-byte loads, d % 8 == 0.
+template <int FMT, int STC_KS>
+int launch_skinny_tc(const QArgs& a, int cs, cudaStream_t stream) {
+  const SkinnyTcLayout L = skinny_tc_layout(FMT, STC_KS, a.per_split);
+  auto kernel = skinny_tc_kernel<FMT, STC_KS>;
+  static int opted = 48 << 10;            // shared memory opted into so far
+  if (L.total > opted) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+    if (err != cudaSuccess) return (int)err;
+    opted = L.total;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((a.n + STC_N - 1) / STC_N) * cs, (a.m + SK_M - 1) / SK_M, 1);
+  cfg.blockDim = dim3(SK_T, 1, 1);
+  cfg.dynamicSmemBytes = L.total;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a, cs);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_skinny(const QArgs& a, int fmt, int vec, int tn, int cs, int ks,
+                    int tc, cudaStream_t s) {
+  if (a.m > 16 || cs < 1 || cs > 8 || ks < 1 || ks > SK_XW ||
+      (ks & (ks - 1)) != 0 || (SK_M * tn) % cs != 0)
+    return (int)cudaErrorInvalidValue;
+  if (tc) {
+    if (!std::is_same<T, __nv_bfloat16>::value || !vec || tn != STC_N ||
+        (ks != 2 && ks != 4) || a.d % 8 != 0)
+      return (int)cudaErrorInvalidValue;
+    if (fmt == FMT_Q8)
+      return ks == 2 ? launch_skinny_tc<FMT_Q8, 2>(a, cs, s)
+                     : launch_skinny_tc<FMT_Q8, 4>(a, cs, s);
+    return ks == 2 ? launch_skinny_tc<FMT_Q4, 2>(a, cs, s)
+                   : launch_skinny_tc<FMT_Q4, 4>(a, cs, s);
+  }
+  if (fmt == FMT_Q8)
+    return vec ? skinny_tile<T, FMT_Q8, true>(a, tn, cs, ks, s)
+               : skinny_tile<T, FMT_Q8, false>(a, tn, cs, ks, s);
+  return vec ? skinny_tile<T, FMT_Q4, true>(a, tn, cs, ks, s)
+             : skinny_tile<T, FMT_Q4, false>(a, tn, cs, ks, s);
+}
+
 }  // namespace
 
 // dtype codes shared with the Python wrappers: 0 = float32, 1 = bfloat16;
-// fmt: 0 = q8_0, 1 = q4_k; route: 0 = skinny, 1 = tiled, 2 = tensor cores
-// (bf16 and vec only, else cudaErrorInvalidValue).  ws is null when
-// splits == 1.
+// fmt: 0 = q8_0, 1 = q4_k; route: 1 = tiled, 2 = tensor cores (bf16 and
+// vec only), anything else cudaErrorInvalidValue (the skinny route is
+// rt_quant_skinny).  ws is null when splits == 1.
 extern "C" int rt_quant_matmul(int dtype, int fmt, const void* x,
                                const void* quants, const float* scales,
                                const float* mins, void* out, float* ws,
@@ -748,4 +1317,26 @@ extern "C" int rt_quant_matmul(int dtype, int fmt, const void* x,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 1 ? dispatch<__nv_bfloat16>(a, fmt, splits, route, vec, s)
                     : dispatch<float>(a, fmt, splits, route, vec, s);
+}
+
+// The skinny route (m <= 16): tile_cols 32, 64 or 128; `splits` blocks a
+// cluster (1..8), `per_split` quant blocks each, `ks` (a power of two up
+// to 64) quant blocks a pipeline stage: quant.skinny_plan.  tc = 1 takes
+// skinny_tc_kernel (bf16 x, vec, 16-byte-aligned x, d % 8 == 0, 128
+// columns a tile, 2 or 4 quant blocks a stage), else
+// cudaErrorInvalidValue.
+extern "C" int rt_quant_skinny(int dtype, int fmt, const void* x,
+                               const void* quants, const float* scales,
+                               const float* mins, void* out, int m, int d,
+                               int n, int nB, int tile_cols, int splits,
+                               int per_split, int ks, int vec, int tc,
+                               void* stream) {
+  QArgs a = {};
+  a.x = x; a.q = static_cast<const uint8_t*>(quants); a.scales = scales;
+  a.mins = mins; a.out = out; a.ws = nullptr;
+  a.m = m; a.d = d; a.n = n; a.nB = nB; a.per_split = per_split;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 1
+             ? dispatch_skinny<__nv_bfloat16>(a, fmt, vec, tile_cols, splits, ks, tc, s)
+             : dispatch_skinny<float>(a, fmt, vec, tile_cols, splits, ks, tc, s);
 }

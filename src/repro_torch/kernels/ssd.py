@@ -6,11 +6,13 @@ H100).  `build.py` compiles it with the port's other kernels at first use
 and binds it with `ctypes`; nothing is built when this module is imported.
 
 The wrapper takes CUDA tensors only, checks device, dtype, shape and
-contiguity, allocates its outputs with `torch.empty`, launches on
-`torch.cuda.current_stream()` and raises if the launch fails.  It never
-falls back to the plain PyTorch version: `ops.ssd_scan` dispatches CPU
-tensors there before the wrapper is reached.  Each launch adds one to
-`build.LAUNCHES["ssd_scan"]`.
+contiguity, allocates its outputs (and the tensor-core route's workspace)
+with `torch.empty`, launches on `torch.cuda.current_stream()` and raises
+if the launch fails.  It never falls back to the plain PyTorch version:
+`ops.ssd_scan` dispatches CPU tensors there before the wrapper is
+reached.  Each call adds one to `build.LAUNCHES["ssd_scan"]`, and one to
+`"ssd_scan_tc"` when it took the tensor-core route (`ssd_route`: three
+kernels, chunk states, the ordered pass and the outputs).
 """
 from __future__ import annotations
 
@@ -23,12 +25,16 @@ from repro_torch.kernels.build import (DTYPE_CODE, LAUNCHES, check,
                                        check_inputs, function, raise_on,
                                        stream)
 
-# the kernel keeps a chunk of B and C in shared memory: (2*64 + 16) rows
-# of N+1 floats, plus ~24 KB, within the 227 KB a block may have
+# the CUDA-core kernel keeps a chunk of B and C in shared memory: (2*64 +
+# 16) rows of N+1 floats, plus ~24 KB, within the 227 KB a block may have
 MAX_STATE = 256
+CHUNK = 64                       # sequence rows of a chunk, both routes
+TC_HEAD, TC_STATE = 64, 128      # the tensor-core route's P and N
+ROUTES = ("cuda_core", "tensor_core")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURE = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_SIGNATURE = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+              _I, _I, _I, _I, _I, _I, _P]
 
 
 def _check_f32(name: str, what: str, t: torch.Tensor, shape: tuple,
@@ -69,6 +75,24 @@ def check_args(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return b, s, h, p, n
 
 
+def ssd_route(dtype: torch.dtype, p: int, n: int,
+              aligned: bool = True) -> str:
+    """The kernels that take these inputs: "tensor_core" for bf16 with P =
+    64 and N = 128 (mamba2_370m's heads) and 16-byte-aligned x, B, C and
+    init_state (`aligned`); else "cuda_core" (f32 and other widths)."""
+    if (dtype == torch.bfloat16 and (p, n) == (TC_HEAD, TC_STATE)
+            and aligned):
+        return "tensor_core"
+    return "cuda_core"
+
+
+def ssd_workspace(b: int, s: int, h: int, p: int, n: int) -> int:
+    """Floats of the tensor-core route's workspace: every chunk's (P, N)
+    state, C B^T (CHUNK x CHUNK) and cumsum (H x CHUNK)."""
+    chunks = b * -(-s // CHUNK)
+    return chunks * (h * p * n + CHUNK * CHUNK + h * CHUNK)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor,
              init_state: Optional[torch.Tensor] = None
@@ -83,11 +107,19 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     b, s, h, p, n = check_args(x, dt, A, B, C, init_state)
     y = torch.empty_like(x)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, B, C, init_state)
+                  if t is not None)
+    route = ssd_route(x.dtype, p, n, aligned)
+    ws = (torch.empty(ssd_workspace(b, s, h, p, n), dtype=torch.float32,
+                      device=x.device) if route == "tensor_core" else None)
     err = function("rt_ssd_scan", _SIGNATURE)(
         DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
         B.data_ptr(), C.data_ptr(),
         None if init_state is None else init_state.data_ptr(),
-        y.data_ptr(), final.data_ptr(), b, s, h, p, n, stream())
+        y.data_ptr(), final.data_ptr(), None if ws is None else ws.data_ptr(),
+        b, s, h, p, n, ROUTES.index(route), stream())
     raise_on(err, name)
     LAUNCHES[name] += 1
+    if route == "tensor_core":
+        LAUNCHES[name + "_tc"] += 1
     return y, final

@@ -364,16 +364,43 @@ def _ssd_close(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s", [8, 200, 512])
+@pytest.mark.parametrize("s", [1, 8, 63, 64, 65, 200, 300, 512])
 def test_ssd_scan_kernel(cuda, dtype, s):
+    """bf16 takes the tensor-core route (three kernels, one call), f32 the
+    CUDA-core kernel; within the tolerance, and a repeat gives equal
+    bits."""
     args = _ssd_inputs(cuda, dtype, s, seed=s)
-    launches = kbuild.LAUNCHES["ssd_scan"]
+    launches = (kbuild.LAUNCHES["ssd_scan"], kbuild.LAUNCHES["ssd_scan_tc"])
     got = kssd.ssd_scan(*args)
+    again = kssd.ssd_scan(*args)
     want = ref.ssd_reference(*args)
     torch.cuda.synchronize()
-    assert kbuild.LAUNCHES["ssd_scan"] == launches + 1
+    tc = int(dtype == torch.bfloat16)
+    assert (kbuild.LAUNCHES["ssd_scan"] - launches[0],
+            kbuild.LAUNCHES["ssd_scan_tc"] - launches[1]) == (2, 2 * tc)
     assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
     _ssd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [65, 300])
+def test_ssd_scan_rows_alone_equal_rows_in_batch(cuda, dtype, s):
+    """Row b of a B = 2 call equals that row run alone, bitwise, with and
+    without an init_state."""
+    x, dt, A, B, C = _ssd_inputs(cuda, dtype, s, seed=5, b=2)
+    init = torch.randn((2, 32, 64, 128), device=cuda) * 0.1
+    for st in (None, init):
+        got = kssd.ssd_scan(x, dt, A, B, C, init_state=st)
+        for b in range(2):
+            one = kssd.ssd_scan(*(t[b:b + 1].contiguous() for t in (x, dt)),
+                                A, *(t[b:b + 1].contiguous() for t in (B, C)),
+                                init_state=None if st is None
+                                else st[b:b + 1].contiguous())
+            assert torch.equal(one[0], got[0][b:b + 1])
+            assert torch.equal(one[1], got[1][b:b + 1])
+        _ssd_close(got, ref.ssd_reference(x, dt, A, B, C, init_state=st),
+                   dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -437,11 +464,15 @@ def _quant_close(got, x, qt):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fmt", ["q8_0", "q4_k"])
 @pytest.mark.parametrize("m,d,n", [
-    (4, 3072, 12288),      # decode: w_gate, skinny, 3 splits
-    (4, 12288, 3072),      # decode: w_down, 12 splits
-    (4, 3072, 256),        # decode: wk, 48 splits of 2 column tiles
+    (4, 3072, 12288),      # decode: w_gate / w_up, bf16 on the tensor cores
+    (4, 12288, 3072),      # decode: w_down
+    (4, 3072, 3072),       # decode: wq / wo
+    (4, 3072, 256),        # decode: wk / wv, on the CUDA cores
+    (13, 3072, 1040),      # skinny: 4 row groups, a ragged column tile
     (7, 80, 48),           # ragged m and d (16 padded lanes), one split
     (3, 200, 37),          # ragged n: byte loads
+    (16, 24576, 96),       # skinny: two x windows of 64 quant blocks
+    (4, 24576, 1024),      # the same on the tensor cores (bf16)
     (512, 3072, 1024),     # prefill: tiled, no split
     (64, 3072, 256),       # prefill: tiled, split
     (100, 97, 130),        # tiled, ragged m, d and n
@@ -459,6 +490,30 @@ def test_quant_matmul_kernel(cuda, fmt, dtype, m, d, n):
     assert kbuild.LAUNCHES[name] == launches + 2
     assert got.dtype == dtype and got.shape == (m, n)
     assert torch.equal(got, again)
+    _quant_close(got, x, qt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fmt", ["q8_0", "q4_k"])
+@pytest.mark.parametrize("m,d,n", [(4, 3072, 12288), (4, 12288, 3072),
+                                   (4, 3072, 3072), (4, 3072, 256),
+                                   (16, 200, 37)])
+def test_quant_matmul_skinny_row_alone_equals_row_in_batch(cuda, fmt, dtype,
+                                                           m, d, n):
+    """The decode route: one launch (no split-K pass), and each row of x
+    run alone gives that row's bits of the batched call."""
+    gen = torch.Generator(device=cuda).manual_seed(m + d + n)
+    qt = kquant.quantize_tensor(
+        torch.randn((d, n), generator=gen, device=cuda) * d ** -0.5, fmt)
+    x = _rand(gen, (m, d), dtype, cuda)
+    name = f"quant_matmul[{fmt}]"
+    before = {k: kbuild.LAUNCHES[name + k] for k in ("", "_skinny", "_splitk")}
+    got = kquant.quant_matmul(x, qt)
+    assert {k: kbuild.LAUNCHES[name + k] - v for k, v in before.items()} == \
+        {"": 1, "_skinny": 1, "_splitk": 0}
+    for i in range(m):
+        assert torch.equal(kquant.quant_matmul(x[i:i + 1].contiguous(), qt),
+                           got[i:i + 1])
     _quant_close(got, x, qt)
 
 
@@ -523,6 +578,17 @@ def test_quant_kernel_refuses_the_tensor_core_route_for_f32(cuda):
         0, 0, x.data_ptr(), qt.quants.data_ptr(), qt.scales.data_ptr(), None,
         out.data_ptr(), None, 32, 64, 32, 2, 1, 2,
         kquant.ROUTE_CODE["tensor_core"], 1, kbuild.stream())
+    assert err != 0
+    # nor does rt_quant_matmul take the skinny route, which has its own
+    # entry point, nor that one a cluster of more than 8 blocks
+    err = kquant.function("rt_quant_matmul", kquant._SIGNATURE)(
+        0, 0, x.data_ptr(), qt.quants.data_ptr(), qt.scales.data_ptr(), None,
+        out.data_ptr(), None, 4, 64, 32, 2, 1, 2,
+        kquant.ROUTE_CODE["skinny"], 1, kbuild.stream())
+    assert err != 0
+    err = kquant.function("rt_quant_skinny", kquant._SKINNY_SIGNATURE)(
+        0, 0, x.data_ptr(), qt.quants.data_ptr(), qt.scales.data_ptr(), None,
+        out.data_ptr(), 4, 64, 32, 2, 32, 16, 1, 1, 1, 0, kbuild.stream())
     assert err != 0
 
 

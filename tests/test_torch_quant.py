@@ -225,13 +225,117 @@ def test_quant_plan_covers_every_block_once(m, n, d, dtype):
     splits, per = quant.quant_plan(m, n, nb, route)
     assert quant.quant_plan(m, n, nb, route) == (splits, per)
     assert 1 <= per <= nb and (splits - 1) * per < nb <= splits * per
-    cols = -(-n // quant.TILE_COLS)
+    tile = (quant.skinny_plan(n, nb)[0] if route == "skinny"
+            else quant.TILE_COLS)
+    cols = -(-n // tile)
     rows = -(-m // {"skinny": quant.SKINNY_ROWS, "tiled": quant.TILED_ROWS,
                     "tensor_core": quant.TC_ROWS}[route])
     if (m, d) in ((4, 3072), (4, 12288)) and n >= 3072:
         assert cols * rows * splits >= quant.SMS
     if route != "skinny" and cols * rows >= quant.SMS:
         assert splits == 1
+    if route == "skinny":
+        # one launch: the splits are the blocks of a cluster
+        assert splits <= quant.SKINNY_MAX_CLUSTER
+
+
+# the decode projections of starcoder2_3b at 4 slots: (name, d, n)
+DECODE_SHAPES = [("w_gate", 3072, 12288), ("w_down", 12288, 3072),
+                 ("wq", 3072, 3072), ("wk", 3072, 256)]
+
+
+@pytest.mark.parametrize("n,d", [(n, d) for _, d, n in DECODE_SHAPES]
+                         + [(37, 200), (48, 80), (1040, 3072), (130, 97),
+                            (96, 24576), (16, 32), (49152, 3072)])
+def test_skinny_plan_covers_every_block_once_with_no_idle_lane(n, d):
+    """The skinny kernel's grid, a pure function of (n, quant blocks): each
+    quant block in exactly one split of a cluster, no split empty; every
+    one of a block's 128 threads on every quant block of its split (16
+    column groups x 8 row groups of 4 rows, the row groups covering the
+    32 rows of a block); clusters of a power of two up to 8 blocks, whose
+    ranks split the 4 x tile partial evenly; a stage of at most 8 KB of
+    q8_0 quants and at most one split's blocks, dividing the x window;
+    the grid within one wave of three blocks a SM."""
+    nb = -(-d // quant.QUANT_BLOCK)
+    tile, splits, per, ks = quant.skinny_plan(n, nb)
+    assert quant.skinny_plan(n, nb) == (tile, splits, per, ks)
+    assert tile in quant.SKINNY_TILES
+    blocks = [kb for s in range(splits)
+              for kb in range(s * per, min(nb, (s + 1) * per))]
+    assert blocks == list(range(nb))
+    assert all(s * per < nb for s in range(splits))
+    assert splits & (splits - 1) == 0 and splits <= quant.SKINNY_MAX_CLUSTER
+    assert (quant.SKINNY_ROWS * tile) % splits == 0
+    assert quant.SKINNY_ROW_GROUPS * 4 == quant.QUANT_BLOCK
+    assert quant.SKINNY_COL_GROUPS * quant.SKINNY_ROW_GROUPS == 128
+    assert tile % quant.SKINNY_COL_GROUPS == 0
+    assert ks & (ks - 1) == 0 and 1 <= ks <= per
+    assert quant.SKINNY_X_WINDOW % ks == 0
+    assert ks * quant.QUANT_BLOCK * tile <= quant.SKINNY_STAGE_BYTES
+    tiles = -(-n // tile)
+    assert tiles * splits <= max(tiles, quant.SKINNY_BLOCKS_PER_SM * quant.SMS)
+
+
+@pytest.mark.parametrize("n,d", [(n, d) for _, d, n in DECODE_SHAPES]
+                         + [(1040, 3072), (130, 97), (96, 24576)])
+def test_skinny_tensor_core_plan_covers_every_block_once(n, d):
+    """The tensor-core skinny kernel's grid: 128-column tiles (4 warps of 32
+    columns), each quant block in exactly one non-empty split, the most
+    splits a cluster takes (8) where d has the blocks for them, and a
+    stage of 4 quant blocks where the grid is under a wave of two blocks a
+    SM, else 2 (the kernel unrolls them)."""
+    nb = -(-d // quant.QUANT_BLOCK)
+    tile, splits, per, ks = quant.skinny_plan(n, nb, tensor_core=True)
+    assert tile == 128
+    blocks = [kb for s in range(splits)
+              for kb in range(s * per, min(nb, (s + 1) * per))]
+    assert blocks == list(range(nb))
+    assert all(s * per < nb for s in range(splits))
+    assert splits & (splits - 1) == 0 and splits <= quant.SKINNY_MAX_CLUSTER
+    if nb >= 2 * quant.SKINNY_MAX_CLUSTER:
+        assert splits == quant.SKINNY_MAX_CLUSTER
+    assert ks == (4 if -(-n // tile) * splits <= 2 * quant.SMS else 2)
+
+
+def test_skinny_tensor_core_route():
+    """bf16 x with d % 8 == 0, aligned leaves and at least 8 column tiles
+    of 128 takes the tensor cores; f32 x, wk / wv (n = 256), odd d and
+    unaligned inputs the CUDA cores."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert quant.skinny_tensor_core(bf16, 3072, 12288, True)
+    assert quant.skinny_tensor_core(bf16, 12288, 3072, True)
+    assert quant.skinny_tensor_core(bf16, 3072, 1024, True)
+    assert not quant.skinny_tensor_core(bf16, 3072, 256, True)
+    assert not quant.skinny_tensor_core(bf16, 3072, 896, True)
+    assert not quant.skinny_tensor_core(f32, 3072, 12288, True)
+    assert not quant.skinny_tensor_core(bf16, 3076, 12288, True)
+    assert not quant.skinny_tensor_core(bf16, 3072, 12288, False)
+
+
+@pytest.mark.parametrize("name,d,n", DECODE_SHAPES)
+def test_skinny_plan_fills_the_card_at_the_decode_shapes(name, d, n):
+    """At the served decode shapes the column tile divides n (no column
+    lane idle).  On the CUDA cores the grid fills the SMs in one wave of
+    three blocks a SM: 384 blocks for w_gate / w_up, w_down, wq / wo;
+    wk / wv, 0.9 MB, get 64 (launch latency sets their time).  The bf16
+    serve puts all but wk / wv on the tensor cores: 768 blocks for w_gate /
+    w_up, 192 for w_down, wq / wo."""
+    nb = d // quant.QUANT_BLOCK
+    tile, splits, per, ks = quant.skinny_plan(n, nb)
+    assert n % tile == 0 and nb % splits == 0
+    blocks = n // tile * splits
+    slots = quant.SKINNY_BLOCKS_PER_SM * quant.SMS
+    assert blocks <= slots
+    if name == "wk":
+        assert (tile, splits, blocks) == (32, 8, 64)
+    else:
+        assert blocks > 2 * quant.SMS, (name, tile, splits, blocks)
+    tc = quant.skinny_tensor_core(torch.bfloat16, d, n, True)
+    assert tc == (name != "wk")
+    if tc:
+        tile, splits, _, _ = quant.skinny_plan(n, nb, tensor_core=True)
+        assert n % tile == 0 and n // tile * splits == \
+            {"w_gate": 768, "w_down": 192, "wq": 192}[name]
 
 
 def fold_per_block(x, qt):
@@ -277,6 +381,83 @@ def test_per_block_scale_fold_matches_the_plain_version(fmt, m, d, n):
                  jquant.quant_matmul(x, jq, interpret=True)):
         err = np.abs(got.numpy() - np.asarray(want, np.float32))
         assert np.all(err <= 1e-5 * mag), (err - 1e-5 * mag).max()
+
+
+def skinny_order(x, qt, tensor_core=False):
+    """The skinny kernels' arithmetic in plain torch, in their order.  On
+    the CUDA cores (`skinny_kernel`), for each split of `skinny_plan` and
+    each of the 8 row groups (rows 4 rg .. 4 rg + 3 of every quant block),
+    per quant block part = x q over the group's 4 rows in row order, then
+    acc += scale part (+ min * the sum of x over those rows for q4_k); the
+    split's partial adds the row groups' acc in order.  On the tensor cores
+    (`skinny_tc_kernel`) part is x q over the whole block (an mma's f32
+    sum) and the min multiplies the block's sum of x, in row order.  The
+    output adds the splits' partials in split order.  All in f32 (two
+    roundings where the kernel's FMA has one)."""
+    m, d = x.shape
+    nb, n = qt.scales.shape
+    block = quant.QUANT_BLOCK
+    _, splits, per, _ = quant.skinny_plan(n, nb, tensor_core)
+    groups = 1 if tensor_core else quant.SKINNY_ROW_GROUPS
+    xf = torch.cat([x.float(), x.new_zeros((m, nb * block - d)).float()], 1)
+    rows = block // groups
+    xb = xf.reshape(m, nb, groups, rows)
+    if qt.fmt == "q8_0":
+        q = qt.quants.float()
+    else:
+        q = torch.stack([(qt.quants & 0xF).float(),
+                         (qt.quants >> 4).float()], 2).reshape(nb, block, n)
+    qb = q.reshape(nb, groups, rows, n)
+    out = torch.zeros((m, n))
+    for s in range(splits):
+        acc = torch.zeros((groups, m, n))
+        for kb in range(s * per, min(nb, (s + 1) * per)):
+            xk = xb[:, kb].permute(1, 0, 2)              # (groups, m, rows)
+            part = xk[..., 0, None] * qb[kb, :, 0, None]  # (groups, m, n)
+            px = xk[..., 0]
+            for j in range(1, rows):
+                part = part + xk[..., j, None] * qb[kb, :, j, None]
+                px = px + xk[..., j]
+            acc = acc + qt.scales[kb] * part
+            if qt.fmt == "q4_k":
+                acc = acc + qt.mins[kb] * px[..., None]
+        partial = acc[0]
+        for g in range(1, groups):
+            partial = partial + acc[g]
+        out = out + partial
+    return out
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("xdtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("m,d,n", [(4, 200, 48), (5, 97, 130), (16, 300, 37),
+                                   (1, 64, 16), (4, 1024, 64), (4, 96, 1024),
+                                   (3, 800, 1040)])
+def test_skinny_order_matches_the_plain_version_and_pallas(fmt, xdtype, m,
+                                                          d, n):
+    """The skinny kernels' regrouped sums (CUDA cores for any x, tensor
+    cores for bf16 x) against x @ dequantize(W) (the plain version, f32)
+    and the Pallas kernel in interpret mode, within 1e-5 (|x| @ |W|), for
+    bf16-valued x (exact products) and for f32 x (whose products round:
+    the bound still holds); ragged d pads its last block, several splits
+    add in order.  A row alone gives its bits of the batch."""
+    rng = np.random.default_rng(m * d + n)
+    w = _weight(rng, (d, n), "float32")
+    x = jnp.asarray(rng.standard_normal((m, d)), xdtype).astype(jnp.float32)
+    jq = jquant.quantize_tensor(w, fmt)
+    tq = quant.quantize_tensor(_t(w), fmt)
+    tensor_core = quant.skinny_tensor_core(getattr(torch, xdtype), d, n,
+                                           True)
+    got = skinny_order(_t(x), tq, tensor_core)
+    w_deq = np.asarray(jquant.dequantize_tensor(jq))
+    mag = np.abs(np.asarray(x)) @ np.abs(w_deq)
+    for want in (ref.quant_matmul_reference(_t(x), tq),
+                 jquant.quant_matmul(x, jq, interpret=True)):
+        err = np.abs(got.numpy() - np.asarray(want, np.float32))
+        assert np.all(err <= 1e-5 * mag), (err - 1e-5 * mag).max()
+    for i in range(m):
+        assert torch.equal(skinny_order(_t(x)[i:i + 1], tq, tensor_core),
+                           got[i:i + 1])
 
 
 def test_cuda_wrapper_refuses_cpu_tensors_and_bad_shapes():
