@@ -15,6 +15,19 @@ decode:
     under `rp` (int8 pools dequantized up front);
   * full-width mamba2_370m (the SSD scan kernel in every prefill; its
     decode is plain torch, as the reference's is plain XLA).
+On the card the server runs every decode segment as one CUDA graph
+replay (`launch/graphs.py`, captured when the server is built): every
+serve checks that each segment was a replay, and the `[graph]` lines
+hold each graphed serve (fp `axle` and `rp`, q8_0 + int8 KV, mamba2_370m)
+to an eager twin (`EagerServer`, the same server with its segments run
+launch by launch) on the same requests and weights: tokens, the cache's
+bytes at drain, the page ledger and the launch counts bitwise equal, and
+print tok/s of both and, per captured segment, its kernels, device ms
+and wall ms a replay.  The `[sampling]` line serves the 8 starcoder2_3b
+requests again, half sampled (T 0.8, top_k 50, top_p 0.95, seed 1000 +
+id), half greedy, one of those with stop tokens: seg_len 8 == per-token
+== each request alone, the greedy rows == the greedy serve's, and the
+sampling epilogue's device time at B = 4 over the padded vocabulary.
 Before serving, it drives the paper's two offload workloads through
 `stream_offload` under BS, RP and AXLE, data from seed 0 on the card:
   * KNN (VectorDB): 256 queries against a 1,000,000 x 1024 bf16 database
@@ -149,6 +162,7 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 try:
     from repro_torch.configs import get_config
+    from repro_torch.core import prng
     from repro_torch.core.backstream import (OffloadConfig, OffloadProtocol,
                                              stream_offload, use_offload)
     from repro_torch.examples import knn_offload
@@ -159,7 +173,8 @@ try:
     from repro_torch.kernels import quant as kquant
     from repro_torch.kernels import sls as ksls
     from repro_torch.kernels import ssd as kssd
-    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.launch.serve import (BatchedServer, Request,
+                                          SamplingParams)
     from repro_torch.launch.steps import QuantConfig
     from repro_torch.models import transformer
 except ImportError as exc:
@@ -1296,28 +1311,134 @@ def make_requests(n, lo, hi, max_new, vocab=cfg.vocab):
 
 
 def copies(reqs):
-    return [Request(r.rid, r.prompt, r.max_new) for r in reqs]
+    return [Request(r.rid, r.prompt, r.max_new, sampling=r.sampling)
+            for r in reqs]
 
 
-def serve(requests, params=None, arch=ARCH, **kw):
+class EagerServer(BatchedServer):
+    """The server with its decode segments run eagerly, launch by launch
+    from the host, as on the CPU: the twin the [graph] phase holds the
+    graphed server to.  The port itself has no switch for it."""
+
+    def _segment_fns(self, fns):
+        return fns
+
+
+def serve(requests, params=None, arch=ARCH, cls=BatchedServer, around=None,
+          **kw):
     """One drained run; the launch counts are set to 0 just before it and
-    read just after."""
-    server = BatchedServer(arch, smoke=False, device="cuda", batch_slots=4,
-                           max_seq=S, seg_len=8, params=params, **kw)
+    read just after.  The server is built (and its decode segments
+    captured as CUDA graphs) before that; `around` is a context entered
+    for the run alone.  A graphed server must have run every segment as
+    one replay."""
+    server = cls(arch, smoke=False, device="cuda", batch_slots=4,
+                 max_seq=S, seg_len=8, params=params, **kw)
     for r in requests:
         server.submit(r)
     torch.cuda.synchronize()
     kbuild.reset_launch_counts()
-    t = time.perf_counter()
-    server.run_until_drained()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t
+    with around or contextlib.nullcontext():
+        t = time.perf_counter()
+        server.run_until_drained()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
     launches = dict(kbuild.LAUNCHES)
     check(server.pages_allocated == server.pages_freed
           and server.pages_resident == 0, "page ledger not closed")
     toks = {r.rid: r.generated for r in server.completed}
     check(len(toks) == len(requests), "not every request completed")
+    segments = server.segments_dispatched if server.stream else server.steps
+    check(server.graph_replays == (segments if cls is BatchedServer else 0),
+          f"{server.graph_replays} graph replays for {segments} segments")
     return server, toks, launches, dt
+
+
+def ledger(srv):
+    return (srv.pages_allocated, srv.pages_freed, srv.pages_resident_peak,
+            srv.slot_pages.tolist())
+
+
+def graph_equals_eager(label, srv, toks, launches, dt, reqs, **kw):
+    """The graphed run `srv` against an eager twin on the same requests
+    and weights (`kw`: the twin's options): tokens, the cache's bytes at
+    drain, the page ledger and the launch counts bitwise equal, the same
+    host syncs, every segment a replay on the graphed side."""
+    e, e_toks, e_launches, e_dt = serve(copies(reqs), params=srv.params,
+                                        cls=EagerServer, **kw)
+    n_tok = sum(len(t) for t in toks.values())
+    check(e_toks == toks, f"[graph] {label}: graphed tokens != eager")
+    check(srv.cache.keys() == e.cache.keys()
+          and all(torch.equal(srv.cache[k], e.cache[k]) for k in srv.cache),
+          f"[graph] {label}: the cache at drain differs from the eager run's")
+    check(ledger(srv) == ledger(e), f"[graph] {label}: ledger "
+          f"{ledger(srv)} != eager {ledger(e)}")
+    check(e_launches == launches, f"[graph] {label}: launches {launches} "
+          f"!= eager {e_launches}")
+    check(srv.decode_syncs == e.decode_syncs
+          and srv.host_syncs == e.host_syncs,
+          f"[graph] {label}: host syncs differ")
+    segments = srv.segments_dispatched if srv.stream else srv.steps
+    print(f"[graph] {label}: {len(reqs)} requests, {n_tok} tokens, "
+          f"{segments} segments = {srv.graph_replays} graph replays; "
+          "graphed == eager bitwise (tokens, cache bytes at drain, ledger "
+          f"{ledger(srv)[:3]}, launches); syncs_per_token "
+          f"{srv.decode_syncs / n_tok:.4f} both; {n_tok / dt:.1f} tok/s "
+          f"graphed, {n_tok / e_dt:.1f} eager", flush=True)
+    del e
+
+
+def replay_profile(srv, label):
+    """Each captured segment of a drained server replayed under
+    torch.profiler: kernels and device ms per replay, and the host's wall
+    ms per replay.  Run after the server's checks: a replay writes the
+    (now idle) slots' cache rows."""
+    parts = {}
+    for name, steps_n in (("segment_fn", srv.seg_len),
+                          ("segment_plain_fn", srv.seg_len),
+                          ("step_fn", 1), ("step_plain_fn", 1)):
+        fn = getattr(srv, name)
+        fn(srv.params, srv.cache, srv.state)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn(srv.params, srv.cache, srv.state)
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        t = time.perf_counter()
+        for _ in range(10):
+            fn(srv.params, srv.cache, srv.state)
+        torch.cuda.synchronize()
+        parts[name] = dict(
+            steps=steps_n, kernels=sum(e.count for e in ev) / 5,
+            device_ms=sum(e.self_device_time_total for e in ev) / 5e3,
+            wall_ms=(time.perf_counter() - t) * 1e3 / 10,
+            launches=sum(n for k, n in fn.launches.items()
+                         if k not in kbuild.VARIANTS))
+    full, plain = parts["segment_fn"], parts["segment_plain_fn"]
+    epilogue = (full["device_ms"] - plain["device_ms"]) / srv.seg_len
+    # a decode step reads every weight once: its bytes bound the step
+    weights = sum(t.nbytes if isinstance(t, kquant.QTensor)
+                  else t.numel() * t.element_size()
+                  for t in leaves(srv.params))
+    print(f"[graph] {label}, one replay of each captured segment: " + "; ".join(
+        f"{k} ({v['steps']} steps) {v['kernels']:.0f} kernels, "
+        f"{v['launches']} of ours, device {v['device_ms']:.3f} ms, wall "
+        f"{v['wall_ms']:.3f} ms" for k, v in parts.items())
+        + f"; the sampled epilogue (full - plain) {epilogue:.3f} ms device "
+        f"a step; a step reads {weights / 1e9:.3f} GB of weights, "
+        f"{weights / HBM_BYTES_PER_S * 1e3:.3f} ms at the HBM rate",
+        flush=True)
+
+
+def leaves(tree):
+    """The tensors (and QTensors) of a parameter tree."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
 
 
 def serve_line(arch, protocol, srv, toks, launches, dt):
@@ -1350,11 +1471,12 @@ def profile(arch, params, vocab, label="", **kw):
     device's busy share of the wall time (one stream, so kernels do not
     overlap); informational, the run's correctness gates are elsewhere."""
     reqs = make_requests(4, 64, 400, 16, vocab)
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        _, _, _, prof_dt = serve(reqs, params=params, arch=arch,
-                                 protocol="axle", stream=True, **kw)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    _, _, _, prof_dt = serve(reqs, params=params, arch=arch,
+                             protocol="axle", stream=True, around=prof,
+                             **kw)
     # the kernels' own entries only: a CPU op's row repeats the device
     # time of the kernels it launched
     by_op = sorted(((e.self_device_time_total, e.key, e.count)
@@ -1406,6 +1528,9 @@ check(launches["ssd_scan"] == 0, f"ssd_scan launched: {launches}")
 serve_line(ARCH, "axle", srv, axle_toks, launches, dt)
 main_launches = launches
 params = srv.params
+graph_equals_eager(f"{ARCH} fp, axle", srv, axle_toks, launches, dt,
+                   main_reqs, protocol="axle", stream=True)
+replay_profile(srv, f"{ARCH} fp, axle")
 del srv
 profile(ARCH, params, cfg.vocab)
 pair = make_requests(2, 64, 200, 16)
@@ -1485,8 +1610,11 @@ def kernels_against_plain(arch, prompts, atol=LOGIT_ATOL, **kw):
 
 kernels_against_plain(ARCH, [r.prompt for r in make_requests(4, 64, 400, 1)])
 
-_, rp_toks, rp_launches, _ = serve(copies(pair), params=params, protocol="rp",
-                                   stream=True)
+rp_srv, rp_toks, rp_launches, rp_dt = serve(copies(pair), params=params,
+                                            protocol="rp", stream=True)
+graph_equals_eager(f"{ARCH} fp, rp", rp_srv, rp_toks, rp_launches, rp_dt,
+                   pair, protocol="rp", stream=True)
+del rp_srv
 check(rp_launches["decode_attention_partial"] > 0
       and rp_launches["decode_attention_partial_tc"]
       == rp_launches["decode_attention_partial"]
@@ -1521,6 +1649,123 @@ def rp_agrees(rp_toks, axle_toks, reqs, **kw):
 print(f"[reference] protocol rp, same 2 requests: launches {rp_launches}; "
       f"tokens {rp_agrees(rp_toks, streamed, pair)} the axle run's",
       flush=True)
+
+# --------------------------------------------------------------------------
+# 5a. sampling: the same 8 requests, half sampled, one greedy with stops
+# --------------------------------------------------------------------------
+
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+# request 1 (greedy) stops at the EOS id or at the 10th token of its
+# greedy stream, whichever it emits first: the stop fires on the card
+STOPS = (cfg.eos_token, axle_toks[1][9])
+
+
+def sampled_requests():
+    out = []
+    for r in main_reqs:
+        if r.rid % 2 == 0:
+            sp = SamplingParams(seed=1000 + r.rid, **SAMPLED)
+        else:
+            sp = SamplingParams(stop_tokens=STOPS if r.rid == 1 else ())
+        out.append(Request(r.rid, r.prompt, r.max_new, sampling=sp))
+    return out
+
+
+s_srv, s_toks, s_launches, s_dt = serve(sampled_requests(), params=params,
+                                        protocol="axle", stream=True)
+check(s_launches["decode_attention_fused"] == s_srv.steps * n_layers,
+      f"sampled serve launches {s_launches}")
+del s_srv
+_, s_per_token, _, _ = serve(sampled_requests(), params=params,
+                             protocol="axle", stream=False)
+check(s_per_token == s_toks, "[sampling] seg_len 8 != per-token")
+# each request alone, one after another through one server (slot 0)
+alone_srv = BatchedServer(ARCH, smoke=False, device="cuda", batch_slots=4,
+                          max_seq=S, seg_len=8, params=params,
+                          protocol="axle", stream=True)
+for r in sampled_requests():
+    alone_srv.submit(r)
+    alone_srv.run_until_drained()
+alone = {r.rid: r.generated for r in alone_srv.completed}
+check(alone_srv.graph_replays == alone_srv.segments_dispatched,
+      "[sampling] alone: a segment was not a graph replay")
+del alone_srv
+check(alone == s_toks, "[sampling] a request alone != its row in the batch")
+for rid, toks in s_toks.items():
+    check(all(0 <= t < cfg.vocab for t in toks), f"[sampling] id >= vocab")
+    if rid == 1:
+        check(toks[-1] in STOPS and toks == axle_toks[1][:len(toks)],
+              f"[sampling] request 1 did not stop as its greedy stream "
+              f"says: {toks}")
+    elif rid % 2:
+        check(toks == axle_toks[rid],
+              f"[sampling] greedy request {rid} != the greedy serve's")
+    else:
+        check(len(toks) == 64, f"[sampling] request {rid}: short stream")
+n_sampled_diff = sum(s_toks[r] != axle_toks[r] for r in s_toks if r % 2 == 0)
+
+# the sampling epilogue of one decode step at the serve's shape: 4 rows,
+# all sampled, the padded vocabulary, bf16 logits from the model
+ep_logits = randn(4, cfg.padded_vocab) * 4
+ep_keys = torch.stack([prng.PRNGKey(i, DEV) for i in range(4)])
+ep_params = ops.BatchedSampling(
+    temperature=torch.full((4,), 0.8, device=DEV),
+    top_k=torch.full((4,), 50, dtype=torch.int32, device=DEV),
+    top_p=torch.full((4,), 0.95, device=DEV),
+    min_p=torch.zeros((4,), device=DEV))
+
+
+def epilogue():
+    both = prng.split(ep_keys)
+    return ops.sample_tokens(ep_logits, ep_params, both[:, 1],
+                             vocab=cfg.vocab)
+
+
+def epilogue_capped():
+    both = prng.split(ep_keys)
+    return ref.sample_tokens_capped(
+        ep_logits, ep_params.temperature, ep_params.top_k, ep_params.top_p,
+        ep_params.min_p, both[:, 1], cfg.vocab)
+
+
+def graph_ms(fn, iters: int = 50) -> float:
+    """Device time of one call of `fn` captured as a CUDA graph: CUDA
+    events around `iters` replays, warm L2.  A replay launches its
+    kernels from one host call, so the host's time per launch, which
+    time_ms sees for a call of hundreds of small kernels, is out of it."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+check(torch.equal(epilogue(), epilogue_capped()),
+      "[sampling] capped != full reference on the card")
+ep = dict(device_ms=graph_ms(epilogue), ms=time_ms(epilogue),
+          capped_device_ms=graph_ms(epilogue_capped))
+print(f"[sampling] {ARCH} full width, 8 requests (4 sampled T "
+      f"{SAMPLED['temperature']} top_k {SAMPLED['top_k']} top_p "
+      f"{SAMPLED['top_p']}, 4 greedy, request 1 with stops {STOPS}): "
+      f"{sum(len(t) for t in s_toks.values())} tokens in {s_dt:.3f} s = "
+      f"{sum(len(t) for t in s_toks.values()) / s_dt:.1f} tok/s, every "
+      f"segment a graph replay; seg_len 8 == per-token == each request "
+      f"alone, bitwise; greedy rows == the greedy serve's, request 1 "
+      f"stopped at token {len(s_toks[1])} ({s_toks[1][-1]}); "
+      f"{n_sampled_diff} of 4 sampled streams differ from greedy; "
+      f"epilogue (key split + sample, B=4, V={cfg.padded_vocab}) "
+      f"{ep['device_ms']:.4f} ms device (one graph replay), time_ms "
+      f"{ep['ms']:.4f} eager; both branches of the capped sampler "
+      f"{ep['capped_device_ms']:.4f} ms device", flush=True)
 del params
 
 # --------------------------------------------------------------------------
@@ -1529,8 +1774,8 @@ del params
 
 Q8_INT8 = QuantConfig(weights="q8_0", kv="int8")
 n_proj = 7                   # wq wk wv wo w_gate w_up w_down in every layer
-srv, q_toks, launches, dt = serve(make_requests(8, 64, 400, 64),
-                                  protocol="axle", stream=True,
+q_reqs = make_requests(8, 64, 400, 64)
+srv, q_toks, launches, dt = serve(q_reqs, protocol="axle", stream=True,
                                   quant=Q8_INT8)
 forwards = srv.steps + srv.prefill_forwards
 check(launches["quant_matmul[q8_0]"] == forwards * n_proj * n_layers
@@ -1578,6 +1823,10 @@ print(f"[serve] {ARCH} q8_0: weight bytes resident {q_bytes / 1e9:.3f} GB "
       f"scales {sum(t.numel() * t.element_size() for k, t in srv.cache.items() if k[0] in 'kv') / 1e9:.3f} GB",
       flush=True)
 quant_launches = launches
+graph_equals_eager(f"{ARCH} q8_0 + int8 KV, axle", srv, q_toks, launches,
+                   dt, q_reqs, protocol="axle", stream=True,
+                   quant=QuantConfig(kv="int8"))
+replay_profile(srv, f"{ARCH} q8_0 + int8 KV")
 del srv
 profile(ARCH, q_params, cfg.vocab, label=" q8_0 + int8 KV",
         quant=QuantConfig(kv="int8"))
@@ -1713,6 +1962,9 @@ check(all(n == 0 for k, n in launches.items()
 serve_line(MAMBA, "axle", srv, mamba_toks, launches, dt)
 mamba_launches = launches
 mparams = srv.params
+graph_equals_eager(f"{MAMBA}, axle", srv, mamba_toks, launches, dt,
+                   mamba_reqs, arch=MAMBA, protocol="axle", stream=True)
+replay_profile(srv, MAMBA)
 del srv
 profile(MAMBA, mparams, mcfg.vocab)
 streamed_equals_per_token(MAMBA, mparams,

@@ -8,10 +8,14 @@ PyTorch version (`ref.py`).  The Pallas kernels' tile arguments (`blk_*`,
 Inside `reference_mode()` CUDA tensors take the plain versions too: that
 is how `chip_smoke.py` and the tests hold the kernel path against the
 plain path on the card.  The server never enters it.
+
+Per-slot sampling (`BatchedSampling`, `sample_tokens`) has no kernel: it
+is plain XLA in the reference and plain torch here, on every device.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
 from typing import Iterator, Optional, Tuple
 
@@ -140,3 +144,45 @@ def sls(table: torch.Tensor, indices: torch.Tensor,
     if _use_kernel(table):
         return _sls.sls(table, indices, weights)
     return _ref.sls_reference(table, indices, weights)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedSampling:
+    """Per-slot sampling parameters over the decode batch, each (B,): the
+    device-side image of one `SamplingParams` per serving slot.
+    temperature <= 0 (or top_k == 1) marks a slot greedy; top_k == 0,
+    top_p == 1 and min_p == 0 turn the respective filter off."""
+    temperature: torch.Tensor     # (B,) f32
+    top_k: torch.Tensor           # (B,) i32
+    top_p: torch.Tensor           # (B,) f32
+    min_p: torch.Tensor           # (B,) f32
+
+
+def greedy_sampling(batch: int, device: torch.device) -> BatchedSampling:
+    """All slots greedy."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return BatchedSampling(
+        temperature=torch.zeros((batch,), **f32),
+        top_k=torch.zeros((batch,), dtype=torch.int32, device=device),
+        top_p=torch.ones((batch,), **f32),
+        min_p=torch.zeros((batch,), **f32))
+
+
+def sample_tokens(logits: torch.Tensor, params: BatchedSampling,
+                  keys: torch.Tensor, *, vocab: int = 0) -> torch.Tensor:
+    """Per-slot token selection.  logits (B, V); keys (B, 2) int64, one
+    PRNG key per slot; `vocab`: the true vocabulary width when V is padded
+    (a sampled row never emits an id >= vocab; 0: no bound).  Returns (B,)
+    int32: argmax for greedy rows, bitwise; a Gumbel-argmax draw over the
+    filtered distribution for the others (`ref.sample_tokens_reference`).
+
+    The reference serves through `ref.sample_tokens_capped`, which picks
+    its partial-sort path or the full one with `lax.cond`.  On the card
+    that choice could not be made without reading `all(closed)` back to
+    the host, which a CUDA graph of the decode segment cannot do; taking
+    both and selecting on the device costs more than the full path alone.
+    So this runs the full reference, which `sample_tokens_capped` equals
+    bit for bit."""
+    return _ref.sample_tokens_reference(
+        logits, params.temperature, params.top_k, params.top_p,
+        params.min_p, keys, vocab)

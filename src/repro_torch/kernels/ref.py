@@ -2,7 +2,9 @@
 `repro/kernels/ref.py`: the attention kernels (with the int8 `kv_scales`
 branch of the fused decode), the Mamba2 SSD scan, the block quantizers
 with the dequantize-then-matmul `quant_matmul_reference`, the KNN
-distances with their top-k, and the SLS embedding bags.
+distances with their top-k, the SLS embedding bags, and per-slot
+stochastic sampling (plain torch in the reference's structure, its
+Gumbel draws from `core/prng.py`, bitwise `jax.random`'s).
 
 They are the numerical ground truth the CUDA kernels are held to on the
 card, and the path `ops.py` takes for tensors on the CPU.  All arithmetic
@@ -14,6 +16,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.core import prng
 
 Partial = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -394,3 +398,177 @@ def sls_reference(table: torch.Tensor, indices: torch.Tensor,
             row = row * weights[:, slot, None].float()
         acc = acc + torch.where(valid[:, slot, None], row, 0.0)
     return acc
+
+
+# --------------------------------------------------------------------------
+# Per-slot stochastic sampling (plain torch in the port, as plain XLA in
+# the reference: no kernel)
+# --------------------------------------------------------------------------
+
+def sample_tokens_reference(logits: torch.Tensor, temperature: torch.Tensor,
+                            top_k: torch.Tensor, top_p: torch.Tensor,
+                            min_p: torch.Tensor, keys: torch.Tensor,
+                            vocab: int = 0) -> torch.Tensor:
+    """Per-slot token selection, the single definition of its semantics.
+    logits: (B, V); temperature / top_p / min_p: (B,) f32; top_k: (B,)
+    int; keys: (B, 2) int64, one PRNG key per slot; `vocab`: the true
+    vocabulary width when V is padded (0: no bound).  Returns (B,) int32.
+
+    A row with temperature <= 0 or top_k == 1 is greedy: argmax(logits),
+    its key unused and the vocab bound not applied.  Any other row keeps
+    the top_k best tokens (0: all), the smallest descending prefix whose
+    mass reaches top_p (a token is kept iff the mass strictly before it
+    is < top_p; the best token always), and the tokens whose probability
+    is at least min_p times the best one's; then draws argmax(logits / T
+    + G), G ~ Gumbel(0, 1) from the row's key, in descending-sorted
+    space: the Gumbel draw at RANK r uses the key's counter r, and the
+    winning rank maps back through the sort."""
+    b, v = logits.shape
+    lf = logits.float()
+    greedy = (temperature <= 0.0) | (top_k == 1)
+    scaled = _scaled_bounded_logits(lf, temperature, vocab)
+    order, sorted_logits, keep = _sorted_keep(scaled, top_k, top_p, min_p)
+    filtered = torch.where(keep, sorted_logits, float("-inf"))
+    rank = (filtered + prng.gumbel(keys, v)).argmax(dim=-1)
+    sampled = torch.gather(order, -1, rank[:, None])[:, 0]
+    return torch.where(greedy, lf.argmax(dim=-1), sampled).to(torch.int32)
+
+
+def _scaled_bounded_logits(lf: torch.Tensor, temperature: torch.Tensor,
+                           vocab: int) -> torch.Tensor:
+    """Temperature scaling, then the pad ids (>= vocab) set to -inf before
+    any softmax, so they carry no probability mass."""
+    v = lf.shape[-1]
+    scaled = lf / torch.clamp(temperature.float(), min=1e-6)[:, None]
+    if vocab and vocab < v:
+        real = torch.arange(v, device=lf.device)[None, :] < vocab
+        scaled = torch.where(real, scaled, float("-inf"))
+    return scaled
+
+
+# The rank width of the partial-sort path (`sample_tokens_capped`).  The
+# cumulative mass over ranks [0, SAMPLE_HEAD) is a cumsum of exactly that
+# head slice, so the partial path's keep mask is bitwise the full one's.
+SAMPLE_HEAD = 64
+# The margin of the nucleus-closure test: the partial path is taken only
+# when the head's mass clears top_p by this much, so the head and the
+# full-vocab cumsums, which may round apart, cannot flip a tail rank.
+_CLOSURE_EPS = 1e-5
+
+
+def _sorted_keep(scaled: torch.Tensor, top_k: torch.Tensor,
+                 top_p: torch.Tensor, min_p: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The top_k / top_p / min_p keep mask in descending-sorted space (a
+    stable sort: ties go to the lower id, as `jnp.argsort(-x)` breaks
+    them).  Returns (order (B,V) rank -> id (int64), sorted logits (B,V),
+    keep (B,V) over ranks).
+
+    The probabilities are a softmax in TOKEN order gathered into rank
+    order (a gather keeps the bits, and the partial path takes the same
+    softmax without a sort), and the mass over the head ranks is a cumsum
+    of the head slice alone, kept apart from the tail's."""
+    b, v = scaled.shape
+    sorted_logits, order = torch.sort(scaled, dim=-1, descending=True,
+                                      stable=True)
+    probs = torch.gather(torch.softmax(scaled, dim=-1), -1, order)
+    ranks = torch.arange(v, device=scaled.device)[None, :]
+    keep = torch.where(top_k[:, None] > 0, ranks < top_k[:, None], True)
+    head = min(SAMPLE_HEAD, v)
+    cum = probs[:, :head].contiguous().cumsum(dim=-1)
+    if v > head:
+        cum = torch.cat([cum, probs.cumsum(dim=-1)[:, head:]], dim=-1)
+    cum_before = cum - probs
+    keep &= (cum_before < top_p[:, None]) | (ranks == 0)
+    keep &= probs >= min_p[:, None] * probs[:, :1]
+    return order, sorted_logits, keep
+
+
+def largest_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest entries of each row of the f32 matrix x, descending,
+    ties lowest column first and -0.0 equal to +0.0, as a stable
+    descending sort (and `jax.lax.top_k`) orders them.  Returns (values
+    (R,k) f32, columns (R,k) int64).  `torch.topk` promises no order
+    among equal values, so it runs over unique keys: the float's bits,
+    mapped to an int32 that sorts as the float does, times 2^32, plus the
+    column's complement."""
+    bits = (x.float() + 0.0).contiguous().view(torch.int32)   # -0.0 -> +0.0
+    order = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
+    cols = torch.arange(x.shape[-1], device=x.device)
+    keys = order * (1 << 32) + (0xFFFFFFFF - cols)
+    top = torch.topk(keys, k, dim=-1, largest=True, sorted=True).values
+    idx = 0xFFFFFFFF - torch.remainder(top, 1 << 32)
+    return torch.gather(x, -1, idx), idx
+
+
+def sample_tokens_capped(logits: torch.Tensor, temperature: torch.Tensor,
+                         top_k: torch.Tensor, top_p: torch.Tensor,
+                         min_p: torch.Tensor, keys: torch.Tensor,
+                         vocab: int = 0, head: int = SAMPLE_HEAD
+                         ) -> torch.Tensor:
+    """`sample_tokens_reference` through a partial sort of the first
+    `head` ranks where every row's filters provably close inside the head
+    (greedy, 0 < top_k <= head, or head mass >= top_p + _CLOSURE_EPS),
+    else the full reference: bitwise the reference's tokens either way.
+
+    The reference chooses between the two with `lax.cond`; here both are
+    computed and the choice is made on the device (`torch.where` on
+    `all(closed)`), so nothing is read back to the host and the function
+    can run inside a CUDA graph."""
+    full = sample_tokens_reference(logits, temperature, top_k, top_p, min_p,
+                                   keys, vocab)
+    if logits.shape[-1] <= head:
+        return full
+    fast, closed = sample_tokens_head(logits, temperature, top_k, top_p,
+                                      min_p, keys, vocab, head)
+    return torch.where(closed.all(), fast, full)
+
+
+def sample_tokens_head(logits: torch.Tensor, temperature: torch.Tensor,
+                       top_k: torch.Tensor, top_p: torch.Tensor,
+                       min_p: torch.Tensor, keys: torch.Tensor,
+                       vocab: int = 0, head: int = SAMPLE_HEAD
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The partial-sort path of `sample_tokens_capped` alone: (tokens (B,)
+    int32, closed (B,) bool); a row's token is the reference's wherever
+    it is closed.  `largest_k` breaks ties as the stable sort does, the
+    probabilities are the same token-order softmax gathered, the head
+    cumsum is the reference's own, and the Gumbel draw is the row's full
+    draw cut to the head (its counters 0 .. head-1)."""
+    lf = logits.float()
+    greedy = (temperature <= 0.0) | (top_k == 1)
+    scaled = _scaled_bounded_logits(lf, temperature, vocab)
+    top_vals, top_idx = largest_k(scaled, head)
+    probs_h = torch.gather(torch.softmax(scaled, dim=-1), -1, top_idx)
+    cum_head = probs_h.cumsum(dim=-1)
+    closed = (greedy | ((top_k > 0) & (top_k <= head))
+              | (cum_head[:, -1] >= top_p + _CLOSURE_EPS))
+    ranks = torch.arange(head, device=logits.device)[None, :]
+    keep = torch.where(top_k[:, None] > 0, ranks < top_k[:, None], True)
+    keep &= ((cum_head - probs_h) < top_p[:, None]) | (ranks == 0)
+    keep &= probs_h >= min_p[:, None] * probs_h[:, :1]
+    filtered = torch.where(keep, top_vals, float("-inf"))
+    rank = (filtered + prng.gumbel(keys, head)).argmax(dim=-1)
+    sampled = torch.gather(top_idx, -1, rank[:, None])[:, 0]
+    return (torch.where(greedy, lf.argmax(dim=-1), sampled).to(torch.int32),
+            closed)
+
+
+def filtered_log_probs(logits: torch.Tensor, temperature: torch.Tensor,
+                       top_k: torch.Tensor, top_p: torch.Tensor,
+                       min_p: torch.Tensor, vocab: int = 0) -> torch.Tensor:
+    """(..., V) log-probabilities of the temperature / top_k / top_p /
+    min_p filtered distribution, the one a sampled row of
+    `sample_tokens_reference` draws from (filtered-out tokens -inf).
+    logits: (B, V) or (B, K, V); the (B,) parameters broadcast over K."""
+    shape = logits.shape
+    v = shape[-1]
+    lf = logits.float().reshape(-1, v)
+    rep = lf.shape[0] // temperature.shape[0]
+    t, tk, tp, mp = (p.repeat_interleave(rep)
+                     for p in (temperature, top_k, top_p, min_p))
+    scaled = _scaled_bounded_logits(lf, t, vocab)
+    order, _, keep = _sorted_keep(scaled, tk, tp, mp)
+    keep_tok = torch.empty_like(keep).scatter_(-1, order, keep)
+    filtered = torch.where(keep_tok, scaled, float("-inf"))
+    return torch.log_softmax(filtered, dim=-1).reshape(shape)

@@ -1,5 +1,5 @@
-"""Batched greedy serving with offload-protocol selection and a streamed
-hot loop: the main-path slice of `repro/launch/serve.py`.
+"""Batched serving with per-request sampling, offload-protocol selection
+and a streamed hot loop: the main-path slice of `repro/launch/serve.py`.
 
 `--protocol {bs,axle,rp}` selects the partial-attention merge schedule
 (`core/backstream.py`): on one device `bs` and `axle` take the fused
@@ -23,9 +23,18 @@ through the dequant-fused matmul kernel, and `--quant-kv int8` an int8 KV
 cache with one scale per (layer, row, KV head, page), dequantized inside
 the fused decode kernel.
 
-Both loops emit identical tokens.  Sampling, speculation, the host tier,
-chunked prefill and the mesh are later slices (ROADMAP.md queue 1); their
-options are absent here, not ignored.
+Each request carries `SamplingParams` (temperature / top_k / top_p /
+min_p / seed / stop tokens); `--temperature`, `--top-k`, `--top-p`,
+`--seed` and `--stop-eos` set them for the CLI's requests.  Token k of a
+request is drawn with the k-th split of its seed's key, on the device, so
+a fixed seed gives the same tokens at any `seg_len`, in either loop, in
+any slot and beside any batch-mates; greedy requests decode by argmax.
+
+On the card every decode segment runs as one CUDA graph replay
+(`launch/graphs.py`), captured at construction; on the CPU the segments
+run eagerly.  Both loops emit identical tokens.  Speculation, the host
+tier, chunked prefill and the mesh are later slices (ROADMAP.md queue 1);
+their options are absent here, not ignored.
 """
 from __future__ import annotations
 
@@ -42,6 +51,9 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.backstream import (OffloadConfig, OffloadProtocol,
                                          use_offload)
+from repro_torch.core import prng
+from repro_torch.kernels import ops
+from repro_torch.launch import graphs
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import transformer
 from repro_torch.models.quantize import quantize_params
@@ -50,21 +62,64 @@ PROTOCOLS = {"bs": OffloadProtocol.BS, "axle": OffloadProtocol.AXLE,
              "rp": OffloadProtocol.RP}
 
 
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    """Per-request decoding control.
+
+    temperature — 0 (default) decodes greedily (argmax, no randomness
+                  consumed); > 0 samples from the temperature-scaled
+                  distribution.
+    top_k       — keep only the k most probable tokens (0 = off; 1 is
+                  greedy).
+    top_p       — nucleus: keep the smallest most-probable set with mass
+                  >= top_p (1.0 = off).
+    min_p       — drop tokens below min_p x the best token's probability
+                  (0.0 = off).
+    seed        — the request's PRNG seed: token k is drawn with the k-th
+                  split of its key, whatever the segmentation, slot or
+                  batch-mates.
+    stop_tokens — ids that end the request (at most
+                  steps.MAX_STOP_TOKENS); the stop token itself is the
+                  last generated token."""
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    min_p: float = 0.0
+    seed: int = 0
+    stop_tokens: Tuple[int, ...] = ()
+
+    @property
+    def greedy(self) -> bool:
+        return self.temperature <= 0 or self.top_k == 1
+
+
+GREEDY = SamplingParams()
+
+
 @dataclasses.dataclass
 class Request:
-    """One greedy serving request.
+    """One serving request.
 
     prompt      — (prompt_len,) int32 token ids.
     max_new     — token budget; the first token comes from the prefill.
-    stop_tokens — ids that end the request (at most
-                  steps.MAX_STOP_TOKENS); the stop token itself is the
-                  last generated token.
+    sampling    — its SamplingParams; None decodes greedily.
+    stop_tokens — ids that end the request, as `sampling.stop_tokens`
+                  (a request may set one of the two, not both).
     generated   — filled by the server, in order."""
     rid: int
     prompt: np.ndarray
     max_new: int
     stop_tokens: Tuple[int, ...] = ()
     generated: Optional[List[int]] = None
+    sampling: Optional[SamplingParams] = None
+
+    @property
+    def sampling_params(self) -> SamplingParams:
+        """The request's SamplingParams, its `stop_tokens` folded in."""
+        sp = self.sampling or GREEDY
+        if self.stop_tokens:
+            sp = dataclasses.replace(sp, stop_tokens=tuple(self.stop_tokens))
+        return sp
 
 
 def _prefill_bucket(n: int, cap: int) -> int:
@@ -79,15 +134,23 @@ class BatchedServer:
     """Slot-based continuous batching over a fixed decode batch.
 
     Each of `batch_slots` cache rows is a serving slot: a queued Request
-    is admitted into a free slot by a real prefill, decodes greedily until
-    its budget is spent or it emits a stop token, then retires and frees
-    the slot.  `positions[s]` is the position of the token in `tokens[s]`:
-    it starts at len(prompt) and advances per row, so a request's tokens
-    do not depend on its slot or its batch-mates.
+    is admitted into a free slot by a real prefill, decodes (greedy or
+    sampled with its own PRNG key) until its budget is spent or it emits
+    a stop token, then retires and frees the slot.  `positions[s]` is the
+    position of the token in `tokens[s]`: it starts at len(prompt) and
+    advances per row, so a request's tokens do not depend on its slot or
+    its batch-mates.
 
     A row WITHOUT stop tokens ends only by budget, which the host knows at
     dispatch: it retires then.  A row WITH stop tokens ends when the
-    device says so; the host learns it one segment later.
+    device says so; the host learns it one segment later.  A segment with
+    a sampled or stopping row takes the full variant, one with only
+    greedy stop-free rows the `plain` one.
+
+    On the card the four segment functions (full and plain, at `seg_len`
+    and at 1) are captured as CUDA graphs here, before any admission, and
+    every segment is one replay (`graph_replays` counts them); a capture
+    or launch failure raises.
 
     `params` are the weights to serve in the reference's layout; None
     draws the port's own from seed 0 on `device`.  `quant` quantizes
@@ -134,14 +197,12 @@ class BatchedServer:
         self.pages_freed = 0
         self.pages_resident_peak = 0
         self.slot_pages = np.zeros((batch_slots,), np.int64)
-        self.step_fn = steps_lib.make_decode_segment(self.cfg, 1)
-        self.step_plain_fn = steps_lib.make_decode_segment(self.cfg, 1,
-                                                           plain=True)
-        self.segment_fn = steps_lib.make_decode_segment(self.cfg, seg_len)
-        self.segment_plain_fn = steps_lib.make_decode_segment(
-            self.cfg, seg_len, plain=True)
         self.prefill_fn = steps_lib.make_prefill_into_cache(self.cfg)
         self.state = steps_lib.init_slot_state(batch_slots, self.device)
+        (self.step_fn, self.step_plain_fn, self.segment_fn,
+         self.segment_plain_fn) = self._segment_fns(
+            [steps_lib.make_decode_segment(self.cfg, n, plain=plain)
+             for n in (1, seg_len) for plain in (False, True)])
         self.queue: List[Request] = []
         self.active: List[Optional[Request]] = [None] * batch_slots
         # host mirrors of the device state for dispatch-time accounting
@@ -155,10 +216,33 @@ class BatchedServer:
         self.decode_syncs = 0          # the decode loop's share
         self.tokens_emitted = 0
 
+    def _segment_fns(self, fns: List[Any]) -> List[Any]:
+        """The segment functions as the loops call them: on the card, each
+        captured as a CUDA graph against the live cache; on the CPU, as
+        they are."""
+        if self.device.type != "cuda":
+            return fns
+        with use_offload(self.offload):
+            return graphs.capture_segments(fns, self.params, self.cache,
+                                           self.state)
+
+    @property
+    def graph_replays(self) -> int:
+        """Decode segments run as CUDA graph replays."""
+        return sum(getattr(fn, "replays", 0)
+                   for fn in (self.step_fn, self.step_plain_fn,
+                              self.segment_fn, self.segment_plain_fn))
+
     # -- admission ---------------------------------------------------------
 
     def submit(self, req: Request) -> None:
-        assert len(req.stop_tokens) <= steps_lib.MAX_STOP_TOKENS, req
+        if req.stop_tokens and req.sampling is not None \
+                and req.sampling.stop_tokens:
+            raise ValueError(f"request {req.rid} sets stop tokens twice: "
+                             "in stop_tokens and in sampling.stop_tokens")
+        if len(req.sampling_params.stop_tokens) > steps_lib.MAX_STOP_TOKENS:
+            raise ValueError(f"request {req.rid}: more than "
+                             f"{steps_lib.MAX_STOP_TOKENS} stop tokens")
         req.generated = []
         self.queue.append(req)
 
@@ -222,20 +306,38 @@ class BatchedServer:
 
     def _finish_admit(self, slot: int, req: Request,
                       logits: torch.Tensor) -> bool:
-        """Greedy first token from the prompt's last logits (the one
-        admission host sync) and the slot's device state."""
-        first = int(logits.argmax())
+        """The first token from the prompt's last logits (the one
+        admission host sync), drawn with split #0 of the request's seed
+        key (`key, sub = split(PRNGKey(seed))`; a greedy request takes the
+        argmax, which is what sampling gives it), and the slot's device
+        state, which keeps `key`."""
+        sp = req.sampling_params
+        key, sub = prng.split(prng.PRNGKey(sp.seed, self.device))
+        if sp.greedy:
+            first = int(logits.argmax())
+        else:
+            f32 = dict(dtype=torch.float32, device=self.device)
+            one = ops.BatchedSampling(
+                temperature=torch.full((1,), sp.temperature, **f32),
+                top_k=torch.full((1,), sp.top_k, dtype=torch.int32,
+                                 device=self.device),
+                top_p=torch.full((1,), sp.top_p, **f32),
+                min_p=torch.full((1,), sp.min_p, **f32))
+            first = int(ops.sample_tokens(logits[None], one, sub[None],
+                                          vocab=self.cfg.vocab)[0])
         self.host_syncs += 1
         req.generated.append(first)
         self.tokens_emitted += 1
         remaining = req.max_new - 1
-        if remaining <= 0 or first in req.stop_tokens:
+        if remaining <= 0 or first in sp.stop_tokens:
             return False
         self.positions[slot] = len(req.prompt)
         self.remaining[slot] = remaining
         self.state = steps_lib.admit_slot(
             self.state, slot, token=first, position=len(req.prompt),
-            remaining=remaining, stop=req.stop_tokens)
+            key=key, remaining=remaining, temperature=sp.temperature,
+            top_k=sp.top_k, top_p=sp.top_p, min_p=sp.min_p,
+            stop=sp.stop_tokens)
         return True
 
     def _fill_slots(self) -> None:
@@ -259,15 +361,19 @@ class BatchedServer:
         segment is in flight.  A row with stop tokens is `(req, None)`:
         the device decides, and `_consume_segment` retires it.
 
-        Returns (rows, plain): `plain` when no dispatched row has a stop
-        set, so the segment can skip the write mask and the stop test."""
+        Returns (rows, plain): `plain` when every dispatched row is greedy
+        with no stop set, so the segment can skip the sampling epilogue,
+        the write mask and the stop test."""
         rows: Dict[int, Tuple[Request, Optional[int]]] = {}
         plain = True
         for s in range(self.batch):
             req = self.active[s]
             if req is None:
                 continue
-            if req.stop_tokens:
+            sp = req.sampling_params
+            if not sp.greedy:
+                plain = False
+            if sp.stop_tokens:
                 plain = False
                 # charge the full segment span, trimmed back at consume
                 self._set_pages(s, max(
@@ -401,6 +507,14 @@ def main() -> int:
     ap.add_argument("--stream", action="store_true",
                     help="segment-streaming loop (default: per-token)")
     ap.add_argument("--seg-len", type=int, default=8)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 = greedy (default); > 0 samples per slot")
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="base sampling seed (request i uses seed + i)")
+    ap.add_argument("--stop-eos", action="store_true",
+                    help="stop each request at the config's eos_token")
     ap.add_argument("--quant-weights", default=None, choices=["q8_0", "q4_k"],
                     help="block-quantize the dense projection stacks")
     ap.add_argument("--quant-kv", default=None, choices=["int8"],
@@ -414,11 +528,23 @@ def main() -> int:
                            quant=steps_lib.QuantConfig(
                                weights=args.quant_weights,
                                kv=args.quant_kv))
+    stops = (server.cfg.eos_token,) if args.stop_eos else ()
+    sampled = (args.temperature > 0 or args.top_k > 0 or args.top_p < 1.0
+               or args.stop_eos)
+    if args.temperature <= 0 and (args.top_k > 1 or args.top_p < 1.0):
+        # a filter without a temperature would decode greedily
+        print("[serve] --top-k/--top-p given without --temperature: "
+              "defaulting temperature to 1.0", file=sys.stderr)
+        args.temperature = 1.0
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         plen = int(rng.integers(4, 12))
         prompt = rng.integers(1, server.cfg.vocab, plen).astype(np.int32)
-        server.submit(Request(i, prompt, args.max_new))
+        sampling = SamplingParams(
+            temperature=args.temperature, top_k=args.top_k,
+            top_p=args.top_p, seed=args.seed + i,
+            stop_tokens=stops) if sampled else None
+        server.submit(Request(i, prompt, args.max_new, sampling=sampling))
     t0 = time.perf_counter()
     server.run_until_drained()
     if server.device.type == "cuda":
@@ -432,6 +558,7 @@ def main() -> int:
           f"mode={mode} requests={len(server.completed)} tokens={toks} "
           f"steps={server.steps} "
           f"syncs/token={server.decode_syncs / max(1, toks):.4f} "
+          f"graph_replays={server.graph_replays} "
           f"({toks / dt:.1f} tok/s on {server.device})")
     return 0
 

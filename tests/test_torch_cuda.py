@@ -839,3 +839,101 @@ def test_stream_offload_on_the_card(cuda):
         assert torch.equal(knn_out[proto][0], whole_knn[0])
         assert torch.equal(knn_out[proto][1], whole_knn[1])
         assert torch.equal(sls_out[proto], whole_sls)
+
+
+# --------------------------------------------------------------------------
+# The decode segment as CUDA graphs, and the sampling inside it
+# --------------------------------------------------------------------------
+
+from repro_torch.core import prng                             # noqa: E402
+from repro_torch.launch import serve as tserve                # noqa: E402
+from repro_torch.launch.steps import QuantConfig              # noqa: E402
+
+
+class _Eager(tserve.BatchedServer):
+    """The server with its segments run launch by launch."""
+
+    def _segment_fns(self, fns):
+        return fns
+
+
+def _serve_smoke(cls, arch, *, stream, params=None, **kw):
+    srv = cls(arch, smoke=True, device="cuda", batch_slots=2, max_seq=64,
+              seg_len=4, stream=stream, params=params, **kw)
+    rng = np.random.default_rng(3)
+    for i in range(4):
+        pr = rng.integers(1, srv.cfg.vocab, int(rng.integers(3, 9)))
+        sp = (tserve.SamplingParams(temperature=0.8, top_k=20, top_p=0.9,
+                                    seed=i) if i % 2 == 0 else
+              tserve.SamplingParams(stop_tokens=(7,)) if i == 1 else None)
+        srv.submit(tserve.Request(i, pr.astype(np.int32), 12, sampling=sp))
+    kbuild.reset_launch_counts()
+    srv.run_until_drained()
+    torch.cuda.synchronize()
+    return srv, {r.rid: r.generated for r in srv.completed}, \
+        dict(kbuild.LAUNCHES)
+
+
+@pytest.mark.parametrize("stream", [True, False])
+@pytest.mark.parametrize("arch,kw", [
+    ("starcoder2_3b", dict(protocol="axle")),
+    ("starcoder2_3b", dict(protocol="rp")),
+    ("starcoder2_3b", dict(protocol="axle",
+                           quant=QuantConfig(weights="q8_0", kv="int8"))),
+    ("mamba2_370m", dict(protocol="axle"))])
+def test_graphed_serve_equals_eager_bitwise(cuda, arch, kw, stream):
+    """Tokens, the cache at drain, the ledger and the launch counts of the
+    graphed server equal the eager twin's; every segment is a replay."""
+    g, g_toks, g_launches = _serve_smoke(tserve.BatchedServer, arch,
+                                         stream=stream, **kw)
+    e_kw = dict(kw, quant=QuantConfig(kv=kw["quant"].kv)) \
+        if "quant" in kw else kw
+    e, e_toks, e_launches = _serve_smoke(_Eager, arch, stream=stream,
+                                         params=g.params, **e_kw)
+    assert g_toks == e_toks
+    assert all(torch.equal(g.cache[k], e.cache[k]) for k in g.cache)
+    assert (g.pages_allocated, g.pages_freed, g.pages_resident_peak) == \
+        (e.pages_allocated, e.pages_freed, e.pages_resident_peak)
+    assert g_launches == e_launches
+    assert g.graph_replays == (g.segments_dispatched if stream else g.steps)
+    assert e.graph_replays == 0
+
+
+def test_captured_segment_refuses_another_cache(cuda):
+    srv = tserve.BatchedServer("starcoder2_3b", smoke=True, device="cuda",
+                               batch_slots=2, max_seq=64)
+    srv.cache["page_table"] = srv.cache["page_table"].clone()
+    with pytest.raises(RuntimeError, match="captured"):
+        srv.step_fn(srv.params, srv.cache, srv.state)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 31 - 1])
+def test_prng_on_the_card_equals_the_cpu(cuda, seed):
+    """Integer ops: the same bits on both devices; the Gumbel draws within
+    1e-6 (the two devices' `log` round apart)."""
+    keys = [prng.PRNGKey(seed), prng.PRNGKey(seed, cuda)]
+    for fn in (lambda k: prng.split(k, 5), lambda k: prng.fold_in(k, 9),
+               lambda k: prng.bits(k, 49152),
+               lambda k: prng.uniform(k, 49152, 1e-38, 1.0).view(
+                   torch.int32)):
+        assert torch.equal(fn(keys[0]), fn(keys[1]).cpu())
+    torch.testing.assert_close(prng.gumbel(keys[1], 49152).cpu(),
+                               prng.gumbel(keys[0], 49152), rtol=0,
+                               atol=1e-6)
+
+
+def test_sampling_on_the_card(cuda):
+    """capped == full bitwise, greedy rows argmax, the vocab bound held,
+    at the full vocabulary (B = 4, V = 49,152)."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    lf = torch.randn((4, 49152), generator=gen, device=cuda) * 4
+    keys = torch.stack([prng.PRNGKey(i, cuda) for i in range(4)])
+    t = torch.tensor([0.0, 0.8, 1.0, 8.0], device=cuda)
+    k = torch.tensor([0, 50, 0, 0], dtype=torch.int32, device=cuda)
+    p = torch.tensor([1.0, 0.95, 0.9, 0.9999], device=cuda)
+    m = torch.tensor([0.0, 0.0, 0.05, 0.0], device=cuda)
+    full = ref.sample_tokens_reference(lf, t, k, p, m, keys, 49000)
+    assert torch.equal(ref.sample_tokens_capped(lf, t, k, p, m, keys, 49000),
+                       full)
+    assert full[0] == lf[0].argmax()
+    assert bool((full[1:] < 49000).all())
