@@ -28,6 +28,15 @@ requests again, half sampled (T 0.8, top_k 50, top_p 0.95, seed 1000 +
 id), half greedy, one of those with stop tokens: seg_len 8 == per-token
 == each request alone, the greedy rows == the greedy serve's, and the
 sampling epilogue's device time at B = 4 over the padded vocabulary.
+The `[spec]` lines serve by speculative draft-and-verify (spec_k 3, a
+segment of 8 rounds): the 8 starcoder2_3b requests with the self:7 draft
+(tokens == the `[serve]` greedy tokens bitwise, graph == eager with the
+draft cache too, fused decode launches == rounds x 4 x (7 + 30)), a
+full-depth self:30 draft (accept rate exactly 1, more tokens a sync),
+the `[sampling]` requests (budgets and stops, 8 rounds == 1 round a
+segment == alone, greedy rows == the greedy spec serve's), q8_0 + int8
+KV (every draft and verify product on the skinny route) and mamba2_370m
+with the self:12 draft (tokens == its `[serve]` tokens).
 Before serving, it drives the paper's two offload workloads through
 `stream_offload` under BS, RP and AXLE, data from seed 0 on the card:
   * KNN (VectorDB): 256 queries against a 1,000,000 x 1024 bf16 database
@@ -139,6 +148,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+T_START = time.perf_counter()
+
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
 ATOL_BF16 = 2e-2
@@ -177,6 +188,7 @@ try:
                                           SamplingParams)
     from repro_torch.launch.steps import QuantConfig
     from repro_torch.models import transformer
+    from repro_torch.models.quantize import padded_rows
 except ImportError as exc:
     fail(f"the repro_torch package is not beside this script: {exc}")
 
@@ -1320,7 +1332,7 @@ class EagerServer(BatchedServer):
     from the host, as on the CPU: the twin the [graph] phase holds the
     graphed server to.  The port itself has no switch for it."""
 
-    def _segment_fns(self, fns):
+    def _segment_fns(self, fns, *statics):
         return fns
 
 
@@ -1347,10 +1359,26 @@ def serve(requests, params=None, arch=ARCH, cls=BatchedServer, around=None,
           and server.pages_resident == 0, "page ledger not closed")
     toks = {r.rid: r.generated for r in server.completed}
     check(len(toks) == len(requests), "not every request completed")
-    segments = server.segments_dispatched if server.stream else server.steps
+    segments = dispatches(server)
     check(server.graph_replays == (segments if cls is BatchedServer else 0),
           f"{server.graph_replays} graph replays for {segments} segments")
     return server, toks, launches, dt
+
+
+def dispatches(srv):
+    """Segments dispatched: streamed, one per seg_len steps (rounds under
+    speculation); per-token, one per step (round)."""
+    if srv.stream:
+        return srv.segments_dispatched
+    return srv.steps // (srv.spec_k + 1 if srv.spec else 1)
+
+
+def segment_args(srv):
+    """What a server's segment functions take, the state last."""
+    if srv.spec:
+        return (srv.params, srv.draft_params, srv.cache, srv.draft_cache,
+                srv.state)
+    return srv.params, srv.cache, srv.state
 
 
 def ledger(srv):
@@ -1370,6 +1398,15 @@ def graph_equals_eager(label, srv, toks, launches, dt, reqs, **kw):
     check(srv.cache.keys() == e.cache.keys()
           and all(torch.equal(srv.cache[k], e.cache[k]) for k in srv.cache),
           f"[graph] {label}: the cache at drain differs from the eager run's")
+    if srv.spec:
+        check(srv.draft_cache.keys() == e.draft_cache.keys()
+              and all(torch.equal(srv.draft_cache[k], e.draft_cache[k])
+                      for k in srv.draft_cache),
+              f"[graph] {label}: the draft cache at drain differs from the "
+              "eager run's")
+        check((srv.draft_accepted, srv.draft_proposed)
+              == (e.draft_accepted, e.draft_proposed),
+              f"[graph] {label}: accept counts differ")
     check(ledger(srv) == ledger(e), f"[graph] {label}: ledger "
           f"{ledger(srv)} != eager {ledger(e)}")
     check(e_launches == launches, f"[graph] {label}: launches {launches} "
@@ -1377,13 +1414,16 @@ def graph_equals_eager(label, srv, toks, launches, dt, reqs, **kw):
     check(srv.decode_syncs == e.decode_syncs
           and srv.host_syncs == e.host_syncs,
           f"[graph] {label}: host syncs differ")
-    segments = srv.segments_dispatched if srv.stream else srv.steps
+    segments = dispatches(srv)
     print(f"[graph] {label}: {len(reqs)} requests, {n_tok} tokens, "
           f"{segments} segments = {srv.graph_replays} graph replays; "
-          "graphed == eager bitwise (tokens, cache bytes at drain, ledger "
+          "graphed == eager bitwise (tokens, cache bytes at drain"
+          f"{', the draft cache too' if srv.spec else ''}, ledger "
           f"{ledger(srv)[:3]}, launches); syncs_per_token "
           f"{srv.decode_syncs / n_tok:.4f} both; {n_tok / dt:.1f} tok/s "
-          f"graphed, {n_tok / e_dt:.1f} eager", flush=True)
+          f"graphed, {n_tok / e_dt:.1f} eager; "
+          f"{time.perf_counter() - T_START:.0f} s into the script",
+          flush=True)
     del e
 
 
@@ -1393,41 +1433,46 @@ def replay_profile(srv, label):
     ms per replay.  Run after the server's checks: a replay writes the
     (now idle) slots' cache rows."""
     parts = {}
+    args = segment_args(srv)
+    # a spec segment is ~10,000 kernels a round: fewer replays traced
+    traced, timed = (1, 3) if srv.spec else (5, 10)
     for name, steps_n in (("segment_fn", srv.seg_len),
                           ("segment_plain_fn", srv.seg_len),
                           ("step_fn", 1), ("step_plain_fn", 1)):
         fn = getattr(srv, name)
-        fn(srv.params, srv.cache, srv.state)
+        fn(*args)
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                fn(srv.params, srv.cache, srv.state)
+            for _ in range(traced):
+                fn(*args)
             torch.cuda.synchronize()
         ev = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
         t = time.perf_counter()
-        for _ in range(10):
-            fn(srv.params, srv.cache, srv.state)
+        for _ in range(timed):
+            fn(*args)
         torch.cuda.synchronize()
         parts[name] = dict(
-            steps=steps_n, kernels=sum(e.count for e in ev) / 5,
-            device_ms=sum(e.self_device_time_total for e in ev) / 5e3,
-            wall_ms=(time.perf_counter() - t) * 1e3 / 10,
+            steps=steps_n, kernels=sum(e.count for e in ev) / traced,
+            device_ms=sum(e.self_device_time_total for e in ev)
+            / (traced * 1e3),
+            wall_ms=(time.perf_counter() - t) * 1e3 / timed,
             launches=sum(n for k, n in fn.launches.items()
                          if k not in kbuild.VARIANTS))
     full, plain = parts["segment_fn"], parts["segment_plain_fn"]
     epilogue = (full["device_ms"] - plain["device_ms"]) / srv.seg_len
+    unit = "rounds" if srv.spec else "steps"
     # a decode step reads every weight once: its bytes bound the step
     weights = sum(t.nbytes if isinstance(t, kquant.QTensor)
                   else t.numel() * t.element_size()
                   for t in leaves(srv.params))
     print(f"[graph] {label}, one replay of each captured segment: " + "; ".join(
-        f"{k} ({v['steps']} steps) {v['kernels']:.0f} kernels, "
+        f"{k} ({v['steps']} {unit}) {v['kernels']:.0f} kernels, "
         f"{v['launches']} of ours, device {v['device_ms']:.3f} ms, wall "
         f"{v['wall_ms']:.3f} ms" for k, v in parts.items())
         + f"; the sampled epilogue (full - plain) {epilogue:.3f} ms device "
-        f"a step; a step reads {weights / 1e9:.3f} GB of weights, "
+        f"a {unit[:-1]}; a step reads {weights / 1e9:.3f} GB of weights, "
         f"{weights / HBM_BYTES_PER_S * 1e3:.3f} ms at the HBM rate",
         flush=True)
 
@@ -1527,6 +1572,7 @@ check(launches["flash_attention"] == srv.prefill_forwards * n_layers
 check(launches["ssd_scan"] == 0, f"ssd_scan launched: {launches}")
 serve_line(ARCH, "axle", srv, axle_toks, launches, dt)
 main_launches = launches
+main_dt, main_syncs = dt, srv.decode_syncs
 params = srv.params
 graph_equals_eager(f"{ARCH} fp, axle", srv, axle_toks, launches, dt,
                    main_reqs, protocol="axle", stream=True)
@@ -1623,31 +1669,51 @@ check(rp_launches["decode_attention_partial"] > 0
       "tensor-core split")
 
 
-def rp_agrees(rp_toks, axle_toks, reqs, **kw):
-    """rp tokens equal the axle run's, or part from it at a near tie: the
-    axle stream replayed up to the first divergence (one prefill of the
-    prompt and the tokens before it), where both choices must lie within
-    NEAR_TIE of the replay's best logit.  The replay is a prefill and the
-    run decoded step by step, so at a near tie the replay may order the
-    two choices either way; it is not held to the axle run's order."""
-    for rid, toks in rp_toks.items():
-        ref_toks = axle_toks[rid]
-        if toks != ref_toks:
-            t = next(i for i, (x, y) in enumerate(zip(toks, ref_toks))
-                     if x != y)
-            lg = logits_along([np.concatenate([reqs[rid].prompt, np.asarray(
-                ref_toks[:t], np.int32)])], 0, reference=False, **kw)[0][0]
-            best = lg.max()
-            gaps = [(best - lg[c]).item() for c in (ref_toks[t], toks[t])]
-            check(max(gaps) < NEAR_TIE,
-                  f"rp vs axle request {rid}: token {t} differs, the axle "
-                  f"and rp choices {gaps[0]} and {gaps[1]} below the best "
-                  "logit")
-    return "equal to" if rp_toks == axle_toks else "near-tie equal to"
+def partings(toks, ref_toks, reqs, **kw):
+    """Each stream of `toks` that parts from `ref_toks`: (rid, token t,
+    the reference's and toks' choices there, each one's distance below the
+    best logit of a prefill of the common prefix).  The prefill is a third
+    computation, so at a near tie it may order the two choices either way;
+    it is not held to either run's order."""
+    prompts = {r.rid: r.prompt for r in reqs}
+    out = []
+    for rid, got in toks.items():
+        want = ref_toks[rid]
+        if got == want:
+            continue
+        t = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
+                 None)
+        check(t is not None, f"request {rid}: {len(got)} tokens vs "
+              f"{len(want)}, one stream a prefix of the other")
+        lg = logits_along([np.concatenate([prompts[rid], np.asarray(
+            want[:t], np.int32)])], 0, reference=False, **kw)[0][0]
+        best = lg.max()
+        out.append((rid, t, want[t], got[t], (best - lg[want[t]]).item(),
+                    (best - lg[got[t]]).item()))
+    return out
+
+
+def describe(parts):
+    return "; ".join(
+        f"request {rid} parts at token {t} ({a} vs {b}, {ga:.4f} and "
+        f"{gb:.4f} below the best logit)" for rid, t, a, b, ga, gb in parts)
+
+
+def near_tie_agrees(what, toks, ref_toks, reqs, **kw):
+    """`toks` equal `ref_toks`, or each stream that parts does so at a
+    near tie: both choices within NEAR_TIE of the replay's best logit.
+    Returns what the comparison found, each parting with its gaps."""
+    parts = partings(toks, ref_toks, reqs, **kw)
+    for part in parts:
+        check(max(part[4:]) < NEAR_TIE, f"{what}: {describe([part])}, not "
+              f"a near tie (gate {NEAR_TIE})")
+    return ("equal to" if not parts
+            else f"near-tie equal to ({describe(parts)})")
 
 
 print(f"[reference] protocol rp, same 2 requests: launches {rp_launches}; "
-      f"tokens {rp_agrees(rp_toks, streamed, pair)} the axle run's",
+      f"tokens {near_tie_agrees('rp vs axle', rp_toks, streamed, pair)} "
+      "the axle run's",
       flush=True)
 
 # --------------------------------------------------------------------------
@@ -1766,6 +1832,189 @@ print(f"[sampling] {ARCH} full width, 8 requests (4 sampled T "
       f"{ep['device_ms']:.4f} ms device (one graph replay), time_ms "
       f"{ep['ms']:.4f} eager; both branches of the capped sampler "
       f"{ep['capped_device_ms']:.4f} ms device", flush=True)
+
+# --------------------------------------------------------------------------
+# 5c. speculative decoding: the [serve] and [sampling] requests again
+# --------------------------------------------------------------------------
+
+SPEC_K = 3
+SPEC = dict(spec=True, spec_k=SPEC_K)
+
+
+def spec_rounds(srv):
+    return srv.steps // (srv.spec_k + 1)
+
+
+LAP = [time.perf_counter()]
+
+
+def lap():
+    """Seconds since the previous call (or since the spec phases began)."""
+    now = time.perf_counter()
+    out, LAP[0] = now - LAP[0], now
+    return out
+
+
+def padded_twin(reqs, **kw):
+    """Greedy tokens of the non-spec serve with every fp product and norm
+    of its decode steps padded to the verify's 4 x (k + 1) rows
+    (`quantize.padded_rows`; the prefills have more rows and do not pad):
+    the decode at the verify's numerics, which a greedy spec stream must
+    equal bitwise."""
+    with padded_rows(4 * (SPEC_K + 1)):
+        _, toks, _, _ = serve(copies(reqs), **kw)
+    return toks
+
+
+def spec_line(label, srv, toks, dt, base_tps, base_dt=None):
+    n_tok = sum(len(t) for t in toks.values())
+    rate = srv.draft_accepted / max(1, srv.draft_proposed)
+    tps = n_tok / srv.decode_syncs
+    print(f"[spec] {label}: {n_tok} tokens in {dt:.3f} s = "
+          f"{n_tok / dt:.1f} tok/s"
+          + (f" (non-spec {n_tok / base_dt:.1f})" if base_dt else "")
+          + f"; accept rate {rate:.4f} ({srv.draft_accepted}/"
+          f"{srv.draft_proposed}); tokens per decode sync {tps:.2f} "
+          f"(non-spec {base_tps:.2f}); {spec_rounds(srv)} rounds in "
+          f"{dispatches(srv)} segments, every one a graph replay; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"phase {lap():.1f} s, {time.perf_counter() - T_START:.0f} s into "
+          "the script", flush=True)
+    return rate, tps
+
+
+torch.cuda.reset_peak_memory_stats()
+sp_srv, sp_toks, sp_launches, sp_dt = serve(
+    copies(main_reqs), params=params, protocol="axle", stream=True,
+    draft_arch="self:7", **SPEC)
+d_layers = sp_srv.draft_cfg.n_layers
+rounds = spec_rounds(sp_srv)
+check(rounds == sp_srv.segments_dispatched * sp_srv.seg_len,
+      f"[spec] {rounds} rounds in {sp_srv.segments_dispatched} segments")
+check(sp_launches["decode_attention_fused"]
+      == rounds * (SPEC_K + 1) * (d_layers + n_layers)
+      and sp_launches["decode_attention_fused_tc"]
+      == sp_launches["decode_attention_fused"],
+      f"[spec] fused launches {sp_launches} != {rounds} rounds x "
+      f"{SPEC_K + 1} x ({d_layers} + {n_layers}), all on the tensor-core "
+      "split")
+check(sp_launches["flash_attention"]
+      == sp_srv.prefill_forwards * (n_layers + d_layers)
+      and sp_launches["flash_attention_tc"] == sp_launches["flash_attention"],
+      f"[spec] flash launches {sp_launches} != {sp_srv.prefill_forwards} x "
+      f"({n_layers} + {d_layers}), all on the tensor-core kernel")
+spec_rate, spec_tps = spec_line(
+    f"{ARCH} fp, axle, draft self:7, spec_k {SPEC_K}, the 8 [serve] "
+    "requests, seg_len 8 rounds", sp_srv, sp_toks, sp_dt,
+    sum(len(t) for t in axle_toks.values()) / main_syncs, main_dt)
+print(f"[spec] {ARCH}: fused decode launches {sp_launches['decode_attention_fused']} = {rounds} "
+      f"rounds x {SPEC_K + 1} x ({d_layers} draft + {n_layers} verify "
+      f"layers); flash {sp_launches['flash_attention']} = "
+      f"{sp_srv.prefill_forwards} prefills x ({n_layers} + {d_layers}); "
+      f"launches {sp_launches}", flush=True)
+replay_profile(sp_srv, f"{ARCH} fp, axle, spec self:7")
+del sp_srv
+# the verify's products run over 4 x (k + 1) rows, a decode step's over 4:
+# cuBLAS picks its kernel by the row count, so a greedy spec stream equals
+# the non-spec one bitwise only with the decode padded to the verify's
+# rows, and the [serve] stream up to partings at near ties (gated, printed)
+check(sp_toks == padded_twin(main_reqs, params=params, protocol="axle",
+                             stream=True),
+      "[spec] greedy spec tokens != the non-spec serve's at the verify's "
+      "row count")
+print(f"[spec] {ARCH}: tokens == the non-spec serve's at the verify's row "
+      "count, bitwise, and "
+      + near_tie_agrees("[spec] greedy spec vs the [serve] greedy tokens",
+                        sp_toks, axle_toks, main_reqs)
+      + " the [serve] greedy tokens", flush=True)
+# graph == eager on the 2 short requests: an eager round launches ~10,000
+# kernels from the host
+g_srv, g_toks, g_launches, g_dt = serve(
+    copies(pair), params=params, protocol="axle", stream=True,
+    draft_arch="self:7", **SPEC)
+g_agree = near_tie_agrees("[spec] 2 requests, spec vs non-spec", g_toks,
+                          streamed, pair)
+graph_equals_eager(f"{ARCH} fp, axle, spec self:7", g_srv, g_toks,
+                   g_launches, g_dt, pair, protocol="axle", stream=True,
+                   draft_arch="self:7", **SPEC)
+print(f"[spec] {ARCH} fp, the 2 requests: spec tokens {g_agree} non-spec; "
+      f"profile, padded twin and graph == eager phase {lap():.1f} s", flush=True)
+del g_srv
+
+# the full-depth self-draft computes what the target does (its steps run
+# padded to the verify's rows): every greedy draft is accepted; budgets
+# of 1 + 12 rounds x (k + 1) tokens, so a row dies inside its second
+# segment, where non-spec takes six
+spec_rng = np.random.default_rng(1)       # the later phases keep `rng`
+full_reqs = [Request(i, spec_rng.integers(1, cfg.vocab, int(
+    spec_rng.integers(64, 201))).astype(np.int32), 1 + 12 * (SPEC_K + 1))
+    for i in range(2)]
+b_srv, b_toks, _, _ = serve(copies(full_reqs), params=params,
+                            protocol="axle", stream=True)
+base_tps = b_srv.tokens_emitted / b_srv.decode_syncs
+del b_srv
+f_srv, f_toks, _, f_dt = serve(copies(full_reqs), params=params,
+                               protocol="axle", stream=True,
+                               draft_arch=f"self:{n_layers}", **SPEC)
+f_agree = near_tie_agrees("[spec] full-depth draft vs non-spec", f_toks,
+                          b_toks, full_reqs)
+check(f_srv.draft_accepted == f_srv.draft_proposed > 0,
+      f"[spec] full-depth draft: accepted {f_srv.draft_accepted} of "
+      f"{f_srv.draft_proposed}")
+check(f_srv.tokens_emitted / f_srv.decode_syncs > base_tps,
+      "[spec] full-depth draft: tokens per sync not above non-spec")
+spec_line(f"{ARCH} fp, draft self:{n_layers} (the whole target), 2 "
+          f"requests x {full_reqs[0].max_new} tokens, tokens {f_agree} "
+          "non-spec", f_srv, f_toks, f_dt, base_tps)
+del f_srv
+
+# sampled: the [sampling] request set under speculation
+ss_srv, ss_toks, _, ss_dt = serve(sampled_requests(), params=params,
+                                  protocol="axle", stream=True,
+                                  draft_arch="self:7", **SPEC)
+ss_rate = ss_srv.draft_accepted / max(1, ss_srv.draft_proposed)
+del ss_srv
+_, ss_rounds1, _, _ = serve(sampled_requests(), params=params,
+                            protocol="axle", stream=False,
+                            draft_arch="self:7", **SPEC)
+check(ss_rounds1 == ss_toks, "[spec] sampled: seg_len 8 != 1 round a "
+      "segment")
+alone_srv = BatchedServer(ARCH, smoke=False, device="cuda", batch_slots=4,
+                          max_seq=S, seg_len=8, params=params,
+                          protocol="axle", stream=True, draft_arch="self:7",
+                          **SPEC)
+for r in sampled_requests()[:2]:      # one sampled, one greedy with stops
+    alone_srv.submit(r)
+    alone_srv.run_until_drained()
+alone = {r.rid: r.generated for r in alone_srv.completed}
+check(alone_srv.graph_replays == alone_srv.segments_dispatched,
+      "[spec] sampled alone: a segment was not a graph replay")
+del alone_srv
+check(alone == {rid: ss_toks[rid] for rid in alone}, "[spec] sampled: a "
+      "request alone != its row in the batch")
+for rid, toks in ss_toks.items():
+    check(all(0 <= t < cfg.vocab for t in toks), "[spec] id >= vocab")
+    if rid == 1:
+        check(toks[-1] in STOPS and toks == sp_toks[1][:len(toks)],
+              f"[spec] request 1 did not stop as its greedy stream says: "
+              f"{toks}")
+    elif rid % 2:
+        check(toks == sp_toks[rid],
+              f"[spec] sampled serve: greedy request {rid} != the greedy "
+              "spec serve's")
+    else:
+        check(len(toks) == 64, f"[spec] request {rid}: short stream")
+print(f"[spec] {ARCH} sampled, the 8 [sampling] requests, draft self:7: "
+      f"{sum(len(t) for t in ss_toks.values())} tokens in {ss_dt:.3f} s; "
+      f"accept rate {ss_rate:.4f}; seg_len 8 == 1 round a segment, and "
+      "requests 0 (sampled) and 1 (greedy, stops) alone == in the batch, "
+      "bitwise; budgets and stops hold (request 1 stopped "
+      f"at token {len(ss_toks[1])}); greedy rows == the greedy spec "
+      f"serve's; {sum(ss_toks[r] != s_toks[r] for r in ss_toks if r % 2 == 0)}"
+      " of 4 sampled streams differ from the non-spec sampled serve's "
+      "(spec draws once a round, non-spec once a token); phase "
+      f"{lap():.1f} s, {time.perf_counter() - T_START:.0f} s into the "
+      "script", flush=True)
 del params
 
 # --------------------------------------------------------------------------
@@ -1845,8 +2094,50 @@ check(q_rp_launches["decode_attention_partial"] > 0
       f"quantized rp run launches {q_rp_launches}")
 print(f"[reference] {ARCH} q8_0 + int8 KV, protocol rp (pools dequantized up "
       f"front), same 2 requests: launches {q_rp_launches}; tokens "
-      f"{rp_agrees(q_rp_toks, q_streamed, pair, weights=q_params, kv_quant='int8')}"
+      f"{near_tie_agrees('quantized rp vs axle', q_rp_toks, q_streamed, pair, weights=q_params, kv_quant='int8')}"
       " the axle run's", flush=True)
+
+# speculation over the quantized weights and the int8 cache: the draft
+# (self:7) is sliced from the quantized stacks and keeps an fp cache
+lap()
+sq_srv, sq_toks, sq_launches, sq_dt = serve(
+    copies(pair), params=q_params, protocol="axle", stream=True,
+    draft_arch="self:7", **INT8, **SPEC)
+rounds = spec_rounds(sq_srv)
+d_layers = sq_srv.draft_cfg.n_layers
+check(sq_launches["quant_matmul[q8_0]_skinny"]
+      == rounds * n_proj * ((SPEC_K + 1) * d_layers + n_layers)
+      and sq_launches["quant_matmul[q8_0]_tc"]
+      == sq_srv.prefill_forwards * n_proj * (n_layers + d_layers)
+      and sq_launches["quant_matmul[q8_0]"]
+      == sq_launches["quant_matmul[q8_0]_skinny"]
+      + sq_launches["quant_matmul[q8_0]_tc"]
+      and sq_launches["quant_matmul[q8_0]_splitk"]
+      <= sq_launches["quant_matmul[q8_0]_tc"],
+      f"[spec] quantized launches {sq_launches}: not every draft and "
+      f"verify product ({rounds} rounds x {n_proj} x ({SPEC_K + 1} x "
+      f"{d_layers} + {n_layers})) on the skinny kernel, or a split-K pass "
+      "outside the prefills")
+check(sq_launches["decode_attention_fused[int8]"]
+      == rounds * (SPEC_K + 1) * n_layers
+      and sq_launches["decode_attention_fused"]
+      == rounds * (SPEC_K + 1) * d_layers,
+      f"[spec] quantized decode launches {sq_launches}: not {rounds} rounds "
+      f"x {SPEC_K + 1} x ({n_layers} int8 verify + {d_layers} fp draft)")
+graph_equals_eager(f"{ARCH} q8_0 + int8 KV, spec self:7", sq_srv, sq_toks,
+                   sq_launches, sq_dt, pair, protocol="axle", stream=True,
+                   draft_arch="self:7", **INT8, **SPEC)
+print(f"[spec] {ARCH} q8_0 + int8 KV, draft self:7 (q8_0 views, fp KV), 2 "
+      f"requests x 16 tokens: every draft and verify product on the skinny "
+      f"kernel ({sq_launches['quant_matmul[q8_0]_skinny']} launches, the "
+      f"verify's at m = {4 * (SPEC_K + 1)}), split-K passes "
+      f"{sq_launches['quant_matmul[q8_0]_splitk']} all in prefills; accept "
+      f"rate {sq_srv.draft_accepted / max(1, sq_srv.draft_proposed):.4f}; "
+      f"tokens vs non-spec: {describe(partings(sq_toks, q_streamed, pair, weights=q_params, kv_quant='int8')) or 'equal'}"
+      " (not required: the reference's own spec stream parts from its "
+      f"non-spec one under an int8 cache); phase {lap():.1f} s, "
+      f"{time.perf_counter() - T_START:.0f} s into the script", flush=True)
+del sq_srv
 
 # bf16: every quant_matmul and int8 fused-decode launch of the served
 # model against its plain version on that launch's own inputs (these
@@ -1965,7 +2256,46 @@ mparams = srv.params
 graph_equals_eager(f"{MAMBA}, axle", srv, mamba_toks, launches, dt,
                    mamba_reqs, arch=MAMBA, protocol="axle", stream=True)
 replay_profile(srv, MAMBA)
+mamba_dt, mamba_syncs = dt, srv.decode_syncs
 del srv
+torch.cuda.reset_peak_memory_stats()
+lap()
+sm_srv, sm_toks, sm_launches, sm_dt = serve(
+    copies(mamba_reqs), params=mparams, arch=MAMBA, protocol="axle",
+    stream=True, draft_arch="self:12", **SPEC)
+d_layers = sm_srv.draft_cfg.n_layers
+check(sm_launches["ssd_scan"]
+      == sm_srv.prefill_forwards * (mcfg.n_layers + d_layers)
+      and all(n == 0 for k, n in sm_launches.items()
+              if not k.startswith("ssd_scan")),
+      f"[spec] mamba launches {sm_launches}")
+spec_line(f"{MAMBA}, draft self:12, spec_k {SPEC_K}, the 8 [serve] "
+          "requests, seg_len 8 rounds", sm_srv, sm_toks, sm_dt,
+          sum(len(t) for t in mamba_toks.values()) / mamba_syncs, mamba_dt)
+del sm_srv
+check(sm_toks == padded_twin(mamba_reqs, params=mparams, arch=MAMBA,
+                             protocol="axle", stream=True),
+      "[spec] mamba greedy spec tokens != the non-spec serve's at the "
+      "verify's row count")
+# against the unpadded [serve] stream, printed and not gated: 48 bf16
+# layers turn a last-bit difference into logit gaps of order 1 (PERF.md,
+# PR 12), so a parting need not sit at a near tie
+sm_parts = [(r.rid, next(i for i, (x, y) in enumerate(
+    zip(sm_toks[r.rid], mamba_toks[r.rid])) if x != y))
+    for r in mamba_reqs if sm_toks[r.rid] != mamba_toks[r.rid]]
+print(f"[spec] {MAMBA}: tokens == the non-spec serve's at the verify's row "
+      "count, bitwise; (request, token) where they part from the [serve] "
+      f"greedy tokens: {sm_parts}", flush=True)
+m_pair = [Request(i, spec_rng.integers(1, mcfg.vocab, int(
+    spec_rng.integers(64, 201))).astype(np.int32), 16) for i in range(2)]
+g_srv, g_toks, g_launches, g_dt = serve(
+    copies(m_pair), params=mparams, arch=MAMBA, protocol="axle",
+    stream=True, draft_arch="self:12", **SPEC)
+graph_equals_eager(f"{MAMBA}, spec self:12", g_srv, g_toks, g_launches,
+                   g_dt, m_pair, arch=MAMBA, protocol="axle", stream=True,
+                   draft_arch="self:12", **SPEC)
+print(f"[spec] {MAMBA}: graph == eager phase {lap():.1f} s", flush=True)
+del g_srv
 profile(MAMBA, mparams, mcfg.vocab)
 streamed_equals_per_token(MAMBA, mparams,
                           make_requests(2, 64, 200, 16, mcfg.vocab))

@@ -9,8 +9,9 @@ Inside `reference_mode()` CUDA tensors take the plain versions too: that
 is how `chip_smoke.py` and the tests hold the kernel path against the
 plain path on the card.  The server never enters it.
 
-Per-slot sampling (`BatchedSampling`, `sample_tokens`) has no kernel: it
-is plain XLA in the reference and plain torch here, on every device.
+Per-slot sampling (`BatchedSampling`, `sample_tokens`) and speculative
+verification (`verify_tokens`) have no kernel: they are plain XLA in the
+reference and plain torch here, on every device.
 """
 from __future__ import annotations
 
@@ -186,3 +187,21 @@ def sample_tokens(logits: torch.Tensor, params: BatchedSampling,
     return _ref.sample_tokens_reference(
         logits, params.temperature, params.top_k, params.top_p,
         params.min_p, keys, vocab)
+
+
+def verify_tokens(target_logits: torch.Tensor, draft_logits: torch.Tensor,
+                  draft_tokens: torch.Tensor, params: BatchedSampling,
+                  keys: torch.Tensor, *, vocab: int = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-slot speculative verification.  target_logits (B, K+1, V);
+    draft_logits (B, K, V), the logits the draft tokens (B, K) were drawn
+    from; keys (B, 2) int64, one per slot; `vocab` the true vocabulary
+    width when V is padded.  Returns (out_tokens (B, K+1) int32,
+    accept_len (B,) int32): a round emits out_tokens[:accept_len + 1].
+    Greedy rows accept while the draft matches the target argmax and
+    emit the target argmax stream; sampled rows run rejection sampling
+    against `ref.filtered_log_probs` (`ref.verify_tokens_reference`).
+    Plain XLA in the reference, plain torch here, on every device."""
+    return _ref.verify_tokens_reference(
+        target_logits, draft_logits, draft_tokens, params.temperature,
+        params.top_k, params.top_p, params.min_p, keys, vocab)

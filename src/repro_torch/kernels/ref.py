@@ -572,3 +572,73 @@ def filtered_log_probs(logits: torch.Tensor, temperature: torch.Tensor,
     keep_tok = torch.empty_like(keep).scatter_(-1, order, keep)
     filtered = torch.where(keep_tok, scaled, float("-inf"))
     return torch.log_softmax(filtered, dim=-1).reshape(shape)
+
+
+def verify_tokens_reference(target_logits: torch.Tensor,
+                            draft_logits: torch.Tensor,
+                            draft_tokens: torch.Tensor,
+                            temperature: torch.Tensor, top_k: torch.Tensor,
+                            top_p: torch.Tensor, min_p: torch.Tensor,
+                            keys: torch.Tensor, vocab: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Speculative draft-and-verify acceptance, the single definition of
+    its semantics.  target_logits (B, K+1, V): the target's logits at the
+    K+1 verified positions; draft_logits (B, K, V): the logits each draft
+    token was drawn from; draft_tokens (B, K) int; keys (B, 2) int64, one
+    per slot.  Returns (out_tokens (B, K+1) int32, accept_len (B,)
+    int32): the round emits out_tokens[:accept_len + 1].
+
+    Greedy rows (temperature <= 0 or top_k == 1) accept while the draft
+    equals the target argmax, and out_tokens is the target argmax at all
+    K+1 positions (not bounded by `vocab`, as greedy sampling is not).
+    Sampled rows run rejection sampling over the filtered distributions
+    q (target) and p (draft) of `filtered_log_probs`: draft j is accepted
+    when log u_j + log p_j(g_j) <= log q_j(g_j) and q_j(g_j) > 0; the
+    first rejected position emits argmax(log r_j + G) from the residual
+    r_j = max(q_j - p_j, 0), or from q_j when r_j has no mass; a round
+    that accepts all K emits argmax(log q_K + G').  The draws come from
+    `prng.split(key, 3)` = (ku, kc, kb): u = uniform(ku, K), G =
+    gumbel(kc, K*V) as (K, V), G' = gumbel(kb, V).  Nothing is read back
+    to the host."""
+    b, kp1, v = target_logits.shape
+    k = kp1 - 1
+    assert k >= 1, "draft depth must be >= 1"
+    draft_tokens = draft_tokens.long()
+    greedy = (temperature <= 0.0) | (top_k == 1)
+
+    tgt_argmax = target_logits.float().argmax(dim=-1)            # (B,K+1)
+    g_match = (draft_tokens == tgt_argmax[:, :k]).to(torch.int32)
+    g_accept = g_match.cumprod(dim=-1).sum(dim=-1)
+
+    lq = filtered_log_probs(target_logits, temperature, top_k, top_p,
+                            min_p, vocab)                        # (B,K+1,V)
+    lp = filtered_log_probs(draft_logits, temperature, top_k, top_p,
+                            min_p, vocab)                        # (B,K,V)
+    lq_g = torch.gather(lq[:, :k], -1, draft_tokens[..., None])[..., 0]
+    lp_g = torch.gather(lp, -1, draft_tokens[..., None])[..., 0]
+
+    ku, kc, kb = prng.split(keys, 3).unbind(dim=-2)
+    u = prng.uniform(ku, k)                                      # (B,K)
+    g_res = prng.gumbel(kc, k * v).reshape(b, k, v)
+    g_bonus = prng.gumbel(kb, v)                                 # (B,V)
+    accept = (torch.log(u) + lp_g <= lq_g) & (lq_g > float("-inf"))
+    s_accept = accept.to(torch.int32).cumprod(dim=-1).sum(dim=-1)
+
+    q = torch.exp(lq[:, :k])
+    res = torch.clamp(q - torch.exp(lp), min=0.0)                # (B,K,V)
+    res_ok = res.sum(dim=-1, keepdim=True) > 0.0
+    res_l = torch.where(res_ok, torch.log(res), lq[:, :k])
+    corr = (res_l + g_res).argmax(dim=-1)                        # (B,K)
+    bonus = (lq[:, k] + g_bonus).argmax(dim=-1)                  # (B,)
+
+    at = torch.clamp(s_accept, max=k).long()
+    fix = torch.where(
+        s_accept < k,
+        torch.gather(corr, 1, torch.clamp(at, max=k - 1)[:, None])[:, 0],
+        bonus)
+    out_s = torch.cat([draft_tokens, bonus[:, None]], dim=1)
+    out_s = out_s.scatter(1, at[:, None], fix[:, None])
+
+    out = torch.where(greedy[:, None], tgt_argmax, out_s)
+    accept_len = torch.where(greedy, g_accept, s_accept)
+    return out.to(torch.int32), accept_len.to(torch.int32)

@@ -30,11 +30,25 @@ request is drawn with the k-th split of its seed's key, on the device, so
 a fixed seed gives the same tokens at any `seg_len`, in either loop, in
 any slot and beside any batch-mates; greedy requests decode by argmax.
 
+`--spec` serves by speculative draft-and-verify: a draft model (`--draft
+self:N`, the target's first N blocks, or another ported arch sharing the
+vocabulary) proposes `--spec-k` tokens a slot, and one multi-position
+forward of the target verifies them; a segment is `seg_len` such rounds.
+Greedy requests emit the verify forward's argmax stream, for any draft;
+sampled ones keep the target's sampling distribution (rejection
+sampling), their keys split once a round.  On the CPU a greedy spec
+stream is bitwise the non-speculative one.  On the card the verify's
+products run over B (k + 1) rows where a decode step's run over B, and
+cuBLAS chooses its kernel by the row count, so at a near tie the two
+streams can part.  The draft steps run padded to the verify's row count
+(`models/quantize.padded_rows`), so a full-depth self-draft is accepted
+whole on the card too.
+
 On the card every decode segment runs as one CUDA graph replay
 (`launch/graphs.py`), captured at construction; on the CPU the segments
-run eagerly.  Both loops emit identical tokens.  Speculation, the host
-tier, chunked prefill and the mesh are later slices (ROADMAP.md queue 1);
-their options are absent here, not ignored.
+run eagerly.  Both loops emit identical tokens.  The host tier, chunked
+prefill and the mesh are later slices (ROADMAP.md queue 1); their
+options are absent here, not ignored.
 """
 from __future__ import annotations
 
@@ -105,13 +119,19 @@ class Request:
     sampling    — its SamplingParams; None decodes greedily.
     stop_tokens — ids that end the request, as `sampling.stop_tokens`
                   (a request may set one of the two, not both).
-    generated   — filled by the server, in order."""
+    generated   — filled by the server, in order.
+    spec_accepted / spec_proposed — under speculative serving, this
+                  request's draft tokens accepted and proposed, stamped
+                  at retirement from the device counters; None otherwise
+                  (and for a request that ended at its first token)."""
     rid: int
     prompt: np.ndarray
     max_new: int
     stop_tokens: Tuple[int, ...] = ()
     generated: Optional[List[int]] = None
     sampling: Optional[SamplingParams] = None
+    spec_accepted: Optional[int] = None
+    spec_proposed: Optional[int] = None
 
     @property
     def sampling_params(self) -> SamplingParams:
@@ -155,7 +175,20 @@ class BatchedServer:
     `params` are the weights to serve in the reference's layout; None
     draws the port's own from seed 0 on `device`.  `quant` quantizes
     them once, here (the server then holds no fp projection stack of its
-    own), and gives the cache int8 K/V pools."""
+    own), and gives the cache int8 K/V pools.
+
+    `spec=True` makes the four segment functions speculative: a segment
+    is `seg_len` rounds of `spec_k` draft proposals and one verify
+    forward, a step one round.  The draft is `draft_arch` (default: the
+    config's): "self:N" is the target's first N blocks ("self" half the
+    depth), views of the (quantized) target weights; another ported arch
+    id is a model of its own, with `draft_params` (the reference's
+    layout) or the port's own weights from seed 1.  The draft keeps its
+    own cache (fp K/V, the default page size, as the reference's), filled
+    by its own prefill at admission.  A round's emit count depends on
+    the device's verdict, so every row is retired by the device's alive
+    bit, and a request needs `len(prompt) + max_new + spec_k <= max_seq`
+    (the verify writes up to spec_k rows past the final clock)."""
 
     def __init__(self, arch_id: str, *, smoke: bool = True,
                  device: Optional[str] = None, batch_slots: int = 4,
@@ -163,7 +196,10 @@ class BatchedServer:
                  chunks_per_shard: int = 1, seg_len: int = 8,
                  stream: bool = False, page_size: Optional[int] = None,
                  params: Optional[Dict[str, Any]] = None,
-                 quant: Optional[steps_lib.QuantConfig] = None):
+                 quant: Optional[steps_lib.QuantConfig] = None,
+                 spec: bool = False, spec_k: int = 3,
+                 draft_arch: Optional[str] = None,
+                 draft_params: Optional[Dict[str, Any]] = None):
         self.device = resolve_device(device)
         self.cfg = (get_smoke_config(arch_id) if smoke
                     else get_config(arch_id))
@@ -199,10 +235,25 @@ class BatchedServer:
         self.slot_pages = np.zeros((batch_slots,), np.int64)
         self.prefill_fn = steps_lib.make_prefill_into_cache(self.cfg)
         self.state = steps_lib.init_slot_state(batch_slots, self.device)
+        self.spec = spec
+        self.spec_k = spec_k
+        self.draft_accepted = 0
+        self.draft_proposed = 0
+        if spec:
+            self._init_draft(draft_arch, draft_params, smoke)
+            fns = [steps_lib.make_spec_decode_segment(
+                self.cfg, self.draft_cfg, n, spec_k, plain=plain)
+                for n in (1, seg_len) for plain in (False, True)]
+            statics = ((self.params, self.draft_params),
+                       (self.cache, self.draft_cache))
+        else:
+            fns = [steps_lib.make_decode_segment(self.cfg, n, plain=plain)
+                   for n in (1, seg_len) for plain in (False, True)]
+            statics = ((self.params,), (self.cache,))
+        # the functions the two loops call: one round (or token) a step,
+        # `seg_len` a streamed segment
         (self.step_fn, self.step_plain_fn, self.segment_fn,
-         self.segment_plain_fn) = self._segment_fns(
-            [steps_lib.make_decode_segment(self.cfg, n, plain=plain)
-             for n in (1, seg_len) for plain in (False, True)])
+         self.segment_plain_fn) = self._segment_fns(fns, *statics)
         self.queue: List[Request] = []
         self.active: List[Optional[Request]] = [None] * batch_slots
         # host mirrors of the device state for dispatch-time accounting
@@ -216,15 +267,54 @@ class BatchedServer:
         self.decode_syncs = 0          # the decode loop's share
         self.tokens_emitted = 0
 
-    def _segment_fns(self, fns: List[Any]) -> List[Any]:
+    def _init_draft(self, draft_arch: Optional[str],
+                    draft_params: Optional[Dict[str, Any]],
+                    smoke: bool) -> None:
+        """Resolve the speculative draft: its config, weights, cache and
+        prefill."""
+        da = draft_arch or self.cfg.draft_arch
+        assert da, (f"{self.cfg.arch_id}: speculative serving needs a "
+                    "draft (ArchConfig.draft_arch or draft_arch=)")
+        if da == "self" or da.startswith("self:"):
+            if draft_params is not None:
+                raise ValueError("a self-draft is sliced from the target's "
+                                 "weights; draft_params is for another arch")
+            n = (int(da.split(":", 1)[1]) if ":" in da
+                 else max(1, self.cfg.n_blocks // 2))
+            self.draft_cfg = steps_lib.self_draft_config(self.cfg, n)
+            self.draft_params = steps_lib.self_draft_params(
+                self.cfg, self.params, n)
+        else:
+            self.draft_cfg = (get_smoke_config(da) if smoke
+                              else get_config(da))
+            assert self.draft_cfg.vocab == self.cfg.vocab, \
+                (self.cfg.vocab, self.draft_cfg.vocab)
+            if draft_params is None:
+                gen = torch.Generator(device=self.device).manual_seed(1)
+                draft_params = transformer.init_params(self.draft_cfg, gen,
+                                                       self.device)
+            self.draft_params = draft_params
+        self.draft_cache = transformer.init_cache(
+            self.draft_cfg, self.batch, self.max_seq, device=self.device)
+        self.draft_prefill_fn = steps_lib.make_prefill_into_cache(
+            self.draft_cfg)
+
+    def _segment_fns(self, fns: List[Any], params: Tuple[Any, ...],
+                     caches: Tuple[Dict[str, Any], ...]) -> List[Any]:
         """The segment functions as the loops call them: on the card, each
-        captured as a CUDA graph against the live cache; on the CPU, as
-        they are."""
+        captured as a CUDA graph against the live parameters and caches;
+        on the CPU, as they are."""
         if self.device.type != "cuda":
             return fns
         with use_offload(self.offload):
-            return graphs.capture_segments(fns, self.params, self.cache,
-                                           self.state)
+            # fns[:2] are the one-step (one-round) functions
+            return graphs.capture_segments(fns, params, caches, self.state,
+                                           warm_up=fns[:2])
+
+    @property
+    def _tokens_per_step(self) -> int:
+        """Token positions a step issues: one, or a round's spec_k + 1."""
+        return self.spec_k + 1 if self.spec else 1
 
     @property
     def graph_replays(self) -> int:
@@ -294,12 +384,23 @@ class BatchedServer:
         with use_offload(self.offload):
             logits, self.cache = self.prefill_fn(self.params, self.cache,
                                                  tokens, slot, plen)
+            if self.spec:
+                # the draft's own prompt state; its logits are not used
+                # (the first token comes from the target)
+                _, self.draft_cache = self.draft_prefill_fn(
+                    self.draft_params, self.draft_cache, tokens, slot, plen)
         self.prefill_forwards += 1
         return logits
 
     def _admit(self, slot: int, req: Request) -> bool:
         """Prefill, first token, device state seeding.  Returns False if
         the request finished on its first token."""
+        if self.spec:
+            # a verify writes up to spec_k rows past a row's final
+            # position: keep them off the valid prefix
+            assert len(req.prompt) + req.max_new + self.spec_k \
+                <= self.max_seq, (len(req.prompt), req.max_new,
+                                  self.spec_k, self.max_seq)
         logits = self._prefill(slot, req)
         self._set_pages(slot, self._pages_for(len(req.prompt)))
         return self._finish_admit(slot, req, logits)
@@ -363,7 +464,12 @@ class BatchedServer:
 
         Returns (rows, plain): `plain` when every dispatched row is greedy
         with no stop set, so the segment can skip the sampling epilogue,
-        the write mask and the stop test."""
+        the write mask and the stop test.
+
+        Under speculation a row's emit count is the device's verdict, so
+        every row is `(req, None)`, charged the worst case of `seg_len`
+        rounds of spec_k + 1 tokens plus the spec_k rows a verify writes
+        past the clock, trimmed back at consume."""
         rows: Dict[int, Tuple[Request, Optional[int]]] = {}
         plain = True
         for s in range(self.batch):
@@ -373,6 +479,16 @@ class BatchedServer:
             sp = req.sampling_params
             if not sp.greedy:
                 plain = False
+            if self.spec:
+                if sp.stop_tokens:
+                    plain = False
+                self._set_pages(s, max(
+                    int(self.slot_pages[s]),
+                    self._pages_for(self.positions[s]
+                                    + seg_len * (self.spec_k + 1)
+                                    + self.spec_k)))
+                rows[s] = (req, None)
+                continue
             if sp.stop_tokens:
                 plain = False
                 # charge the full segment span, trimmed back at consume
@@ -395,13 +511,22 @@ class BatchedServer:
 
     def _run_segment(self, fn) -> Tuple[Any, ...]:
         """Dispatch one segment and queue the copy of what the host needs
-        from it (tokens, emit masks, alive, remaining, positions) to host
-        memory.  Returns (host tensors, event to wait on or None)."""
+        from it (tokens, emit masks, alive, remaining, positions; under
+        speculation also the accept lengths and the draft counters) to
+        host memory.  Returns (host tensors, event to wait on or None)."""
         with use_offload(self.offload):
-            seg, emit, self.state, self.cache = fn(self.params, self.cache,
-                                                   self.state)
+            if self.spec:
+                seg, emit, alens, self.state, self.cache, \
+                    self.draft_cache = fn(self.params, self.draft_params,
+                                          self.cache, self.draft_cache,
+                                          self.state)
+            else:
+                seg, emit, self.state, self.cache = fn(
+                    self.params, self.cache, self.state)
         st = self.state
         fetch = (seg, emit, st.alive, st.remaining, st.positions)
+        if self.spec:
+            fetch += (alens, st.accepted, st.proposed)
         if self.device.type != "cuda":
             return fetch, None
         host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -413,8 +538,9 @@ class BatchedServer:
     # -- per-token loop ------------------------------------------------------
 
     def step(self) -> None:
-        """One token for every active slot: a one-step segment consumed
-        at once — one dispatch and one host sync per token."""
+        """One token for every active slot (under speculation one round,
+        up to spec_k + 1 tokens): a one-step segment consumed at once,
+        one dispatch and one host sync each."""
         self._fill_slots()
         self.assert_ledger()
         if all(r is None for r in self.active):
@@ -422,7 +548,7 @@ class BatchedServer:
         rows, plain = self._dispatch_rows(1)
         fetched = self._run_segment(self.step_plain_fn if plain
                                     else self.step_fn)
-        self.steps += 1
+        self.steps += self._tokens_per_step
         self._consume_segment(fetched, rows)
         self.assert_ledger()
 
@@ -441,7 +567,7 @@ class BatchedServer:
                 rows, plain = self._dispatch_rows(self.seg_len)
                 fetched = self._run_segment(self.segment_plain_fn if plain
                                             else self.segment_fn)
-                self.steps += self.seg_len
+                self.steps += self.seg_len * self._tokens_per_step
                 self.segments_dispatched += 1
                 nxt_pending = (fetched, rows)
             if pending is not None:
@@ -457,17 +583,27 @@ class BatchedServer:
 
     def _consume_segment(self, fetched, rows) -> None:
         """Deliver one segment's tokens and apply the device's verdicts
-        (the one host sync of the segment)."""
+        (the one host sync of the segment).  Under speculation a round in
+        which a row emitted m > 0 tokens with accept length a proposed
+        spec_k drafts and emitted min(m, a) of them: the server's
+        `draft_accepted` / `draft_proposed`; a retiring request gets its
+        own totals from the device counters."""
         host, done = fetched
         if done is not None:
             done.synchronize()
-        arr, em, alive, rem, pos = (t.numpy() for t in host)
+        arr, em, alive, rem, pos = (t.numpy() for t in host[:5])
+        if self.spec:
+            al, acc, prop = (t.numpy() for t in host[5:])
         self.host_syncs += 1
         self.decode_syncs += 1
         for s, (req, take) in rows.items():
             toks = arr[s][em[s].astype(bool)]
             req.generated.extend(int(t) for t in toks)
             self.tokens_emitted += len(toks)
+            if self.spec:
+                m_r = em[s].reshape(al.shape[1], -1).sum(axis=1)
+                self.draft_proposed += int((m_r > 0).sum()) * self.spec_k
+                self.draft_accepted += int(np.minimum(m_r, al[s]).sum())
             if take is not None:
                 # the device's budget accounting agrees with the host's
                 assert len(toks) == take, (s, len(toks), take)
@@ -479,6 +615,9 @@ class BatchedServer:
                 if take is None:
                     self.remaining[s] = int(rem[s])
                     if not alive[s]:
+                        if self.spec:
+                            req.spec_accepted = int(acc[s])
+                            req.spec_proposed = int(prop[s])
                         self.completed.append(req)
                         self.active[s] = None
                         self._free_pages(s)
@@ -519,6 +658,14 @@ def main() -> int:
                     help="block-quantize the dense projection stacks")
     ap.add_argument("--quant-kv", default=None, choices=["int8"],
                     help="int8 KV cache with per-page scales")
+    ap.add_argument("--spec", action="store_true",
+                    help="speculative draft-and-verify segments")
+    ap.add_argument("--spec-k", type=int, default=3,
+                    help="draft tokens proposed per verify round")
+    ap.add_argument("--draft", default=None,
+                    help="draft arch: 'self[:N]' (the target's first N "
+                         "blocks) or a ported arch id; defaults to the "
+                         "config's draft_arch")
     args = ap.parse_args()
 
     server = BatchedServer(args.arch, smoke=not args.full,
@@ -527,7 +674,9 @@ def main() -> int:
                            seg_len=args.seg_len, stream=args.stream,
                            quant=steps_lib.QuantConfig(
                                weights=args.quant_weights,
-                               kv=args.quant_kv))
+                               kv=args.quant_kv),
+                           spec=args.spec, spec_k=args.spec_k,
+                           draft_arch=args.draft)
     stops = (server.cfg.eos_token,) if args.stop_eos else ()
     sampled = (args.temperature > 0 or args.top_k > 0 or args.top_p < 1.0
                or args.stop_eos)
@@ -553,11 +702,17 @@ def main() -> int:
     server.assert_ledger()
     toks = sum(len(r.generated) for r in server.completed)
     mode = "stream" if args.stream else "per-token"
+    spec = ""
+    if args.spec:
+        rate = server.draft_accepted / max(1, server.draft_proposed)
+        spec = (f"draft={server.draft_cfg.arch_id} spec_k={args.spec_k} "
+                f"accept_rate={rate:.2f} "
+                f"tokens/sync={toks / max(1, server.decode_syncs):.2f} ")
     print(f"[serve] arch={server.cfg.arch_id} protocol={args.protocol} "
           f"quant={args.quant_weights or 'fp'}/{args.quant_kv or 'fp'} "
           f"mode={mode} requests={len(server.completed)} tokens={toks} "
           f"steps={server.steps} "
-          f"syncs/token={server.decode_syncs / max(1, toks):.4f} "
+          f"syncs/token={server.decode_syncs / max(1, toks):.4f} {spec}"
           f"graph_replays={server.graph_replays} "
           f"({toks / dt:.1f} tok/s on {server.device})")
     return 0

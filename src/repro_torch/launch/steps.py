@@ -1,7 +1,8 @@
 """Serving steps of the main path, ported from `repro/launch/steps.py`: the
 serving-time quantization choice, the device-side per-slot decode state
-(with each slot's PRNG key and sampling parameters), slot admission, the
-prompt prefill and the multi-token decode segment.
+(with each slot's PRNG key, sampling parameters and draft counters), slot
+admission, the prompt prefill, the multi-token decode segment, the
+truncated-layer self-draft and the speculative draft-and-verify segment.
 
 The reference's jitted `lax.scan` with a donated cache becomes a Python
 loop of `seg_len` decode steps that updates the cache IN PLACE; on the
@@ -20,8 +21,10 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.kernels import ops
+from repro_torch.kernels.quant import QTensor
 from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.quantize import padded_rows
 
 # stop-token slots per serving request (padded with -1)
 MAX_STOP_TOKENS = 4
@@ -74,8 +77,13 @@ class SlotState:
       sampling  — per-slot temperature / top_k / top_p / min_p
                   (`ops.BatchedSampling`), fixed at admission.
       stop      — (B, MAX_STOP_TOKENS) i32 stop ids, -1-padded.
-
-    The speculative counters come with the speculation slice."""
+      accepted  — (B,) i32: draft tokens this request emitted by
+                  speculative acceptance (corrections and bonus tokens
+                  not counted).  Zeroed at admission; stays 0 without
+                  speculation.
+      proposed  — (B,) i32: draft tokens proposed for this request (k
+                  per round in which the row was alive).
+    """
     tokens: torch.Tensor
     positions: torch.Tensor
     keys: torch.Tensor
@@ -83,6 +91,8 @@ class SlotState:
     alive: torch.Tensor
     sampling: ops.BatchedSampling
     stop: torch.Tensor
+    accepted: torch.Tensor
+    proposed: torch.Tensor
 
 
 def state_tensors(state: SlotState) -> List[torch.Tensor]:
@@ -119,7 +129,9 @@ def init_slot_state(batch: int, device: torch.device) -> SlotState:
         remaining=torch.zeros((batch,), **i32),
         alive=torch.zeros((batch,), dtype=torch.bool, device=device),
         sampling=ops.greedy_sampling(batch, device),
-        stop=torch.full((batch, MAX_STOP_TOKENS), -1, **i32))
+        stop=torch.full((batch, MAX_STOP_TOKENS), -1, **i32),
+        accepted=torch.zeros((batch,), **i32),
+        proposed=torch.zeros((batch,), **i32))
 
 
 def admit_slot(state: SlotState, slot: int, *, token: int, position: int,
@@ -144,6 +156,8 @@ def admit_slot(state: SlotState, slot: int, *, token: int, position: int,
     s.sampling.min_p[slot] = min_p
     for i, tok in enumerate(stops):
         s.stop[slot, i] = tok
+    s.accepted[slot] = 0
+    s.proposed[slot] = 0
     return s
 
 
@@ -219,3 +233,196 @@ def make_decode_segment(cfg: ArchConfig, seg_len: int, *,
         return torch.stack(seq, 1), torch.stack(emit, 1), state, cache
 
     return segment
+
+
+# --------------------------------------------------------------------------
+# Speculative draft-and-verify decoding
+# --------------------------------------------------------------------------
+
+def self_draft_config(cfg: ArchConfig, n_blocks: int) -> ArchConfig:
+    """The truncated-layer self-draft: the target's first `n_blocks`
+    pattern blocks as a model of their own, sharing the target's
+    embedding and layer geometry."""
+    assert 1 <= n_blocks <= cfg.n_blocks, (n_blocks, cfg.n_blocks)
+    return dataclasses.replace(
+        cfg, arch_id=f"{cfg.arch_id}_draft{n_blocks}",
+        n_layers=n_blocks * len(cfg.block_pattern))
+
+
+def _first_blocks(tree: Any, n: int) -> Any:
+    """Every stacked leaf of `tree` cut to its first n blocks, as views (a
+    QTensor's scales, quants and mins each)."""
+    if isinstance(tree, QTensor):
+        return QTensor(tree.scales[:n], tree.quants[:n],
+                       None if tree.mins is None else tree.mins[:n],
+                       tree.fmt, tree.d_in)
+    if isinstance(tree, dict):
+        return {k: _first_blocks(v, n) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_first_blocks(v, n) for v in tree]
+    return tree[:n]
+
+
+def self_draft_params(cfg: ArchConfig, params: Dict[str, Any],
+                      n_blocks: int) -> Dict[str, Any]:
+    """The self-draft's parameters: the target's own tree with its block
+    stacks cut to the first `n_blocks` blocks.  Every leaf is a view of
+    the target's (the embedding and final norm are the same tensors), so
+    the draft holds no weights of its own, and a full-depth draft
+    computes bitwise what the target does."""
+    assert 1 <= n_blocks <= cfg.n_blocks, (n_blocks, cfg.n_blocks)
+    return dict(params, blocks=_first_blocks(params["blocks"], n_blocks))
+
+
+def make_spec_decode_segment(cfg: ArchConfig, draft_cfg: ArchConfig,
+                             rounds: int, k: int, *,
+                             plain: bool = False) -> Callable:
+    """(params, draft_params, cache, draft_cache, state) -> (segment (B,
+    rounds*(k+1)) i32, emitted (B, rounds*(k+1)) bool, accept_lens (B,
+    rounds) i32, state, cache, draft_cache).
+
+    `rounds` draft-and-verify rounds in a Python loop, with no host sync;
+    both caches are updated IN PLACE, the state comes back as new
+    tensors.  Each round:
+
+      1. draft: k draft decode steps propose g_0..g_{k-1}, each drawn by
+         `ops.sample_tokens` with the row's own parameters and key
+         fold_in(draft_key, j), then one sample-free step absorbs
+         g_{k-1} into the draft's state;
+      2. verify: one `transformer.decode_verify` of the target over
+         [current, g_0..g_{k-1}];
+      3. accept: `ops.verify_tokens` gives the accepted prefix length a
+         and the correction or bonus token; the round emits m = a + 1
+         tokens, cut by the row's budget and at its first stop token;
+      4. advance: each row's clock moves by its own m; attention rows
+         past it stay invisible, and the recurrent (conv, SSM) states of
+         target and draft roll back by gathering snapshot m - 1.  A row
+         dead on entry emits nothing and keeps its state (write_mask =
+         alive in every forward).
+
+    The draft steps run their fp products and norms padded to the
+    verify's B*(k+1) rows (`quantize.padded_rows`), so a draft of the
+    target's own blocks computes the verify's bits: on the card cuBLAS
+    picks its kernel by the row count.  The non-speculative decode runs
+    unpadded, at B rows, so at a near tie on the card a greedy spec
+    stream can part from the non-speculative one.
+
+    The sampled variant splits each row's key once per round into (key,
+    round key) and the round key into (draft key, verify key); greedy
+    rows read no key and emit the verify's argmax stream, for any draft.
+    `plain=True`, for batches whose rows are all greedy with no stop set:
+    argmax proposals, the prefix match against the target argmax as the
+    verdict, no key splits, no stop test; it emits the sampled variant's
+    tokens, emit masks and accept lengths on such batches."""
+    assert k >= 1, k
+    t = k + 1
+
+    def segment(params: Dict[str, Any], draft_params: Dict[str, Any],
+                cache: Dict[str, Any], draft_cache: Dict[str, Any],
+                state: SlotState
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           SlotState, Dict[str, Any], Dict[str, Any]]:
+        toks, pos, keys = state.tokens, state.positions, state.keys
+        remaining, alive = state.remaining, state.alive
+        accepted, proposed = state.accepted, state.proposed
+        b = pos.shape[0]
+        rows = torch.arange(b, device=pos.device)
+        arange_t = torch.arange(t, device=pos.device)
+        draft_rec = [key for key in draft_cache
+                     if key.startswith(("conv", "ssm"))]
+        outs, emits, alens = [], [], []
+        for _ in range(rounds):
+            if not plain:
+                both = prng.split(keys)
+                keys, round_keys = both[:, 0], both[:, 1]
+                sub = prng.split(round_keys)
+                draft_keys, verify_keys = sub[:, 0], sub[:, 1]
+
+            # 1. draft: k proposals, then the absorb step, their products
+            # and norms at the verify's row count (models/quantize.py)
+            dtoks, inputs, dlogits, dsnaps = toks, [], [], []
+            for j in range(k):
+                with padded_rows(b * t):
+                    lg, draft_cache = transformer.decode_step(
+                        draft_cfg, draft_params, draft_cache, dtoks,
+                        positions=pos + j, write_mask=alive)
+                if plain:
+                    nxt = lg[:, -1].argmax(dim=-1).to(torch.int32)
+                else:
+                    nxt = ops.sample_tokens(
+                        lg[:, -1], state.sampling,
+                        prng.fold_in(draft_keys, j), vocab=cfg.vocab)
+                    dlogits.append(lg[:, -1])
+                nxt = torch.where(alive, nxt, dtoks[:, 0])
+                inputs.append(dtoks[:, 0])
+                dsnaps.append([draft_cache[key].clone()
+                               for key in draft_rec])
+                dtoks = nxt[:, None]
+            with padded_rows(b * t):
+                _, draft_cache = transformer.decode_step(
+                    draft_cfg, draft_params, draft_cache, dtoks,
+                    positions=pos + k, write_mask=alive)
+            dsnaps.append([draft_cache[key] for key in draft_rec])
+
+            # 2. verify: the target over [current, g_0..g_{k-1}]
+            ver = torch.cat([torch.stack(inputs, dim=1), dtoks], dim=1)
+            tlogits, cache, tsnaps = transformer.decode_verify(
+                cfg, params, cache, ver, pos, write_mask=alive)
+            if plain:
+                out = tlogits.float().argmax(dim=-1).to(torch.int32)
+                match = (ver[:, 1:] == out[:, :k]).to(torch.int32)
+                alen = match.cumprod(dim=-1).sum(dim=-1).to(torch.int32)
+            else:
+                out, alen = ops.verify_tokens(
+                    tlogits, torch.stack(dlogits, dim=1), ver[:, 1:],
+                    state.sampling, verify_keys, vocab=cfg.vocab)
+
+            # 3. emit count: the budget cap and the first stop token
+            cand = torch.minimum(alen + 1, remaining)
+            if plain:
+                first_stop = torch.full_like(cand, t)
+            else:
+                hits = (out[..., None] == state.stop[:, None, :]).any(-1)
+                first_stop = torch.where(
+                    hits.any(dim=-1),
+                    hits.to(torch.int32).argmax(dim=-1).to(torch.int32),
+                    t)
+            m = torch.where(alive, torch.minimum(cand, first_stop + 1), 0)
+            emitted = arange_t[None, :] < m[:, None]
+
+            # 4. per-row advance, then the recurrent rollback
+            sel = torch.clamp(m - 1, min=0).long()
+            new_tok = torch.gather(out, 1, sel[:, None])
+            toks = torch.where(alive[:, None], new_tok, toks)
+            pos = pos + m
+            remaining = remaining - m
+            stop_hit = (first_stop < cand) & alive
+            accepted = accepted + torch.minimum(m, alen)
+            proposed = proposed + alive.to(torch.int32) * k
+            alens.append(torch.where(alive, alen, 0))
+            for key, snap in tsnaps.items():                  # (L,B,T,...)
+                _roll_back(cache[key], snap[:, rows, sel], alive)
+            for i, key in enumerate(draft_rec):
+                snap = torch.stack([s[i] for s in dsnaps])    # (T,L,B,...)
+                _roll_back(draft_cache[key],
+                           snap[sel, :, rows].movedim(0, 1), alive)
+            alive = alive & (remaining > 0) & ~stop_hit
+            outs.append(out)
+            emits.append(emitted)
+        state = dataclasses.replace(
+            state, tokens=toks, positions=pos, keys=keys,
+            remaining=remaining, alive=alive, accepted=accepted,
+            proposed=proposed)
+        return (torch.stack(outs, dim=1).reshape(b, rounds * t),
+                torch.stack(emits, dim=1).reshape(b, rounds * t),
+                torch.stack(alens, dim=1), state, cache, draft_cache)
+
+    return segment
+
+
+def _roll_back(live: torch.Tensor, rolled: torch.Tensor,
+               alive: torch.Tensor) -> None:
+    """Set each alive row (axis 1) of a stacked recurrent state to its
+    gathered snapshot, IN PLACE; dead rows keep theirs."""
+    keep = alive.reshape((1, -1) + (1,) * (live.dim() - 2))
+    live.copy_(torch.where(keep, rolled.to(live.dtype), live))

@@ -15,13 +15,16 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.quantize import matmul
+from repro_torch.models.quantize import invariant_rows, matmul
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
+    """The mean square runs over `quantize.invariant_rows`."""
     xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
+    x2, rows = invariant_rows(xf)
+    var = x2.square().mean(dim=-1, keepdim=True)[:rows]
+    var = var.reshape(x.shape[:-1] + (1,))
     out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
     return out.to(x.dtype)
 

@@ -9,12 +9,24 @@ small B / C / dt projections stay fp, as in the reference.
 `matmul` is the dispatch point the model layers call instead of `@`: a
 QTensor goes through `ops.quant_matmul` (the dequant-fused kernel on the
 card), a tensor through the ordinary product.
+
+cuBLAS picks its GEMM kernel (tiles, split-K) by the row count, and
+torch's row reductions their split, so on an H100 one row can take other
+bits at m = 4 than at m = 16 (the bf16 3072 -> 256 and 12288 -> 3072
+products of starcoder2_3b do).  Inside `padded_rows(n)` every fp product
+and norm over fewer than n rows runs padded with zero rows to n
+(`invariant_rows`): the speculative segment runs its draft steps so, at
+the verify's row count, and a draft of the target's own blocks then
+computes the verify's bits.  Outside it nothing is padded.
 """
 from __future__ import annotations
 
-from typing import Any, Union
+import contextlib
+import contextvars
+from typing import Any, Iterator, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.quant import QTensor, WEIGHT_FORMATS, quantize_tensor
@@ -46,8 +58,36 @@ def quantize_params(params: Any, fmt: str) -> Any:
     return walk(params, "")
 
 
+_PAD_ROWS: contextvars.ContextVar[int] = contextvars.ContextVar(
+    "pad_rows", default=0)
+
+
+@contextlib.contextmanager
+def padded_rows(n: int) -> Iterator[None]:
+    """Run every fp product and norm of fewer than n rows padded to n."""
+    token = _PAD_ROWS.set(n)
+    try:
+        yield
+    finally:
+        _PAD_ROWS.reset(token)
+
+
+def invariant_rows(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """x (..., d) as (rows, d), padded with zero rows to the `padded_rows`
+    count when it has fewer, and its own row count: the result's first
+    `rows` rows are x's."""
+    rows, pad = x.numel() // x.shape[-1], _PAD_ROWS.get()
+    x2 = x.reshape(rows, x.shape[-1])
+    if rows < pad:
+        x2 = F.pad(x2, (0, 0, 0, pad - rows))
+    return x2, rows
+
+
 def matmul(x: torch.Tensor, w: Union[torch.Tensor, QTensor]) -> torch.Tensor:
-    """`x @ w`, with a QTensor through the dequant-fused matmul."""
+    """`x @ w`, with a QTensor through the dequant-fused matmul (whose
+    plan does not depend on the row count) and a tensor product over
+    `invariant_rows`."""
     if isinstance(w, QTensor):
         return ops.quant_matmul(x, w)
-    return x @ w
+    x2, rows = invariant_rows(x)
+    return (x2 @ w)[:rows].reshape(x.shape[:-1] + (w.shape[-1],))

@@ -1,7 +1,8 @@
 """Decoder-only models of the ported serve paths, from
 `repro/models/transformer.py`: init, the decode cache (a paged KV cache
 for attention layers, conv and SSM states for mamba layers), the
-single-token decode step and the prompt prefill into one cache row.
+single-token decode step, the speculative verify forward over T tokens
+and the prompt prefill into one cache row.
 
 Parameters keep the reference's pytree layout, with the per-layer leaves
 stacked over `n_blocks`:
@@ -221,16 +222,17 @@ def ffn_layer(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 def _mamba_proj(cfg: ArchConfig, p: Params, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, ...]:
     """The mamba sublayer's input projections: (z gate, conv INPUT, B, C,
-    dt (softplus, f32), A) for the decode and prefill variants, which
-    differ only in how they run the conv and the SSD recurrence."""
+    dt BEFORE its softplus (f32, biased), A) for the decode, verify and
+    prefill variants, which differ only in how they run the conv and the
+    SSD recurrence (and the verify in how it runs the softplus)."""
     hx = L.rms_norm(x, p["ln"], cfg.norm_eps)
     z = F.silu(matmul(hx, p["w_z"]))
     xin = matmul(hx, p["w_x"])
-    Bm = hx @ p["w_B"]
-    Cm = hx @ p["w_C"]
-    dt = F.softplus((hx @ p["w_dt"]).float() + p["dt_bias"])
+    Bm = matmul(hx, p["w_B"])
+    Cm = matmul(hx, p["w_C"])
+    dt_raw = matmul(hx, p["w_dt"]).float() + p["dt_bias"]
     A = -torch.exp(p["A_log"])
-    return z, xin, Bm, Cm, dt, A
+    return z, xin, Bm, Cm, dt_raw, A
 
 
 def _mamba_out(p: Params, x: torch.Tensor, y: torch.Tensor,
@@ -356,11 +358,11 @@ def _decode_mamba(cfg: ArchConfig, p: Params, x: torch.Tensor,
     Returns (x, new conv state, new SSM state)."""
     b = x.shape[0]
     nh, hp = cfg.n_ssm_heads, cfg.ssm_head_dim
-    z, xin, Bm, Cm, dt, A = _mamba_proj(cfg, p, x)
+    z, xin, Bm, Cm, dt_raw, A = _mamba_proj(cfg, p, x)
     xc, conv_state = L.causal_conv1d(xin, p["conv_w"], conv_state)
     y, ssm_state = L.ssd_decode_step(
-        ssm_state, xc[:, 0].reshape(b, nh, hp), dt[:, 0], A, Bm[:, 0],
-        Cm[:, 0])
+        ssm_state, xc[:, 0].reshape(b, nh, hp), F.softplus(dt_raw)[:, 0], A,
+        Bm[:, 0], Cm[:, 0])
     return (_mamba_out(p, x, y[:, None], xc, z), conv_state, ssm_state)
 
 
@@ -431,7 +433,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
             if cfg.d_ff > 0:
                 x = ffn_layer(cfg, p["ffn"], x)
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
-    logits = x @ params["embed"].T
+    logits = matmul(x, params["embed"].T)
 
     if new_kv:                          # the attention layers' K/V
         max_seq = cache[next(iter(new_kv))].shape[3]
@@ -452,6 +454,193 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
     return logits, cache
 
 
+# --------------------------------------------------------------------------
+# Speculative verify: T positions in one forward
+# --------------------------------------------------------------------------
+
+def _verify_attn(cfg: ArchConfig, p: Params, x: torch.Tensor,
+                 k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 pos: torch.Tensor, pages: Optional[torch.Tensor],
+                 kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                 write_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """T-position attention of the verify forward against one layer's
+    cache (1, B, KH, S, hd), int8 pools when `kv_scales` (1, B, KH,
+    n_pages) are given: x (B, T, D) is row b's current token and T-1
+    draft tokens, starting at position pos[b].
+
+    The T new K/V rows are written into the LIVE cache first, IN PLACE,
+    under `write_mask` and through the page table (the int8 pools by T
+    sequential one-token writes, so each row lands under the page scale
+    its sequential decode would give it); the reference writes them into
+    a per-layer copy of the cache and the live one after the layer loop,
+    which leaves alive rows the same bytes.  Query j then reads under the
+    clock pos + j - 1, so of the fresh rows it sees exactly the j before
+    it, and its own K/V arrives as the merged extra partial: each of the
+    T calls is the one-token `_decode_attn` call of a sequential decode
+    at position pos + j.  A masked row's outputs read its old rows; the
+    segment discards them."""
+    b, t, _ = x.shape
+    positions = pos[:, None] + torch.arange(t, dtype=torch.int32,
+                                            device=x.device)[None]
+    q, k_new, v_new = _qkv(cfg, p, x, positions)
+    if kv_scales is not None:
+        quant_verify_kv_update(k_cache, kv_scales[0], k_new[None], pos,
+                               write_mask, pages)
+        quant_verify_kv_update(v_cache, kv_scales[1], v_new[None], pos,
+                               write_mask, pages)
+        kv_scales = (kv_scales[0][0], kv_scales[1][0])
+    else:
+        verify_kv_update(k_cache, k_new[None], pos, write_mask, pages)
+        verify_kv_update(v_cache, v_new[None], pos, write_mask, pages)
+    outs = []
+    for j in range(t):
+        qj = q[:, j:j + 1].contiguous()
+        extra = L.single_kv_partial(qj, k_new[:, j:j + 1],
+                                    v_new[:, j:j + 1])
+        outs.append(decode_attention_combined(
+            qj, k_cache[0], v_cache[0], pos + (j - 1), window=0,
+            extra=extra, pages=pages, kv_scales=kv_scales))
+    o = torch.cat(outs, dim=1).reshape(b, t, cfg.n_heads * cfg.head_dim_)
+    return x + matmul(o, p["wo"])
+
+
+def _verify_mamba(cfg: ArchConfig, p: Params, x: torch.Tensor,
+                  conv_state: torch.Tensor, ssm_state: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """T tokens through a mamba sublayer: x (B, T, D) against one layer's
+    conv (B, W-1, d_inner) and SSM (B, NH, P, N) states, read only.  The
+    projections run once over the T tokens; the conv window and the SSD
+    update run as T steps of `_decode_mamba`'s exact one-token math.
+    Returns (x, conv_snaps (B, T, W-1, d_inner), ssm_snaps (B, T, NH, P,
+    N) f32): snapshot j is the state after tokens 0..j."""
+    b, t, _ = x.shape
+    nh, hp = cfg.n_ssm_heads, cfg.ssm_head_dim
+    z, xin, Bm, Cm, dt_raw, A = _mamba_proj(cfg, p, x)
+    xcs, ys, convs, ssms = [], [], [], []
+    for j in range(t):
+        xc, conv_state = L.causal_conv1d(xin[:, j:j + 1], p["conv_w"],
+                                         conv_state)
+        # the softplus on this token's (B, 1, NH) alone, as the decode
+        # runs it: the CPU's SIMD loop and its scalar tail differ in the
+        # last bit, so a value's bits depend on the length of its tensor
+        dt = F.softplus(dt_raw[:, j:j + 1].contiguous())
+        y, ssm_state = L.ssd_decode_step(
+            ssm_state, xc[:, 0].reshape(b, nh, hp), dt[:, 0], A, Bm[:, j],
+            Cm[:, j])
+        xcs.append(xc)
+        ys.append(y)
+        convs.append(conv_state)
+        ssms.append(ssm_state)
+    out = _mamba_out(p, x, torch.stack(ys, dim=1), torch.cat(xcs, dim=1), z)
+    return out, torch.stack(convs, dim=1), torch.stack(ssms, dim=1)
+
+
+def decode_verify(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
+                  tokens: torch.Tensor, positions: torch.Tensor,
+                  write_mask: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, Any], Dict[str, Any]]:
+    """The verify forward of speculative decoding: tokens (B, T), row b's
+    current token and T-1 draft tokens from position positions[b], in ONE
+    forward.  Returns (logits (B, T, V), cache, snaps): position j's
+    logits are those of a sequential `decode_step` at positions[b] + j.
+    Every attention call is bitwise the decode's; the projections and
+    norms run over B*T rows where the decode's run over B, which gives
+    the same bits on the CPU but not always on the card, where cuBLAS
+    and the reduction kernels choose their split by the row count: a
+    decode step under `quantize.padded_rows(B*T)` computes these bits.
+
+    Attention K/V: all T rows are written IN PLACE at logical slots
+    pos..pos+T-1 for the rows where `write_mask` holds (`_verify_attn`);
+    the segment then advances each clock by only the m <= T accepted
+    tokens, and the rows past it stay invisible until decoded tokens
+    overwrite them.  Recurrent (conv, SSM) state: the cache's is returned
+    UNTOUCHED and every intermediate state is in `snaps`, leaves (L, B,
+    T, ...), from which the segment gathers snapshot m - 1 per row."""
+    x = params["embed"][tokens]                           # (B,T,D)
+    pos = positions.to(torch.int32)
+    pages = cache.get("page_table")
+    b, t, _ = x.shape
+    snaps: Dict[str, torch.Tensor] = {}
+    for pi, kind in enumerate(cfg.block_pattern):
+        if kind == "mamba":
+            for key in (f"conv{pi}", f"ssm{pi}"):
+                c = cache[key]
+                snaps[key] = c.new_empty((c.shape[0], b, t) + c.shape[2:])
+    for i in range(cfg.n_blocks):
+        for pi, (kind, block) in enumerate(zip(cfg.block_pattern,
+                                               params["blocks"])):
+            p = _layer(block, i)
+            if kind == "mamba":
+                x, conv_s, ssm_s = _verify_mamba(
+                    cfg, p["mamba"], x, cache[f"conv{pi}"][i],
+                    cache[f"ssm{pi}"][i])
+                snaps[f"conv{pi}"][i] = conv_s
+                snaps[f"ssm{pi}"][i] = ssm_s
+            else:
+                kv_scales = None
+                if scale_key(f"k{pi}") in cache:
+                    kv_scales = (cache[scale_key(f"k{pi}")][i:i + 1],
+                                 cache[scale_key(f"v{pi}")][i:i + 1])
+                x = _verify_attn(cfg, p["attn"], x,
+                                 cache[f"k{pi}"][i:i + 1],
+                                 cache[f"v{pi}"][i:i + 1], pos, pages,
+                                 kv_scales, write_mask)
+            if cfg.d_ff > 0:
+                x = ffn_layer(cfg, p["ffn"], x)
+    x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
+    logits = matmul(x, params["embed"].T)
+    cache["pos"] = cache["pos"] + t
+    return logits, cache, snaps
+
+
+def _verify_slots(pos: torch.Tensor, t: int, s: int,
+                  pages: Optional[torch.Tensor]) -> torch.Tensor:
+    """The physical rows (B, T) of logical slots pos..pos+T-1 (mod S)."""
+    slots = (pos.to(torch.int32)[:, None]
+             + torch.arange(t, dtype=torch.int32, device=pos.device)[None]
+             ) % s
+    if pages is not None:
+        slots = physical_slots(pages, slots, s // pages.shape[1])
+    return slots
+
+
+def verify_kv_update(cache: torch.Tensor, new: torch.Tensor,
+                     pos: torch.Tensor, write_mask: Optional[torch.Tensor],
+                     pages: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Write T consecutive K/V rows per batch row into a stacked cache, IN
+    PLACE: the T-token `cache_update_stacked` + `masked_kv_update`.
+    cache (L,B,KH,S,hd); new (L,B,T,KH,hd); pos (B,) the logical slot of
+    row 0; write_mask (B,) bool or None (masked rows keep their old
+    values); `pages` translates the logical slots to physical rows.
+    Returns `cache`."""
+    l, b, kh, s, hd = cache.shape
+    slots = _verify_slots(pos, new.shape[2], s, pages).long()
+    bidx = torch.arange(b, device=cache.device)[:, None]
+    val = new.to(cache.dtype).permute(1, 2, 0, 3, 4)      # (B,T,L,KH,hd)
+    if write_mask is not None:
+        old = cache[:, bidx, :, slots, :]                 # (B,T,L,KH,hd)
+        val = torch.where(write_mask[:, None, None, None, None], val, old)
+    cache[:, bidx, :, slots, :] = val
+    return cache
+
+
+def quant_verify_kv_update(pool: torch.Tensor, scales: torch.Tensor,
+                           new: torch.Tensor, pos: torch.Tensor,
+                           write_mask: Optional[torch.Tensor],
+                           pages: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """T-token write into an int8 pool, IN PLACE: T sequential one-token
+    `quant_kv_update_stacked` writes, so each row meets exactly the page
+    scale its sequential decode would.  pool (L,B,KH,S,hd) int8; scales
+    (L,B,KH,n_pages); new (L,B,T,KH,hd); pos (B,) the logical slot of
+    row 0.  Returns (pool, scales)."""
+    slots = _verify_slots(pos, new.shape[2], pool.shape[3], pages)
+    for j in range(new.shape[2]):
+        quant_kv_update_stacked(pool, scales, new[:, :, j, :, None],
+                                slots[:, j], write_mask)
+    return pool, scales
+
+
 def _prefill_mamba(cfg: ArchConfig, p: Params, x: torch.Tensor, length: int
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The whole prompt through a mamba sublayer, capturing its recurrent
@@ -468,7 +657,8 @@ def _prefill_mamba(cfg: ArchConfig, p: Params, x: torch.Tensor, length: int
     (B,W-1,d_inner), ssm_state (B,NH,P,N) f32)."""
     b, s, _ = x.shape
     nh, hp, width = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.conv_width
-    z, xin, Bm, Cm, dt, A = _mamba_proj(cfg, p, x)
+    z, xin, Bm, Cm, dt_raw, A = _mamba_proj(cfg, p, x)
+    dt = F.softplus(dt_raw)
     pad = torch.cat([xin.new_zeros((b, width - 1, xin.shape[-1])), xin],
                     dim=1)
     conv_state = pad[:, length:length + width - 1]

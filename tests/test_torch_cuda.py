@@ -32,7 +32,12 @@ paged == dense and a row run alone == that row in the batch, bitwise.
 The SLS kernel walks each bag in slot order with the plain version's
 roundings (row * w, then acc + that, in f32), so it equals the plain
 version bitwise.  `stream_offload` on the card: BS, RP and AXLE (whose
-producers run on a side stream) give equal bits, one launch per chunk."""
+producers run on a side stream) give equal bits, one launch per chunk.
+A graphed speculative server (self:1 draft) equals its eager twin bit
+for bit, the draft cache included, and launches one fused decode a
+layer for every draft step and every verify query; a full-depth
+self-draft accepts every greedy draft at verify row counts below and
+above 16."""
 import numpy as np
 import pytest
 
@@ -853,7 +858,7 @@ from repro_torch.launch.steps import QuantConfig              # noqa: E402
 class _Eager(tserve.BatchedServer):
     """The server with its segments run launch by launch."""
 
-    def _segment_fns(self, fns):
+    def _segment_fns(self, fns, *statics):
         return fns
 
 
@@ -937,3 +942,78 @@ def test_sampling_on_the_card(cuda):
                        full)
     assert full[0] == lf[0].argmax()
     assert bool((full[1:] < 49000).all())
+
+
+# --------------------------------------------------------------------------
+# Speculative segments as CUDA graphs
+# --------------------------------------------------------------------------
+
+SPEC_K = 2
+
+
+@pytest.mark.parametrize("stream", [True, False])
+@pytest.mark.parametrize("arch,kw", [
+    ("starcoder2_3b", dict(protocol="axle")),
+    ("starcoder2_3b", dict(protocol="axle",
+                           quant=QuantConfig(weights="q8_0", kv="int8"))),
+    ("mamba2_370m", dict(protocol="axle"))])
+def test_graphed_spec_serve_equals_eager_bitwise(cuda, arch, kw, stream):
+    """A spec server (self:1 draft, spec_k 2): tokens, the target's AND
+    the draft's cache at drain, the ledger, the accept counts and the
+    launch counts of the graphed server equal the eager twin's; every
+    segment is a replay."""
+    spec = dict(spec=True, spec_k=SPEC_K, draft_arch="self:1")
+    g, g_toks, g_launches = _serve_smoke(tserve.BatchedServer, arch,
+                                         stream=stream, **spec, **kw)
+    e_kw = dict(kw, quant=QuantConfig(kv=kw["quant"].kv)) \
+        if "quant" in kw else kw
+    e, e_toks, e_launches = _serve_smoke(_Eager, arch, stream=stream,
+                                         params=g.params, **spec, **e_kw)
+    assert g_toks == e_toks
+    for a, b in ((g.cache, e.cache), (g.draft_cache, e.draft_cache)):
+        assert a.keys() == b.keys()
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert (g.pages_allocated, g.pages_freed, g.pages_resident_peak) == \
+        (e.pages_allocated, e.pages_freed, e.pages_resident_peak)
+    assert (g.draft_accepted, g.draft_proposed) == \
+        (e.draft_accepted, e.draft_proposed)
+    assert g_launches == e_launches
+    assert g.graph_replays == (g.segments_dispatched if stream
+                               else g.steps // (SPEC_K + 1))
+    assert e.graph_replays == 0
+
+
+def test_spec_verify_launches_one_fused_decode_per_query(cuda):
+    """Every draft step and every verify query is one fused decode launch
+    a layer: rounds x (k + 1) x (draft layers + target layers)."""
+    srv, _, launches = _serve_smoke(tserve.BatchedServer, "starcoder2_3b",
+                                    stream=True, protocol="axle", spec=True,
+                                    spec_k=SPEC_K, draft_arch="self:1")
+    rounds = srv.steps // (SPEC_K + 1)
+    assert rounds == srv.segments_dispatched * srv.seg_len
+    assert launches["decode_attention_fused"] == rounds * (SPEC_K + 1) * (
+        srv.draft_cfg.n_layers + srv.cfg.n_layers)
+
+
+@pytest.mark.parametrize("arch", ["starcoder2_3b", "mamba2_370m"])
+@pytest.mark.parametrize("slots,k", [(2, 2), (5, 3)])
+def test_full_depth_spec_accepts_every_draft_at_any_verify_rows(cuda, arch,
+                                                               slots, k):
+    """A full-depth self-draft on the card accepts every greedy draft at
+    verify row counts B (k + 1) of 6 and 20: the draft steps run padded
+    to the verify's rows, whatever they are, so cuBLAS's choice of kernel
+    by the row count cannot part the draft from the verify."""
+    n = tserve.get_smoke_config(arch).n_blocks
+    srv = tserve.BatchedServer(arch, smoke=True, device="cuda",
+                               batch_slots=slots, max_seq=64, seg_len=4,
+                               stream=True, spec=True, spec_k=k,
+                               draft_arch=f"self:{n}")
+    rng = np.random.default_rng(5)
+    for i in range(slots):
+        # the prefill's token and 6 whole rounds: no round is cut by the
+        # budget, which would emit fewer tokens than it accepted
+        pr = rng.integers(1, srv.cfg.vocab, int(rng.integers(3, 9)))
+        srv.submit(tserve.Request(i, pr.astype(np.int32), 1 + 6 * (k + 1)))
+    srv.run_until_drained()
+    assert srv.graph_replays == srv.segments_dispatched
+    assert srv.draft_accepted == srv.draft_proposed > 0
