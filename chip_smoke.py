@@ -37,6 +37,24 @@ the `[sampling]` requests (budgets and stops, 8 rounds == 1 round a
 segment == alone, greedy rows == the greedy spec serve's), q8_0 + int8
 KV (every draft and verify product on the skinny route) and mamba2_370m
 with the self:12 draft (tokens == its `[serve]` tokens).
+The `[archs]` lines serve the other dense attention archs at full width,
+each model freed before the next: gemma3_12b (five sliding-window layers
+of 1024 to one full layer, head dim 256 on the tensor-core kernels) on 8
+requests of 600-1500 tokens over 2048-slot rows, two prompts past the
+window and two decoding across position 1024, with a request alone ==
+its row in the batch, graph == eager on 2 requests, the logits against
+the plain path and, on the same weights and tokens with every layer
+"full", the same bits inside the window and other logits past it;
+mistral_nemo_12b through the ported `serve_offload` example (bs == axle
+bitwise, rp equal or parting only at near ties); opt_2_7b (MHA, head
+dim 80 on the CUDA-core kernels, and 2 requests with its self:8 draft
+== the padded non-spec twin), minitron_4b and qwen2_vl_2b (M-RoPE). Each
+prints tok/s, the decode step's device ms and kernels (one replay under
+the profiler), peak memory and the step's weight-read bound.  Their
+`[kernel]` rows hold the attention kernels at head dims 256 and 80
+(flash at S 2048 with a window of 1024; the fused decode over 2048
+slots with a window of 1023, bf16 and int8 pools; the partial) against
+the plain versions, beside SDPA with an explicit boolean mask.
 Before serving, it drives the paper's two offload workloads through
 `stream_offload` under BS, RP and AXLE, data from seed 0 on the card:
   * KNN (VectorDB): 256 queries against a 1,000,000 x 1024 bf16 database
@@ -49,7 +67,7 @@ lines are the kernels' JSON record, the card's name and power limit, and
 `{"ok": true, "device": {...}}`.
 
 Five functions have a tensor-core kernel beside their CUDA-core one:
-bf16 flash_attention at hd 128 (`flash_tc_kernel`, mma.sync), bf16
+bf16 flash_attention at hd 64, 128 or 256 (`flash_tc_kernel`, mma.sync), bf16
 knn_distances with D % 8 == 0 (`knn_wgmma_kernel`, TMA and wgmma), the
 bf16 decode (fused, int8 pools and partial: `decode_split_tc_kernel`, a
 split of the KV range merged in order by `decode_merge_kernel`), bf16
@@ -176,7 +194,7 @@ try:
     from repro_torch.core import prng
     from repro_torch.core.backstream import (OffloadConfig, OffloadProtocol,
                                              stream_offload, use_offload)
-    from repro_torch.examples import knn_offload
+    from repro_torch.examples import knn_offload, serve_offload
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import knn as kknn
@@ -280,6 +298,7 @@ KERNEL_KINDS = ("ssd_kernel", "ssd_chunk_tc_kernel", "ssd_pass_kernel",
                 "knn_wgmma_kernel", "sls_kernel")
 TEMPLATE_ARGS = {"13__nv_bfloat16": "bf16", "S1_": "bf16", "f": "f32",
                  "a": "i8", "Li32E": "32", "Li64E": "64", "Li128E": "128",
+                 "Li256E": "256",
                  "Lb0E": "0", "Lb1E": "1", "Li0E": "0", "Li1E": "1"}
 # the tensor-core kernels and the instruction their SASS must hold
 TENSOR_CORE_SASS = {"flash_tc_kernel": "HMMA", "knn_wgmma_kernel": "HGMMA",
@@ -831,6 +850,264 @@ print(f"[kernel] decode_attention_fused[int8] B={B} H={H} KH={KH} hd={HD} "
       f"launches {variants32}", flush=True)
 del k8_log, v8_log, k8_pool, v8_pool, out, plain
 
+# --------------------------------------------------------------------------
+# 3a. the attention kernels at the other archs' head dims: gemma3_12b's 256
+# (16 heads on 8 KV heads; the tensor-core kernels) and opt_2_7b's 80 (MHA,
+# 32 heads; the CUDA-core kernels), both under gemma3's window: 1024 in
+# the prefill, 1023 cached slots (plus the current token) in the decode
+# --------------------------------------------------------------------------
+
+W_S, W_PAGE, W_WIN = 2048, 128, 1024
+W_POS = [300, 1023, 1024, 2047]
+
+
+def to_pool(t, table, page):
+    """The physical pool holding logical (B, KH, S, hd) rows under the
+    page table."""
+    pool = torch.empty_like(t)
+    for b in range(t.shape[0]):
+        for j in range(table.shape[1]):
+            p = int(table[b, j])
+            pool[b, :, p * page:(p + 1) * page] = \
+                t[b, :, j * page:(j + 1) * page]
+    return pool
+
+
+def sdpa_backend(fn):
+    """The SDPA backend a call ran on, named by its longest kernel under
+    torch.profiler: (backend, that kernel's name)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = sorted((e.self_device_time_total, e.key)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not ev:
+        return "not measured", ""
+    top = ev[-1][1]
+    low = top.lower()
+    backend = ("cudnn" if "cudnn" in low
+               else "flash" if "flash" in low
+               else "efficient" if "fmha" in low or "memeff" in low
+               else "math")
+    return backend, top[:60]
+
+
+def attention_at(label, h, kh, hd, tc):
+    """flash_attention, decode_attention_fused (bf16 and int8 pools) and
+    decode_attention_partial at head dim `hd`, H = h, KH = kh: each held
+    to its plain version within the hd 128 rows' tolerances, on the route
+    `tc` names, timed beside its bound and SDPA with an explicit boolean
+    mask.  Returns the flash and the fused records (their launches come
+    from the arch's serve below)."""
+    tag = f"[hd{hd}]"
+    route = "tensor-core" if tc else "CUDA-core"
+    out = {}
+    # flash: one 2048-token prompt, causal, window 1024
+    qf, kf, vf = (randn(1, W_S, n, hd) for n in (h, kh, kh))
+    kbuild.reset_launch_counts()
+    got = fa.flash_attention(qf, kf, vf, causal=True, window=W_WIN)
+    variants = routes("flash_attention")
+    plain = ref.mha_reference(qf, kf, vf, causal=True, window=W_WIN)
+    torch.cuda.synchronize()
+    err = (got.float() - plain.float()).abs().max().item()
+    check(err <= ATOL_BF16, f"flash_attention{tag}: err {err}")
+    check(variants == {"flash_attention": 1, "flash_attention_tc": int(tc)},
+          f"flash_attention{tag}: launches {variants}, not the {route} "
+          "kernel")
+    qi = torch.arange(W_S, device=DEV)
+    mask = (qi[None, :] <= qi[:, None]) & (qi[None, :] > qi[:, None] - W_WIN)
+    pairs = int(mask.sum())
+    bnd, by = bound_ms(2 * nbytes(qf) + nbytes(kf, vf), 4 * pairs * h * hd)
+
+    def sdpa_prefill():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+
+    rec = out["flash"] = dict(
+        name=f"flash_attention{tag}", route="cuda",
+        source="src/repro_torch/kernels/csrc/attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:98",
+        max_abs_err=err, bound_ms=bnd, bound_by=by,
+        **timings(lambda: fa.flash_attention(qf, kf, vf, causal=True,
+                                             window=W_WIN),
+                  lambda: ref.mha_reference(qf, kf, vf, causal=True,
+                                            window=W_WIN),
+                  sdpa_prefill))
+    backend = sdpa_backend(sdpa_prefill)
+    print(f"[kernel] flash_attention{tag} {label}: B=1 S={W_S} H={h} KH={kh} "
+          f"hd={hd} causal, window {W_WIN}: max_abs_err {err:.3g} <= "
+          f"{ATOL_BF16}; launches {variants} (the {route} kernel); "
+          f"{rec['ms']:.4f} ms, bound {bnd:.5f} ms ({by}), plain "
+          f"{rec['plain_ms']:.4f} ms, SDPA with the boolean window mask "
+          f"{rec['library_ms']:.4f} ms; device {show(rec['device_ms'])} ms "
+          f"= {show(div(4 * pairs * h * hd / 1e9, rec['device_ms']), '.1f')} "
+          f"TFLOP/s, SDPA's {show(rec['library_device_ms'])} ms on its "
+          f"{backend[0]} backend ({backend[1]}): "
+          f"{show(div(rec['device_ms'], rec['library_device_ms']), '.2f')}x "
+          "it", flush=True)
+    del qf, kf, vf, got, plain, mask
+
+    # decode: 4 rows at pos W_POS over a 2048-slot cache in 16 pages under a
+    # permuted table, extra merged, window W_WIN - 1 (a local layer's)
+    win = W_WIN - 1
+    q = randn(B, 1, h, hd)
+    k_log, v_log = randn(B, kh, W_S, hd), randn(B, kh, W_S, hd)
+    table = torch.stack([torch.randperm(W_S // W_PAGE, generator=G,
+                                        device=DEV)
+                         for _ in range(B)]).to(torch.int32)
+    k_pool, v_pool = to_pool(k_log, table, W_PAGE), to_pool(v_log, table,
+                                                            W_PAGE)
+    pos_w = torch.tensor(W_POS, dtype=torch.int32, device=DEV)
+    ex = (torch.randn(B, h, hd, generator=G, device=DEV),
+          torch.randn(B, h, generator=G, device=DEV),
+          torch.rand(B, h, generator=G, device=DEV) + 0.5)
+    valid = ref.decode_valid_mask(pos_w, W_S, win)
+    n_valid = int(valid.sum())
+    kbuild.reset_launch_counts()
+    dense = fa.decode_attention_fused(q, k_log, v_log, pos_w, ex, window=win,
+                                      blk_c=W_PAGE)
+    paged = fa.decode_attention_fused(q, k_pool, v_pool, pos_w, ex,
+                                      window=win, blk_c=W_PAGE, pages=table)
+    variants = routes("decode_attention_fused")
+    plain = ref.decode_fused_reference(q, k_pool, v_pool, pos_w, ex,
+                                       window=win, pages=table,
+                                       page_size=W_PAGE)
+    torch.cuda.synchronize()
+    err = (paged.float() - plain.float()).abs().max().item()
+    check(torch.equal(paged, dense),
+          f"decode_attention_fused{tag}: paged != dense")
+    check(err <= ATOL_BF16, f"decode_attention_fused{tag}: err {err}")
+    check(variants == {"decode_attention_fused": 2,
+                       "decode_attention_fused_tc": 2 * int(tc)},
+          f"decode_attention_fused{tag}: launches {variants}, not the "
+          f"{route} split")
+    rows_alone(lambda b: fa.decode_attention_fused(
+        *one_row(b, q, k_pool, v_pool, pos_w), one_row(b, *ex), window=win,
+        blk_c=W_PAGE, pages=table[b:b + 1]), paged,
+        f"decode_attention_fused{tag}")
+    bnd, by = bound_ms(nbytes(q, pos_w, table, *ex) + nbytes(q)
+                       + 2 * n_valid * kh * hd * 2, 4 * n_valid * h * hd)
+    k_gath = ref.gather_kv_pages(k_pool, table, W_PAGE)
+    v_gath = ref.gather_kv_pages(v_pool, table, W_PAGE)
+
+    def sdpa_decode():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k_gath, v_gath, attn_mask=valid[:, None, None],
+            enable_gqa=True)
+
+    rec = out["fused"] = dict(
+        name=f"decode_attention_fused{tag}", route="cuda",
+        source="src/repro_torch/kernels/csrc/attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:313",
+        max_abs_err=err, bound_ms=bnd, bound_by=by,
+        **timings(lambda: fa.decode_attention_fused(
+            q, k_pool, v_pool, pos_w, ex, window=win, blk_c=W_PAGE,
+            pages=table),
+            lambda: ref.decode_fused_reference(
+                q, k_pool, v_pool, pos_w, ex, window=win, pages=table,
+                page_size=W_PAGE),
+            sdpa_decode))
+    backend = sdpa_backend(sdpa_decode)
+    split, n_split = fa.decode_split(W_S, W_PAGE)
+    print(f"[kernel] decode_attention_fused{tag} {label}: B={B} H={h} KH={kh} "
+          f"hd={hd} S={W_S} page={W_PAGE} permuted table, pos={W_POS}, "
+          f"window {win}, extra: max_abs_err {err:.3g} <= {ATOL_BF16}; "
+          f"paged == dense bitwise; each row alone == its row in the batch "
+          f"bitwise; launches {variants} ({n_split} splits of {split} rows, "
+          f"the {route} split); {rec['ms']:.4f} ms, bound {bnd:.6f} ms "
+          f"({by}), plain {rec['plain_ms']:.4f} ms, SDPA on the gathered "
+          f"cache with the boolean window mask (without extra) "
+          f"{rec['library_ms']:.4f} ms; device {show(rec['device_ms'])} ms, "
+          f"SDPA's {show(rec['library_device_ms'])} ms on its {backend[0]} "
+          f"backend ({backend[1]})", flush=True)
+
+    # int8 pools of the same data (quantization is page-local: the
+    # physical pool's quants and scales are the logical ones, permuted)
+    (k8l, ksl), (v8l, vsl) = (ref.quantize_kv_pages(t, W_PAGE)
+                              for t in (k_log, v_log))
+    (k8p, ksp), (v8p, vsp) = (ref.quantize_kv_pages(t, W_PAGE)
+                              for t in (k_pool, v_pool))
+    kbuild.reset_launch_counts()
+    dense8 = fa.decode_attention_fused(q, k8l, v8l, pos_w, ex, window=win,
+                                       kv_scales=(ksl, vsl))
+    paged8 = fa.decode_attention_fused(q, k8p, v8p, pos_w, ex, window=win,
+                                       blk_c=W_PAGE, pages=table,
+                                       kv_scales=(ksp, vsp))
+    variants8 = routes("decode_attention_fused[int8]")
+    plain8 = ref.decode_fused_reference(q, k8p, v8p, pos_w, ex, window=win,
+                                        pages=table, page_size=W_PAGE,
+                                        kv_scales=(ksp, vsp))
+    torch.cuda.synchronize()
+    err8 = (paged8.float() - plain8.float()).abs().max().item()
+    check(torch.equal(paged8, dense8),
+          f"decode_attention_fused[int8]{tag}: paged != dense")
+    check(err8 <= ATOL_BF16, f"decode_attention_fused[int8]{tag}: err {err8}")
+    check(variants8 == {"decode_attention_fused[int8]": 2,
+                        "decode_attention_fused[int8]_tc": 2 * int(tc)},
+          f"decode_attention_fused[int8]{tag}: launches {variants8}")
+    n_pages = int(((valid.reshape(B, -1, W_PAGE)).any(-1)).sum())
+    bnd8, by8 = bound_ms(nbytes(q, pos_w, table, *ex) + nbytes(q)
+                         + 2 * n_valid * kh * hd + 2 * n_pages * kh * 4,
+                         4 * n_valid * h * hd)
+    t8 = timings(lambda: fa.decode_attention_fused(
+        q, k8p, v8p, pos_w, ex, window=win, blk_c=W_PAGE, pages=table,
+        kv_scales=(ksp, vsp)),
+        lambda: ref.decode_fused_reference(
+            q, k8p, v8p, pos_w, ex, window=win, pages=table,
+            page_size=W_PAGE, kv_scales=(ksp, vsp)))
+    print(f"[kernel] decode_attention_fused[int8]{tag} {label}, the same "
+          f"shapes and window on int8 pools from quantize_kv_pages: "
+          f"max_abs_err {err8:.3g} <= {ATOL_BF16}; paged == dense bitwise; "
+          f"launches {variants8}; {t8['ms']:.4f} ms, bound {bnd8:.6f} ms "
+          f"({by8}), plain {t8['plain_ms']:.4f} ms, device "
+          f"{show(t8['device_ms'])} ms; no library call (int8 pages with "
+          "scales); not on a serve path of this script", flush=True)
+
+    # partial: one chunk over the cache, the window's mask, row 1 empty
+    pvalid = valid.clone()
+    pvalid[1] = False
+    n_pvalid = int(pvalid.sum())
+    kbuild.reset_launch_counts()
+    part = fa.decode_attention_partial(q, k_log, v_log, pvalid)
+    variantsp = routes("decode_attention_partial")
+    torch.cuda.synchronize()
+    errp = partial_err(part, ref.decode_partial_reference(q, k_log, v_log,
+                                                          pvalid),
+                       f"decode_attention_partial{tag}")
+    check(variantsp == {"decode_attention_partial": 1,
+                        "decode_attention_partial_tc": int(tc)},
+          f"decode_attention_partial{tag}: launches {variantsp}")
+    rows_alone(lambda b: fa.decode_attention_partial(
+        *one_row(b, q, k_log, v_log, pvalid)), part,
+        f"decode_attention_partial{tag}")
+    bndp, byp = bound_ms(nbytes(q, pvalid, *part)
+                         + 2 * n_pvalid * kh * hd * 2,
+                         4 * n_pvalid * h * hd)
+    tp = timings(lambda: fa.decode_attention_partial(q, k_log, v_log, pvalid),
+                 lambda: ref.decode_partial_reference(q, k_log, v_log,
+                                                      pvalid))
+    print(f"[kernel] decode_attention_partial{tag} {label}: B={B} C={W_S}, "
+          f"the window's mask, row 1 empty: max_abs_err {errp:.3g} (<= 1e-3 "
+          f"+ 1e-4|plain|); empty row m=-inf; each row alone == its row in "
+          f"the batch bitwise; launches {variantsp}; {tp['ms']:.4f} ms, bound "
+          f"{bndp:.6f} ms ({byp}), plain {tp['plain_ms']:.4f} ms, device "
+          f"{show(tp['device_ms'])} ms; no library call; not on a serve path "
+          "of this script", flush=True)
+    return out
+
+
+g3cfg, optcfg = get_config("gemma3_12b"), get_config("opt_2_7b")
+for arch_cfg, tc in ((g3cfg, True), (optcfg, False)):
+    recs = attention_at(arch_cfg.arch_id, arch_cfg.n_heads,
+                        arch_cfg.n_kv_heads, arch_cfg.head_dim_, tc)
+    for rec in recs.values():
+        records[rec["name"]] = rec
+
 
 def quant_err(got, x, qt):
     """Max |kernel - plain|; fails past 1e-5 (|x| @ |W|), plus one bf16
@@ -1337,14 +1614,14 @@ class EagerServer(BatchedServer):
 
 
 def serve(requests, params=None, arch=ARCH, cls=BatchedServer, around=None,
-          **kw):
+          max_seq=S, **kw):
     """One drained run; the launch counts are set to 0 just before it and
     read just after.  The server is built (and its decode segments
     captured as CUDA graphs) before that; `around` is a context entered
     for the run alone.  A graphed server must have run every segment as
     one replay."""
     server = cls(arch, smoke=False, device="cuda", batch_slots=4,
-                 max_seq=S, seg_len=8, params=params, **kw)
+                 max_seq=max_seq, seg_len=8, params=params, **kw)
     for r in requests:
         server.submit(r)
     torch.cuda.synchronize()
@@ -1427,18 +1704,23 @@ def graph_equals_eager(label, srv, toks, launches, dt, reqs, **kw):
     del e
 
 
-def replay_profile(srv, label):
-    """Each captured segment of a drained server replayed under
-    torch.profiler: kernels and device ms per replay, and the host's wall
-    ms per replay.  Run after the server's checks: a replay writes the
-    (now idle) slots' cache rows."""
+def replay_profile(srv, label, steps_only=False):
+    """Each captured segment of a drained server (only the two one-step
+    ones with `steps_only`: the profiler's events of the 8-step replays
+    take most of a large model's phase) replayed under torch.profiler:
+    kernels and device ms per replay, and the host's wall ms per replay.
+    Run after the server's checks: a replay writes the (now idle) slots'
+    cache rows.  Returns the parts and the bytes of weights a step
+    reads."""
     parts = {}
     args = segment_args(srv)
     # a spec segment is ~10,000 kernels a round: fewer replays traced
     traced, timed = (1, 3) if srv.spec else (5, 10)
-    for name, steps_n in (("segment_fn", srv.seg_len),
-                          ("segment_plain_fn", srv.seg_len),
-                          ("step_fn", 1), ("step_plain_fn", 1)):
+    segments = (("step_fn", 1), ("step_plain_fn", 1))
+    if not steps_only:
+        segments = (("segment_fn", srv.seg_len),
+                    ("segment_plain_fn", srv.seg_len)) + segments
+    for name, steps_n in segments:
         fn = getattr(srv, name)
         fn(*args)
         torch.cuda.synchronize()
@@ -1460,8 +1742,9 @@ def replay_profile(srv, label):
             wall_ms=(time.perf_counter() - t) * 1e3 / timed,
             launches=sum(n for k, n in fn.launches.items()
                          if k not in kbuild.VARIANTS))
-    full, plain = parts["segment_fn"], parts["segment_plain_fn"]
-    epilogue = (full["device_ms"] - plain["device_ms"]) / srv.seg_len
+    full, plain = ((parts["step_fn"], parts["step_plain_fn"]) if steps_only
+                   else (parts["segment_fn"], parts["segment_plain_fn"]))
+    epilogue = (full["device_ms"] - plain["device_ms"]) / full["steps"]
     unit = "rounds" if srv.spec else "steps"
     # a decode step reads every weight once: its bytes bound the step
     weights = sum(t.nbytes if isinstance(t, kquant.QTensor)
@@ -1475,6 +1758,7 @@ def replay_profile(srv, label):
         f"a {unit[:-1]}; a step reads {weights / 1e9:.3f} GB of weights, "
         f"{weights / HBM_BYTES_PER_S * 1e3:.3f} ms at the HBM rate",
         flush=True)
+    return parts, weights
 
 
 def leaves(tree):
@@ -1588,15 +1872,15 @@ streamed = streamed_equals_per_token(ARCH, params, pair)
 
 
 def logits_along(prompts, steps, reference, arch_cfg=cfg, weights=None,
-                 kv_quant=None, feed=None):
+                 kv_quant=None, feed=None, max_seq=S):
     """Prefill each prompt into its own row, then `steps` decode steps;
     returns [prefill logits (B, V), step logits (B, V), ...], with the
     kernel path or (reference=True) the plain path for every kernel.
     Step i decodes feed[i] ((B, 1) int32) where `feed` is given, else the
     greedy tokens of the logits before it."""
     weights = params if weights is None else weights
-    cache = transformer.init_cache(arch_cfg, len(prompts), S, device=DEV,
-                                   kv_quant=kv_quant)
+    cache = transformer.init_cache(arch_cfg, len(prompts), max_seq,
+                                   device=DEV, kv_quant=kv_quant)
     out = []
     with (ops.reference_mode() if reference
           else contextlib.nullcontext()):
@@ -1647,11 +1931,15 @@ def kernels_against_plain(arch, prompts, atol=LOGIT_ATOL, **kw):
     for i, (a, b) in enumerate(zip(kern, plain)):
         near_tie_agree(b, a, f"{arch} step {i}")
         flips += int((a.argmax(-1) != b.argmax(-1)).sum())
+    vocab = kw.get("arch_cfg", cfg).padded_vocab
+    check(all(a.shape == (len(prompts), vocab) for a in kern),
+          f"{arch}: logits of shape {tuple(kern[0].shape)}")
     print(f"[reference] {arch} full width, {len(prompts)} rows, prefill + 4 "
           f"decode steps on the plain path's greedy tokens, kernels vs plain "
           f"versions: logits max_abs_err {worst:.4g} <= {atol}; greedy "
           f"tokens agree (near-tie gate {NEAR_TIE}; {flips} near-tie flips)",
           flush=True)
+    return kern, feed
 
 
 kernels_against_plain(ARCH, [r.prompt for r in make_requests(4, 64, 400, 1)])
@@ -2332,6 +2620,230 @@ kernels_against_plain(f"{MAMBA} in f32 arithmetic", mprompts,
                       weights=as_f32(mparams))
 
 # --------------------------------------------------------------------------
+# 6b. the other dense attention archs at full width: gemma3_12b's
+# sliding-window layers, mistral_nemo_12b through the ported serve_offload
+# example, opt_2_7b, minitron_4b, qwen2_vl_2b; each phase frees its model
+# before the next
+# --------------------------------------------------------------------------
+
+ARCHS_T0 = time.perf_counter()
+
+
+def arch_requests(vocab, lens, max_new, seed):
+    r = np.random.default_rng(seed)
+    return [Request(i, r.integers(1, vocab, n).astype(np.int32), max_new)
+            for i, n in enumerate(lens)]
+
+
+def attention_launches(label, srv, launches, n_layers, tc):
+    """Every decode step ran one fused decode a layer and every prefill one
+    flash call a layer, all on the tensor-core kernels (tc) or none."""
+    for name, per in (("decode_attention_fused", srv.steps),
+                      ("flash_attention", srv.prefill_forwards)):
+        check(launches[name] == per * n_layers
+              and launches[name + "_tc"] == launches[name] * int(tc),
+              f"[archs] {label}: {name} launches {launches[name]} "
+              f"({launches[name + '_tc']} on the tensor cores) != {per} x "
+              f"{n_layers}, {'all' if tc else 'none'} on the tensor cores")
+
+
+def arch_line(label, srv, toks, dt, parts, weights, t0):
+    """tok/s, the decode step's device time and kernels (one replay of
+    the one-step greedy segment under the profiler), the weight-read bound
+    of a step, peak memory, the phase's seconds."""
+    n_tok = sum(len(t) for t in toks.values())
+    step = parts["step_plain_fn"]
+    bound = weights / HBM_BYTES_PER_S * 1e3
+    print(f"[archs] {label}: {len(toks)} requests, {n_tok} tokens in "
+          f"{dt:.3f} s = {n_tok / dt:.1f} tok/s, every segment a graph "
+          f"replay; decode step {step['device_ms']:.3f} ms device, "
+          f"{step['kernels']:.0f} kernels ({step['launches']} of ours) a "
+          f"step; weight-read bound {bound:.3f} ms a step "
+          f"({weights / 1e9:.3f} GB): {step['device_ms'] / bound:.2f}x it; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB; phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# gemma3_12b: 8 requests, two prompts past the 1024-token window (the
+# prefill masks) and two that cross position 1024 while decoding 64 tokens
+# (the decode window moves); 4 slots of 2048 positions
+G3, G3_SEQ = "gemma3_12b", 2048
+G3_LENS = (1500, 980, 600, 1100, 1000, 700, 1300, 800)
+t0 = time.perf_counter()
+torch.cuda.reset_peak_memory_stats()
+g3_reqs = arch_requests(g3cfg.vocab, G3_LENS, 64, 20)
+srv, g3_toks, g3_launches, dt = serve(g3_reqs, arch=G3, max_seq=G3_SEQ,
+                                      protocol="axle", stream=True)
+attention_launches(G3, srv, g3_launches, g3cfg.n_layers, True)
+check(all(len(t) == 64 for t in g3_toks.values()), f"{G3}: short stream")
+g3_params = srv.params
+parts, weights = replay_profile(srv, f"{G3}, axle", steps_only=True)
+arch_line(f"{G3} full width, axle, streamed, prompts {G3_LENS}, max_new 64, "
+          f"4 slots, max_seq {G3_SEQ}, seg_len 8", srv, g3_toks, dt, parts,
+          weights, t0)
+del srv
+# request 1 (980 tokens, decoding across position 1024) alone in a fresh
+# server == its row in the batch
+alone_srv = BatchedServer(G3, smoke=False, device="cuda", batch_slots=4,
+                          max_seq=G3_SEQ, seg_len=8, params=g3_params,
+                          protocol="axle", stream=True)
+alone_srv.submit(copies(g3_reqs[1:2])[0])
+alone_srv.run_until_drained()
+check(alone_srv.completed[0].generated == g3_toks[1],
+      f"[archs] {G3}: request 1 alone != its row in the batch")
+del alone_srv
+g3_pair = arch_requests(g3cfg.vocab, (1015, 1100), 16, 21)
+srv, toks, launches, dt = serve(g3_pair, params=g3_params, arch=G3,
+                                max_seq=G3_SEQ, protocol="axle", stream=True)
+graph_equals_eager(f"{G3}, axle, prompts 1015 (decoding across 1024) and "
+                   "1100", srv, toks, launches, dt, g3_pair, arch=G3,
+                   max_seq=G3_SEQ, protocol="axle", stream=True)
+del srv
+# logits against the plain path: prompts of W - 2 and W + 76 tokens (W =
+# 1024, the window), then 4 decode steps (row 0 at positions W - 2 ..
+# W + 1, across the window's edge)
+W = g3cfg.sliding_window
+g3_prompts = [r.prompt for r in arch_requests(g3cfg.vocab, (W - 2, W + 76),
+                                              1, 22)]
+g3_kern, g3_feed = kernels_against_plain(
+    f"{G3} (window {W})", g3_prompts, arch_cfg=g3cfg, weights=g3_params,
+    max_seq=G3_SEQ)
+# the window bites: the same weights and tokens with every layer "full"
+# give the same bits while a row's positions lie inside the window (row 0's
+# prefill and its steps at W - 2, W - 1) and other logits past it
+nowin = logits_along(g3_prompts, 4, False, weights=g3_params,
+                     arch_cfg=dataclasses.replace(
+                         g3cfg, block_pattern=("full",) * 6),
+                     max_seq=G3_SEQ, feed=g3_feed)
+inside = [torch.equal(a[0], b[0]) for a, b in zip(g3_kern, nowin)]
+apart = [(a[1] - b[1]).abs().max().item() for a, b in zip(g3_kern, nowin)]
+apart0 = [(a[0] - b[0]).abs().max().item() for a, b in zip(g3_kern, nowin)]
+check(inside == [True, True, True, False, False],
+      f"[archs] {G3}: row 0 equal to the window-free run at (prefill, "
+      f"{W - 2}, {W - 1}, {W}, {W + 1}): {inside}")
+check(all(x > 0 for x in apart), f"[archs] {G3}: row 1 ({W + 76} tokens) "
+      f"not changed by the window: {apart}")
+print(f"[archs] {G3}: the window bites: with every layer \"full\" on the "
+      f"same weights and tokens, row 0 ({W - 2} tokens) keeps its bits at "
+      f"the prefill and at positions {W - 2}, {W - 1} and parts at {W}, "
+      f"{W + 1} (by {apart0[3]:.4g}, {apart0[4]:.4g}); row 1 ({W + 76} "
+      f"tokens) parts at the prefill and every step (by "
+      f"{', '.join(f'{x:.4g}' for x in apart)}); "
+      f"request 1 alone == its row in the batch, bitwise; "
+      f"{G3} phase {time.perf_counter() - t0:.1f} s", flush=True)
+del g3_params, g3_kern, nowin
+
+# mistral_nemo_12b: the ported serve_offload example at full width (3
+# slots, max_seq 128, chunks_per_shard 4, 6 requests x 12 tokens,
+# per-token); bs and axle take the fused branch, rp the partials
+t0 = time.perf_counter()
+torch.cuda.reset_peak_memory_stats()
+so_toks, so_launches, so_dt = {}, {}, {}
+m_params = so_srv = None
+for proto in ("bs", "axle", "rp"):
+    kbuild.reset_launch_counts()     # the capture's warm-up steps count too
+    so_toks[proto], srv, so_dt[proto] = serve_offload.serve_with(
+        proto, device="cuda", full=True, params=m_params)
+    so_launches[proto] = dict(kbuild.LAUNCHES)
+    check(srv.graph_replays == srv.steps and len(so_toks[proto]) == 6
+          and all(len(t) == 12 for t in so_toks[proto].values()),
+          f"[archs] serve_offload {proto}: {srv.graph_replays} replays for "
+          f"{srv.steps} steps, {len(so_toks[proto])} requests")
+    fused, part = (so_launches[proto][k] for k in (
+        "decode_attention_fused", "decode_attention_partial"))
+    check((part == 0 and fused > 0
+           and so_launches[proto]["decode_attention_fused_tc"] == fused)
+          if proto != "rp" else
+          (fused == 0 and part > 0
+           and so_launches[proto]["decode_attention_partial_tc"] == part),
+          f"[archs] serve_offload {proto}: launches {so_launches[proto]}")
+    m_params = srv.params
+    if proto == "axle":
+        so_srv = srv
+    del srv
+check(so_toks["bs"] == so_toks["axle"],
+      "[archs] serve_offload: bs != axle (the same fused branch)")
+mcfg_m = get_config(serve_offload.ARCH)
+rp_vs = near_tie_agrees("serve_offload rp vs bs", so_toks["rp"],
+                        so_toks["bs"], so_srv.completed, arch_cfg=mcfg_m,
+                        weights=m_params, max_seq=128)
+parts, weights = replay_profile(so_srv, f"{serve_offload.ARCH}, axle "
+                                "(serve_offload)", steps_only=True)
+n_tok = sum(len(t) for t in so_toks["axle"].values())
+print(f"[archs] {serve_offload.ARCH} full width, the serve_offload example "
+      f"(3 slots, max_seq 128, chunks_per_shard 4, 6 requests x 12 tokens, "
+      f"per-token): bs == axle bitwise; rp {rp_vs} bs; tok/s bs "
+      f"{n_tok / so_dt['bs']:.1f}, axle {n_tok / so_dt['axle']:.1f}, rp "
+      f"{n_tok / so_dt['rp']:.1f}; launches (the capture's warm-up steps "
+      "included): " + "; ".join(
+          f"{p} { {k: v for k, v in so_launches[p].items() if v} }"
+          for p in ("bs", "axle", "rp")), flush=True)
+arch_line(f"{serve_offload.ARCH} (serve_offload, axle)", so_srv,
+          so_toks["axle"], so_dt["axle"], parts, weights, t0)
+del so_srv, m_params
+
+# opt_2_7b (MHA, hd 80: the CUDA-core kernels), minitron_4b, qwen2_vl_2b
+# (M-RoPE): 4 requests of 64-400 tokens, max_new 32, 4 slots, max_seq 1024
+arch_launches = {}
+for arch, seed in (("opt_2_7b", 30), ("minitron_4b", 31),
+                   ("qwen2_vl_2b", 32)):
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    acfg = get_config(arch)
+    tc = acfg.head_dim_ in fa.TC_HEAD_DIMS
+    lens = tuple(int(n) for n in np.random.default_rng(seed).integers(
+        64, 401, 4))
+    a_reqs = arch_requests(acfg.vocab, lens, 32, seed)
+    srv, a_toks, launches, dt = serve(a_reqs, arch=arch, protocol="axle",
+                                      stream=True)
+    attention_launches(arch, srv, launches, acfg.n_layers, tc)
+    check(all(len(t) == 32 for t in a_toks.values()), f"{arch}: short "
+          "stream")
+    arch_launches[arch] = launches
+    a_params = srv.params
+    parts, weights = replay_profile(srv, f"{arch}, axle", steps_only=True)
+    arch_line(f"{arch} full width, axle, streamed, prompts {lens}, max_new "
+              f"32, 4 slots, max_seq {S}, seg_len 8, the "
+              f"{'tensor' if tc else 'CUDA'}-core attention kernels", srv,
+              a_toks, dt, parts, weights, t0)
+    del srv
+    kernels_against_plain(arch, [r.prompt for r in a_reqs[:2]],
+                          arch_cfg=acfg, weights=a_params)
+    if arch == "opt_2_7b":
+        # its own self:8 draft on 2 requests: the spec tokens == the
+        # non-spec twin's whose decode runs at the verify's row count
+        o_pair = arch_requests(acfg.vocab, (100, 200), 16, 33)
+        sp_srv, sp_toks, sp_launches, sp_dt = serve(
+            copies(o_pair), params=a_params, arch=arch, protocol="axle",
+            stream=True, **SPEC)
+        rounds = spec_rounds(sp_srv)
+        d_layers = sp_srv.draft_cfg.n_layers
+        own = int(acfg.draft_arch.split(":")[1]) * len(acfg.block_pattern)
+        check(d_layers == own, f"[archs] {arch}: a draft of {d_layers} "
+              f"layers, not its own {acfg.draft_arch}")
+        check(sp_launches["decode_attention_fused"]
+              == rounds * (SPEC_K + 1) * (d_layers + acfg.n_layers)
+              and sp_launches["decode_attention_fused_tc"] == 0,
+              f"[archs] {arch} spec launches {sp_launches}")
+        twin = padded_twin(o_pair, params=a_params, arch=arch,
+                           protocol="axle", stream=True)
+        check(sp_toks == twin, f"[archs] {arch}: spec tokens != the padded "
+              "non-spec twin's")
+        rate = sp_srv.draft_accepted / max(1, sp_srv.draft_proposed)
+        print(f"[archs] {arch}, its self:{d_layers} draft, spec_k {SPEC_K}, 2 "
+              f"requests x 16 tokens: {rounds} rounds, accept rate "
+              f"{rate:.4f}, {sum(len(t) for t in sp_toks.values()) / sp_dt:.1f}"
+              f" tok/s; tokens == the non-spec twin's at the verify's row "
+              f"count, bitwise; fused launches "
+              f"{sp_launches['decode_attention_fused']} = {rounds} x "
+              f"{SPEC_K + 1} x ({d_layers} + {acfg.n_layers}), none on the "
+              "tensor cores", flush=True)
+        del sp_srv
+    del a_params
+print(f"[archs] the five archs took {time.perf_counter() - ARCHS_T0:.1f} s; "
+      f"{time.perf_counter() - T_START:.0f} s into the script", flush=True)
+
+# --------------------------------------------------------------------------
 # 7. result
 # --------------------------------------------------------------------------
 
@@ -2350,6 +2862,10 @@ for fmt, counts in (("q8_0", quant_launches), ("q4_k", q4_launches)):
     name = f"quant_matmul[{fmt}]"
     records[name]["launches"] = counts[name + "_skinny"]
 records["knn_distances"]["launches"] = knn_launches["knn_distances"]
+for name, counts in (("[hd256]", g3_launches),
+                     ("[hd80]", arch_launches["opt_2_7b"])):
+    for fn in ("flash_attention", "decode_attention_fused"):
+        records[fn + name]["launches"] = counts[fn]
 records["sls"]["launches"] = sls_launches["sls"]
 for name, rec in records.items():
     check(rec["launches"] > 0, f"{name} never launched on the main path")

@@ -23,12 +23,11 @@ ARCH_IDS = (
     "opt_2_7b",
 )
 
-PORTED = ("starcoder2_3b", "mamba2_370m")
+PORTED = ("starcoder2_3b", "mamba2_370m", "gemma3_12b", "mistral_nemo_12b",
+          "opt_2_7b", "minitron_4b", "qwen2_vl_2b")
 
 # ROADMAP.md queue 1 items that port each arch not yet ported
 _ROADMAP_ITEM = {
-    "gemma3_12b": "item 9", "mistral_nemo_12b": "item 9",
-    "opt_2_7b": "item 9", "minitron_4b": "item 9", "qwen2_vl_2b": "item 9",
     "granite_moe_3b": "item 10", "phi3_5_moe_42b": "item 10",
     # hybrid: its mamba layers are ported, its MoE layers are not
     "jamba_1_5_large": "items 10 and 12",

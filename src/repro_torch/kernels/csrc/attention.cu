@@ -18,16 +18,16 @@
 //       (acc, m, l) of a KV chunk under an explicit (B, C) mask, m = -inf
 //       for an empty row.  The KV range is split across blocks at fixed
 //       logical rows and merged in split order (see the note above the
-//       kernels); the split runs on the tensor cores for bf16 q with HD 64
-//       or 128 and at most 16 query heads per KV head, on the CUDA cores
-//       for the rest (f32).
+//       kernels); the split runs on the tensor cores for bf16 q with HD 64,
+//       128 or 256 and at most 16 query heads per KV head, on the CUDA
+//       cores for the rest (f32, and other head dims such as 80).
 //   flash_kernel          <- _flash_kernel / flash_attention
 //       Causal / sliding-window GQA prefill attention with online softmax,
 //       on the CUDA cores in f32: the kernel for f32 inputs and for head
 //       dims the tensor-core kernel does not take.
 //   flash_tc_kernel<HD>   <- _flash_kernel / flash_attention
-//       The same function on the tensor cores, for bf16 with HD 64 or
-//       128 (see its own note below).
+//       The same function on the tensor cores, for bf16 with HD 64, 128
+//       or 256 (see its own note below).
 //
 // Translation from the TPU: the Pallas grids run their innermost KV axis in
 // order on one core and carry (acc, m, l) in VMEM scratch between grid
@@ -223,7 +223,8 @@ __global__ void __launch_bounds__(NT) flash_kernel(FlashArgs a) {
 }
 
 // --------------------------------------------------------------------------
-// Prefill on the tensor cores: flash_tc_kernel<HD>, bf16, HD 64 or 128.
+// Prefill on the tensor cores: flash_tc_kernel<HD>, bf16, HD 64, 128 or
+// 256.
 //
 // The FlashAttention-2 layout.  One block of 4 warps per (row b, head h,
 // q tile of 64 rows); each warp owns 16 query rows.  The q tiles are
@@ -263,11 +264,39 @@ __global__ void __launch_bounds__(NT) flash_kernel(FlashArgs a) {
 // What bounds it: at a prefill of S = 512 one block's serial chain of
 // S / 64 KV tiles does, not the card's throughput (the same prompt with
 // one block per SM takes ~3/4 of the full grid's time; PERF.md).
+//
+// HD 256 (gemma3_12b) keeps the layout but not the register budget: a
+// warp's 16 x 256 O accumulator is 128 f32 a thread, and Q's fragments
+// held for the whole loop would add 64 more, past the 255-register cap
+// once S, the K fragments and the addresses are counted.  So at HD 256
+// Q's fragments are read again from the Q tile with ldmatrix at each k
+// step (one more ldmatrix per 2 mmas), and the KV tile is 32 rows
+// (tc_bk), which halves S and the K fragments; the ring then takes 101 KB
+// of shared memory, two blocks to an SM.  HD 64 and 128 compile as
+// before.
 // --------------------------------------------------------------------------
 
 constexpr int TC_BQ = 64;            // query rows per block (16 per warp)
 constexpr int TC_BK = 64;            // KV rows per tile
 constexpr int TC_NT = 128;           // 4 warps
+
+// KV rows per tile of flash_tc_kernel<HD>: TC_BK, halved at HD 256
+template <int HD>
+__host__ __device__ constexpr int tc_bk() { return HD > 128 ? TC_BK / 2 : TC_BK; }
+
+// The max and the sum of 2 or 4 partial values, as a tree
+template <int N>
+__device__ __forceinline__ float tree_max(const float (&t)[N]) {
+  static_assert(N == 2 || N == 4, "2 or 4 values");
+  if constexpr (N == 4) return fmaxf(fmaxf(t[0], t[1]), fmaxf(t[2], t[3]));
+  else return fmaxf(t[0], t[1]);
+}
+template <int N>
+__device__ __forceinline__ float tree_sum(const float (&t)[N]) {
+  static_assert(N == 2 || N == 4, "2 or 4 values");
+  if constexpr (N == 4) return (t[0] + t[1]) + (t[2] + t[3]);
+  else return t[0] + t[1];
+}
 
 // The split of two f32 weights into bf16 hi = bf16(x) and lo =
 // bf16(x - hi) halves, each pair packed (x in bits 0-15).
@@ -286,15 +315,16 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // One KV tile's online softmax for a thread's two rows (qpos), in
-// registers.  s holds the raw scores of its 8 n-tiles on entry (element e
+// registers.  s holds the raw scores of its NJ n-tiles (8 KV rows each; 8,
+// or 4 at HD 256) on entry (element e
 // of n-tile j: row qpos[e >> 1], column c0 + 8 j + (e & 1)) and the
 // weights p on exit.  Scores are taken in log2 units, s * hd^-0.5 *
 // log2(e), so that p = 2^(s2 - m) is one ex2; (m, l) are reduced over the
 // quad with shuffles, l kept as this thread's partial sum.  MASK: apply
 // the causal, window and ragged-S masks (a tile the rows see only partly).
 // A row with no valid score yet keeps l = 0 and o = 0 whatever its m.
-template <bool MASK>
-__device__ __forceinline__ void tile_softmax(float (&s)[8][4], float (&m_r)[2],
+template <bool MASK, int NJ>
+__device__ __forceinline__ void tile_softmax(float (&s)[NJ][4], float (&m_r)[2],
                                              float (&l_r)[2], float (&alpha)[2],
                                              const int (&qpos)[2], int c0,
                                              const FlashArgs& a, float scale2) {
@@ -309,7 +339,7 @@ __device__ __forceinline__ void tile_softmax(float (&s)[8][4], float (&m_r)[2],
   // the max over the raw scores (scale2 > 0 keeps their order), as a tree
   if (MASK) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         if (!valid(j, e)) s[j][e] = NEG_INF;
@@ -317,12 +347,12 @@ __device__ __forceinline__ void tile_softmax(float (&s)[8][4], float (&m_r)[2],
   float mx[2], rsum[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    float t4[4];
+    float t4[NJ / 2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < NJ / 2; ++j)
       t4[j] = fmaxf(fmaxf(s[2 * j][2 * i], s[2 * j][2 * i + 1]),
                     fmaxf(s[2 * j + 1][2 * i], s[2 * j + 1][2 * i + 1]));
-    mx[i] = fmaxf(fmaxf(t4[0], t4[1]), fmaxf(t4[2], t4[3]));
+    mx[i] = tree_max(t4);
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -333,18 +363,18 @@ __device__ __forceinline__ void tile_softmax(float (&s)[8][4], float (&m_r)[2],
     m_r[i] = m_new;
   }
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       s[j][e] = valid(j, e) ? ex2(fmaf(s[j][e], scale2, -m_r[e >> 1])) : 0.f;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    float t4[4];
+    float t4[NJ / 2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < NJ / 2; ++j)
       t4[j] = (s[2 * j][2 * i] + s[2 * j][2 * i + 1]) +
               (s[2 * j + 1][2 * i] + s[2 * j + 1][2 * i + 1]);
-    rsum[i] = (t4[0] + t4[1]) + (t4[2] + t4[3]);
+    rsum[i] = tree_sum(t4);
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) l_r[i] = l_r[i] * alpha[i] + rsum[i];
@@ -358,11 +388,14 @@ __host__ __device__ constexpr int tc_row_bytes() { return (HD + 8) * 2; }
 
 template <int HD>
 __global__ void __launch_bounds__(TC_NT) flash_tc_kernel(FlashArgs a) {
-  static_assert(HD % 64 == 0, "HD: 64 or 128");
+  static_assert(HD == 64 || HD == 128 || HD == 256, "HD: 64, 128 or 256");
   constexpr int CH = HD / 8;             // 16-byte chunks per row
   constexpr int KSTEP = HD / 16;         // k steps of Q K^T; n-tile pairs of P V
   constexpr int RB = tc_row_bytes<HD>();
-  constexpr int TILE_B = TC_BK * RB;     // one K or V tile
+  constexpr int BK = tc_bk<HD>();        // KV rows per tile
+  constexpr int NJ = BK / 8;             // n-tiles of S
+  constexpr bool Q_REGS = HD <= 128;     // Q's fragments held in registers
+  constexpr int TILE_B = BK * RB;        // one K or V tile
   constexpr int RPI = TC_NT / CH;        // rows one pass of copies covers
   extern __shared__ __align__(128) unsigned char smem_raw[];
   // Q tile (later the output tile), then 2 stages of (K tile, V tile)
@@ -392,8 +425,8 @@ __global__ void __launch_bounds__(TC_NT) flash_tc_kernel(FlashArgs a) {
   auto load_kv = [&](int t, int stage) {
     const uint32_t dst = kv_sa + stage * 2 * TILE_B + cp_off;
 #pragma unroll
-    for (int i = 0; i < TC_BK / RPI; ++i) {
-      const int kpos = t * TC_BK + cr + RPI * i;
+    for (int i = 0; i < BK / RPI; ++i) {
+      const int kpos = t * BK + cr + RPI * i;
       const bool ok = kpos < S;
       const size_t off = (size_t)(ok ? kpos : 0) * kv_row;
       cp_async16(dst + i * RPI * RB, kg + off, ok);
@@ -404,7 +437,7 @@ __global__ void __launch_bounds__(TC_NT) flash_tc_kernel(FlashArgs a) {
   const int q_last = min(q0 + TC_BQ, S) - 1;
   const int k_hi = a.causal ? q_last + 1 : S;                       // exclusive
   const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;   // inclusive
-  const int t_lo = k_lo / TC_BK, t_hi = (k_hi + TC_BK - 1) / TC_BK;
+  const int t_lo = k_lo / BK, t_hi = (k_hi + BK - 1) / BK;
   load_kv(t_lo, 0);
   cp_async_commit();                    // Q and the first K/V tile
   cp_async_wait<0>();
@@ -412,11 +445,12 @@ __global__ void __launch_bounds__(TC_NT) flash_tc_kernel(FlashArgs a) {
 
   // ldmatrix.x4: lanes 8m..8m+7 give the row addresses of matrix m
   const int mi = lane >> 3, l7 = lane & 7;
-  // Q's A fragments: a0..a3 = (rows 0-7 | 8-15) x (k 0-7 | 8-15)
-  uint32_t qf[KSTEP][4];
-  {
-    const uint32_t qa =
-        q_sa + (warp * 16 + (mi & 1) * 8 + l7) * RB + (mi >> 1) * 16;
+  // Q's A fragments: a0..a3 = (rows 0-7 | 8-15) x (k 0-7 | 8-15); held in
+  // registers (Q_REGS) or read again at each k step (HD 256)
+  const uint32_t qa =
+      q_sa + (warp * 16 + (mi & 1) * 8 + l7) * RB + (mi >> 1) * 16;
+  uint32_t qf[Q_REGS ? KSTEP : 1][4];
+  if constexpr (Q_REGS) {
 #pragma unroll
     for (int kk = 0; kk < KSTEP; ++kk) ldsm_x4(qa + kk * 32, qf[kk]);
   }
@@ -450,36 +484,47 @@ __global__ void __launch_bounds__(TC_NT) flash_tc_kernel(FlashArgs a) {
 
     // the masks apply only where the tile is not wholly inside every
     // row's range for this warp's 16 rows
-    const int c0 = t * TC_BK + 2 * (lane & 3);
-    const int w_lo = q0 + warp * 16, k_last = t * TC_BK + TC_BK - 1;
+    const int c0 = t * BK + 2 * (lane & 3);
+    const int w_lo = q0 + warp * 16, k_last = t * BK + BK - 1;
     const bool full = k_last < S && (!a.causal || k_last <= w_lo) &&
-                      (a.window <= 0 || t * TC_BK > w_lo + 15 - a.window);
+                      (a.window <= 0 || t * BK > w_lo + 15 - a.window);
 
-    // S = Q K^T: 8 n-tiles of 8 KV rows
-    float s[8][4];
+    // S = Q K^T: NJ n-tiles of 8 KV rows
+    float s[NJ][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
     {
       // K fragments double-buffered over k steps: step kk + 1's loads are
       // in flight while step kk's mmas run
-      uint32_t kb[2][4][4];
+      uint32_t kb[2][NJ / 2][4];
 #pragma unroll
-      for (int p = 0; p < 4; ++p)
+      for (int p = 0; p < NJ / 2; ++p)
         ldsm_x4(st_sa + k_off + p * 16 * RB, kb[0][p]);
 #pragma unroll
       for (int kk = 0; kk < KSTEP; ++kk) {
         if (kk + 1 < KSTEP) {
 #pragma unroll
-          for (int p = 0; p < 4; ++p)
+          for (int p = 0; p < NJ / 2; ++p)
             ldsm_x4(st_sa + k_off + p * 16 * RB + (kk + 1) * 32,
                     kb[(kk + 1) & 1][p]);
         }
+        if constexpr (Q_REGS) {
 #pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          mma_bf16(s[2 * p], qf[kk], kb[kk & 1][p][0], kb[kk & 1][p][1]);
-          mma_bf16(s[2 * p + 1], qf[kk], kb[kk & 1][p][2], kb[kk & 1][p][3]);
+          for (int p = 0; p < NJ / 2; ++p) {
+            mma_bf16(s[2 * p], qf[kk], kb[kk & 1][p][0], kb[kk & 1][p][1]);
+            mma_bf16(s[2 * p + 1], qf[kk], kb[kk & 1][p][2],
+                     kb[kk & 1][p][3]);
+          }
+        } else {
+          uint32_t qk[4];
+          ldsm_x4(qa + kk * 32, qk);
+#pragma unroll
+          for (int p = 0; p < NJ / 2; ++p) {
+            mma_bf16(s[2 * p], qk, kb[kk & 1][p][0], kb[kk & 1][p][1]);
+            mma_bf16(s[2 * p + 1], qk, kb[kk & 1][p][2], kb[kk & 1][p][3]);
+          }
         }
       }
     }
@@ -487,19 +532,19 @@ __global__ void __launch_bounds__(TC_NT) flash_tc_kernel(FlashArgs a) {
     // the online softmax
     float alpha[2];
     if (full)
-      tile_softmax<false>(s, m_r, l_r, alpha, qpos, c0, a, scale2);
+      tile_softmax<false, NJ>(s, m_r, l_r, alpha, qpos, c0, a, scale2);
     else
-      tile_softmax<true>(s, m_r, l_r, alpha, qpos, c0, a, scale2);
+      tile_softmax<true, NJ>(s, m_r, l_r, alpha, qpos, c0, a, scale2);
 #pragma unroll
     for (int j = 0; j < 2 * KSTEP; ++j) {
       o[j][0] *= alpha[0]; o[j][1] *= alpha[0];
       o[j][2] *= alpha[1]; o[j][3] *= alpha[1];
     }
 
-    // O += P V over 4 k steps of 16 KV rows; P's A fragment for k step kk
-    // is n-tiles 2kk and 2kk+1 of S, split into bf16 hi and lo
+    // O += P V over NJ / 2 k steps of 16 KV rows; P's A fragment for k
+    // step kk is n-tiles 2kk and 2kk+1 of S, split into bf16 hi and lo
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < NJ / 2; ++kk) {
       uint32_t ph[4], pl[4];
       split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
       split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
@@ -556,7 +601,7 @@ __global__ void __launch_bounds__(TC_NT) flash_tc_kernel(FlashArgs a) {
 
 // --------------------------------------------------------------------------
 // Decode, split over the KV sequence: decode_split_tc_kernel (bf16 q, bf16
-// or int8 pools, HD 64 / 128, G <= 16) or decode_split_kernel (the rest),
+// or int8 pools, HD 64 / 128 / 256, G <= 16) or decode_split_kernel (the rest),
 // then decode_merge_kernel.
 //
 // The grid is (B * KH, n_split): block (b kh, j) owns the logical KV rows
@@ -788,10 +833,13 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(DecodeArgs a) {
 //     other warps' through shared memory in warp order.
 // What bounds it: at the main path's shapes (a 64-row split, 32 KB of K/V
 // in bf16) one block's latency: its copies, then ~50 mmas per warp and
-// three block barriers.  The merge is a second, small launch.
+// three block barriers.  The merge is a second, small launch.  At HD 256 the
+// layout is the same: Q's fragments are already read per k step, and the
+// warp's O (128 f32 a thread) is the one large register array; the 4 x 16
+// f32 rows of the O reduction fill the K and V tiles exactly.
 template <int HD, typename KV, bool PARTIAL>
 __global__ void __launch_bounds__(DS_NT) decode_split_tc_kernel(DecodeArgs a) {
-  static_assert(HD % 64 == 0, "HD: 64 or 128");
+  static_assert(HD == 64 || HD == 128 || HD == 256, "HD: 64, 128 or 256");
   constexpr bool I8 = std::is_same<KV, int8_t>::value;
   constexpr int RB = tc_row_bytes<HD>();       // padded bf16 row
   constexpr int CH = HD / 8;                   // 16-byte chunks, bf16 row
@@ -1073,7 +1121,7 @@ constexpr size_t decode_tc_smem() {
 }
 
 // The split kernel on the grid (B * KH, n_split), then the merge on B * H
-// blocks.  tc: the tensor-core split (bf16 q, HD 64 or 128, G <= 16);
+// blocks.  tc: the tensor-core split (bf16 q, HD 64, 128 or 256, G <= 16);
 // anything else it is asked for is refused with cudaErrorInvalidValue.
 template <typename T, typename KV, bool PARTIAL>
 int run_decode(const DecodeArgs& a, int B, int tc, cudaStream_t stream) {
@@ -1083,12 +1131,15 @@ int run_decode(const DecodeArgs& a, int B, int tc, cudaStream_t stream) {
   if (tc) {
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
       constexpr bool I8 = std::is_same<KV, int8_t>::value;
-      if (a.H / a.KH > DS_GMAX || (a.HD != 64 && a.HD != 128))
+      if (a.H / a.KH > DS_GMAX ||
+          (a.HD != 64 && a.HD != 128 && a.HD != 256))
         return (int)cudaErrorInvalidValue;
-      auto kernel = a.HD == 128 ? decode_split_tc_kernel<128, KV, PARTIAL>
-                                : decode_split_tc_kernel<64, KV, PARTIAL>;
-      const size_t smem = a.HD == 128 ? decode_tc_smem<128, I8>()
-                                      : decode_tc_smem<64, I8>();
+      auto kernel = a.HD == 256   ? decode_split_tc_kernel<256, KV, PARTIAL>
+                    : a.HD == 128 ? decode_split_tc_kernel<128, KV, PARTIAL>
+                                  : decode_split_tc_kernel<64, KV, PARTIAL>;
+      const size_t smem = a.HD == 256   ? decode_tc_smem<256, I8>()
+                          : a.HD == 128 ? decode_tc_smem<128, I8>()
+                                        : decode_tc_smem<64, I8>();
       err = allow_smem(kernel, smem);
       if (err != cudaSuccess) return (int)err;
       kernel<<<grid, DS_NT, smem, stream>>>(a);
@@ -1132,7 +1183,7 @@ int run_flash(const FlashArgs& a, int B, cudaStream_t stream) {
 
 template <int HD>
 int run_flash_tc(const FlashArgs& a, int B, cudaStream_t stream) {
-  const size_t smem = (size_t)(TC_BQ + 4 * TC_BK) * tc_row_bytes<HD>();
+  const size_t smem = (size_t)(TC_BQ + 4 * tc_bk<HD>()) * tc_row_bytes<HD>();
   auto kernel = flash_tc_kernel<HD>;
   dim3 grid(B * a.H, (a.S + TC_BQ - 1) / TC_BQ);
   cudaError_t err = allow_smem(kernel, smem);
@@ -1201,7 +1252,7 @@ int rt_flash_attention(int dtype, const void* q, const void* k, const void* v,
                     : run_flash<float>(a, B, s);
 }
 
-// bf16 only, HD 64 or 128, 16-byte-aligned bases (the wrapper's route);
+// bf16 only, HD 64, 128 or 256, 16-byte-aligned bases (the wrapper's route);
 // any other HD is refused with cudaErrorInvalidValue.
 int rt_flash_attention_tc(const void* q, const void* k, const void* v,
                           void* out, int B, int S, int H, int KH, int HD,
@@ -1211,6 +1262,7 @@ int rt_flash_attention_tc(const void* q, const void* k, const void* v,
   a.S = S; a.H = H; a.KH = KH; a.HD = HD; a.causal = causal;
   a.window = window; a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (HD == 256) return run_flash_tc<256>(a, B, s);
   if (HD == 128) return run_flash_tc<128>(a, B, s);
   if (HD == 64) return run_flash_tc<64>(a, B, s);
   return (int)cudaErrorInvalidValue;

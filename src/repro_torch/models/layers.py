@@ -1,7 +1,8 @@
 """Model layers of the ported serve paths, from `repro/models/layers.py`:
-norm, rotary embedding, the decode token's own attention partial, the
-partial merge, the gated MLP, and the Mamba2 single-token SSD step and
-causal depthwise conv (plain XLA in the reference, plain torch here).
+norm, rotary embedding (and Qwen2-VL's multimodal M-RoPE), the decode
+token's own attention partial, the partial merge, the gated MLP, and the
+Mamba2 single-token SSD step and causal depthwise conv (plain XLA in the
+reference, plain torch here).
 
 Conventions as in the reference: activations x (B, S, D) in the model
 dtype; attention q (B, S, H, hd), k/v (B, S, KH, hd); softmax and norm
@@ -48,6 +49,43 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL multimodal rotary: x (B, S, H, hd); positions3 (B, S, 3) =
+    (t, h, w) indices.  The hd/2 frequency bands are partitioned into
+    `sections` (t/h/w): each band rotates by the position of its own
+    stream, selected by a one-hot product in float32 (exact), with the
+    angles and the rotation in float32 and the output in x's dtype.  The
+    band map is built with device ops only, so the decode can run inside a
+    captured CUDA graph."""
+    hd = x.shape[-1]
+    assert sum(sections) == hd // 2, (sections, hd)
+    freqs = rope_freqs(hd, theta, x.device)              # (hd/2,)
+    band = torch.arange(hd // 2, device=x.device)
+    sec_ids = ((band >= sections[0]).long()
+               + (band >= sections[0] + sections[1]).long())   # {0,1,2}
+    # select, per frequency band, which of the three position streams
+    # applies
+    sel = F.one_hot(sec_ids, 3).float()                  # (hd/2, 3)
+    pos = torch.einsum("bst,ht->bsh", positions3.float(), sel)
+    angles = pos * freqs                                  # (B,S,hd/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def default_mrope_positions(batch: int, seq: int,
+                            device: Optional[torch.device] = None
+                            ) -> torch.Tensor:
+    """Stub 3D positions for the VLM backbone: text tokens use (i, i, i) as
+    in Qwen2-VL; a vision frontend would supply real (t, h, w).  Returns
+    (batch, seq, 3) int32."""
+    i = torch.arange(seq, dtype=torch.int32, device=device)
+    return i[None, :, None].expand(batch, seq, 3)
 
 
 def single_kv_partial(q: torch.Tensor, k_new: torch.Tensor,

@@ -8,7 +8,7 @@ Parameters keep the reference's pytree layout, with the per-layer leaves
 stacked over `n_blocks`:
 
     {"embed": (V, D), "final_ln": (D,),
-     "blocks": [{"attn": {ln, wq, wk, wv, wo}       # a "full" position
+     "blocks": [{"attn": {ln, wq, wk, wv, wo}       # a "full" or "local"
                  | "mamba": {ln, w_z, w_x, w_B, w_C, w_dt, dt_bias, A_log,
                              D, conv_w, out_proj},  # a "mamba" position
                  "ffn": {ln, w_gate, w_up, w_down}}]}   # when d_ff > 0
@@ -48,13 +48,22 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    """The layer kinds ported so far: full attention, mamba, dense MLP."""
-    if (cfg.enc_dec or cfg.is_moe or cfg.mrope
-            or any(k not in ("full", "mamba") for k in cfg.block_pattern)):
+    """The layer kinds ported so far: full and sliding-window ("local")
+    attention, with RoPE or M-RoPE, mamba, dense MLP."""
+    if (cfg.enc_dec or cfg.is_moe
+            or any(k not in ("full", "local", "mamba")
+                   for k in cfg.block_pattern)):
         raise NotImplementedError(
-            f"{cfg.arch_id}: only decoders of full-attention and mamba "
-            "layers with dense MLPs are ported (ROADMAP.md queue 1 items "
-            "9-13)")
+            f"{cfg.arch_id}: only decoders of full, sliding-window and "
+            "mamba layers with dense MLPs are ported (MoE is ROADMAP.md "
+            "queue 1 item 10, enc-dec item 13)")
+
+
+def _window(cfg: ArchConfig, kind: str) -> int:
+    """The attention window of a layer kind, as the reference passes it:
+    `sliding_window` for a "local" layer (a query attends itself and the
+    window - 1 slots before it), 0 (no lower bound) for a "full" one."""
+    return cfg.sliding_window if kind == "local" else 0
 
 
 # --------------------------------------------------------------------------
@@ -208,9 +217,22 @@ def _qkv(cfg: ArchConfig, p: Params, x: torch.Tensor,
     q = matmul(hx, p["wq"]).reshape(b, s, h, hd)
     k = matmul(hx, p["wk"]).reshape(b, s, kh, hd)
     v = matmul(hx, p["wv"]).reshape(b, s, kh, hd)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope:
+        # text positions on all three streams (the vision frontend, which
+        # would give image tokens their own (t, h, w), is not served)
+        pos3 = positions[..., None].expand(positions.shape + (3,))
+        q = L.apply_mrope(q, pos3, cfg.rope_theta, _mrope_sections(hd))
+        k = L.apply_mrope(k, pos3, cfg.rope_theta, _mrope_sections(hd))
+    else:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _mrope_sections(hd: int) -> Tuple[int, int, int]:
+    half = hd // 2
+    t = half - 2 * (half // 4)
+    return (t, half // 4, half // 4)
 
 
 def ffn_layer(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -281,7 +303,7 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int, *,
     dt = _dtype(dtype or cfg.dtype)
     nb, kh, hd = cfg.n_blocks, cfg.n_kv_heads, cfg.head_dim_
     ps = 0
-    if "full" in cfg.block_pattern:
+    if cfg.has_attention:
         ps = page_size or default_page_size(max_seq)
         assert max_seq % ps == 0, (max_seq, ps)
     kv_dt = torch.int8 if kv_quant else dt
@@ -329,20 +351,24 @@ def cache_page_size(cache: Dict[str, Any]) -> int:
 def _decode_attn(cfg: ArchConfig, p: Params, x: torch.Tensor,
                  k_cache: torch.Tensor, v_cache: torch.Tensor,
                  pos: torch.Tensor, pages: Optional[torch.Tensor],
-                 kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                 = None
+                 kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                 kind: str
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token attention against one layer's cache (B,KH,S,hd), int8
     pools when `kv_scales` (B,KH,n_pages) are given.  The cache is
     READ-ONLY here: it holds tokens [0, pos), and the current token's own
     contribution arrives as the merged `extra` partial, always fp (its
     K/V is not written yet); the returned (k_new, v_new) (B,KH,1,hd) are
-    written for all layers after the layer loop."""
+    written for all layers after the layer loop.  A "local" layer of
+    window W reads the W - 1 cached slots before pos (window W - 1 against
+    the clock pos - 1, as the reference passes it), which with the
+    current token are the W tokens the prefill's window W gives a query."""
     b = x.shape[0]
     positions = pos.reshape(-1, 1).expand(b, 1).to(torch.int32)
     q, k_new, v_new = _qkv(cfg, p, x, positions)
     extra = L.single_kv_partial(q, k_new, v_new)
-    o = decode_attention_combined(q, k_cache, v_cache, pos - 1, window=0,
+    o = decode_attention_combined(q, k_cache, v_cache, pos - 1,
+                                  window=max(0, _window(cfg, kind) - 1),
                                   extra=extra, pages=pages,
                                   kv_scales=kv_scales)
     o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim_)
@@ -427,7 +453,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
                 x, knew, vnew = _decode_attn(cfg, p["attn"], x,
                                              cache[f"k{pi}"][i],
                                              cache[f"v{pi}"][i], pos, pages,
-                                             kv_scales)
+                                             kv_scales, kind)
                 new_kv.setdefault(f"k{pi}", []).append(knew)
                 new_kv.setdefault(f"v{pi}", []).append(vnew)
             if cfg.d_ff > 0:
@@ -462,7 +488,8 @@ def _verify_attn(cfg: ArchConfig, p: Params, x: torch.Tensor,
                  k_cache: torch.Tensor, v_cache: torch.Tensor,
                  pos: torch.Tensor, pages: Optional[torch.Tensor],
                  kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]],
-                 write_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                 write_mask: Optional[torch.Tensor],
+                 kind: str) -> torch.Tensor:
     """T-position attention of the verify forward against one layer's
     cache (1, B, KH, S, hd), int8 pools when `kv_scales` (1, B, KH,
     n_pages) are given: x (B, T, D) is row b's current token and T-1
@@ -477,8 +504,8 @@ def _verify_attn(cfg: ArchConfig, p: Params, x: torch.Tensor,
     clock pos + j - 1, so of the fresh rows it sees exactly the j before
     it, and its own K/V arrives as the merged extra partial: each of the
     T calls is the one-token `_decode_attn` call of a sequential decode
-    at position pos + j.  A masked row's outputs read its old rows; the
-    segment discards them."""
+    at position pos + j, with that call's window.  A masked row's outputs
+    read its old rows; the segment discards them."""
     b, t, _ = x.shape
     positions = pos[:, None] + torch.arange(t, dtype=torch.int32,
                                             device=x.device)[None]
@@ -492,13 +519,14 @@ def _verify_attn(cfg: ArchConfig, p: Params, x: torch.Tensor,
     else:
         verify_kv_update(k_cache, k_new[None], pos, write_mask, pages)
         verify_kv_update(v_cache, v_new[None], pos, write_mask, pages)
+    window = max(0, _window(cfg, kind) - 1)
     outs = []
     for j in range(t):
         qj = q[:, j:j + 1].contiguous()
         extra = L.single_kv_partial(qj, k_new[:, j:j + 1],
                                     v_new[:, j:j + 1])
         outs.append(decode_attention_combined(
-            qj, k_cache[0], v_cache[0], pos + (j - 1), window=0,
+            qj, k_cache[0], v_cache[0], pos + (j - 1), window=window,
             extra=extra, pages=pages, kv_scales=kv_scales))
     o = torch.cat(outs, dim=1).reshape(b, t, cfg.n_heads * cfg.head_dim_)
     return x + matmul(o, p["wo"])
@@ -584,7 +612,7 @@ def decode_verify(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
                 x = _verify_attn(cfg, p["attn"], x,
                                  cache[f"k{pi}"][i:i + 1],
                                  cache[f"v{pi}"][i:i + 1], pos, pages,
-                                 kv_scales, write_mask)
+                                 kv_scales, write_mask, kind)
             if cfg.d_ff > 0:
                 x = ffn_layer(cfg, p["ffn"], x)
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
@@ -698,7 +726,8 @@ def prefill_into_cache(cfg: ArchConfig, params: Params,
                 cache[f"ssm{pi}"][i, row] = ssm_s[0]
             else:
                 q, k, v = _qkv(cfg, p["attn"], x, positions)
-                o = ops.flash_attention(q, k, v, causal=True, window=0)
+                o = ops.flash_attention(q, k, v, causal=True,
+                                        window=_window(cfg, kind))
                 o = o.reshape(1, p_len, cfg.n_heads * cfg.head_dim_)
                 x = x + matmul(o, p["attn"]["wo"])
                 states.setdefault(f"k{pi}", []).append(

@@ -21,7 +21,7 @@ and paged == dense bitwise.  The KNN distances against the plain version
 (f32 products summed in another order, then q2 - 2 q.x + x2):
 |kernel - plain| <= 1e-5 (|q| + |x|)^2, the square bounding every term of
 the sum; a chunk of db gives the bits of the same columns of the whole.
-The tensor-core kernels (bf16 flash attention with hd 64 or 128, bf16 KNN
+The tensor-core kernels (bf16 flash attention with hd 64, 128 or 256, bf16 KNN
 with D % 8 == 0, the bf16 decode split, bf16 prefill quant_matmul) are
 held to the same tolerances: their bf16 products are exact in f32 (int8
 and 4-bit quants are exact in bf16, their scales applied in f32) and the
@@ -181,6 +181,8 @@ def _split_case(dev, dtype, hd, group, seed, kv="fp", s=1024, page=128):
     (torch.bfloat16, 128, 20),      # more heads than the mma's 16 rows
     (torch.bfloat16, 96, 4),        # no tensor-core instantiation
     (torch.float32, 128, 12),       # the f32 CUDA-core split
+    (torch.bfloat16, 256, 2),       # gemma3_12b: the tensor-core split
+    (torch.bfloat16, 80, 1),        # opt_2_7b: the CUDA-core split
 ])
 @pytest.mark.parametrize("window", [0, 100])
 def test_decode_split_edges(cuda, kv, dtype, hd, group, window):
@@ -194,7 +196,7 @@ def test_decode_split_edges(cuda, kv, dtype, hd, group, window):
     name = ("decode_attention_fused" if kv == "fp"
             else "decode_attention_fused[int8]")
     tc = fa.decode_route(dtype, hd, group) == "tensor_core"
-    assert tc == (dtype == torch.bfloat16 and hd in (64, 128)
+    assert tc == (dtype == torch.bfloat16 and hd in (64, 128, 256)
                   and group <= 16)
     before = (kbuild.LAUNCHES[name], kbuild.LAUNCHES[name + "_tc"])
     dense = fa.decode_attention_fused(q, k, v, pos, extra, window=window,
@@ -220,14 +222,17 @@ def test_decode_split_edges(cuda, kv, dtype, hd, group, window):
         assert torch.equal(one, paged[r:r + 1]), r
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_partial_empty_splits_and_rows(cuda, dtype):
+@pytest.mark.parametrize("dtype,hd,group", [
+    (torch.float32, 128, 12), (torch.bfloat16, 128, 12),
+    (torch.bfloat16, 256, 2),       # gemma3_12b's heads
+])
+def test_decode_partial_empty_splits_and_rows(cuda, dtype, hd, group):
     """C = 1024: row 0 fully masked, row 1 valid in two splits and at the
     last slot only, row 2 random with its first five splits masked; the
     raw (acc, m, l) against the plain version, empty rows m = -inf and
     l = 0, each row alone == that row in the batch bitwise."""
     gen = torch.Generator(device=cuda).manual_seed(3)
-    b, kh, c, hd, group = 3, 2, 1024, 128, 12
+    b, kh, c = 3, 2, 1024
     q = _rand(gen, (b, 1, kh * group, hd), dtype, cuda)
     k = _rand(gen, (b, kh, c, hd), dtype, cuda)
     v = _rand(gen, (b, kh, c, hd), dtype, cuda)
@@ -311,12 +316,13 @@ def test_flash_attention_kernel_f32_group_12(cuda, s, window):
     assert _flash_case(cuda, torch.float32, s, window) == (1, 0)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("window", [0, 33])
 @pytest.mark.parametrize("s", [1, 8, 63, 65, 200, 512, 1000])
 def test_flash_attention_tensor_core_kernel(cuda, hd, s, window):
-    """bf16 with hd 64 and 128: ragged S around the 64-row tiles, a
-    window that empties whole KV tiles; every launch on the tensor cores."""
+    """bf16 with hd 64, 128 and 256: ragged S around the 64-row (32 at hd
+    256) KV tiles, a window that empties whole KV tiles; every launch on
+    the tensor cores."""
     assert _flash_case(cuda, torch.bfloat16, s, window, hd=hd) == (1, 1)
 
 
@@ -326,9 +332,21 @@ def test_flash_attention_tensor_core_kernel_non_causal(cuda, window):
                        kh=1) == (1, 1)
 
 
+@pytest.mark.parametrize("hd,kh,group", [(256, 8, 2), (80, 32, 1)])
+@pytest.mark.parametrize("s,window", [(1100, 1024), (2048, 1024)])
+def test_flash_attention_long_window(cuda, hd, kh, group, s, window):
+    """gemma3_12b's local layers (hd 256, 8 KV heads of 2) and opt_2_7b's
+    MHA (hd 80) at prompts past a 1024-row window, which empties the
+    early KV tiles of the late q tiles: hd 256 on the tensor cores, hd 80
+    on the CUDA cores."""
+    assert _flash_case(cuda, torch.bfloat16, s, window, hd=hd, kh=kh,
+                       group=group) == (1, int(hd == 256))
+
+
 @pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 96),
                                       (torch.bfloat16, 32),
-                                      (torch.float32, 64)])
+                                      (torch.float32, 64),
+                                      (torch.bfloat16, 80)])
 def test_flash_attention_other_inputs_take_the_cuda_core_kernel(cuda, dtype,
                                                                 hd):
     assert _flash_case(cuda, dtype, 130, 0, hd=hd) == (1, 0)

@@ -29,7 +29,8 @@ BF16, F32 = torch.bfloat16, torch.float32
     (BF16, 128, False, "cuda_core"),       # cp.async needs 16-byte bases
     (BF16, 96, True, "cuda_core"),         # no instantiation for 96
     (BF16, 32, True, "cuda_core"),
-    (BF16, 256, True, "cuda_core"),
+    (BF16, 256, True, "tensor_core"),      # gemma3_12b's head dim
+    (BF16, 80, True, "cuda_core"),         # opt_2_7b's: no instantiation
     (F32, 128, True, "cuda_core"),         # f32 keeps the f32 kernel
     (F32, 64, True, "cuda_core"),
 ])
@@ -38,9 +39,9 @@ def test_flash_route(dtype, hd, aligned, route):
 
 
 def test_flash_route_names_the_compiled_head_dims():
-    assert fa.TC_HEAD_DIMS == (64, 128)
+    assert fa.TC_HEAD_DIMS == (64, 128, 256)
     assert [hd for hd in range(1, 513)
-            if fa.flash_route(BF16, hd) == "tensor_core"] == [64, 128]
+            if fa.flash_route(BF16, hd) == "tensor_core"] == [64, 128, 256]
 
 
 @pytest.mark.parametrize("dtype,d,aligned,route", [
@@ -65,6 +66,8 @@ def test_knn_route(dtype, d, aligned, route):
     (BF16, 128, 17, True, "cuda_core"),    # more heads than 16 rows
     (BF16, 128, 12, False, "cuda_core"),   # cp.async needs 16-byte bases
     (BF16, 96, 4, True, "cuda_core"),      # no instantiation for 96
+    (BF16, 256, 2, True, "tensor_core"),   # gemma3_12b
+    (BF16, 80, 1, True, "cuda_core"),      # opt_2_7b: no instantiation
     (F32, 128, 12, True, "cuda_core"),     # f32 keeps the CUDA-core split
 ])
 def test_decode_route(dtype, hd, group, aligned, route):
@@ -112,3 +115,30 @@ def test_p_split_product_is_far_closer_to_the_f32_weights(kv):
     split_err = (split.double() - want).abs().max().item()
     bf16_err = (bf16_only.double() - want).abs().max().item()
     assert split_err * 2 ** 6 <= bf16_err, (split_err, bf16_err)
+
+
+def test_sass_compare_counts_changed_gone_and_new_functions(monkeypatch,
+                                                            capsys):
+    """`kernels/sass_compare.py` on two synthetic `cuobjdump -sass` dumps:
+    the anonymous namespace's path hash is ignored, an unchanged body
+    counts as identical, and a changed or missing function fails."""
+    from repro_torch.kernels import sass_compare
+
+    def dump(ns, bodies):
+        return "".join(f"\n\t\tFunction : _ZN_GLOBAL__N__{ns}_8_a_cu_{name}\n"
+                       f"        /*0000*/ {body} ;\n" for name, body in bodies)
+
+    dumps = {"old.so": dump("0a1b", [("f", "HMMA"), ("g", "IADD")]),
+             "new.so": dump("9f9f", [("f", "HMMA"), ("g", "IADD"),
+                                     ("h", "FFMA")]),
+             "bad.so": dump("9f9f", [("f", "FFMA")])}
+    monkeypatch.setattr(sass_compare, "nvcc_path", lambda: "/x/bin/nvcc")
+    monkeypatch.setattr(
+        sass_compare.subprocess, "run",
+        lambda cmd, **kw: type("P", (), {"stdout": dumps[cmd[-1]]})())
+    assert sass_compare.main(["old.so", "new.so"]) == 0
+    assert "identical in the new library 2, different 0, missing 0; new 1" \
+        in capsys.readouterr().out
+    assert sass_compare.main(["old.so", "bad.so"]) == 1
+    out = capsys.readouterr().out
+    assert "different 1, missing 1" in out and "DIFF" in out

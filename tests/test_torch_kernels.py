@@ -75,20 +75,44 @@ def test_flash_attention_parity(dtype, group, window, interpret):
                                          interpret=True), dtype)
 
 
+# gemma3_12b's head dim (256, 2 query heads per KV head, its sliding
+# window) and opt_2_7b's (80, MHA): on the card 256 runs the tensor-core
+# kernel and 80 the CUDA-core one; here both are the plain version, held
+# to the oracle and, where marked, to the Pallas kernel.
+
+@pytest.mark.parametrize("dtype,hd,group,window,interpret", [
+    ("float32", 256, 2, 20, True), ("bfloat16", 256, 2, 20, False),
+    ("float32", 80, 1, 20, True), ("bfloat16", 80, 1, 0, False),
+])
+def test_flash_attention_head_dim_parity(dtype, hd, group, window,
+                                         interpret):
+    rng = np.random.default_rng(hd + window)
+    kh, s = 2, 48
+    h = kh * group
+    q, tq = _pair(rng.standard_normal((1, s, h, hd)), dtype)
+    k, tk = _pair(rng.standard_normal((1, s, kh, hd)), dtype)
+    v, tv = _pair(rng.standard_normal((1, s, kh, hd)), dtype)
+    port = ops.flash_attention(tq, tk, tv, causal=True, window=window)
+    _close(port, _mha(q, k, v, causal=True, window=window), dtype)
+    if interpret:
+        _close(port, jfa.flash_attention(q, k, v, causal=True, window=window,
+                                         interpret=True), dtype)
+
+
 # --------------------------------------------------------- fused flash decode
 
 B, KH, S, HD, PAGE = 2, 2, 48, 16, 16
 POS = np.array([0, 37], np.int32)         # row 0 sees only slot 0
 
 
-def _decode_inputs(rng, group, dtype, extra, table):
+def _decode_inputs(rng, group, dtype, extra, table, hd=HD):
     h = KH * group
-    q, tq = _pair(rng.standard_normal((B, 1, h, HD)), dtype)
-    k, tk = _pair(rng.standard_normal((B, KH, S, HD)), dtype)
-    v, tv = _pair(rng.standard_normal((B, KH, S, HD)), dtype)
+    q, tq = _pair(rng.standard_normal((B, 1, h, hd)), dtype)
+    k, tk = _pair(rng.standard_normal((B, KH, S, hd)), dtype)
+    v, tv = _pair(rng.standard_normal((B, KH, S, hd)), dtype)
     jx = tx = None
     if extra:
-        parts = (rng.standard_normal((B, h, HD)), rng.standard_normal((B, h)),
+        parts = (rng.standard_normal((B, h, hd)), rng.standard_normal((B, h)),
                  rng.random((B, h)) + 0.5)
         jx = tuple(jnp.asarray(p, jnp.float32) for p in parts)
         tx = tuple(torch.from_numpy(np.asarray(p, np.float32)) for p in parts)
@@ -129,6 +153,28 @@ def test_decode_fused_parity(dtype, group, window, extra, table, interpret):
     dense = _fused(q, k, v, jpos, jx, window=window)
     _close(ops.decode_attention_fused(tq, tk, tv, tpos, tx, window=window,
                                       blk_c=PAGE), dense, dtype)
+
+
+@pytest.mark.parametrize("dtype,hd,group,window,interpret", [
+    ("float32", 256, 2, 31, True), ("bfloat16", 256, 2, 31, False),
+    ("float32", 80, 1, 31, True), ("bfloat16", 80, 1, 0, False),
+])
+def test_decode_fused_head_dim_parity(dtype, hd, group, window, interpret):
+    """gemma3_12b's and opt_2_7b's head dims, paged through a permuted
+    table with the current token's extra partial; row 1 (pos 37) sees a
+    window of 31 slots, as a local layer of window 32 reads its cache."""
+    rng = np.random.default_rng(hd + window)
+    (q, k, v, jx, jp), (tq, tk, tv, tx, tp) = _decode_inputs(
+        rng, group, dtype, True, "permuted", hd=hd)
+    jpos, tpos = jnp.asarray(POS), torch.from_numpy(POS)
+    port = ops.decode_attention_fused(tq, tk, tv, tpos, tx, tp,
+                                      window=window, blk_c=PAGE)
+    _close(port, _fused(q, k, v, jpos, jx, window=window, pages=jp,
+                        page_size=PAGE), dtype)
+    if interpret:
+        _close(port, jfa.decode_attention_fused(
+            q, k, v, jpos, jx, window=window, blk_c=PAGE, pages=jp,
+            interpret=True), dtype)
 
 
 def test_fused_partial_reference_parity():
