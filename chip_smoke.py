@@ -47,14 +47,16 @@ the plain path and, on the same weights and tokens with every layer
 "full", the same bits inside the window and other logits past it;
 mistral_nemo_12b through the ported `serve_offload` example (bs == axle
 bitwise, rp equal or parting only at near ties); opt_2_7b (MHA, head
-dim 80 on the CUDA-core kernels, and 2 requests with its self:8 draft
-== the padded non-spec twin), minitron_4b and qwen2_vl_2b (M-RoPE). Each
-prints tok/s, the decode step's device ms and kernels (one replay under
-the profiler), peak memory and the step's weight-read bound.  Their
-`[kernel]` rows hold the attention kernels at head dims 256 and 80
-(flash at S 2048 with a window of 1024; the fused decode over 2048
-slots with a window of 1023, bf16 and int8 pools; the partial) against
-the plain versions, beside SDPA with an explicit boolean mask.
+dim 80 on the tensor-core kernels; 2 requests with its self:8 draft ==
+the padded non-spec twin, and the same 2 under rp, equal to axle up to
+near ties, and with an int8 KV cache), minitron_4b and qwen2_vl_2b
+(M-RoPE). Each prints tok/s, the decode step's device ms and kernels
+(one replay under the profiler), peak memory and the step's weight-read
+bound.  Their `[kernel]` rows hold the attention kernels at head dims
+256 and 80 (flash at S 2048 with a window of 1024; the fused decode over
+2048 slots with a window of 1023, bf16 and int8 pools; the partial)
+against the plain versions, beside SDPA with an explicit boolean mask,
+in bf16 on the tensor cores and on f32 copies on the CUDA cores.
 Before serving, it drives the paper's two offload workloads through
 `stream_offload` under BS, RP and AXLE, data from seed 0 on the card:
   * KNN (VectorDB): 256 queries against a 1,000,000 x 1024 bf16 database
@@ -67,14 +69,16 @@ lines are the kernels' JSON record, the card's name and power limit, and
 `{"ok": true, "device": {...}}`.
 
 Five functions have a tensor-core kernel beside their CUDA-core one:
-bf16 flash_attention at hd 64, 128 or 256 (`flash_tc_kernel`, mma.sync), bf16
-knn_distances with D % 8 == 0 (`knn_wgmma_kernel`, TMA and wgmma), the
-bf16 decode (fused, int8 pools and partial: `decode_split_tc_kernel`, a
-split of the KV range merged in order by `decode_merge_kernel`), bf16
-prefill quant_matmul (`quant_tc_kernel`, mma.sync) and the bf16 SSD scan
-at P = 64, N = 128 (`ssd_chunk_tc_kernel`, `ssd_pass_kernel`,
-`ssd_out_tc_kernel`: chunk states, an ordered pass, outputs).  The
-`[build]` line fails unless their SASS holds HMMA or HGMMA; the kernel
+bf16 flash_attention at hd 64, 80, 128 or 256 (`flash_tc_kernel`,
+mma.sync), bf16 knn_distances with D % 8 == 0 (`knn_wgmma_kernel`, TMA
+and wgmma), the bf16 decode (fused, int8 pools and partial at hd 64, 80,
+128 or 256: `decode_split_tc_kernel`, a split of the KV range merged in
+order by `decode_merge_kernel`), bf16 prefill quant_matmul
+(`quant_tc_kernel`, mma.sync) and the bf16 SSD scan at P = 64, N = 128
+(`ssd_chunk_tc_kernel`, `ssd_pass_kernel`, `ssd_out_tc_kernel`: chunk
+states, an ordered pass, outputs).  The `[build]` line fails unless
+their SASS holds HMMA or HGMMA (and the attention kernels are compiled
+at each of those head dims); the kernel
 phases, the serves and the KNN offload fail unless every launch of those
 functions that should take the tensor-core kernel did (the
 `LAUNCHES["<name>_tc"]` and `LAUNCHES["knn_distances_wgmma"]` counters).
@@ -92,8 +96,9 @@ format, the decode product (`skinny_kernel`) and the prefill product
 (`quant_matmul[<fmt>]_tc`).  The CUDA-core kernels, which take f32, are
 held against the plain versions on f32 copies of the same inputs: flash
 at S = 512 and the decode within 1e-5, the partial at its tolerance
-below, knn on the offload's chunk at the knn bound, quant_matmul on the
-prefill shape within 1e-5 (|x| @ |W|).  Every `[kernel]` row also prints
+below, each attention function again at head dims 256 and 80, knn on
+the offload's chunk at the knn bound, quant_matmul on the prefill shape
+within 1e-5 (|x| @ |W|).  Every `[kernel]` row also prints
 its device time (`device_ms`, torch.profiler, kernels only) beside the
 library call's or the yardstick's, and the JSON records carry both.
 
@@ -278,9 +283,35 @@ def timings(kernel, plain, library=None) -> dict:
                 else device_ms(library))
 
 
+def routes_of(counts, *names) -> dict:
+    """The counts of `names` and of their tensor-core counters in
+    `counts`."""
+    return {k: counts[k] for n in names for k in (n, n + "_tc")}
+
+
 def routes(*names) -> dict:
     """The launch counts of `names` and their tensor-core counters."""
-    return {k: kbuild.LAUNCHES[k] for n in names for k in (n, n + "_tc")}
+    return routes_of(kbuild.LAUNCHES, *names)
+
+
+def on_cuda_cores(what, call, name, calls=1):
+    """`call()` on f32 copies of a row's inputs: `calls` launches of
+    `name`, none of them on its tensor-core kernel.  Returns the output
+    and the launch counts."""
+    kbuild.reset_launch_counts()
+    got = call()
+    variants = routes(name)
+    torch.cuda.synchronize()
+    check(variants == {name: calls, name + "_tc": 0},
+          f"{what} f32: launches {variants}, not the CUDA-core kernel")
+    return got, variants
+
+
+def f32_err(got, want, what):
+    """Max |kernel - plain| of an f32 output; fails past 1e-5."""
+    err = (got - want).abs().max().item()
+    check(err <= 1e-5, f"{what} f32: err {err}")
+    return err
 
 
 def bound_ms(n_bytes: float, flops: float) -> tuple:
@@ -297,8 +328,8 @@ KERNEL_KINDS = ("ssd_kernel", "ssd_chunk_tc_kernel", "ssd_pass_kernel",
                 "quant_tc_kernel", "splitk_reduce", "knn_kernel",
                 "knn_wgmma_kernel", "sls_kernel")
 TEMPLATE_ARGS = {"13__nv_bfloat16": "bf16", "S1_": "bf16", "f": "f32",
-                 "a": "i8", "Li32E": "32", "Li64E": "64", "Li128E": "128",
-                 "Li256E": "256",
+                 "a": "i8", "Li32E": "32", "Li64E": "64", "Li80E": "80",
+                 "Li128E": "128", "Li256E": "256",
                  "Lb0E": "0", "Lb1E": "1", "Li0E": "0", "Li1E": "1"}
 # the tensor-core kernels and the instruction their SASS must hold
 TENSOR_CORE_SASS = {"flash_tc_kernel": "HMMA", "knn_wgmma_kernel": "HGMMA",
@@ -348,7 +379,15 @@ def sass_check(lib: Path) -> str:
               f"{kernel}: {op} not in its SASS ({counts} in {len(bodies)} "
               "compiled functions)")
         parts.append(f"{kernel} {op} x{'/'.join(map(str, counts))}")
-    return "; ".join(parts)
+    # the attention kernels are instantiated at every head dim their
+    # route takes
+    for kernel in ("flash_tc_kernel", "decode_split_tc_kernel"):
+        dims = [hd for hd in fa.TC_HEAD_DIMS
+                if not any(f"{kernel}ILi{hd}E" in f.split("\n", 1)[0]
+                           for f in funcs)]
+        check(not dims, f"{kernel}: no instantiation at head dims {dims}")
+    return "; ".join(parts) + (f"; flash_tc_kernel and decode_split_tc_"
+                               f"kernel at hd {fa.TC_HEAD_DIMS}")
 
 
 def nbytes(*ts) -> int:
@@ -496,27 +535,22 @@ print(f"[kernel] decode_attention_fused B={B} H={H} KH={KH} hd={HD} S={S} "
 # dense, against the plain version within 1e-5
 q32, kl32, vl32, kp32, vp32 = (t.float() for t in (q, k_log, v_log, k_pool,
                                                    v_pool))
-kbuild.reset_launch_counts()
-out = fa.decode_attention_fused(q32, kp32, vp32, pos, extra, window=300,
-                                blk_c=PAGE, pages=table)
-dense = fa.decode_attention_fused(q32, kl32, vl32, pos, extra, window=300,
-                                  blk_c=PAGE)
-variants = routes("decode_attention_fused")
-plain = ref.decode_fused_reference(q32, kp32, vp32, pos, extra, window=300,
-                                   pages=table, page_size=PAGE)
-torch.cuda.synchronize()
-err = (out - plain).abs().max().item()
-check(variants == {"decode_attention_fused": 2,
-                   "decode_attention_fused_tc": 0},
-      f"decode_attention_fused f32: launches {variants}, not the CUDA-core "
-      "split")
+(out, dense), variants = on_cuda_cores(
+    "decode_attention_fused",
+    lambda: (fa.decode_attention_fused(q32, kp32, vp32, pos, extra,
+                                       window=300, blk_c=PAGE, pages=table),
+             fa.decode_attention_fused(q32, kl32, vl32, pos, extra,
+                                       window=300, blk_c=PAGE)),
+    "decode_attention_fused", calls=2)
+err = f32_err(out, ref.decode_fused_reference(
+    q32, kp32, vp32, pos, extra, window=300, pages=table, page_size=PAGE),
+    "decode_attention_fused")
 check(torch.equal(out, dense), "decode_attention_fused f32: paged != dense")
-check(err <= 1e-5, f"decode_attention_fused f32: err {err}")
 print(f"[kernel] decode_attention_fused f32, window 300, extra: max_abs_err "
       f"{err:.3g} <= 1e-5; paged == dense bitwise; launches {variants}; the "
       f"CUDA-core split, {time_ms(lambda: fa.decode_attention_fused(q32, kp32, vp32, pos, extra, blk_c=PAGE, pages=table)):.4f} ms",
       flush=True)
-del q32, kl32, vl32, kp32, vp32, out, dense, plain
+del q32, kl32, vl32, kp32, vp32, out, dense
 
 # flash_attention: prefill of one prompt, S = 8, 300 (ragged) and 512,
 # causal, and a window of 300 at S = 512; bf16 at hd 128 takes the
@@ -577,21 +611,17 @@ del q_kh
 # tensor-core kernel has no instantiation for): the S = 512 prompt in f32,
 # against the plain version within 1e-5 (the GPU tests' f32 tolerance)
 q32, k32, v32 = qf.float(), kf.float(), vf.float()
-kbuild.reset_launch_counts()
-out = fa.flash_attention(q32, k32, v32, causal=True)
-variants = {k: kbuild.LAUNCHES[k]
-            for k in ("flash_attention", "flash_attention_tc")}
-plain = ref.mha_reference(q32, k32, v32, causal=True)
-torch.cuda.synchronize()
-err = (out - plain).abs().max().item()
-check(variants == {"flash_attention": 1, "flash_attention_tc": 0},
-      f"flash_attention f32: launches {variants}, not the CUDA-core kernel")
-check(err <= 1e-5, f"flash_attention f32 S={s}: err {err}")
+out, variants = on_cuda_cores(
+    f"flash_attention S={s}",
+    lambda: fa.flash_attention(q32, k32, v32, causal=True),
+    "flash_attention")
+err = f32_err(out, ref.mha_reference(q32, k32, v32, causal=True),
+              f"flash_attention S={s}")
 print(f"[kernel] flash_attention S={s} H={H} KH={KH} hd={HD} causal f32: "
       f"max_abs_err {err:.3g} <= 1e-5; launches {variants}; the CUDA-core "
       f"kernel, {time_ms(lambda: fa.flash_attention(q32, k32, v32)):.4f} ms",
       flush=True)
-del q32, k32, v32, out, plain
+del q32, k32, v32, out
 
 # decode_attention_partial: the rp path's one chunk over the whole cache,
 # row 1 fully masked (and the splits past pos of the other rows)
@@ -643,16 +673,13 @@ records["decode_attention_partial"] = dict(
 rec = records["decode_attention_partial"]
 # the CUDA-core split in f32, at the same tolerance
 q32, kl32, vl32 = q.float(), k_log.float(), v_log.float()
-kbuild.reset_launch_counts()
-part32 = fa.decode_attention_partial(q32, kl32, vl32, valid)
-variants32 = routes("decode_attention_partial")
-torch.cuda.synchronize()
+part32, variants32 = on_cuda_cores(
+    "decode_attention_partial",
+    lambda: fa.decode_attention_partial(q32, kl32, vl32, valid),
+    "decode_attention_partial")
 err32 = partial_err(part32, ref.decode_partial_reference(q32, kl32, vl32,
                                                          valid),
                     "decode_attention_partial f32")
-check(variants32 == {"decode_attention_partial": 1,
-                     "decode_attention_partial_tc": 0},
-      f"decode_attention_partial f32: launches {variants32}")
 print(f"[kernel] decode_attention_partial B={B} C={S} row 1 empty: "
       f"max_abs_err {worst:.3g} (<= 1e-3 + 1e-4|plain|); empty row m=-inf; "
       f"each row alone == its row in the batch bitwise; launches {variants} "
@@ -825,20 +852,15 @@ records["decode_attention_fused[int8]"] = dict(
             kv_scales=sc_pool)))
 rec = records["decode_attention_fused[int8]"]
 # f32 q over the same int8 pools takes the CUDA-core split
-kbuild.reset_launch_counts()
-out = fa.decode_attention_fused(q.float(), k8_pool, v8_pool, pos, extra,
-                                window=300, blk_c=PAGE, pages=table,
-                                kv_scales=sc_pool)
-variants32 = routes("decode_attention_fused[int8]")
-plain = ref.decode_fused_reference(q.float(), k8_pool, v8_pool, pos, extra,
-                                   window=300, pages=table, page_size=PAGE,
-                                   kv_scales=sc_pool)
-torch.cuda.synchronize()
-err32 = (out - plain).abs().max().item()
-check(variants32 == {"decode_attention_fused[int8]": 1,
-                     "decode_attention_fused[int8]_tc": 0},
-      f"decode_attention_fused[int8] f32: launches {variants32}")
-check(err32 <= 1e-5, f"decode_attention_fused[int8] f32: err {err32}")
+out, variants32 = on_cuda_cores(
+    "decode_attention_fused[int8]",
+    lambda: fa.decode_attention_fused(q.float(), k8_pool, v8_pool, pos,
+                                      extra, window=300, blk_c=PAGE,
+                                      pages=table, kv_scales=sc_pool),
+    "decode_attention_fused[int8]")
+err32 = f32_err(out, ref.decode_fused_reference(
+    q.float(), k8_pool, v8_pool, pos, extra, window=300, pages=table,
+    page_size=PAGE, kv_scales=sc_pool), "decode_attention_fused[int8]")
 print(f"[kernel] decode_attention_fused[int8] B={B} H={H} KH={KH} hd={HD} "
       f"S={S} page={PAGE} permuted table, pos={pos.tolist()}, window 0 and "
       f"300, extra on/off, pools from quantize_kv_pages: max_abs_err "
@@ -848,13 +870,14 @@ print(f"[kernel] decode_attention_fused[int8] B={B} H={H} KH={KH} hd={HD} "
       f"plain {rec['plain_ms']:.4f} ms, device time {show(rec['device_ms'])} "
       f"ms; f32 q on the CUDA-core split: max_abs_err {err32:.3g} <= 1e-5, "
       f"launches {variants32}", flush=True)
-del k8_log, v8_log, k8_pool, v8_pool, out, plain
+del k8_log, v8_log, k8_pool, v8_pool, out
 
 # --------------------------------------------------------------------------
 # 3a. the attention kernels at the other archs' head dims: gemma3_12b's 256
-# (16 heads on 8 KV heads; the tensor-core kernels) and opt_2_7b's 80 (MHA,
-# 32 heads; the CUDA-core kernels), both under gemma3's window: 1024 in
-# the prefill, 1023 cached slots (plus the current token) in the decode
+# (16 heads on 8 KV heads) and opt_2_7b's 80 (MHA, 32 heads), both on the
+# tensor-core kernels in bf16 and on the CUDA-core ones in f32, under
+# gemma3's window: 1024 in the prefill, 1023 cached slots (plus the
+# current token) in the decode
 # --------------------------------------------------------------------------
 
 W_S, W_PAGE, W_WIN = 2048, 128, 1024
@@ -896,15 +919,25 @@ def sdpa_backend(fn):
     return backend, top[:60]
 
 
-def attention_at(label, h, kh, hd, tc):
+def attention_at(label, h, kh, hd, served):
     """flash_attention, decode_attention_fused (bf16 and int8 pools) and
     decode_attention_partial at head dim `hd`, H = h, KH = kh: each held
     to its plain version within the hd 128 rows' tolerances, on the route
-    `tc` names, timed beside its bound and SDPA with an explicit boolean
-    mask.  Returns the flash and the fused records (their launches come
-    from the arch's serve below)."""
+    `flash_route` / `decode_route` names for bf16, timed beside its bound
+    and SDPA with an explicit boolean mask, and again on f32 copies of the
+    same inputs, which take the CUDA-core kernels.  Returns the records
+    ("flash", "fused", "int8", "partial"); `served` names those a serve of
+    this script takes (their launches come from it, below)."""
     tag = f"[hd{hd}]"
-    route = "tensor-core" if tc else "CUDA-core"
+    tc_flash = fa.flash_route(torch.bfloat16, hd) == "tensor_core"
+    tc_dec = fa.decode_route(torch.bfloat16, hd, h // kh) == "tensor_core"
+    route = "tensor-core" if tc_flash else "CUDA-core"
+    droute = "tensor-core" if tc_dec else "CUDA-core"
+
+    def serving(key):
+        return ("served in [archs]" if key in served
+                else "not on a serve path of this script")
+
     out = {}
     # flash: one 2048-token prompt, causal, window 1024
     qf, kf, vf = (randn(1, W_S, n, hd) for n in (h, kh, kh))
@@ -915,7 +948,8 @@ def attention_at(label, h, kh, hd, tc):
     torch.cuda.synchronize()
     err = (got.float() - plain.float()).abs().max().item()
     check(err <= ATOL_BF16, f"flash_attention{tag}: err {err}")
-    check(variants == {"flash_attention": 1, "flash_attention_tc": int(tc)},
+    check(variants == {"flash_attention": 1,
+                       "flash_attention_tc": int(tc_flash)},
           f"flash_attention{tag}: launches {variants}, not the {route} "
           "kernel")
     qi = torch.arange(W_S, device=DEV)
@@ -939,6 +973,17 @@ def attention_at(label, h, kh, hd, tc):
                                             window=W_WIN),
                   sdpa_prefill))
     backend = sdpa_backend(sdpa_prefill)
+    q32, k32, v32 = qf.float(), kf.float(), vf.float()
+    got32, var32 = on_cuda_cores(
+        f"flash_attention{tag}",
+        lambda: fa.flash_attention(q32, k32, v32, causal=True, window=W_WIN),
+        "flash_attention")
+    err32 = f32_err(got32, ref.mha_reference(q32, k32, v32, causal=True,
+                                             window=W_WIN),
+                    f"flash_attention{tag}")
+    dev32 = device_ms(lambda: fa.flash_attention(q32, k32, v32, causal=True,
+                                                 window=W_WIN))
+    del q32, k32, v32, got32
     print(f"[kernel] flash_attention{tag} {label}: B=1 S={W_S} H={h} KH={kh} "
           f"hd={hd} causal, window {W_WIN}: max_abs_err {err:.3g} <= "
           f"{ATOL_BF16}; launches {variants} (the {route} kernel); "
@@ -949,7 +994,8 @@ def attention_at(label, h, kh, hd, tc):
           f"TFLOP/s, SDPA's {show(rec['library_device_ms'])} ms on its "
           f"{backend[0]} backend ({backend[1]}): "
           f"{show(div(rec['device_ms'], rec['library_device_ms']), '.2f')}x "
-          "it", flush=True)
+          f"it; f32 copies on the CUDA-core kernel: max_abs_err {err32:.3g} "
+          f"<= 1e-5, launches {var32}, device {show(dev32)} ms", flush=True)
     del qf, kf, vf, got, plain, mask
 
     # decode: 4 rows at pos W_POS over a 2048-slot cache in 16 pages under a
@@ -983,9 +1029,9 @@ def attention_at(label, h, kh, hd, tc):
           f"decode_attention_fused{tag}: paged != dense")
     check(err <= ATOL_BF16, f"decode_attention_fused{tag}: err {err}")
     check(variants == {"decode_attention_fused": 2,
-                       "decode_attention_fused_tc": 2 * int(tc)},
+                       "decode_attention_fused_tc": 2 * int(tc_dec)},
           f"decode_attention_fused{tag}: launches {variants}, not the "
-          f"{route} split")
+          f"{droute} split")
     rows_alone(lambda b: fa.decode_attention_fused(
         *one_row(b, q, k_pool, v_pool, pos_w), one_row(b, *ex), window=win,
         blk_c=W_PAGE, pages=table[b:b + 1]), paged,
@@ -1014,17 +1060,36 @@ def attention_at(label, h, kh, hd, tc):
             sdpa_decode))
     backend = sdpa_backend(sdpa_decode)
     split, n_split = fa.decode_split(W_S, W_PAGE)
+    q32, kl32, vl32, kp32, vp32 = (t.float() for t in (q, k_log, v_log,
+                                                       k_pool, v_pool))
+    (out32, dense32), var32 = on_cuda_cores(
+        f"decode_attention_fused{tag}",
+        lambda: (fa.decode_attention_fused(q32, kp32, vp32, pos_w, ex,
+                                           window=win, blk_c=W_PAGE,
+                                           pages=table),
+                 fa.decode_attention_fused(q32, kl32, vl32, pos_w, ex,
+                                           window=win, blk_c=W_PAGE)),
+        "decode_attention_fused", calls=2)
+    err32 = f32_err(out32, ref.decode_fused_reference(
+        q32, kp32, vp32, pos_w, ex, window=win, pages=table,
+        page_size=W_PAGE), f"decode_attention_fused{tag}")
+    check(torch.equal(out32, dense32),
+          f"decode_attention_fused{tag} f32: paged != dense")
+    del q32, kl32, vl32, kp32, vp32, out32, dense32
     print(f"[kernel] decode_attention_fused{tag} {label}: B={B} H={h} KH={kh} "
           f"hd={hd} S={W_S} page={W_PAGE} permuted table, pos={W_POS}, "
           f"window {win}, extra: max_abs_err {err:.3g} <= {ATOL_BF16}; "
           f"paged == dense bitwise; each row alone == its row in the batch "
           f"bitwise; launches {variants} ({n_split} splits of {split} rows, "
-          f"the {route} split); {rec['ms']:.4f} ms, bound {bnd:.6f} ms "
+          f"the {droute} split); {rec['ms']:.4f} ms, bound {bnd:.6f} ms "
           f"({by}), plain {rec['plain_ms']:.4f} ms, SDPA on the gathered "
           f"cache with the boolean window mask (without extra) "
           f"{rec['library_ms']:.4f} ms; device {show(rec['device_ms'])} ms, "
           f"SDPA's {show(rec['library_device_ms'])} ms on its {backend[0]} "
-          f"backend ({backend[1]})", flush=True)
+          f"backend ({backend[1]}): "
+          f"{show(div(rec['device_ms'], rec['library_device_ms']), '.2f')}x "
+          f"it; f32 copies on the CUDA-core split: max_abs_err {err32:.3g} "
+          f"<= 1e-5, paged == dense bitwise, launches {var32}", flush=True)
 
     # int8 pools of the same data (quantization is page-local: the
     # physical pool's quants and scales are the logical ones, permuted)
@@ -1048,25 +1113,47 @@ def attention_at(label, h, kh, hd, tc):
           f"decode_attention_fused[int8]{tag}: paged != dense")
     check(err8 <= ATOL_BF16, f"decode_attention_fused[int8]{tag}: err {err8}")
     check(variants8 == {"decode_attention_fused[int8]": 2,
-                        "decode_attention_fused[int8]_tc": 2 * int(tc)},
+                        "decode_attention_fused[int8]_tc": 2 * int(tc_dec)},
           f"decode_attention_fused[int8]{tag}: launches {variants8}")
+    rows_alone(lambda b: fa.decode_attention_fused(
+        *one_row(b, q, k8p, v8p, pos_w), one_row(b, *ex), window=win,
+        blk_c=W_PAGE, pages=table[b:b + 1],
+        kv_scales=one_row(b, ksp, vsp)), paged8,
+        f"decode_attention_fused[int8]{tag}")
     n_pages = int(((valid.reshape(B, -1, W_PAGE)).any(-1)).sum())
     bnd8, by8 = bound_ms(nbytes(q, pos_w, table, *ex) + nbytes(q)
                          + 2 * n_valid * kh * hd + 2 * n_pages * kh * 4,
                          4 * n_valid * h * hd)
-    t8 = timings(lambda: fa.decode_attention_fused(
-        q, k8p, v8p, pos_w, ex, window=win, blk_c=W_PAGE, pages=table,
-        kv_scales=(ksp, vsp)),
-        lambda: ref.decode_fused_reference(
-            q, k8p, v8p, pos_w, ex, window=win, pages=table,
-            page_size=W_PAGE, kv_scales=(ksp, vsp)))
+    rec8 = out["int8"] = dict(
+        name=f"decode_attention_fused[int8]{tag}", route="cuda",
+        source="src/repro_torch/kernels/csrc/attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:252",
+        max_abs_err=err8, bound_ms=bnd8, bound_by=by8,
+        **timings(lambda: fa.decode_attention_fused(
+            q, k8p, v8p, pos_w, ex, window=win, blk_c=W_PAGE, pages=table,
+            kv_scales=(ksp, vsp)),
+            lambda: ref.decode_fused_reference(
+                q, k8p, v8p, pos_w, ex, window=win, pages=table,
+                page_size=W_PAGE, kv_scales=(ksp, vsp))))
+    q32 = q.float()
+    got32, var32 = on_cuda_cores(
+        f"decode_attention_fused[int8]{tag}",
+        lambda: fa.decode_attention_fused(q32, k8p, v8p, pos_w, ex,
+                                          window=win, blk_c=W_PAGE,
+                                          pages=table, kv_scales=(ksp, vsp)),
+        "decode_attention_fused[int8]")
+    err32 = f32_err(got32, ref.decode_fused_reference(
+        q32, k8p, v8p, pos_w, ex, window=win, pages=table, page_size=W_PAGE,
+        kv_scales=(ksp, vsp)), f"decode_attention_fused[int8]{tag}")
     print(f"[kernel] decode_attention_fused[int8]{tag} {label}, the same "
           f"shapes and window on int8 pools from quantize_kv_pages: "
           f"max_abs_err {err8:.3g} <= {ATOL_BF16}; paged == dense bitwise; "
-          f"launches {variants8}; {t8['ms']:.4f} ms, bound {bnd8:.6f} ms "
-          f"({by8}), plain {t8['plain_ms']:.4f} ms, device "
-          f"{show(t8['device_ms'])} ms; no library call (int8 pages with "
-          "scales); not on a serve path of this script", flush=True)
+          f"each row alone == its row in the batch bitwise; launches "
+          f"{variants8} (the {droute} split); {rec8['ms']:.4f} ms, bound "
+          f"{bnd8:.6f} ms ({by8}), plain {rec8['plain_ms']:.4f} ms, device "
+          f"{show(rec8['device_ms'])} ms; no library call (int8 pages with "
+          f"scales); f32 q on the CUDA-core split: max_abs_err {err32:.3g} "
+          f"<= 1e-5, launches {var32}; {serving('int8')}", flush=True)
 
     # partial: one chunk over the cache, the window's mask, row 1 empty
     pvalid = valid.clone()
@@ -1080,7 +1167,7 @@ def attention_at(label, h, kh, hd, tc):
                                                           pvalid),
                        f"decode_attention_partial{tag}")
     check(variantsp == {"decode_attention_partial": 1,
-                        "decode_attention_partial_tc": int(tc)},
+                        "decode_attention_partial_tc": int(tc_dec)},
           f"decode_attention_partial{tag}: launches {variantsp}")
     rows_alone(lambda b: fa.decode_attention_partial(
         *one_row(b, q, k_log, v_log, pvalid)), part,
@@ -1088,25 +1175,43 @@ def attention_at(label, h, kh, hd, tc):
     bndp, byp = bound_ms(nbytes(q, pvalid, *part)
                          + 2 * n_pvalid * kh * hd * 2,
                          4 * n_pvalid * h * hd)
-    tp = timings(lambda: fa.decode_attention_partial(q, k_log, v_log, pvalid),
-                 lambda: ref.decode_partial_reference(q, k_log, v_log,
-                                                      pvalid))
+    recp = out["partial"] = dict(
+        name=f"decode_attention_partial{tag}", route="cuda",
+        source="src/repro_torch/kernels/csrc/attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:192",
+        max_abs_err=errp, bound_ms=bndp, bound_by=byp,
+        **timings(lambda: fa.decode_attention_partial(q, k_log, v_log,
+                                                      pvalid),
+                  lambda: ref.decode_partial_reference(q, k_log, v_log,
+                                                       pvalid)))
+    kl32, vl32 = k_log.float(), v_log.float()
+    got32, var32 = on_cuda_cores(
+        f"decode_attention_partial{tag}",
+        lambda: fa.decode_attention_partial(q32, kl32, vl32, pvalid),
+        "decode_attention_partial")
+    err32 = partial_err(got32, ref.decode_partial_reference(
+        q32, kl32, vl32, pvalid), f"decode_attention_partial{tag} f32")
+    del q32, kl32, vl32, got32
     print(f"[kernel] decode_attention_partial{tag} {label}: B={B} C={W_S}, "
           f"the window's mask, row 1 empty: max_abs_err {errp:.3g} (<= 1e-3 "
           f"+ 1e-4|plain|); empty row m=-inf; each row alone == its row in "
-          f"the batch bitwise; launches {variantsp}; {tp['ms']:.4f} ms, bound "
-          f"{bndp:.6f} ms ({byp}), plain {tp['plain_ms']:.4f} ms, device "
-          f"{show(tp['device_ms'])} ms; no library call; not on a serve path "
-          "of this script", flush=True)
+          f"the batch bitwise; launches {variantsp} (the {droute} split); "
+          f"{recp['ms']:.4f} ms, bound {bndp:.6f} ms ({byp}), plain "
+          f"{recp['plain_ms']:.4f} ms, device {show(recp['device_ms'])} ms; "
+          f"no library call; f32 copies on the CUDA-core split: max_abs_err "
+          f"{err32:.3g}, launches {var32}; {serving('partial')}", flush=True)
     return out
 
 
+# the records a serve of this script takes at each head dim: gemma3_12b
+# serves fp axle only; opt_2_7b also serves rp and an int8 KV cache
 g3cfg, optcfg = get_config("gemma3_12b"), get_config("opt_2_7b")
-for arch_cfg, tc in ((g3cfg, True), (optcfg, False)):
+for arch_cfg, served in ((g3cfg, ("flash", "fused")),
+                         (optcfg, ("flash", "fused", "int8", "partial"))):
     recs = attention_at(arch_cfg.arch_id, arch_cfg.n_heads,
-                        arch_cfg.n_kv_heads, arch_cfg.head_dim_, tc)
-    for rec in recs.values():
-        records[rec["name"]] = rec
+                        arch_cfg.n_kv_heads, arch_cfg.head_dim_, served)
+    for key in served:
+        records[recs[key]["name"]] = recs[key]
 
 
 def quant_err(got, x, qt):
@@ -2635,10 +2740,12 @@ def arch_requests(vocab, lens, max_new, seed):
             for i, n in enumerate(lens)]
 
 
-def attention_launches(label, srv, launches, n_layers, tc):
-    """Every decode step ran one fused decode a layer and every prefill one
-    flash call a layer, all on the tensor-core kernels (tc) or none."""
-    for name, per in (("decode_attention_fused", srv.steps),
+def attention_launches(label, srv, launches, n_layers, tc,
+                       decode="decode_attention_fused"):
+    """Every decode step ran one fused decode a layer (`decode`: the fp or
+    the int8 one) and every prefill one flash call a layer, all on the
+    tensor-core kernels (tc) or none."""
+    for name, per in ((decode, srv.steps),
                       ("flash_attention", srv.prefill_forwards)):
         check(launches[name] == per * n_layers
               and launches[name + "_tc"] == launches[name] * int(tc),
@@ -2782,8 +2889,9 @@ arch_line(f"{serve_offload.ARCH} (serve_offload, axle)", so_srv,
           so_toks["axle"], so_dt["axle"], parts, weights, t0)
 del so_srv, m_params
 
-# opt_2_7b (MHA, hd 80: the CUDA-core kernels), minitron_4b, qwen2_vl_2b
-# (M-RoPE): 4 requests of 64-400 tokens, max_new 32, 4 slots, max_seq 1024
+# opt_2_7b (MHA, hd 80), minitron_4b, qwen2_vl_2b (M-RoPE): 4 requests of
+# 64-400 tokens, max_new 32, 4 slots, max_seq 1024; opt also 2 requests
+# with its self:8 draft, under rp and with an int8 KV cache
 arch_launches = {}
 for arch, seed in (("opt_2_7b", 30), ("minitron_4b", 31),
                    ("qwen2_vl_2b", 32)):
@@ -2823,7 +2931,8 @@ for arch, seed in (("opt_2_7b", 30), ("minitron_4b", 31),
               f"layers, not its own {acfg.draft_arch}")
         check(sp_launches["decode_attention_fused"]
               == rounds * (SPEC_K + 1) * (d_layers + acfg.n_layers)
-              and sp_launches["decode_attention_fused_tc"] == 0,
+              and sp_launches["decode_attention_fused_tc"]
+              == sp_launches["decode_attention_fused"] * int(tc),
               f"[archs] {arch} spec launches {sp_launches}")
         twin = padded_twin(o_pair, params=a_params, arch=arch,
                            protocol="axle", stream=True)
@@ -2836,9 +2945,43 @@ for arch, seed in (("opt_2_7b", 30), ("minitron_4b", 31),
               f" tok/s; tokens == the non-spec twin's at the verify's row "
               f"count, bitwise; fused launches "
               f"{sp_launches['decode_attention_fused']} = {rounds} x "
-              f"{SPEC_K + 1} x ({d_layers} + {acfg.n_layers}), none on the "
-              "tensor cores", flush=True)
+              f"{SPEC_K + 1} x ({d_layers} + {acfg.n_layers}), "
+              f"{'all' if tc else 'none'} on the tensor cores", flush=True)
         del sp_srv
+        # the hd 80 partial and int8 splits on a serve: the same 2
+        # requests under rp (the partials) and with an int8 KV cache (the
+        # int8 fused decode), beside the fp axle serve of them
+        _, o_fp, _, _ = serve(copies(o_pair), params=a_params, arch=arch,
+                              protocol="axle", stream=True)
+        _, o_rp, rp_launches_o, _ = serve(
+            copies(o_pair), params=a_params, arch=arch, protocol="rp",
+            stream=True)
+        check(rp_launches_o["decode_attention_partial"] > 0
+              and rp_launches_o["decode_attention_partial_tc"]
+              == rp_launches_o["decode_attention_partial"] * int(tc)
+              and rp_launches_o["decode_attention_fused"] == 0,
+              f"[archs] {arch} rp launches {rp_launches_o}")
+        rp_vs = near_tie_agrees(f"{arch} rp vs axle", o_rp, o_fp, o_pair,
+                                arch_cfg=acfg, weights=a_params)
+        srv, o_i8, i8_launches_o, _ = serve(
+            copies(o_pair), params=a_params, arch=arch, protocol="axle",
+            stream=True, quant=QuantConfig(kv="int8"))
+        attention_launches(f"{arch} int8 KV", srv, i8_launches_o,
+                           acfg.n_layers, tc,
+                           decode="decode_attention_fused[int8]")
+        check(i8_launches_o["decode_attention_fused"] == 0
+              and all(len(t) == 16 for t in o_i8.values()),
+              f"[archs] {arch} int8 KV: launches {i8_launches_o}")
+        del srv
+        same = sum(o_i8[r] == o_fp[r] for r in o_fp)
+        print(f"[archs] {arch}, the same 2 requests x 16 tokens: rp "
+              f"{rp_vs} axle, partial launches "
+              f"{routes_of(rp_launches_o, 'decode_attention_partial')}; "
+              f"an int8 KV cache: int8 fused launches "
+              f"{routes_of(i8_launches_o, 'decode_attention_fused[int8]')},"
+              f" every one on the {'tensor' if tc else 'CUDA'}-core split; "
+              f"{same} of 2 streams equal to fp KV's (not gated: int8 KV "
+              "changes the logits)", flush=True)
     del a_params
 print(f"[archs] the five archs took {time.perf_counter() - ARCHS_T0:.1f} s; "
       f"{time.perf_counter() - T_START:.0f} s into the script", flush=True)
@@ -2866,6 +3009,10 @@ for name, counts in (("[hd256]", g3_launches),
                      ("[hd80]", arch_launches["opt_2_7b"])):
     for fn in ("flash_attention", "decode_attention_fused"):
         records[fn + name]["launches"] = counts[fn]
+records["decode_attention_fused[int8][hd80]"]["launches"] = \
+    i8_launches_o["decode_attention_fused[int8]"]
+records["decode_attention_partial[hd80]"]["launches"] = \
+    rp_launches_o["decode_attention_partial"]
 records["sls"]["launches"] = sls_launches["sls"]
 for name, rec in records.items():
     check(rec["launches"] > 0, f"{name} never launched on the main path")

@@ -19,15 +19,15 @@
 //       for an empty row.  The KV range is split across blocks at fixed
 //       logical rows and merged in split order (see the note above the
 //       kernels); the split runs on the tensor cores for bf16 q with HD 64,
-//       128 or 256 and at most 16 query heads per KV head, on the CUDA
-//       cores for the rest (f32, and other head dims such as 80).
+//       80, 128 or 256 and at most 16 query heads per KV head, on the CUDA
+//       cores for the rest (f32, and other head dims such as 96).
 //   flash_kernel          <- _flash_kernel / flash_attention
 //       Causal / sliding-window GQA prefill attention with online softmax,
 //       on the CUDA cores in f32: the kernel for f32 inputs and for head
 //       dims the tensor-core kernel does not take.
 //   flash_tc_kernel<HD>   <- _flash_kernel / flash_attention
-//       The same function on the tensor cores, for bf16 with HD 64, 128
-//       or 256 (see its own note below).
+//       The same function on the tensor cores, for bf16 with HD 64, 80,
+//       128 or 256 (see its own note below).
 //
 // Translation from the TPU: the Pallas grids run their innermost KV axis in
 // order on one core and carry (acc, m, l) in VMEM scratch between grid
@@ -223,8 +223,8 @@ __global__ void __launch_bounds__(NT) flash_kernel(FlashArgs a) {
 }
 
 // --------------------------------------------------------------------------
-// Prefill on the tensor cores: flash_tc_kernel<HD>, bf16, HD 64, 128 or
-// 256.
+// Prefill on the tensor cores: flash_tc_kernel<HD>, bf16, HD 64, 80, 128
+// or 256.
 //
 // The FlashAttention-2 layout.  One block of 4 warps per (row b, head h,
 // q tile of 64 rows); each warp owns 16 query rows.  The q tiles are
@@ -274,6 +274,13 @@ __global__ void __launch_bounds__(NT) flash_kernel(FlashArgs a) {
 // (tc_bk), which halves S and the K fragments; the ring then takes 101 KB
 // of shared memory, two blocks to an SM.  HD 64 and 128 compile as
 // before.
+//
+// HD 80 (opt_2_7b) is 5 x 16: 5 k steps of Q K^T and 5 pairs of n-tiles of
+// P V, all from the same code, with no padded column in device memory or
+// in the mmas.  Only the copies differ: a row is 10 chunks of 16 bytes,
+// which do not divide the 128 threads into whole rows, so the copies walk
+// a tile's 640 chunks flat, 5 a thread (tile_copy_flat).  A padded row of
+// 176 bytes still puts the 8 rows of an ldmatrix 12 banks apart.
 // --------------------------------------------------------------------------
 
 constexpr int TC_BQ = 64;            // query rows per block (16 per warp)
@@ -386,9 +393,31 @@ __device__ __forceinline__ void tile_softmax(float (&s)[NJ][4], float (&m_r)[2],
 template <int HD>
 __host__ __device__ constexpr int tc_row_bytes() { return (HD + 8) * 2; }
 
+// cp.async of a tile of ROWS rows of a (rows, HD) bf16 panel (row stride
+// `stride` elements, `src` at its row 0) into padded shared rows at `dst`,
+// for head dims whose HD / 8 chunks a row do not divide the TC_NT
+// threads: chunk c = tid + TC_NT i of the tile's ROWS x HD / 8, rows
+// row0 + r at or past S zero-filled.
+template <int HD, int ROWS>
+__device__ __forceinline__ void tile_copy_flat(uint32_t dst,
+                                               const __nv_bfloat16* src,
+                                               size_t stride, int row0,
+                                               int S, int tid) {
+  constexpr int CH = HD / 8, RB = tc_row_bytes<HD>();
+  static_assert(ROWS * CH % TC_NT == 0, "whole chunks a thread");
+#pragma unroll
+  for (int i = 0; i < ROWS * CH / TC_NT; ++i) {
+    const int c = tid + TC_NT * i, r = c / CH, cc = c % CH;
+    const bool ok = row0 + r < S;
+    cp_async16(dst + r * RB + cc * 16,
+               src + (size_t)(ok ? row0 + r : 0) * stride + cc * 8, ok);
+  }
+}
+
 template <int HD>
 __global__ void __launch_bounds__(TC_NT) flash_tc_kernel(FlashArgs a) {
-  static_assert(HD == 64 || HD == 128 || HD == 256, "HD: 64, 128 or 256");
+  static_assert(HD == 64 || HD == 80 || HD == 128 || HD == 256,
+                "HD: 64, 80, 128 or 256");
   constexpr int CH = HD / 8;             // 16-byte chunks per row
   constexpr int KSTEP = HD / 16;         // k steps of Q K^T; n-tile pairs of P V
   constexpr int RB = tc_row_bytes<HD>();
@@ -397,6 +426,7 @@ __global__ void __launch_bounds__(TC_NT) flash_tc_kernel(FlashArgs a) {
   constexpr bool Q_REGS = HD <= 128;     // Q's fragments held in registers
   constexpr int TILE_B = BK * RB;        // one K or V tile
   constexpr int RPI = TC_NT / CH;        // rows one pass of copies covers
+  constexpr bool FLAT = TC_NT % CH != 0; // HD 80: tile_copy_flat
   extern __shared__ __align__(128) unsigned char smem_raw[];
   // Q tile (later the output tile), then 2 stages of (K tile, V tile)
   const uint32_t q_sa = smem_u32(smem_raw), kv_sa = q_sa + TC_BQ * RB;
@@ -408,6 +438,7 @@ __global__ void __launch_bounds__(TC_NT) flash_tc_kernel(FlashArgs a) {
   const size_t q_row = (size_t)a.H * HD, kv_row = (size_t)a.KH * HD;
 
   // copies: this thread moves chunk cc of rows cr + RPI i of every tile
+  // (FLAT: the panels' row 0 is qg, kg, vg less cc 8)
   const int cr = tid / CH, cc = tid % CH;
   const uint32_t cp_off = cr * RB + cc * 16;
   const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q) +
@@ -415,22 +446,33 @@ __global__ void __launch_bounds__(TC_NT) flash_tc_kernel(FlashArgs a) {
   const size_t kv0 = ((size_t)b * S * a.KH + kh) * HD + cc * 8;
   const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + kv0;
   const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + kv0;
+  if constexpr (FLAT) {
+    tile_copy_flat<HD, TC_BQ>(q_sa, qg - cc * 8, q_row, q0, S, tid);
+  } else {
 #pragma unroll
-  for (int i = 0; i < TC_BQ / RPI; ++i) {
-    const int qp = q0 + cr + RPI * i;
-    const bool ok = qp < S;
-    cp_async16(q_sa + cp_off + i * RPI * RB, qg + (size_t)(ok ? qp : 0) * q_row,
-               ok);
+    for (int i = 0; i < TC_BQ / RPI; ++i) {
+      const int qp = q0 + cr + RPI * i;
+      const bool ok = qp < S;
+      cp_async16(q_sa + cp_off + i * RPI * RB,
+                 qg + (size_t)(ok ? qp : 0) * q_row, ok);
+    }
   }
   auto load_kv = [&](int t, int stage) {
-    const uint32_t dst = kv_sa + stage * 2 * TILE_B + cp_off;
+    if constexpr (FLAT) {
+      const uint32_t dst = kv_sa + stage * 2 * TILE_B;
+      tile_copy_flat<HD, BK>(dst, kg - cc * 8, kv_row, t * BK, S, tid);
+      tile_copy_flat<HD, BK>(dst + TILE_B, vg - cc * 8, kv_row, t * BK, S,
+                             tid);
+    } else {
+      const uint32_t dst = kv_sa + stage * 2 * TILE_B + cp_off;
 #pragma unroll
-    for (int i = 0; i < BK / RPI; ++i) {
-      const int kpos = t * BK + cr + RPI * i;
-      const bool ok = kpos < S;
-      const size_t off = (size_t)(ok ? kpos : 0) * kv_row;
-      cp_async16(dst + i * RPI * RB, kg + off, ok);
-      cp_async16(dst + TILE_B + i * RPI * RB, vg + off, ok);
+      for (int i = 0; i < BK / RPI; ++i) {
+        const int kpos = t * BK + cr + RPI * i;
+        const bool ok = kpos < S;
+        const size_t off = (size_t)(ok ? kpos : 0) * kv_row;
+        cp_async16(dst + i * RPI * RB, kg + off, ok);
+        cp_async16(dst + TILE_B + i * RPI * RB, vg + off, ok);
+      }
     }
   };
 
@@ -601,7 +643,8 @@ __global__ void __launch_bounds__(TC_NT) flash_tc_kernel(FlashArgs a) {
 
 // --------------------------------------------------------------------------
 // Decode, split over the KV sequence: decode_split_tc_kernel (bf16 q, bf16
-// or int8 pools, HD 64 / 128 / 256, G <= 16) or decode_split_kernel (the rest),
+// or int8 pools, HD 64 / 80 / 128 / 256, G <= 16) or decode_split_kernel (the
+// rest),
 // then decode_merge_kernel.
 //
 // The grid is (B * KH, n_split): block (b kh, j) owns the logical KV rows
@@ -836,10 +879,16 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(DecodeArgs a) {
 // three block barriers.  The merge is a second, small launch.  At HD 256 the
 // layout is the same: Q's fragments are already read per k step, and the
 // warp's O (128 f32 a thread) is the one large register array; the 4 x 16
-// f32 rows of the O reduction fill the K and V tiles exactly.
+// f32 rows of the O reduction fill the K and V tiles exactly.  HD 80 is
+// 5 k steps and 5 n-tile pairs of the same code: its copies already walk
+// the chunks flat, an int8 row is 5 chunks, and the O reduction again
+// fills the K and V tiles exactly (4 x 16 rows of 88 f32 = 22,528 bytes).
+// opt_2_7b is MHA, so its one query head fills 1 of the mma's 16 rows:
+// the split is bound by its bytes and latency, not by the mmas.
 template <int HD, typename KV, bool PARTIAL>
 __global__ void __launch_bounds__(DS_NT) decode_split_tc_kernel(DecodeArgs a) {
-  static_assert(HD == 64 || HD == 128 || HD == 256, "HD: 64, 128 or 256");
+  static_assert(HD == 64 || HD == 80 || HD == 128 || HD == 256,
+                "HD: 64, 80, 128 or 256");
   constexpr bool I8 = std::is_same<KV, int8_t>::value;
   constexpr int RB = tc_row_bytes<HD>();       // padded bf16 row
   constexpr int CH = HD / 8;                   // 16-byte chunks, bf16 row
@@ -1121,7 +1170,8 @@ constexpr size_t decode_tc_smem() {
 }
 
 // The split kernel on the grid (B * KH, n_split), then the merge on B * H
-// blocks.  tc: the tensor-core split (bf16 q, HD 64, 128 or 256, G <= 16);
+// blocks.  tc: the tensor-core split (bf16 q, HD 64, 80, 128 or 256,
+// G <= 16);
 // anything else it is asked for is refused with cudaErrorInvalidValue.
 template <typename T, typename KV, bool PARTIAL>
 int run_decode(const DecodeArgs& a, int B, int tc, cudaStream_t stream) {
@@ -1132,13 +1182,15 @@ int run_decode(const DecodeArgs& a, int B, int tc, cudaStream_t stream) {
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
       constexpr bool I8 = std::is_same<KV, int8_t>::value;
       if (a.H / a.KH > DS_GMAX ||
-          (a.HD != 64 && a.HD != 128 && a.HD != 256))
+          (a.HD != 64 && a.HD != 80 && a.HD != 128 && a.HD != 256))
         return (int)cudaErrorInvalidValue;
       auto kernel = a.HD == 256   ? decode_split_tc_kernel<256, KV, PARTIAL>
                     : a.HD == 128 ? decode_split_tc_kernel<128, KV, PARTIAL>
+                    : a.HD == 80  ? decode_split_tc_kernel<80, KV, PARTIAL>
                                   : decode_split_tc_kernel<64, KV, PARTIAL>;
       const size_t smem = a.HD == 256   ? decode_tc_smem<256, I8>()
                           : a.HD == 128 ? decode_tc_smem<128, I8>()
+                          : a.HD == 80  ? decode_tc_smem<80, I8>()
                                         : decode_tc_smem<64, I8>();
       err = allow_smem(kernel, smem);
       if (err != cudaSuccess) return (int)err;
@@ -1252,8 +1304,8 @@ int rt_flash_attention(int dtype, const void* q, const void* k, const void* v,
                     : run_flash<float>(a, B, s);
 }
 
-// bf16 only, HD 64, 128 or 256, 16-byte-aligned bases (the wrapper's route);
-// any other HD is refused with cudaErrorInvalidValue.
+// bf16 only, HD 64, 80, 128 or 256, 16-byte-aligned bases (the wrapper's
+// route); any other HD is refused with cudaErrorInvalidValue.
 int rt_flash_attention_tc(const void* q, const void* k, const void* v,
                           void* out, int B, int S, int H, int KH, int HD,
                           int causal, int window, float scale, void* stream) {
@@ -1264,6 +1316,7 @@ int rt_flash_attention_tc(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (HD == 256) return run_flash_tc<256>(a, B, s);
   if (HD == 128) return run_flash_tc<128>(a, B, s);
+  if (HD == 80) return run_flash_tc<80>(a, B, s);
   if (HD == 64) return run_flash_tc<64>(a, B, s);
   return (int)cudaErrorInvalidValue;
 }

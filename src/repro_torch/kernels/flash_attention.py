@@ -14,8 +14,8 @@ there before a wrapper is reached.  Each launch adds one to its kernel's
 count in `build.LAUNCHES`.
 
 Prefill has two kernels: `flash_tc_kernel` on the tensor cores takes bf16
-with a head dim of 64, 128 or 256 and 16-byte-aligned bases, `flash_kernel` on
-the CUDA cores takes the rest.  `flash_route` is that rule, a dispatch on
+with a head dim of 64, 80, 128 or 256 and 16-byte-aligned bases,
+`flash_kernel` on the CUDA cores takes the rest.  `flash_route` is that rule, a dispatch on
 what each kernel takes: a refused launch of either still raises.  Decode
 (fused and partial) splits the KV range as `decode_split` says, runs each
 split on `decode_split_tc_kernel` (the tensor cores) where `decode_route`
@@ -48,7 +48,7 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 # head dims the tensor-core prefill and decode kernels are compiled for
-TC_HEAD_DIMS = (64, 128, 256)
+TC_HEAD_DIMS = (64, 80, 128, 256)
 # query heads per KV head the tensor-core decode split takes (the mma's 16
 # rows)
 DECODE_TC_MAX_GROUP = 16

@@ -21,9 +21,9 @@ and paged == dense bitwise.  The KNN distances against the plain version
 (f32 products summed in another order, then q2 - 2 q.x + x2):
 |kernel - plain| <= 1e-5 (|q| + |x|)^2, the square bounding every term of
 the sum; a chunk of db gives the bits of the same columns of the whole.
-The tensor-core kernels (bf16 flash attention with hd 64, 128 or 256, bf16 KNN
-with D % 8 == 0, the bf16 decode split, bf16 prefill quant_matmul) are
-held to the same tolerances: their bf16 products are exact in f32 (int8
+The tensor-core kernels (bf16 flash attention with hd 64, 80, 128 or
+256, bf16 KNN with D % 8 == 0, the bf16 decode split, bf16 prefill
+quant_matmul) are held to the same tolerances: their bf16 products are exact in f32 (int8
 and 4-bit quants are exact in bf16, their scales applied in f32) and the
 attention kernels keep P to ~16 bits (a hi and a lo bf16 half), so they
 too differ from the plain versions in f32 summation order.  The decode
@@ -182,7 +182,8 @@ def _split_case(dev, dtype, hd, group, seed, kv="fp", s=1024, page=128):
     (torch.bfloat16, 96, 4),        # no tensor-core instantiation
     (torch.float32, 128, 12),       # the f32 CUDA-core split
     (torch.bfloat16, 256, 2),       # gemma3_12b: the tensor-core split
-    (torch.bfloat16, 80, 1),        # opt_2_7b: the CUDA-core split
+    (torch.bfloat16, 80, 1),        # opt_2_7b (MHA): the tensor-core split
+    (torch.float32, 80, 1),         # opt_2_7b in f32: the CUDA-core split
 ])
 @pytest.mark.parametrize("window", [0, 100])
 def test_decode_split_edges(cuda, kv, dtype, hd, group, window):
@@ -196,7 +197,7 @@ def test_decode_split_edges(cuda, kv, dtype, hd, group, window):
     name = ("decode_attention_fused" if kv == "fp"
             else "decode_attention_fused[int8]")
     tc = fa.decode_route(dtype, hd, group) == "tensor_core"
-    assert tc == (dtype == torch.bfloat16 and hd in (64, 128, 256)
+    assert tc == (dtype == torch.bfloat16 and hd in (64, 80, 128, 256)
                   and group <= 16)
     before = (kbuild.LAUNCHES[name], kbuild.LAUNCHES[name + "_tc"])
     dense = fa.decode_attention_fused(q, k, v, pos, extra, window=window,
@@ -225,6 +226,8 @@ def test_decode_split_edges(cuda, kv, dtype, hd, group, window):
 @pytest.mark.parametrize("dtype,hd,group", [
     (torch.float32, 128, 12), (torch.bfloat16, 128, 12),
     (torch.bfloat16, 256, 2),       # gemma3_12b's heads
+    (torch.bfloat16, 80, 1),        # opt_2_7b's (MHA): the tensor cores
+    (torch.float32, 80, 1),         # and the CUDA-core split
 ])
 def test_decode_partial_empty_splits_and_rows(cuda, dtype, hd, group):
     """C = 1024: row 0 fully masked, row 1 valid in two splits and at the
@@ -316,13 +319,13 @@ def test_flash_attention_kernel_f32_group_12(cuda, s, window):
     assert _flash_case(cuda, torch.float32, s, window) == (1, 0)
 
 
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
 @pytest.mark.parametrize("window", [0, 33])
 @pytest.mark.parametrize("s", [1, 8, 63, 65, 200, 512, 1000])
 def test_flash_attention_tensor_core_kernel(cuda, hd, s, window):
-    """bf16 with hd 64, 128 and 256: ragged S around the 64-row (32 at hd
-    256) KV tiles, a window that empties whole KV tiles; every launch on
-    the tensor cores."""
+    """bf16 with hd 64, 80, 128 and 256: ragged S around the 64-row (32
+    at hd 256) KV tiles, a window that empties whole KV tiles; every launch
+    on the tensor cores."""
     assert _flash_case(cuda, torch.bfloat16, s, window, hd=hd) == (1, 1)
 
 
@@ -337,16 +340,23 @@ def test_flash_attention_tensor_core_kernel_non_causal(cuda, window):
 def test_flash_attention_long_window(cuda, hd, kh, group, s, window):
     """gemma3_12b's local layers (hd 256, 8 KV heads of 2) and opt_2_7b's
     MHA (hd 80) at prompts past a 1024-row window, which empties the
-    early KV tiles of the late q tiles: hd 256 on the tensor cores, hd 80
-    on the CUDA cores."""
+    early KV tiles of the late q tiles: both on the tensor cores."""
     assert _flash_case(cuda, torch.bfloat16, s, window, hd=hd, kh=kh,
-                       group=group) == (1, int(hd == 256))
+                       group=group) == (1, 1)
+
+
+@pytest.mark.parametrize("s,window", [(1100, 1024), (2048, 1024)])
+def test_flash_attention_long_window_f32(cuda, s, window):
+    """opt_2_7b's MHA in f32 past the window: the CUDA-core kernel."""
+    assert _flash_case(cuda, torch.float32, s, window, hd=80, kh=32,
+                       group=1) == (1, 0)
 
 
 @pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 96),
                                       (torch.bfloat16, 32),
                                       (torch.float32, 64),
-                                      (torch.bfloat16, 80)])
+                                      (torch.float32, 80),
+                                      (torch.bfloat16, 72)])
 def test_flash_attention_other_inputs_take_the_cuda_core_kernel(cuda, dtype,
                                                                 hd):
     assert _flash_case(cuda, dtype, 130, 0, hd=hd) == (1, 0)

@@ -30,18 +30,22 @@ BF16, F32 = torch.bfloat16, torch.float32
     (BF16, 96, True, "cuda_core"),         # no instantiation for 96
     (BF16, 32, True, "cuda_core"),
     (BF16, 256, True, "tensor_core"),      # gemma3_12b's head dim
-    (BF16, 80, True, "cuda_core"),         # opt_2_7b's: no instantiation
+    (BF16, 80, True, "tensor_core"),       # opt_2_7b's: 5 k steps of 16
     (F32, 128, True, "cuda_core"),         # f32 keeps the f32 kernel
     (F32, 64, True, "cuda_core"),
+    (BF16, 80, False, "cuda_core"),
+    (BF16, 72, True, "cuda_core"),         # no instantiation for 72
+    (F32, 80, True, "cuda_core"),
 ])
 def test_flash_route(dtype, hd, aligned, route):
     assert fa.flash_route(dtype, hd, aligned) == route
 
 
 def test_flash_route_names_the_compiled_head_dims():
-    assert fa.TC_HEAD_DIMS == (64, 128, 256)
+    assert fa.TC_HEAD_DIMS == (64, 80, 128, 256)
     assert [hd for hd in range(1, 513)
-            if fa.flash_route(BF16, hd) == "tensor_core"] == [64, 128, 256]
+            if fa.flash_route(BF16, hd) == "tensor_core"] == [64, 80, 128,
+                                                               256]
 
 
 @pytest.mark.parametrize("dtype,d,aligned,route", [
@@ -67,8 +71,10 @@ def test_knn_route(dtype, d, aligned, route):
     (BF16, 128, 12, False, "cuda_core"),   # cp.async needs 16-byte bases
     (BF16, 96, 4, True, "cuda_core"),      # no instantiation for 96
     (BF16, 256, 2, True, "tensor_core"),   # gemma3_12b
-    (BF16, 80, 1, True, "cuda_core"),      # opt_2_7b: no instantiation
+    (BF16, 80, 1, True, "tensor_core"),    # opt_2_7b: MHA, 1 of 16 rows
     (F32, 128, 12, True, "cuda_core"),     # f32 keeps the CUDA-core split
+    (BF16, 88, 1, True, "cuda_core"),      # no instantiation for 88
+    (F32, 80, 1, True, "cuda_core"),
 ])
 def test_decode_route(dtype, hd, group, aligned, route):
     assert fa.decode_route(dtype, hd, group, aligned) == route

@@ -76,9 +76,9 @@ def test_flash_attention_parity(dtype, group, window, interpret):
 
 
 # gemma3_12b's head dim (256, 2 query heads per KV head, its sliding
-# window) and opt_2_7b's (80, MHA): on the card 256 runs the tensor-core
-# kernel and 80 the CUDA-core one; here both are the plain version, held
-# to the oracle and, where marked, to the Pallas kernel.
+# window) and opt_2_7b's (80, MHA): on the card both run the tensor-core
+# kernels in bf16 and the CUDA-core ones in f32; here both are the plain
+# version, held to the oracle and, where marked, to the Pallas kernel.
 
 @pytest.mark.parametrize("dtype,hd,group,window,interpret", [
     ("float32", 256, 2, 20, True), ("bfloat16", 256, 2, 20, False),
@@ -217,15 +217,15 @@ def test_paged_equals_dense_bitwise():
 
 # ------------------------------------------------------ partial decode stats
 
-@pytest.mark.parametrize("dtype,group,interpret", [
-    ("float32", 1, False), ("float32", 4, True), ("float32", 12, False),
-    ("bfloat16", 12, True)])
-def test_decode_partial_parity(dtype, group, interpret):
-    rng = np.random.default_rng(50 + group)
-    h, c = KH * group, 32
-    q, tq = _pair(rng.standard_normal((B, 1, h, HD)), dtype)
-    k, tk = _pair(rng.standard_normal((B, KH, c, HD)), dtype)
-    v, tv = _pair(rng.standard_normal((B, KH, c, HD)), dtype)
+def _check_partial(dtype, group, interpret, seed, hd=HD, c=32):
+    """The port's plain partial against the oracle and, if `interpret`,
+    the Pallas kernel (chunks of 16 slots): random masks, row 1 fully
+    masked, row 0's first three slots valid."""
+    rng = np.random.default_rng(seed)
+    h = KH * group
+    q, tq = _pair(rng.standard_normal((B, 1, h, hd)), dtype)
+    k, tk = _pair(rng.standard_normal((B, KH, c, hd)), dtype)
+    v, tv = _pair(rng.standard_normal((B, KH, c, hd)), dtype)
     valid = rng.random((B, c)) < 0.6
     valid[1] = False                       # a fully masked row
     valid[0, :3] = True
@@ -246,6 +246,59 @@ def test_decode_partial_parity(dtype, group, interpret):
         np.testing.assert_allclose(pacc, acc, atol=1e-4, rtol=1e-5)
     assert np.isneginf(port[1][1].numpy()).all()
     assert (port[2][1].numpy() == 0).all()
+
+
+@pytest.mark.parametrize("dtype,group,interpret", [
+    ("float32", 1, False), ("float32", 4, True), ("float32", 12, False),
+    ("bfloat16", 12, True)])
+def test_decode_partial_parity(dtype, group, interpret):
+    _check_partial(dtype, group, interpret, 50 + group)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_partial_head_dim_parity(dtype):
+    """opt_2_7b's head dim 80, MHA, over 48 slots (3 chunks of 16),
+    against the oracle and the Pallas kernel in interpret mode; on the
+    card bf16 runs the tensor-core split and f32 the CUDA-core one, both
+    held to this plain version."""
+    _check_partial(dtype, 1, True, 80, hd=80, c=48)
+
+
+@pytest.mark.parametrize("dtype,window,paged", [
+    ("float32", 31, True), ("float32", 0, False), ("bfloat16", 31, True)])
+def test_decode_fused_int8_head_dim_parity(dtype, window, paged):
+    """opt_2_7b's head dim 80 (MHA) over int8 pools with one f32 scale
+    per (row, KV head, page), the current token's extra merged: the
+    port's plain fused decode against the Pallas kernel's has_scales
+    branch in interpret mode and the oracle, dense and paged through a
+    permuted table (the pools then physical, each page with its scale).
+    f32 q within 1e-5, bf16 q within one bf16 unit (2e-2)."""
+    rng = np.random.default_rng(80 + window)
+    hd, h = 80, KH
+    q, tq = _pair(rng.standard_normal((B, 1, h, hd)), dtype)
+    (k8, ks), (v8, vs) = (jref.quantize_kv_pages(jnp.asarray(
+        rng.standard_normal((B, KH, S, hd)), jnp.float32), PAGE)
+        for _ in range(2))
+    parts = (rng.standard_normal((B, h, hd)), rng.standard_normal((B, h)),
+             rng.random((B, h)) + 0.5)
+    jx = tuple(jnp.asarray(x, jnp.float32) for x in parts)
+    tx = tuple(torch.from_numpy(np.asarray(x, np.float32)) for x in parts)
+    table = np.stack([rng.permutation(S // PAGE)
+                      for _ in range(B)]).astype(np.int32)
+    jp, tp = (jnp.asarray(table), torch.from_numpy(table)) if paged \
+        else (None, None)
+    jpos, tpos = jnp.asarray(POS), torch.from_numpy(POS)
+    t8 = [torch.from_numpy(np.array(x)) for x in (k8, v8, ks, vs)]
+    port = ops.decode_attention_fused(tq, t8[0], t8[1], tpos, tx, tp,
+                                      (t8[2], t8[3]), window=window,
+                                      blk_c=PAGE)
+    assert port.dtype == tq.dtype and port.shape == tq.shape
+    _close(port, jfa.decode_attention_fused(
+        q, k8, v8, jpos, jx, window=window, blk_c=PAGE, pages=jp,
+        kv_scales=(ks, vs), interpret=True), dtype)
+    _close(port, _fused(q, k8, v8, jpos, jx, window=window, pages=jp,
+                        page_size=PAGE if paged else 0,
+                        kv_scales=(ks, vs)), dtype)
 
 
 def test_merge_fused_partial_pair_guards_empty_partials():
