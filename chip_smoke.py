@@ -55,8 +55,24 @@ near ties, and with an int8 KV cache), minitron_4b and qwen2_vl_2b
 bound.  Their `[kernel]` rows hold the attention kernels at head dims
 256 and 80 (flash at S 2048 with a window of 1024; the fused decode over
 2048 slots with a window of 1023, bf16 and int8 pools; the partial)
-against the plain versions, beside SDPA with an explicit boolean mask,
-in bf16 on the tensor cores and on f32 copies on the CUDA cores.
+and 64 (granite_moe_3b's 24 heads on 8 KV heads, no window) against the
+plain versions, beside SDPA with an explicit boolean mask, in bf16 on
+the tensor cores and on f32 copies on the CUDA cores.
+The `[moe]` lines serve the Mixture-of-Experts archs at full width, each
+model freed before the next: granite_moe_3b at all 32 layers (40
+experts, top-8, head dim 64) on 8 requests of 64-400 tokens x 32 (graph
+== eager and request 1 alone == its row in the batch, bitwise), 2
+requests with its self:8 draft (held to the non-spec twin at the
+verify's row count by the near-tie gate: the verify routes 16 rows
+together, so its capacity can drop pairs the decode step keeps), and the
+same 2 under rp (to axle, by the near-tie gate) and with an int8 KV
+cache (the hd 64 partial and int8 decode on a serve); then the CARD
+configs of phi3_5_moe_42b (the first 24 of 32 layers) and
+jamba_1_5_large (its first 5 of 72 layers: four mamba layers on the
+tensor-core scan, one attention layer, MoE at 0, 2 and 4) on 4 requests
+x 16.  Each prints tok/s, the decode step's device ms and kernels, its
+weight-read bound (every expert's bytes: the dispatch multiplies all of
+them) and peak memory.
 Before serving, it drives the paper's two offload workloads through
 `stream_offload` under BS, RP and AXLE, data from seed 0 on the card:
   * KNN (VectorDB): 256 queries against a 1,000,000 x 1024 bf16 database
@@ -153,7 +169,18 @@ Tolerances (bf16 inputs, f32 accumulation in both versions):
     the two paths part by units (the line prints by how much, and does
     not gate it).  In f32 the scans differ in the last bits of an f32
     sum instead of a bf16 unit (2^-8), so the same stack stays within
-    1e-2.
+    1e-2;
+  * the MoE archs' logits, kernel path vs plain path: <= 0.25 and the
+    near-tie gate, as starcoder2_3b's, with both paths routed to the
+    kernel path's experts: a router turns a one-unit difference into
+    another expert wherever two router logits nearly tie (a prefill makes
+    thousands of such choices), and one swapped expert moves a whole
+    logit row.  Each row the plain router would send elsewhere must be at
+    a router near tie (its own k-th best router logit within 0.1 of the
+    forced experts').  Two MoE serves (rp vs axle, spec vs its twin) may
+    part only at a near tie of the logits in a replay of the stream as
+    the server computed it, or after their replays' routes first part at
+    router near ties.
 """
 from __future__ import annotations
 
@@ -195,7 +222,7 @@ if not torch.cuda.is_available():
     fail("torch.cuda.is_available() is False: this script needs a GPU")
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 try:
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_card_config, get_config
     from repro_torch.core import prng
     from repro_torch.core.backstream import (OffloadConfig, OffloadProtocol,
                                              stream_offload, use_offload)
@@ -208,9 +235,9 @@ try:
     from repro_torch.kernels import sls as ksls
     from repro_torch.kernels import ssd as kssd
     from repro_torch.launch.serve import (BatchedServer, Request,
-                                          SamplingParams)
+                                          SamplingParams, _prefill_bucket)
     from repro_torch.launch.steps import QuantConfig
-    from repro_torch.models import transformer
+    from repro_torch.models import layers, transformer
     from repro_torch.models.quantize import padded_rows
 except ImportError as exc:
     fail(f"the repro_torch package is not beside this script: {exc}")
@@ -874,10 +901,11 @@ del k8_log, v8_log, k8_pool, v8_pool, out
 
 # --------------------------------------------------------------------------
 # 3a. the attention kernels at the other archs' head dims: gemma3_12b's 256
-# (16 heads on 8 KV heads) and opt_2_7b's 80 (MHA, 32 heads), both on the
-# tensor-core kernels in bf16 and on the CUDA-core ones in f32, under
-# gemma3's window: 1024 in the prefill, 1023 cached slots (plus the
-# current token) in the decode
+# (16 heads on 8 KV heads) and opt_2_7b's 80 (MHA, 32 heads) under
+# gemma3's window (1024 in the prefill, 1023 cached slots plus the current
+# token in the decode), and granite_moe_3b's 64 (24 heads on 8 KV heads)
+# with none, all on the tensor-core kernels in bf16 and on the CUDA-core
+# ones in f32
 # --------------------------------------------------------------------------
 
 W_S, W_PAGE, W_WIN = 2048, 128, 1024
@@ -919,15 +947,17 @@ def sdpa_backend(fn):
     return backend, top[:60]
 
 
-def attention_at(label, h, kh, hd, served):
+def attention_at(label, h, kh, hd, served, window=W_WIN):
     """flash_attention, decode_attention_fused (bf16 and int8 pools) and
     decode_attention_partial at head dim `hd`, H = h, KH = kh: each held
     to its plain version within the hd 128 rows' tolerances, on the route
     `flash_route` / `decode_route` names for bf16, timed beside its bound
     and SDPA with an explicit boolean mask, and again on f32 copies of the
-    same inputs, which take the CUDA-core kernels.  Returns the records
-    ("flash", "fused", "int8", "partial"); `served` names those a serve of
-    this script takes (their launches come from it, below)."""
+    same inputs, which take the CUDA-core kernels.  `window` is the
+    prefill's (W - 1 cached slots in the decode; 0: causal, no window).
+    Returns the records ("flash", "fused", "int8", "partial"); `served`
+    names those a serve of this script takes (their launches come from
+    it, below)."""
     tag = f"[hd{hd}]"
     tc_flash = fa.flash_route(torch.bfloat16, hd) == "tensor_core"
     tc_dec = fa.decode_route(torch.bfloat16, hd, h // kh) == "tensor_core"
@@ -935,16 +965,18 @@ def attention_at(label, h, kh, hd, served):
     droute = "tensor-core" if tc_dec else "CUDA-core"
 
     def serving(key):
-        return ("served in [archs]" if key in served
+        return ("served in [archs] / [moe]" if key in served
                 else "not on a serve path of this script")
 
+    wtext = f"window {window}" if window else "no window"
+
     out = {}
-    # flash: one 2048-token prompt, causal, window 1024
+    # flash: one 2048-token prompt, causal, under the window
     qf, kf, vf = (randn(1, W_S, n, hd) for n in (h, kh, kh))
     kbuild.reset_launch_counts()
-    got = fa.flash_attention(qf, kf, vf, causal=True, window=W_WIN)
+    got = fa.flash_attention(qf, kf, vf, causal=True, window=window)
     variants = routes("flash_attention")
-    plain = ref.mha_reference(qf, kf, vf, causal=True, window=W_WIN)
+    plain = ref.mha_reference(qf, kf, vf, causal=True, window=window)
     torch.cuda.synchronize()
     err = (got.float() - plain.float()).abs().max().item()
     check(err <= ATOL_BF16, f"flash_attention{tag}: err {err}")
@@ -953,7 +985,8 @@ def attention_at(label, h, kh, hd, served):
           f"flash_attention{tag}: launches {variants}, not the {route} "
           "kernel")
     qi = torch.arange(W_S, device=DEV)
-    mask = (qi[None, :] <= qi[:, None]) & (qi[None, :] > qi[:, None] - W_WIN)
+    mask = (qi[None, :] <= qi[:, None]) & (
+        (qi[None, :] > qi[:, None] - window) | (window == 0))
     pairs = int(mask.sum())
     bnd, by = bound_ms(2 * nbytes(qf) + nbytes(kf, vf), 4 * pairs * h * hd)
 
@@ -968,27 +1001,27 @@ def attention_at(label, h, kh, hd, served):
         replaces="src/repro/kernels/flash_attention.py:98",
         max_abs_err=err, bound_ms=bnd, bound_by=by,
         **timings(lambda: fa.flash_attention(qf, kf, vf, causal=True,
-                                             window=W_WIN),
+                                             window=window),
                   lambda: ref.mha_reference(qf, kf, vf, causal=True,
-                                            window=W_WIN),
+                                            window=window),
                   sdpa_prefill))
     backend = sdpa_backend(sdpa_prefill)
     q32, k32, v32 = qf.float(), kf.float(), vf.float()
     got32, var32 = on_cuda_cores(
         f"flash_attention{tag}",
-        lambda: fa.flash_attention(q32, k32, v32, causal=True, window=W_WIN),
+        lambda: fa.flash_attention(q32, k32, v32, causal=True, window=window),
         "flash_attention")
     err32 = f32_err(got32, ref.mha_reference(q32, k32, v32, causal=True,
-                                             window=W_WIN),
+                                             window=window),
                     f"flash_attention{tag}")
     dev32 = device_ms(lambda: fa.flash_attention(q32, k32, v32, causal=True,
-                                                 window=W_WIN))
+                                                 window=window))
     del q32, k32, v32, got32
     print(f"[kernel] flash_attention{tag} {label}: B=1 S={W_S} H={h} KH={kh} "
-          f"hd={hd} causal, window {W_WIN}: max_abs_err {err:.3g} <= "
+          f"hd={hd} causal, {wtext}: max_abs_err {err:.3g} <= "
           f"{ATOL_BF16}; launches {variants} (the {route} kernel); "
           f"{rec['ms']:.4f} ms, bound {bnd:.5f} ms ({by}), plain "
-          f"{rec['plain_ms']:.4f} ms, SDPA with the boolean window mask "
+          f"{rec['plain_ms']:.4f} ms, SDPA with the boolean mask "
           f"{rec['library_ms']:.4f} ms; device {show(rec['device_ms'])} ms "
           f"= {show(div(4 * pairs * h * hd / 1e9, rec['device_ms']), '.1f')} "
           f"TFLOP/s, SDPA's {show(rec['library_device_ms'])} ms on its "
@@ -999,8 +1032,9 @@ def attention_at(label, h, kh, hd, served):
     del qf, kf, vf, got, plain, mask
 
     # decode: 4 rows at pos W_POS over a 2048-slot cache in 16 pages under a
-    # permuted table, extra merged, window W_WIN - 1 (a local layer's)
-    win = W_WIN - 1
+    # permuted table, extra merged, window - 1 cached slots (a local
+    # layer's), or all of them
+    win = max(0, window - 1)
     q = randn(B, 1, h, hd)
     k_log, v_log = randn(B, kh, W_S, hd), randn(B, kh, W_S, hd)
     table = torch.stack([torch.randperm(W_S // W_PAGE, generator=G,
@@ -1204,12 +1238,16 @@ def attention_at(label, h, kh, hd, served):
 
 
 # the records a serve of this script takes at each head dim: gemma3_12b
-# serves fp axle only; opt_2_7b also serves rp and an int8 KV cache
+# serves fp axle only; opt_2_7b and granite_moe_3b (hd 64, full causal
+# layers: no window) also serve rp and an int8 KV cache
 g3cfg, optcfg = get_config("gemma3_12b"), get_config("opt_2_7b")
-for arch_cfg, served in ((g3cfg, ("flash", "fused")),
-                         (optcfg, ("flash", "fused", "int8", "partial"))):
+gcfg = get_config("granite_moe_3b")
+ALL4 = ("flash", "fused", "int8", "partial")
+for arch_cfg, served, window in ((g3cfg, ("flash", "fused"), W_WIN),
+                                 (optcfg, ALL4, W_WIN), (gcfg, ALL4, 0)):
     recs = attention_at(arch_cfg.arch_id, arch_cfg.n_heads,
-                        arch_cfg.n_kv_heads, arch_cfg.head_dim_, served)
+                        arch_cfg.n_kv_heads, arch_cfg.head_dim_, served,
+                        window)
     for key in served:
         records[recs[key]["name"]] = recs[key]
 
@@ -2020,14 +2058,11 @@ def near_tie_agree(a, b, what):
                   f"{ia[r].item()} vs {ib[r].item()}, gap {gap}")
 
 
-def kernels_against_plain(arch, prompts, atol=LOGIT_ATOL, **kw):
-    """The kernel path's logits against the plain path's, step by step on
-    the same tokens: both decode the plain path's greedy tokens, so a
-    near-tie flip of one step's argmax (which the near-tie gate accepts)
-    does not hand the two paths different inputs for the steps after."""
-    plain = logits_along(prompts, 4, reference=True, **kw)
-    feed = [lg.argmax(-1).to(torch.int32)[:, None] for lg in plain[:-1]]
-    kern = logits_along(prompts, 4, reference=False, feed=feed, **kw)
+def logits_agree(arch, kern, plain, rows, vocab, atol):
+    """The kernel path's logits (finite, (rows, vocab) a step) within
+    `atol` of the plain path's, and each step's greedy tokens equal but
+    at near ties of the plain logits.  Returns (the largest difference,
+    the near-tie flips)."""
     worst = max((a - b).abs().max().item() for a, b in zip(kern, plain))
     check(all(bool(torch.isfinite(a).all()) for a in kern),
           f"{arch}: non-finite logits")
@@ -2036,9 +2071,21 @@ def kernels_against_plain(arch, prompts, atol=LOGIT_ATOL, **kw):
     for i, (a, b) in enumerate(zip(kern, plain)):
         near_tie_agree(b, a, f"{arch} step {i}")
         flips += int((a.argmax(-1) != b.argmax(-1)).sum())
-    vocab = kw.get("arch_cfg", cfg).padded_vocab
-    check(all(a.shape == (len(prompts), vocab) for a in kern),
+    check(all(a.shape == (rows, vocab) for a in kern),
           f"{arch}: logits of shape {tuple(kern[0].shape)}")
+    return worst, flips
+
+
+def kernels_against_plain(arch, prompts, atol=LOGIT_ATOL, **kw):
+    """The kernel path's logits against the plain path's, step by step on
+    the same tokens: both decode the plain path's greedy tokens, so a
+    near-tie flip of one step's argmax (which the near-tie gate accepts)
+    does not hand the two paths different inputs for the steps after."""
+    plain = logits_along(prompts, 4, reference=True, **kw)
+    feed = [lg.argmax(-1).to(torch.int32)[:, None] for lg in plain[:-1]]
+    kern = logits_along(prompts, 4, reference=False, feed=feed, **kw)
+    worst, flips = logits_agree(arch, kern, plain, len(prompts),
+                                kw.get("arch_cfg", cfg).padded_vocab, atol)
     print(f"[reference] {arch} full width, {len(prompts)} rows, prefill + 4 "
           f"decode steps on the plain path's greedy tokens, kernels vs plain "
           f"versions: logits max_abs_err {worst:.4g} <= {atol}; greedy "
@@ -2741,27 +2788,28 @@ def arch_requests(vocab, lens, max_new, seed):
 
 
 def attention_launches(label, srv, launches, n_layers, tc,
-                       decode="decode_attention_fused"):
+                       decode="decode_attention_fused", tag="[archs]"):
     """Every decode step ran one fused decode a layer (`decode`: the fp or
     the int8 one) and every prefill one flash call a layer, all on the
-    tensor-core kernels (tc) or none."""
+    tensor-core kernels (tc) or none; `n_layers` counts the attention
+    layers."""
     for name, per in ((decode, srv.steps),
                       ("flash_attention", srv.prefill_forwards)):
         check(launches[name] == per * n_layers
               and launches[name + "_tc"] == launches[name] * int(tc),
-              f"[archs] {label}: {name} launches {launches[name]} "
+              f"{tag} {label}: {name} launches {launches[name]} "
               f"({launches[name + '_tc']} on the tensor cores) != {per} x "
               f"{n_layers}, {'all' if tc else 'none'} on the tensor cores")
 
 
-def arch_line(label, srv, toks, dt, parts, weights, t0):
+def arch_line(label, srv, toks, dt, parts, weights, t0, tag="[archs]"):
     """tok/s, the decode step's device time and kernels (one replay of
     the one-step greedy segment under the profiler), the weight-read bound
     of a step, peak memory, the phase's seconds."""
     n_tok = sum(len(t) for t in toks.values())
     step = parts["step_plain_fn"]
     bound = weights / HBM_BYTES_PER_S * 1e3
-    print(f"[archs] {label}: {len(toks)} requests, {n_tok} tokens in "
+    print(f"{tag} {label}: {len(toks)} requests, {n_tok} tokens in "
           f"{dt:.3f} s = {n_tok / dt:.1f} tok/s, every segment a graph "
           f"replay; decode step {step['device_ms']:.3f} ms device, "
           f"{step['kernels']:.0f} kernels ({step['launches']} of ours) a "
@@ -2987,6 +3035,333 @@ print(f"[archs] the five archs took {time.perf_counter() - ARCHS_T0:.1f} s; "
       f"{time.perf_counter() - T_START:.0f} s into the script", flush=True)
 
 # --------------------------------------------------------------------------
+# 6c. Mixture-of-Experts serving: granite_moe_3b at full depth (32 layers,
+# 40 experts, top-8, hd 64), then phi3_5_moe_42b and jamba_1_5_large at
+# full width cut in depth to fit the card (their CARD configs); each model
+# freed before the next.  The MoE FFN is plain torch, as the reference's
+# is plain XLA: its dispatch multiplies every expert over its capacity
+# slots, so a decode step reads every expert's weights
+# --------------------------------------------------------------------------
+
+MOE_T0 = time.perf_counter()
+# what the earlier phases still hold (mamba2_370m's weights, the KNN
+# database under its first chunk's view): the phi3_5 cut needs the room
+del mparams, knn_q, chunk
+torch.cuda.empty_cache()
+print(f"[moe] device memory held before the phase: "
+      f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+
+
+@contextlib.contextmanager
+def moe_routes(record, force=None, margins=None):
+    """Record every `layers.moe_route` call's (expert ids, router logits)
+    in `record`, in call order.  With `force` (another run's record), each
+    call routes to that run's experts instead, its gates from this run's
+    own router, and each row whose own experts differ adds its margin
+    (its own k-th best router logit less the lowest of the forced
+    experts') to `margins`."""
+    route = layers.moe_route
+    forced = iter(force) if force is not None else None
+
+    def spy(x, router, k):
+        gates, ids = route(x, router, k)
+        logits = x.float() @ router.float()
+        record.append((ids, logits))
+        if forced is None:
+            return gates, ids
+        want = next(forced)[0]
+        other = (ids.sort(-1).values != want.sort(-1).values).any(-1)
+        if bool(other.any()):
+            low = logits.gather(1, want).min(-1).values
+            kth = logits.gather(1, ids[:, -1:])[:, 0]
+            margins.extend((kth - low)[other].tolist())
+        probs = torch.softmax(logits, dim=-1).gather(1, want)
+        return probs / probs.sum(-1, keepdim=True), want
+
+    layers.moe_route = spy
+    try:
+        yield
+    finally:
+        layers.moe_route = route
+
+
+def moe_against_plain(arch, prompts, arch_cfg, weights, atol=LOGIT_ATOL):
+    """`kernels_against_plain` for an MoE model.  A router turns a one-unit
+    difference of its input into another expert wherever two router
+    logits nearly tie, and one swapped expert moves a whole logit row; a
+    prefill routes every prompt row in every layer, thousands of choices.
+    So the kernel path runs first, on its own greedy tokens, its routes
+    recorded; the plain path then decodes the same tokens routed to the
+    same experts (its gates from its own router), which leaves the
+    kernels as the only difference: its logits are held within `atol`
+    and its greedy tokens to the near-tie gate.  Each row the plain
+    router would have sent elsewhere must be at a router near tie (its
+    own k-th best router logit within NEAR_TIE of the forced experts')."""
+    routes, forced, margins = [], [], []
+    with moe_routes(routes):
+        kern = logits_along(prompts, 4, False, arch_cfg=arch_cfg,
+                            weights=weights)
+    feed = [lg.argmax(-1).to(torch.int32)[:, None] for lg in kern[:-1]]
+    with moe_routes(forced, force=routes, margins=margins):
+        plain = logits_along(prompts, 4, True, arch_cfg=arch_cfg,
+                             weights=weights, feed=feed)
+    check(len(forced) == len(routes), f"[moe] {arch}: {len(forced)} routed "
+          f"calls on the plain path, {len(routes)} on the kernel path")
+    worst, flips = logits_agree(f"[moe] {arch}", kern, plain, len(prompts),
+                                arch_cfg.padded_vocab, atol)
+    check(all(m < NEAR_TIE for m in margins), f"[moe] {arch}: the plain "
+          f"router parts from the kernel path's experts by "
+          f"{max(margins, default=0.0)} "
+          f"(gate {NEAR_TIE})")
+    rows = sum(int(ids.shape[0]) for ids, _ in routes)
+    print(f"[reference] {arch} full width, {len(prompts)} rows, prefill + 4 "
+          f"decode steps, kernels vs plain versions, both routed by the "
+          f"kernel path ({len(routes)} MoE calls, {rows} routed rows; the "
+          f"plain router would send {len(margins)} of them elsewhere, each "
+          f"at a router near tie, largest margin "
+          f"{max(margins, default=0.0):.4g} < {NEAR_TIE}): logits "
+          f"max_abs_err {worst:.4g} <= {atol}; greedy tokens agree (near-tie "
+          f"gate {NEAR_TIE}; {flips} near-tie flips)", flush=True)
+
+
+def server_replay(prompt, prefix, arch_cfg, weights, around):
+    """A request's row as the server computes it, with its routes: the
+    prefill of the prompt padded to its bucket (the rows past the prompt
+    take expert capacity there), then one decode step per token of
+    `prefix` in a batch of 4 rows (the server's; a decode step of 4 rows
+    drops no pair, so the other rows change nothing of row 0), inside the
+    context `around()` gives (the server's protocol, its row padding).
+    Returns (row 0's last logits, the routes)."""
+    padded = np.zeros((_prefill_bucket(len(prompt), S),), np.int32)
+    padded[:len(prompt)] = prompt
+    routes = []
+    cache = transformer.init_cache(arch_cfg, 4, S, device=DEV)
+    with moe_routes(routes), around():
+        lg, cache = transformer.prefill_into_cache(
+            arch_cfg, weights, cache, torch.from_numpy(padded).to(DEV), 0,
+            len(prompt))
+        pos = torch.full((4,), len(prompt), dtype=torch.int32, device=DEV)
+        for tok in prefix:
+            step, cache = transformer.decode_step(
+                arch_cfg, weights, cache,
+                torch.full((4, 1), tok, dtype=torch.int32, device=DEV),
+                positions=pos)
+            lg, pos = step[0, -1], pos + 1
+    return lg.float(), routes
+
+
+def first_route_split(a, b):
+    """The first MoE call at which two runs' routes send rows to other
+    experts: [(row, router margin)] (each row's smaller margin between its
+    k-th and (k+1)-th router logits), or [] if they never part."""
+    for (ia, la), (ib, lb) in zip(a, b):
+        other = (ia.sort(-1).values != ib.sort(-1).values).any(-1)
+        if bool(other.any()):
+            k = ia.shape[-1]
+            out = []
+            for r in torch.nonzero(other)[:, 0].tolist():
+                m = [float(v[k - 1] - v[k]) for v in
+                     (la[r].sort(descending=True).values,
+                      lb[r].sort(descending=True).values)]
+                out.append((r, min(m)))
+            return out
+    return []
+
+
+def moe_near_tie_agrees(what, toks, ref_toks, reqs, arch_cfg, weights,
+                        ref_around, around=None):
+    """`near_tie_agrees` for an MoE model, on replays of the parting
+    stream as each server computed it (`server_replay`, under `ref_around`
+    for the reference's server and `around` for `toks`' server; None when
+    that server's tokens come from a verify, which no decode replays).  A
+    stream may part where the two replays route alike and both choices
+    lie within NEAR_TIE of the best logit of the reference's replay, or
+    where the replays' routes first part only at router near ties.
+    Returns what it found."""
+    prompts = {r.rid: r.prompt for r in reqs}
+    found = []
+    for rid, got in toks.items():
+        want = ref_toks[rid]
+        if got == want:
+            continue
+        t = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
+                 None)
+        check(t is not None, f"{what}: request {rid}: {len(got)} tokens vs "
+              f"{len(want)}, one stream a prefix of the other")
+        lg, ref_routes = server_replay(prompts[rid], want[:t], arch_cfg,
+                                       weights, ref_around)
+        split = []
+        if around is not None:
+            _, routes = server_replay(prompts[rid], want[:t], arch_cfg,
+                                      weights, around)
+            split = first_route_split(routes, ref_routes)
+        gaps = ((lg.max() - lg[want[t]]).item(),
+                (lg.max() - lg[got[t]]).item())
+        if split:
+            check(all(m < NEAR_TIE for _, m in split), f"{what}: request "
+                  f"{rid} parts at token {t} after routes part at rows "
+                  f"{split}, not at router near ties (gate {NEAR_TIE})")
+            found.append(f"request {rid} parts at token {t} ({want[t]} vs "
+                         f"{got[t]}) after the routes part at router near "
+                         f"ties {[round(m, 4) for _, m in split]}")
+        else:
+            check(max(gaps) < NEAR_TIE, f"{what}: request {rid} parts at "
+                  f"token {t} ({want[t]} vs {got[t]}, {gaps[0]:.4f} and "
+                  f"{gaps[1]:.4f} below the best logit), routed alike, not "
+                  f"a near tie (gate {NEAR_TIE})")
+            found.append(f"request {rid} parts at token {t} ({want[t]} vs "
+                         f"{got[t]}, {gaps[0]:.4f} and {gaps[1]:.4f} below "
+                         "the best logit, routed alike)")
+    return ("equal to" if not found
+            else f"near-tie equal to ({'; '.join(found)})")
+
+
+def moe_serve(arch, arch_cfg, n_req, max_new, seed, **kw):
+    """One streamed axle serve of `n_req` greedy requests of 64-400 tokens
+    on the card config `arch_cfg`, the port's own weights from seed 0;
+    checks every decode step and prefill took the tensor-core attention
+    (and every mamba layer of a prefill the tensor-core scan)."""
+    lens = tuple(int(n) for n in np.random.default_rng(seed).integers(
+        64, 401, n_req))
+    reqs = arch_requests(arch_cfg.vocab, lens, max_new, seed)
+    srv, toks, launches, dt = serve(reqs, arch=arch, cfg=arch_cfg,
+                                    protocol="axle", stream=True, **kw)
+    n_attn = arch_cfg.attn_layers_per_block() * arch_cfg.n_blocks
+    attention_launches(arch, srv, launches, n_attn,
+                       arch_cfg.head_dim_ in fa.TC_HEAD_DIMS, tag="[moe]")
+    n_mamba = arch_cfg.block_pattern.count("mamba") * arch_cfg.n_blocks
+    check(launches["ssd_scan"] == srv.prefill_forwards * n_mamba
+          and launches["ssd_scan_tc"] == launches["ssd_scan"],
+          f"[moe] {arch}: ssd_scan launches {routes_of(launches, 'ssd_scan')}"
+          f" != {srv.prefill_forwards} prefills x {n_mamba} mamba layers, "
+          "all on the tensor-core scan")
+    check(all(len(t) == max_new for t in toks.values()),
+          f"[moe] {arch}: short stream")
+    return reqs, lens, srv, toks, launches, dt
+
+
+def moe_label(arch_cfg, lens, max_new):
+    return (f"{arch_cfg.arch_id} full width, {arch_cfg.n_layers} layers "
+            f"({arch_cfg.n_experts} experts, top-{arch_cfg.top_k}, MoE every "
+            f"{arch_cfg.moe_every}), axle, streamed, prompts {lens}, max_new "
+            f"{max_new}, 4 slots, max_seq {S}, seg_len 8")
+
+
+# granite_moe_3b, all 32 layers: 8 greedy requests, graph == eager,
+# request 1 alone == its row, the logits against the plain path, a self:8
+# spec serve of 2 requests, and the same 2 under rp and with an int8 KV
+# cache (the hd 64 partial and int8 decode on a serve)
+GRANITE = "granite_moe_3b"
+t0 = time.perf_counter()
+torch.cuda.reset_peak_memory_stats()
+gr_reqs, lens, srv, gr_toks, gr_launches, dt = moe_serve(GRANITE, gcfg, 8,
+                                                          32, 40)
+gr_params = srv.params
+graph_equals_eager(f"{GRANITE}, axle", srv, gr_toks, gr_launches, dt,
+                   gr_reqs, arch=GRANITE, cfg=gcfg, protocol="axle",
+                   stream=True)
+parts, weights = replay_profile(srv, f"{GRANITE}, axle", steps_only=True)
+arch_line(moe_label(gcfg, lens, 32), srv, gr_toks, dt, parts, weights, t0,
+          tag="[moe]")
+del srv
+alone_srv = BatchedServer(GRANITE, smoke=False, device="cuda", batch_slots=4,
+                          max_seq=S, seg_len=8, params=gr_params,
+                          protocol="axle", stream=True)
+alone_srv.submit(copies(gr_reqs[1:2])[0])
+alone_srv.run_until_drained()
+check(alone_srv.completed[0].generated == gr_toks[1],
+      f"[moe] {GRANITE}: request 1 alone != its row in the batch")
+del alone_srv
+moe_against_plain(GRANITE, [r.prompt for r in gr_reqs[:2]], gcfg, gr_params)
+g_pair = arch_requests(gcfg.vocab, (100, 200), 16, 43)
+sp_srv, sp_toks, sp_launches, sp_dt = serve(
+    copies(g_pair), params=gr_params, arch=GRANITE, protocol="axle",
+    stream=True, draft_arch="self:8", **SPEC)
+rounds = spec_rounds(sp_srv)
+d_layers = sp_srv.draft_cfg.n_layers
+check(sp_launches["decode_attention_fused"]
+      == rounds * (SPEC_K + 1) * (d_layers + gcfg.n_layers)
+      and sp_launches["decode_attention_fused_tc"]
+      == sp_launches["decode_attention_fused"]
+      and sp_launches["flash_attention_tc"] == sp_launches["flash_attention"]
+      == sp_srv.prefill_forwards * (gcfg.n_layers + d_layers),
+      f"[moe] {GRANITE} spec launches {sp_launches}")
+rate = sp_srv.draft_accepted / max(1, sp_srv.draft_proposed)
+del sp_srv
+# the verify routes 4 x (k + 1) rows together, the decode step 4, so its
+# capacity can drop pairs the decode keeps: the spec tokens are held to
+# the non-spec twin at the verify's row count by the near-tie gate
+twin = padded_twin(g_pair, params=gr_params, arch=GRANITE, protocol="axle",
+                   stream=True)
+spec_vs = moe_near_tie_agrees(
+    f"[moe] {GRANITE} spec vs the padded twin", sp_toks, twin, g_pair, gcfg,
+    gr_params, lambda: padded_rows(4 * (SPEC_K + 1)))
+print(f"[moe] {GRANITE}, the self:{d_layers} draft, spec_k {SPEC_K}, 2 "
+      f"requests x 16 tokens: {rounds} rounds, accept rate {rate:.4f}, "
+      f"{sum(len(t) for t in sp_toks.values()) / sp_dt:.1f} tok/s; tokens "
+      f"{spec_vs} the non-spec twin's at the verify's row count; fused "
+      f"launches {sp_launches['decode_attention_fused']} = {rounds} x "
+      f"{SPEC_K + 1} x ({d_layers} + {gcfg.n_layers}), all on the tensor "
+      "cores", flush=True)
+_, g_fp, _, _ = serve(copies(g_pair), params=gr_params, arch=GRANITE,
+                      protocol="axle", stream=True)
+_, g_rp, g_rp_launches, _ = serve(copies(g_pair), params=gr_params,
+                                  arch=GRANITE, protocol="rp", stream=True)
+check(g_rp_launches["decode_attention_partial"] > 0
+      and g_rp_launches["decode_attention_partial_tc"]
+      == g_rp_launches["decode_attention_partial"]
+      and g_rp_launches["decode_attention_fused"] == 0,
+      f"[moe] {GRANITE} rp launches {g_rp_launches}")
+rp_vs = moe_near_tie_agrees(
+    f"[moe] {GRANITE} rp vs axle", g_rp, g_fp, g_pair, gcfg, gr_params,
+    lambda: use_offload(OffloadConfig(protocol=OffloadProtocol.AXLE)),
+    lambda: use_offload(OffloadConfig(protocol=OffloadProtocol.RP)))
+srv, g_i8, g_i8_launches, _ = serve(
+    copies(g_pair), params=gr_params, arch=GRANITE, protocol="axle",
+    stream=True, quant=QuantConfig(kv="int8"))
+attention_launches(f"{GRANITE} int8 KV", srv, g_i8_launches, gcfg.n_layers,
+                   True, decode="decode_attention_fused[int8]", tag="[moe]")
+check(g_i8_launches["decode_attention_fused"] == 0
+      and all(len(t) == 16 for t in g_i8.values()),
+      f"[moe] {GRANITE} int8 KV: launches {g_i8_launches}")
+del srv
+same = sum(g_i8[r] == g_fp[r] for r in g_fp)
+print(f"[moe] {GRANITE}, the same 2 requests x 16 tokens: rp {rp_vs} axle, "
+      f"partial launches "
+      f"{routes_of(g_rp_launches, 'decode_attention_partial')}; an int8 KV "
+      f"cache: int8 fused launches "
+      f"{routes_of(g_i8_launches, 'decode_attention_fused[int8]')}, every "
+      f"one on the tensor-core split; {same} of 2 streams equal to fp KV's "
+      f"(not gated: int8 KV changes the logits); request 1 alone == its row "
+      f"in the batch, bitwise; {GRANITE} phase "
+      f"{time.perf_counter() - t0:.1f} s", flush=True)
+del gr_params
+torch.cuda.empty_cache()
+
+# phi3_5_moe_42b (24 of 32 layers) and jamba_1_5_large (its first 5
+# layers: four mamba, one attention, MoE at 0, 2 and 4): 4 greedy requests
+# x 16 tokens and the logits against the plain path on 2 prompts
+for arch, seed in (("phi3_5_moe_42b", 44), ("jamba_1_5_large", 45)):
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    acfg = get_card_config(arch)
+    a_reqs, lens, srv, a_toks, launches, dt = moe_serve(arch, acfg, 4, 16,
+                                                        seed)
+    a_params = srv.params
+    parts, weights = replay_profile(srv, f"{acfg.arch_id}, axle",
+                                    steps_only=True)
+    arch_line(moe_label(acfg, lens, 16) + f" (CARD: the first "
+              f"{acfg.n_layers} of {get_config(arch).n_layers} layers)", srv,
+              a_toks, dt, parts, weights, t0, tag="[moe]")
+    del srv
+    moe_against_plain(acfg.arch_id, [r.prompt for r in a_reqs[:2]], acfg,
+                      a_params)
+    del a_params
+    torch.cuda.empty_cache()
+print(f"[moe] the three archs took {time.perf_counter() - MOE_T0:.1f} s; "
+      f"{time.perf_counter() - T_START:.0f} s into the script", flush=True)
+
+# --------------------------------------------------------------------------
 # 7. result
 # --------------------------------------------------------------------------
 
@@ -3013,6 +3388,12 @@ records["decode_attention_fused[int8][hd80]"]["launches"] = \
     i8_launches_o["decode_attention_fused[int8]"]
 records["decode_attention_partial[hd80]"]["launches"] = \
     rp_launches_o["decode_attention_partial"]
+for fn in ("flash_attention", "decode_attention_fused"):
+    records[fn + "[hd64]"]["launches"] = gr_launches[fn]
+records["decode_attention_fused[int8][hd64]"]["launches"] = \
+    g_i8_launches["decode_attention_fused[int8]"]
+records["decode_attention_partial[hd64]"]["launches"] = \
+    g_rp_launches["decode_attention_partial"]
 records["sls"]["launches"] = sls_launches["sls"]
 for name, rec in records.items():
     check(rec["launches"] > 0, f"{name} never launched on the main path")

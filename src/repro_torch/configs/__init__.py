@@ -2,7 +2,9 @@
 ArchConfig, `get_smoke_config(arch_id)` the CPU-sized reduction.  Each
 ported arch has its own module, copied from `repro/configs/<arch>.py`;
 an arch whose layers are not ported yet raises NotImplementedError naming
-the ROADMAP item that ports it."""
+the ROADMAP item that ports it.  `get_card_config(arch_id)` is the config
+one 80 GB card serves: the module's CARD (the full widths, cut in depth)
+for a model the card cannot hold, else CONFIG."""
 from __future__ import annotations
 
 import importlib
@@ -24,15 +26,11 @@ ARCH_IDS = (
 )
 
 PORTED = ("starcoder2_3b", "mamba2_370m", "gemma3_12b", "mistral_nemo_12b",
-          "opt_2_7b", "minitron_4b", "qwen2_vl_2b")
+          "opt_2_7b", "minitron_4b", "qwen2_vl_2b", "granite_moe_3b",
+          "phi3_5_moe_42b", "jamba_1_5_large")
 
 # ROADMAP.md queue 1 items that port each arch not yet ported
-_ROADMAP_ITEM = {
-    "granite_moe_3b": "item 10", "phi3_5_moe_42b": "item 10",
-    # hybrid: its mamba layers are ported, its MoE layers are not
-    "jamba_1_5_large": "items 10 and 12",
-    "whisper_large_v3": "item 13",
-}
+_ROADMAP_ITEM = {"whisper_large_v3": "item 13"}
 
 
 def _module(arch_id: str):
@@ -51,3 +49,8 @@ def get_config(arch_id: str) -> ArchConfig:
 
 def get_smoke_config(arch_id: str) -> ArchConfig:
     return _module(arch_id).SMOKE
+
+
+def get_card_config(arch_id: str) -> ArchConfig:
+    module = _module(arch_id)
+    return getattr(module, "CARD", module.CONFIG)

@@ -24,10 +24,11 @@ It runs on the GPU unless `--device cpu` is given, and raises when no GPU
 is present and none was asked for.  `--full` serves the full-width
 configs (random weights from seed 0) instead of the smoke ones.  On one
 device BS and AXLE take the fused decode kernel and RP the per-chunk
-partial kernel plus a merge (`chunks_per_shard=4`).  The reference's
-family list also serves jamba_1_5_large and whisper_large_v3; their MoE
-and encoder-decoder layers are ROADMAP.md queue 1 items 10, 12 and 13, so
-the port's list is mamba2_370m for now.
+partial kernel plus a merge (`chunks_per_shard=4`).  The families are the
+reference's but whisper_large_v3, whose encoder-decoder layers are
+ROADMAP.md queue 1 item 13.  Under `--full`, jamba_1_5_large is its
+CARD config (`configs.get_card_config`: the full widths, its first five
+layers), which one 80 GB card holds.
 """
 from __future__ import annotations
 
@@ -38,11 +39,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs import get_card_config
 from repro_torch.launch.serve import BatchedServer, Request
 from repro_torch.models import transformer
 
 ARCH = "mistral_nemo_12b"
-FAMILIES = ("mamba2_370m",)
+FAMILIES = ("mamba2_370m", "jamba_1_5_large")
 PROTOCOLS = ("bs", "rp", "axle")
 NEAR_TIE = 0.1
 
@@ -113,7 +115,8 @@ def serve_family(arch_id: str, n_requests: int = 3, max_new: int = 8, *,
     rng = np.random.default_rng(11)
     server = BatchedServer(arch_id, smoke=not full, device=device,
                            batch_slots=2, max_seq=64, protocol="bs",
-                           stream=True)
+                           stream=True,
+                           cfg=get_card_config(arch_id) if full else None)
     for i in range(n_requests):
         plen = int(rng.integers(4, 8))
         server.submit(Request(i, rng.integers(

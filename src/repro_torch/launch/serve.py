@@ -70,6 +70,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import graphs
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import transformer
+from repro_torch.models.config import ArchConfig
 from repro_torch.models.quantize import quantize_params
 
 PROTOCOLS = {"bs": OffloadProtocol.BS, "axle": OffloadProtocol.AXLE,
@@ -175,7 +176,9 @@ class BatchedServer:
     `params` are the weights to serve in the reference's layout; None
     draws the port's own from seed 0 on `device`.  `quant` quantizes
     them once, here (the server then holds no fp projection stack of its
-    own), and gives the cache int8 K/V pools.
+    own), and gives the cache int8 K/V pools.  `cfg` replaces the arch's
+    config, for a model that one card cannot hold: its CARD
+    (`configs.get_card_config`, the full widths cut in depth).
 
     `spec=True` makes the four segment functions speculative: a segment
     is `seg_len` rounds of `spec_k` draft proposals and one verify
@@ -199,10 +202,11 @@ class BatchedServer:
                  quant: Optional[steps_lib.QuantConfig] = None,
                  spec: bool = False, spec_k: int = 3,
                  draft_arch: Optional[str] = None,
-                 draft_params: Optional[Dict[str, Any]] = None):
+                 draft_params: Optional[Dict[str, Any]] = None,
+                 cfg: Optional[ArchConfig] = None):
         self.device = resolve_device(device)
-        self.cfg = (get_smoke_config(arch_id) if smoke
-                    else get_config(arch_id))
+        self.cfg = cfg or (get_smoke_config(arch_id) if smoke
+                           else get_config(arch_id))
         self.batch = batch_slots
         self.max_seq = max_seq
         self.seg_len = seg_len

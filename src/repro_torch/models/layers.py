@@ -1,8 +1,8 @@
 """Model layers of the ported serve paths, from `repro/models/layers.py`:
 norm, rotary embedding (and Qwen2-VL's multimodal M-RoPE), the decode
-token's own attention partial, the partial merge, the gated MLP, and the
-Mamba2 single-token SSD step and causal depthwise conv (plain XLA in the
-reference, plain torch here).
+token's own attention partial, the partial merge, the gated MLP, the
+top-k Mixture-of-Experts FFN, and the Mamba2 single-token SSD step and
+causal depthwise conv (plain XLA in the reference, plain torch here).
 
 Conventions as in the reference: activations x (B, S, D) in the model
 dtype; attention q (B, S, H, hd), k/v (B, S, KH, hd); softmax and norm
@@ -10,8 +10,9 @@ statistics in float32.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Tuple
+from typing import Iterator, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -126,6 +127,134 @@ def gated_mlp(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     or a `QTensor` (through the dequant-fused matmul)."""
     h = F.silu(matmul(x, w_gate)) * matmul(x, w_up)
     return matmul(h, w_down)
+
+
+def silu_per_op(x: torch.Tensor) -> torch.Tensor:
+    """silu as the reference's XLA computes it on the CPU: x * 1 / (1 +
+    exp(-x)), each op rounded to x's dtype.  In bf16 it is the
+    reference's bits (F.silu rounds once, up to 2 bf16 units apart)."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+def moe_capacity(t: int, top_k: int, n_experts: int,
+                 capacity_factor: float = 1.25) -> int:
+    """Slots per expert for t routed rows: max(8, ceil(t k / E x 1.25))."""
+    return max(8, int(math.ceil(t * top_k / n_experts * capacity_factor)))
+
+
+@contextlib.contextmanager
+def _true_f32() -> Iterator[None]:
+    """f32 products in full f32 (no TF32), whatever the global switch."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def moe_route(x: torch.Tensor, router: torch.Tensor, top_k: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The router: x (T, D) @ router (D, E) in f32, softmax, the top_k
+    experts of each row (ties to the lower expert id, as `lax.top_k`),
+    their gates renormalized in f32.  Returns (gates (T, K) f32, expert
+    ids (T, K) int64), best first.  The product runs over
+    `quantize.invariant_rows` like every other, and only the real T rows
+    reach the top-k."""
+    with _true_f32():
+        logits = matmul(x.float(), router.float())
+    probs = torch.softmax(logits, dim=-1)
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates = vals[:, :top_k]
+    return gates / gates.sum(dim=-1, keepdim=True), ids[:, :top_k]
+
+
+class MoEDispatch(NamedTuple):
+    """Where each routed (token, k) pair goes, for pairs in the flat
+    token-major order i = token * K + k.
+
+      slot_token — (E, cap) int64: the token each expert slot computes, T
+                   (the zero sentinel row) for an empty slot;
+      slot_gate  — (E, cap) f32: the gate that slot's output is scaled by;
+      keep       — (T*K,) bool: the pair's queue position is below cap;
+      dest       — (T*K,) int64: the flat slot e * cap + c the pair
+                   writes, (E - 1) * cap + cap - 1 for a dropped pair;
+      owns       — (T*K,) bool: the pair is kept and is its slot's last
+                   writer, so its expert output reaches its token."""
+    slot_token: torch.Tensor
+    slot_gate: torch.Tensor
+    keep: torch.Tensor
+    dest: torch.Tensor
+    owns: torch.Tensor
+
+
+def moe_dispatch(expert_ids: torch.Tensor, gates: torch.Tensor,
+                 n_experts: int, cap: int) -> MoEDispatch:
+    """The reference's capacity-bounded dispatch, computed without a
+    scatter whose duplicate indices race.  A pair's queue position is the
+    count of earlier pairs (flat order) routed to its expert; a pair at
+    position >= cap is dropped, and the reference still writes it, with
+    the sentinel token T and gate 0, to slot (E - 1, cap - 1).  Where
+    several pairs write one slot the last in flat order wins (the CPU
+    scatter's order), so a dropped pair after the kept occupant of
+    (E - 1, cap - 1) takes that occupant's output away.  Here each slot's
+    last writer is the largest flat index that writes it (an `amax`
+    reduction, which no order changes).  No host sync."""
+    t, k = expert_ids.shape
+    dev = expert_ids.device
+    flat = expert_ids.reshape(-1)
+    onehot = F.one_hot(flat, num_classes=n_experts)        # (T*K, E)
+    pos = (onehot.cumsum(dim=0) * onehot).sum(dim=-1) - 1
+    keep = pos < cap
+    dest = torch.where(keep, flat * cap + pos,
+                       torch.full_like(flat, n_experts * cap - 1))
+    order = torch.arange(t * k, device=dev)
+    writer = torch.full((n_experts * cap,), -1, dtype=torch.int64,
+                        device=dev).scatter_reduce(0, dest, order, "amax")
+    won = writer.clamp(min=0)
+    kept = (writer >= 0) & keep[won]
+    slot_token = torch.where(kept, won // k, t).reshape(n_experts, cap)
+    slot_gate = torch.where(kept, gates.reshape(-1)[won],
+                            0.0).reshape(n_experts, cap)
+    owns = keep & (writer[dest] == order)
+    return MoEDispatch(slot_token, slot_gate, keep, dest, owns)
+
+
+def moe_ffn(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
+            w_up: torch.Tensor, w_down: torch.Tensor, top_k: int,
+            capacity_factor: float = 1.25) -> torch.Tensor:
+    """Top-k MoE with capacity-bounded gather / scatter dispatch, the
+    reference's `moe_ffn`: x (T, D); router (D, E) f32; w_gate / w_up
+    (E, D, F), w_down (E, F, D).  Each expert computes its `cap` slots
+    (`moe_capacity` of T: it couples the rows, so drops depend on T and
+    on every routed row), gathered from x padded with a zero sentinel row,
+    by batched products over the E experts (plain einsums in the
+    reference too).  The combine is in f32 and deterministic: each
+    token's kept contributions, expert output times slot gate, are added
+    to 0.0 one at a time in ascending expert order, the order of the
+    reference's CPU scatter-add, so a row's bits depend on nothing but
+    its routed slots.  The experts' silu rounds per op, as the
+    reference's (`silu_per_op`).  No host sync: it runs inside a captured
+    graph."""
+    t, d = x.shape
+    e = router.shape[-1]
+    gates, ids = moe_route(x, router, top_k)
+    cap = moe_capacity(t, top_k, e, capacity_factor)
+    dp = moe_dispatch(ids, gates, e, cap)
+    x_pad = torch.cat([x, x.new_zeros((1, d))])
+    xe = x_pad[dp.slot_token]                             # (E, cap, D)
+    h = silu_per_op(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up)
+    ye = torch.bmm(h, w_down).reshape(e * cap, d)
+    # each token's pairs in ascending expert order
+    by_expert = ids.argsort(dim=-1)
+    dest = dp.dest.reshape(t, top_k).gather(1, by_expert)
+    owns = dp.owns.reshape(t, top_k).gather(1, by_expert)
+    y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    for j in range(top_k):
+        s = dest[:, j]
+        part = ye[s].float() * dp.slot_gate.reshape(-1)[s][:, None]
+        y = y + torch.where(owns[:, j, None], part, 0.0)
+    return y.to(x.dtype)
 
 
 def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,

@@ -13,9 +13,15 @@ stacked over `n_blocks`:
                              D, conv_w, out_proj},  # a "mamba" position
                  "ffn": {ln, w_gate, w_up, w_down}}]}   # when d_ff > 0
 
+with `w_gate`, `w_up` (n_blocks, d, f) and `w_down` (n_blocks, f, d).  At
+an MoE position (`_is_moe_pos`) the FFN holds the expert stacks instead:
+`{ln, router (n_blocks, d, E) f32, w_gate, w_up (n_blocks, E, d, f),
+w_down (n_blocks, E, f, d)}`.
+
 A quantized tree (`models.quantize.quantize_params`) has a block-quantized
 `QTensor` in place of each dense projection stack; every product against
-such a leaf goes through `quantize.matmul`.  An int8 KV cache
+such a leaf goes through `quantize.matmul`.  The rank-4 expert stacks and
+the f32 router stay fp, as in the reference.  An int8 KV cache
 (`init_cache(kv_quant="int8")`) holds int8 K/V pools and one f32 scale per
 (layer, row, KV head, physical page).
 
@@ -49,14 +55,18 @@ def _dtype(name: str) -> torch.dtype:
 
 def _check_supported(cfg: ArchConfig) -> None:
     """The layer kinds ported so far: full and sliding-window ("local")
-    attention, with RoPE or M-RoPE, mamba, dense MLP."""
-    if (cfg.enc_dec or cfg.is_moe
-            or any(k not in ("full", "local", "mamba")
-                   for k in cfg.block_pattern)):
+    attention, with RoPE or M-RoPE, mamba, dense MLP or MoE FFN."""
+    if cfg.enc_dec or any(k not in ("full", "local", "mamba")
+                          for k in cfg.block_pattern):
         raise NotImplementedError(
             f"{cfg.arch_id}: only decoders of full, sliding-window and "
-            "mamba layers with dense MLPs are ported (MoE is ROADMAP.md "
-            "queue 1 item 10, enc-dec item 13)")
+            "mamba layers are ported (enc-dec is ROADMAP.md queue 1 item "
+            "13)")
+
+
+def _is_moe_pos(cfg: ArchConfig, pos: int) -> bool:
+    """Position `pos` of the block pattern has an MoE FFN."""
+    return cfg.is_moe and pos % cfg.moe_every == 0
 
 
 def _window(cfg: ArchConfig, kind: str) -> int:
@@ -75,7 +85,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     """The port's own weight draw, with the reference's shapes, dtypes and
     scales (normal draws scaled by fan-in^-0.5, zero norm scales).  Not
     bit-equal to the JAX draw: parity tests cross JAX weights through
-    `repro_torch.interop` instead."""
+    `repro_torch.interop` instead.  Expert stacks are drawn one (block,
+    expert) slice at a time into the model dtype, so the draw's f32
+    temporary is one slice, not the stack."""
     _check_supported(cfg)
     dt = _dtype(cfg.dtype)
     d, h, kh, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
@@ -86,6 +98,13 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         out = torch.randn(shape, generator=generator, device=device,
                           dtype=torch.float32)
         return out.mul_(scale).to(dt)
+
+    def experts(shape, scale):
+        out = torch.empty(shape, dtype=dt, device=device)
+        for blk in range(shape[0]):
+            for ex in range(shape[1]):
+                out[blk, ex] = normal(shape[2:], scale)
+        return out
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dt, device=device)
@@ -109,7 +128,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
                 "out_proj": normal((nb, di, d), di ** -0.5)}
 
     blocks = []
-    for kind in cfg.block_pattern:
+    for pos, kind in enumerate(cfg.block_pattern):
         layer: Params = {}
         if kind == "mamba":
             layer["mamba"] = mamba()
@@ -120,7 +139,16 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
                              "wv": normal((nb, d, kh * hd), d ** -0.5),
                              "wo": normal((nb, h * hd, d),
                                           (h * hd) ** -0.5)}
-        if f > 0:
+        if f > 0 and _is_moe_pos(cfg, pos):
+            e = cfg.n_experts
+            layer["ffn"] = {"ln": zeros(nb, d),
+                            "router": torch.randn(
+                                (nb, d, e), generator=generator,
+                                device=device).mul_(d ** -0.5),
+                            "w_gate": experts((nb, e, d, f), d ** -0.5),
+                            "w_up": experts((nb, e, d, f), d ** -0.5),
+                            "w_down": experts((nb, e, f, d), f ** -0.5)}
+        elif f > 0:
             layer["ffn"] = {"ln": zeros(nb, d),
                             "w_gate": normal((nb, d, f), d ** -0.5),
                             "w_up": normal((nb, d, f), d ** -0.5),
@@ -235,9 +263,17 @@ def _mrope_sections(hd: int) -> Tuple[int, int, int]:
     return (t, half // 4, half // 4)
 
 
-def ffn_layer(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Dense gated-MLP sublayer with its residual."""
+def ffn_layer(cfg: ArchConfig, p: Params, x: torch.Tensor,
+              moe: bool) -> torch.Tensor:
+    """The FFN sublayer with its residual: the dense gated MLP, or (`moe`)
+    the MoE FFN over the B*S rows flattened row-major, as the reference
+    routes them (a verify's rows in (b, t) order)."""
     hx = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    if moe:
+        b, s, d = x.shape
+        y = L.moe_ffn(hx.reshape(b * s, d), p["router"], p["w_gate"],
+                      p["w_up"], p["w_down"], cfg.top_k)
+        return x + y.reshape(b, s, d)
     return x + L.gated_mlp(hx, p["w_gate"], p["w_up"], p["w_down"])
 
 
@@ -344,8 +380,12 @@ def cache_kv_quant(cache: Dict[str, Any]) -> Optional[str]:
 
 
 def cache_page_size(cache: Dict[str, Any]) -> int:
-    """Page size of a cache: the seq axis of a KV leaf over the page count."""
-    return cache["k0"].shape[3] // cache["page_table"].shape[1]
+    """Page size of a cache: the seq axis of a K leaf (the first attention
+    position's, which a hybrid pattern need not start with) over the page
+    count."""
+    k = next(v for key, v in cache.items()
+             if key[0] == "k" and key[1:].isdigit())
+    return k.shape[3] // cache["page_table"].shape[1]
 
 
 def _decode_attn(cfg: ArchConfig, p: Params, x: torch.Tensor,
@@ -457,7 +497,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
                 new_kv.setdefault(f"k{pi}", []).append(knew)
                 new_kv.setdefault(f"v{pi}", []).append(vnew)
             if cfg.d_ff > 0:
-                x = ffn_layer(cfg, p["ffn"], x)
+                x = ffn_layer(cfg, p["ffn"], x, _is_moe_pos(cfg, pi))
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = matmul(x, params["embed"].T)
 
@@ -614,7 +654,7 @@ def decode_verify(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
                                  cache[f"v{pi}"][i:i + 1], pos, pages,
                                  kv_scales, write_mask, kind)
             if cfg.d_ff > 0:
-                x = ffn_layer(cfg, p["ffn"], x)
+                x = ffn_layer(cfg, p["ffn"], x, _is_moe_pos(cfg, pi))
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = matmul(x, params["embed"].T)
     cache["pos"] = cache["pos"] + t
@@ -735,7 +775,7 @@ def prefill_into_cache(cfg: ArchConfig, params: Params,
                 states.setdefault(f"v{pi}", []).append(
                     v[0].transpose(0, 1))
             if cfg.d_ff > 0:
-                x = ffn_layer(cfg, p["ffn"], x)
+                x = ffn_layer(cfg, p["ffn"], x, _is_moe_pos(cfg, pi))
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = x[0, length - 1] @ params["embed"].T         # (V,)
 

@@ -85,7 +85,6 @@ def test_config_is_the_reference_config(arch):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(n_experts=4, top_k=2), "item 10"),
     (dict(enc_dec=True), "item 13"),
     (dict(block_pattern=("none",)), "item"),
 ])
@@ -94,6 +93,23 @@ def test_unported_layer_kinds_still_raise(change, item):
                               n_layers=6, **change)
     with pytest.raises(NotImplementedError, match=item):
         T.init_cache(cfg, 1, S, device=CPU)
+
+
+def test_moe_layers_now_build():
+    """MoE FFNs are ported (tests/test_torch_moe.py holds them to the
+    reference): gemma3's pattern with experts builds its cache and its
+    expert stacks, and decodes a step."""
+    cfg = dataclasses.replace(configs.get_smoke_config("gemma3_12b"),
+                              n_layers=6, n_experts=4, top_k=2, moe_every=2)
+    cache = T.init_cache(cfg, 1, S, device=CPU)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), CPU)
+    ffn = [b["ffn"] for b in params["blocks"]]
+    assert [("router" in f) for f in ffn] == [True, False] * 3
+    assert ffn[0]["w_gate"].shape == (1, 4, cfg.d_model, cfg.d_ff)
+    logits, _ = T.decode_step(cfg, params, cache,
+                              torch.ones((1, 1), dtype=torch.int32))
+    assert logits.shape == (1, 1, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits.float()).all())
 
 
 # ------------------------------------------------------------------ M-RoPE
@@ -338,6 +354,8 @@ def test_gemma3_spec_needs_an_explicit_draft():
     ("opt_2_7b", ["--stream", "--spec"]),
     ("minitron_4b", ["--stream"]),
     ("qwen2_vl_2b", ["--stream"]),
+    ("granite_moe_3b", ["--stream"]),
+    ("jamba_1_5_large", ["--stream", "--spec", "--draft", "self:1"]),
 ])
 def test_serve_cli_runs(arch, flags, monkeypatch, capsys):
     monkeypatch.setattr(sys, "argv", [

@@ -913,7 +913,9 @@ def _serve_smoke(cls, arch, *, stream, params=None, **kw):
     ("starcoder2_3b", dict(protocol="rp")),
     ("starcoder2_3b", dict(protocol="axle",
                            quant=QuantConfig(weights="q8_0", kv="int8"))),
-    ("mamba2_370m", dict(protocol="axle"))])
+    ("mamba2_370m", dict(protocol="axle")),
+    ("granite_moe_3b", dict(protocol="axle")),
+    ("jamba_1_5_large", dict(protocol="axle"))])
 def test_graphed_serve_equals_eager_bitwise(cuda, arch, kw, stream):
     """Tokens, the cache at drain, the ledger and the launch counts of the
     graphed server equal the eager twin's; every segment is a replay."""
@@ -984,7 +986,8 @@ SPEC_K = 2
     ("starcoder2_3b", dict(protocol="axle")),
     ("starcoder2_3b", dict(protocol="axle",
                            quant=QuantConfig(weights="q8_0", kv="int8"))),
-    ("mamba2_370m", dict(protocol="axle"))])
+    ("mamba2_370m", dict(protocol="axle")),
+    ("granite_moe_3b", dict(protocol="axle"))])
 def test_graphed_spec_serve_equals_eager_bitwise(cuda, arch, kw, stream):
     """A spec server (self:1 draft, spec_k 2): tokens, the target's AND
     the draft's cache at drain, the ledger, the accept counts and the
@@ -1045,3 +1048,47 @@ def test_full_depth_spec_accepts_every_draft_at_any_verify_rows(cuda, arch,
     srv.run_until_drained()
     assert srv.graph_replays == srv.segments_dispatched
     assert srv.draft_accepted == srv.draft_proposed > 0
+
+
+# --------------------------------------------------------------------------
+# The MoE FFN on the card (plain torch, no kernel of ours)
+# --------------------------------------------------------------------------
+
+def test_moe_ffn_on_the_card_syncs_nothing(cuda):
+    """`layers.moe_ffn` at granite_moe_3b's widths (D 1536, F 512, E 40,
+    top-8) over 16 bf16 rows: no host sync (CUDA sync debug mode
+    "error") and a captured graph's replay == the eager call bitwise.
+    At a decode step's 4 rows (cap 8: nothing drops), a row's output does
+    not depend on its batch-mates or its place among them, bitwise: the
+    products keep their row count, and the combine adds each row's own
+    slots in expert order.  (cuBLAS picks its kernel by the row count, so
+    one row alone, 1 row where the batch has 4, may take other bits: the
+    server always decodes its 4 slots.)"""
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    d, f, e, k = 1536, 512, 40, 8
+    x = _rand(gen, (16, d), torch.bfloat16, cuda)
+    router = torch.randn((d, e), generator=gen, device=cuda) * d ** -0.5
+    w = [_rand(gen, s, torch.bfloat16, cuda) * s[1] ** -0.5
+         for s in ((e, d, f), (e, d, f), (e, f, d))]
+    eager = L.moe_ffn(x, router, *w, k)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = L.moe_ffn(x, router, *w, k)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(again, eager)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = L.moe_ffn(x, router, *w, k)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    rows = x[:4]
+    base = L.moe_ffn(rows, router, *w, k)
+    for shift in (1, 2, 3):
+        rolled = L.moe_ffn(rows.roll(shift, 0), router, *w, k)
+        assert torch.equal(rolled.roll(-shift, 0), base), shift
+    mates = torch.cat([rows[:1], x[8:11]])
+    assert torch.equal(L.moe_ffn(mates, router, *w, k)[0], base[0])
