@@ -73,6 +73,22 @@ tensor-core scan, one attention layer, MoE at 0, 2 and 4) on 4 requests
 x 16.  Each prints tok/s, the decode step's device ms and kernels, its
 weight-read bound (every expert's bytes: the dispatch multiplies all of
 them) and peak memory.
+The `[encdec]` lines serve the encoder-decoder whisper_large_v3 at full
+width (32 encoder and 32 decoder layers, 20 heads of 64, enc_len 1500),
+each request bringing random frames for the stubbed audio frontend: 8
+requests of 4-32 prompt tokens x 64, 4 on clips of 1500 frames and 4 on
+600-1400, over 448-slot rows (one encoder pass an admission, every
+decode step one dense cross read a layer over the slot's clip),
+request 1 alone == its row in the batch, graph == eager over two
+admissions in one slot, the logits against the plain path, its self:8
+spec serve == the padded non-spec twin (one encoder pass an admission),
+the same 2 requests under rp (near-tie gate) and with an int8 KV cache;
+with tok/s, the decode step's device ms and kernels, its bound (decoder
+weights, cross-K/V and self-K/V bytes), one admission's ms and device
+busy share, and peak memory.  Its `[kernel]` rows hold the cross read at
+whisper's shapes (dense S 1500, clips of 1, 600, 1499 and 1500 frames:
+60 splits of 25 rows) fused and partial, and the MHA hd 64 prefill, each
+against its plain version, beside SDPA.
 Before serving, it drives the paper's two offload workloads through
 `stream_offload` under BS, RP and AXLE, data from seed 0 on the card:
   * KNN (VectorDB): 256 queries against a 1,000,000 x 1024 bf16 database
@@ -181,6 +197,9 @@ Tolerances (bf16 inputs, f32 accumulation in both versions):
     part only at a near tie of the logits in a replay of the stream as
     the server computed it, or after their replays' routes first part at
     router near ties.
+  * whisper_large_v3 logits, kernel path vs plain path (the encoder is
+    plain torch on both): <= 0.25 and the near-tie gate, as
+    starcoder2_3b's; rp vs axle by the near-tie gate.
 """
 from __future__ import annotations
 
@@ -225,6 +244,7 @@ try:
     from repro_torch.configs import get_card_config, get_config
     from repro_torch.core import prng
     from repro_torch.core.backstream import (OffloadConfig, OffloadProtocol,
+                                             decode_attention_combined,
                                              stream_offload, use_offload)
     from repro_torch.examples import knn_offload, serve_offload
     from repro_torch.kernels import build as kbuild
@@ -237,8 +257,9 @@ try:
     from repro_torch.launch.serve import (BatchedServer, Request,
                                           SamplingParams, _prefill_bucket)
     from repro_torch.launch.steps import QuantConfig
-    from repro_torch.models import layers, transformer
+    from repro_torch.models import encdec, layers, transformer
     from repro_torch.models.quantize import padded_rows
+    from repro_torch.models.registry import get_model
 except ImportError as exc:
     fail(f"the repro_torch package is not beside this script: {exc}")
 
@@ -656,12 +677,14 @@ valid = ref.decode_valid_mask(pos, S, 0)
 valid[1] = False
 
 
-def partial_err(got, want, what):
+def partial_err(got, want, what, empty=1):
     """Max error of the partial statistics; fails past 1e-3 + 1e-4 |plain|
-    and unless the empty rows match (m = -inf, l = 0)."""
+    and unless the empty rows match (m = -inf, l = 0; row `empty` is one,
+    None where no row is)."""
     (acc, m, l), (acc_r, m_r, l_r) = got, want
-    check(torch.equal(torch.isinf(m), torch.isinf(m_r)) and bool(
-        torch.isinf(m[1]).all()) and bool((l[1] == 0).all()),
+    check(torch.equal(torch.isinf(m), torch.isinf(m_r)) and (
+        empty is None or (bool(torch.isinf(m[empty]).all())
+                          and bool((l[empty] == 0).all()))),
           f"{what}: empty row must give m=-inf, l=0")
     fin = torch.isfinite(m_r)
     worst = 0.0
@@ -671,6 +694,41 @@ def partial_err(got, want, what):
               f"{what}: err {diff.max().item()}")
         worst = max(worst, diff.max().item())
     return worst
+
+
+def partial_excess(got, want):
+    """Per row, the worst ratio of a partial's error to partial_err's
+    limit, 1e-3 + 1e-4 |plain|, over acc, m and l."""
+    return torch.stack([((g - w).abs() / (1e-3 + 1e-4 * w.abs())).flatten(
+        1).amax(1) for g, w in zip(got, want)]).amax(0)
+
+
+def bf16_out_excess(got, want32):
+    """Per row, the worst ratio of |got - want32| to 5e-4 + 2^-8 |want32|:
+    got a decode's bf16 output, want32 the plain version's in f32 on the
+    same inputs.  2^-8 |want32| covers got's rounding to bf16 (2^-9
+    relative) and as much again for the products the kernel takes in
+    bf16; 5e-4 is twice the largest error (2.4e-4) measured against the
+    bf16 plain version at whisper's cross read."""
+    return ((got.float() - want32).abs()
+            / (5e-4 + 2 ** -8 * want32.abs())).flatten(1).amax(1)
+
+
+def split_faults(q, k, v, valid, split):
+    """The partial statistics two planted faults of a split decode would
+    give: in each row, the split (of `split` rows) in the middle of its
+    valid range dropped, or read twice.  A limit that passes either on a
+    row of two splits or more cannot tell a split decode from a wrong
+    one."""
+    j = (valid.sum(dim=1) - 1) // split // 2
+    rows = torch.arange(valid.shape[1], device=valid.device)[None]
+    one = valid & (rows >= j[:, None] * split) \
+        & (rows < (j[:, None] + 1) * split)
+    acc, m, l = ref.decode_partial_reference(q, k, v, valid)
+    acc_s, m_s, l_s = ref.decode_partial_reference(q, k, v, one)
+    w = torch.exp(m_s - m)
+    return {"dropped": ref.decode_partial_reference(q, k, v, valid & ~one),
+            "read twice": (acc + acc_s * w[..., None], m, l + l_s * w)}
 
 
 kbuild.reset_launch_counts()
@@ -1743,8 +1801,8 @@ def make_requests(n, lo, hi, max_new, vocab=cfg.vocab):
 
 
 def copies(reqs):
-    return [Request(r.rid, r.prompt, r.max_new, sampling=r.sampling)
-            for r in reqs]
+    return [Request(r.rid, r.prompt, r.max_new, sampling=r.sampling,
+                    embeds=r.embeds) for r in reqs]
 
 
 class EagerServer(BatchedServer):
@@ -1757,13 +1815,13 @@ class EagerServer(BatchedServer):
 
 
 def serve(requests, params=None, arch=ARCH, cls=BatchedServer, around=None,
-          max_seq=S, **kw):
+          max_seq=S, batch_slots=4, **kw):
     """One drained run; the launch counts are set to 0 just before it and
     read just after.  The server is built (and its decode segments
     captured as CUDA graphs) before that; `around` is a context entered
     for the run alone.  A graphed server must have run every segment as
     one replay."""
-    server = cls(arch, smoke=False, device="cuda", batch_slots=4,
+    server = cls(arch, smoke=False, device="cuda", batch_slots=batch_slots,
                  max_seq=max_seq, seg_len=8, params=params, **kw)
     for r in requests:
         server.submit(r)
@@ -2015,23 +2073,27 @@ streamed = streamed_equals_per_token(ARCH, params, pair)
 
 
 def logits_along(prompts, steps, reference, arch_cfg=cfg, weights=None,
-                 kv_quant=None, feed=None, max_seq=S):
+                 kv_quant=None, feed=None, max_seq=S, frames=None):
     """Prefill each prompt into its own row, then `steps` decode steps;
     returns [prefill logits (B, V), step logits (B, V), ...], with the
     kernel path or (reference=True) the plain path for every kernel.
     Step i decodes feed[i] ((B, 1) int32) where `feed` is given, else the
-    greedy tokens of the logits before it."""
+    greedy tokens of the logits before it.  An enc-dec model takes each
+    row's frame embeddings (e, D) from `frames`."""
     weights = params if weights is None else weights
-    cache = transformer.init_cache(arch_cfg, len(prompts), max_seq,
-                                   device=DEV, kv_quant=kv_quant)
+    model = get_model(arch_cfg)
+    cache = model.init_cache(arch_cfg, len(prompts), max_seq, device=DEV,
+                             kv_quant=kv_quant)
     out = []
     with (ops.reference_mode() if reference
           else contextlib.nullcontext()):
         first = []
         for row, pr in enumerate(prompts):
-            lg, cache = transformer.prefill_into_cache(
+            clip = () if frames is None else (
+                torch.from_numpy(frames[row]).to(DEV)[None],)
+            lg, cache = model.prefill_into_cache(
                 arch_cfg, weights, cache, torch.from_numpy(pr).to(DEV), row,
-                len(pr))
+                len(pr), *clip)
             first.append(lg)
         out.append(torch.stack(first).float())
         toks = out[-1].argmax(-1).to(torch.int32)[:, None]
@@ -2040,8 +2102,8 @@ def logits_along(prompts, steps, reference, arch_cfg=cfg, weights=None,
         for i in range(steps):
             if feed is not None:
                 toks = feed[i]
-            lg, cache = transformer.decode_step(arch_cfg, weights, cache,
-                                                toks, positions=pos_b)
+            lg, cache = model.decode_step(arch_cfg, weights, cache, toks,
+                                          positions=pos_b)
             out.append(lg[:, -1].float())
             toks = out[-1].argmax(-1).to(torch.int32)[:, None]
             pos_b = pos_b + 1
@@ -2116,6 +2178,7 @@ def partings(toks, ref_toks, reqs, **kw):
     computation, so at a near tie it may order the two choices either way;
     it is not held to either run's order."""
     prompts = {r.rid: r.prompt for r in reqs}
+    clips = {r.rid: r.embeds for r in reqs}
     out = []
     for rid, got in toks.items():
         want = ref_toks[rid]
@@ -2126,7 +2189,9 @@ def partings(toks, ref_toks, reqs, **kw):
         check(t is not None, f"request {rid}: {len(got)} tokens vs "
               f"{len(want)}, one stream a prefix of the other")
         lg = logits_along([np.concatenate([prompts[rid], np.asarray(
-            want[:t], np.int32)])], 0, reference=False, **kw)[0][0]
+            want[:t], np.int32)])], 0, reference=False,
+            frames=None if clips[rid] is None else [clips[rid]],
+            **kw)[0][0]
         best = lg.max()
         out.append((rid, t, want[t], got[t], (best - lg[want[t]]).item(),
                     (best - lg[got[t]]).item()))
@@ -3362,6 +3427,458 @@ print(f"[moe] the three archs took {time.perf_counter() - MOE_T0:.1f} s; "
       f"{time.perf_counter() - T_START:.0f} s into the script", flush=True)
 
 # --------------------------------------------------------------------------
+# 6d. encoder-decoder serving: whisper_large_v3 at full width (32 encoder
+# and 32 decoder layers, d 1280, 20 heads of 64 on 20 KV heads, vocab
+# 51,866, enc_len 1500).  The encoder runs plain torch, as the reference's
+# is plain XLA; each admission writes its slot's cross-K/V, and every
+# decode step reads it in one dense cross-attention decode over the clip's
+# frames.  First the attention kernels at its shapes
+# --------------------------------------------------------------------------
+
+ENCDEC_T0 = time.perf_counter()
+WHISPER = "whisper_large_v3"
+wcfg = get_config(WHISPER)
+WH, WKH, WHD, WE = (wcfg.n_heads, wcfg.n_kv_heads, wcfg.head_dim_,
+                    wcfg.enc_len)
+W_TEXT = 448                     # the decoder's text context: its max_seq
+E_POS = [0, 599, 1498, 1499]     # the last frames of clips of 1, 600,
+#                                  1499 and 1500 frames
+
+# decode_attention_fused[enc1500]: a decode step's cross read, q (4, 1, 20,
+# 64) against the dense cross-K/V (4, 20, 1500, 64), each row up to its
+# clip's last frame, no extra, no pages, as `decode_attention_combined(...,
+# n_chunks=1)` calls it (blk_c 128 -> a dense chunk of 125, splits of 25)
+q = randn(B, 1, WH, WHD)
+k_enc, v_enc = randn(B, WKH, WE, WHD), randn(B, WKH, WE, WHD)
+pos_e = torch.tensor(E_POS, dtype=torch.int32, device=DEV)
+blk = fa.dense_chunk(WE, 128)
+split, n_split = fa.decode_split(WE, blk)
+check((blk, split, n_split) == (125, 25, 60),
+      f"[kernel] enc1500: chunk {blk}, splits {n_split} of {split}")
+kbuild.reset_launch_counts()
+got = fa.decode_attention_fused(q, k_enc, v_enc, pos_e, blk_c=128)
+variants = routes("decode_attention_fused")
+with use_offload(OffloadConfig(protocol=OffloadProtocol.AXLE)):
+    combined = decode_attention_combined(q, k_enc, v_enc, pos_e, n_chunks=1)
+plain = ref.decode_fused_reference(q, k_enc, v_enc, pos_e)
+torch.cuda.synchronize()
+err = (got.float() - plain.float()).abs().max().item()
+check(err <= ATOL_BF16, f"decode_attention_fused[enc1500]: err {err}")
+# the limit scaled to the output (std 0.04-0.07 here), against the plain
+# version in f32; a planted fault of one split must break it on every row
+# of two splits or more
+e_valid = ref.decode_valid_mask(pos_e, WE, 0)
+multi = e_valid.sum(dim=1) > split
+plain32 = ref.normalize_fused_partial(
+    *ref.decode_partial_reference(q, k_enc, v_enc, e_valid)[::2],
+    torch.float32)
+excess = bf16_out_excess(got, plain32)
+check(bool((excess <= 1).all()), f"decode_attention_fused[enc1500]: "
+      f"err past 5e-4 + 2^-8|plain|, by {excess.tolist()}")
+fault_excess = {}
+for fault, (acc_f, _, l_f) in split_faults(q, k_enc, v_enc, e_valid,
+                                           split).items():
+    fault_excess[fault] = bf16_out_excess(
+        ref.normalize_fused_partial(acc_f, l_f, q.dtype), plain32)[multi]
+    check(bool((fault_excess[fault] > 1).all()),
+          f"decode_attention_fused[enc1500]: a split {fault} passes the "
+          f"limit ({fault_excess[fault].tolist()} of it)")
+check(torch.equal(combined, got), "decode_attention_fused[enc1500]: "
+      "decode_attention_combined(n_chunks=1) != the wrapper's call")
+check(variants == {"decode_attention_fused": 1,
+                   "decode_attention_fused_tc": 1},
+      f"decode_attention_fused[enc1500]: launches {variants}, not the "
+      "tensor-core split")
+rows_alone(lambda b: fa.decode_attention_fused(
+    *one_row(b, q, k_enc, v_enc, pos_e), blk_c=128), got,
+    "decode_attention_fused[enc1500]")
+n_valid = int(e_valid.sum())
+bnd, by = bound_ms(nbytes(q, pos_e) + nbytes(q) + 2 * n_valid * WKH * WHD * 2,
+                   4 * n_valid * WH * WHD)
+
+
+def sdpa_cross():
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k_enc, v_enc, attn_mask=e_valid[:, None, None])
+
+
+rec = records["decode_attention_fused[enc1500]"] = dict(
+    name="decode_attention_fused[enc1500]", route="cuda",
+    source="src/repro_torch/kernels/csrc/attention.cu",
+    replaces="src/repro/kernels/flash_attention.py:313",
+    max_abs_err=err, bound_ms=bnd, bound_by=by,
+    **timings(lambda: fa.decode_attention_fused(q, k_enc, v_enc, pos_e,
+                                                blk_c=128),
+              lambda: ref.decode_fused_reference(q, k_enc, v_enc, pos_e),
+              sdpa_cross))
+backend = sdpa_backend(sdpa_cross)
+q32, k32, v32 = q.float(), k_enc.float(), v_enc.float()
+got32, var32 = on_cuda_cores(
+    "decode_attention_fused[enc1500]",
+    lambda: fa.decode_attention_fused(q32, k32, v32, pos_e, blk_c=128),
+    "decode_attention_fused")
+err32 = f32_err(got32, ref.decode_fused_reference(q32, k32, v32, pos_e),
+                "decode_attention_fused[enc1500]")
+print(f"[kernel] decode_attention_fused[enc1500] {WHISPER} cross-attention: "
+      f"B={B} H={WH} KH={WKH} hd={WHD} dense S={WE}, pos={E_POS} (clips of "
+      f"{[p + 1 for p in E_POS]} frames; {n_valid} valid rows): max_abs_err "
+      f"{err:.3g} <= {ATOL_BF16}; against the f32 plain version, "
+      f"{excess.max().item():.3f} of 5e-4 + 2^-8|plain| (a split dropped: "
+      f"{fault_excess['dropped'].min().item():.1f}x it at least, read "
+      f"twice: {fault_excess['read twice'].min().item():.1f}x, on the rows "
+      f"of two splits or more); == decode_attention_combined(n_chunks=1) "
+      f"bitwise; each row alone == its row in the batch bitwise; launches "
+      f"{variants} ({n_split} splits of {split} rows of a dense chunk of "
+      f"{blk}, the tensor-core split); {rec['ms']:.4f} ms, bound "
+      f"{bnd:.6f} ms ({by}; every row valid: "
+      f"{2 * B * WE * WKH * WHD * 2 / HBM_BYTES_PER_S * 1e3:.6f} ms), plain "
+      f"{rec['plain_ms']:.4f} ms, SDPA with the boolean mask "
+      f"{rec['library_ms']:.4f} ms; device {show(rec['device_ms'])} ms "
+      f"({show(div(bnd, rec['device_ms']), '.2f')} of the bound), SDPA's "
+      f"{show(rec['library_device_ms'])} ms on its {backend[0]} backend "
+      f"({backend[1]}): "
+      f"{show(div(rec['device_ms'], rec['library_device_ms']), '.2f')}x it; "
+      f"f32 copies on the CUDA-core split: max_abs_err {err32:.3g} <= 1e-5, "
+      f"launches {var32}", flush=True)
+
+# decode_attention_partial[enc1500]: the rp schedule's one chunk over the
+# whole encoder output (n_chunks=1), its (B, C) mask from enc_pos
+kbuild.reset_launch_counts()
+part = fa.decode_attention_partial(q, k_enc, v_enc, e_valid)
+variants = routes("decode_attention_partial")
+torch.cuda.synchronize()
+errp = partial_err(part, ref.decode_partial_reference(q, k_enc, v_enc,
+                                                      e_valid),
+                   "decode_attention_partial[enc1500]", empty=None)
+check(variants == {"decode_attention_partial": 1,
+                   "decode_attention_partial_tc": 1},
+      f"decode_attention_partial[enc1500]: launches {variants}")
+p_split, p_n = fa.decode_split(WE, 64)
+plain_p = ref.decode_partial_reference(q, k_enc, v_enc, e_valid)
+p_multi = e_valid.sum(dim=1) > p_split
+p_fault = {}
+for fault, faulty in split_faults(q, k_enc, v_enc, e_valid,
+                                  p_split).items():
+    p_fault[fault] = partial_excess(faulty, plain_p)[p_multi]
+    check(bool((p_fault[fault] > 1).all()),
+          f"decode_attention_partial[enc1500]: a split {fault} passes the "
+          f"limit ({p_fault[fault].tolist()} of it)")
+rows_alone(lambda b: fa.decode_attention_partial(
+    *one_row(b, q, k_enc, v_enc, e_valid)), part,
+    "decode_attention_partial[enc1500]")
+bndp, byp = bound_ms(nbytes(q, e_valid, *part) + 2 * n_valid * WKH * WHD * 2,
+                     4 * n_valid * WH * WHD)
+recp = records["decode_attention_partial[enc1500]"] = dict(
+    name="decode_attention_partial[enc1500]", route="cuda",
+    source="src/repro_torch/kernels/csrc/attention.cu",
+    replaces="src/repro/kernels/flash_attention.py:192",
+    max_abs_err=errp, bound_ms=bndp, bound_by=byp,
+    **timings(lambda: fa.decode_attention_partial(q, k_enc, v_enc, e_valid),
+              lambda: ref.decode_partial_reference(q, k_enc, v_enc,
+                                                   e_valid)))
+got32, var32 = on_cuda_cores(
+    "decode_attention_partial[enc1500]",
+    lambda: fa.decode_attention_partial(q32, k32, v32, e_valid),
+    "decode_attention_partial")
+err32 = partial_err(got32, ref.decode_partial_reference(q32, k32, v32,
+                                                        e_valid),
+                    "decode_attention_partial[enc1500] f32", empty=None)
+print(f"[kernel] decode_attention_partial[enc1500] {WHISPER}: B={B} C={WE}, "
+      f"the enc_pos mask of pos={E_POS}: max_abs_err {errp:.3g} (<= 1e-3 + "
+      f"1e-4|plain|; a split dropped: "
+      f"{p_fault['dropped'].min().item():.1f}x that limit at least, read "
+      f"twice: {p_fault['read twice'].min().item():.1f}x, on the rows of "
+      f"two splits or more); each row alone == its row in the batch "
+      f"bitwise; "
+      f"launches {variants} ({p_n} splits of {p_split} rows, the last "
+      f"ragged, the tensor-core split); {recp['ms']:.4f} ms, bound "
+      f"{bndp:.6f} ms ({byp}), plain {recp['plain_ms']:.4f} ms, device "
+      f"{show(recp['device_ms'])} ms; no library call; f32 copies on the "
+      f"CUDA-core split: max_abs_err {err32:.3g}, launches {var32}",
+      flush=True)
+del q, k_enc, v_enc, q32, k32, v32, got, got32, combined, plain, part, \
+    plain32, plain_p
+
+# flash_attention[hd64mha]: the decoder's prompt prefill, MHA (20 heads on
+# 20 KV heads) at hd 64, causal: at the prompt buckets this phase serves (8,
+# 16 and 32 tokens; the row at 32) and at the text context of 448
+for s_w in (8, 32, W_TEXT):
+    qf, kf, vf = (randn(1, s_w, WH, WHD) for _ in range(3))
+    kbuild.reset_launch_counts()
+    got = fa.flash_attention(qf, kf, vf, causal=True)
+    variants = routes("flash_attention")
+    plain = ref.mha_reference(qf, kf, vf, causal=True)
+    torch.cuda.synchronize()
+    errf = (got.float() - plain.float()).abs().max().item()
+    check(errf <= ATOL_BF16, f"flash_attention[hd64mha] S={s_w}: err {errf}")
+    check(variants == {"flash_attention": 1, "flash_attention_tc": 1},
+          f"flash_attention[hd64mha] S={s_w}: launches {variants}")
+    pairs = s_w * (s_w + 1) // 2
+    bndf, byf = bound_ms(2 * nbytes(qf) + nbytes(kf, vf),
+                         4 * pairs * WH * WHD)
+
+    def sdpa_prefill():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2),
+            is_causal=True)
+
+    recf = dict(
+        name="flash_attention[hd64mha]", route="cuda",
+        source="src/repro_torch/kernels/csrc/attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:98",
+        max_abs_err=errf, bound_ms=bndf, bound_by=byf,
+        **timings(lambda: fa.flash_attention(qf, kf, vf, causal=True),
+                  lambda: ref.mha_reference(qf, kf, vf, causal=True),
+                  sdpa_prefill))
+    backend = sdpa_backend(sdpa_prefill)
+    q32, k32, v32 = qf.float(), kf.float(), vf.float()
+    got32, var32 = on_cuda_cores(
+        f"flash_attention[hd64mha] S={s_w}",
+        lambda: fa.flash_attention(q32, k32, v32, causal=True),
+        "flash_attention")
+    err32 = f32_err(got32, ref.mha_reference(q32, k32, v32, causal=True),
+                    f"flash_attention[hd64mha] S={s_w}")
+    if s_w == 32:
+        records["flash_attention[hd64mha]"] = recf
+    print(f"[kernel] flash_attention[hd64mha] {WHISPER} decoder prefill: "
+          f"B=1 S={s_w} H={WH} KH={WKH} hd={WHD} causal: max_abs_err "
+          f"{errf:.3g} <= {ATOL_BF16}; launches {variants} (the tensor-core "
+          f"kernel); {recf['ms']:.4f} ms, bound {bndf:.6f} ms ({byf}), plain "
+          f"{recf['plain_ms']:.4f} ms, SDPA causal "
+          f"{recf['library_ms']:.4f} ms; device {show(recf['device_ms'])} "
+          f"ms, SDPA's {show(recf['library_device_ms'])} ms on its "
+          f"{backend[0]} backend ({backend[1]}); f32 copies on the CUDA-core "
+          f"kernel: max_abs_err {err32:.3g} <= 1e-5, launches {var32}"
+          + ("; the JSON record" if s_w == 32 else ""), flush=True)
+    del qf, kf, vf, got, plain, q32, k32, v32, got32
+torch.cuda.empty_cache()
+
+
+def whisper_requests(n, max_new, seed, prompt_lo=4):
+    """`n` greedy requests: prompts of prompt_lo-32 tokens, clips of 1500
+    frames (even ids) and of 600-1400 (odd ids), frames N(0, 1) f32."""
+    r = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        e = WE if i % 2 == 0 else int(r.integers(600, 1401))
+        emb = r.standard_normal((e, wcfg.d_model)).astype(np.float32)
+        prompt = r.integers(1, wcfg.vocab, int(r.integers(prompt_lo, 33)))
+        out.append(Request(i, prompt.astype(np.int32), max_new, embeds=emb))
+    return out
+
+
+def encdec_launches(label, srv, launches, n_layers, decode):
+    """Every decode step ran two fused decodes a layer on the tensor
+    cores, the self-attention's (`decode`: the fp or the int8 one) and the
+    cross read's (fp, counted at its site); every prefill one flash call a
+    layer; one encoder pass an admission."""
+    want = {"decode_attention_fused": srv.steps * n_layers,   # cross
+            "flash_attention": srv.prefill_forwards * n_layers}
+    want[decode] = want.get(decode, 0) + srv.steps * n_layers  # self
+    for name, n in want.items():
+        check(launches[name] == n and launches[name + "_tc"] == n,
+              f"[encdec] {label}: {name} launches {launches[name]} "
+              f"({launches[name + '_tc']} on the tensor cores) != {n}")
+    check(launches["decode_attention_fused@cross"] == srv.steps * n_layers
+          and launches["decode_attention_partial@cross"] == 0,
+          f"[encdec] {label}: cross reads {launches}")
+    check(launches["decode_attention_partial"] == 0,
+          f"[encdec] {label}: partial launches {launches}")
+    check(srv.encoder_passes == srv.prefill_forwards,
+          f"[encdec] {label}: {srv.encoder_passes} encoder passes for "
+          f"{srv.prefill_forwards} admissions")
+
+
+# the 8 requests: 4 full clips, 4 of 600-1400 frames, so the cross reads of
+# one batch end at different frames; 4 slots, two admissions each
+t0 = time.perf_counter()
+torch.cuda.empty_cache()
+torch.cuda.reset_peak_memory_stats()
+w_reqs = whisper_requests(8, 64, 50)
+W_LENS = tuple(len(r.embeds) for r in w_reqs)
+W_PROMPTS = tuple(len(r.prompt) for r in w_reqs)
+W_SRV = dict(arch=WHISPER, max_seq=W_TEXT, protocol="axle", stream=True)
+srv, w_toks, w_launches, w_dt = serve(w_reqs, **W_SRV)
+n_wl = wcfg.n_layers
+encdec_launches(WHISPER, srv, w_launches, n_wl, "decode_attention_fused")
+check(all(len(t) == 64 for t in w_toks.values()), f"{WHISPER}: short stream")
+check(srv.cfg.n_enc_layers == 32 and srv.cfg.d_model == 1280
+      and srv.cache["cross_k"].shape == (n_wl, 4, WKH, WE, WHD),
+      f"{WHISPER}: not the full config")
+w_params = srv.params
+parts, _ = replay_profile(srv, f"{WHISPER}, axle", steps_only=True)
+# a decode step reads the decoder's weights (not the encoder's, nor the
+# cross-attention's wk / wv, which only an admission reads), each row's
+# cross-K/V up to its clip's end and its self-K/V up to its clock
+dec_bytes = sum(t.numel() * t.element_size() for t in leaves(
+    [w_params[k] for k in ("embed", "dec_blocks", "final_ln")]
+    + [w_params["cross"][k] for k in ("ln", "wq", "wo")]))
+row_bytes = n_wl * WKH * WHD * 2 * 2                 # K and V, bf16
+cross_bytes = int(srv.cache["enc_pos"].sum()) * row_bytes
+self_bytes = int(srv.state.positions.sum()) * row_bytes
+step_bound = (dec_bytes + cross_bytes + self_bytes) / HBM_BYTES_PER_S * 1e3
+clip = torch.from_numpy(w_reqs[0].embeds).to(DEV)[None]
+encode_ms = time_ms(lambda: encdec.encode(wcfg, w_params, clip), iters=5)
+admit_ms = time_ms(lambda: srv._prefill(0, w_reqs[0]), iters=5)
+
+
+def busy_ms(fn):
+    """Device time of one call under torch.profiler, and its kernels by
+    device time."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = sorted(((e.self_device_time_total, e.count, e.key)
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA),
+                reverse=True)
+    return sum(t for t, _, _ in ev) / 1e3, ev
+
+
+enc_busy, _ = busy_ms(lambda: encdec.encode(wcfg, w_params, clip))
+adm_busy, adm_ev = busy_ms(lambda: srv._prefill(0, w_reqs[0]))
+print(f"[encdec] {WHISPER}, one admission under the profiler: device busy "
+      f"{adm_busy:.2f} ms of its {admit_ms:.2f} ms "
+      f"({100 * adm_busy / admit_ms:.1f}%), the encode {enc_busy:.2f} ms of "
+      f"{encode_ms:.2f} ms; kernels by device time: " + "; ".join(
+          f"{k[:48]} x{n} {t / 1e3:.2f} ms" for t, n, k in adm_ev[:8]),
+      flush=True)
+step = parts["step_plain_fn"]
+n_tok = sum(len(t) for t in w_toks.values())
+print(f"[encdec] {WHISPER} full width ({wcfg.n_enc_layers} + {n_wl} layers, "
+      f"d {wcfg.d_model}, H {WH} on KH {WKH}, hd {WHD}, vocab {wcfg.vocab}, "
+      f"enc_len {WE}), axle, streamed, 8 requests: prompts "
+      f"{W_PROMPTS}, clips {W_LENS} frames, max_new 64, 4 slots, max_seq "
+      f"{W_TEXT} (pages of {srv.page_size}), seg_len 8: {n_tok} tokens in "
+      f"{w_dt:.3f} s = {n_tok / w_dt:.1f} tok/s, every segment a graph "
+      f"replay; launches {routes_of(w_launches, 'decode_attention_fused', 'flash_attention')} "
+      f"(a step: {n_wl} self + {n_wl} cross fused decodes; at the cross "
+      f"site {w_launches['decode_attention_fused@cross']}); decode step "
+      f"{step['device_ms']:.3f} ms device, {step['kernels']:.0f} kernels "
+      f"({step['launches']} of ours); its bound {step_bound:.3f} ms at the "
+      f"HBM rate (decoder weights {dec_bytes / 1e9:.3f} GB + cross-K/V "
+      f"{cross_bytes / 1e9:.3f} GB + self-K/V {self_bytes / 1e9:.4f} GB): "
+      f"{step['device_ms'] / step_bound:.2f}x it; one admission (encode "
+      f"{WE} frames + prefill {_prefill_bucket(len(w_reqs[0].prompt), W_TEXT)}"
+      f" tokens) {admit_ms:.2f} ms, the encode alone {encode_ms:.2f} ms; "
+      f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB;"
+      f" phase {time.perf_counter() - t0:.1f} s", flush=True)
+del srv, clip
+
+# request 1 (a short clip) alone in a fresh server == its row in the batch
+alone_srv = BatchedServer(WHISPER, smoke=False, device="cuda", batch_slots=4,
+                          max_seq=W_TEXT, seg_len=8, params=w_params,
+                          protocol="axle", stream=True)
+alone_srv.submit(copies(w_reqs[1:2])[0])
+alone_srv.run_until_drained()
+check(alone_srv.completed[0].generated == w_toks[1],
+      f"[encdec] {WHISPER}: request 1 alone != its row in the batch")
+del alone_srv
+
+# two admissions in one slot (a full clip, then a short one over it):
+# graphed == eager bitwise, so the prefill writes the cross-K/V and enc_pos
+# the captured graphs read in place
+w_pair = whisper_requests(2, 16, 51, prompt_lo=17)
+srv, toks, launches, dt = serve(w_pair, params=w_params, batch_slots=1,
+                                **W_SRV)
+check(srv.prefill_forwards == 2 and srv.batch == 1,
+      f"[encdec] {WHISPER}: {srv.prefill_forwards} admissions")
+encdec_launches(f"{WHISPER} 1 slot", srv, launches, n_wl,
+                "decode_attention_fused")
+graph_equals_eager(f"{WHISPER}, axle, 1 slot, two admissions (clips "
+                   f"{len(w_pair[0].embeds)} then {len(w_pair[1].embeds)} "
+                   "frames)", srv, toks, launches, dt, w_pair, batch_slots=1,
+                   **W_SRV)
+del srv
+
+# the kernel path's logits against the plain path's: a full clip and a
+# short one, prefill + 4 decode steps
+kernels_against_plain(f"{WHISPER} (clips {W_LENS[0]} and {W_LENS[1]})",
+                      [r.prompt for r in w_reqs[:2]], arch_cfg=wcfg,
+                      weights=w_params, max_seq=W_TEXT,
+                      frames=[r.embeds for r in w_reqs[:2]])
+
+# its own self:8 draft on the pair (prompts of 17-32 tokens, so no prefill
+# of the twin's pads to the verify's rows): one encoder pass an admission,
+# the spec tokens == the non-spec twin's at the verify's row count
+sp_srv, sp_toks, sp_launches, sp_dt = serve(copies(w_pair), params=w_params,
+                                            **W_SRV, **SPEC)
+rounds = spec_rounds(sp_srv)
+d_layers = sp_srv.draft_cfg.n_layers
+check(d_layers == 8 and sp_srv.draft_shares_encoder
+      and sp_srv.encoder_passes == sp_srv.prefill_forwards == 2,
+      f"[encdec] {WHISPER} spec: a draft of {d_layers} layers, "
+      f"{sp_srv.encoder_passes} encoder passes for "
+      f"{sp_srv.prefill_forwards} admissions")
+check(sp_launches["decode_attention_fused"]
+      == rounds * (SPEC_K + 1) * 2 * (d_layers + n_wl)
+      and sp_launches["decode_attention_fused_tc"]
+      == sp_launches["decode_attention_fused"]
+      and sp_launches["decode_attention_fused@cross"]
+      == rounds * (SPEC_K + 1) * (d_layers + n_wl)
+      and sp_launches["flash_attention_tc"] == sp_launches["flash_attention"]
+      == sp_srv.prefill_forwards * (n_wl + d_layers),
+      f"[encdec] {WHISPER} spec launches {sp_launches}")
+rate = sp_srv.draft_accepted / max(1, sp_srv.draft_proposed)
+del sp_srv
+twin = padded_twin(w_pair, params=w_params, **W_SRV)
+check(sp_toks == twin, f"[encdec] {WHISPER}: spec tokens != the padded "
+      "non-spec twin's")
+print(f"[encdec] {WHISPER}, its self:{d_layers} draft, spec_k {SPEC_K}, 2 "
+      f"requests x 16 tokens: {rounds} rounds, accept rate {rate:.4f}, "
+      f"{sum(len(t) for t in sp_toks.values()) / sp_dt:.1f} tok/s; one "
+      f"encoder pass an admission (the draft's prefill shares it); tokens == "
+      f"the non-spec twin's at the verify's row count, bitwise; fused "
+      f"launches {sp_launches['decode_attention_fused']} = {rounds} x "
+      f"{SPEC_K + 1} x 2 x ({d_layers} + {n_wl}), all on the tensor cores",
+      flush=True)
+
+# the pair under rp (self and cross reads each one partial a layer: the
+# cross one over all 1500 frames) and with an int8 KV cache (the self
+# reads int8, the cross reads fp)
+_, w_fp, _, _ = serve(copies(w_pair), params=w_params, **W_SRV)
+srv, w_rp, w_rp_launches, _ = serve(copies(w_pair), params=w_params,
+                                    **dict(W_SRV, protocol="rp"))
+check(w_rp_launches["decode_attention_partial"]
+      == w_rp_launches["decode_attention_partial_tc"]
+      == 2 * srv.steps * n_wl
+      and w_rp_launches["decode_attention_partial@cross"] == srv.steps * n_wl
+      and w_rp_launches["decode_attention_fused"] == 0,
+      f"[encdec] {WHISPER} rp launches {w_rp_launches} for {srv.steps} "
+      "steps")
+del srv
+rp_vs = near_tie_agrees(f"{WHISPER} rp vs axle", w_rp, w_fp, w_pair,
+                        arch_cfg=wcfg, weights=w_params, max_seq=W_TEXT)
+srv, w_i8, w_i8_launches, _ = serve(copies(w_pair), params=w_params,
+                                    quant=QuantConfig(kv="int8"), **W_SRV)
+encdec_launches(f"{WHISPER} int8 KV", srv, w_i8_launches, n_wl,
+                "decode_attention_fused[int8]")
+check(all(len(t) == 16 for t in w_i8.values()),
+      f"[encdec] {WHISPER} int8 KV: short stream")
+del srv
+same = sum(w_i8[r] == w_fp[r] for r in w_fp)
+print(f"[encdec] {WHISPER}, the same 2 requests x 16 tokens: rp {rp_vs} "
+      f"axle, partial launches "
+      f"{routes_of(w_rp_launches, 'decode_attention_partial')} (a step: "
+      f"{n_wl} self + {n_wl} cross partials of one chunk; at the cross site "
+      f"{w_rp_launches['decode_attention_partial@cross']}); an int8 KV "
+      f"cache: "
+      f"launches "
+      f"{routes_of(w_i8_launches, 'decode_attention_fused[int8]', 'decode_attention_fused')}"
+      f" ({n_wl} int8 self + {n_wl} fp cross a step), every one on the "
+      f"tensor-core "
+      f"split; {same} of 2 streams equal to fp KV's (not gated: int8 KV "
+      f"changes the logits); request 1 alone == its row in the batch, "
+      f"bitwise; {WHISPER} phase {time.perf_counter() - ENCDEC_T0:.1f} s "
+      f"(the kernel rows included); {time.perf_counter() - T_START:.0f} s "
+      "into the script", flush=True)
+del w_params
+torch.cuda.empty_cache()
+
+# --------------------------------------------------------------------------
 # 7. result
 # --------------------------------------------------------------------------
 
@@ -3394,6 +3911,14 @@ records["decode_attention_fused[int8][hd64]"]["launches"] = \
     g_i8_launches["decode_attention_fused[int8]"]
 records["decode_attention_partial[hd64]"]["launches"] = \
     g_rp_launches["decode_attention_partial"]
+# the whisper serve's cross reads and the rp serve's cross partials, as
+# counted at the cross site, and every whisper prefill's flash
+records["decode_attention_fused[enc1500]"]["launches"] = \
+    w_launches["decode_attention_fused@cross"]
+records["decode_attention_partial[enc1500]"]["launches"] = \
+    w_rp_launches["decode_attention_partial@cross"]
+records["flash_attention[hd64mha]"]["launches"] = \
+    w_launches["flash_attention"]
 records["sls"]["launches"] = sls_launches["sls"]
 for name, rec in records.items():
     check(rec["launches"] > 0, f"{name} never launched on the main path")

@@ -1,8 +1,7 @@
 """Architecture configs of the port: `get_config(arch_id)` returns the full
 ArchConfig, `get_smoke_config(arch_id)` the CPU-sized reduction.  Each
 ported arch has its own module, copied from `repro/configs/<arch>.py`;
-an arch whose layers are not ported yet raises NotImplementedError naming
-the ROADMAP item that ports it.  `get_card_config(arch_id)` is the config
+every arch of the reference is ported.  `get_card_config(arch_id)` is the config
 one 80 GB card serves: the module's CARD (the full widths, cut in depth)
 for a model the card cannot hold, else CONFIG."""
 from __future__ import annotations
@@ -27,10 +26,10 @@ ARCH_IDS = (
 
 PORTED = ("starcoder2_3b", "mamba2_370m", "gemma3_12b", "mistral_nemo_12b",
           "opt_2_7b", "minitron_4b", "qwen2_vl_2b", "granite_moe_3b",
-          "phi3_5_moe_42b", "jamba_1_5_large")
+          "phi3_5_moe_42b", "jamba_1_5_large", "whisper_large_v3")
 
-# ROADMAP.md queue 1 items that port each arch not yet ported
-_ROADMAP_ITEM = {"whisper_large_v3": "item 13"}
+# ROADMAP.md queue 1 items that port each arch not yet ported (none left)
+_ROADMAP_ITEM: dict = {}
 
 
 def _module(arch_id: str):

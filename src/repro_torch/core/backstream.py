@@ -221,6 +221,7 @@ def _partials_over_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def decode_attention_combined(q: torch.Tensor, k_cache: torch.Tensor,
                               v_cache: torch.Tensor, pos: torch.Tensor, *,
                               window: int = 0,
+                              n_chunks: Optional[int] = None,
                               extra=None,
                               pages: Optional[torch.Tensor] = None,
                               kv_scales: Optional[Tuple[torch.Tensor,
@@ -231,7 +232,11 @@ def decode_attention_combined(q: torch.Tensor, k_cache: torch.Tensor,
     last valid cache slot, a scalar or (B,) per-row.  `pages`: optional
     (B, n_pages) page table; the cache panels are then page pools.
     `kv_scales`: optional (k_scales, v_scales) (B,KH,n_pages) f32 per
-    physical page of int8 pools.  Returns (B,1,H,hd)."""
+    physical page of int8 pools.  `n_chunks`: the chunks of the chunked
+    schedule (RP, fused=False), whose dense fused route takes a chunk of
+    S / n_chunks rows, capped at 128; None takes `chunks_per_shard`
+    (capped at S).  The enc-dec cross-attention passes 1: one partial over
+    the whole encoder output.  Returns (B,1,H,hd)."""
     cfg = current_offload()
     b, kh, s, hd = k_cache.shape
     page_size = 0
@@ -240,7 +245,8 @@ def decode_attention_combined(q: torch.Tensor, k_cache: torch.Tensor,
         page_size = s // pages.shape[1]
     pos_b = torch.as_tensor(pos, device=q.device).to(
         torch.int32).reshape(-1).expand(b).contiguous()
-    n_chunks = min(max(1, cfg.chunks_per_shard), s)
+    if n_chunks is None:
+        n_chunks = min(max(1, cfg.chunks_per_shard), s)
 
     if cfg.fused and cfg.protocol != OffloadProtocol.RP:
         if pages is not None:

@@ -25,10 +25,12 @@ is present and none was asked for.  `--full` serves the full-width
 configs (random weights from seed 0) instead of the smoke ones.  On one
 device BS and AXLE take the fused decode kernel and RP the per-chunk
 partial kernel plus a merge (`chunks_per_shard=4`).  The families are the
-reference's but whisper_large_v3, whose encoder-decoder layers are
-ROADMAP.md queue 1 item 13.  Under `--full`, jamba_1_5_large is its
-CARD config (`configs.get_card_config`: the full widths, its first five
-layers), which one 80 GB card holds.
+reference's: mamba2_370m, jamba_1_5_large and the encoder-decoder
+whisper_large_v3, each of whose requests brings random frames from the
+stub audio frontend (an encoder pass and per-slot cross-K/V at
+admission).  Under `--full`, jamba_1_5_large is its CARD config
+(`configs.get_card_config`: the full widths, its first five layers),
+which one 80 GB card holds.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ from repro_torch.launch.serve import BatchedServer, Request
 from repro_torch.models import transformer
 
 ARCH = "mistral_nemo_12b"
-FAMILIES = ("mamba2_370m", "jamba_1_5_large")
+FAMILIES = ("mamba2_370m", "jamba_1_5_large", "whisper_large_v3")
 PROTOCOLS = ("bs", "rp", "axle")
 NEAR_TIE = 0.1
 
@@ -110,8 +112,9 @@ def serve_family(arch_id: str, n_requests: int = 3, max_new: int = 8, *,
                  device: Optional[str] = None, full: bool = False
                  ) -> Dict[int, List[int]]:
     """Every ported family goes through the SAME real prefill-into-cache
-    admission (attention K/V capture, SSM recurrent-state capture) and
-    the same streamed decode loop.  Returns {rid: tokens}."""
+    admission (attention K/V capture, SSM recurrent-state capture, or an
+    encoder pass and per-slot cross-K/V) and the same streamed decode
+    loop.  Returns {rid: tokens}."""
     rng = np.random.default_rng(11)
     server = BatchedServer(arch_id, smoke=not full, device=device,
                            batch_slots=2, max_seq=64, protocol="bs",
@@ -119,8 +122,13 @@ def serve_family(arch_id: str, n_requests: int = 3, max_new: int = 8, *,
                            cfg=get_card_config(arch_id) if full else None)
     for i in range(n_requests):
         plen = int(rng.integers(4, 8))
+        embeds = None
+        if server.cfg.enc_dec:     # the stub audio frontend: random frames
+            embeds = rng.standard_normal(
+                (server.cfg.enc_len, server.cfg.d_model)).astype(np.float32)
         server.submit(Request(i, rng.integers(
-            1, server.cfg.vocab, plen).astype(np.int32), max_new))
+            1, server.cfg.vocab, plen).astype(np.int32), max_new,
+            embeds=embeds))
     server.run_until_drained()
     toks = sum(len(r.generated) for r in server.completed)
     spt = server.decode_syncs / max(1, toks)

@@ -5,7 +5,9 @@ The tests call it; nothing on the card does (that machine has no JAX).
 bf16 crosses as raw 16-bit words, so no bf16 numpy type is needed here:
 `arr.view(np.uint16)` on this side, `.view(torch.bfloat16)` on the other.
 The layout stays the reference's: `embed`, `final_ln`, and
-`blocks[i]["attn"|"ffn"][name]` stacked over n_blocks.  A quantized tree's
+`blocks[i]["attn"|"ffn"][name]` stacked over n_blocks; an encoder-decoder's
+`enc_blocks` / `dec_blocks` the same way, its `cross` one dict of stacks,
+and `enc_final_ln`.  A quantized tree's
 leaves (the reference's `QTensor`, its arrays mapped to numpy) become the
 port's `QTensor`, recognised by their attributes.
 """
@@ -54,12 +56,15 @@ def tree_from_numpy(tree: Any, device: Union[str, torch.device]) -> Any:
 
 def params_from_jax(np_params: Dict[str, Any],
                     device: Union[str, torch.device]) -> Dict[str, Any]:
-    """`repro.models.transformer.init_params` output, as numpy arrays."""
+    """`repro.models.transformer.init_params` or `repro.models.encdec.
+    init_params` output, as numpy arrays."""
     return tree_from_numpy(np_params, device)
 
 
 def cache_from_jax(np_cache: Dict[str, Any],
                    device: Union[str, torch.device]) -> Dict[str, Any]:
     """`repro.models.transformer.init_cache` output (pos, k*/v* panels,
-    page_table), as numpy arrays."""
+    page_table; int8 pools with their kscale*/vscale* leaves), or
+    `repro.models.encdec.init_cache`'s (those plus the 5-dim cross_k /
+    cross_v panels and the (B,) enc_pos clock), as numpy arrays."""
     return {k: tensor_from_numpy(v, device) for k, v in np_cache.items()}

@@ -11,10 +11,14 @@ reaches its kernel and nowhere else; the wrappers add to it and
 `reset_launch_counts()` sets every count to 0.  A function with several
 kernels counts every launch under its own name and, in `VARIANTS`, the
 launches that took one of its routes (its tensor-core kernel, the skinny
-decode kernel) or also ran a split-K reduction pass.
+decode kernel) or also ran a split-K reduction pass.  Inside
+`launch_site(site)`, a decode launch also counts under "<name>@<site>",
+so that one model's call sites of the same kernel are told apart (an
+enc-dec decoder's cross reads from its self reads).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -65,7 +69,14 @@ VARIANTS = ("flash_attention_tc", "knn_distances_wgmma",
             "decode_attention_partial_tc", "quant_matmul[q8_0]_tc",
             "quant_matmul[q4_k]_tc", "quant_matmul[q8_0]_skinny",
             "quant_matmul[q4_k]_skinny", "quant_matmul[q8_0]_splitk",
-            "quant_matmul[q4_k]_splitk", "ssd_scan_tc")
+            "quant_matmul[q4_k]_splitk", "ssd_scan_tc",
+            "decode_attention_fused@cross", "decode_attention_partial@cross")
+# the call sites counted apart: "cross", an enc-dec decoder's cross read
+# over the encoder output
+SITES = ("cross",)
+for _name in VARIANTS[-2:]:
+    LAUNCHES[_name] = 0
+_site: List[Optional[str]] = [None]
 
 _lib: Optional[ctypes.CDLL] = None
 _fns: Dict[str, Callable[..., int]] = {}
@@ -75,6 +86,26 @@ _lib_lock = threading.Lock()
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def launch_site(site: str):
+    """Count the decode launches made inside it under "<name>@<site>" as
+    well (a CUDA graph captured inside it replays those counts too)."""
+    if site not in SITES:
+        raise ValueError(f"no call site {site!r}: the sites are {SITES}")
+    outer, _site[0] = _site[0], site
+    try:
+        yield
+    finally:
+        _site[0] = outer
+
+
+def count_site(name: str) -> None:
+    """One launch of `name` more at the current call site, if one is
+    named; the wrappers call it where they count the launch."""
+    if _site[0] is not None:
+        LAUNCHES[f"{name}@{_site[0]}"] += 1
 
 
 def nvcc_path() -> str:

@@ -11,7 +11,8 @@ contiguity, allocates its outputs with `torch.empty`, launches on
 `torch.cuda.current_stream()` and raises if the launch fails.  It never
 falls back to the plain PyTorch version: `ops.py` dispatches CPU tensors
 there before a wrapper is reached.  Each launch adds one to its kernel's
-count in `build.LAUNCHES`.
+count in `build.LAUNCHES`, and an fp decode's inside a named
+`build.launch_site` to its site's count too.
 
 Prefill has two kernels: `flash_tc_kernel` on the tensor cores takes bf16
 with a head dim of 64, 80, 128 or 256 and 16-byte-aligned bases,
@@ -32,8 +33,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.build import (DTYPE_CODE, LAUNCHES, check,
-                                       check_inputs, function, raise_on,
-                                       stream)
+                                       check_inputs, count_site, function,
+                                       raise_on, stream)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -195,6 +196,8 @@ def decode_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     LAUNCHES[name] += 1
     if tc:
         LAUNCHES[name + "_tc"] += 1
+    if kv_scales is None:
+        count_site(name)
     return out
 
 
@@ -232,6 +235,7 @@ def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
     LAUNCHES[name] += 1
     if tc:
         LAUNCHES[name + "_tc"] += 1
+    count_site(name)
     return acc, m, l
 
 

@@ -44,6 +44,12 @@ streams can part.  The draft steps run padded to the verify's row count
 (`models/quantize.padded_rows`), so a full-depth self-draft is accepted
 whole on the card too.
 
+An encoder-decoder arch (`--arch whisper_large_v3`) serves requests that
+bring their audio frames (`Request.embeds`, the stub frontend's output;
+the CLI draws random ones): one encoder pass an admission, shared by the
+target's prefill and a self-draft's, writes the slot's cross-K/V, and
+every decode step attends over it up to the slot's own clip length.
+
 On the card every decode segment runs as one CUDA graph replay
 (`launch/graphs.py`), captured at construction; on the CPU the segments
 run eagerly.  Both loops emit identical tokens.  The host tier, chunked
@@ -69,9 +75,10 @@ from repro_torch.core import prng
 from repro_torch.kernels import ops
 from repro_torch.launch import graphs
 from repro_torch.launch import steps as steps_lib
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.quantize import quantize_params
+from repro_torch.models.registry import get_model
 
 PROTOCOLS = {"bs": OffloadProtocol.BS, "axle": OffloadProtocol.AXLE,
              "rp": OffloadProtocol.RP}
@@ -120,6 +127,10 @@ class Request:
     sampling    — its SamplingParams; None decodes greedily.
     stop_tokens — ids that end the request, as `sampling.stop_tokens`
                   (a request may set one of the two, not both).
+    embeds      — encoder-decoder archs only: (e, d_model) float32 frame
+                  embeddings from the (stubbed) audio frontend, e <=
+                  enc_len; a clip shorter than enc_len is served at its
+                  length.  None: enc_len frames of silence (zeros).
     generated   — filled by the server, in order.
     spec_accepted / spec_proposed — under speculative serving, this
                   request's draft tokens accepted and proposed, stamped
@@ -133,6 +144,7 @@ class Request:
     sampling: Optional[SamplingParams] = None
     spec_accepted: Optional[int] = None
     spec_proposed: Optional[int] = None
+    embeds: Optional[np.ndarray] = None
 
     @property
     def sampling_params(self) -> SamplingParams:
@@ -191,7 +203,13 @@ class BatchedServer:
     by its own prefill at admission.  A round's emit count depends on
     the device's verdict, so every row is retired by the device's alive
     bit, and a request needs `len(prompt) + max_new + spec_k <= max_seq`
-    (the verify writes up to spec_k rows past the final clock)."""
+    (the verify writes up to spec_k rows past the final clock).
+
+    An encoder-decoder config takes its functions from `models/encdec.py`
+    (`registry.get_model`) and encodes each request's frames once at
+    admission (`encoder_passes` counts the passes): a self-draft shares
+    the target's encoder, so its prefill reuses that output
+    (`draft_shares_encoder`); another enc-dec draft encodes again."""
 
     def __init__(self, arch_id: str, *, smoke: bool = True,
                  device: Optional[str] = None, batch_slots: int = 4,
@@ -213,17 +231,18 @@ class BatchedServer:
         self.stream = stream
         self.offload = OffloadConfig(protocol=PROTOCOLS[protocol],
                                      chunks_per_shard=chunks_per_shard)
+        self.model = get_model(self.cfg)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
-            params = transformer.init_params(self.cfg, gen, self.device)
+            params = self.model.init_params(self.cfg, gen, self.device)
         self.quant = quant or steps_lib.QuantConfig()
         if self.quant.weights is not None:
             params = quantize_params(params, self.quant.weights)
         self.params = params
-        self.cache = transformer.init_cache(self.cfg, batch_slots, max_seq,
-                                            device=self.device,
-                                            page_size=page_size,
-                                            kv_quant=self.quant.kv)
+        self.cache = self.model.init_cache(self.cfg, batch_slots, max_seq,
+                                           device=self.device,
+                                           page_size=page_size,
+                                           kv_quant=self.quant.kv)
         # page ledger: one page = `page_size` positions of one slot row,
         # charged as the position clock advances and released at
         # retirement; allocated == freed + resident at every tick.  A
@@ -237,7 +256,12 @@ class BatchedServer:
         self.pages_freed = 0
         self.pages_resident_peak = 0
         self.slot_pages = np.zeros((batch_slots,), np.int64)
-        self.prefill_fn = steps_lib.make_prefill_into_cache(self.cfg)
+        # an enc-dec prefill takes the encoder output of the admission's
+        # one encoder pass
+        self.prefill_fn = steps_lib.make_prefill_into_cache(
+            self.cfg, from_enc_out=self.cfg.enc_dec)
+        self.encoder_passes = 0
+        self.draft_shares_encoder = False
         self.state = steps_lib.init_slot_state(batch_slots, self.device)
         self.spec = spec
         self.spec_k = spec_k
@@ -279,7 +303,8 @@ class BatchedServer:
         da = draft_arch or self.cfg.draft_arch
         assert da, (f"{self.cfg.arch_id}: speculative serving needs a "
                     "draft (ArchConfig.draft_arch or draft_arch=)")
-        if da == "self" or da.startswith("self:"):
+        self_draft = da == "self" or da.startswith("self:")
+        if self_draft:
             if draft_params is not None:
                 raise ValueError("a self-draft is sliced from the target's "
                                  "weights; draft_params is for another arch")
@@ -293,15 +318,20 @@ class BatchedServer:
                               else get_config(da))
             assert self.draft_cfg.vocab == self.cfg.vocab, \
                 (self.cfg.vocab, self.draft_cfg.vocab)
+            assert self.draft_cfg.enc_dec == self.cfg.enc_dec, \
+                (self.cfg.arch_id, self.draft_cfg.arch_id)
             if draft_params is None:
                 gen = torch.Generator(device=self.device).manual_seed(1)
-                draft_params = transformer.init_params(self.draft_cfg, gen,
-                                                       self.device)
+                draft_params = get_model(self.draft_cfg).init_params(
+                    self.draft_cfg, gen, self.device)
             self.draft_params = draft_params
-        self.draft_cache = transformer.init_cache(
+        self.draft_cache = get_model(self.draft_cfg).init_cache(
             self.draft_cfg, self.batch, self.max_seq, device=self.device)
+        # a self-draft's encoder IS the target's: its prefill takes the
+        # target's encoder output
+        self.draft_shares_encoder = self.cfg.enc_dec and self_draft
         self.draft_prefill_fn = steps_lib.make_prefill_into_cache(
-            self.draft_cfg)
+            self.draft_cfg, from_enc_out=self.draft_shares_encoder)
 
     def _segment_fns(self, fns: List[Any], params: Tuple[Any, ...],
                      caches: Tuple[Dict[str, Any], ...]) -> List[Any]:
@@ -337,6 +367,14 @@ class BatchedServer:
         if len(req.sampling_params.stop_tokens) > steps_lib.MAX_STOP_TOKENS:
             raise ValueError(f"request {req.rid}: more than "
                              f"{steps_lib.MAX_STOP_TOKENS} stop tokens")
+        if self.cfg.enc_dec and req.embeds is not None:
+            shape = np.shape(req.embeds)
+            if len(shape) != 2 or not 0 < shape[0] <= self.cfg.enc_len \
+                    or shape[1] != self.cfg.d_model:
+                raise ValueError(
+                    f"request {req.rid}: embeds of shape {shape}; want "
+                    f"(e, {self.cfg.d_model}) with 0 < e <= "
+                    f"{self.cfg.enc_len}")
         req.generated = []
         self.queue.append(req)
 
@@ -376,23 +414,45 @@ class BatchedServer:
             if self.active[s] is None:
                 assert self.slot_pages[s] == 0, (s, self.slot_pages[s])
 
+    def _frames(self, req: Request) -> torch.Tensor:
+        """An enc-dec request's frame embeddings (1, e, D) f32 on the
+        device: its own (shape checked by `submit`), or enc_len frames of
+        silence."""
+        emb = req.embeds
+        if emb is None:        # silence: the stub frontend's zero frames
+            emb = np.zeros((self.cfg.enc_len, self.cfg.d_model), np.float32)
+        return torch.from_numpy(np.asarray(emb, np.float32)).to(
+            self.device)[None]
+
     def _prefill(self, slot: int, req: Request) -> torch.Tensor:
         """The whole prompt through the prefill step, its K/V written into
-        this slot's cache rows.  Returns the last prompt position's logits
-        (on the device, no sync)."""
+        this slot's cache rows; an enc-dec request's frames through ONE
+        encoder pass first, whose output every prefill of the admission
+        takes (a foreign enc-dec draft encodes again).  Returns the last
+        prompt position's logits (on the device, no sync)."""
         plen = len(req.prompt)
         assert plen <= self.max_seq, (plen, self.max_seq)
         padded = np.zeros((_prefill_bucket(plen, self.max_seq),), np.int32)
         padded[:plen] = req.prompt
         tokens = torch.from_numpy(padded).to(self.device)
         with use_offload(self.offload):
+            args = draft_args = ()
+            if self.cfg.enc_dec:
+                frames = self._frames(req)
+                args = (encdec.encode(self.cfg, self.params, frames),)
+                self.encoder_passes += 1
+                draft_args = args if self.draft_shares_encoder \
+                    else (frames,)
             logits, self.cache = self.prefill_fn(self.params, self.cache,
-                                                 tokens, slot, plen)
+                                                 tokens, slot, plen, *args)
             if self.spec:
                 # the draft's own prompt state; its logits are not used
                 # (the first token comes from the target)
+                if self.cfg.enc_dec and not self.draft_shares_encoder:
+                    self.encoder_passes += 1
                 _, self.draft_cache = self.draft_prefill_fn(
-                    self.draft_params, self.draft_cache, tokens, slot, plen)
+                    self.draft_params, self.draft_cache, tokens, slot, plen,
+                    *draft_args)
         self.prefill_forwards += 1
         return logits
 
@@ -692,12 +752,17 @@ def main() -> int:
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         plen = int(rng.integers(4, 12))
+        embeds = None
+        if server.cfg.enc_dec:    # the stub audio frontend: random frames
+            embeds = rng.standard_normal(
+                (server.cfg.enc_len, server.cfg.d_model)).astype(np.float32)
         prompt = rng.integers(1, server.cfg.vocab, plen).astype(np.int32)
         sampling = SamplingParams(
             temperature=args.temperature, top_k=args.top_k,
             top_p=args.top_p, seed=args.seed + i,
             stop_tokens=stops) if sampled else None
-        server.submit(Request(i, prompt, args.max_new, sampling=sampling))
+        server.submit(Request(i, prompt, args.max_new, sampling=sampling,
+                              embeds=embeds))
     t0 = time.perf_counter()
     server.run_until_drained()
     if server.device.type == "cuda":

@@ -22,8 +22,8 @@ import torch
 from repro_torch.core import prng
 from repro_torch.kernels import ops
 from repro_torch.kernels.quant import QTensor
-from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.registry import get_model
 from repro_torch.models.quantize import padded_rows
 
 # stop-token slots per serving request (padded with -1)
@@ -161,14 +161,25 @@ def admit_slot(state: SlotState, slot: int, *, token: int, position: int,
     return s
 
 
-def make_prefill_into_cache(cfg: ArchConfig) -> Callable:
+def make_prefill_into_cache(cfg: ArchConfig, *,
+                            from_enc_out: bool = False) -> Callable:
     """(params, cache, prompt (P,), row, length) -> (last_logits (V,),
-    cache): the real prompt prefill into one continuous-batching slot."""
-
-    def prefill(params, cache, prompt, row, length):
-        return transformer.prefill_into_cache(cfg, params, cache, prompt,
-                                              row, length)
-
+    cache): the real prompt prefill into one continuous-batching slot,
+    through the registry's model.  An encoder-decoder's takes one more
+    argument: the request's frame embeddings (1, e, D), which it encodes,
+    or with `from_enc_out=True` their encoder output (1, e, D), so that
+    the target's and a self-draft's prefill share one encoder pass."""
+    fn = get_model(cfg).prefill_into_cache
+    if not cfg.enc_dec:
+        def prefill(params, cache, prompt, row, length):
+            return fn(cfg, params, cache, prompt, row, length)
+    elif from_enc_out:
+        def prefill(params, cache, prompt, row, length, enc_out):
+            return fn(cfg, params, cache, prompt, row, length,
+                      enc_out=enc_out)
+    else:
+        def prefill(params, cache, prompt, row, length, enc_embeds):
+            return fn(cfg, params, cache, prompt, row, length, enc_embeds)
     return prefill
 
 
@@ -199,6 +210,8 @@ def make_decode_segment(cfg: ArchConfig, seg_len: int, *,
     which is safe because only sampled rows read them and a row's
     parameters are fixed at admission."""
 
+    decode_step = get_model(cfg).decode_step
+
     def segment(params: Dict[str, Any], cache: Dict[str, Any],
                 state: SlotState
                 ) -> Tuple[torch.Tensor, torch.Tensor, SlotState,
@@ -207,7 +220,7 @@ def make_decode_segment(cfg: ArchConfig, seg_len: int, *,
         remaining, alive = state.remaining, state.alive
         seq, emit = [], []
         for _ in range(seg_len):
-            logits, cache = transformer.decode_step(
+            logits, cache = decode_step(
                 cfg, params, cache, toks, positions=pos,
                 write_mask=None if plain else alive)
             if plain:
@@ -266,12 +279,15 @@ def _first_blocks(tree: Any, n: int) -> Any:
 def self_draft_params(cfg: ArchConfig, params: Dict[str, Any],
                       n_blocks: int) -> Dict[str, Any]:
     """The self-draft's parameters: the target's own tree with its block
-    stacks cut to the first `n_blocks` blocks.  Every leaf is a view of
-    the target's (the embedding and final norm are the same tensors), so
-    the draft holds no weights of its own, and a full-depth draft
+    stacks (`blocks`; an encoder-decoder's `dec_blocks` and `cross`) cut
+    to the first `n_blocks` blocks.  Every leaf is a view of the target's
+    (the embedding, the final norms and an encoder are the same tensors),
+    so the draft holds no weights of its own, and a full-depth draft
     computes bitwise what the target does."""
     assert 1 <= n_blocks <= cfg.n_blocks, (n_blocks, cfg.n_blocks)
-    return dict(params, blocks=_first_blocks(params["blocks"], n_blocks))
+    return dict(params, **{key: _first_blocks(params[key], n_blocks)
+                           for key in ("blocks", "dec_blocks", "cross")
+                           if key in params})
 
 
 def make_spec_decode_segment(cfg: ArchConfig, draft_cfg: ArchConfig,
@@ -289,7 +305,7 @@ def make_spec_decode_segment(cfg: ArchConfig, draft_cfg: ArchConfig,
          `ops.sample_tokens` with the row's own parameters and key
          fold_in(draft_key, j), then one sample-free step absorbs
          g_{k-1} into the draft's state;
-      2. verify: one `transformer.decode_verify` of the target over
+      2. verify: one `decode_verify` of the target over
          [current, g_0..g_{k-1}];
       3. accept: `ops.verify_tokens` gives the accepted prefix length a
          and the correction or bonus token; the round emits m = a + 1
@@ -316,6 +332,8 @@ def make_spec_decode_segment(cfg: ArchConfig, draft_cfg: ArchConfig,
     tokens, emit masks and accept lengths on such batches."""
     assert k >= 1, k
     t = k + 1
+    decode_verify = get_model(cfg).decode_verify
+    draft_step = get_model(draft_cfg).decode_step
 
     def segment(params: Dict[str, Any], draft_params: Dict[str, Any],
                 cache: Dict[str, Any], draft_cache: Dict[str, Any],
@@ -343,7 +361,7 @@ def make_spec_decode_segment(cfg: ArchConfig, draft_cfg: ArchConfig,
             dtoks, inputs, dlogits, dsnaps = toks, [], [], []
             for j in range(k):
                 with padded_rows(b * t):
-                    lg, draft_cache = transformer.decode_step(
+                    lg, draft_cache = draft_step(
                         draft_cfg, draft_params, draft_cache, dtoks,
                         positions=pos + j, write_mask=alive)
                 if plain:
@@ -359,14 +377,14 @@ def make_spec_decode_segment(cfg: ArchConfig, draft_cfg: ArchConfig,
                                for key in draft_rec])
                 dtoks = nxt[:, None]
             with padded_rows(b * t):
-                _, draft_cache = transformer.decode_step(
+                _, draft_cache = draft_step(
                     draft_cfg, draft_params, draft_cache, dtoks,
                     positions=pos + k, write_mask=alive)
             dsnaps.append([draft_cache[key] for key in draft_rec])
 
             # 2. verify: the target over [current, g_0..g_{k-1}]
             ver = torch.cat([torch.stack(inputs, dim=1), dtoks], dim=1)
-            tlogits, cache, tsnaps = transformer.decode_verify(
+            tlogits, cache, tsnaps = decode_verify(
                 cfg, params, cache, ver, pos, write_mask=alive)
             if plain:
                 out = tlogits.float().argmax(dim=-1).to(torch.int32)

@@ -1,6 +1,7 @@
 """Model layers of the ported serve paths, from `repro/models/layers.py`:
 norm, rotary embedding (and Qwen2-VL's multimodal M-RoPE), the decode
-token's own attention partial, the partial merge, the gated MLP, the
+token's own attention partial, the partial merge, the blocked attention
+of the enc-dec encoder and prefill cross-attention, the gated MLP, the
 top-k Mixture-of-Experts FFN, and the Mamba2 single-token SSD step and
 causal depthwise conv (plain XLA in the reference, plain torch here).
 
@@ -120,6 +121,75 @@ def merge_attention_partials(accs: torch.Tensor, ms: torch.Tensor,
     l = (ls * alpha).sum(dim=0)
     acc = (accs * alpha[..., None]).sum(dim=0)
     return acc / torch.clamp(l, min=1e-20)[..., None]
+
+
+NEG_INF = -1e30
+
+
+def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, KH, hd) -> (B, S, KH * n_rep, hd), each KV head repeated for
+    its n_rep query heads."""
+    if n_rep == 1:
+        return k
+    b, s, kh, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, kh, n_rep, d).reshape(
+        b, s, kh * n_rep, d)
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      *, causal: bool = True, q_offset: int = 0,
+                      block: int = 1024, q_tile: int = 512) -> torch.Tensor:
+    """Flash-style attention in plain torch, with the reference's
+    arithmetic (plain XLA there, no kernel): queries scaled in f32, K / V
+    taken to f32, an online softmax over KV blocks (the block the largest
+    divisor of Sk not above `block`: 750 of whisper's 1500 encoder
+    positions), queries in tiles of `q_tile` rows, and under `causal` only
+    the blocks up to a tile's last query.  q: (B, Sq, H, hd); k / v: (B,
+    Sk, KH, hd); `q_offset` places the queries in the KV sequence.
+    Returns (B, Sq, H, hd) in q's dtype."""
+    b, sq, h, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    k = repeat_kv(k, h // kh)
+    v = repeat_kv(v, h // kh)
+    scale = 1.0 / math.sqrt(hd)
+    block = min(block, sk)
+    while sk % block:
+        block -= 1
+    n_blocks = sk // block
+    qf = (q.float() * scale).transpose(1, 2)              # (B,H,Sq,hd)
+    kf = k.float().transpose(1, 2).reshape(b, h, n_blocks, block, hd)
+    vf = v.float().transpose(1, 2).reshape(b, h, n_blocks, block, hd)
+    outs = []
+    with _true_f32():
+        for t0 in range(0, sq, q_tile):
+            t1 = min(t0 + q_tile, sq)
+            q_t = qf[:, :, t0:t1]
+            tq = t1 - t0
+            pos_t = q_offset + torch.arange(t0, t1, device=q.device)
+            n_kv = (max(1, -(-min(sk, q_offset + t1) // block)) if causal
+                    else n_blocks)
+            m = torch.full((b, h, tq, 1), NEG_INF, dtype=torch.float32,
+                           device=q.device)
+            l = torch.zeros((b, h, tq, 1), dtype=torch.float32,
+                            device=q.device)
+            acc = torch.zeros((b, h, tq, hd), dtype=torch.float32,
+                              device=q.device)
+            for j in range(n_kv):
+                s = torch.einsum("bhqd,bhkd->bhqk", q_t, kf[:, :, j])
+                if causal:
+                    kv_pos = j * block + torch.arange(block, device=q.device)
+                    mask = pos_t[:, None] >= kv_pos[None, :]
+                    s = torch.where(mask[None, None], s, NEG_INF)
+                m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+                p = torch.exp(s - m_new)
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + p.sum(dim=-1, keepdim=True)
+                acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p,
+                                                 vf[:, :, j])
+                m = m_new
+            outs.append(acc / torch.clamp(l, min=1e-20))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+    return out.transpose(1, 2).to(q.dtype)                # (B,Sq,H,hd)
 
 
 def gated_mlp(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:

@@ -1,0 +1,31 @@
+"""Arch -> model functions, the port of `repro/models/registry.py`:
+decoder-only configs take `models/transformer.py`, encoder-decoder ones
+`models/encdec.py`.  The fields keep the reference's names for what the
+port has; the slot extract / insert and resume-prefill fields come with
+the host tier, the loss and logits with training."""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+from repro_torch.models import encdec, transformer
+from repro_torch.models.config import ArchConfig
+
+
+class ModelFns(NamedTuple):
+    init_params: Callable         # (cfg, generator, device) -> params
+    init_cache: Callable          # (cfg, batch, max_seq, *, device, ...)
+    # (cfg, params, cache, tokens (B,1), positions, write_mask) ->
+    # (logits (B,1,V), cache)
+    decode_step: Callable
+    # (cfg, params, cache, tokens (B,T), positions, write_mask) ->
+    # (logits (B,T,V), cache, recurrent rollback snapshots)
+    decode_verify: Callable
+    # (cfg, params, cache, tokens (P,), row, length[, enc_embeds], *[,
+    # enc_out]) -> (last logits (V,), cache)
+    prefill_into_cache: Callable
+
+
+def get_model(cfg: ArchConfig) -> ModelFns:
+    mod = encdec if cfg.enc_dec else transformer
+    return ModelFns(mod.init_params, mod.init_cache, mod.decode_step,
+                    mod.decode_verify, mod.prefill_into_cache)

@@ -54,14 +54,20 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    """The layer kinds ported so far: full and sliding-window ("local")
-    attention, with RoPE or M-RoPE, mamba, dense MLP or MoE FFN."""
-    if cfg.enc_dec or any(k not in ("full", "local", "mamba")
-                          for k in cfg.block_pattern):
+    """The decoder-only layer kinds: full and sliding-window ("local")
+    attention, with RoPE or M-RoPE, mamba, dense MLP or MoE FFN.  An
+    encoder-decoder config is served by `models/encdec.py`, which
+    `registry.get_model` picks for it."""
+    if cfg.enc_dec:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: an encoder-decoder config; its functions are "
+            "models/encdec.py's (registry.get_model)")
+    if any(k not in ("full", "local", "mamba") for k in cfg.block_pattern):
         raise NotImplementedError(
             f"{cfg.arch_id}: only decoders of full, sliding-window and "
-            "mamba layers are ported (enc-dec is ROADMAP.md queue 1 item "
-            "13)")
+            "mamba layers are ported (layer kinds "
+            f"{sorted(set(cfg.block_pattern))}; no ROADMAP item ports "
+            "another)")
 
 
 def _is_moe_pos(cfg: ArchConfig, pos: int) -> bool:
@@ -80,82 +86,111 @@ def _window(cfg: ArchConfig, kind: str) -> int:
 # Initialization
 # --------------------------------------------------------------------------
 
-def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device: torch.device) -> Params:
-    """The port's own weight draw, with the reference's shapes, dtypes and
-    scales (normal draws scaled by fan-in^-0.5, zero norm scales).  Not
-    bit-equal to the JAX draw: parity tests cross JAX weights through
-    `repro_torch.interop` instead.  Expert stacks are drawn one (block,
-    expert) slice at a time into the model dtype, so the draw's f32
-    temporary is one slice, not the stack."""
-    _check_supported(cfg)
-    dt = _dtype(cfg.dtype)
-    d, h, kh, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                       cfg.head_dim_, cfg.d_ff)
-    nb = cfg.n_blocks
+class Draw:
+    """The port's weight draws on one generator and device, in the model
+    dtype: normal draws scaled by fan-in^-0.5 and zero norm scales, as the
+    reference's.  Each leaf is drawn in f32 and cast; expert stacks one
+    (block, expert) slice at a time, so the draw's f32 temporary is one
+    slice, not the stack."""
 
-    def normal(shape, scale):
-        out = torch.randn(shape, generator=generator, device=device,
-                          dtype=torch.float32)
-        return out.mul_(scale).to(dt)
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator,
+                 device: torch.device):
+        self.generator, self.device = generator, device
+        self.dt = _dtype(cfg.dtype)
 
-    def experts(shape, scale):
-        out = torch.empty(shape, dtype=dt, device=device)
+    def normal(self, shape, scale) -> torch.Tensor:
+        out = torch.randn(shape, generator=self.generator,
+                          device=self.device, dtype=torch.float32)
+        return out.mul_(scale).to(self.dt)
+
+    def experts(self, shape, scale) -> torch.Tensor:
+        out = torch.empty(shape, dtype=self.dt, device=self.device)
         for blk in range(shape[0]):
             for ex in range(shape[1]):
-                out[blk, ex] = normal(shape[2:], scale)
+                out[blk, ex] = self.normal(shape[2:], scale)
         return out
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dt, device=device)
+    def zeros(self, *shape) -> torch.Tensor:
+        return torch.zeros(shape, dtype=self.dt, device=self.device)
 
-    def f32(value, *shape):
-        return torch.full(shape, value, dtype=torch.float32, device=device)
+    def f32(self, value, *shape) -> torch.Tensor:
+        return torch.full(shape, value, dtype=torch.float32,
+                          device=self.device)
 
-    def mamba():
-        di, n, nh, w = (cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads,
-                        cfg.conv_width)
-        return {"ln": zeros(nb, d),
-                "w_z": normal((nb, d, di), d ** -0.5),
-                "w_x": normal((nb, d, di), d ** -0.5),
-                "w_B": normal((nb, d, n), d ** -0.5),
-                "w_C": normal((nb, d, n), d ** -0.5),
-                "w_dt": normal((nb, d, nh), d ** -0.5),
-                "dt_bias": f32(0.0, nb, nh),
-                "A_log": f32(0.0, nb, nh),              # A = -exp(0) = -1
-                "D": f32(1.0, nb, nh),
-                "conv_w": normal((nb, w, di), w ** -0.5),
-                "out_proj": normal((nb, di, d), di ** -0.5)}
 
+def _init_attn(cfg: ArchConfig, draw: Draw, nb: int) -> Params:
+    """One attention sublayer's weights, stacked over nb blocks: {ln, wq,
+    wk, wv, wo} (the decoder's cross-attention has the same leaves)."""
+    d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    return {"ln": draw.zeros(nb, d),
+            "wq": draw.normal((nb, d, h * hd), d ** -0.5),
+            "wk": draw.normal((nb, d, kh * hd), d ** -0.5),
+            "wv": draw.normal((nb, d, kh * hd), d ** -0.5),
+            "wo": draw.normal((nb, h * hd, d), (h * hd) ** -0.5)}
+
+
+def _init_mamba(cfg: ArchConfig, draw: Draw, nb: int) -> Params:
+    d, di, n, nh, w = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                       cfg.n_ssm_heads, cfg.conv_width)
+    return {"ln": draw.zeros(nb, d),
+            "w_z": draw.normal((nb, d, di), d ** -0.5),
+            "w_x": draw.normal((nb, d, di), d ** -0.5),
+            "w_B": draw.normal((nb, d, n), d ** -0.5),
+            "w_C": draw.normal((nb, d, n), d ** -0.5),
+            "w_dt": draw.normal((nb, d, nh), d ** -0.5),
+            "dt_bias": draw.f32(0.0, nb, nh),
+            "A_log": draw.f32(0.0, nb, nh),              # A = -exp(0) = -1
+            "D": draw.f32(1.0, nb, nh),
+            "conv_w": draw.normal((nb, w, di), w ** -0.5),
+            "out_proj": draw.normal((nb, di, d), di ** -0.5)}
+
+
+def _init_ffn(cfg: ArchConfig, draw: Draw, nb: int, moe: bool) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    if moe:
+        e = cfg.n_experts
+        return {"ln": draw.zeros(nb, d),
+                "router": torch.randn(
+                    (nb, d, e), generator=draw.generator,
+                    device=draw.device).mul_(d ** -0.5),
+                "w_gate": draw.experts((nb, e, d, f), d ** -0.5),
+                "w_up": draw.experts((nb, e, d, f), d ** -0.5),
+                "w_down": draw.experts((nb, e, f, d), f ** -0.5)}
+    return {"ln": draw.zeros(nb, d),
+            "w_gate": draw.normal((nb, d, f), d ** -0.5),
+            "w_up": draw.normal((nb, d, f), d ** -0.5),
+            "w_down": draw.normal((nb, f, d), f ** -0.5)}
+
+
+def init_block_params(cfg: ArchConfig, draw: Draw, nb: int
+                      ) -> List[Params]:
+    """The block pattern's layers, each leaf stacked over nb blocks: per
+    pattern position {"attn" | "mamba": ..., "ffn": ...} (no "ffn" when
+    d_ff is 0)."""
     blocks = []
     for pos, kind in enumerate(cfg.block_pattern):
         layer: Params = {}
         if kind == "mamba":
-            layer["mamba"] = mamba()
+            layer["mamba"] = _init_mamba(cfg, draw, nb)
         else:
-            layer["attn"] = {"ln": zeros(nb, d),
-                             "wq": normal((nb, d, h * hd), d ** -0.5),
-                             "wk": normal((nb, d, kh * hd), d ** -0.5),
-                             "wv": normal((nb, d, kh * hd), d ** -0.5),
-                             "wo": normal((nb, h * hd, d),
-                                          (h * hd) ** -0.5)}
-        if f > 0 and _is_moe_pos(cfg, pos):
-            e = cfg.n_experts
-            layer["ffn"] = {"ln": zeros(nb, d),
-                            "router": torch.randn(
-                                (nb, d, e), generator=generator,
-                                device=device).mul_(d ** -0.5),
-                            "w_gate": experts((nb, e, d, f), d ** -0.5),
-                            "w_up": experts((nb, e, d, f), d ** -0.5),
-                            "w_down": experts((nb, e, f, d), f ** -0.5)}
-        elif f > 0:
-            layer["ffn"] = {"ln": zeros(nb, d),
-                            "w_gate": normal((nb, d, f), d ** -0.5),
-                            "w_up": normal((nb, d, f), d ** -0.5),
-                            "w_down": normal((nb, f, d), f ** -0.5)}
+            layer["attn"] = _init_attn(cfg, draw, nb)
+        if cfg.d_ff > 0:
+            layer["ffn"] = _init_ffn(cfg, draw, nb, _is_moe_pos(cfg, pos))
         blocks.append(layer)
-    return {"embed": normal((cfg.padded_vocab, d), d ** -0.5),
-            "blocks": blocks, "final_ln": zeros(d)}
+    return blocks
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                device: torch.device) -> Params:
+    """The port's own weight draw, with the reference's shapes, dtypes and
+    scales (`Draw`).  Not bit-equal to the JAX draw: parity tests cross
+    JAX weights through `repro_torch.interop` instead."""
+    _check_supported(cfg)
+    draw = Draw(cfg, generator, device)
+    blocks = init_block_params(cfg, draw, cfg.n_blocks)
+    return {"embed": draw.normal((cfg.padded_vocab, cfg.d_model),
+                                 cfg.d_model ** -0.5),
+            "blocks": blocks, "final_ln": draw.zeros(cfg.d_model)}
 
 
 class _QLeaf(nn.Module):
@@ -373,6 +408,16 @@ def scale_key(kv_key: str) -> str:
     return kv_key[0] + "scale" + kv_key[1:]
 
 
+def layer_kv_scales(cache: Dict[str, Any], pi: int, layer
+                    ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """Pattern position pi's (k, v) page scales at `layer` (an index or a
+    slice of the stack) for an int8 cache, None for an fp one."""
+    if scale_key(f"k{pi}") not in cache:
+        return None
+    return (cache[scale_key(f"k{pi}")][layer],
+            cache[scale_key(f"v{pi}")][layer])
+
+
 def cache_kv_quant(cache: Dict[str, Any]) -> Optional[str]:
     """The cache's KV quantization mode, read from its scale leaves."""
     return "int8" if any(k[:6] in ("kscale", "vscale") for k in cache) \
@@ -474,7 +519,6 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
     x = params["embed"][tokens]                           # (B,1,D)
     pos = cache["pos"] if positions is None else positions.to(torch.int32)
     pages = cache.get("page_table")
-    b = x.shape[0]
     new_kv: Dict[str, List[torch.Tensor]] = {}
     for i in range(cfg.n_blocks):
         for pi, (kind, block) in enumerate(zip(cfg.block_pattern,
@@ -486,26 +530,38 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
                 _write_state(conv, cnew, write_mask)
                 _write_state(ssm, snew, write_mask)
             else:
-                kv_scales = None
-                if scale_key(f"k{pi}") in cache:
-                    kv_scales = (cache[scale_key(f"k{pi}")][i],
-                                 cache[scale_key(f"v{pi}")][i])
                 x, knew, vnew = _decode_attn(cfg, p["attn"], x,
                                              cache[f"k{pi}"][i],
                                              cache[f"v{pi}"][i], pos, pages,
-                                             kv_scales, kind)
+                                             layer_kv_scales(cache, pi, i),
+                                             kind)
                 new_kv.setdefault(f"k{pi}", []).append(knew)
                 new_kv.setdefault(f"v{pi}", []).append(vnew)
             if cfg.d_ff > 0:
                 x = ffn_layer(cfg, p["ffn"], x, _is_moe_pos(cfg, pi))
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = matmul(x, params["embed"].T)
+    write_decode_kv(cache, new_kv, pos, write_mask)
+    cache["pos"] = cache["pos"] + 1
+    return logits, cache
 
-    if new_kv:                          # the attention layers' K/V
-        max_seq = cache[next(iter(new_kv))].shape[3]
-        slot = (pos % max_seq).to(torch.int32).reshape(-1).expand(b)
-        if pages is not None:
-            slot = physical_slots(pages, slot, max_seq // pages.shape[1])
+
+def write_decode_kv(cache: Dict[str, Any],
+                    new_kv: Dict[str, List[torch.Tensor]],
+                    pos: torch.Tensor,
+                    write_mask: Optional[torch.Tensor]) -> None:
+    """A decode step's new K/V, IN PLACE: for each K/V leaf of `new_kv`
+    its layers' (B,KH,1,hd) rows, written at each row's ring slot pos %
+    S through the page table (int8 pools by `quant_kv_update_stacked`);
+    rows where `write_mask` is False keep their old values."""
+    if not new_kv:
+        return
+    pages = cache.get("page_table")
+    first = cache[next(iter(new_kv))]
+    b, max_seq = first.shape[1], first.shape[3]
+    slot = (pos % max_seq).to(torch.int32).reshape(-1).expand(b)
+    if pages is not None:
+        slot = physical_slots(pages, slot, max_seq // pages.shape[1])
     for key, rows in new_kv.items():
         new = torch.stack(rows)                           # (L,B,KH,1,hd)
         if scale_key(key) in cache:
@@ -516,8 +572,6 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
         if write_mask is not None:
             new = masked_kv_update(cache[key], new, slot, write_mask)
         cache_update_stacked(cache[key], new, slot)
-    cache["pos"] = cache["pos"] + 1
-    return logits, cache
 
 
 # --------------------------------------------------------------------------
@@ -645,14 +699,11 @@ def decode_verify(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
                 snaps[f"conv{pi}"][i] = conv_s
                 snaps[f"ssm{pi}"][i] = ssm_s
             else:
-                kv_scales = None
-                if scale_key(f"k{pi}") in cache:
-                    kv_scales = (cache[scale_key(f"k{pi}")][i:i + 1],
-                                 cache[scale_key(f"v{pi}")][i:i + 1])
-                x = _verify_attn(cfg, p["attn"], x,
-                                 cache[f"k{pi}"][i:i + 1],
-                                 cache[f"v{pi}"][i:i + 1], pos, pages,
-                                 kv_scales, write_mask, kind)
+                li = slice(i, i + 1)
+                x = _verify_attn(cfg, p["attn"], x, cache[f"k{pi}"][li],
+                                 cache[f"v{pi}"][li], pos, pages,
+                                 layer_kv_scales(cache, pi, li), write_mask,
+                                 kind)
             if cfg.d_ff > 0:
                 x = ffn_layer(cfg, p["ffn"], x, _is_moe_pos(cfg, pi))
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
@@ -778,14 +829,25 @@ def prefill_into_cache(cfg: ArchConfig, params: Params,
                 x = ffn_layer(cfg, p["ffn"], x, _is_moe_pos(cfg, pi))
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = x[0, length - 1] @ params["embed"].T         # (V,)
+    write_prompt_kv(cache, states, row)
+    return logits, cache
 
-    if states:                          # the attention layers' K/V
-        pt = cache["page_table"]
-        max_seq = cache[next(iter(states))].shape[3]
-        assert p_len <= max_seq, (p_len, max_seq)
-        ps = max_seq // pt.shape[1]
-        lrows = torch.arange(p_len, device=pt.device)
-        phys = pt[row].long()[lrows // ps] * ps + lrows % ps
+
+def write_prompt_kv(cache: Dict[str, Any],
+                    states: Dict[str, List[torch.Tensor]], row: int) -> None:
+    """A prefill's K/V, IN PLACE: for each K/V leaf of `states` its
+    layers' (KH,P,hd) prompt rows, written at logical rows [0, P) of batch
+    row `row` through the page table (int8 pools by a per-page
+    quantize-scatter, `quant_kv_write_rows`)."""
+    if not states:
+        return
+    pt = cache["page_table"]
+    max_seq = cache[next(iter(states))].shape[3]
+    p_len = next(iter(states.values()))[0].shape[1]
+    assert p_len <= max_seq, (p_len, max_seq)
+    ps = max_seq // pt.shape[1]
+    lrows = torch.arange(p_len, device=pt.device)
+    phys = pt[row].long()[lrows // ps] * ps + lrows % ps
     for key, per_layer in states.items():
         upd = torch.stack(per_layer)                      # (L,KH,P,hd)
         if scale_key(key) in cache:
@@ -794,7 +856,6 @@ def prefill_into_cache(cfg: ArchConfig, params: Params,
                                 upd.transpose(1, 2), row, pt[row], ps)
             continue
         cache[key][:, row].index_copy_(2, phys, upd.to(cache[key].dtype))
-    return logits, cache
 
 
 # --------------------------------------------------------------------------

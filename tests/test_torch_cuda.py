@@ -223,6 +223,82 @@ def test_decode_split_edges(cuda, kv, dtype, hd, group, window):
         assert torch.equal(one, paged[r:r + 1]), r
 
 
+# whisper_large_v3's cross read: a dense cache of 1500 encoder frames, a
+# chunk of 125 (the largest divisor not above 128) and splits of 25 rows,
+# each row up to its clip's last frame: the first frame, both sides of a
+# split, a short clip, and the last two frames
+CROSS_POS = (0, 24, 25, 599, 1498, 1499)
+
+
+def _out_excess(got, want32):
+    """Per row, the worst ratio of |got - want32| to 5e-4 + 2^-8 |want32|,
+    a bf16 decode output against the plain version in f32: got's rounding
+    (2^-9 relative), as much again for the kernel's bf16 products, and
+    twice the 2.4e-4 measured at whisper's cross read."""
+    return ((got.float() - want32).abs()
+            / (5e-4 + 2 ** -8 * want32.abs())).flatten(1).amax(1)
+
+
+def _split_faults(q, k, v, valid, split):
+    """The partial statistics of a split decode that dropped, or read
+    twice, the split (of `split` rows) in the middle of each row's valid
+    range."""
+    j = (valid.sum(dim=1) - 1) // split // 2
+    rows = torch.arange(valid.shape[1], device=valid.device)[None]
+    one = valid & (rows >= j[:, None] * split) \
+        & (rows < (j[:, None] + 1) * split)
+    acc, m, l = ref.decode_partial_reference(q, k, v, valid)
+    acc_s, m_s, l_s = ref.decode_partial_reference(q, k, v, one)
+    w = torch.exp(m_s - m)
+    return [ref.decode_partial_reference(q, k, v, valid & ~one),
+            (acc + acc_s * w[..., None], m, l + l_s * w)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_dense_cross_read_at_25_row_splits(cuda, dtype):
+    """MHA (4 heads), hd 64, S 1500: the fused decode (60 splits of 25
+    rows) and the partial over the same mask, each close to the plain
+    version (bf16: within a limit scaled to the output, which a dropped or
+    twice-read split breaks on every row of two splits or more), each row
+    alone == its row in the batch, bitwise; the launches inside the cross
+    site counted there too."""
+    assert fa.dense_chunk(1500, 128) == 125
+    assert fa.decode_split(1500, 125) == (25, 60)
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    b, h, s, hd = len(CROSS_POS), 4, 1500, 64
+    q = _rand(gen, (b, 1, h, hd), dtype, cuda)
+    k = _rand(gen, (b, h, s, hd), dtype, cuda)
+    v = _rand(gen, (b, h, s, hd), dtype, cuda)
+    pos = torch.tensor(CROSS_POS, dtype=torch.int32, device=cuda)
+    valid = ref.decode_valid_mask(pos, s, 0)
+    sited = ("decode_attention_fused@cross", "decode_attention_partial@cross")
+    before = [kbuild.LAUNCHES[n] for n in sited]
+    with kbuild.launch_site("cross"):
+        out = fa.decode_attention_fused(q, k, v, pos, blk_c=128)
+        part = fa.decode_attention_partial(q, k, v, valid)
+    assert [kbuild.LAUNCHES[n] - c for n, c in zip(sited, before)] == [1, 1]
+    want = ref.decode_fused_reference(q, k, v, pos)
+    acc_r, m_r, l_r = ref.decode_partial_reference(q, k, v, valid)
+    torch.cuda.synchronize()
+    _close(out, want, dtype)
+    for got, ref_t in zip(part, (acc_r, m_r, l_r)):
+        assert torch.allclose(got, ref_t, atol=1e-4, rtol=1e-5)
+    if dtype == torch.bfloat16:
+        want32 = ref.normalize_fused_partial(acc_r, l_r, torch.float32)
+        assert (_out_excess(out, want32) <= 1).all()
+        multi = valid.sum(dim=1) > 25
+        for acc_f, _, l_f in _split_faults(q, k, v, valid, 25):
+            faulty = ref.normalize_fused_partial(acc_f, l_f, dtype)
+            assert (_out_excess(faulty, want32)[multi] > 1).all()
+    for r in range(b):
+        one = slice(r, r + 1)
+        assert torch.equal(fa.decode_attention_fused(
+            q[one], k[one], v[one], pos[one], blk_c=128), out[one]), r
+        alone = fa.decode_attention_partial(q[one], k[one], v[one],
+                                            valid[one])
+        assert all(torch.equal(a, p[one]) for a, p in zip(alone, part)), r
+
+
 @pytest.mark.parametrize("dtype,hd,group", [
     (torch.float32, 128, 12), (torch.bfloat16, 128, 12),
     (torch.bfloat16, 256, 2),       # gemma3_12b's heads

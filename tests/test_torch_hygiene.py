@@ -50,11 +50,11 @@ def test_ported_config_is_the_reference_config():
         (30, 3072, 24, 2, 128, 12288, 49152)
 
 
-@pytest.mark.parametrize("arch", [a for a in configs.ARCH_IDS
-                                  if a not in configs.PORTED])
-def test_unported_archs_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        configs.get_smoke_config(arch)
+def test_every_reference_arch_is_ported():
+    assert set(configs.PORTED) == set(configs.ARCH_IDS)
+    assert not configs._ROADMAP_ITEM
+    for arch in configs.ARCH_IDS:
+        assert configs.get_smoke_config(arch).arch_id == f"{arch}_smoke"
 
 
 def test_resolve_device_never_falls_back(monkeypatch):
