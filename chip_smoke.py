@@ -89,6 +89,28 @@ busy share, and peak memory.  Its `[kernel]` rows hold the cross read at
 whisper's shapes (dense S 1500, clips of 1, 600, 1499 and 1500 frames:
 60 splits of 25 rows) fused and partial, and the MHA hd 64 prefill, each
 against its plain version, beside SDPA.
+The `[tier]` lines serve through the host tier and the prefix cache at
+full width, each run against a non-evicting (or no-cache) twin of the
+same requests and weights, under axle, seg_len 8, streamed, evict_after
+1, 2 chunks a leaf: whisper_large_v3 (4 x 16 over 2 slots, clips of
+600-1500 frames), starcoder2_3b fp (12 requests of 64-400 tokens x 64,
+half sampled, over 4 slots; and per-token), q8_0 + int8 KV and self:7
+spec (6 x 32 over 2 slots, the draft's row in the same snapshot) and
+mamba2_370m (8 x 32 over 2): tokens == the twin's bitwise, every
+eviction restored or found dead, the tier drained, one decode sync a
+segment and one more an admission or a restore; with bytes a slot, host
+ms an evict and a restore (by call), ms from an eviction's start to its
+snapshot's landing and GB/s beside the link's 64 GB/s data sheet, a
+slot's copy each way alone, the graphed decode step's device ms with and
+without a slot's copy beside it, and peak pinned bytes.  The prefix
+cache on starcoder2_3b and mamba2_370m (a 384-token head alone, 8 x head
++ a 16-64-token tail, repeats of the head and of the 8th; 4 slots):
+(full, partial, miss) = (2, 8, 1), the miss and the head's full hit ==
+the no-cache twin bitwise, the 8th's full hit == the 8th, the streams
+through a resume at near ties (mamba: printed in bf16, gated in f32),
+mamba's resume on the `ssd_scan` kernel from `init_state`
+(`LAUNCHES["ssd_scan_init"]`), and admission ms with a full hit, a
+partial hit and without.
 Before serving, it drives the paper's two offload workloads through
 `stream_offload` under BS, RP and AXLE, data from seed 0 on the card:
   * KNN (VectorDB): 256 queries against a 1,000,000 x 1024 bf16 database
@@ -245,7 +267,10 @@ try:
     from repro_torch.core import prng
     from repro_torch.core.backstream import (OffloadConfig, OffloadProtocol,
                                              decode_attention_combined,
-                                             stream_offload, use_offload)
+                                             stream_offload,
+                                             stream_offload_to_device,
+                                             stream_offload_to_host,
+                                             use_offload)
     from repro_torch.examples import knn_offload, serve_offload
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import flash_attention as fa
@@ -254,11 +279,13 @@ try:
     from repro_torch.kernels import quant as kquant
     from repro_torch.kernels import sls as ksls
     from repro_torch.kernels import ssd as kssd
+    from repro_torch.core import backstream
+    from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.serve import (BatchedServer, Request,
                                           SamplingParams, _prefill_bucket)
     from repro_torch.launch.steps import QuantConfig
     from repro_torch.models import encdec, layers, transformer
-    from repro_torch.models.quantize import padded_rows
+    from repro_torch.models.quantize import padded_rows, quantize_params
     from repro_torch.models.registry import get_model
 except ImportError as exc:
     fail(f"the repro_torch package is not beside this script: {exc}")
@@ -1838,7 +1865,8 @@ def serve(requests, params=None, arch=ARCH, cls=BatchedServer, around=None,
     toks = {r.rid: r.generated for r in server.completed}
     check(len(toks) == len(requests), "not every request completed")
     segments = dispatches(server)
-    check(server.graph_replays == (segments if cls is BatchedServer else 0),
+    check(server.graph_replays
+          == (0 if issubclass(cls, EagerServer) else segments),
           f"{server.graph_replays} graph replays for {segments} segments")
     return server, toks, launches, dt
 
@@ -3875,8 +3903,502 @@ print(f"[encdec] {WHISPER}, the same 2 requests x 16 tokens: rp {rp_vs} "
       f"bitwise; {WHISPER} phase {time.perf_counter() - ENCDEC_T0:.1f} s "
       f"(the kernel rows included); {time.perf_counter() - T_START:.0f} s "
       "into the script", flush=True)
-del w_params
+# --------------------------------------------------------------------------
+# 6e. the host tier and the prefix cache at full width, under axle, seg_len
+# 8, streamed: slots evicted to pinned host memory and restored (evict_after
+# 1, 2 chunks a leaf), and prompts' pages reused, each serve held to a
+# non-evicting (or no-cache) twin of the same run.  whisper first, on the
+# weights 6d holds; then starcoder2_3b (fp, q8_0 + int8 KV, self:7 spec,
+# the prefix cache) and mamba2_370m, each from seed 0
+# --------------------------------------------------------------------------
+
+TIER_T0 = time.perf_counter()
+PCIE_GB_S = 64.0         # PCIe Gen5 x16, one direction: the data sheet's
+TIER = dict(host_offload=True, evict_after=1, offload_chunks=2)
+tier_peak = {"snapshots": 0, "prefix": 0}
+
+
+# the parts of an eviction's and a restore's host time, by the functions
+# the server calls for them (host seconds, summed)
+TIER_CALLS = ((serve_mod, "stream_offload_to_host"),
+              (serve_mod, "stream_offload_to_device"),
+              (serve_mod.steps_lib, "save_slot_state"),
+              (serve_mod.steps_lib, "restore_slot"),
+              (backstream.HostSnapshot, "materialize"))
+
+
+def timed_call(parts, name, fn):
+    """fn, adding its host seconds to parts[name] (a closure over the
+    dict alone: a server that held a closure over itself would be freed
+    only by the cycle collector, whose pass could fall inside another
+    server's graph capture, where freeing a CUDA graph is not allowed)."""
+    def call(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            parts[name] = parts.get(name, 0.0) + time.perf_counter() - t
+    return call
+
+
+class TierServer(BatchedServer):
+    """The server with its host-tier moves recorded: where each request
+    left and where it came back, the fills that admitted into a slot they
+    had just evicted, each eviction's bytes and the timing events of its
+    start (on the serving stream, just before the gather) and of its
+    snapshot's landing (on the side stream), and the host seconds of the
+    functions an eviction and a restore call (`parts`)."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.moves, self.same_fill, self.snaps = [], 0, []
+        self._evicted_now = set()
+        self.parts = {}
+        for name in ("extract_fn", "insert_fn"):
+            setattr(self, name, timed_call(self.parts, name,
+                                           getattr(self, name)))
+
+    @contextlib.contextmanager
+    def _timing(self):
+        saved = [(owner, name, getattr(owner, name))
+                 for owner, name in TIER_CALLS]
+        for owner, name, fn in saved:
+            setattr(owner, name, timed_call(self.parts, name, fn))
+        try:
+            yield
+        finally:
+            for owner, name, fn in saved:
+                setattr(owner, name, fn)
+
+    def _fill_slots(self):
+        self._evicted_now = set()
+        super()._fill_slots()
+
+    def suspend_slot(self, slot):
+        rid = self.active[slot].rid
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        with self._timing():
+            super().suspend_slot(slot)
+        snap = self.host_tier._store[rid][0]
+        self.snaps.append((start, snap.event, snap.nbytes))
+        self.moves.append(("out", rid, slot))
+        self._evicted_now.add(slot)
+
+    def _restore(self, slot, req):
+        self.moves.append(("in", req.rid, slot))
+        with self._timing():
+            return super()._restore(slot, req)
+
+    def _admit(self, slot, req):
+        self.same_fill += slot in self._evicted_now
+        return super()._admit(slot, req)
+
+
+def restored_elsewhere(srv):
+    left, n = {}, 0
+    for way, rid, slot in srv.moves:
+        if way == "out":
+            left[rid] = slot
+        else:
+            n += left[rid] != slot
+    return n
+
+
+def tier_checks(label, srv, toks, base_toks, n_req, min_evictions=1):
+    """An evicting run against its non-evicting twin: tokens bitwise,
+    every eviction restored or found dead, the tier drained and its bytes
+    closed, one decode sync a consumed segment and one more an admission
+    or a restore (the ledger is closed by `serve`)."""
+    check(toks == base_toks, f"[tier] {label}: evicting tokens != the "
+          "non-evicting twin's")
+    check(srv.evictions >= min_evictions
+          and srv.restores + srv.restored_dead == srv.evictions,
+          f"[tier] {label}: {srv.evictions} evictions, {srv.restores} "
+          f"restores, {srv.restored_dead} found dead")
+    tier = srv.host_tier
+    check(len(tier) == 0 and tier.bytes_evicted == tier.bytes_restored > 0,
+          f"[tier] {label}: host tier not drained")
+    check(srv.decode_syncs == dispatches(srv)
+          and srv.host_syncs - srv.decode_syncs == n_req + srv.evictions,
+          f"[tier] {label}: syncs {srv.host_syncs} host, "
+          f"{srv.decode_syncs} decode, {dispatches(srv)} segments, "
+          f"{n_req} admissions, {srv.evictions} restores")
+    tier_peak["snapshots"] = max(tier_peak["snapshots"], tier.resident_peak)
+
+
+def tier_numbers(srv):
+    """Bytes a slot, host dispatch ms of an evict and of a restore, and
+    the median ms from an eviction's gather to its snapshot's landing
+    (events on the serving and the side stream) with its GB/s."""
+    torch.cuda.synchronize()
+    n = srv.evictions
+    per_slot = srv.host_tier.bytes_evicted / n
+    land = statistics.median(start.elapsed_time(done)
+                             for start, done, _ in srv.snaps)
+    return dict(
+        mb=per_slot / 1e6, evict_ms=srv.evict_dispatch_time / n * 1e3,
+        restore_ms=srv.restore_dispatch_time / n * 1e3, land_ms=land,
+        gb_s=per_slot / land / 1e6)
+
+
+def tier_line(label, srv, base_srv, dt, base_dt):
+    nums = tier_numbers(srv)
+    n_tok = sum(len(r.generated) for r in srv.completed)
+    parts = ", ".join(f"{k} {v * 1e3 / srv.evictions:.3f}"
+                      for k, v in sorted(srv.parts.items(),
+                                         key=lambda kv: -kv[1]))
+    print(f"[tier] {label}: tokens == the non-evicting twin's bitwise; "
+          f"{srv.evictions} evictions ({srv.restores} restored, "
+          f"{srv.restored_dead} found dead at restore; "
+          f"{restored_elsewhere(srv)} restored into another slot, "
+          f"{srv.same_fill} slots admitted into in the fill that evicted "
+          f"them); {nums['mb']:.2f} MB a slot each way; host dispatch "
+          f"{nums['evict_ms']:.3f} ms an evict, {nums['restore_ms']:.3f} ms "
+          f"a restore; gather + copy to pinned host memory lands in "
+          f"{nums['land_ms']:.3f} ms (median) = {nums['gb_s']:.1f} GB/s "
+          f"beside the link's {PCIE_GB_S:.0f} GB/s data-sheet figure; "
+          f"syncs: {srv.decode_syncs} decode = the segments, "
+          f"{srv.host_syncs - srv.decode_syncs} more = admissions + "
+          f"restores; {n_tok / dt:.1f} tok/s ({n_tok / base_dt:.1f} "
+          f"without eviction); host ms an eviction by call (evict and "
+          f"restore together, the prefix calls none here): {parts}; peak "
+          f"{srv.host_tier.resident_peak / 1e6:.1f} "
+          f"MB of snapshots in pinned memory; {SMI_LINE}", flush=True)
+
+
+def tier_serve(reqs, **kw):
+    """The non-evicting twin, then the evicting run, on the same requests
+    and weights."""
+    base = serve(copies(reqs), **kw)
+    kw["params"] = base[0].params
+    return base, serve(copies(reqs), cls=TierServer, **kw, **TIER)
+
+
+# whisper_large_v3: 4 requests x 16 tokens on clips of 600-1500 frames, 2
+# slots: its slot carries the self-K/V, the cross-K/V over 1500 frames and
+# enc_pos
+t_w = whisper_requests(4, 16, 52)
+(wb, wb_toks, _, wb_dt), (wo, wo_toks, wo_launches, wo_dt) = tier_serve(
+    t_w, params=w_params, batch_slots=2, **W_SRV)
+tier_checks(WHISPER, wo, wo_toks, wb_toks, 4)
+encdec_launches(f"{WHISPER} evicting", wo, wo_launches, n_wl,
+                "decode_attention_fused")
+tier_line(f"{WHISPER}, 2 slots, 4 requests x 16 (clips "
+          f"{sorted(len(r.embeds) for r in t_w)} frames)", wo, wb, wo_dt,
+          wb_dt)
+del wb, wo, w_params
 torch.cuda.empty_cache()
+
+# starcoder2_3b fp: 12 requests (prompts 64-400, max_new 64, odd ids
+# sampled) over 4 slots, 3x oversubscribed
+t_reqs = make_requests(12, 64, 400, 64)
+for r in t_reqs[1::2]:
+    r.sampling = SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
+                                seed=2000 + r.rid)
+(sb, sb_toks, _, sb_dt), (so, so_toks, so_launches, so_dt) = tier_serve(
+    t_reqs, protocol="axle", stream=True)
+t_params = so.params
+tier_checks(f"{ARCH} fp", so, so_toks, sb_toks, 12, min_evictions=8)
+check(so.same_fill > 0, f"[tier] {ARCH}: no slot admitted into in the fill "
+      "that evicted it")
+check(so_launches["decode_attention_fused"] == so.steps * n_layers
+      == so_launches["decode_attention_fused_tc"]
+      and so_launches["flash_attention"] == 12 * n_layers
+      == so_launches["flash_attention_tc"],
+      f"[tier] {ARCH}: launches {so_launches} for {so.steps} steps")
+tier_line(f"{ARCH} fp, 4 slots, 12 requests x 64 (half sampled)", so, sb,
+          so_dt, sb_dt)
+del sb
+# the per-token loop (evict_after 8 steps: the streamed run's quantum of
+# one segment) gives the same tokens
+pt, pt_toks, _, _ = serve(copies(t_reqs), params=t_params, cls=TierServer,
+                          protocol="axle", stream=False,
+                          **dict(TIER, evict_after=8))
+tier_checks(f"{ARCH} fp per-token", pt, pt_toks, so_toks, 12)
+print(f"[tier] {ARCH} fp per-token (evict_after 8 steps): tokens == the "
+      f"streamed evicting run's bitwise; {pt.evictions} evictions, "
+      f"{pt.decode_syncs} decode syncs = its steps", flush=True)
+del pt
+
+# one slot's pages alone: gather them, then time the copy to pinned memory
+# and back on the side stream; and the graphed decode step of the drained
+# server with and without one slot's copy to the host running beside it
+leaves_0 = so.extract_fn(so.cache, 0)
+torch.cuda.synchronize()
+slot_bytes = nbytes(*leaves_0.values())
+d2h, h2d = [], []
+for _ in range(5):
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    snap = stream_offload_to_host(leaves_0, chunks=2)
+    host = snap.materialize()
+    d2h.append(start.elapsed_time(snap.event))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    back = stream_offload_to_device(host, DEV, chunks=2)
+    end.record()
+    end.synchronize()
+    h2d.append(start.elapsed_time(end))
+    check(all(torch.equal(back[k], leaves_0[k]) for k in leaves_0),
+          "[tier] a slot's pages changed on their way through host memory")
+step_args = segment_args(so)
+so.step_plain_fn(*step_args)
+torch.cuda.synchronize()
+
+
+def timed_step(concurrent):
+    snap = (stream_offload_to_host(leaves_0, chunks=2) if concurrent
+            else None)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    so.step_plain_fn(*step_args)
+    b.record()
+    b.synchronize()
+    overlap = snap is not None and a.elapsed_time(snap.event) \
+        < a.elapsed_time(b)
+    return a.elapsed_time(b), overlap
+
+
+alone, beside, overlaps = [], [], 0
+for _ in range(5):
+    for conc in (False, True, True, False):
+        ms, ov = timed_step(conc)
+        (beside if conc else alone).append(ms)
+        overlaps += ov
+print(f"[tier] {ARCH} one slot's pages ({slot_bytes / 1e6:.2f} MB: 30 "
+      f"layers x K, V x 2 KV heads x {S} rows x 128 x bf16), 2 chunks a "
+      f"leaf: to pinned host memory {statistics.median(d2h):.3f} ms = "
+      f"{slot_bytes / statistics.median(d2h) / 1e6:.1f} GB/s, back "
+      f"{statistics.median(h2d):.3f} ms = "
+      f"{slot_bytes / statistics.median(h2d) / 1e6:.1f} GB/s (the link's "
+      f"data sheet: {PCIE_GB_S:.0f} GB/s each way), bitwise both ways; the "
+      f"graphed decode step (4 slots) {statistics.median(alone):.3f} ms "
+      f"device alone, {statistics.median(beside):.3f} ms with the slot's "
+      f"copy to the host beside it ({overlaps} of {len(beside)} copies "
+      f"landed inside the step); {SMI_LINE}", flush=True)
+del so, leaves_0, back, host, snap
+torch.cuda.empty_cache()
+
+# starcoder2_3b q8_0 weights + int8 KV: 2 slots, 6 requests x 32
+q_params = quantize_params(t_params, "q8_0")
+q_reqs = make_requests(6, 64, 400, 32)
+(qb, qb_toks, _, qb_dt), (qo, qo_toks, qo_launches, qo_dt) = tier_serve(
+    q_reqs, params=q_params, batch_slots=2, protocol="axle", stream=True,
+    quant=QuantConfig(kv="int8"))
+tier_checks(f"{ARCH} q8_0 + int8 KV", qo, qo_toks, qb_toks, 6)
+check(qo_launches["decode_attention_fused[int8]"] == qo.steps * n_layers
+      and qo_launches["quant_matmul[q8_0]_skinny"] > 0,
+      f"[tier] {ARCH} q8_0 + int8 KV: launches {qo_launches}")
+tier_line(f"{ARCH} q8_0 + int8 KV, 2 slots, 6 requests x 32", qo, qb,
+          qo_dt, qb_dt)
+del qb, qo, q_params
+torch.cuda.empty_cache()
+
+# starcoder2_3b under self:7 speculation: the draft cache's row travels
+# with the target's (one paired page set); 2 slots, 6 greedy requests x 32
+s_reqs = make_requests(6, 64, 400, 32)
+(spb, spb_toks, _, spb_dt), (spo, spo_toks, spo_launches, spo_dt) = \
+    tier_serve(s_reqs, params=t_params, batch_slots=2, protocol="axle",
+               stream=True, draft_arch="self:7", **SPEC)
+tier_checks(f"{ARCH} spec self:7", spo, spo_toks, spb_toks, 6)
+check((spo.draft_accepted, spo.draft_proposed)
+      == (spb.draft_accepted, spb.draft_proposed)
+      and [r.spec_proposed for r in spo.completed if r.rid == 0]
+      == [r.spec_proposed for r in spb.completed if r.rid == 0],
+      f"[tier] {ARCH} spec: accept counts differ from the non-evicting "
+      "twin's")
+pair_bytes = nbytes(*spo.extract_fn(spo.cache, 0).values(),
+                    *spo.draft_extract_fn(spo.draft_cache, 0).values())
+check(all(n == pair_bytes for _, _, n in spo.snaps),
+      f"[tier] {ARCH} spec: a snapshot is not the target's and the draft's "
+      f"row ({pair_bytes} bytes)")
+tier_line(f"{ARCH} self:7 spec (k {SPEC_K}), 2 slots, 6 greedy requests "
+          "x 32, the draft's row in the same snapshot", spo, spb, spo_dt,
+          spb_dt)
+del spb, spo
+
+# the prefix cache on starcoder2_3b: a 384-token shared head alone (a
+# miss), 8 requests of that head + a distinct 16-64-token tail (partial
+# hits: the head's pages, then the tail's resume prefill), and exact
+# repeats of the last two (full hits: no forward, the first token from the
+# stored logits); 4 slots, max_new 16, against the no-cache twin
+HEAD = 384
+
+
+def prefix_requests(vocab, seed):
+    r = np.random.default_rng(seed)
+    head = r.integers(1, vocab, HEAD).astype(np.int32)
+    out = [Request(0, head.copy(), 16)]
+    for i in range(1, 9):
+        tail = r.integers(1, vocab, int(r.integers(16, 65)))
+        out.append(Request(i, np.concatenate([head, tail.astype(np.int32)]),
+                           16))
+    out += [Request(9, out[0].prompt.copy(), 16),
+            Request(10, out[8].prompt.copy(), 16)]
+    return out
+
+
+PREFIX_COUNTS = (2, 8, 1)                        # (full, partial, miss)
+RESUMED = list(range(1, 9)) + [10]  # their first token through a resume
+
+
+def prefix_checks(label, pc, base, reqs, arch_cfg):
+    """The counts as predicted, the tokens skipped and the forwards; the
+    miss and the full hit of its prompt bitwise the no-cache twin's, the
+    full hit of request 8's prompt (its pages and logits made by a resume)
+    bitwise request 8's own stream."""
+    counts = (pc.prefix_hits_full, pc.prefix_hits_partial, pc.prefix_misses)
+    skipped = 9 * HEAD + len(reqs[10].prompt)
+    check(counts == PREFIX_COUNTS and pc.prefill_tokens_skipped == skipped
+          and (pc.prefill_forwards, base.prefill_forwards) == (9, 11),
+          f"[tier] {label}: prefix counts {counts}, skipped "
+          f"{pc.prefill_tokens_skipped}, forwards {pc.prefill_forwards} vs "
+          f"{base.prefill_forwards}")
+    got = {r.rid: r.generated for r in pc.completed}
+    want = {r.rid: r.generated for r in base.completed}
+    check(got[0] == want[0] and got[9] == want[9],
+          f"[tier] {label}: the miss or its full hit differs from the "
+          "no-cache twin")
+    check(got[10] == got[8], f"[tier] {label}: the full hit of request 8's "
+          "prompt differs from request 8's stream")
+    tier_peak["prefix"] = max(tier_peak["prefix"], pc.prefix.bytes_stored_peak)
+    return got, want
+
+
+def admission_ms(srv, reqs, admit):
+    out = []
+    for r in reqs:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        admit(r)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(out)
+
+
+p_reqs = prefix_requests(cfg.vocab, 60)
+pb, pb_toks, _, _ = serve(p_reqs, params=t_params, protocol="axle",
+                          stream=True)
+pc, pc_toks, pc_launches, _ = serve(copies(p_reqs), params=t_params,
+                                    protocol="axle", stream=True,
+                                    prefix_cache=True)
+prefix_checks(ARCH, pc, pb, p_reqs, cfg)
+check(pc_launches["flash_attention"] == pc.prefix_misses * n_layers
+      and pc_launches["decode_attention_fused"] == pc.steps * n_layers,
+      f"[tier] {ARCH} prefix: launches {pc_launches}")
+part_vs = near_tie_agrees(f"[tier] {ARCH} prefix partial hits",
+                          {i: pc_toks[i] for i in RESUMED},
+                          {i: pb_toks[i] for i in RESUMED},
+                          [p_reqs[i] for i in RESUMED], weights=t_params)
+pc_counts = (pc.prefill_tokens_skipped, pc.prefill_forwards)
+# admissions on the drained server (slot 0): a full hit (a stored prompt),
+# a partial hit (the head + a fresh 48-token tail, a new one each time)
+# and the full prefill of such a prompt
+fresh = prefix_requests(cfg.vocab, 61)[1:9]
+for r in fresh:
+    r.prompt = np.concatenate([p_reqs[0].prompt, r.prompt[HEAD:]])
+full_ms = admission_ms(pc, p_reqs[9:11] * 3,
+                       lambda r: pc._admit_prefill(0, r))
+part_ms = admission_ms(pc, fresh[:5], lambda r: pc._admit_prefill(0, r))
+miss_ms = admission_ms(pc, fresh[:5], lambda r: pc._prefill(0, r))
+# where a partial hit's admission goes: its device time under the profiler
+# (two more fresh prompts: a warm-up, then the profiled one)
+part_busy, part_ev = busy_ms(lambda: pc._admit_prefill(0, fresh.pop()))
+miss_busy, _ = busy_ms(lambda: pc._prefill(0, fresh[0]))
+print(f"[tier] {ARCH} prefix cache, 4 slots, 11 requests x 16 (a {HEAD}-"
+      f"token head alone, 8 x head + a 16-64-token tail, repeats of the "
+      f"head and of request 8): "
+      f"(full, partial, miss) = {PREFIX_COUNTS} as predicted; prefill "
+      f"tokens skipped {pc_counts[0]}, prefill forwards "
+      f"{pc_counts[1]} (no-cache {pb.prefill_forwards}); flash "
+      f"launches {pc_launches['flash_attention']} = the miss x {n_layers}; "
+      f"the miss and the head's full hit (first token included) == the "
+      f"no-cache twin bitwise, request 8's full hit == request 8 bitwise; "
+      f"the partial hits and request 8's full hit {part_vs} the no-cache "
+      f"twin (near-tie gate "
+      f"{NEAR_TIE}); an admission {full_ms:.2f} ms with a full hit, "
+      f"{part_ms:.2f} ms with a partial hit (storing its own pages "
+      f"included; device busy {part_busy:.2f} ms of it, top kernels: "
+      + "; ".join(f"{k[:40]} x{n} {t / 1e3:.2f} ms"
+                  for t, n, k in part_ev[:5])
+      + f"), {miss_ms:.2f} ms without (the full prefill, device busy "
+      f"{miss_busy:.2f} ms); "
+      f"{pc.prefix.bytes_stored_peak / 1e6:.1f} MB of "
+      f"prefix pages at peak; {SMI_LINE}", flush=True)
+del pb, pc, t_params
+torch.cuda.empty_cache()
+
+# mamba2_370m, 48 layers: the evicting serve (2 slots, 8 requests x 32; a
+# slot is the conv windows and the f32 SSD states), then the prefix run
+# (its resume starts the scan kernel from the restored state: init_state)
+m_reqs = make_requests(8, 64, 400, 32, mcfg.vocab)
+(mb, mb_toks, _, mb_dt), (mo, mo_toks, mo_launches, mo_dt) = tier_serve(
+    m_reqs, arch=MAMBA, batch_slots=2, protocol="axle", stream=True)
+m_params = mo.params
+tier_checks(MAMBA, mo, mo_toks, mb_toks, 8)
+tier_line(f"{MAMBA}, 2 slots, 8 requests x 32", mo, mb, mo_dt, mb_dt)
+del mb, mo
+mp_reqs = prefix_requests(mcfg.vocab, 62)
+mpb, mpb_toks, _, _ = serve(mp_reqs, params=m_params, arch=MAMBA,
+                            protocol="axle", stream=True)
+mpc, mpc_toks, mpc_launches, _ = serve(copies(mp_reqs), params=m_params,
+                                       arch=MAMBA, protocol="axle",
+                                       stream=True, prefix_cache=True)
+prefix_checks(MAMBA, mpc, mpb, mp_reqs, mcfg)
+n_ml = mcfg.n_layers
+check(mpc_launches["ssd_scan_init"] == mpc.prefix_hits_partial * n_ml
+      and mpc_launches["ssd_scan"] == (mpc.prefix_misses
+                                       + mpc.prefix_hits_partial) * n_ml
+      and mpc_launches["ssd_scan_tc"] == mpc_launches["ssd_scan"],
+      f"[tier] {MAMBA} prefix: launches {mpc_launches}")
+# the bf16 partial hits against the no-cache twin, printed and not gated:
+# 48 bf16 layers turn a last-bit difference into logit gaps of order 1
+# (PERF.md); in f32 arithmetic (the same weights) they are gated
+m_parts = [(r.rid, next(i for i, (x, y) in enumerate(
+    zip(mpc_toks[r.rid], mpb_toks[r.rid])) if x != y))
+    for r in mp_reqs if r.rid in RESUMED
+    and mpc_toks[r.rid] != mpb_toks[r.rid]]
+del mpb, mpc
+m32 = dataclasses.replace(mcfg, dtype="float32")
+m32_params = as_f32(m_params)
+del m_params
+torch.cuda.empty_cache()
+m32b, m32b_toks, _, _ = serve(copies(mp_reqs), params=m32_params, arch=MAMBA,
+                              cfg=m32, protocol="axle", stream=True)
+m32c, m32c_toks, m32_launches, _ = serve(
+    copies(mp_reqs), params=m32_params, arch=MAMBA, cfg=m32,
+    protocol="axle", stream=True, prefix_cache=True)
+prefix_checks(f"{MAMBA} f32", m32c, m32b, mp_reqs, m32)
+check(m32_launches["ssd_scan_init"] == 8 * n_ml,
+      f"[tier] {MAMBA} f32 prefix: launches {m32_launches}")
+m32_vs = near_tie_agrees(f"[tier] {MAMBA} f32 prefix partial hits",
+                         {i: m32c_toks[i] for i in RESUMED},
+                         {i: m32b_toks[i] for i in RESUMED},
+                         [mp_reqs[i] for i in RESUMED], arch_cfg=m32,
+                         weights=m32_params)
+print(f"[tier] {MAMBA} prefix cache, the same shape of 11 requests: (full, "
+      f"partial, miss) = {PREFIX_COUNTS} as predicted, the miss and the "
+      f"head's full hit == the no-cache twin bitwise, request 8's full hit "
+      f"== request 8; ssd_scan launches "
+      f"{mpc_launches['ssd_scan']} ({mpc_launches['ssd_scan_init']} from "
+      f"the restored state on the resume path, all on the tensor-core "
+      f"route); the 9 streams through a resume vs the no-cache twin in "
+      f"bf16 (not gated): {len(m_parts)} part ({m_parts}); in f32 "
+      f"arithmetic (the CUDA-core scan, "
+      f"{m32_launches['ssd_scan_init']} launches from the restored state) "
+      f"they are {m32_vs} the no-cache twin "
+      f"(near-tie gate {NEAR_TIE}); {SMI_LINE}", flush=True)
+del m32b, m32c, m32_params
+torch.cuda.empty_cache()
+print(f"[tier] peak pinned host memory held: {tier_peak['snapshots'] / 1e6:.1f}"
+      f" MB of evicted snapshots (one serve), "
+      f"{tier_peak['prefix'] / 1e6:.1f} MB of prefix pages; phase "
+      f"{time.perf_counter() - TIER_T0:.1f} s; "
+      f"{time.perf_counter() - T_START:.0f} s into the script; {SMI_LINE}",
+      flush=True)
 
 # --------------------------------------------------------------------------
 # 7. result

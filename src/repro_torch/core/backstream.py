@@ -21,6 +21,11 @@ An int8 KV cache (per-page `kv_scales`) is dequantized inside the fused
 kernel; the chunked schedule dequantizes the pools up front in plain
 torch, as the reference does in plain XLA.
 
+The host tier (`stream_offload_to_host` / `stream_offload_to_device`,
+`HostTier`, `PrefixCache`) moves one slot's cache pages between the device
+and pinned host memory on the side stream, for the server's eviction and
+prefix reuse.
+
 The mesh schedules (the AXLE ring, head-group gathering) are ROADMAP
 queue 1 item 17.
 """
@@ -31,7 +36,7 @@ import contextlib
 import dataclasses
 import enum
 import threading
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -84,10 +89,12 @@ _side_lock = threading.Lock()
 
 
 def _side_stream(device: torch.device) -> "torch.cuda.Stream":
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
     with _side_lock:
-        side = _side_streams.get(device.index)
+        side = _side_streams.get(index)
         if side is None:
-            side = _side_streams[device.index] = torch.cuda.Stream(device)
+            side = _side_streams[index] = torch.cuda.Stream(index)
         return side
 
 
@@ -282,3 +289,253 @@ def decode_attention_combined(q: torch.Tensor, k_cache: torch.Tensor,
     out = L.merge_attention_partials(accs, ms, ls)        # (B,H,hd)
     return out[:, None].to(q.dtype)
 
+
+
+# --------------------------------------------------------------------------
+# Host tier: chunked device <-> pinned-host page streams, host-side stores
+# --------------------------------------------------------------------------
+#
+# The server's host tier treats host RAM as the expanded-memory tier and
+# the device cache as the hot one.  One slot's cache pages (the leaves of
+# `transformer.extract_slot_cache`, fresh device tensors gathered on the
+# serving stream: the staging copy) move between the two in `chunks`
+# pieces a leaf, split along the leading (layer) axis:
+#
+#   to host   — the side stream waits on an event recorded on the serving
+#               stream after the gather, then issues each chunk's
+#               `non_blocking` copy into a pinned host tensor; the staging
+#               tensors are recorded on the side stream, so the allocator
+#               keeps them until the copies have read them.  Nothing
+#               blocks until `HostSnapshot.materialize()` waits on the
+#               copies' event: the one host sync, as in the reference.
+#   to device — each chunk's `non_blocking` copy from pinned memory into a
+#               device staging tensor runs on the side stream; the serving
+#               stream waits on its event before anything reads the pages
+#               (the in-place insert into the live cache).  No host sync.
+#
+# On the CPU both directions are plain copies.  There is no fallback: a
+# CUDA leaf bound for a host tensor that cannot be pinned, or a host leaf
+# bound for the card that is not pinned, raises.
+
+def _chunk_starts(n: int, chunks: int) -> List[Tuple[int, int]]:
+    """Split [0, n) into <= `chunks` contiguous spans (last one ragged)."""
+    chunks = max(1, min(chunks, n))
+    step = -(-n // chunks)
+    return [(i, min(i + step, n)) for i in range(0, n, step)]
+
+
+def _copy_chunks(dst: torch.Tensor, src: torch.Tensor, chunks: int) -> None:
+    """`non_blocking` copies of src into dst, `chunks` along axis 0; a
+    leaf of one layer (or a scalar, a vector) moves whole."""
+    if src.dim() < 2 or src.shape[0] == 1:
+        dst.copy_(src, non_blocking=True)
+        return
+    for i0, i1 in _chunk_starts(src.shape[0], chunks):
+        dst[i0:i1].copy_(src[i0:i1], non_blocking=True)
+
+
+class HostSnapshot:
+    """One slot's pages in flight to (or resident in) host memory: one
+    host tensor a leaf (pinned when the pages come from the card), filled
+    chunk by chunk on the side stream.  `nbytes` comes from shapes alone,
+    so the byte accounting never waits on a copy; `materialize()` waits
+    on the copies' event (the one host sync) and returns the leaves."""
+
+    def __init__(self, host: Dict[str, torch.Tensor],
+                 done: Optional["torch.cuda.Event"] = None):
+        self._host = host
+        self._done = done
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self._host.values())
+
+    @property
+    def event(self) -> Optional["torch.cuda.Event"]:
+        """The side stream's (timing) event after the last copy; None on
+        the CPU."""
+        return self._done
+
+    def materialize(self) -> Dict[str, torch.Tensor]:
+        if self._done is not None:
+            self._done.synchronize()
+        return self._host
+
+
+def stream_offload_to_host(leaves: Dict[str, torch.Tensor], *,
+                           chunks: int = 2) -> HostSnapshot:
+    """Evict one slot's pages to the host tier: `chunks` `non_blocking`
+    copies a leaf into pinned host tensors on the side stream, behind an
+    event of the serving stream, so the copies overlap whatever the
+    serving stream runs next.  `leaves` must not be written afterwards
+    (the server hands over fresh staging tensors).  Returns a lazy
+    `HostSnapshot`: nothing here waits."""
+    cuda = [t for t in leaves.values() if t.is_cuda]
+    if not cuda:
+        return HostSnapshot({k: t.clone() for k, t in leaves.items()})
+    dev = cuda[0].device
+    main = torch.cuda.current_stream(dev)
+    side = _side_stream(dev)
+    ready = torch.cuda.Event()
+    ready.record(main)
+    host: Dict[str, torch.Tensor] = {}
+    with torch.cuda.stream(side):
+        side.wait_event(ready)
+        for key, t in leaves.items():
+            host[key] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            _copy_chunks(host[key], t, chunks)
+            t.record_stream(side)
+        done = torch.cuda.Event(enable_timing=True)
+        done.record(side)
+    return HostSnapshot(host, done)
+
+
+def stream_offload_to_device(leaves: Dict[str, torch.Tensor],
+                             device: torch.device, *,
+                             chunks: int = 2) -> Dict[str, torch.Tensor]:
+    """Restore host-resident pages to `device`: per chunk one
+    `non_blocking` copy from pinned memory into a device staging tensor,
+    on the side stream; the serving stream then waits on the copies'
+    event, so what it queues next (the insert into the live cache) reads
+    the landed pages.  Dispatches without a host sync."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {k: t.to(device, copy=True) for k, t in leaves.items()}
+    main = torch.cuda.current_stream(device)
+    side = _side_stream(device)
+    out: Dict[str, torch.Tensor] = {}
+    with torch.cuda.stream(side):
+        for key, t in leaves.items():
+            if not t.is_pinned():
+                raise ValueError(
+                    f"host-tier leaf {key!r} is not in pinned memory: a "
+                    "copy from pageable memory would block the host")
+            out[key] = torch.empty(t.shape, dtype=t.dtype, device=device)
+            _copy_chunks(out[key], t, chunks)
+            out[key].record_stream(main)
+        done = torch.cuda.Event(enable_timing=True)
+        done.record(side)
+    main.wait_event(done)
+    return out
+
+
+class HostTier:
+    """Host-memory store of evicted slot snapshots, keyed by request id:
+    the expanded-memory tier the server spills cold slots into.  Tracks
+    the bytes moved each way and the peak resident bytes; capacity is the
+    host's (the paper's premise is that this tier is the big one)."""
+
+    def __init__(self) -> None:
+        self._store: Dict[int, Tuple[HostSnapshot, HostSnapshot]] = {}
+        self.bytes_evicted = 0
+        self.bytes_restored = 0
+        self.resident_peak = 0
+
+    def __len__(self) -> int:
+        return len(self._store)
+
+    def put(self, rid: int, pages: HostSnapshot,
+            state: HostSnapshot) -> None:
+        assert rid not in self._store, rid
+        self._store[rid] = (pages, state)
+        self.bytes_evicted += pages.nbytes
+        self.resident_peak = max(self.resident_peak, self.resident_bytes)
+
+    def pop(self, rid: int) -> Tuple[HostSnapshot, HostSnapshot]:
+        pages, state = self._store.pop(rid)
+        self.bytes_restored += pages.nbytes
+        return pages, state
+
+    @property
+    def resident_bytes(self) -> int:
+        return sum(p.nbytes for p, _ in self._store.values())
+
+
+class _TrieNode:
+    __slots__ = ("children", "entry")
+
+    def __init__(self) -> None:
+        self.children: Dict[int, "_TrieNode"] = {}
+        self.entry: Optional["PrefixEntry"] = None
+
+
+@dataclasses.dataclass
+class PrefixEntry:
+    """One cached prompt: `length` tokens whose host-resident pages (K/V
+    rows up to the prompt's prefill bucket, the post-prompt recurrent
+    state, and the last-token logits under the key "logits") let an
+    admission skip that much prefill."""
+    tokens: Tuple[int, ...]
+    pages: HostSnapshot
+
+    @property
+    def length(self) -> int:
+        return len(self.tokens)
+
+
+class PrefixCache:
+    """Trie of prompts -> host-resident pages.  `put` stores a prompt's
+    pages after its prefill; `lookup` returns the LONGEST stored prompt
+    that is a prefix of a new one: a full hit (the whole prompt) skips the
+    prefill, a partial hit restores the prefix's pages and resume-prefills
+    the suffix.  Entries are dropped least recently used first once
+    `capacity_bytes` is passed (None: no cap), and their trie branches
+    pruned.  The pages are exact for any continuation: K/V rows [0, L)
+    and the recurrent state after token L - 1 depend only on tokens
+    [0, L)."""
+
+    def __init__(self, capacity_bytes: Optional[int] = 256 << 20) -> None:
+        self._root = _TrieNode()
+        self._lru: "collections.OrderedDict[Tuple[int, ...], PrefixEntry]" \
+            = collections.OrderedDict()
+        self.capacity_bytes = capacity_bytes
+        self.bytes_stored = 0
+        self.bytes_stored_peak = 0
+        self.entries_evicted = 0
+
+    def __len__(self) -> int:
+        return len(self._lru)
+
+    def put(self, tokens, pages: HostSnapshot) -> None:
+        key = tuple(int(t) for t in tokens)
+        if key in self._lru:               # refresh recency, keep pages
+            self._lru.move_to_end(key)
+            return
+        node = self._root
+        for t in key:
+            node = node.children.setdefault(t, _TrieNode())
+        entry = PrefixEntry(tokens=key, pages=pages)
+        node.entry = entry
+        self._lru[key] = entry
+        self.bytes_stored += pages.nbytes
+        self.bytes_stored_peak = max(self.bytes_stored_peak,
+                                     self.bytes_stored)
+        while (self.capacity_bytes is not None
+               and self.bytes_stored > self.capacity_bytes and self._lru):
+            old_key, old = self._lru.popitem(last=False)
+            self._remove(old_key)
+            self.bytes_stored -= old.pages.nbytes
+            self.entries_evicted += 1
+
+    def lookup(self, tokens) -> Optional[PrefixEntry]:
+        node, best = self._root, None
+        for t in tokens:
+            node = node.children.get(int(t))
+            if node is None:
+                break
+            if node.entry is not None:
+                best = node.entry
+        if best is not None:
+            self._lru.move_to_end(best.tokens)
+        return best
+
+    def _remove(self, key: Tuple[int, ...]) -> None:
+        path = [self._root]
+        for t in key:
+            path.append(path[-1].children[t])
+        path[-1].entry = None
+        for depth in range(len(key), 0, -1):   # prune empty branches
+            node = path[depth]
+            if node.entry is not None or node.children:
+                break
+            del path[depth - 1].children[key[depth - 1]]

@@ -54,12 +54,13 @@ def PRNGKey(seed: int,
             device: Optional[Union[str, torch.device]] = None
             ) -> torch.Tensor:
     """`jax.random.PRNGKey(seed)` for a 32-bit seed: (2,) int64 [0, seed
-    mod 2^32].  Built by scalar writes, so on the card it copies nothing
-    from the host."""
+    mod 2^32].  Built by a fill with the seed, so on the card it copies
+    nothing from the host (`key[1] = x` would copy x and wait for the
+    stream)."""
     if not -2 ** 31 <= seed < 2 ** 31:
         raise ValueError(f"seed {seed} is not a 32-bit integer")
     key = torch.zeros((2,), dtype=torch.int64, device=device)
-    key[1] = seed & MASK
+    key[1:].fill_(seed & MASK)
     return key
 
 

@@ -60,16 +60,17 @@ LAUNCHES: Dict[str, int] = {"decode_attention_fused": 0,
                             "quant_matmul[q4_k]_skinny": 0,
                             "quant_matmul[q8_0]_splitk": 0,
                             "quant_matmul[q4_k]_splitk": 0,
-                            "ssd_scan_tc": 0}
+                            "ssd_scan_tc": 0, "ssd_scan_init": 0}
 # the counters of a function's routes (its tensor-core kernel, the skinny
-# decode kernel) and of its split-K reduction pass: parts of the counts of
-# the function they name, not kernels of their own
+# decode kernel), of its split-K reduction pass and of the scans started
+# from a given state (`ssd_scan_init`, a resume prefill's): parts of the
+# counts of the function they name, not kernels of their own
 VARIANTS = ("flash_attention_tc", "knn_distances_wgmma",
             "decode_attention_fused_tc", "decode_attention_fused[int8]_tc",
             "decode_attention_partial_tc", "quant_matmul[q8_0]_tc",
             "quant_matmul[q4_k]_tc", "quant_matmul[q8_0]_skinny",
             "quant_matmul[q4_k]_skinny", "quant_matmul[q8_0]_splitk",
-            "quant_matmul[q4_k]_splitk", "ssd_scan_tc",
+            "quant_matmul[q4_k]_splitk", "ssd_scan_tc", "ssd_scan_init",
             "decode_attention_fused@cross", "decode_attention_partial@cross")
 # the call sites counted apart: "cross", an enc-dec decoder's cross read
 # over the encoder output

@@ -12,7 +12,9 @@ if the launch fails.  It never falls back to the plain PyTorch version:
 `ops.ssd_scan` dispatches CPU tensors there before the wrapper is
 reached.  Each call adds one to `build.LAUNCHES["ssd_scan"]`, and one to
 `"ssd_scan_tc"` when it took the tensor-core route (`ssd_route`: three
-kernels, chunk states, the ordered pass and the outputs).
+kernels, chunk states, the ordered pass and the outputs), and one to
+`"ssd_scan_init"` when it started from a given `init_state` (a resume
+prefill's scan).
 """
 from __future__ import annotations
 
@@ -122,4 +124,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     LAUNCHES[name] += 1
     if route == "tensor_core":
         LAUNCHES[name + "_tc"] += 1
+    if init_state is not None:
+        LAUNCHES[name + "_init"] += 1
     return y, final

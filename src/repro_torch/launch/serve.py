@@ -50,11 +50,23 @@ the CLI draws random ones): one encoder pass an admission, shared by the
 target's prefill and a self-draft's, writes the slot's cross-K/V, and
 every decode step attends over it up to the slot's own clip length.
 
+`--offload` (`host_offload=True`) makes the resident set larger than the
+slot count: when waiting requests outnumber free slots, the coldest slots
+(at least `--evict-after` segments since their admission) are evicted to
+pinned host memory, their pages (every leaf kind) and their slot-state row
+copied on a side stream (`core/backstream.py`), and restored into a free
+slot one fill later; an evicted stream is bitwise the never-evicted one,
+and neither direction adds a decode sync.  `--prefix-cache` keeps a trie
+of served prompts' pages in host memory: an admission whose prompt
+extends a cached one restores those pages and prefills only the suffix
+(`transformer.resume_prefill_into_cache`), and a repeated prompt skips
+its prefill (its first token from the stored logits).
+
 On the card every decode segment runs as one CUDA graph replay
 (`launch/graphs.py`), captured at construction; on the CPU the segments
-run eagerly.  Both loops emit identical tokens.  The host tier, chunked
-prefill and the mesh are later slices (ROADMAP.md queue 1); their
-options are absent here, not ignored.
+run eagerly.  Both loops emit identical tokens.  Chunked prefill and the
+mesh are later slices (ROADMAP.md queue 1); their options are absent
+here, not ignored.
 """
 from __future__ import annotations
 
@@ -69,7 +81,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.core.backstream import (OffloadConfig, OffloadProtocol,
+from repro_torch.core.backstream import (HostTier, OffloadConfig,
+                                         OffloadProtocol, PrefixCache,
+                                         stream_offload_to_device,
+                                         stream_offload_to_host,
                                          use_offload)
 from repro_torch.core import prng
 from repro_torch.kernels import ops
@@ -135,7 +150,9 @@ class Request:
     spec_accepted / spec_proposed — under speculative serving, this
                   request's draft tokens accepted and proposed, stamped
                   at retirement from the device counters; None otherwise
-                  (and for a request that ended at its first token)."""
+                  (and for a request that ended at its first token).
+    suspensions — how often the host tier evicted this request's slot
+                  (its stream is the same either way)."""
     rid: int
     prompt: np.ndarray
     max_new: int
@@ -145,6 +162,7 @@ class Request:
     spec_accepted: Optional[int] = None
     spec_proposed: Optional[int] = None
     embeds: Optional[np.ndarray] = None
+    suspensions: int = 0
 
     @property
     def sampling_params(self) -> SamplingParams:
@@ -209,7 +227,17 @@ class BatchedServer:
     (`registry.get_model`) and encodes each request's frames once at
     admission (`encoder_passes` counts the passes): a self-draft shares
     the target's encoder, so its prefill reuses that output
-    (`draft_shares_encoder`); another enc-dec draft encodes again."""
+    (`draft_shares_encoder`); another enc-dec draft encodes again.
+
+    `host_offload=True` evicts cold slots to the host tier when waiting
+    requests outnumber free slots (`_evict_for_demand`: the oldest rows
+    of at least `evict_after` segments since admission) and restores them
+    into free slots later (`_restore`), the pages streamed in
+    `offload_chunks` chunks a leaf; under speculation the draft cache's
+    row travels with the target's as one paired page set.
+    `prefix_cache=True` reuses served prompts' pages (`_admit_prefill`);
+    it is refused with `spec` (the draft cache has no prefix pages) and
+    for an encoder-decoder (its prompts are keyed on audio frames)."""
 
     def __init__(self, arch_id: str, *, smoke: bool = True,
                  device: Optional[str] = None, batch_slots: int = 4,
@@ -221,10 +249,19 @@ class BatchedServer:
                  spec: bool = False, spec_k: int = 3,
                  draft_arch: Optional[str] = None,
                  draft_params: Optional[Dict[str, Any]] = None,
-                 cfg: Optional[ArchConfig] = None):
+                 cfg: Optional[ArchConfig] = None,
+                 host_offload: bool = False, prefix_cache: bool = False,
+                 evict_after: int = 1, offload_chunks: int = 2):
         self.device = resolve_device(device)
         self.cfg = cfg or (get_smoke_config(arch_id) if smoke
                            else get_config(arch_id))
+        if prefix_cache and spec:
+            raise ValueError("prefix_cache with spec: the draft cache has "
+                             "no prefix pages to reuse")
+        if prefix_cache and self.cfg.enc_dec:
+            raise ValueError(f"prefix_cache with {self.cfg.arch_id}: an "
+                             "encoder-decoder's prompts are keyed on audio "
+                             "frames, not token prefixes")
         self.batch = batch_slots
         self.max_seq = max_seq
         self.seg_len = seg_len
@@ -282,6 +319,8 @@ class BatchedServer:
         # `seg_len` a streamed segment
         (self.step_fn, self.step_plain_fn, self.segment_fn,
          self.segment_plain_fn) = self._segment_fns(fns, *statics)
+        self._init_host_tier(host_offload, prefix_cache, evict_after,
+                             offload_chunks)
         self.queue: List[Request] = []
         self.active: List[Optional[Request]] = [None] * batch_slots
         # host mirrors of the device state for dispatch-time accounting
@@ -332,6 +371,33 @@ class BatchedServer:
         self.draft_shares_encoder = self.cfg.enc_dec and self_draft
         self.draft_prefill_fn = steps_lib.make_prefill_into_cache(
             self.draft_cfg, from_enc_out=self.draft_shares_encoder)
+
+    def _init_host_tier(self, host_offload: bool, prefix_cache: bool,
+                        evict_after: int, offload_chunks: int) -> None:
+        """The host tier's stores, page functions and counters."""
+        self.evict_after = max(1, evict_after)
+        self.offload_chunks = offload_chunks
+        self.host_tier = HostTier() if host_offload else None
+        self.prefix = PrefixCache() if prefix_cache else None
+        self.suspended: List[Request] = []
+        self.slot_age = np.zeros((self.batch,), np.int64)
+        if host_offload or prefix_cache:
+            self.extract_fn, self.insert_fn = steps_lib.make_slot_page_fns(
+                self.cfg)
+            self.resume_fn = steps_lib.make_resume_prefill(self.cfg)
+        if host_offload and self.spec:
+            # the draft's row leaves and returns with the target's
+            self.draft_extract_fn, self.draft_insert_fn = \
+                steps_lib.make_slot_page_fns(self.draft_cfg)
+        self.evictions = 0
+        self.restores = 0
+        self.restored_dead = 0         # evicted rows that died in flight
+        self.prefix_hits_full = 0
+        self.prefix_hits_partial = 0
+        self.prefix_misses = 0
+        self.prefill_tokens_skipped = 0
+        self.evict_dispatch_time = 0.0     # host seconds, all evictions
+        self.restore_dispatch_time = 0.0   # host seconds, all restores
 
     def _segment_fns(self, fns: List[Any], params: Tuple[Any, ...],
                      caches: Tuple[Dict[str, Any], ...]) -> List[Any]:
@@ -456,16 +522,182 @@ class BatchedServer:
         self.prefill_forwards += 1
         return logits
 
+    # -- prefix cache ------------------------------------------------------
+
+    def _admit_prefill(self, slot: int, req: Request) -> torch.Tensor:
+        """The prompt's admission through the prefix cache, its longest
+        cached prefix served from host pages before any prefill compute:
+
+          full hit    — the whole prompt is cached: its pages go into the
+                        slot and its STORED last-token logits come back;
+                        no forward.  Bitwise the admission that stored
+                        them (a fresh prefill's bits when a miss stored
+                        them: the same prompt, the same bucket).
+          partial hit — the prefix's pages go in, then only the suffix
+                        runs (`resume_fn`); token-equal to a full
+                        prefill.  A miss instead when the bucketed suffix
+                        would pass max_seq.
+          miss        — the full prefill.
+        A partial hit and a miss then store the prompt's pages
+        (`_prefix_put`).  Returns the last prompt position's logits."""
+        if self.prefix is None:
+            return self._prefill(slot, req)
+        plen = len(req.prompt)
+        hit = self.prefix.lookup(req.prompt)
+        if hit is not None and hit.length == plen:
+            with use_offload(self.offload):
+                dev = stream_offload_to_device(hit.pages.materialize(),
+                                               self.device,
+                                               chunks=self.offload_chunks)
+                logits = dev.pop("logits")
+                self.cache = self.insert_fn(self.cache, dev, slot)
+            self.prefix_hits_full += 1
+            self.prefill_tokens_skipped += plen
+            return logits
+        if hit is not None:
+            start = hit.length
+            sbucket = _prefill_bucket(plen - start, self.max_seq)
+            if start + sbucket <= self.max_seq:
+                suffix = np.zeros((sbucket,), np.int32)
+                suffix[:plen - start] = req.prompt[start:]
+                with use_offload(self.offload):
+                    dev = stream_offload_to_device(
+                        hit.pages.materialize(), self.device,
+                        chunks=self.offload_chunks)
+                    dev.pop("logits")
+                    self.cache = self.insert_fn(self.cache, dev, slot)
+                    logits, self.cache = self.resume_fn(
+                        self.params, self.cache,
+                        torch.from_numpy(suffix).to(self.device), slot,
+                        plen, start)
+                self.prefix_hits_partial += 1
+                self.prefill_tokens_skipped += start
+                self.prefill_forwards += 1
+                self._prefix_put(slot, req, logits)
+                return logits
+        self.prefix_misses += 1
+        logits = self._prefill(slot, req)
+        self._prefix_put(slot, req, logits)
+        return logits
+
+    def _prefix_put(self, slot: int, req: Request,
+                    logits: torch.Tensor) -> None:
+        """Store the prompt's freshly written pages in the trie: K/V rows
+        up to its prefill bucket (the junk between the prompt's end and
+        the bucket stays invisible behind any later clock), the
+        post-prompt recurrent state and the last-token logits, streamed
+        to the host as an eviction's are: no sync."""
+        bucket = _prefill_bucket(len(req.prompt), self.max_seq)
+        with use_offload(self.offload):
+            pages = self.extract_fn(self.cache, slot, bucket)
+        pages["logits"] = logits
+        self.prefix.put(req.prompt, stream_offload_to_host(
+            pages, chunks=self.offload_chunks))
+
+    # -- host tier: eviction and restore -------------------------------------
+
+    def suspend_slot(self, slot: int) -> None:
+        """Evict an active slot to the host tier: its pages (every leaf
+        kind; under speculation the draft cache's row too, under
+        "draft/" keys) are gathered into staging tensors on the serving
+        stream, so they hold the rows as the segment in flight leaves
+        them and before anything queued later (a new admission into the
+        slot) writes them; its slot-state row is copied the same way.
+        Both go to pinned host memory on the side stream: the dispatch
+        never waits.  The request joins the `suspended` FIFO."""
+        req = self.active[slot]
+        assert req is not None
+        t0 = time.perf_counter()
+        with use_offload(self.offload):
+            pages = self.extract_fn(self.cache, slot)
+            if self.spec:
+                dpages = self.draft_extract_fn(self.draft_cache, slot)
+                pages.update({"draft/" + k: v for k, v in dpages.items()})
+        snap = stream_offload_to_host(pages, chunks=self.offload_chunks)
+        saved = stream_offload_to_host(
+            steps_lib.save_slot_state(self.state, slot))
+        self.host_tier.put(req.rid, snap, saved)
+        self.active[slot] = None
+        self._free_pages(slot)
+        self.suspended.append(req)
+        req.suspensions += 1
+        self.evictions += 1
+        self.evict_dispatch_time += time.perf_counter() - t0
+
+    def _restore(self, slot: int, req: Request) -> bool:
+        """Re-admit a suspended request from the host tier into `slot`.
+        Reading its saved slot-state row is the one host sync (counted as
+        an admission's is; its copy was issued at eviction and queued
+        before nothing else on the side stream but the pages', so both
+        have landed).  The pages go back through the side stream into
+        staging tensors and are inserted in place on the serving stream,
+        behind the segment in flight: no decode sync.  Returns False (the
+        request is complete, the slot stays free) when the row died in
+        the segment that was in flight at its eviction; its tokens were
+        delivered there."""
+        t0 = time.perf_counter()
+        snap, saved_snap = self.host_tier.pop(req.rid)
+        saved = saved_snap.materialize()
+        self.host_syncs += 1
+        if not bool(saved["alive"]):
+            if self.spec:
+                req.spec_accepted = int(saved["accepted"])
+                req.spec_proposed = int(saved["proposed"])
+            self.restored_dead += 1
+            self.restore_dispatch_time += time.perf_counter() - t0
+            return False
+        with use_offload(self.offload):
+            pages = stream_offload_to_device(snap.materialize(),
+                                             self.device,
+                                             chunks=self.offload_chunks)
+            draft = {k[len("draft/"):]: v for k, v in pages.items()
+                     if k.startswith("draft/")}
+            pages = {k: v for k, v in pages.items()
+                     if not k.startswith("draft/")}
+            self.cache = self.insert_fn(self.cache, pages, slot)
+            if self.spec:
+                self.draft_cache = self.draft_insert_fn(self.draft_cache,
+                                                        draft, slot)
+        self.state = steps_lib.restore_slot(self.state, slot, saved)
+        self.positions[slot] = int(saved["position"])
+        self.remaining[slot] = int(saved["remaining"])
+        # the restored clock's pages; the eviction freed as many
+        self._set_pages(slot, self._pages_for(self.positions[slot]))
+        self.slot_age[slot] = 0
+        self.restores += 1
+        self.restore_dispatch_time += time.perf_counter() - t0
+        return True
+
+    def _evict_for_demand(self) -> None:
+        """When waiting requests (queued and suspended) outnumber free
+        slots, evict the oldest active rows (most segments since their
+        admission or restore), never one younger than `evict_after`
+        segments: the quantum that keeps the loop round-robin."""
+        free = sum(r is None for r in self.active)
+        need = len(self.queue) + len(self.suspended) - free
+        if need <= 0:
+            return
+        eligible = sorted(
+            (s for s in range(self.batch)
+             if self.active[s] is not None
+             and self.slot_age[s] >= self.evict_after),
+            key=lambda s: -self.slot_age[s])
+        for s in eligible[:need]:
+            self.suspend_slot(s)
+
+    # -- admission -------------------------------------------------------------
+
     def _admit(self, slot: int, req: Request) -> bool:
-        """Prefill, first token, device state seeding.  Returns False if
-        the request finished on its first token."""
+        """Prefill (through the prefix cache when it is on), first token,
+        device state seeding.  Returns False if the request finished on
+        its first token."""
         if self.spec:
             # a verify writes up to spec_k rows past a row's final
             # position: keep them off the valid prefix
             assert len(req.prompt) + req.max_new + self.spec_k \
                 <= self.max_seq, (len(req.prompt), req.max_new,
                                   self.spec_k, self.max_seq)
-        logits = self._prefill(slot, req)
+        logits = self._admit_prefill(slot, req)
         self._set_pages(slot, self._pages_for(len(req.prompt)))
         return self._finish_admit(slot, req, logits)
 
@@ -506,12 +738,32 @@ class BatchedServer:
         return True
 
     def _fill_slots(self) -> None:
-        """Admit queued requests into free slots."""
+        """Fill free slots: suspended requests first (FIFO: they were
+        admitted before anything still queued), then queued ones by a
+        prefill.  Under host offload the eviction policy runs first.  Only
+        requests suspended BEFORE this call are restorable: one evicted
+        now may still be in the undelivered segment in flight, and
+        restoring it before that segment is consumed would count the
+        segment's advance twice in the host mirrors."""
+        restorable = len(self.suspended)
+        if self.host_tier is not None:
+            self._evict_for_demand()
         for s in range(self.batch):
-            if self.active[s] is not None or not self.queue:
+            if self.active[s] is not None:
+                continue
+            if restorable > 0 and self.suspended:
+                restorable -= 1
+                req = self.suspended.pop(0)
+                if self._restore(s, req):
+                    self.active[s] = req
+                else:
+                    self.completed.append(req)    # died while evicted
+                continue
+            if not self.queue:
                 continue
             req = self.queue.pop(0)
             self.active[s] = req
+            self.slot_age[s] = 0
             if not self._admit(s, req):
                 self.completed.append(req)
                 self.active[s] = None
@@ -540,6 +792,7 @@ class BatchedServer:
             req = self.active[s]
             if req is None:
                 continue
+            self.slot_age[s] += 1       # segments since (re-)admission
             sp = req.sampling_params
             if not sp.greedy:
                 plain = False
@@ -642,7 +895,8 @@ class BatchedServer:
                 continue
             if self.steps >= max_steps:
                 return          # step cap: remaining requests stay active
-            if not self.queue and all(r is None for r in self.active):
+            if not self.queue and not self.suspended \
+                    and all(r is None for r in self.active):
                 return
 
     def _consume_segment(self, fetched, rows) -> None:
@@ -690,7 +944,8 @@ class BatchedServer:
         if self.stream:
             self.run_stream(max_steps)
             return
-        while (self.queue or any(r is not None for r in self.active)) \
+        while (self.queue or self.suspended
+               or any(r is not None for r in self.active)) \
                 and self.steps < max_steps:
             self.step()
 
@@ -730,6 +985,17 @@ def main() -> int:
                     help="draft arch: 'self[:N]' (the target's first N "
                          "blocks) or a ported arch id; defaults to the "
                          "config's draft_arch")
+    ap.add_argument("--offload", action="store_true",
+                    help="host tier: evict cold slots to pinned host "
+                         "memory and restore them on demand")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="reuse served prompts' pages (decoder-only "
+                         "archs, not with --spec)")
+    ap.add_argument("--evict-after", type=int, default=1,
+                    help="segments a slot decodes before it may be "
+                         "evicted (the round-robin quantum)")
+    ap.add_argument("--offload-chunks", type=int, default=2,
+                    help="chunks a leaf of the host<->device page copies")
     args = ap.parse_args()
 
     server = BatchedServer(args.arch, smoke=not args.full,
@@ -740,7 +1006,11 @@ def main() -> int:
                                weights=args.quant_weights,
                                kv=args.quant_kv),
                            spec=args.spec, spec_k=args.spec_k,
-                           draft_arch=args.draft)
+                           draft_arch=args.draft,
+                           host_offload=args.offload,
+                           prefix_cache=args.prefix_cache,
+                           evict_after=args.evict_after,
+                           offload_chunks=args.offload_chunks)
     stops = (server.cfg.eos_token,) if args.stop_eos else ()
     sampled = (args.temperature > 0 or args.top_k > 0 or args.top_p < 1.0
                or args.stop_eos)
@@ -750,6 +1020,7 @@ def main() -> int:
               "defaulting temperature to 1.0", file=sys.stderr)
         args.temperature = 1.0
     rng = np.random.default_rng(0)
+    first_prompt = None
     for i in range(args.requests):
         plen = int(rng.integers(4, 12))
         embeds = None
@@ -757,6 +1028,15 @@ def main() -> int:
             embeds = rng.standard_normal(
                 (server.cfg.enc_len, server.cfg.d_model)).astype(np.float32)
         prompt = rng.integers(1, server.cfg.vocab, plen).astype(np.int32)
+        if args.prefix_cache:
+            # shared prefixes: every third request repeats the first
+            # prompt (a full hit), every third + 1 extends it (partial)
+            if first_prompt is None:
+                first_prompt = prompt
+            elif i % 3 == 1:
+                prompt = first_prompt
+            elif i % 3 == 2:
+                prompt = np.concatenate([first_prompt, prompt[:4]])
         sampling = SamplingParams(
             temperature=args.temperature, top_k=args.top_k,
             top_p=args.top_p, seed=args.seed + i,
@@ -777,6 +1057,18 @@ def main() -> int:
         spec = (f"draft={server.draft_cfg.arch_id} spec_k={args.spec_k} "
                 f"accept_rate={rate:.2f} "
                 f"tokens/sync={toks / max(1, server.decode_syncs):.2f} ")
+    if args.offload:
+        tier = server.host_tier
+        spec += (f"evictions={server.evictions} "
+                 f"restores={server.restores} "
+                 f"restored_dead={server.restored_dead} "
+                 f"host_mb={tier.bytes_evicted / 2**20:.1f} ")
+    if args.prefix_cache:
+        hits = server.prefix_hits_full + server.prefix_hits_partial
+        spec += (f"prefix_hits={server.prefix_hits_full}full+"
+                 f"{server.prefix_hits_partial}partial/"
+                 f"{hits + server.prefix_misses} "
+                 f"prefill_skipped={server.prefill_tokens_skipped}tok ")
     print(f"[serve] arch={server.cfg.arch_id} protocol={args.protocol} "
           f"quant={args.quant_weights or 'fp'}/{args.quant_kv or 'fp'} "
           f"mode={mode} requests={len(server.completed)} tokens={toks} "

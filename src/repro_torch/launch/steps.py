@@ -2,7 +2,9 @@
 serving-time quantization choice, the device-side per-slot decode state
 (with each slot's PRNG key, sampling parameters and draft counters), slot
 admission, the prompt prefill, the multi-token decode segment, the
-truncated-layer self-draft and the speculative draft-and-verify segment.
+truncated-layer self-draft, the speculative draft-and-verify segment, and
+for the host tier one slot's state saved and restored, its pages out of
+and into the cache, and the resume prefill behind restored prefix pages.
 
 The reference's jitted `lax.scan` with a donated cache becomes a Python
 loop of `seg_len` decode steps that updates the cache IN PLACE; on the
@@ -139,26 +141,100 @@ def admit_slot(state: SlotState, slot: int, *, token: int, position: int,
                top_k: int, top_p: float, min_p: float,
                stop: Sequence[int]) -> SlotState:
     """Seed one slot's state at admission.  Returns a new SlotState (the
-    old tensors are left as they were).  Only scalar writes and a copy
-    of the (2,) device `key`: no host-to-device copy, which would wait
-    for the segment in flight."""
+    old tensors are left as they were).  Only fills with host scalars and
+    a copy of the (2,) device `key`: no host-to-device copy, which would
+    wait for the segment in flight (`t[i] = x` on a CUDA tensor copies x
+    from the host when t[i] is a single element)."""
     stops = list(stop) + [-1] * (MAX_STOP_TOKENS - len(stop))
     assert len(stops) == MAX_STOP_TOKENS, stop
     s = clone_state(state)
-    s.tokens[slot, 0] = token
-    s.positions[slot] = position
     s.keys[slot] = key
-    s.remaining[slot] = remaining
-    s.alive[slot] = remaining > 0
-    s.sampling.temperature[slot] = temperature
-    s.sampling.top_k[slot] = top_k
-    s.sampling.top_p[slot] = top_p
-    s.sampling.min_p[slot] = min_p
-    for i, tok in enumerate(stops):
-        s.stop[slot, i] = tok
-    s.accepted[slot] = 0
-    s.proposed[slot] = 0
+    _fill_row(s, slot, token=token, position=position, remaining=remaining,
+              alive=remaining > 0, temperature=temperature, top_k=top_k,
+              top_p=top_p, min_p=min_p, stop=stops, accepted=0, proposed=0)
     return s
+
+
+def _fill_row(s: SlotState, slot: int, **values: Any) -> None:
+    """Row `slot` of the named SlotState fields (`token` and `position`
+    name tokens and positions; the sampling parameters by name; `key` and
+    `stop` take a sequence),
+    IN PLACE, by fills with host scalars: a fill launches with its value,
+    where an element assignment would copy it from the host and wait for
+    the stream."""
+    rows = {"token": s.tokens[slot], "key": s.keys[slot],
+            "stop": s.stop[slot],
+            "position": s.positions[slot:slot + 1]}
+    for name, value in values.items():
+        row = rows.get(name)
+        if row is None:
+            owner = s.sampling if hasattr(s.sampling, name) else s
+            row = getattr(owner, name)[slot:slot + 1]
+        for i, v in enumerate(value if isinstance(value, (list, tuple))
+                              else [value]):
+            row[i:i + 1].fill_(v)
+
+
+def save_slot_state(state: SlotState, slot: int) -> Dict[str, torch.Tensor]:
+    """ONE slot's row of every SlotState field, for eviction: NEW tensors
+    (a captured segment's output buffers are overwritten by its next
+    replay, so the row is copied now, on the serving stream).  `key` is
+    the row's CURRENT chain head, so a restored slot continues the exact
+    split sequence a never-evicted one would."""
+    s = state
+    row = {"token": s.tokens[slot, 0], "position": s.positions[slot],
+           "key": s.keys[slot], "remaining": s.remaining[slot],
+           "alive": s.alive[slot],
+           "temperature": s.sampling.temperature[slot],
+           "top_k": s.sampling.top_k[slot], "top_p": s.sampling.top_p[slot],
+           "min_p": s.sampling.min_p[slot], "stop": s.stop[slot],
+           "accepted": s.accepted[slot], "proposed": s.proposed[slot]}
+    return {k: v.clone() for k, v in row.items()}
+
+
+def restore_slot(state: SlotState, slot: int,
+                 saved: Dict[str, torch.Tensor]) -> SlotState:
+    """Re-seed one slot from a `save_slot_state` row that lies in host
+    memory: `admit_slot`'s restore twin.  Every field continues where the
+    evicted slot left off (the position clock, the PRNG chain head, the
+    budget, alive, the accept counters; nothing is reset or re-derived),
+    which makes an evicted-then-restored stream bitwise a never-evicted
+    one.  Returns a new SlotState; as `admit_slot`, only fills with the
+    host values, no host-to-device copy."""
+    s = clone_state(state)
+    _fill_row(s, slot, **{k: t.tolist() for k, t in saved.items()})
+    return s
+
+
+def make_slot_page_fns(cfg: ArchConfig) -> Tuple[Callable, Callable]:
+    """(extract, insert) of one slot's cache pages, every leaf kind (K/V
+    page sets and their scales, conv windows, SSD states, cross-K/V and
+    enc_pos): extract(cache, row, upto=None) -> {leaf: pages},
+    insert(cache, pages, row) -> cache, written in place."""
+    model = get_model(cfg)
+
+    def extract(cache, row, upto=None):
+        return model.extract_slot(cfg, cache, row, upto)
+
+    def insert(cache, pages, row):
+        return model.insert_slot(cfg, cache, pages, row)
+
+    return extract, insert
+
+
+def make_resume_prefill(cfg: ArchConfig) -> Optional[Callable]:
+    """(params, cache, suffix (Ps,), row, length, start) -> (last logits
+    (V,), cache): the suffix prefill behind restored prefix pages (row
+    `row` already holds K/V rows [0, start) and the post-prefix recurrent
+    state).  None for an encoder-decoder."""
+    fn = get_model(cfg).resume_prefill
+    if fn is None:
+        return None
+
+    def resume(params, cache, suffix, row, length, start):
+        return fn(cfg, params, cache, suffix, row, length, start)
+
+    return resume
 
 
 def make_prefill_into_cache(cfg: ArchConfig, *,

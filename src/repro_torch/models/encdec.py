@@ -231,6 +231,14 @@ def prefill_into_cache(cfg: ArchConfig, params: Params,
     return logits, cache
 
 
+# One slot's pages for the host tier: the transformer's functions cover
+# every enc-dec leaf by shape (the 5-dim cross_k / cross_v like K/V panels
+# but never cut by `upto`, the 1-dim enc_pos clock on axis 0).  There is
+# no resume prefill: enc-dec prompts are keyed on audio frames.
+extract_slot_cache = T.extract_slot_cache
+insert_slot_cache = T.insert_slot_cache
+
+
 def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
                 tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,

@@ -1,11 +1,12 @@
 """Arch -> model functions, the port of `repro/models/registry.py`:
 decoder-only configs take `models/transformer.py`, encoder-decoder ones
 `models/encdec.py`.  The fields keep the reference's names for what the
-port has; the slot extract / insert and resume-prefill fields come with
-the host tier, the loss and logits with training."""
+port has (the loss and logits come with training).  The resume prefill
+is None for an encoder-decoder: its prompts are keyed on audio frames,
+not on token prefixes."""
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ArchConfig
@@ -23,9 +24,19 @@ class ModelFns(NamedTuple):
     # (cfg, params, cache, tokens (P,), row, length[, enc_embeds], *[,
     # enc_out]) -> (last logits (V,), cache)
     prefill_into_cache: Callable
+    # one slot's cache pages, the host tier's unit: (cfg, cache, row[,
+    # upto]) -> leaves / (cfg, cache, leaves, row) -> cache (in place)
+    extract_slot: Callable
+    insert_slot: Callable
+    # (cfg, params, cache, suffix (Ps,), row, length, start) -> (last
+    # logits (V,), cache): the suffix prefill behind restored prefix pages
+    resume_prefill: Optional[Callable]
 
 
 def get_model(cfg: ArchConfig) -> ModelFns:
     mod = encdec if cfg.enc_dec else transformer
     return ModelFns(mod.init_params, mod.init_cache, mod.decode_step,
-                    mod.decode_verify, mod.prefill_into_cache)
+                    mod.decode_verify, mod.prefill_into_cache,
+                    mod.extract_slot_cache, mod.insert_slot_cache,
+                    None if cfg.enc_dec
+                    else transformer.resume_prefill_into_cache)

@@ -1,8 +1,10 @@
 """Decoder-only models of the ported serve paths, from
 `repro/models/transformer.py`: init, the decode cache (a paged KV cache
 for attention layers, conv and SSM states for mamba layers), the
-single-token decode step, the speculative verify forward over T tokens
-and the prompt prefill into one cache row.
+single-token decode step, the speculative verify forward over T tokens,
+the prompt prefill into one cache row, one slot's pages out of and back
+into the cache (the host tier), and the resume prefill of a prompt's
+suffix behind restored prefix pages (the prefix cache).
 
 Parameters keep the reference's pytree layout, with the per-layer leaves
 stacked over `n_blocks`:
@@ -834,26 +836,29 @@ def prefill_into_cache(cfg: ArchConfig, params: Params,
 
 
 def write_prompt_kv(cache: Dict[str, Any],
-                    states: Dict[str, List[torch.Tensor]], row: int) -> None:
+                    states: Dict[str, List[torch.Tensor]], row: int,
+                    start: int = 0) -> None:
     """A prefill's K/V, IN PLACE: for each K/V leaf of `states` its
-    layers' (KH,P,hd) prompt rows, written at logical rows [0, P) of batch
-    row `row` through the page table (int8 pools by a per-page
-    quantize-scatter, `quant_kv_write_rows`)."""
+    layers' (KH,P,hd) rows, written at logical rows [start, start + P) of
+    batch row `row` through the page table (int8 pools by a per-page
+    quantize-scatter, `quant_kv_write_rows`).  `start` > 0 is a resume
+    prefill's suffix, behind restored prefix rows."""
     if not states:
         return
     pt = cache["page_table"]
     max_seq = cache[next(iter(states))].shape[3]
     p_len = next(iter(states.values()))[0].shape[1]
-    assert p_len <= max_seq, (p_len, max_seq)
+    assert start + p_len <= max_seq, (start, p_len, max_seq)
     ps = max_seq // pt.shape[1]
-    lrows = torch.arange(p_len, device=pt.device)
+    lrows = torch.arange(start, start + p_len, device=pt.device)
     phys = pt[row].long()[lrows // ps] * ps + lrows % ps
     for key, per_layer in states.items():
         upd = torch.stack(per_layer)                      # (L,KH,P,hd)
         if scale_key(key) in cache:
-            # int8 pool: per-page quantize-scatter of the P prompt rows
+            # int8 pool: per-page quantize-scatter of the P rows
             quant_kv_write_rows(cache[key], cache[scale_key(key)],
-                                upd.transpose(1, 2), row, pt[row], ps)
+                                upd.transpose(1, 2), row, pt[row], ps,
+                                start)
             continue
         cache[key][:, row].index_copy_(2, phys, upd.to(cache[key].dtype))
 
@@ -926,29 +931,301 @@ def quant_kv_update_stacked(pool: torch.Tensor, scales: torch.Tensor,
 
 def quant_kv_write_rows(pool: torch.Tensor, scales: torch.Tensor,
                         vals: torch.Tensor, row: int, prow: torch.Tensor,
-                        ps: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Scatter the T LOGICAL rows [0, T) of batch row `row` into an int8
-    pool and its page scales, IN PLACE: the prefill's write.  pool:
-    (L,B,KH,S,hd) int8; scales: (L,B,KH,n_pages); vals: (L,T,KH,hd) fp;
-    prow: (n_pages,) the row's logical -> physical page map; ps: the page
-    size.  Every page the rows touch starts fresh (the reference's start
-    = 0 case): its scale is its rows' absmax / 127, and the rows of its
-    last page past T are cleared.  Pages past the rows are untouched.
-    Returns (pool, scales)."""
+                        ps: int, start: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scatter the T LOGICAL rows [start, start + T) of batch row `row`
+    into an int8 pool and its page scales, IN PLACE: the prefill's write
+    (start 0) and a resume prefill's.  pool: (L,B,KH,S,hd) int8; scales:
+    (L,B,KH,n_pages); vals: (L,T,KH,hd) fp; prow: (n_pages,) the row's
+    logical -> physical page map; ps: the page size; start + T <= S.
+
+    A page whose first row is at or past `start` is wholly (re)written:
+    fresh scale, its rows' absmax / 127, the previous occupant's rows
+    cleared.  The boundary page (start % ps != 0, a resume only) merges
+    with the restored prefix's scale: its scale becomes the larger of
+    the two, the rows it keeps (the prefix rows, and any past the
+    written span) are re-quantized by old / new (exactly 1.0 when the
+    scale is unchanged), and the new rows are quantized under it.  Pages
+    past the rows are untouched.  Returns (pool, scales)."""
     l, b, kh, s, hd = pool.shape
     t = vals.shape[1]
-    n_live = -(-t // ps)
+    p0, off = divmod(int(start), ps)
+    n_live = -(-(off + t) // ps)          # pages touched, boundary first
+    tail = n_live * ps - off - t
     vf = vals.float()                                     # (L,T,KH,hd)
-    amax = F.pad(vf.abs().amax(dim=-1), (0, 0, 0, n_live * ps - t))
+    amax = F.pad(vf.abs().amax(dim=-1), (0, 0, off, tail))
     new_s = amax.reshape(l, n_live, ps, kh).amax(dim=2) * _INV_127
-    scale_t = new_s.repeat_interleave(ps, dim=1)[:, :t]   # (L,T,KH)
+    phys_pages = prow[p0:p0 + n_live].long()
+    blk_old = None
+    if off:
+        # (indices stay on the device: no host sync)
+        old = scales[:, row].index_select(2, phys_pages[:1])[..., 0]
+        new_s[:, 0] = torch.maximum(old, new_s[:, 0])     # (L,KH)
+        r = old / torch.clamp(new_s[:, 0], min=_SCALE_EPS)
+        first = phys_pages[0] * ps + torch.arange(ps, device=pool.device)
+        page = pool[:, row].index_select(2, first)        # (L,KH,ps,hd)
+        blk_old = torch.round(page.float() * r[:, :, None, None])
+    scale_t = new_s.repeat_interleave(ps, dim=1)[:, off:off + t]
     q_rows = torch.clamp(
         torch.round(vf / torch.clamp(scale_t, min=_SCALE_EPS)[..., None]),
         -127, 127)
-    blk = F.pad(q_rows, (0, 0, 0, 0, 0, n_live * ps - t))  # (L,n*ps,KH,hd)
-    phys_pages = prow[:n_live].long()
+    blk = F.pad(q_rows, (0, 0, 0, 0, off, tail))          # (L,n*ps,KH,hd)
+    if blk_old is not None:
+        kept = torch.arange(ps, device=pool.device)
+        kept = (kept < off) | (kept >= off + t)
+        blk[:, :ps] = torch.where(kept[None, :, None, None],
+                                  torch.clamp(blk_old.transpose(1, 2),
+                                              -127, 127), blk[:, :ps])
     rows_ph = (phys_pages[:, None] * ps
                + torch.arange(ps, device=pool.device)[None]).reshape(-1)
     pool[:, row][:, :, rows_ph] = blk.transpose(1, 2).to(pool.dtype)
     scales[:, row][:, :, phys_pages] = new_s.transpose(1, 2)
     return pool, scales
+
+
+# --------------------------------------------------------------------------
+# Per-slot cache pages: extract / insert (the host tier)
+# --------------------------------------------------------------------------
+
+def _is_self_kv(key: str) -> bool:
+    """Self-attention K/V leaves are k{pos} / v{pos}; conv{pos},
+    ssm{pos}, cross_k / cross_v and enc_pos are everything else."""
+    return key[0] in ("k", "v") and key[1:].isdigit()
+
+
+def _is_kv_scale(key: str) -> bool:
+    """Per-page scale leaves of an int8 K/V cache: kscale{pos} /
+    vscale{pos}."""
+    return key[:6] in ("kscale", "vscale") and key[6:].isdigit()
+
+
+def extract_slot_cache(cfg: ArchConfig, cache: Dict[str, Any], row: int,
+                       upto: Optional[int] = None) -> Dict[str, Any]:
+    """Batch row `row` of every cache leaf, as NEW tensors (gathered on
+    the current stream, so they are a staging copy that later writes to
+    the cache do not touch): ONE request's pages, the unit the host tier
+    evicts and the prefix cache stores.  5-dim panels (cross_k / cross_v)
+    and 4-dim conv windows keep a size-1 batch axis at position 1, the
+    1-dim `enc_pos` clock is sliced on axis 0; the scalar `pos` counter
+    and the `page_table` (placement belongs to the batch, not the
+    request) are left out.
+
+    Paged self-attention K/V leaves come out as 6-dim PAGE SETS (L, 1,
+    KH, n_pages, page, hd) in LOGICAL page order, and their int8 scales
+    (L, 1, KH, n_pages) in the same order, so a set restores under any
+    destination row's table.  `upto` truncates them to the pages that
+    hold the first `upto` rows (ceil(upto / page)): the prefix-page cut,
+    exact for any continuation by causality; the sub-page tail past
+    `upto` stays invisible behind the resume's validity `slot < start`."""
+    pt = cache.get("page_table")
+    out: Dict[str, Any] = {}
+    for key, leaf in cache.items():
+        if key in ("pos", "page_table"):
+            continue
+        if leaf.dim() == 1:                               # enc_pos (B,)
+            out[key] = leaf[row:row + 1].clone()
+            continue
+        if _is_self_kv(key) or _is_kv_scale(key):
+            n_p = pt.shape[1]
+            n_sel = n_p if upto is None else -(-upto // cache_page_size(cache))
+            prow = pt[row, :n_sel].long()
+            if _is_kv_scale(key):                         # (L,KH,n_p)
+                out[key] = leaf[:, row].index_select(2, prow)[:, None]
+                continue
+            l, _, kh, s, hd = leaf.shape
+            pages = leaf[:, row].view(l, kh, n_p, s // n_p, hd)
+            out[key] = pages.index_select(2, prow)[:, None]
+            continue
+        out[key] = leaf[:, row:row + 1].clone()
+    return out
+
+
+def insert_slot_cache(cfg: ArchConfig, cache: Dict[str, Any],
+                      leaves: Dict[str, Any], row: int) -> Dict[str, Any]:
+    """Write extracted pages into batch row `row`, IN PLACE (the server's
+    captured graphs hold the cache's tensors): the restore half of the
+    round trip, its inverse leaf for leaf, bit for bit.  A page set (and
+    its scales) is scattered through the DESTINATION row's page table,
+    logical page i to physical page table[row, i], so it restores under
+    any placement; a prefix-truncated set writes its pages and leaves
+    the rest as the previous occupant's, invisible behind the row's
+    clock.  Returns `cache`."""
+    pt = cache.get("page_table")
+    for key, val in leaves.items():
+        c = cache[key]
+        val = val.to(c.dtype)
+        if c.dim() == 1:
+            c[row:row + 1].copy_(val)
+        elif _is_kv_scale(key):
+            prow = pt[row, :val.shape[3]].long()
+            c[:, row].index_copy_(2, prow, val[:, 0])
+        elif _is_self_kv(key):
+            l, _, kh, s, hd = c.shape
+            n_p = pt.shape[1]
+            prow = pt[row, :val.shape[3]].long()
+            c[:, row].view(l, kh, n_p, s // n_p, hd).index_copy_(
+                2, prow, val[:, 0])
+        else:
+            c[:, row:row + 1].copy_(val)
+    return cache
+
+
+# --------------------------------------------------------------------------
+# Resume prefill: continue a prompt from restored prefix pages
+# --------------------------------------------------------------------------
+
+def _resume_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      k_row: torch.Tensor, v_row: torch.Tensor,
+                      start: int, window: int) -> torch.Tensor:
+    """Suffix-query attention as a two-partial softmax merge, in plain f32
+    torch as the reference's plain XLA (its products run with TF32 off,
+    PyTorch's default): partial A reads the slot's RESTORED prefix rows
+    [0, start) (and the window's bound under the global query positions
+    start + t), partial B is causal attention within the suffix; merging
+    their (acc, m, l) gives full-prompt attention in exact arithmetic, in
+    another summation order than the one-pass prefill kernel (so a
+    resumed prefill is token-equal, not bitwise).
+
+    q: (1,T,H,hd); k, v: (1,T,KH,hd) the suffix's; k_row, v_row: (1,KH,
+    S',hd) the restored rows in logical order (f32 or the model dtype),
+    S' >= start.  Returns (1,T,H,hd) in q's dtype."""
+    b, t, h, hd = q.shape
+    kh = k.shape[2]
+    s = k_row.shape[2]
+    dev = q.device
+    qf = (q.float() * hd ** -0.5).reshape(b, t, kh, h // kh, hd)
+    gpos = start + torch.arange(t, device=dev)
+    slots = torch.arange(s, device=dev)
+    valid = (slots[None, :] < start).expand(t, s)
+    if window > 0:
+        valid = valid & (slots[None, :] > gpos[:, None] - window)
+    valid = valid[None, :, None, None, :]
+    s1 = torch.einsum("btkgd,bksd->btkgs", qf, k_row.float())
+    s1 = torch.where(valid, s1, L.NEG_INF)
+    m1 = s1.amax(dim=-1)
+    p1 = torch.where(valid, torch.exp(s1 - m1[..., None]), 0.0)
+    l1 = p1.sum(dim=-1)
+    acc1 = torch.einsum("btkgs,bksd->btkgd", p1, v_row.float())
+    tri = torch.arange(t, device=dev)
+    cmask = tri[None, :] <= tri[:, None]
+    if window > 0:
+        cmask = cmask & (tri[None, :] > tri[:, None] - window)
+    cmask = cmask[None, :, None, None, :]
+    s2 = torch.einsum("btkgd,bukd->btkgu", qf, k.float())
+    s2 = torch.where(cmask, s2, L.NEG_INF)
+    m2 = s2.amax(dim=-1)
+    p2 = torch.where(cmask, torch.exp(s2 - m2[..., None]), 0.0)
+    l2 = p2.sum(dim=-1)
+    acc2 = torch.einsum("btkgu,bukd->btkgd", p2, v.float())
+    m = torch.maximum(m1, m2)
+    e1, e2 = torch.exp(m1 - m), torch.exp(m2 - m)
+    acc = acc1 * e1[..., None] + acc2 * e2[..., None]
+    l_ = l1 * e1 + l2 * e2
+    out = acc / torch.clamp(l_, min=1e-20)[..., None]
+    return out.reshape(b, t, h, hd).to(q.dtype)
+
+
+def _resume_mamba(cfg: ArchConfig, p: Params, x: torch.Tensor,
+                  conv0: torch.Tensor, ssm0: torch.Tensor,
+                  suffix_len: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`_prefill_mamba` continued from a restored recurrent state: the
+    causal conv starts from the restored width-1 input window and the SSD
+    scan (`ops.ssd_scan`, the kernel on the card) from the restored (NH,
+    P, N) state as its `init_state`.  dt is zeroed past the true suffix
+    length and the new conv window is cut there, as `_prefill_mamba`
+    masks its padded tail.  x: (1,S,D); conv0: (1,W-1,d_inner); ssm0:
+    (1,NH,P,N).  Returns (x, conv_state, ssm_state)."""
+    b, s, _ = x.shape
+    nh, hp, width = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.conv_width
+    z, xin, Bm, Cm, dt_raw, A = _mamba_proj(cfg, p, x)
+    dt = F.softplus(dt_raw)
+    conv0 = conv0.to(xin.dtype)
+    pad = torch.cat([conv0, xin], dim=1)
+    conv_state = pad[:, suffix_len:suffix_len + width - 1]
+    xc, _ = L.causal_conv1d(xin, p["conv_w"], conv0)
+    in_suffix = torch.arange(s, device=x.device) < suffix_len
+    dt = torch.where(in_suffix[None, :, None], dt, torch.zeros_like(dt))
+    y, ssm_state = ops.ssd_scan(xc.reshape(b, s, nh, hp), dt, A, Bm, Cm,
+                                ssm0.float())
+    return _mamba_out(p, x, y, xc, z), conv_state, ssm_state
+
+
+def _logical_rows(cache: Dict[str, Any], pi: int, layer: int, row: int,
+                  n_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pattern position pi's K and V rows [0, n_rows) of batch row `row`
+    at `layer`, in logical order through the page table, each (1, KH,
+    n_rows, hd); dequantized to f32 under their page scales on an int8
+    cache (n_rows a multiple of the page size)."""
+    pt = cache["page_table"]
+    out = []
+    for name in (f"k{pi}", f"v{pi}"):
+        c = cache[name][layer, row]                       # (KH,S,hd)
+        kh, s, hd = c.shape
+        n_p = pt.shape[1]
+        ps = s // n_p
+        prow = pt[row, :n_rows // ps].long()
+        rows = c.view(kh, n_p, ps, hd).index_select(1, prow)
+        if scale_key(name) in cache:
+            sc = cache[scale_key(name)][layer, row].index_select(1, prow)
+            rows = rows.float() * sc[..., None, None]
+        out.append(rows.reshape(1, kh, n_rows, hd))
+    return out[0], out[1]
+
+
+def resume_prefill_into_cache(cfg: ArchConfig, params: Params,
+                              cache: Dict[str, Any], tokens: torch.Tensor,
+                              row: int, length: int, start: int
+                              ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Prefill ONLY the suffix of a prompt whose first `start` tokens'
+    pages were just restored into row `row` (a prefix-cache partial
+    hit): K/V rows [0, start) and the post-prefix recurrent state.
+    tokens: (Ps,) the padded suffix; length: the TRUE prompt length
+    (start + the suffix's); start + Ps <= max_seq.
+
+    Attention layers merge a partial over the restored rows with a causal
+    one over the suffix (`_resume_attention`, plain f32: token-equal to a
+    full prefill, not bitwise); mamba layers continue the recurrence from
+    the restored state (`_resume_mamba`, through the ssd_scan kernel with
+    `init_state`).  Suffix junk past `length` is harmless as in
+    `prefill_into_cache`.  Writes IN PLACE: the suffix's K/V at logical
+    rows [start, start + Ps) through the page table (int8 pools by
+    `quant_kv_write_rows` with its boundary page), each mamba layer's
+    new states.  Returns (last-token logits (V,), cache)."""
+    _check_supported(cfg)
+    t_len = tokens.shape[0]
+    suffix_len = length - start
+    assert 0 < start and 0 < suffix_len <= t_len, (start, length, t_len)
+    x = params["embed"][tokens[None]]                     # (1,Ps,D)
+    positions = start + torch.arange(t_len, dtype=torch.int32,
+                                     device=x.device)[None]
+    n_rows = 0
+    if cfg.has_attention:
+        ps = cache_page_size(cache)
+        n_rows = -(-start // ps) * ps          # the pages holding [0, start)
+    states: Dict[str, List[torch.Tensor]] = {}
+    for i in range(cfg.n_blocks):
+        for pi, (kind, block) in enumerate(zip(cfg.block_pattern,
+                                               params["blocks"])):
+            p = _layer(block, i)
+            if kind == "mamba":
+                conv, ssm = cache[f"conv{pi}"][i], cache[f"ssm{pi}"][i]
+                x, conv_s, ssm_s = _resume_mamba(
+                    cfg, p["mamba"], x, conv[row][None], ssm[row][None],
+                    suffix_len)
+                conv[row] = conv_s[0]
+                ssm[row] = ssm_s[0]
+            else:
+                q, k, v = _qkv(cfg, p["attn"], x, positions)
+                k_row, v_row = _logical_rows(cache, pi, i, row, n_rows)
+                o = _resume_attention(q, k, v, k_row, v_row, start,
+                                      _window(cfg, kind))
+                x = x + matmul(o.reshape(1, t_len, -1), p["attn"]["wo"])
+                states.setdefault(f"k{pi}", []).append(k[0].transpose(0, 1))
+                states.setdefault(f"v{pi}", []).append(v[0].transpose(0, 1))
+            if cfg.d_ff > 0:
+                x = ffn_layer(cfg, p["ffn"], x, _is_moe_pos(cfg, pi))
+    x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
+    logits = x[0, suffix_len - 1] @ params["embed"].T     # (V,)
+    write_prompt_kv(cache, states, row, start)
+    return logits, cache

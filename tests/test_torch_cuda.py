@@ -37,7 +37,12 @@ A graphed speculative server (self:1 draft) equals its eager twin bit
 for bit, the draft cache included, and launches one fused decode a
 layer for every draft step and every verify query; a full-depth
 self-draft accepts every greedy draft at verify row counts below and
-above 16."""
+above 16.  The host tier: snapshots land in pinned memory through copies
+on the side stream that sync nothing; an evicting server (a slot evicted
+and admitted into in one fill, requests restored into other slots)
+equals a non-evicting one and its eager twin bit for bit; a prefix full
+hit equals the no-cache stream bit for bit; the resume's int8 boundary
+page write equals the same function on the CPU bit for bit."""
 import numpy as np
 import pytest
 
@@ -1168,3 +1173,227 @@ def test_moe_ffn_on_the_card_syncs_nothing(cuda):
         assert torch.equal(rolled.roll(-shift, 0), base), shift
     mates = torch.cat([rows[:1], x[8:11]])
     assert torch.equal(L.moe_ffn(mates, router, *w, k)[0], base[0])
+
+
+# --------------------------------------------------------------------------
+# The host tier: pinned snapshots on the side stream, evict / restore
+# --------------------------------------------------------------------------
+
+from repro_torch.models import transformer as T               # noqa: E402
+
+
+def _tier_cache(dev, kv_quant=None):
+    """A smoke starcoder2_3b cache of 3 rows on `dev`, random contents,
+    permuted page tables of 4-row pages."""
+    cfg = tserve.get_smoke_config("starcoder2_3b")
+    cache = T.init_cache(cfg, 3, 16, device=dev, page_size=4,
+                         kv_quant=kv_quant)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for k, v in cache.items():
+        if k == "page_table":
+            v.copy_(torch.stack([torch.randperm(4, generator=gen, device=dev)
+                                 for _ in range(3)]).to(torch.int32))
+        elif v.is_floating_point():
+            v.copy_(torch.randn(v.shape, generator=gen, device=dev))
+        elif k != "pos":
+            v.copy_(torch.randint(-127, 128, v.shape, generator=gen,
+                                  device=dev))
+    return cfg, cache
+
+
+def test_snapshot_is_pinned_and_copied_on_the_side_stream(cuda):
+    """Evicted pages land in pinned host tensors through copies that wait
+    on nothing the host does (sync debug mode "error") and run on the side
+    stream: they finish while work queued on the serving stream after
+    them still runs, and a restore's copies finish while work queued
+    before them still runs.  The round trip is bitwise; a pageable leaf
+    bound for the card raises."""
+    cfg, cache = _tier_cache(cuda, "int8")
+    main = torch.cuda.current_stream()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        leaves = T.extract_slot_cache(cfg, cache, 1)
+        snap = bs.stream_offload_to_host(leaves, chunks=3)
+        torch.cuda._sleep(2_000_000_000)       # ~1 s on the serving stream
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    snap.event.synchronize()
+    assert not main.query(), "the copies waited for later serving work"
+    host = snap.materialize()
+    assert all(t.is_pinned() and t.device.type == "cpu"
+               for t in host.values())
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)
+    back = bs.stream_offload_to_device(host, cuda, chunks=3)
+    bs._side_stream(cuda).synchronize()
+    assert not main.query(), "the restore's copies waited for the stream"
+    zero = {k: (v if k in ("pos", "page_table") else torch.zeros_like(v))
+            for k, v in cache.items()}
+    T.insert_slot_cache(cfg, zero, back, 1)
+    for k, v in cache.items():
+        if k not in ("pos", "page_table"):
+            assert torch.equal(zero[k][:, 1], v[:, 1]), k
+    with pytest.raises(ValueError, match="pinned"):
+        bs.stream_offload_to_device({"x": torch.zeros(4)}, cuda)
+
+
+class _Tracked(tserve.BatchedServer):
+    """Records where each request was evicted from and restored to, and
+    the fills that admitted into a slot evicted in the same fill."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.moves, self.same_fill, self._evicted_now = [], 0, set()
+
+    def _fill_slots(self):
+        self._evicted_now = set()
+        super()._fill_slots()
+
+    def suspend_slot(self, slot):
+        self.moves.append(("out", self.active[slot].rid, slot))
+        self._evicted_now.add(slot)
+        super().suspend_slot(slot)
+
+    def _restore(self, slot, req):
+        self.moves.append(("in", req.rid, slot))
+        return super()._restore(slot, req)
+
+    def _admit(self, slot, req):
+        self.same_fill += slot in self._evicted_now
+        return super()._admit(slot, req)
+
+
+class _TrackedEager(_Tracked):
+    def _segment_fns(self, fns, *statics):
+        return fns
+
+
+def _tier_serve(cls, arch, *, params=None, **kw):
+    srv = cls(arch, smoke=True, device="cuda", batch_slots=2, max_seq=64,
+              seg_len=4, stream=True, params=params, **kw)
+    rng = np.random.default_rng(5)
+    for i in range(5):
+        pr = rng.integers(1, srv.cfg.vocab, int(rng.integers(4, 10)))
+        max_new = int(rng.integers(6, 20))
+        sp = (tserve.SamplingParams(temperature=0.8, top_p=0.9, seed=i)
+              if i % 2 else None)
+        srv.submit(tserve.Request(i, pr.astype(np.int32), max_new,
+                                  sampling=sp))
+    kbuild.reset_launch_counts()
+    srv.run_until_drained()
+    torch.cuda.synchronize()
+    return srv, {r.rid: r.generated for r in srv.completed}
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("starcoder2_3b", {}),
+    ("starcoder2_3b", dict(quant=QuantConfig(kv="int8"))),
+    ("starcoder2_3b", dict(spec=True, spec_k=2, draft_arch="self:1")),
+    ("mamba2_370m", {})])
+def test_evict_admit_restore_elsewhere_bitwise(cuda, arch, kw):
+    """5 requests over 2 slots, evict_after 1, graphed: some slot is
+    evicted and admitted into in one fill, some request restored into
+    another slot than it left, and every stream equals the non-evicting
+    server's and the eager evicting twin's (the cache at drain too)."""
+    srv, toks = _tier_serve(_Tracked, arch, host_offload=True, **kw)
+    _, base = _tier_serve(tserve.BatchedServer, arch, params=srv.params,
+                          **kw)
+    eager, e_toks = _tier_serve(_TrackedEager, arch, params=srv.params,
+                                host_offload=True, **kw)
+    assert toks == base == e_toks
+    assert srv.same_fill > 0
+    left = {rid: slot for way, rid, slot in srv.moves if way == "out"}
+    assert any(way == "in" and left[rid] != slot
+               for way, rid, slot in srv.moves)
+    assert srv.restores + srv.restored_dead == srv.evictions > 0
+    assert srv.graph_replays == srv.segments_dispatched
+    assert all(torch.equal(srv.cache[k], eager.cache[k]) for k in srv.cache)
+    assert srv.moves == eager.moves
+
+
+@pytest.mark.parametrize("arch", ["starcoder2_3b", "mamba2_370m"])
+def test_prefix_cache_on_the_card(cuda, arch):
+    """A miss, a full hit and a partial hit, graphed: the full hit's
+    stream (first token from the stored logits) equals the no-cache
+    server's bitwise; mamba's resume runs the scan kernel from the
+    restored state (one `ssd_scan_init` launch a layer)."""
+    rng = np.random.default_rng(3)
+    vocab = tserve.get_smoke_config(arch).vocab
+    common = rng.integers(1, vocab, 9)
+    ext = np.concatenate([common, rng.integers(1, vocab, 5)])
+
+    def run(prefix_cache, params=None):
+        srv = tserve.BatchedServer(arch, smoke=True, device="cuda",
+                                   batch_slots=2, max_seq=64, seg_len=4,
+                                   stream=True, params=params,
+                                   prefix_cache=prefix_cache)
+        for i, pr in enumerate((common, common, ext)):
+            srv.submit(tserve.Request(i, pr.astype(np.int32), 8))
+        kbuild.reset_launch_counts()
+        srv.run_until_drained()
+        torch.cuda.synchronize()
+        return srv, {r.rid: r.generated for r in srv.completed}, \
+            dict(kbuild.LAUNCHES)
+
+    pc, got, launches = run(True)
+    _, want, _ = run(False, pc.params)
+    assert (pc.prefix_hits_full, pc.prefix_hits_partial,
+            pc.prefix_misses) == (1, 1, 1)
+    assert got[0] == want[0] and got[1] == want[1]
+    if arch == "mamba2_370m":
+        assert launches["ssd_scan_init"] == pc.cfg.n_layers
+        assert launches["ssd_scan"] == 2 * pc.cfg.n_layers
+
+
+def test_resume_int8_boundary_page_on_the_card(cuda):
+    """`quant_kv_write_rows` from start 130 (a boundary page of 128 rows
+    merging with the restored prefix's scale) on the card equals the same
+    function on the CPU bit for bit, and syncs nothing."""
+    l, b, kh, s, hd, ps = 2, 3, 8, 1024, 128, 128
+    gen = torch.Generator().manual_seed(0)
+    pool = torch.randint(-127, 128, (l, b, kh, s, hd), generator=gen,
+                         dtype=torch.int8)
+    scales = torch.rand((l, b, kh, s // ps), generator=gen) * 0.03
+    vals = torch.randn((l, 200, kh, hd), generator=gen) * 3
+    prow = torch.randperm(s // ps, generator=gen).to(torch.int32)
+    dev = [t.to(cuda) for t in (pool, scales, vals.bfloat16().float(),
+                                prow)]
+    want = T.quant_kv_write_rows(pool.clone(), scales.clone(),
+                                 vals.bfloat16().float(), 1, prow, ps, 130)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = T.quant_kv_write_rows(dev[0], dev[1], dev[2], 1, dev[3], ps,
+                                    130)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_slot_state_writes_sync_nothing(cuda):
+    """Admitting, saving and restoring a slot's state, and a seed's key,
+    wait on nothing (CUDA sync debug mode "error"): their host values
+    reach the card as fill arguments, not as copies.  The restored row
+    equals the saved one."""
+    from repro_torch.launch import steps
+    state = steps.init_slot_state(3, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        key = prng.PRNGKey(3, cuda)
+        state = steps.admit_slot(state, 1, token=7, position=11, key=key,
+                                 remaining=6, temperature=0.7, top_k=12,
+                                 top_p=0.9, min_p=0.05, stop=(5, 9))
+        snap = bs.stream_offload_to_host(steps.save_slot_state(state, 1))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    saved = snap.materialize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        back = steps.restore_slot(state, 2, saved)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for t in steps.state_tensors(back):
+        assert torch.equal(t[2], t[1])
