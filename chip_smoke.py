@@ -111,6 +111,26 @@ through a resume at near ties (mamba: printed in bf16, gated in f32),
 mamba's resume on the `ssd_scan` kernel from `init_state`
 (`LAUNCHES["ssd_scan_init"]`), and admission ms with a full hit, a
 partial hit and without.
+The `[chunked]` lines admit a long prompt in chunks, one between two
+decode segments (`prefill_chunk`), under axle, seg_len 8, streamed, each
+run against a twin without the long request and one that admits it in
+one shot, on the same weights from seed 0: starcoder2_3b fp (5 slots of
+10,240 rows, 4 greedy requests of 64-400 tokens x 64 in flight, then a
+10,000-token prompt x 32 in 20 chunks of 512), q8_0 + int8 KV (3 slots
+of 2,304, 2 requests in flight, a 2,000-token prompt in 11 chunks of 192,
+starting mid-page) and mamba2_370m (the fp shape; in f32 the long
+request alone, chunked == one-shot bitwise): the in-flight tokens ==
+the no-admission twin's bitwise and retired at the same decode syncs,
+the chunks counted, every segment while a slot is reserved the
+write-masked graph, the long request == its one-shot twin up to near
+ties (printed for q8_0 and bf16 mamba); with a chunk's host ms, its span
+on the stream and its device ms, the in-flight rows' longest gap between
+segments and their tok/s in all three runs, and peak memory.  Inside
+`[archs]`, gemma3_12b admits two 1,500-token prompts in chunks of 512
+across its window, held to its one-shot serve by the near-tie gate.  The
+`[quickstart]` line runs the ported quickstart on the card: the
+simulator's AXLE runtime reduction on workload (e), and BS vs AXLE decode
+attention within 1e-5.
 Before serving, it drives the paper's two offload workloads through
 `stream_offload` under BS, RP and AXLE, data from seed 0 on the card:
   * KNN (VectorDB): 256 queries against a 1,000,000 x 1024 bf16 database
@@ -227,6 +247,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import re
@@ -271,7 +292,7 @@ try:
                                              stream_offload_to_device,
                                              stream_offload_to_host,
                                              use_offload)
-    from repro_torch.examples import knn_offload, serve_offload
+    from repro_torch.examples import knn_offload, quickstart, serve_offload
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import knn as kknn
@@ -2979,6 +3000,35 @@ print(f"[archs] {G3}: the window bites: with every layer \"full\" on the "
       f"{', '.join(f'{x:.4g}' for x in apart)}); "
       f"request 1 alone == its row in the batch, bitwise; "
       f"{G3} phase {time.perf_counter() - t0:.1f} s", flush=True)
+# chunked admission across the window: two 1,500-token prompts x 16 in
+# chunks of 512 (3 each; the later chunks resume over the restored rows
+# under the window), against the one-shot serve of the same
+G3_LONG, G3_CHUNK = 1500, 512
+g3_long = arch_requests(g3cfg.vocab, (G3_LONG, G3_LONG), 16, 23)
+t0 = time.perf_counter()
+srv, g3c_toks, g3c_launches, g3c_dt = serve(
+    g3_long, params=g3_params, arch=G3, max_seq=G3_SEQ, protocol="axle",
+    stream=True, prefill_chunk=G3_CHUNK)
+check(srv.prefill_chunks == 2 * -(-G3_LONG // G3_CHUNK)
+      and g3c_launches["flash_attention"] == 2 * g3cfg.n_layers
+      == g3c_launches["flash_attention_tc"],
+      f"[archs] {G3} chunked: {srv.prefill_chunks} chunks, launches "
+      f"{g3c_launches}")
+g3c_host = srv.prefill_chunk_time / srv.prefill_chunks * 1e3
+del srv
+_, g3o_toks, _, g3o_dt = serve(copies(g3_long), params=g3_params, arch=G3,
+                               max_seq=G3_SEQ, protocol="axle", stream=True)
+g3c_vs = near_tie_agrees(f"[archs] {G3} chunked vs one-shot", g3c_toks,
+                         g3o_toks, g3_long, arch_cfg=g3cfg,
+                         weights=g3_params, max_seq=G3_SEQ)
+print(f"[chunked] {G3}: two {G3_LONG}-token prompts x 16 in chunks of "
+      f"{G3_CHUNK} ({2 * -(-G3_LONG // G3_CHUNK)} chunks, the first of each "
+      f"through the flash kernel: "
+      f"{g3c_launches['flash_attention']} launches, the rest resumed across "
+      f"the {W}-token window): tokens {g3c_vs} the one-shot serve's "
+      f"(near-tie gate {NEAR_TIE}); a chunk's host dispatch {g3c_host:.2f} "
+      f"ms (mean); {g3c_dt:.3f} s chunked, {g3o_dt:.3f} s one-shot; phase "
+      f"{time.perf_counter() - t0:.1f} s", flush=True)
 del g3_params, g3_kern, nowin
 
 # mistral_nemo_12b: the ported serve_offload example at full width (3
@@ -4397,6 +4447,314 @@ print(f"[tier] peak pinned host memory held: {tier_peak['snapshots'] / 1e6:.1f}"
       f" MB of evicted snapshots (one serve), "
       f"{tier_peak['prefix'] / 1e6:.1f} MB of prefix pages; phase "
       f"{time.perf_counter() - TIER_T0:.1f} s; "
+      f"{time.perf_counter() - T_START:.0f} s into the script; {SMI_LINE}",
+      flush=True)
+
+# --------------------------------------------------------------------------
+# 6f. chunked admission prefill at full width, under axle, seg_len 8,
+# streamed: a long prompt admitted in chunks, one between two decode
+# segments, while greedy requests decode; each run against a twin without
+# the long request and one that admits it in one shot.  starcoder2_3b fp
+# (10,000 tokens in chunks of 512) and q8_0 + int8 KV (2,000 in chunks of
+# 192), mamba2_370m (10,000 in chunks of 512), each from seed 0; then the
+# ported quickstart
+# --------------------------------------------------------------------------
+
+CHUNK_T0 = time.perf_counter()
+LONG_RID = 99
+
+
+class ChunkServer(BatchedServer):
+    """The server with its chunked admissions recorded: each chunk's host
+    dispatch seconds and timing events on the serving stream around it,
+    each segment's end (a timing event), its rows, its variant and
+    whether a slot was reserved then, and each request's decode syncs and
+    host time at retirement.  The long request (rid LONG_RID) waits
+    outside the queue until 2 segments have been dispatched (or nothing
+    else is left), so that it arrives while the others decode."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.held, self.t_start = [], None
+        self.chunk_host, self.chunk_events, self.segs = [], [], []
+        self.retire_syncs, self.retire_t = {}, {}
+        self._rows = ()
+
+    def submit(self, req):
+        if req.rid == LONG_RID and self.segments_dispatched < 2:
+            req.generated = []
+            self.held.append(req)
+            return
+        super().submit(req)
+
+    def _fill_slots(self):
+        if self.t_start is None:
+            self.t_start = time.perf_counter()
+        if self.held and (self.segments_dispatched >= 2 or not (
+                self.queue or any(r is not None for r in self.active))):
+            self.queue.extend(self.held)
+            self.held = []
+        super()._fill_slots()
+
+    def _dispatch_rows(self, seg_len):
+        rows, plain = super()._dispatch_rows(seg_len)
+        self._rows = {req.rid for req, _ in rows.values()}
+        return rows, plain
+
+    def _run_segment(self, fn):
+        out = super()._run_segment(fn)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        self.segs.append((end, self._rows, fn is self.segment_plain_fn,
+                          bool(self.prefilling)))
+        return out
+
+    def _consume_segment(self, *a, **kw):
+        super()._consume_segment(*a, **kw)
+        for r in self.completed:
+            if r.rid not in self.retire_syncs:
+                self.retire_syncs[r.rid] = self.decode_syncs
+                self.retire_t[r.rid] = time.perf_counter()
+
+    def _pump_prefill(self):
+        if not self.prefilling:
+            return
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        host = self.prefill_chunk_time
+        a.record()
+        super()._pump_prefill()
+        b.record()
+        self.chunk_host.append((self.prefill_chunk_time - host) * 1e3)
+        self.chunk_events.append((a, b))
+
+
+def chunk_serve(reqs, chunk, **kw):
+    """Three drained runs on the same weights: the in-flight requests
+    alone, then with the long one admitted in chunks of `chunk`, then in
+    one shot.  Returns the three (server, tokens, launches, dt)."""
+    short = [r for r in reqs if r.rid != LONG_RID]
+    base = serve(copies(short), cls=ChunkServer, **kw)
+    kw["params"] = base[0].params
+    torch.cuda.reset_peak_memory_stats()
+    chunked = serve(copies(reqs), cls=ChunkServer, prefill_chunk=chunk, **kw)
+    chunked[0].peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    one = serve(copies(reqs), cls=ChunkServer, **kw)
+    return base, chunked, one
+
+
+def inflight(srv, rids):
+    """tok/s of the in-flight requests (their tokens over the host time
+    from the run's first fill to the last one's retirement) and the
+    longest gap between two consecutive segments that carried one of
+    them (timing events at each segment's end)."""
+    n_tok = sum(len(r.generated) for r in srv.completed if r.rid in rids)
+    span = max(srv.retire_t[r] for r in rids) - srv.t_start
+    ends = [e for e, rows, _, _ in srv.segs if rows & rids]
+    gap = max(a.elapsed_time(b) for a, b in zip(ends, ends[1:]))
+    return n_tok / span, gap
+
+
+def chunk_checks(label, base, chunked, one, n_chunks, long_len):
+    """In-flight tokens bitwise the no-admission twin's and retired at
+    the same decode syncs; the chunks counted; every segment while a slot
+    was reserved the write-masked variant (the plain one ran before and
+    after); the long request served in full."""
+    (b, b_toks, _, _), (c, c_toks, _, _), (o, o_toks, _, _) = \
+        base, chunked, one
+    rids = set(b_toks)
+    check({r: c_toks[r] for r in rids} == b_toks
+          and {r: o_toks[r] for r in rids} == b_toks,
+          f"[chunked] {label}: in-flight tokens differ from the "
+          "no-admission twin's")
+    check({r: c.retire_syncs[r] for r in rids} == b.retire_syncs,
+          f"[chunked] {label}: in-flight rows retired at decode syncs "
+          f"{ {r: c.retire_syncs[r] for r in rids} } vs {b.retire_syncs}")
+    check(c.prefill_chunks == n_chunks and o.prefill_chunks == 0,
+          f"[chunked] {label}: {c.prefill_chunks} chunks, want {n_chunks}")
+    reserved = [plain for _, _, plain, res in c.segs if res]
+    check(reserved and not any(reserved)
+          and any(plain for _, _, plain, res in c.segs if not res),
+          f"[chunked] {label}: segment variants while reserved {reserved}")
+    check(len(c_toks[LONG_RID]) == len(o_toks[LONG_RID])
+          and len(c.chunk_host) == n_chunks,
+          f"[chunked] {label}: the long request was not served in full")
+    torch.cuda.synchronize()
+    stream_ms = [a.elapsed_time(b) for a, b in c.chunk_events]
+    return rids, stream_ms
+
+
+def chunk_device_ms(srv, prompt, chunk):
+    """Each chunk's device time under the profiler, replayed into slot 0
+    of the drained server at the serve's shapes."""
+    toks = torch.from_numpy(np.concatenate([prompt, np.zeros(
+        (-len(prompt)) % chunk, np.int32)])).to(DEV)
+    out = []
+    with use_offload(srv.offload):
+        for start, size in srv.chunked.plan(len(prompt), chunk):
+            part = toks[start:start + chunk]
+            if start == 0:
+                fn = functools.partial(srv.chunked.first, srv.params,
+                                       srv.cache, part, 0, size)
+            else:
+                fn = functools.partial(srv.chunked.resume, srv.params,
+                                       srv.cache, part, 0, start + size,
+                                       start)
+            out.append(busy_ms(fn)[0])
+    return out
+
+
+def spread(xs):
+    return (f"first {xs[0]:.2f}, mean {statistics.mean(xs):.2f}, max "
+            f"{max(xs):.2f}")
+
+
+def chunk_line(label, base, chunked, one, rids, stream_ms, device, extra):
+    (b, _, _, _), (c, _, c_launches, _), (o, _, _, _) = base, chunked, one
+    tps = {k: inflight(s, rids) for k, s in (("base", b), ("chunked", c),
+                                             ("one-shot", o))}
+    print(f"[chunked] {label}: in-flight tokens == the no-admission twin's "
+          f"bitwise, retired at the same decode syncs; {c.prefill_chunks} "
+          f"chunks, every segment while the slot was reserved the "
+          f"write-masked graph, all {c.graph_replays} segments replays; "
+          f"a chunk's host dispatch ms {spread(c.chunk_host)}, its span on "
+          f"the serving stream ms {spread(stream_ms)}, its device ms "
+          f"(profiler, replayed) {spread(device)}; the in-flight rows' "
+          f"longest gap between segments: "
+          + ", ".join(f"{k} {v[1]:.2f} ms" for k, v in tps.items())
+          + "; in-flight tok/s: "
+          + ", ".join(f"{k} {v[0]:.1f}" for k, v in tps.items())
+          + f"; launches {routes_of(c_launches, 'flash_attention', 'decode_attention_fused', 'decode_attention_fused[int8]', 'ssd_scan', 'quant_matmul[q8_0]')}"
+          + f"; {extra}peak device memory {c.peak_gb:.2f} GB; "
+          f"{SMI_LINE}", flush=True)
+
+
+# starcoder2_3b fp: 5 slots of 10,240 rows, 4 greedy requests of 64-400
+# tokens x 64 in flight (no stop tokens: only the reservation keeps the
+# plain graph away), then a 10,000-token prompt x 32 in 20 chunks of 512
+LONG, CHUNK, LONG_SEQ = 10_000, 512, 10_240
+c_reqs = make_requests(4, 64, 400, 64) + [Request(LONG_RID, rng.integers(
+    1, cfg.vocab, LONG).astype(np.int32), 32)]
+cb, cc, co = chunk_serve(c_reqs, CHUNK, batch_slots=5, max_seq=LONG_SEQ,
+                         protocol="axle", stream=True)
+N_CHUNKS = -(-LONG // CHUNK)                                    # 20
+c_rids, c_stream = chunk_checks(f"{ARCH} fp", cb, cc, co, N_CHUNKS, LONG)
+c_launches = cc[2]
+check(c_launches["flash_attention"] == 5 * n_layers
+      == c_launches["flash_attention_tc"]
+      and c_launches["decode_attention_fused"] == cc[0].steps * n_layers,
+      f"[chunked] {ARCH}: launches {c_launches}")
+c_vs = near_tie_agrees(f"[chunked] {ARCH} long request vs one-shot",
+                       {LONG_RID: cc[1][LONG_RID]},
+                       {LONG_RID: co[1][LONG_RID]}, c_reqs[-1:],
+                       weights=cc[0].params, max_seq=LONG_SEQ)
+c_dev = chunk_device_ms(cc[0], c_reqs[-1].prompt, CHUNK)
+chunk_line(f"{ARCH} fp, 5 slots, max_seq {LONG_SEQ}, 4 greedy requests "
+           f"(prompts {[len(r.prompt) for r in c_reqs[:4]]}) x 64 in flight, "
+           f"a {LONG}-token prompt x 32 in chunks of {CHUNK}", cb, cc, co,
+           c_rids, c_stream, c_dev,
+           f"the long request {c_vs} its one-shot twin (near-tie gate "
+           f"{NEAR_TIE}); ")
+t_params = cc[0].params
+del cb, cc, co
+torch.cuda.empty_cache()
+
+# starcoder2_3b q8_0 weights + int8 KV: 3 slots of 2,304 rows, 2 requests
+# of 64-190 tokens in flight (shorter than a chunk: admitted in one shot),
+# a 2,000-token prompt x 32 in 11 chunks of 192 (starts mid-page: the
+# boundary pages merge their scales)
+q_params = quantize_params(t_params, "q8_0")
+del t_params
+torch.cuda.empty_cache()
+Q_LONG, Q_CHUNK, Q_SEQ = 2_000, 192, 2_304
+cq_reqs = make_requests(2, 64, Q_CHUNK - 2, 64) + [Request(LONG_RID, rng.integers(
+    1, cfg.vocab, Q_LONG).astype(np.int32), 32)]
+qb, qc, qo = chunk_serve(cq_reqs, Q_CHUNK, params=q_params, batch_slots=3,
+                         max_seq=Q_SEQ, protocol="axle", stream=True,
+                         quant=QuantConfig(kv="int8"))
+Q_CHUNKS = -(-Q_LONG // Q_CHUNK)                                # 11
+q_rids, q_stream = chunk_checks(f"{ARCH} q8_0 + int8 KV", qb, qc, qo,
+                                Q_CHUNKS, Q_LONG)
+per_fwd = qb[2]["quant_matmul[q8_0]_tc"] // qb[0].prefill_forwards
+check(per_fwd > 0
+      and qc[2]["quant_matmul[q8_0]_tc"] == (2 + Q_CHUNKS) * per_fwd
+      and qc[2]["decode_attention_fused[int8]"] == qc[0].steps * n_layers,
+      f"[chunked] {ARCH} q8_0: launches {qc[2]}, {per_fwd} tensor-core "
+      "products a prefill")
+q_parts = partings({LONG_RID: qc[1][LONG_RID]}, {LONG_RID: qo[1][LONG_RID]},
+                   cq_reqs[-1:], weights=q_params, kv_quant="int8",
+                   max_seq=Q_SEQ)
+q_dev = chunk_device_ms(qc[0], cq_reqs[-1].prompt, Q_CHUNK)
+chunk_line(f"{ARCH} q8_0 + int8 KV, 3 slots, max_seq {Q_SEQ}, 2 requests "
+           f"(prompts {[len(r.prompt) for r in cq_reqs[:2]]}) x 64 in "
+           f"flight, a {Q_LONG}-token prompt x 32 in chunks of "
+           f"{Q_CHUNK}", qb, qc, qo, q_rids, q_stream, q_dev,
+           f"{per_fwd} tensor-core quant_matmul launches a prefill forward, "
+           f"{(2 + Q_CHUNKS) * per_fwd} = (2 + {Q_CHUNKS}) x that; the long "
+           f"request vs "
+           f"one-shot (printed, not gated): "
+           f"{describe(q_parts) if q_parts else 'equal'}; ")
+del qb, qc, qo, q_params
+torch.cuda.empty_cache()
+
+# mamba2_370m: the same shape as starcoder2_3b fp; the chunks after the
+# first start the scan from the previous chunk's state (init_state)
+cm_reqs = make_requests(4, 64, 400, 64, mcfg.vocab) + [Request(
+    LONG_RID, rng.integers(1, mcfg.vocab, LONG).astype(np.int32), 32)]
+mb, mc, mo = chunk_serve(cm_reqs, CHUNK, arch=MAMBA, batch_slots=5,
+                         max_seq=LONG_SEQ, protocol="axle", stream=True)
+m_rids, m_stream = chunk_checks(MAMBA, mb, mc, mo, N_CHUNKS, LONG)
+n_ml = mcfg.n_layers
+check(mc[2]["ssd_scan_init"] == (N_CHUNKS - 1) * n_ml
+      and mc[2]["ssd_scan_tc"] == mc[2]["ssd_scan"]
+      == (4 + N_CHUNKS) * n_ml,
+      f"[chunked] {MAMBA}: launches {mc[2]}")
+m_bf16 = ("equal to" if mc[1][LONG_RID] == mo[1][LONG_RID] else
+          f"parts from (at token "
+          f"{next(i for i, (x, y) in enumerate(zip(mc[1][LONG_RID], mo[1][LONG_RID])) if x != y)})")
+m_dev = chunk_device_ms(mc[0], cm_reqs[-1].prompt, CHUNK)
+cm_params = as_f32(mc[0].params)
+cm_m32 = dataclasses.replace(mcfg, dtype="float32")
+chunk_line(f"{MAMBA}, the same shape", mb, mc, mo, m_rids, m_stream, m_dev,
+           f"the long request in bf16 {m_bf16} its one-shot twin (printed, "
+           "not gated); ")
+del mb, mc, mo
+torch.cuda.empty_cache()
+# f32 arithmetic: the long request alone, chunked and in one shot, bitwise
+m32c, m32c_toks, m32c_launches, _ = serve(
+    copies(cm_reqs[-1:]), params=cm_params, arch=MAMBA, cfg=cm_m32,
+    batch_slots=5, max_seq=LONG_SEQ, protocol="axle", stream=True,
+    prefill_chunk=CHUNK)
+m32o, m32o_toks, _, _ = serve(
+    copies(cm_reqs[-1:]), params=cm_params, arch=MAMBA, cfg=cm_m32,
+    batch_slots=5, max_seq=LONG_SEQ, protocol="axle", stream=True)
+check(m32c_toks == m32o_toks, f"[chunked] {MAMBA} f32: the chunked long "
+      "request differs from its one-shot twin")
+check(m32c_launches["ssd_scan_init"] == (N_CHUNKS - 1) * n_ml,
+      f"[chunked] {MAMBA} f32: launches {m32c_launches}")
+print(f"[chunked] {MAMBA} in f32 arithmetic (the CUDA-core scan): the "
+      f"{LONG}-token request alone in {m32c.prefill_chunks} chunks of "
+      f"{CHUNK} == its one-shot twin bitwise ({len(m32c_toks[LONG_RID])} "
+      f"tokens); ssd_scan launches from the previous chunk's state "
+      f"{m32c_launches['ssd_scan_init']} = {N_CHUNKS - 1} x {n_ml}; "
+      f"{SMI_LINE}",
+      flush=True)
+del m32c, m32o, cm_params
+torch.cuda.empty_cache()
+
+# the ported quickstart: the simulator (pure Python) and BS vs AXLE decode
+# attention on the card in f32
+qs_out = io.StringIO()
+with contextlib.redirect_stdout(qs_out):
+    qs = quickstart.main()
+check(qs["max_err"] <= 1e-5, f"[quickstart] BS vs AXLE max error "
+      f"{qs['max_err']}")
+print(f"[quickstart] workload (e) PageRank: AXLE reduces the simulated "
+      f"runtime by {qs['axle_reduction'] * 100:.1f}% against RP (paper: up "
+      f"to 50.14%); decode attention on the card (B 2, S 1024, H 4, hd 64, "
+      f"f32, 8 chunks) BS vs AXLE max|err| {qs['max_err']:.2e} <= 1e-5; "
+      f"[chunked] + [quickstart] phase "
+      f"{time.perf_counter() - CHUNK_T0:.1f} s; "
       f"{time.perf_counter() - T_START:.0f} s into the script; {SMI_LINE}",
       flush=True)
 

@@ -62,11 +62,18 @@ extends a cached one restores those pages and prefills only the suffix
 (`transformer.resume_prefill_into_cache`), and a repeated prompt skips
 its prefill (its first token from the stored logits).
 
+`--prefill-chunk C` (`prefill_chunk=C`) admits a prompt longer than C
+tokens in C-token chunks, at most one between two decode segments
+(`steps.make_chunked_prefill`): the slot is reserved meanwhile, and the
+streams in flight keep their tokens and their decode syncs, where a
+one-shot prefill of a long prompt would stall them all for its whole
+forward.  It is refused with `--spec`, `--prefix-cache` and for an
+encoder-decoder, as in the reference.
+
 On the card every decode segment runs as one CUDA graph replay
 (`launch/graphs.py`), captured at construction; on the CPU the segments
-run eagerly.  Both loops emit identical tokens.  Chunked prefill and the
-mesh are later slices (ROADMAP.md queue 1); their options are absent
-here, not ignored.
+run eagerly.  Both loops emit identical tokens.  The mesh is a later
+slice (ROADMAP.md queue 1); its options are absent here, not ignored.
 """
 from __future__ import annotations
 
@@ -173,6 +180,27 @@ class Request:
         return sp
 
 
+def _check_prefill_chunk(cfg: ArchConfig, chunk: int, spec: bool,
+                         prefix_cache: bool) -> None:
+    """The refusals of `prefill_chunk` (ValueError): a chunk of fewer
+    than one token; speculation (the draft cache has no chunked prefill);
+    the prefix cache (its pages come from one-shot prefills); an
+    encoder-decoder (its admission runs the encoder, and it has no resume
+    prefill)."""
+    if chunk < 1:
+        raise ValueError(f"prefill_chunk {chunk}: a chunk needs a token")
+    if spec:
+        raise ValueError("prefill_chunk with spec: the draft cache has no "
+                         "chunked prefill")
+    if prefix_cache:
+        raise ValueError("prefill_chunk with prefix_cache: the prefix "
+                         "cache's pages come from one-shot prefills")
+    if cfg.enc_dec:
+        raise ValueError(f"prefill_chunk with {cfg.arch_id}: an "
+                         "encoder-decoder admits through its encoder, "
+                         "not by chunks")
+
+
 def _prefill_bucket(n: int, cap: int) -> int:
     """Pad prompt lengths to powers of two (>= 8), capped at `cap`."""
     p = 8
@@ -237,7 +265,16 @@ class BatchedServer:
     row travels with the target's as one paired page set.
     `prefix_cache=True` reuses served prompts' pages (`_admit_prefill`);
     it is refused with `spec` (the draft cache has no prefix pages) and
-    for an encoder-decoder (its prompts are keyed on audio frames)."""
+    for an encoder-decoder (its prompts are keyed on audio frames).
+
+    `prefill_chunk=C` admits a prompt longer than C in C-token chunks
+    (`_begin_chunked` reserves a slot, `_pump_prefill` dispatches at most
+    one chunk a loop tick, behind the decode segment just dispatched, on
+    the same stream); while a slot is reserved every segment takes the
+    write-masked variant, which leaves the slot's rows alone.  Every chunk
+    is padded to C, so a prompt needs ceil(P / C) C <= max_seq (`submit`
+    refuses it otherwise).  Refused with `spec`, `prefix_cache` and for
+    an encoder-decoder (no resume prefill)."""
 
     def __init__(self, arch_id: str, *, smoke: bool = True,
                  device: Optional[str] = None, batch_slots: int = 4,
@@ -251,10 +288,13 @@ class BatchedServer:
                  draft_params: Optional[Dict[str, Any]] = None,
                  cfg: Optional[ArchConfig] = None,
                  host_offload: bool = False, prefix_cache: bool = False,
-                 evict_after: int = 1, offload_chunks: int = 2):
+                 evict_after: int = 1, offload_chunks: int = 2,
+                 prefill_chunk: Optional[int] = None):
         self.device = resolve_device(device)
         self.cfg = cfg or (get_smoke_config(arch_id) if smoke
                            else get_config(arch_id))
+        if prefill_chunk is not None:
+            _check_prefill_chunk(self.cfg, prefill_chunk, spec, prefix_cache)
         if prefix_cache and spec:
             raise ValueError("prefix_cache with spec: the draft cache has "
                              "no prefix pages to reuse")
@@ -321,6 +361,14 @@ class BatchedServer:
          self.segment_plain_fn) = self._segment_fns(fns, *statics)
         self._init_host_tier(host_offload, prefix_cache, evict_after,
                              offload_chunks)
+        # chunked admission: the reserved slots, each with its request,
+        # its chunk plan, the next chunk and the prompt on the device
+        self.prefill_chunk = prefill_chunk
+        self.prefilling: Dict[int, Dict[str, Any]] = {}
+        if prefill_chunk is not None:
+            self.chunked = steps_lib.make_chunked_prefill(self.cfg)
+        self.prefill_chunks = 0            # chunk forwards dispatched
+        self.prefill_chunk_time = 0.0      # host seconds, all chunks
         self.queue: List[Request] = []
         self.active: List[Optional[Request]] = [None] * batch_slots
         # host mirrors of the device state for dispatch-time accounting
@@ -441,6 +489,16 @@ class BatchedServer:
                     f"request {req.rid}: embeds of shape {shape}; want "
                     f"(e, {self.cfg.d_model}) with 0 < e <= "
                     f"{self.cfg.enc_len}")
+        if self.prefill_chunk is not None \
+                and len(req.prompt) > self.prefill_chunk \
+                and "page_table" in self.cache:
+            c = self.prefill_chunk
+            rows = -(-len(req.prompt) // c) * c
+            if rows > self.max_seq:
+                raise ValueError(
+                    f"request {req.rid}: a {len(req.prompt)}-token prompt in "
+                    f"chunks of {c} writes {rows} rows (every chunk padded "
+                    f"to {c}); max_seq is {self.max_seq}")
         req.generated = []
         self.queue.append(req)
 
@@ -468,6 +526,8 @@ class BatchedServer:
 
     @property
     def pages_resident(self) -> int:
+        """Pages charged to occupied slots: active ones and those between
+        the chunks of an admission."""
         return int(self.slot_pages.sum())
 
     def assert_ledger(self) -> None:
@@ -477,7 +537,7 @@ class BatchedServer:
             + self.pages_resident, (self.pages_allocated, self.pages_freed,
                                     self.pages_resident)
         for s in range(self.batch):
-            if self.active[s] is None:
+            if self.active[s] is None and s not in self.prefilling:
                 assert self.slot_pages[s] == 0, (s, self.slot_pages[s])
 
     def _frames(self, req: Request) -> torch.Tensor:
@@ -602,9 +662,10 @@ class BatchedServer:
         "draft/" keys) are gathered into staging tensors on the serving
         stream, so they hold the rows as the segment in flight leaves
         them and before anything queued later (a new admission into the
-        slot) writes them; its slot-state row is copied the same way.
-        Both go to pinned host memory on the side stream: the dispatch
-        never waits.  The request joins the `suspended` FIFO."""
+        slot) writes them; its slot-state row is copied the same way, and
+        the row is frozen on the device (`steps.freeze_slot`).  Both go to
+        pinned host memory on the side stream: the dispatch never waits.
+        The request joins the `suspended` FIFO."""
         req = self.active[slot]
         assert req is not None
         t0 = time.perf_counter()
@@ -616,6 +677,8 @@ class BatchedServer:
         snap = stream_offload_to_host(pages, chunks=self.offload_chunks)
         saved = stream_offload_to_host(
             steps_lib.save_slot_state(self.state, slot))
+        # the row stops decoding on the device (its state is saved)
+        self.state = steps_lib.freeze_slot(self.state, slot)
         self.host_tier.put(req.rid, snap, saved)
         self.active[slot] = None
         self._free_pages(slot)
@@ -672,8 +735,10 @@ class BatchedServer:
         """When waiting requests (queued and suspended) outnumber free
         slots, evict the oldest active rows (most segments since their
         admission or restore), never one younger than `evict_after`
-        segments: the quantum that keeps the loop round-robin."""
-        free = sum(r is None for r in self.active)
+        segments: the quantum that keeps the loop round-robin.  A slot
+        reserved for a chunked admission is neither free nor evictable."""
+        free = sum(r is None and s not in self.prefilling
+                   for s, r in enumerate(self.active))
         need = len(self.queue) + len(self.suspended) - free
         if need <= 0:
             return
@@ -737,19 +802,82 @@ class BatchedServer:
             stop=sp.stop_tokens)
         return True
 
+    # -- chunked admission -------------------------------------------------
+
+    def _begin_chunked(self, slot: int, req: Request) -> None:
+        """Reserve `slot` for a chunked admission: it joins `prefilling`,
+        which keeps it out of decode dispatch, slot filling and eviction.
+        No forward runs and no page is charged here: each chunk charges
+        the pages its rows land in.  The prompt, padded to whole chunks,
+        goes to the device now, from pinned memory on the serving stream,
+        without a wait: a chunk is then a view of it."""
+        plen = len(req.prompt)
+        assert plen <= self.max_seq, (plen, self.max_seq)
+        plan = self.chunked.plan(plen, self.prefill_chunk)
+        padded = np.zeros((len(plan) * self.prefill_chunk,), np.int32)
+        padded[:plen] = req.prompt
+        tokens = torch.from_numpy(padded)
+        if self.device.type == "cuda":
+            tokens = tokens.pin_memory()
+        self.prefilling[slot] = {
+            "req": req, "plan": plan, "next": 0,
+            "tokens": tokens.to(self.device, non_blocking=True)}
+
+    def _pump_prefill(self) -> None:
+        """Dispatch AT MOST ONE prefill chunk, of the lowest reserved slot:
+        between two decode segments the device sees at most one bounded
+        chunk forward, so the streams in flight keep their tokens and
+        their decode syncs while a long prompt admits.  A chunk is pure
+        dispatch on the serving stream, behind the segment just
+        dispatched; the only host sync is the last chunk's first token
+        (`_finish_admit`, counted as an admission's)."""
+        if not self.prefilling:
+            return
+        slot = min(self.prefilling)
+        st = self.prefilling[slot]
+        req = st["req"]
+        start, size = st["plan"][st["next"]]
+        c = self.prefill_chunk
+        chunk = st["tokens"][start:start + c]
+        t0 = time.perf_counter()
+        with use_offload(self.offload):
+            if start == 0:
+                logits, self.cache = self.chunked.first(
+                    self.params, self.cache, chunk, slot, size)
+            else:
+                logits, self.cache = self.chunked.resume(
+                    self.params, self.cache, chunk, slot, start + size,
+                    start)
+        self.prefill_chunk_time += time.perf_counter() - t0
+        self.prefill_chunks += 1
+        self._set_pages(slot, self._pages_for(start + size))
+        st["next"] += 1
+        if st["next"] < len(st["plan"]):
+            return
+        # the last chunk's logits are the prompt's last-token logits
+        del self.prefilling[slot]
+        self.prefill_forwards += 1
+        if self._finish_admit(slot, req, logits):
+            self.active[slot] = req
+            self.slot_age[slot] = 0
+        else:
+            self.completed.append(req)     # finished on its first token
+            self._free_pages(slot)
+
     def _fill_slots(self) -> None:
         """Fill free slots: suspended requests first (FIFO: they were
         admitted before anything still queued), then queued ones by a
-        prefill.  Under host offload the eviction policy runs first.  Only
-        requests suspended BEFORE this call are restorable: one evicted
-        now may still be in the undelivered segment in flight, and
-        restoring it before that segment is consumed would count the
-        segment's advance twice in the host mirrors."""
+        prefill, or by a chunked admission when longer than
+        `prefill_chunk`.  Under host offload the eviction policy runs
+        first.  Only requests suspended BEFORE this call are restorable:
+        one evicted now may still be in the undelivered segment in
+        flight, and restoring it before that segment is consumed would
+        count the segment's advance twice in the host mirrors."""
         restorable = len(self.suspended)
         if self.host_tier is not None:
             self._evict_for_demand()
         for s in range(self.batch):
-            if self.active[s] is not None:
+            if self.active[s] is not None or s in self.prefilling:
                 continue
             if restorable > 0 and self.suspended:
                 restorable -= 1
@@ -762,6 +890,10 @@ class BatchedServer:
             if not self.queue:
                 continue
             req = self.queue.pop(0)
+            if self.prefill_chunk is not None \
+                    and len(req.prompt) > self.prefill_chunk:
+                self._begin_chunked(s, req)
+                continue
             self.active[s] = req
             self.slot_age[s] = 0
             if not self._admit(s, req):
@@ -780,14 +912,17 @@ class BatchedServer:
 
         Returns (rows, plain): `plain` when every dispatched row is greedy
         with no stop set, so the segment can skip the sampling epilogue,
-        the write mask and the stop test.
+        the write mask and the stop test; never while a slot is reserved
+        for a chunked admission: the plain segment writes every row, the
+        dead ones too, at their stale clocks, over the rows the slot's
+        chunks wrote.
 
         Under speculation a row's emit count is the device's verdict, so
         every row is `(req, None)`, charged the worst case of `seg_len`
         rounds of spec_k + 1 tokens plus the spec_k rows a verify writes
         past the clock, trimmed back at consume."""
         rows: Dict[int, Tuple[Request, Optional[int]]] = {}
-        plain = True
+        plain = not self.prefilling
         for s in range(self.batch):
             req = self.active[s]
             if req is None:
@@ -859,6 +994,7 @@ class BatchedServer:
         up to spec_k + 1 tokens): a one-step segment consumed at once,
         one dispatch and one host sync each."""
         self._fill_slots()
+        self._pump_prefill()       # at most one admission chunk a step
         self.assert_ledger()
         if all(r is None for r in self.active):
             return
@@ -874,7 +1010,9 @@ class BatchedServer:
     def run_stream(self, max_steps: int = 10_000) -> None:
         """Decode in `seg_len`-token segments, reading each segment's
         tokens back only after the next segment is dispatched: one host
-        sync per segment, overlapped with the device's work."""
+        sync per segment, overlapped with the device's work.  A chunk of
+        a chunked admission goes between the dispatch and the read-back:
+        behind the segment on the stream."""
         pending = None
         while True:
             self._fill_slots()
@@ -887,6 +1025,7 @@ class BatchedServer:
                 self.steps += self.seg_len * self._tokens_per_step
                 self.segments_dispatched += 1
                 nxt_pending = (fetched, rows)
+            self._pump_prefill()
             if pending is not None:
                 self._consume_segment(*pending)
             self.assert_ledger()
@@ -896,6 +1035,7 @@ class BatchedServer:
             if self.steps >= max_steps:
                 return          # step cap: remaining requests stay active
             if not self.queue and not self.suspended \
+                    and not self.prefilling \
                     and all(r is None for r in self.active):
                 return
 
@@ -944,13 +1084,13 @@ class BatchedServer:
         if self.stream:
             self.run_stream(max_steps)
             return
-        while (self.queue or self.suspended
+        while (self.queue or self.suspended or self.prefilling
                or any(r is not None for r in self.active)) \
                 and self.steps < max_steps:
             self.step()
 
 
-def main() -> int:
+def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="starcoder2_3b")
     ap.add_argument("--full", action="store_true",
@@ -996,7 +1136,10 @@ def main() -> int:
                          "evicted (the round-robin quantum)")
     ap.add_argument("--offload-chunks", type=int, default=2,
                     help="chunks a leaf of the host<->device page copies")
-    args = ap.parse_args()
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="admit prompts longer than this in chunks of this "
+                         "many tokens, one between two decode segments")
+    args = ap.parse_args(argv)
 
     server = BatchedServer(args.arch, smoke=not args.full,
                            device=args.device, batch_slots=args.slots,
@@ -1010,7 +1153,8 @@ def main() -> int:
                            host_offload=args.offload,
                            prefix_cache=args.prefix_cache,
                            evict_after=args.evict_after,
-                           offload_chunks=args.offload_chunks)
+                           offload_chunks=args.offload_chunks,
+                           prefill_chunk=args.prefill_chunk)
     stops = (server.cfg.eos_token,) if args.stop_eos else ()
     sampled = (args.temperature > 0 or args.top_k > 0 or args.top_p < 1.0
                or args.stop_eos)
@@ -1069,6 +1213,10 @@ def main() -> int:
                  f"{server.prefix_hits_partial}partial/"
                  f"{hits + server.prefix_misses} "
                  f"prefill_skipped={server.prefill_tokens_skipped}tok ")
+    if args.prefill_chunk is not None:
+        spec += (f"prefill_chunks={server.prefill_chunks} "
+                 f"pages={server.pages_allocated}alloc/"
+                 f"{server.pages_freed}freed ")
     print(f"[serve] arch={server.cfg.arch_id} protocol={args.protocol} "
           f"quant={args.quant_weights or 'fp'}/{args.quant_kv or 'fp'} "
           f"mode={mode} requests={len(server.completed)} tokens={toks} "

@@ -4,7 +4,9 @@ serving-time quantization choice, the device-side per-slot decode state
 admission, the prompt prefill, the multi-token decode segment, the
 truncated-layer self-draft, the speculative draft-and-verify segment, and
 for the host tier one slot's state saved and restored, its pages out of
-and into the cache, and the resume prefill behind restored prefix pages.
+and into the cache, and the resume prefill behind restored prefix pages;
+and the chunked admission prefill (its first chunk through the prefill,
+every later one through the resume).
 
 The reference's jitted `lax.scan` with a donated cache becomes a Python
 loop of `seg_len` decode steps that updates the cache IN PLACE; on the
@@ -17,7 +19,8 @@ state is a stable snapshot while the next segment is already in flight
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -192,6 +195,17 @@ def save_slot_state(state: SlotState, slot: int) -> Dict[str, torch.Tensor]:
     return {k: v.clone() for k, v in row.items()}
 
 
+def freeze_slot(state: SlotState, slot: int) -> SlotState:
+    """A new SlotState with row `slot` dead, for a slot whose request left
+    it for the host tier: without it the row would go on decoding on the
+    device, and the write-masked segments would write its stale clock's
+    rows (and a mamba layer's state) into the slot, over a chunked
+    admission's chunks.  A fill, no host-to-device copy."""
+    s = clone_state(state)
+    _fill_row(s, slot, alive=False)
+    return s
+
+
 def restore_slot(state: SlotState, slot: int,
                  saved: Dict[str, torch.Tensor]) -> SlotState:
     """Re-seed one slot from a `save_slot_state` row that lies in host
@@ -235,6 +249,69 @@ def make_resume_prefill(cfg: ArchConfig) -> Optional[Callable]:
         return fn(cfg, params, cache, suffix, row, length, start)
 
     return resume
+
+
+class ChunkedPrefill(NamedTuple):
+    """Chunked admission prefill: its two halves and its chunk planner.
+    `first` runs the opening chunk through the one-shot prefill (length =
+    the chunk's true length); `resume` continues from the row's own
+    freshly written K/V rows and recurrent state, as a prefix-cache
+    partial hit does; `plan` splits a prompt into its (start, size)
+    chunks."""
+    first: Callable      # (params, cache, chunk (C,), row, length)
+    resume: Callable     # (params, cache, chunk (C,), row, length, start)
+    plan: Callable       # (plen, chunk_size) -> [(start, size), ...]
+
+
+def chunk_plan(plen: int, chunk_size: int) -> List[Tuple[int, int]]:
+    """The (start, size) chunks of a `plen`-token prompt, `chunk_size`
+    tokens each but the last."""
+    assert chunk_size >= 1, chunk_size
+    return [(s, min(chunk_size, plen - s))
+            for s in range(0, plen, chunk_size)]
+
+
+def make_chunked_prefill(cfg: ArchConfig) -> Optional[ChunkedPrefill]:
+    """Chunk-resumable prompt prefill for the interleaved admission of
+    `BatchedServer(prefill_chunk=...)`: each chunk is one bounded forward,
+    so a long prompt admits as a series of small ones between decode
+    segments instead of one that stalls every stream in flight.
+
+    Chunk c covers prompt tokens [c C, c C + size): `first` takes c = 0,
+    `resume` every later chunk with start = c C, when the row already
+    holds K/V rows [0, start) and the recurrent state after them: the
+    precondition of `resume_prefill_into_cache`.  The last chunk's
+    `length` is the whole prompt's, so its logits are the prompt's
+    last-token logits.  Token-equal to the one-shot prefill (the resume
+    merges two softmax partials in another order), bitwise for mamba
+    layers.  Every chunk is padded to C: a row needs ceil(P / C) C <=
+    max_seq rows.  None for an encoder-decoder (no resume prefill)."""
+    resume = make_resume_prefill(cfg)
+    if resume is None:
+        return None
+    return ChunkedPrefill(first=make_prefill_into_cache(cfg), resume=resume,
+                          plan=chunk_plan)
+
+
+def run_chunked_prefill(cp: ChunkedPrefill, params: Dict[str, Any],
+                        cache: Dict[str, Any], prompt: torch.Tensor,
+                        row: int, chunk_size: int
+                        ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """A whole prompt through `cp`, chunk by chunk (the server runs the
+    same calls one at a time between decode segments).  prompt: (P,) int
+    tokens at the TRUE length, on the cache's device.  Returns (last-token
+    logits (V,), cache)."""
+    plen = int(prompt.shape[0])
+    logits = None
+    for start, size in cp.plan(plen, chunk_size):
+        chunk = prompt.new_zeros((chunk_size,), dtype=torch.int32)
+        chunk[:size] = prompt[start:start + size]
+        if start == 0:
+            logits, cache = cp.first(params, cache, chunk, row, size)
+        else:
+            logits, cache = cp.resume(params, cache, chunk, row,
+                                      start + size, start)
+    return logits, cache
 
 
 def make_prefill_into_cache(cfg: ArchConfig, *,

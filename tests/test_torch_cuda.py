@@ -42,7 +42,10 @@ on the side stream that sync nothing; an evicting server (a slot evicted
 and admitted into in one fill, requests restored into other slots)
 equals a non-evicting one and its eager twin bit for bit; a prefix full
 hit equals the no-cache stream bit for bit; the resume's int8 boundary
-page write equals the same function on the CPU bit for bit."""
+page write equals the same function on the CPU bit for bit.  A chunked
+admission: the streams in flight equal the run without it bit for bit,
+no plain segment replays while a slot is reserved, and a chunk syncs
+nothing."""
 import numpy as np
 import pytest
 
@@ -1397,3 +1400,78 @@ def test_slot_state_writes_sync_nothing(cuda):
         torch.cuda.set_sync_debug_mode("default")
     for t in steps.state_tensors(back):
         assert torch.equal(t[2], t[1])
+
+
+class _Chunked(tserve.BatchedServer):
+    """Records each dispatched segment's variant beside whether a slot was
+    reserved, each request's decode syncs at retirement, and runs every
+    chunk but the last (whose first token is the admission's sync), and
+    the reservation's upload, under CUDA's sync debug mode "error"."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.variants, self.retire_syncs = [], {}
+
+    def _run_segment(self, fn):
+        self.variants.append((fn in (self.segment_plain_fn,
+                                     self.step_plain_fn),
+                              bool(self.prefilling)))
+        return super()._run_segment(fn)
+
+    def _consume_segment(self, *a, **kw):
+        super()._consume_segment(*a, **kw)
+        for r in self.completed:
+            self.retire_syncs.setdefault(r.rid, self.decode_syncs)
+
+    def _begin_chunked(self, slot, req):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            super()._begin_chunked(slot, req)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def _pump_prefill(self):
+        st = self.prefilling.get(min(self.prefilling, default=-1))
+        last = st is None or st["next"] == len(st["plan"]) - 1
+        torch.cuda.set_sync_debug_mode("default" if last else "error")
+        try:
+            super()._pump_prefill()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("arch", ["starcoder2_3b", "mamba2_370m"])
+def test_chunked_admission_on_the_card(cuda, arch):
+    """Graphed, every row greedy: three requests in flight and a 40-token
+    prompt admitted in chunks of 16: the in-flight streams equal the run
+    without it bit for bit and retire at the same decode sync; every
+    segment while the slot was reserved replays the write-masked graph,
+    the plain one before and after; a chunk syncs nothing."""
+    rng = np.random.default_rng(8)
+
+    def run(long_prompt, params=None):
+        srv = _Chunked(arch, smoke=True, device="cuda", batch_slots=4,
+                       max_seq=64, seg_len=4, stream=True, params=params,
+                       prefill_chunk=16)
+        for i, p in enumerate(prompts + ([long_prompt] if long_prompt is not
+                                         None else [])):
+            srv.submit(tserve.Request(i, p, 16))
+        kbuild.reset_launch_counts()
+        srv.run_until_drained()
+        torch.cuda.synchronize()
+        return srv, {r.rid: r.generated for r in srv.completed}
+
+    vocab = tserve.get_smoke_config(arch).vocab
+    prompts = [rng.integers(1, vocab, int(n)).astype(np.int32)
+               for n in rng.integers(4, 12, 3)]
+    long_p = rng.integers(1, vocab, 40).astype(np.int32)
+    base, base_toks = run(None)
+    srv, toks = run(long_p, params=base.params)
+    assert {r: toks[r] for r in base_toks} == base_toks
+    assert {r: srv.retire_syncs[r] for r in base_toks} == base.retire_syncs
+    assert srv.prefill_chunks == 3 and len(toks[3]) == 16
+    reserved = [plain for plain, res in srv.variants if res]
+    assert reserved and not any(reserved)
+    assert any(plain for plain, res in srv.variants if not res)
+    assert srv.graph_replays == srv.segments_dispatched
+    assert srv.pages_allocated == srv.pages_freed
