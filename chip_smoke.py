@@ -131,6 +131,18 @@ across its window, held to its one-shot serve by the near-tie gate.  The
 `[quickstart]` line runs the ported quickstart on the card: the
 simulator's AXLE runtime reduction on workload (e), and BS vs AXLE decode
 attention within 1e-5.
+The `[mesh]` lines serve on a 1x2 gloo group on the one card, through
+the ported `examples/mesh_serve.py` in a process of its own, after this
+process has freed what it held: full-width starcoder2_3b, 4 requests (2
+greedy, 2 sampled) x 32 tokens, the tokens, decode syncs and ledger of
+both ranks bitwise the graphed single-device server's, the wire bytes
+beside the ledger's formula (24,960 B a merge, 30 merges a step), each
+rank's fused-partial launches and eager decode step device ms; then in
+the same group BS, AXLE and RP over a sequence-sharded cache of 8192
+slots in bf16 and f32, each held to the fused decode, with each AXLE
+hop's ms.  The `[kernel] decode_attention_fused_partial` row holds the
+mesh decode's producer: normalised, and as head groups concatenated,
+the fused decode's bits.
 Before serving, it drives the paper's two offload workloads through
 `stream_offload` under BS, RP and AXLE, data from seed 0 on the card:
   * KNN (VectorDB): 256 queries against a 1,000,000 x 1024 bf16 database
@@ -248,8 +260,10 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import io
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -304,7 +318,7 @@ try:
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.serve import (BatchedServer, Request,
                                           SamplingParams, _prefill_bucket)
-    from repro_torch.launch.steps import QuantConfig
+    from repro_torch.launch.steps import QuantConfig, self_draft_params
     from repro_torch.models import encdec, layers, transformer
     from repro_torch.models.quantize import padded_rows, quantize_params
     from repro_torch.models.registry import get_model
@@ -1004,6 +1018,113 @@ print(f"[kernel] decode_attention_fused[int8] B={B} H={H} KH={KH} hd={HD} "
       f"ms; f32 q on the CUDA-core split: max_abs_err {err32:.3g} <= 1e-5, "
       f"launches {variants32}", flush=True)
 del k8_log, v8_log, k8_pool, v8_pool, out
+
+# decode_attention_fused_partial: the mesh decode's producer, the fused
+# route with a raw-statistics epilogue, at starcoder2_3b's widths (H 24 on
+# KH 2) and mistral_nemo_12b's (H 32 on KH 8), S 2048 in pages of 128
+# through a permuted table, ragged pos, extra, window 0 and 300, over bf16
+# and int8 pools.  Its statistics within partial_err's limit of the plain
+# version; normalised, the fused decode's bits; and n head groups'
+# statistics concatenated and normalised, the fused decode's bits too, at
+# n = 2 and 4 where the split aligns with the GQA groups (n | KH, or KH ==
+# 1 and n | H).  The record is timed at the [mesh] serve's shape on a rank
+# of 1x2: starcoder2_3b's head group of 12 heads on 1 KV head
+PS = 2048
+fp_worst, fp_groups = 0.0, []
+kbuild.reset_launch_counts()
+for h_, kh_ in ((H, KH), (32, 8)):
+    qx = randn(B, 1, h_, HD)
+    kx, vx = randn(B, kh_, PS, HD), randn(B, kh_, PS, HD)
+    tbl = torch.stack([torch.randperm(PS // PAGE, generator=G, device=DEV)
+                       for _ in range(B)]).to(torch.int32)
+    posx = torch.tensor([0, 700, 1500, PS - 1], dtype=torch.int32,
+                        device=DEV)
+    ex = (torch.randn(B, h_, HD, generator=G, device=DEV),
+          torch.randn(B, h_, generator=G, device=DEV),
+          torch.rand(B, h_, generator=G, device=DEV) + 0.5)
+    (k8x, ksx), (v8x, vsx) = (ref.quantize_kv_pages(t, PAGE)
+                              for t in (kx, vx))
+    for kv_name, kk, vv, sc in (("bf16", kx, vx, None),
+                                ("int8", k8x, v8x, (ksx, vsx))):
+        for window in (0, 300):
+            what = (f"decode_attention_fused_partial H={h_} KH={kh_} "
+                    f"{kv_name} window {window}")
+            full = fa.decode_attention_fused(qx, kk, vv, posx, ex,
+                                             window=window, blk_c=PAGE,
+                                             pages=tbl, kv_scales=sc)
+            raw = fa.decode_attention_fused_partial(
+                qx, kk, vv, posx, ex, window=window, blk_c=PAGE, pages=tbl,
+                kv_scales=sc)
+            fp_worst = max(fp_worst, partial_err(
+                raw, ref.decode_fused_partial_reference(
+                    qx, kk, vv, posx, ex, window=window, pages=tbl,
+                    page_size=PAGE, kv_scales=sc), what, empty=None))
+            check(torch.equal(ref.normalize_fused_partial(
+                raw[0], raw[2], qx.dtype), full),
+                f"{what}: normalised != decode_attention_fused")
+            for n in (2, 4):
+                if not (kh_ % n == 0 or (kh_ == 1 and h_ % n == 0)):
+                    continue
+                hl, khl = h_ // n, kh_ // n
+                accs, ls = [], []
+                for r in range(n):
+                    hs, kvs = slice(r * hl, (r + 1) * hl), \
+                        slice(r * khl, (r + 1) * khl)
+                    acc, _, l = fa.decode_attention_fused_partial(
+                        qx[:, :, hs].contiguous(), kk[:, kvs].contiguous(),
+                        vv[:, kvs].contiguous(), posx,
+                        tuple(t[:, hs].contiguous() for t in ex),
+                        window=window, blk_c=PAGE, pages=tbl,
+                        kv_scales=None if sc is None else tuple(
+                            t[:, kvs].contiguous() for t in sc))
+                    accs.append(acc)
+                    ls.append(l)
+                check(torch.equal(ref.normalize_fused_partial(
+                    torch.cat(accs, 1), torch.cat(ls, 1), qx.dtype), full),
+                    f"{what}: {n} head groups != decode_attention_fused")
+                fp_groups.append(f"H{h_}/KH{kh_} n={n}")
+fp_variants = routes("decode_attention_fused_partial",
+                     "decode_attention_fused_partial[int8]")
+check(all(fp_variants[k] == fp_variants[k + "_tc"] > 0
+          for k in ("decode_attention_fused_partial",
+                    "decode_attention_fused_partial[int8]")),
+      f"decode_attention_fused_partial: launches {fp_variants}, not the "
+      "tensor-core split")
+# the record: a 1x2 rank's call in the [mesh] serve (one head group)
+q_g = randn(B, 1, H // 2, HD)
+k_g, v_g = randn(B, 1, PS, HD), randn(B, 1, PS, HD)
+ex_g = (torch.randn(B, H // 2, HD, generator=G, device=DEV),
+        torch.randn(B, H // 2, generator=G, device=DEV),
+        torch.rand(B, H // 2, generator=G, device=DEV) + 0.5)
+fp_slots = int((posx + 1).sum())
+fp_bytes = (nbytes(q_g, posx, tbl, *ex_g) + B * (H // 2) * (HD + 2) * 4
+            + 2 * fp_slots * HD * 2)
+bnd, by = bound_ms(fp_bytes, 4 * fp_slots * (H // 2) * HD)
+records["decode_attention_fused_partial"] = dict(
+    name="decode_attention_fused_partial", route="cuda",
+    source="src/repro_torch/kernels/csrc/attention.cu",
+    replaces="src/repro/kernels/ops.py:86 (flash_attention.py:213 on the "
+             "TPU)",
+    max_abs_err=fp_worst, bound_ms=bnd, bound_by=by,
+    # no single PyTorch call returns the raw (acc, m, l)
+    **timings(lambda: fa.decode_attention_fused_partial(
+        q_g, k_g, v_g, posx, ex_g, blk_c=PAGE, pages=tbl),
+        lambda: ref.decode_fused_partial_reference(
+            q_g, k_g, v_g, posx, ex_g, pages=tbl, page_size=PAGE)))
+rec = records["decode_attention_fused_partial"]
+print(f"[kernel] decode_attention_fused_partial B={B} S={PS} page={PAGE} "
+      f"permuted table, pos={posx.tolist()}, extra, window 0 and 300, bf16 "
+      f"and int8 pools, at H={H}/KH={KH} and H=32/KH=8: raw (acc, m, l) "
+      f"max_abs_err {fp_worst:.3g} (<= 1e-3 + 1e-4|plain|); normalised == "
+      f"decode_attention_fused bitwise; head groups concatenated and "
+      f"normalised == decode_attention_fused bitwise at "
+      f"{', '.join(sorted(set(fp_groups)))}; launches {fp_variants} (the "
+      f"tensor-core split); a 1x2 rank's call (H={H // 2} KH=1, bf16): "
+      f"time_ms {rec['ms']:.4f} ms, device_ms {show(rec['device_ms'])} ms, "
+      f"byte bound {bnd:.6f} ms ({by}), plain {rec['plain_ms']:.4f} ms; "
+      f"library: none (no single call returns (acc, m, l)); {SMI_LINE}",
+      flush=True)
+del qx, kx, vx, k8x, v8x, q_g, k_g, v_g, full, raw
 
 # --------------------------------------------------------------------------
 # 3a. the attention kernels at the other archs' head dims: gemma3_12b's 256
@@ -2853,7 +2974,8 @@ del g_srv
 profile(MAMBA, mparams, mcfg.vocab)
 streamed_equals_per_token(MAMBA, mparams,
                           make_requests(2, 64, 200, 16, mcfg.vocab))
-mprompts = [r.prompt for r in make_requests(4, 64, 400, 1, mcfg.vocab)]
+# prompts of 64-200 tokens: the plain scan steps through every token
+mprompts = [r.prompt for r in make_requests(4, 64, 200, 1, mcfg.vocab)]
 # bf16: each layer's scan of the served model against the plain version
 # on the same inputs (these comparison launches are outside any serve run)
 held = []
@@ -3417,59 +3539,65 @@ check(alone_srv.completed[0].generated == gr_toks[1],
 del alone_srv
 moe_against_plain(GRANITE, [r.prompt for r in gr_reqs[:2]], gcfg, gr_params)
 g_pair = arch_requests(gcfg.vocab, (100, 200), 16, 43)
-sp_srv, sp_toks, sp_launches, sp_dt = serve(
-    copies(g_pair), params=gr_params, arch=GRANITE, protocol="axle",
-    stream=True, draft_arch="self:8", **SPEC)
+# the pair's serves (spec, its padded twin, rp, int8 KV) run the first 8
+# of the 32 layers, views of the served weights: the routes and widths of
+# the full depth at a quarter of its time
+g8cfg = dataclasses.replace(gcfg, arch_id=f"{gcfg.arch_id}_first8",
+                            n_layers=8)
+g8_params = self_draft_params(gcfg, gr_params, 8)
+G8 = dict(params=g8_params, arch=GRANITE, cfg=g8cfg, protocol="axle",
+          stream=True)
+sp_srv, sp_toks, sp_launches, sp_dt = serve(copies(g_pair), **G8,
+                                            draft_arch="self:2", **SPEC)
 rounds = spec_rounds(sp_srv)
 d_layers = sp_srv.draft_cfg.n_layers
 check(sp_launches["decode_attention_fused"]
-      == rounds * (SPEC_K + 1) * (d_layers + gcfg.n_layers)
+      == rounds * (SPEC_K + 1) * (d_layers + g8cfg.n_layers)
       and sp_launches["decode_attention_fused_tc"]
       == sp_launches["decode_attention_fused"]
       and sp_launches["flash_attention_tc"] == sp_launches["flash_attention"]
-      == sp_srv.prefill_forwards * (gcfg.n_layers + d_layers),
+      == sp_srv.prefill_forwards * (g8cfg.n_layers + d_layers),
       f"[moe] {GRANITE} spec launches {sp_launches}")
 rate = sp_srv.draft_accepted / max(1, sp_srv.draft_proposed)
 del sp_srv
 # the verify routes 4 x (k + 1) rows together, the decode step 4, so its
 # capacity can drop pairs the decode keeps: the spec tokens are held to
 # the non-spec twin at the verify's row count by the near-tie gate
-twin = padded_twin(g_pair, params=gr_params, arch=GRANITE, protocol="axle",
-                   stream=True)
+twin = padded_twin(g_pair, **G8)
 spec_vs = moe_near_tie_agrees(
-    f"[moe] {GRANITE} spec vs the padded twin", sp_toks, twin, g_pair, gcfg,
-    gr_params, lambda: padded_rows(4 * (SPEC_K + 1)))
-print(f"[moe] {GRANITE}, the self:{d_layers} draft, spec_k {SPEC_K}, 2 "
+    f"[moe] {GRANITE} spec vs the padded twin", sp_toks, twin, g_pair, g8cfg,
+    g8_params, lambda: padded_rows(4 * (SPEC_K + 1)))
+print(f"[moe] {GRANITE}, its first {g8cfg.n_layers} layers with their "
+      f"self:{d_layers} draft, spec_k {SPEC_K}, 2 "
       f"requests x 16 tokens: {rounds} rounds, accept rate {rate:.4f}, "
       f"{sum(len(t) for t in sp_toks.values()) / sp_dt:.1f} tok/s; tokens "
       f"{spec_vs} the non-spec twin's at the verify's row count; fused "
       f"launches {sp_launches['decode_attention_fused']} = {rounds} x "
-      f"{SPEC_K + 1} x ({d_layers} + {gcfg.n_layers}), all on the tensor "
+      f"{SPEC_K + 1} x ({d_layers} + {g8cfg.n_layers}), all on the tensor "
       "cores", flush=True)
-_, g_fp, _, _ = serve(copies(g_pair), params=gr_params, arch=GRANITE,
-                      protocol="axle", stream=True)
-_, g_rp, g_rp_launches, _ = serve(copies(g_pair), params=gr_params,
-                                  arch=GRANITE, protocol="rp", stream=True)
+_, g_fp, _, _ = serve(copies(g_pair), **G8)
+_, g_rp, g_rp_launches, _ = serve(copies(g_pair),
+                                  **dict(G8, protocol="rp"))
 check(g_rp_launches["decode_attention_partial"] > 0
       and g_rp_launches["decode_attention_partial_tc"]
       == g_rp_launches["decode_attention_partial"]
       and g_rp_launches["decode_attention_fused"] == 0,
       f"[moe] {GRANITE} rp launches {g_rp_launches}")
 rp_vs = moe_near_tie_agrees(
-    f"[moe] {GRANITE} rp vs axle", g_rp, g_fp, g_pair, gcfg, gr_params,
+    f"[moe] {GRANITE} rp vs axle", g_rp, g_fp, g_pair, g8cfg, g8_params,
     lambda: use_offload(OffloadConfig(protocol=OffloadProtocol.AXLE)),
     lambda: use_offload(OffloadConfig(protocol=OffloadProtocol.RP)))
-srv, g_i8, g_i8_launches, _ = serve(
-    copies(g_pair), params=gr_params, arch=GRANITE, protocol="axle",
-    stream=True, quant=QuantConfig(kv="int8"))
-attention_launches(f"{GRANITE} int8 KV", srv, g_i8_launches, gcfg.n_layers,
+srv, g_i8, g_i8_launches, _ = serve(copies(g_pair), **G8,
+                                    quant=QuantConfig(kv="int8"))
+attention_launches(f"{GRANITE} int8 KV", srv, g_i8_launches, g8cfg.n_layers,
                    True, decode="decode_attention_fused[int8]", tag="[moe]")
 check(g_i8_launches["decode_attention_fused"] == 0
       and all(len(t) == 16 for t in g_i8.values()),
       f"[moe] {GRANITE} int8 KV: launches {g_i8_launches}")
 del srv
 same = sum(g_i8[r] == g_fp[r] for r in g_fp)
-print(f"[moe] {GRANITE}, the same 2 requests x 16 tokens: rp {rp_vs} axle, "
+print(f"[moe] {GRANITE}, its first {g8cfg.n_layers} layers, the same 2 "
+      f"requests x 16 tokens: rp {rp_vs} axle, "
       f"partial launches "
       f"{routes_of(g_rp_launches, 'decode_attention_partial')}; an int8 KV "
       f"cache: int8 fused launches "
@@ -3478,7 +3606,7 @@ print(f"[moe] {GRANITE}, the same 2 requests x 16 tokens: rp {rp_vs} axle, "
       f"(not gated: int8 KV changes the logits); request 1 alone == its row "
       f"in the batch, bitwise; {GRANITE} phase "
       f"{time.perf_counter() - t0:.1f} s", flush=True)
-del gr_params
+del gr_params, g8_params, G8
 torch.cuda.empty_cache()
 
 # phi3_5_moe_42b (24 of 32 layers) and jamba_1_5_large (its first 5
@@ -3879,74 +4007,84 @@ kernels_against_plain(f"{WHISPER} (clips {W_LENS[0]} and {W_LENS[1]})",
                       weights=w_params, max_seq=W_TEXT,
                       frames=[r.embeds for r in w_reqs[:2]])
 
-# its own self:8 draft on the pair (prompts of 17-32 tokens, so no prefill
-# of the twin's pads to the verify's rows): one encoder pass an admission,
-# the spec tokens == the non-spec twin's at the verify's row count
-sp_srv, sp_toks, sp_launches, sp_dt = serve(copies(w_pair), params=w_params,
-                                            **W_SRV, **SPEC)
+# the pair's spec, rp and int8 KV serves run the first 8 of the 32
+# decoder layers (views of the served weights; the whole encoder): the
+# routes and widths of the full depth at a quarter of its decode.  A
+# self:2 draft (prompts of 17-32 tokens, so no prefill of the twin's pads
+# to the verify's rows): one encoder pass an admission, the spec tokens
+# == the non-spec twin's at the verify's row count
+w8cfg = dataclasses.replace(wcfg, arch_id=f"{wcfg.arch_id}_first8",
+                            n_layers=8)
+W8 = dict(W_SRV, params=self_draft_params(wcfg, w_params, 8), cfg=w8cfg)
+n_w8 = w8cfg.n_layers
+sp_srv, sp_toks, sp_launches, sp_dt = serve(copies(w_pair), **W8,
+                                            draft_arch="self:2", **SPEC)
 rounds = spec_rounds(sp_srv)
 d_layers = sp_srv.draft_cfg.n_layers
-check(d_layers == 8 and sp_srv.draft_shares_encoder
+check(d_layers == 2 and sp_srv.draft_shares_encoder
       and sp_srv.encoder_passes == sp_srv.prefill_forwards == 2,
       f"[encdec] {WHISPER} spec: a draft of {d_layers} layers, "
       f"{sp_srv.encoder_passes} encoder passes for "
       f"{sp_srv.prefill_forwards} admissions")
 check(sp_launches["decode_attention_fused"]
-      == rounds * (SPEC_K + 1) * 2 * (d_layers + n_wl)
+      == rounds * (SPEC_K + 1) * 2 * (d_layers + n_w8)
       and sp_launches["decode_attention_fused_tc"]
       == sp_launches["decode_attention_fused"]
       and sp_launches["decode_attention_fused@cross"]
-      == rounds * (SPEC_K + 1) * (d_layers + n_wl)
+      == rounds * (SPEC_K + 1) * (d_layers + n_w8)
       and sp_launches["flash_attention_tc"] == sp_launches["flash_attention"]
-      == sp_srv.prefill_forwards * (n_wl + d_layers),
+      == sp_srv.prefill_forwards * (n_w8 + d_layers),
       f"[encdec] {WHISPER} spec launches {sp_launches}")
 rate = sp_srv.draft_accepted / max(1, sp_srv.draft_proposed)
 del sp_srv
-twin = padded_twin(w_pair, params=w_params, **W_SRV)
+twin = padded_twin(w_pair, **W8)
 check(sp_toks == twin, f"[encdec] {WHISPER}: spec tokens != the padded "
       "non-spec twin's")
-print(f"[encdec] {WHISPER}, its self:{d_layers} draft, spec_k {SPEC_K}, 2 "
+print(f"[encdec] {WHISPER}, its first {n_w8} decoder layers with their "
+      f"self:{d_layers} draft, spec_k {SPEC_K}, 2 "
       f"requests x 16 tokens: {rounds} rounds, accept rate {rate:.4f}, "
       f"{sum(len(t) for t in sp_toks.values()) / sp_dt:.1f} tok/s; one "
       f"encoder pass an admission (the draft's prefill shares it); tokens == "
       f"the non-spec twin's at the verify's row count, bitwise; fused "
       f"launches {sp_launches['decode_attention_fused']} = {rounds} x "
-      f"{SPEC_K + 1} x 2 x ({d_layers} + {n_wl}), all on the tensor cores",
+      f"{SPEC_K + 1} x 2 x ({d_layers} + {n_w8}), all on the tensor cores",
       flush=True)
 
 # the pair under rp (self and cross reads each one partial a layer: the
 # cross one over all 1500 frames) and with an int8 KV cache (the self
 # reads int8, the cross reads fp)
-_, w_fp, _, _ = serve(copies(w_pair), params=w_params, **W_SRV)
-srv, w_rp, w_rp_launches, _ = serve(copies(w_pair), params=w_params,
-                                    **dict(W_SRV, protocol="rp"))
+_, w_fp, _, _ = serve(copies(w_pair), **W8)
+srv, w_rp, w_rp_launches, _ = serve(copies(w_pair),
+                                    **dict(W8, protocol="rp"))
 check(w_rp_launches["decode_attention_partial"]
       == w_rp_launches["decode_attention_partial_tc"]
-      == 2 * srv.steps * n_wl
-      and w_rp_launches["decode_attention_partial@cross"] == srv.steps * n_wl
+      == 2 * srv.steps * n_w8
+      and w_rp_launches["decode_attention_partial@cross"] == srv.steps * n_w8
       and w_rp_launches["decode_attention_fused"] == 0,
       f"[encdec] {WHISPER} rp launches {w_rp_launches} for {srv.steps} "
       "steps")
 del srv
 rp_vs = near_tie_agrees(f"{WHISPER} rp vs axle", w_rp, w_fp, w_pair,
-                        arch_cfg=wcfg, weights=w_params, max_seq=W_TEXT)
-srv, w_i8, w_i8_launches, _ = serve(copies(w_pair), params=w_params,
-                                    quant=QuantConfig(kv="int8"), **W_SRV)
-encdec_launches(f"{WHISPER} int8 KV", srv, w_i8_launches, n_wl,
+                        arch_cfg=w8cfg, weights=W8["params"],
+                        max_seq=W_TEXT)
+srv, w_i8, w_i8_launches, _ = serve(copies(w_pair),
+                                    quant=QuantConfig(kv="int8"), **W8)
+encdec_launches(f"{WHISPER} int8 KV", srv, w_i8_launches, n_w8,
                 "decode_attention_fused[int8]")
 check(all(len(t) == 16 for t in w_i8.values()),
       f"[encdec] {WHISPER} int8 KV: short stream")
 del srv
 same = sum(w_i8[r] == w_fp[r] for r in w_fp)
-print(f"[encdec] {WHISPER}, the same 2 requests x 16 tokens: rp {rp_vs} "
+print(f"[encdec] {WHISPER}, its first {n_w8} decoder layers, the same 2 "
+      f"requests x 16 tokens: rp {rp_vs} "
       f"axle, partial launches "
       f"{routes_of(w_rp_launches, 'decode_attention_partial')} (a step: "
-      f"{n_wl} self + {n_wl} cross partials of one chunk; at the cross site "
+      f"{n_w8} self + {n_w8} cross partials of one chunk; at the cross site "
       f"{w_rp_launches['decode_attention_partial@cross']}); an int8 KV "
       f"cache: "
       f"launches "
       f"{routes_of(w_i8_launches, 'decode_attention_fused[int8]', 'decode_attention_fused')}"
-      f" ({n_wl} int8 self + {n_wl} fp cross a step), every one on the "
+      f" ({n_w8} int8 self + {n_w8} fp cross a step), every one on the "
       f"tensor-core "
       f"split; {same} of 2 streams equal to fp KV's (not gated: int8 KV "
       f"changes the logits); request 1 alone == its row in the batch, "
@@ -4137,7 +4275,7 @@ encdec_launches(f"{WHISPER} evicting", wo, wo_launches, n_wl,
 tier_line(f"{WHISPER}, 2 slots, 4 requests x 16 (clips "
           f"{sorted(len(r.embeds) for r in t_w)} frames)", wo, wb, wo_dt,
           wb_dt)
-del wb, wo, w_params
+del wb, wo, w_params, W8
 torch.cuda.empty_cache()
 
 # starcoder2_3b fp: 12 requests (prompts 64-400, max_new 64, odd ids
@@ -4759,6 +4897,86 @@ print(f"[quickstart] workload (e) PageRank: AXLE reduces the simulated "
       flush=True)
 
 # --------------------------------------------------------------------------
+# 6g. mesh-sharded serving: a 1x2 gloo group on the one card.  The ported
+# `examples/mesh_serve.py` runs in a process of its own (the ranks it
+# spawns import its module, never this script), once this process has
+# freed its models: the single-device server (graphed) serves full-width
+# starcoder2_3b, 4 slots, 4 requests (2 greedy, 2 sampled) x 32 tokens,
+# prompts of 64-512 tokens, seg_len 8; then 2 ranks serve the same with
+# `BatchedServer(mesh=)` (eager: gloo cannot be captured), each with its
+# launch counts set to 0 just before and read just after: tokens, decode
+# syncs and the ledger == the single device's on every rank, bitwise.
+# H 24 on KH 2 splits its KV heads at n = 2: each rank runs the fused
+# partial over 12 heads on 1 KV head and gathers the other group's
+# statistics, 4 x 12 x 130 x 4 = 24,960 bytes a merge, 30 merges a step.
+# In the same group the sequence-sharded schedules (BS, AXLE, RP) over a
+# cache of 8192 slots at starcoder2_3b's widths, bf16 and f32, are held
+# on every rank to the single-device fused decode (2e-2 in bf16, one unit
+# in the last place below 4; 1e-4 in f32, a summation order apart)
+# --------------------------------------------------------------------------
+
+MESH_T0 = time.perf_counter()
+
+
+def holds_cuda(x, depth=0) -> bool:
+    """A server, or a CUDA tensor alone or inside dicts, lists and
+    tuples."""
+    if isinstance(x, torch.Tensor):
+        return x.is_cuda
+    if isinstance(x, BatchedServer):
+        return True
+    if depth < 8 and isinstance(x, dict):
+        return any(holds_cuda(v, depth + 1) for v in x.values())
+    if depth < 8 and isinstance(x, (list, tuple)):
+        return any(holds_cuda(v, depth + 1) for v in x)
+    return False
+
+
+# what the earlier phases still hold on the card: the result below reads
+# only launch counts and timings
+held = torch.cuda.memory_allocated()
+freed = sorted(k for k, v in list(globals().items())
+               if not k.startswith("_") and holds_cuda(v))
+for k in freed:
+    del globals()[k]
+gc.collect()
+torch.cuda.empty_cache()
+print(f"[mesh] device memory held by this process before the phase: "
+      f"{held / 1e9:.2f} GB, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+      f"after freeing {len(freed)} globals", flush=True)
+ROOT = Path(__file__).resolve().parent
+mesh_json = ROOT / "build" / "mesh_serve.json"
+mesh_json.parent.mkdir(exist_ok=True)
+proc = subprocess.run(
+    [sys.executable, "-m", "repro_torch.examples.mesh_serve", "--full",
+     "--mesh", "1x2", "--ring-seq", "8192", "--json", str(mesh_json)],
+    cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+    capture_output=True, text=True, timeout=600)
+check(proc.returncode == 0, f"[mesh] examples.mesh_serve failed with "
+      f"{proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+for line in proc.stdout.splitlines():
+    if line.startswith("[mesh]"):
+        print(f"{line}; {SMI_LINE}", flush=True)
+mesh_res = json.loads(mesh_json.read_text())
+mesh_ranks = mesh_res["ranks"]
+check(len(mesh_ranks) == 2, f"[mesh] {len(mesh_ranks)} ranks reported")
+for rep in mesh_ranks:
+    ml, wm = rep["launches"], rep["wire_model"]
+    check(ml["decode_attention_fused_partial"] > 0
+          and ml["decode_attention_fused_partial_tc"]
+          == ml["decode_attention_fused_partial"]
+          and ml["decode_attention_fused"] == 0
+          and ml["flash_attention"] > 0,
+          f"[mesh] rank {rep['rank']}: launches {ml}")
+    check(rep["step"]["launches"].get("decode_attention_fused_partial")
+          == get_config(ARCH).n_layers == rep["merges_per_step"]
+          and wm["bytes_per_merge"] == 24_960 and wm["n_shards"] == 2,
+          f"[mesh] rank {rep['rank']}: step {rep['step']}, wire {wm}")
+mesh_launches = mesh_ranks[0]["launches"]
+print(f"[mesh] phase {time.perf_counter() - MESH_T0:.1f} s; "
+      f"{time.perf_counter() - T_START:.0f} s into the script", flush=True)
+
+# --------------------------------------------------------------------------
 # 7. result
 # --------------------------------------------------------------------------
 
@@ -4800,6 +5018,8 @@ records["decode_attention_partial[enc1500]"]["launches"] = \
 records["flash_attention[hd64mha]"]["launches"] = \
     w_launches["flash_attention"]
 records["sls"]["launches"] = sls_launches["sls"]
+records["decode_attention_fused_partial"]["launches"] = \
+    mesh_launches["decode_attention_fused_partial"]
 for name, rec in records.items():
     check(rec["launches"] > 0, f"{name} never launched on the main path")
 keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -26,8 +26,26 @@ The host tier (`stream_offload_to_host` / `stream_offload_to_device`,
 and pinned host memory on the side stream, for the server's eviction and
 prefix reuse.
 
-The mesh schedules (the AXLE ring, head-group gathering) are ROADMAP
-queue 1 item 17.
+Under a mesh (`sharding.use_rules`, one process a shard over
+`torch.distributed`) the decode takes the mesh schedules:
+
+  head groups  — serving (`head_shard_attn`): each model rank runs the
+                 fused partial (`ops.decode_attention_fused_partial`) over
+                 its head group, the (acc, m, l) statistics cross ranks
+                 in ONE all-gather, a bit-copy, and every rank normalises
+                 them: bitwise the single device's output.
+  sequence     — `seq_shard_attn`: each rank holds a span of the cache's
+                 sequence; AXLE streams the partials around the ring in
+                 n - 1 point-to-point hops, each posted before the merge
+                 of the previous one; BS gathers every rank's chunk
+                 partials at once; RP brings them over one rank at a
+                 time.  `cache_update_sharded` writes a token into the
+                 rank that owns its slot.
+
+The transport is gloo's: host tensors.  A CUDA tensor is staged through
+pinned host memory on its way out and copied back after (`_wire_*`); the
+computation stays on the card, and a failed collective raises.  `WIRE`
+counts what this process put on the wire.
 """
 from __future__ import annotations
 
@@ -36,14 +54,17 @@ import contextlib
 import dataclasses
 import enum
 import threading
+import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.ref import decode_valid_mask as _decode_valid_mask
 from repro_torch.models import layers as L
+from repro_torch.sharding import ShardingRules, active_rules
 
 
 class OffloadProtocol(enum.Enum):
@@ -203,6 +224,30 @@ def physical_slots(pages: torch.Tensor, slots: torch.Tensor,
         slots.shape).to(torch.int32)
 
 
+def cache_update_sharded(cache: torch.Tensor, new: torch.Tensor,
+                         slot: torch.Tensor) -> torch.Tensor:
+    """Write one token's K or V, IN PLACE, at logical slot `slot` (a scalar
+    or (B,) per-row) of a cache (B,KH,S,hd) that under `seq_shard_attn`
+    rules is this rank's span of the sequence: the rank that owns a row's
+    slot writes it there, every other rank rewrites the value it holds at
+    the clamped slot.  new: (B,KH,1,hd).  Returns `cache`."""
+    rules = active_rules()
+    b, _, s, _ = cache.shape
+    start = 0
+    if (rules is not None and rules.seq_shard_attn
+            and rules.model_size() > 1):
+        start = rules.rank(rules.model_axis) * s
+    slot_b = torch.as_tensor(slot, device=cache.device).to(
+        torch.int32).reshape(-1).expand(b)
+    loc = (slot_b - start).clamp(0, s - 1).long()
+    mine = (slot_b >= start) & (slot_b < start + s)
+    rows = torch.arange(b, device=cache.device)
+    val = torch.where(mine[:, None, None],
+                      new[:, :, 0, :].to(cache.dtype), cache[rows, :, loc, :])
+    cache[rows, :, loc, :] = val
+    return cache
+
+
 def _partials_over_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_valid: torch.Tensor, n_chunks: int
                           ) -> Tuple[torch.Tensor, torch.Tensor,
@@ -225,6 +270,32 @@ def _partials_over_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.stack(accs), torch.stack(ms), torch.stack(ls)
 
 
+def _chunked_partials(q, k_cache, v_cache, pos_b, window, extra, pages,
+                      kv_scales, page_size, n_chunks):
+    """The chunked schedule's statistics (RP, fused=False): the pools
+    dequantized (q in f32 with them: the partial takes q to f32 before
+    its dots either way) and gathered to logical order, one partial a
+    chunk, the current token's `extra` last.  Returns stacked (accs, ms,
+    ls)."""
+    q_in = q
+    if kv_scales is not None:
+        k_cache = _ref.dequantize_kv_pages(k_cache, kv_scales[0])
+        v_cache = _ref.dequantize_kv_pages(v_cache, kv_scales[1])
+        q_in = q.float()
+    if pages is not None:
+        k_cache = _ref.gather_kv_pages(k_cache, pages, page_size)
+        v_cache = _ref.gather_kv_pages(v_cache, pages, page_size)
+    kv_valid = _decode_valid_mask(pos_b, k_cache.shape[2], window)
+    accs, ms, ls = _partials_over_chunks(q_in, k_cache, v_cache, kv_valid,
+                                         n_chunks)
+    if extra is not None:
+        acc_e, m_e, l_e = extra
+        accs = torch.cat([accs, acc_e[None]], dim=0)
+        ms = torch.cat([ms, m_e[None]], dim=0)
+        ls = torch.cat([ls, l_e[None]], dim=0)
+    return accs, ms, ls
+
+
 def decode_attention_combined(q: torch.Tensor, k_cache: torch.Tensor,
                               v_cache: torch.Tensor, pos: torch.Tensor, *,
                               window: int = 0,
@@ -243,52 +314,265 @@ def decode_attention_combined(q: torch.Tensor, k_cache: torch.Tensor,
     schedule (RP, fused=False), whose dense fused route takes a chunk of
     S / n_chunks rows, capped at 128; None takes `chunks_per_shard`
     (capped at S).  The enc-dec cross-attention passes 1: one partial over
-    the whole encoder output.  Returns (B,1,H,hd)."""
+    the whole encoder output.  Returns (B,1,H,hd).
+
+    Under `head_shard_attn` rules on a model axis of n > 1 ranks whose
+    split aligns with the GQA groups (`partition.serve_head_regime`) the
+    head-group schedule runs the same route on each rank's heads and
+    gathers the statistics (`_headgroup_gather_decode`): bitwise this
+    function's single-device output.  Under `seq_shard_attn` rules the
+    cache is this rank's span of S = n x its length, and the protocol's
+    mesh schedule combines the spans (`_seq_sharded_decode`)."""
     cfg = current_offload()
+    rules = active_rules()
     b, kh, s, hd = k_cache.shape
+    n_shards = rules.model_size() if rules is not None else 1
     page_size = 0
     if pages is not None:
         assert s % pages.shape[1] == 0, (s, tuple(pages.shape))
         page_size = s // pages.shape[1]
     pos_b = torch.as_tensor(pos, device=q.device).to(
         torch.int32).reshape(-1).expand(b).contiguous()
+
+    if n_shards > 1 and rules.seq_shard_attn:
+        if pages is not None:
+            raise ValueError(
+                "the sequence-sharded schedules take each rank's span of a "
+                "dense (logical-order) cache, not page pools; serving "
+                "shards by head group (head_shard_attn)")
+        local = (max(1, cfg.chunks_per_shard) if n_chunks is None
+                 else max(1, n_chunks // n_shards))
+        return _seq_sharded_decode(q, k_cache, v_cache, pos_b, window,
+                                   extra, kv_scales, min(local, s), rules,
+                                   cfg.protocol)
+
     if n_chunks is None:
         n_chunks = min(max(1, cfg.chunks_per_shard), s)
-
-    if cfg.fused and cfg.protocol != OffloadProtocol.RP:
-        if pages is not None:
-            # the kernel chunk IS the page; the table drives its reads
-            return ops.decode_attention_fused(q, k_cache, v_cache, pos_b,
-                                              extra, pages, kv_scales,
-                                              window=window, blk_c=page_size)
+    fused = cfg.fused and cfg.protocol != OffloadProtocol.RP
+    if pages is not None:
+        blk_c = page_size        # the kernel chunk IS the page
+    else:
         # (over int8 pools the kernel takes the scale page as its chunk)
         blk_c = max(1, min(128, s // n_chunks))
+
+    if n_shards > 1 and rules.head_shard_attn:
+        h = q.shape[2]
+        shard_kv = kh % n_shards == 0
+        if shard_kv or (kh == 1 and h % n_shards == 0):
+            return _headgroup_gather_decode(
+                q, k_cache, v_cache, pos_b, window, extra, pages, kv_scales,
+                page_size, blk_c, None if fused else n_chunks, rules,
+                shard_kv)
+
+    if fused:
         return ops.decode_attention_fused(q, k_cache, v_cache, pos_b, extra,
-                                          kv_scales=kv_scales,
-                                          window=window, blk_c=blk_c)
+                                          pages, kv_scales, window=window,
+                                          blk_c=blk_c)
 
     # chunked schedule (RP, fused=False): per-chunk partials + one merge
-    q_in = q
-    if kv_scales is not None:
-        # f32 pools, and q in f32 with them (exact: the partial takes q
-        # to f32 before its dots either way)
-        k_cache = _ref.dequantize_kv_pages(k_cache, kv_scales[0])
-        v_cache = _ref.dequantize_kv_pages(v_cache, kv_scales[1])
-        q_in = q.float()
-    if pages is not None:
-        k_cache = _ref.gather_kv_pages(k_cache, pages, page_size)
-        v_cache = _ref.gather_kv_pages(v_cache, pages, page_size)
-    kv_valid = _decode_valid_mask(pos_b, s, window)
-    accs, ms, ls = _partials_over_chunks(q_in, k_cache, v_cache, kv_valid,
-                                         n_chunks)
-    if extra is not None:
-        acc_e, m_e, l_e = extra
-        accs = torch.cat([accs, acc_e[None]], dim=0)
-        ms = torch.cat([ms, m_e[None]], dim=0)
-        ls = torch.cat([ls, l_e[None]], dim=0)
+    accs, ms, ls = _chunked_partials(q, k_cache, v_cache, pos_b, window,
+                                     extra, pages, kv_scales, page_size,
+                                     n_chunks)
     out = L.merge_attention_partials(accs, ms, ls)        # (B,H,hd)
     return out[:, None].to(q.dtype)
 
+
+# --------------------------------------------------------------------------
+# The mesh schedules and their transport
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class WireCounters:
+    """What this process put on the mesh's wire: the statistics gathers
+    (head groups, BS), the AXLE ring's hops and RP's broadcasts, the bytes
+    sent to peers (a gather sends its payload to each of n - 1 peers),
+    and each hop's host wall ms (post to arrival)."""
+    gathers: int = 0
+    hops: int = 0
+    broadcasts: int = 0
+    bytes_sent: int = 0
+    hop_ms: List[float] = dataclasses.field(default_factory=list)
+
+    def reset(self) -> None:
+        self.gathers = self.hops = self.broadcasts = self.bytes_sent = 0
+        self.hop_ms.clear()
+
+
+WIRE = WireCounters()
+
+
+def _wire_out(t: torch.Tensor) -> torch.Tensor:
+    """The host tensor gloo sends: `t` itself on the CPU; a CUDA tensor's
+    copy in pinned memory, taken when the stream's work before it is
+    done (the copy waits for it)."""
+    t = t.contiguous()
+    if not t.is_cuda:
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host
+
+
+def _wire_buffer(like: torch.Tensor) -> torch.Tensor:
+    """A host tensor for gloo to receive a tensor shaped as `like` into."""
+    return torch.empty(like.shape, dtype=like.dtype,
+                       pin_memory=like.is_cuda)
+
+
+def _wire_in(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    return host.to(device, non_blocking=True) if device.type == "cuda" \
+        else host
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
+    """Every rank's `t` of the group, in rank order, on t's device."""
+    n = dist.get_world_size(group)
+    src = _wire_out(t)
+    parts = [_wire_buffer(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    WIRE.gathers += 1
+    WIRE.bytes_sent += (n - 1) * _nbytes(src)
+    return [_wire_in(p, t.device) for p in parts]
+
+
+def _pack(acc, m, l) -> torch.Tensor:
+    """(acc (...,hd), m (...), l (...)) as one f32 (..., hd + 2) tensor."""
+    return torch.cat([acc, m[..., None], l[..., None]], dim=-1)
+
+
+def _unpack(packed: torch.Tensor):
+    hd = packed.shape[-1] - 2
+    return packed[..., :hd], packed[..., hd], packed[..., hd + 1]
+
+
+def _headgroup_gather_decode(q, k_cache, v_cache, pos_b, window, extra,
+                             pages, kv_scales, page_size, blk_c, n_chunks,
+                             rules: ShardingRules, shard_kv: bool):
+    """The head-group schedule: this model rank's contiguous group of
+    H / n query heads (and, when n | KH, of KH / n KV heads with their
+    page scales; with KH == 1 the panel is whole) sliced out of the
+    replicated operands, a bit-copy; the single device's route over them
+    with its statistics left raw (the fused partial, or with `n_chunks`
+    the chunked schedule's merge); the statistics of every group gathered
+    in rank order along the head axis in ONE all-gather, a bit-copy; and
+    the single device's normalisation.  Every statistic belongs to one
+    (row, head), so the result is the single device's bit for bit.  Wire
+    bytes a rank a merge: (n - 1) B H/n (hd + 2) 4."""
+    axis = rules.model_axis
+    n, r = rules.model_size(), rules.rank(axis)
+    h, kh = q.shape[2], k_cache.shape[1]
+    hl = h // n
+    heads = slice(r * hl, (r + 1) * hl)
+    q_l = q[:, :, heads].contiguous()
+    k_l, v_l, scales_l = k_cache, v_cache, kv_scales
+    if shard_kv:
+        kv = slice(r * (kh // n), (r + 1) * (kh // n))
+        k_l = k_cache[:, kv].contiguous()
+        v_l = v_cache[:, kv].contiguous()
+        if kv_scales is not None:
+            scales_l = tuple(sc[:, kv].contiguous() for sc in kv_scales)
+    extra_l = (None if extra is None
+               else tuple(t[:, heads].contiguous() for t in extra))
+    if n_chunks is None:
+        acc, m, l = ops.decode_attention_fused_partial(
+            q_l, k_l, v_l, pos_b, extra_l, pages, scales_l, window=window,
+            blk_c=blk_c)
+    else:
+        acc, m, l = L.merge_attention_partials_raw(*_chunked_partials(
+            q_l, k_l, v_l, pos_b, window, extra_l, pages, scales_l,
+            page_size, n_chunks))
+    full = torch.cat(_all_gather(_pack(acc, m, l), rules.group(axis)), dim=1)
+    acc, _, l = _unpack(full)
+    return _ref.normalize_fused_partial(acc, l, q.dtype)
+
+
+def _merge_pair(run, other):
+    return _ref.merge_fused_partial_pair(*run, *other)
+
+
+def _seq_sharded_decode(q, k_l, v_l, pos_b, window, extra, kv_scales,
+                        n_chunks, rules: ShardingRules,
+                        protocol: OffloadProtocol) -> torch.Tensor:
+    """Decode over a sequence-sharded cache: k_l/v_l (B,KH,S/n,hd) are this
+    model rank's span [r S/n, (r + 1) S/n) of the logical sequence (int8
+    pools with their local page scales when `kv_scales` is given).
+
+      AXLE — ONE partial over the span, then n - 1 ring hops by
+             point-to-point sends (`batch_isend_irecv`): hop j sends what
+             arrived at hop j - 1 (first the rank's own partial) to rank
+             r + 1 and receives from r - 1, and is posted BEFORE the
+             merge of hop j - 1's arrival, so the transfer overlaps it.
+             Each rank merges the partials in ring order (its own, r - 1,
+             r - 2, ...), then the current token's `extra`, and
+             normalises.
+      BS   — `n_chunks` partials a span, ONE all-gather of every rank's,
+             then the single device's chunked merge in sequence order
+             (`extra` last).
+      RP   — the same partials and merge, brought over one rank at a
+             time by a broadcast from each rank in turn: n serial round
+             trips.
+
+    Each hop's host wall (post to arrival) goes to `WIRE.hop_ms`."""
+    axis = rules.model_axis
+    group = rules.group(axis)
+    n, r = rules.model_size(), rules.rank(axis)
+    b, kh, s_l, hd = k_l.shape
+    q_in = q
+    if kv_scales is not None:
+        k_l = _ref.dequantize_kv_pages(k_l, kv_scales[0])
+        v_l = _ref.dequantize_kv_pages(v_l, kv_scales[1])
+        q_in = q.float()
+    valid = _decode_valid_mask(pos_b, s_l, window, start=r * s_l)
+
+    if protocol == OffloadProtocol.AXLE:
+        run = ops.decode_attention_partial(q_in, k_l, v_l, valid)
+        nxt = dist.get_global_rank(group, (r + 1) % n)
+        prv = dist.get_global_rank(group, (r - 1) % n)
+        send, arrived = _wire_out(_pack(*run)), None
+        for hop in range(n - 1):
+            t0 = time.perf_counter()
+            recv = _wire_buffer(send)
+            works = dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, send, nxt, group),
+                dist.P2POp(dist.irecv, recv, prv, group)])
+            if arrived is not None:         # overlaps the hop in flight
+                run = _merge_pair(run, _unpack(_wire_in(arrived,
+                                                        q.device)))
+            for w in works:
+                w.wait()
+            WIRE.hops += 1
+            WIRE.bytes_sent += _nbytes(send)
+            WIRE.hop_ms.append((time.perf_counter() - t0) * 1e3)
+            arrived = send = recv
+        if arrived is not None:
+            run = _merge_pair(run, _unpack(_wire_in(arrived, q.device)))
+        if extra is not None:
+            run = _merge_pair(run, extra)
+        return _ref.normalize_fused_partial(run[0], run[2], q.dtype)
+
+    packed = _pack(*_partials_over_chunks(q_in, k_l, v_l, valid, n_chunks))
+    if protocol == OffloadProtocol.BS:
+        parts = _all_gather(packed, group)
+    else:
+        parts = []
+        for j in range(n):
+            buf = _wire_out(packed) if j == r else _wire_buffer(packed)
+            dist.broadcast(buf, dist.get_global_rank(group, j), group=group)
+            WIRE.broadcasts += 1
+            if j == r:
+                WIRE.bytes_sent += (n - 1) * _nbytes(buf)
+            parts.append(_wire_in(buf, q.device))
+    accs, ms, ls = _unpack(torch.cat(parts, dim=0))
+    if extra is not None:
+        accs = torch.cat([accs, extra[0][None]], dim=0)
+        ms = torch.cat([ms, extra[1][None]], dim=0)
+        ls = torch.cat([ls, extra[2][None]], dim=0)
+    out = L.merge_attention_partials(accs, ms, ls)        # (B,H,hd)
+    return out[:, None].to(q.dtype)
 
 
 # --------------------------------------------------------------------------

@@ -42,6 +42,8 @@ COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 LAUNCHES: Dict[str, int] = {"decode_attention_fused": 0,
                             "decode_attention_fused[int8]": 0,
+                            "decode_attention_fused_partial": 0,
+                            "decode_attention_fused_partial[int8]": 0,
                             "flash_attention": 0,
                             "decode_attention_partial": 0,
                             "ssd_scan": 0,
@@ -53,6 +55,8 @@ LAUNCHES: Dict[str, int] = {"decode_attention_fused": 0,
                             "knn_distances_wgmma": 0,
                             "decode_attention_fused_tc": 0,
                             "decode_attention_fused[int8]_tc": 0,
+                            "decode_attention_fused_partial_tc": 0,
+                            "decode_attention_fused_partial[int8]_tc": 0,
                             "decode_attention_partial_tc": 0,
                             "quant_matmul[q8_0]_tc": 0,
                             "quant_matmul[q4_k]_tc": 0,
@@ -67,6 +71,8 @@ LAUNCHES: Dict[str, int] = {"decode_attention_fused": 0,
 # counts of the function they name, not kernels of their own
 VARIANTS = ("flash_attention_tc", "knn_distances_wgmma",
             "decode_attention_fused_tc", "decode_attention_fused[int8]_tc",
+            "decode_attention_fused_partial_tc",
+            "decode_attention_fused_partial[int8]_tc",
             "decode_attention_partial_tc", "quant_matmul[q8_0]_tc",
             "quant_matmul[q4_k]_tc", "quant_matmul[q8_0]_skinny",
             "quant_matmul[q4_k]_skinny", "quant_matmul[q8_0]_splitk",

@@ -7,6 +7,7 @@
 //   PARTIAL>, then decode_merge_kernel<T, PARTIAL>
 //       <- _decode_fused_kernel / decode_attention_fused (PARTIAL = false)
 //       <- _decode_partial_kernel / decode_attention_partial (PARTIAL)
+//       <- decode_attention_fused_partial (PARTIAL = false, raw epilogue)
 //       Flash decode of one query token per row.  The fused variant runs
 //       against the whole KV cache: dense or paged (a per-row page table
 //       indexing the row's own (KH, S, hd) panel), per-row `pos`, optional
@@ -16,7 +17,11 @@
 //       scale per physical page, looked up through the same indirection
 //       as the rows.  The partial variant writes the raw, unnormalised
 //       (acc, m, l) of a KV chunk under an explicit (B, C) mask, m = -inf
-//       for an empty row.  The KV range is split across blocks at fixed
+//       for an empty row.  The fused partial (the mesh decode's producer,
+//       one head group a rank) runs the fused route and writes the raw
+//       (acc, m, l) after the `extra` merge in place of the normalised
+//       output: normalised by the same f32 division, the gathered groups
+//       give the fused output's bits.  The KV range is split across blocks at fixed
 //       logical rows and merged in split order (see the note above the
 //       kernels); the split runs on the tensor cores for bf16 q with HD 64,
 //       80, 128 or 256 and at most 16 query heads per KV head, on the CUDA
@@ -680,9 +685,9 @@ struct DecodeArgs {
   const float* v_scale;        //   physical page
   int n_sc;
   void* out;                   // fused: (B, 1, H, hd) in q's type
-  float* acc_out;              // partial: (B, H, hd)
-  float* m_out;                // partial: (B, H)
-  float* l_out;                // partial: (B, H)
+  float* acc_out;              // partial, fused partial: (B, H, hd)
+  float* m_out;                // partial, fused partial: (B, H)
+  float* l_out;                // partial, fused partial: (B, H)
   float* ws_acc;               // (B, KH, n_split, G, hd) split partials
   float* ws_m;                 // (B, KH, n_split, G)
   float* ws_l;                 // (B, KH, n_split, G)
@@ -1106,8 +1111,9 @@ __global__ void __launch_bounds__(DS_NT) decode_split_tc_kernel(DecodeArgs a) {
 
 // The splits of one (row b, head h), in split order: the largest m, then
 // acc and l of every non-empty split weighted by exp(m_j - m).  Fused: the
-// current token's (acc, m, l) merged, then normalised; partial: the raw
-// (acc, m, l), m = -inf when every split is empty.  One block per (b, h).
+// current token's (acc, m, l) merged, then normalised, or with acc_out set
+// (the fused partial) written raw; partial: the raw (acc, m, l).  A raw m
+// is -inf when nothing was attended.  One block per (b, h).
 constexpr int DM_NT = 128;
 
 template <typename T, bool PARTIAL>
@@ -1138,6 +1144,7 @@ __global__ void __launch_bounds__(DM_NT) decode_merge_kernel(DecodeArgs a) {
       }
       continue;
     }
+    float mr = m;
     if (a.acc_e) {
       // the current token's (acc, m, l), merged before normalisation
       const float me = a.m_e[head];
@@ -1145,6 +1152,17 @@ __global__ void __launch_bounds__(DM_NT) decode_merge_kernel(DecodeArgs a) {
       const float a1 = expf(m - mm), a2 = expf(me - mm);
       acc = acc * a1 + a.acc_e[head * a.HD + d] * a2;
       l = l * a1 + a.l_e[head] * a2;
+      mr = mm;
+    }
+    if (a.acc_out) {
+      // the fused partial: a head group's statistics, normalised by the
+      // caller after they are gathered (the same division as below)
+      a.acc_out[head * a.HD + d] = acc;
+      if (d == 0) {
+        a.m_out[head] = mr <= NEG_INF / 2 ? -INFINITY : mr;
+        a.l_out[head] = l;
+      }
+      continue;
     }
     static_cast<T*>(a.out)[head * a.HD + d] = from_f<T>(acc / fmaxf(l, 1e-20f));
   }
@@ -1262,6 +1280,34 @@ int rt_decode_fused(int dtype, int tc, const void* q, const void* k,
   DecodeArgs a = {};
   a.q = q; a.k = k; a.v = v; a.pos = pos; a.pages = pages; a.n_log = n_log;
   a.acc_e = acc_e; a.m_e = m_e; a.l_e = l_e; a.out = out;
+  a.k_scale = k_scale; a.v_scale = v_scale; a.n_sc = n_sc;
+  a.H = H; a.KH = KH; a.S = S; a.HD = HD; a.blk_c = blk_c;
+  a.split = split; a.n_split = n_split; a.window = window; a.scale = scale;
+  set_workspace(a, ws, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k_scale)
+    return dtype == 1 ? run_decode<__nv_bfloat16, int8_t, false>(a, B, tc, s)
+                      : run_decode<float, int8_t, false>(a, B, tc, s);
+  return dtype == 1
+             ? run_decode<__nv_bfloat16, __nv_bfloat16, false>(a, B, tc, s)
+             : run_decode<float, float, false>(a, B, tc, s);
+}
+
+// The fused route with the raw-statistics epilogue: rt_decode_fused's
+// inputs, and f32 acc (B, H, hd), m (B, H), l (B, H) in place of out.
+int rt_decode_fused_partial(int dtype, int tc, const void* q, const void* k,
+                            const void* v, const int* pos, const int* pages,
+                            int n_log, const float* acc_e, const float* m_e,
+                            const float* l_e, const float* k_scale,
+                            const float* v_scale, int n_sc, float* acc,
+                            float* m, float* l, float* ws, int B, int H,
+                            int KH, int S, int HD, int blk_c, int split,
+                            int n_split, int window, float scale,
+                            void* stream) {
+  DecodeArgs a = {};
+  a.q = q; a.k = k; a.v = v; a.pos = pos; a.pages = pages; a.n_log = n_log;
+  a.acc_e = acc_e; a.m_e = m_e; a.l_e = l_e;
+  a.acc_out = acc; a.m_out = m; a.l_out = l;
   a.k_scale = k_scale; a.v_scale = v_scale; a.n_sc = n_sc;
   a.H = H; a.KH = KH; a.S = S; a.HD = HD; a.blk_c = blk_c;
   a.split = split; a.n_split = n_split; a.window = window; a.scale = scale;

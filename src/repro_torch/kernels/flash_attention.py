@@ -6,6 +6,10 @@ bounds it on an H100).  `build.py` compiles them with the port's other
 kernels at first use and binds them with `ctypes`; nothing is built when
 this module is imported.
 
+The fused decode has a sibling entry, `decode_attention_fused_partial`:
+the same launch with a raw-statistics epilogue, the mesh decode's
+producer.
+
 Every wrapper takes CUDA tensors only, checks device, dtype, shape and
 contiguity, allocates its outputs with `torch.empty`, launches on
 `torch.cuda.current_stream()` and raises if the launch fails.  It never
@@ -41,6 +45,9 @@ _SIGNATURES = {
     "rt_decode_fused": [_I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                         _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                         _P],
+    "rt_decode_fused_partial": [_I, _I, _P, _P, _P, _P, _P, _I, _P, _P,
+                                _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "rt_decode_partial": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "rt_flash_attention": [_I, _P, _P, _P, _P,
@@ -126,8 +133,37 @@ def decode_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     page; k/v are then int8 pools, and the page (S / n_scales) is the
     chunk: it replaces `blk_c` when dense and must equal it when paged.
     Returns (B,1,H,hd) in q's dtype."""
-    name = ("decode_attention_fused" if kv_scales is None
-            else "decode_attention_fused[int8]")
+    return _decode_fused(q, k, v, pos, extra, window, blk_c, pages,
+                         kv_scales, raw=False)
+
+
+def decode_attention_fused_partial(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
+        extra: Optional[Tuple[torch.Tensor, torch.Tensor,
+                              torch.Tensor]] = None,
+        *, window: int = 0, blk_c: int = 128,
+        pages: Optional[torch.Tensor] = None,
+        kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`decode_attention_fused` without its normalisation: the same inputs,
+    the same splits and the same merge (the current token's `extra`
+    included), and the merged f32 statistics (acc (B,H,hd), m (B,H),
+    l (B,H)) written raw, m = -inf where nothing was attended.
+    `ref.normalize_fused_partial` then gives `decode_attention_fused`'s
+    output bit for bit, also for head groups normalised after a gather:
+    the mesh decode's producer."""
+    return _decode_fused(q, k, v, pos, extra, window, blk_c, pages,
+                         kv_scales, raw=True)
+
+
+def _decode_fused(q, k, v, pos, extra, window, blk_c, pages, kv_scales, *,
+                  raw: bool):
+    """The fused decode's launch, with its normalised output (`raw`
+    False) or its raw statistics (True)."""
+    name = "decode_attention_fused_partial" if raw \
+        else "decode_attention_fused"
+    if kv_scales is not None:
+        name += "[int8]"
     if kv_scales is None:
         check_inputs(name, q, k, v)
     else:
@@ -177,20 +213,27 @@ def decode_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    and tuple(t.shape) == shape and t.is_contiguous(),
                    f"{name}: extra must be contiguous f32 CUDA "
                    "(B,H,hd), (B,H), (B,H)")
-    out = torch.empty_like(q)
     split, n_split = decode_split(n_log * blk_c if n_log else s, blk_c)
     ws = _workspace(b, kh, n_split, h // kh, hd, q.device)
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
     tc = decode_route(q.dtype, hd, h // kh,
                       (qp | kp | vp) % 16 == 0) == "tensor_core"
-    err = _fn("rt_decode_fused")(
+    if raw:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        res = (torch.empty((b, h, hd), **f32), torch.empty((b, h), **f32),
+               torch.empty((b, h), **f32))
+        outs = tuple(t.data_ptr() for t in res)
+    else:
+        res = torch.empty_like(q)
+        outs = (res.data_ptr(),)
+    err = _fn("rt_decode_fused_partial" if raw else "rt_decode_fused")(
         DTYPE_CODE[q.dtype], int(tc), qp, kp, vp, pos.data_ptr(), pages_ptr,
         n_log, None if acc_e is None else acc_e.data_ptr(),
         None if m_e is None else m_e.data_ptr(),
         None if l_e is None else l_e.data_ptr(),
         None if kv_scales is None else kv_scales[0].data_ptr(),
         None if kv_scales is None else kv_scales[1].data_ptr(), n_sc,
-        out.data_ptr(), ws.data_ptr(), b, h, kh, s, hd, blk_c, split,
+        *outs, ws.data_ptr(), b, h, kh, s, hd, blk_c, split,
         n_split, int(window), float(hd ** -0.5), stream())
     raise_on(err, name)
     LAUNCHES[name] += 1
@@ -198,7 +241,7 @@ def decode_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         LAUNCHES[name + "_tc"] += 1
     if kv_scales is None:
         count_site(name)
-    return out
+    return res
 
 
 def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,

@@ -96,6 +96,34 @@ def decode_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        kv_scales=kv_scales)
 
 
+def decode_attention_fused_partial(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
+        extra: Optional[Tuple[torch.Tensor, torch.Tensor,
+                              torch.Tensor]] = None,
+        pages: Optional[torch.Tensor] = None,
+        kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        *, window: int = 0, blk_c: int = 128
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`decode_attention_fused` without the normalisation: the same
+    arguments, and the merged f32 (acc (B,H,hd), m (B,H), l (B,H)),
+    `extra` included.  `ref.normalize_fused_partial(acc, l, q.dtype)`
+    gives `decode_attention_fused`'s output, and for a head group's
+    statistics gathered with the other groups' the whole output: the mesh
+    decode's producer (`core/backstream.py`)."""
+    if _use_kernel(q):
+        return _fa.decode_attention_fused_partial(
+            q, k, v, pos, extra, window=window, blk_c=blk_c, pages=pages,
+            kv_scales=kv_scales)
+    page_size = blk_c if pages is not None else 0
+    if page_size and kv_scales is not None \
+            and page_size != k.shape[2] // kv_scales[0].shape[-1]:
+        raise ValueError(f"page size {page_size} != S / n_scales "
+                         f"({k.shape[2]} / {kv_scales[0].shape[-1]})")
+    return _ref.decode_fused_partial_reference(
+        q, k, v, pos, extra, window=window, pages=pages,
+        page_size=page_size, kv_scales=kv_scales)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor,
              init_state: Optional[torch.Tensor] = None

@@ -115,10 +115,11 @@ def normalize_fused_partial(acc: torch.Tensor, l: torch.Tensor,
     return out[:, None].to(dtype)
 
 
-def decode_valid_mask(pos_b: torch.Tensor, s: int,
-                      window: int) -> torch.Tensor:
-    """(B,S) bool mask of attended cache slots: pos-window < slot <= pos."""
-    slots = torch.arange(s, device=pos_b.device)
+def decode_valid_mask(pos_b: torch.Tensor, s: int, window: int,
+                      start: int = 0) -> torch.Tensor:
+    """(B,S) bool mask of attended cache slots: pos-window < slot <= pos,
+    for the S slots from `start` (a sequence shard's first slot)."""
+    slots = start + torch.arange(s, device=pos_b.device)
     valid = slots[None, :] <= pos_b[:, None]
     if window > 0:
         valid &= slots[None, :] > (pos_b - window)[:, None]

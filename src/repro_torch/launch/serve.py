@@ -72,8 +72,22 @@ encoder-decoder, as in the reference.
 
 On the card every decode segment runs as one CUDA graph replay
 (`launch/graphs.py`), captured at construction; on the CPU the segments
-run eagerly.  Both loops emit identical tokens.  The mesh is a later
-slice (ROADMAP.md queue 1); its options are absent here, not ignored.
+run eagerly.  Both loops emit identical tokens.
+
+`--mesh DATAxMODEL` (`mesh=`, a `launch/mesh.py` DeviceMesh) serves
+SPMD over `torch.distributed`, one process a shard, every rank running
+the same host loop on the same requests: the slots split over `data`
+(each data group holds its rows' cache and slot state, and gathers its
+rows' tokens and verdicts at every decode sync, so every rank's scheduler
+decides alike), the parameters are replicated (every rank draws them
+from the same seed), and the decode attention splits by head group over
+`model` (`core/backstream.py`), its statistics crossing ranks in one
+all-gather a merge.  Tokens, decode syncs and the page ledger are
+bitwise the single-device server's for every mesh shape;
+`wire_bytes_per_shard` counts the statistics' bytes (`core/ring.py`
+`WireLedger`).  Gloo's collectives cannot be captured in a CUDA graph,
+so under a mesh the segments run eagerly on the card too.  Run it with
+`torchrun --nproc-per-node N -m repro_torch.launch.serve --mesh DxM`.
 """
 from __future__ import annotations
 
@@ -85,6 +99,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
@@ -94,13 +109,17 @@ from repro_torch.core.backstream import (HostTier, OffloadConfig,
                                          stream_offload_to_host,
                                          use_offload)
 from repro_torch.core import prng
+from repro_torch.core import ring as ring_lib
 from repro_torch.kernels import ops
+from repro_torch.kernels.quant import QTensor
 from repro_torch.launch import graphs
+from repro_torch.launch import partition
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.quantize import quantize_params
 from repro_torch.models.registry import get_model
+from repro_torch.sharding import ShardingRules, use_rules
 
 PROTOCOLS = {"bs": OffloadProtocol.BS, "axle": OffloadProtocol.AXLE,
              "rp": OffloadProtocol.RP}
@@ -274,7 +293,24 @@ class BatchedServer:
     write-masked variant, which leaves the slot's rows alone.  Every chunk
     is padded to C, so a prompt needs ceil(P / C) C <= max_seq (`submit`
     refuses it otherwise).  Refused with `spec`, `prefix_cache` and for
-    an encoder-decoder (no resume prefill)."""
+    an encoder-decoder (no resume prefill).
+
+    `mesh` (a ("data", "model") DeviceMesh of the process group this
+    rank belongs to) serves SPMD: every rank constructs the server alike
+    and runs the same loop on the same requests.  The serving rules are
+    `ShardingRules(mesh, head_shard_attn=True)` and `PartitionPlan(fsdp=
+    False)`: parameters replicated (checked at construction by one
+    gathered checksum), slot rows split over `data` (`batch_slots` must
+    divide), the decode attention split by head group over `model`.
+    Every rank runs every admission's prefill, for its first token; only
+    the data group that owns the slot keeps the cache writes (the others
+    prefill into a one-row scratch cache).  At each decode sync a data
+    group gathers the rows' tokens, emit masks and verdicts.  The
+    segments run eagerly (no CUDA graph), and a speculative draft decodes
+    with its attention whole on every rank.  The host tier, the prefix
+    cache and chunked admission move one slot's pages between a row and
+    the host, so they need every row on every rank: they are refused
+    under a data split (n_data > 1)."""
 
     def __init__(self, arch_id: str, *, smoke: bool = True,
                  device: Optional[str] = None, batch_slots: int = 4,
@@ -289,10 +325,12 @@ class BatchedServer:
                  cfg: Optional[ArchConfig] = None,
                  host_offload: bool = False, prefix_cache: bool = False,
                  evict_after: int = 1, offload_chunks: int = 2,
-                 prefill_chunk: Optional[int] = None):
+                 prefill_chunk: Optional[int] = None, mesh=None):
         self.device = resolve_device(device)
         self.cfg = cfg or (get_smoke_config(arch_id) if smoke
                            else get_config(arch_id))
+        self._init_mesh(mesh, batch_slots, host_offload, prefix_cache,
+                        prefill_chunk)
         if prefill_chunk is not None:
             _check_prefill_chunk(self.cfg, prefill_chunk, spec, prefix_cache)
         if prefix_cache and spec:
@@ -316,10 +354,15 @@ class BatchedServer:
         if self.quant.weights is not None:
             params = quantize_params(params, self.quant.weights)
         self.params = params
-        self.cache = self.model.init_cache(self.cfg, batch_slots, max_seq,
-                                           device=self.device,
+        if self.rules is not None:
+            self._check_replicated(self.params)
+        # this rank's rows of the slots (all of them off a mesh)
+        self.cache = self.model.init_cache(self.cfg, self.rows_local,
+                                           max_seq, device=self.device,
                                            page_size=page_size,
                                            kv_quant=self.quant.kv)
+        self._page_size_arg = page_size
+        self._scratch = None    # the prefill cache of another group's slot
         # page ledger: one page = `page_size` positions of one slot row,
         # charged as the position clock advances and released at
         # retirement; allocated == freed + resident at every tick.  A
@@ -339,7 +382,7 @@ class BatchedServer:
             self.cfg, from_enc_out=self.cfg.enc_dec)
         self.encoder_passes = 0
         self.draft_shares_encoder = False
-        self.state = steps_lib.init_slot_state(batch_slots, self.device)
+        self.state = steps_lib.init_slot_state(self.rows_local, self.device)
         self.spec = spec
         self.spec_k = spec_k
         self.draft_accepted = 0
@@ -381,6 +424,104 @@ class BatchedServer:
         self.host_syncs = 0            # every host<->device sync
         self.decode_syncs = 0          # the decode loop's share
         self.tokens_emitted = 0
+        self._init_wire()
+
+    def _init_mesh(self, mesh, batch_slots: int, host_offload: bool,
+                   prefix_cache: bool, prefill_chunk: Optional[int]) -> None:
+        """The serving rules and plan under a mesh, this rank's slot rows
+        [row0, row0 + rows_local), and the data group whose rows a decode
+        sync gathers (None without a data split)."""
+        self.mesh = mesh
+        self.rules = self.plan = self._data_group = None
+        self.row0, self.rows_local = 0, batch_slots
+        if mesh is None:
+            return
+        self.rules = ShardingRules(mesh, head_shard_attn=True)
+        self.plan = partition.PartitionPlan(rules=self.rules, fsdp=False)
+        n_data = self.rules.data_size()
+        if batch_slots % n_data:
+            raise ValueError(f"{batch_slots} slots do not split over "
+                             f"{n_data} data ranks")
+        if n_data > 1:
+            for flag, what in ((host_offload, "host_offload"),
+                               (prefix_cache, "prefix_cache"),
+                               (prefill_chunk is not None, "prefill_chunk")):
+                if flag:
+                    raise ValueError(
+                        f"{what} under a data split ({n_data} data ranks): "
+                        "its slot pages move between one row and the "
+                        "host, and another data group may hold the row")
+            self.rows_local = batch_slots // n_data
+            self.row0 = self.rules.rank("data") * self.rows_local
+            self._data_group = self.rules.group("data")
+
+    def _init_wire(self) -> None:
+        """The wire ledger: every decode step merges once per attention
+        sublayer of the target (an enc-dec decoder's cross reads too), a
+        verify once per position and sublayer; a speculative draft
+        decodes with its attention whole, off the wire.  Zero-wire cases
+        (no mesh, the replicated regime, no attention) fall out of the
+        formula."""
+        cfg = self.cfg
+        n_attn = cfg.attn_layers_per_block() * cfg.n_blocks
+        if cfg.enc_dec:
+            n_attn *= 2
+        self.merges_per_round = n_attn * self._tokens_per_step
+        n_eff = 1
+        if self.plan is not None:
+            shard_q, _ = partition.serve_head_regime(cfg, self.plan)
+            n_eff = self.rules.model_size() if shard_q else 1
+        self.wire = ring_lib.WireLedger(
+            n_shards=n_eff, rows_local=self.rows_local,
+            heads_local=cfg.n_heads // n_eff, head_dim=cfg.head_dim_)
+
+    @property
+    def wire_bytes_per_shard(self) -> int:
+        """Bytes ONE shard sent on the wire so far: the head groups'
+        statistics; 0 off a mesh and in every replicated regime."""
+        return self.wire.wire_bytes_per_shard
+
+    def _check_replicated(self, params: Dict[str, Any]) -> None:
+        """Every rank drew the same parameters: one int64 sum of each
+        leaf's bytes a rank, gathered over the world and compared
+        exactly.  Raises if any two ranks' differ."""
+        sums = []
+
+        def walk(tree):
+            if isinstance(tree, QTensor):
+                walk([tree.scales, tree.quants, tree.mins])
+            elif isinstance(tree, dict):
+                for key in sorted(tree):
+                    walk(tree[key])
+            elif isinstance(tree, (list, tuple)):
+                for t in tree:
+                    walk(t)
+            elif isinstance(tree, torch.Tensor):
+                sums.append(tree.contiguous().view(torch.uint8).sum(
+                    dtype=torch.int64))
+
+        walk(params)
+        mine = torch.stack(sums).cpu()
+        every = [torch.empty_like(mine)
+                 for _ in range(dist.get_world_size())]
+        dist.all_gather(every, mine)
+        if not all(torch.equal(mine, other) for other in every):
+            raise RuntimeError("the mesh's ranks drew different parameters")
+
+    def _row(self, slot: int) -> Optional[int]:
+        """`slot`'s row in this rank's cache and slot state; None when
+        another data group holds it."""
+        row = slot - self.row0
+        return row if 0 <= row < self.rows_local else None
+
+    def _scratch_cache(self) -> Dict[str, Any]:
+        """The one-row cache the prefill of another data group's slot
+        writes into: only its logits are kept."""
+        if self._scratch is None:
+            self._scratch = self.model.init_cache(
+                self.cfg, 1, self.max_seq, device=self.device,
+                page_size=self._page_size_arg, kv_quant=self.quant.kv)
+        return self._scratch
 
     def _init_draft(self, draft_arch: Optional[str],
                     draft_params: Optional[Dict[str, Any]],
@@ -413,7 +554,8 @@ class BatchedServer:
                     self.draft_cfg, gen, self.device)
             self.draft_params = draft_params
         self.draft_cache = get_model(self.draft_cfg).init_cache(
-            self.draft_cfg, self.batch, self.max_seq, device=self.device)
+            self.draft_cfg, self.rows_local, self.max_seq,
+            device=self.device)
         # a self-draft's encoder IS the target's: its prefill takes the
         # target's encoder output
         self.draft_shares_encoder = self.cfg.enc_dec and self_draft
@@ -451,8 +593,9 @@ class BatchedServer:
                      caches: Tuple[Dict[str, Any], ...]) -> List[Any]:
         """The segment functions as the loops call them: on the card, each
         captured as a CUDA graph against the live parameters and caches;
-        on the CPU, as they are."""
-        if self.device.type != "cuda":
+        on the CPU, and under a mesh (gloo's collectives cannot be
+        captured), as they are."""
+        if self.device.type != "cuda" or self.rules is not None:
             return fns
         with use_offload(self.offload):
             # fns[:2] are the one-step (one-round) functions
@@ -561,6 +704,7 @@ class BatchedServer:
         padded = np.zeros((_prefill_bucket(plen, self.max_seq),), np.int32)
         padded[:plen] = req.prompt
         tokens = torch.from_numpy(padded).to(self.device)
+        row = self._row(slot)
         with use_offload(self.offload):
             args = draft_args = ()
             if self.cfg.enc_dec:
@@ -569,15 +713,21 @@ class BatchedServer:
                 self.encoder_passes += 1
                 draft_args = args if self.draft_shares_encoder \
                     else (frames,)
-            logits, self.cache = self.prefill_fn(self.params, self.cache,
-                                                 tokens, slot, plen, *args)
-            if self.spec:
+            if row is None:
+                # another data group's slot: for the first token only
+                logits, self._scratch = self.prefill_fn(
+                    self.params, self._scratch_cache(), tokens, 0, plen,
+                    *args)
+            else:
+                logits, self.cache = self.prefill_fn(
+                    self.params, self.cache, tokens, row, plen, *args)
+            if self.spec and row is not None:
                 # the draft's own prompt state; its logits are not used
                 # (the first token comes from the target)
                 if self.cfg.enc_dec and not self.draft_shares_encoder:
                     self.encoder_passes += 1
                 _, self.draft_cache = self.draft_prefill_fn(
-                    self.draft_params, self.draft_cache, tokens, slot, plen,
+                    self.draft_params, self.draft_cache, tokens, row, plen,
                     *draft_args)
         self.prefill_forwards += 1
         return logits
@@ -795,8 +945,11 @@ class BatchedServer:
             return False
         self.positions[slot] = len(req.prompt)
         self.remaining[slot] = remaining
+        row = self._row(slot)
+        if row is None:
+            return True          # another data group's row
         self.state = steps_lib.admit_slot(
-            self.state, slot, token=first, position=len(req.prompt),
+            self.state, row, token=first, position=len(req.prompt),
             key=key, remaining=remaining, temperature=sp.temperature,
             top_k=sp.top_k, top_p=sp.top_p, min_p=sp.min_p,
             stop=sp.stop_tokens)
@@ -966,7 +1119,7 @@ class BatchedServer:
         from it (tokens, emit masks, alive, remaining, positions; under
         speculation also the accept lengths and the draft counters) to
         host memory.  Returns (host tensors, event to wait on or None)."""
-        with use_offload(self.offload):
+        with use_offload(self.offload), use_rules(self.rules):
             if self.spec:
                 seg, emit, alens, self.state, self.cache, \
                     self.draft_cache = fn(self.params, self.draft_params,
@@ -1002,6 +1155,7 @@ class BatchedServer:
         fetched = self._run_segment(self.step_plain_fn if plain
                                     else self.step_fn)
         self.steps += self._tokens_per_step
+        self.wire.charge_merges(self.merges_per_round)
         self._consume_segment(fetched, rows)
         self.assert_ledger()
 
@@ -1023,6 +1177,7 @@ class BatchedServer:
                 fetched = self._run_segment(self.segment_plain_fn if plain
                                             else self.segment_fn)
                 self.steps += self.seg_len * self._tokens_per_step
+                self.wire.charge_merges(self.seg_len * self.merges_per_round)
                 self.segments_dispatched += 1
                 nxt_pending = (fetched, rows)
             self._pump_prefill()
@@ -1049,9 +1204,12 @@ class BatchedServer:
         host, done = fetched
         if done is not None:
             done.synchronize()
-        arr, em, alive, rem, pos = (t.numpy() for t in host[:5])
+        host = [t.numpy() for t in host]
+        if self._data_group is not None:
+            host = self._gather_rows(host)
+        arr, em, alive, rem, pos = host[:5]
         if self.spec:
-            al, acc, prop = (t.numpy() for t in host[5:])
+            al, acc, prop = host[5:]
         self.host_syncs += 1
         self.decode_syncs += 1
         for s, (req, take) in rows.items():
@@ -1079,6 +1237,25 @@ class BatchedServer:
                         self.completed.append(req)
                         self.active[s] = None
                         self._free_pages(s)
+
+    def _gather_rows(self, arrays: List[np.ndarray]) -> List[np.ndarray]:
+        """This data group's rows of a segment's host arrays (each (rows,
+        ...)) joined with the other groups' into every slot's, in slot
+        order: one all-gather of one int64 tensor over the data axis."""
+        flat = [a.reshape(self.rows_local, -1) for a in arrays]
+        mine = torch.from_numpy(np.concatenate(
+            [f.astype(np.int64) for f in flat], axis=1))
+        every = [torch.empty_like(mine)
+                 for _ in range(dist.get_world_size(self._data_group))]
+        dist.all_gather(every, mine, group=self._data_group)
+        full = torch.cat(every).numpy()
+        out, col = [], 0
+        for a, f in zip(arrays, flat):
+            w = f.shape[1]
+            out.append(full[:, col:col + w].astype(a.dtype).reshape(
+                (self.batch,) + a.shape[1:]))
+            col += w
+        return out
 
     def run_until_drained(self, max_steps: int = 10_000) -> None:
         if self.stream:
@@ -1139,10 +1316,29 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="admit prompts longer than this in chunks of this "
                          "many tokens, one between two decode segments")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="serve SPMD over a DATAxMODEL mesh of ranks, one "
+                         "process a shard: run under torchrun "
+                         "--nproc-per-node DATA*MODEL (e.g. 1x2)")
     args = ap.parse_args(argv)
+    if args.mesh is None:
+        return _serve_cli(args, None, args.device)
+    from repro_torch.launch import mesh as mesh_lib
+    mesh = mesh_lib.init_from_env(*mesh_lib.parse_mesh(args.mesh))
+    try:
+        device = args.device
+        if device is None or device == "cuda":
+            device = str(mesh_lib.rank_device(device))
+        return _serve_cli(args, mesh, device)
+    finally:
+        dist.destroy_process_group()
 
+
+def _serve_cli(args: argparse.Namespace, mesh, device: Optional[str]) -> int:
+    """The CLI's serve, on one device or as one rank of `mesh` (every rank
+    serves the same requests; rank 0 prints)."""
     server = BatchedServer(args.arch, smoke=not args.full,
-                           device=args.device, batch_slots=args.slots,
+                           device=device, batch_slots=args.slots,
                            max_seq=args.max_seq, protocol=args.protocol,
                            seg_len=args.seg_len, stream=args.stream,
                            quant=steps_lib.QuantConfig(
@@ -1154,7 +1350,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                            prefix_cache=args.prefix_cache,
                            evict_after=args.evict_after,
                            offload_chunks=args.offload_chunks,
-                           prefill_chunk=args.prefill_chunk)
+                           prefill_chunk=args.prefill_chunk, mesh=mesh)
     stops = (server.cfg.eos_token,) if args.stop_eos else ()
     sampled = (args.temperature > 0 or args.top_k > 0 or args.top_p < 1.0
                or args.stop_eos)
@@ -1217,6 +1413,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         spec += (f"prefill_chunks={server.prefill_chunks} "
                  f"pages={server.pages_allocated}alloc/"
                  f"{server.pages_freed}freed ")
+    if mesh is not None:
+        if dist.get_rank() != 0:
+            return 0
+        spec += (f"mesh={args.mesh} eager "
+                 f"wire_bytes_per_shard={server.wire_bytes_per_shard} ")
     print(f"[serve] arch={server.cfg.arch_id} protocol={args.protocol} "
           f"quant={args.quant_weights or 'fp'}/{args.quant_kv or 'fp'} "
           f"mode={mode} requests={len(server.completed)} tokens={toks} "

@@ -30,6 +30,7 @@ from repro_torch.kernels.quant import QTensor
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.registry import get_model
 from repro_torch.models.quantize import padded_rows
+from repro_torch.sharding import use_rules
 
 # stop-token slots per serving request (padded with -1)
 MAX_STOP_TOKENS = 4
@@ -469,6 +470,9 @@ def make_spec_decode_segment(cfg: ArchConfig, draft_cfg: ArchConfig,
          dead on entry emits nothing and keeps its state (write_mask =
          alive in every forward).
 
+    Under a mesh the draft decodes with its attention whole on every rank
+    (no sharding rules), so only the verify's merges cross the wire.
+
     The draft steps run their fp products and norms padded to the
     verify's B*(k+1) rows (`quantize.padded_rows`), so a draft of the
     target's own blocks computes the verify's bits: on the card cuBLAS
@@ -513,7 +517,7 @@ def make_spec_decode_segment(cfg: ArchConfig, draft_cfg: ArchConfig,
             # and norms at the verify's row count (models/quantize.py)
             dtoks, inputs, dlogits, dsnaps = toks, [], [], []
             for j in range(k):
-                with padded_rows(b * t):
+                with padded_rows(b * t), use_rules(None):
                     lg, draft_cache = draft_step(
                         draft_cfg, draft_params, draft_cache, dtoks,
                         positions=pos + j, write_mask=alive)
@@ -529,7 +533,7 @@ def make_spec_decode_segment(cfg: ArchConfig, draft_cfg: ArchConfig,
                 dsnaps.append([draft_cache[key].clone()
                                for key in draft_rec])
                 dtoks = nxt[:, None]
-            with padded_rows(b * t):
+            with padded_rows(b * t), use_rules(None):
                 _, draft_cache = draft_step(
                     draft_cfg, draft_params, draft_cache, dtoks,
                     positions=pos + k, write_mask=alive)

@@ -112,14 +112,24 @@ def single_kv_partial(q: torch.Tensor, k_new: torch.Tensor,
             torch.ones((b, h), dtype=torch.float32, device=q.device))
 
 
-def merge_attention_partials(accs: torch.Tensor, ms: torch.Tensor,
-                             ls: torch.Tensor) -> torch.Tensor:
-    """Merge N partial-attention results: accs (N,B,H,hd), ms/ls (N,B,H)
-    -> normalised (B,H,hd)."""
+def merge_attention_partials_raw(accs: torch.Tensor, ms: torch.Tensor,
+                                 ls: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """Merge N partial-attention results without the normalisation: accs
+    (N,B,H,hd), ms/ls (N,B,H) -> (acc (B,H,hd), m (B,H), l (B,H))."""
     m = ms.max(dim=0).values                              # (B,H)
     alpha = torch.exp(ms - m[None])                       # (N,B,H)
     l = (ls * alpha).sum(dim=0)
     acc = (accs * alpha[..., None]).sum(dim=0)
+    return acc, m, l
+
+
+def merge_attention_partials(accs: torch.Tensor, ms: torch.Tensor,
+                             ls: torch.Tensor) -> torch.Tensor:
+    """Merge N partial-attention results: accs (N,B,H,hd), ms/ls (N,B,H)
+    -> normalised (B,H,hd)."""
+    acc, _, l = merge_attention_partials_raw(accs, ms, ls)
     return acc / torch.clamp(l, min=1e-20)[..., None]
 
 

@@ -45,7 +45,9 @@ hit equals the no-cache stream bit for bit; the resume's int8 boundary
 page write equals the same function on the CPU bit for bit.  A chunked
 admission: the streams in flight equal the run without it bit for bit,
 no plain segment replays while a slot is reserved, and a chunk syncs
-nothing."""
+nothing.  The fused partial: its raw statistics at the partial
+tolerance, and normalised, alone or as head groups concatenated, the
+fused decode's bits."""
 import numpy as np
 import pytest
 
@@ -124,6 +126,61 @@ def test_decode_fused_kernel(cuda, dtype, group):
             assert torch.equal(dense, paged)
             _close(paged, want, dtype)
     assert fa.LAUNCHES["decode_attention_fused"] == launches + 8
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kh,group", [(2, 12), (4, 2), (1, 4)])
+def test_fused_partial_head_groups_are_the_fused_decode(cuda, dtype, kh,
+                                                         group):
+    """The mesh decode's producer: the fused route's raw (acc, m, l),
+    within the partial tolerance of the plain version; normalised, the
+    fused decode's bits; and n head groups' statistics (the KV heads
+    split with them when n | KH, else only q) concatenated and
+    normalised, the fused decode's bits too."""
+    gen = torch.Generator(device=cuda).manual_seed(kh * 100 + group)
+    h = kh * group
+    q = _rand(gen, (B, 1, h, HD), dtype, cuda)
+    k, v = (_rand(gen, (B, kh, S, HD), dtype, cuda) for _ in range(2))
+    table = torch.stack([torch.randperm(S // PAGE, generator=gen,
+                                        device=cuda)
+                         for _ in range(B)]).to(torch.int32)
+    extra = (torch.randn((B, h, HD), generator=gen, device=cuda),
+             torch.randn((B, h), generator=gen, device=cuda),
+             torch.rand((B, h), generator=gen, device=cuda) + 0.5)
+    pos = torch.tensor([0, 70, S - 1], dtype=torch.int32, device=cuda)
+    launches = kbuild.LAUNCHES["decode_attention_fused_partial"]
+    kw = dict(window=50, blk_c=PAGE, pages=table)
+    full = fa.decode_attention_fused(q, k, v, pos, extra, **kw)
+    raw = fa.decode_attention_fused_partial(q, k, v, pos, extra, **kw)
+    want = ref.decode_fused_partial_reference(
+        q, k, v, pos, extra, window=50, pages=table, page_size=PAGE)
+    torch.cuda.synchronize()
+    for g, w in zip(raw, want):
+        assert bool(((g - w).abs() <= 1e-4 + 1e-5 * w.abs()).all())
+    assert torch.equal(ref.normalize_fused_partial(raw[0], raw[2], dtype),
+                       full)
+    calls = 1
+    for n in (2, 4):
+        if not (kh % n == 0 or (kh == 1 and h % n == 0)):
+            continue
+        hl, khl = h // n, max(1, kh // n)
+        accs, ls = [], []
+        for r in range(n):
+            hs = slice(r * hl, (r + 1) * hl)
+            kvs = slice(r * khl, (r + 1) * khl) if kh % n == 0 \
+                else slice(None)
+            acc, _, l = fa.decode_attention_fused_partial(
+                q[:, :, hs].contiguous(), k[:, kvs].contiguous(),
+                v[:, kvs].contiguous(), pos,
+                tuple(t[:, hs].contiguous() for t in extra), **kw)
+            accs.append(acc)
+            ls.append(l)
+            calls += 1
+        got = ref.normalize_fused_partial(torch.cat(accs, 1),
+                                          torch.cat(ls, 1), dtype)
+        assert torch.equal(got, full), n
+    assert kbuild.LAUNCHES["decode_attention_fused_partial"] == \
+        launches + calls
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
