@@ -143,6 +143,24 @@ slots in bf16 and f32, each held to the fused decode, with each AXLE
 hop's ms.  The `[kernel] decode_attention_fused_partial` row holds the
 mesh decode's producer: normalised, and as head groups concatenated,
 the fused decode's bits.
+The `[train]` lines train on the one card (`launch/steps.make_train_step`:
+autograd over the plain-torch forward, as the reference's training path
+reaches no Pallas kernel, so they launch none of ours): the smoke
+starcoder2_3b, mamba2_370m and granite_moe_3b in f32 on the card against
+the CPU (the loss within 1e-5 relative, every gradient leaf within 1e-5 of
+its max: TF32 would part them by ~1e-3); 8 steps each, bf16, B 4 x S 2048,
+compression and remat on, of starcoder2_3b's first 8 of 30 layers at full
+width (its state at full depth, 83 GB, exceeds the card), mamba2_370m at
+full depth (on its first batch every step: over fresh batches its loss
+stays in their noise) and granite_moe_3b's first 4 of 32 layers, every
+loss and grad norm finite and the last loss below the first, with each
+step's wall ms and tokens/s, one step's device ms and forward / backward /
+optimizer split, peak memory and the step's bound from its shapes;
+starcoder2_3b's first 2 layers in bf16 against an f32 twin (loss within
+1%, every gradient's cosine >= 0.99); and the ported
+`examples/train_pipeline.py` config through `launch/train.py` in processes
+of their own, restarted (steps 6 / 0 / 2) and preempted by a SIGTERM, each
+ending at the uninterrupted run's losses and final checkpoint bit for bit.
 Before serving, it drives the paper's two offload workloads through
 `stream_offload` under BS, RP and AXLE, data from seed 0 on the card:
   * KNN (VectorDB): 256 queries against a 1,000,000 x 1024 bf16 database
@@ -265,6 +283,8 @@ import io
 import json
 import os
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -298,7 +318,9 @@ if not torch.cuda.is_available():
     fail("torch.cuda.is_available() is False: this script needs a GPU")
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 try:
-    from repro_torch.configs import get_card_config, get_config
+    from repro_torch import tree as ptree
+    from repro_torch.configs import (get_card_config, get_config,
+                                     get_smoke_config)
     from repro_torch.core import prng
     from repro_torch.core.backstream import (OffloadConfig, OffloadProtocol,
                                              decode_attention_combined,
@@ -306,7 +328,10 @@ try:
                                              stream_offload_to_device,
                                              stream_offload_to_host,
                                              use_offload)
-    from repro_torch.examples import knn_offload, quickstart, serve_offload
+    from repro_torch.data.pipeline import (DataConfig, make_pipeline,
+                                           synth_batch)
+    from repro_torch.examples import (knn_offload, quickstart, serve_offload,
+                                      train_pipeline)
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import knn as kknn
@@ -318,10 +343,12 @@ try:
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.serve import (BatchedServer, Request,
                                           SamplingParams, _prefill_bucket)
+    from repro_torch.launch import steps as steps_lib
     from repro_torch.launch.steps import QuantConfig, self_draft_params
     from repro_torch.models import encdec, layers, transformer
     from repro_torch.models.quantize import padded_rows, quantize_params
     from repro_torch.models.registry import get_model
+    from repro_torch.optim import adamw, compression
 except ImportError as exc:
     fail(f"the repro_torch package is not beside this script: {exc}")
 
@@ -4974,6 +5001,401 @@ for rep in mesh_ranks:
           f"[mesh] rank {rep['rank']}: step {rep['step']}, wire {wm}")
 mesh_launches = mesh_ranks[0]["launches"]
 print(f"[mesh] phase {time.perf_counter() - MESH_T0:.1f} s; "
+      f"{time.perf_counter() - T_START:.0f} s into the script", flush=True)
+
+# --------------------------------------------------------------------------
+# 6h. training on the one card (`launch/steps.make_train_step`: autograd
+# over the plain-torch forward, each block recomputed in the backward, the
+# int8 error-feedback compression, AdamW with an f32 master; the data from
+# `data/pipeline.make_pipeline`, seed 0).  The reference's training path
+# reaches no Pallas kernel (plain XLA attention, SSD, MoE and loss), so
+# this phase launches none of ours and adds no kernel record.
+#   * f32 on the card == f32 on the CPU: the smoke starcoder2_3b,
+#     mamba2_370m and granite_moe_3b in float32, the same weights and
+#     batch: the loss within 1e-5 relative and every gradient leaf within
+#     1e-5 x its max |CPU| (TF32 would part them by ~1e-3);
+#   * full width, bf16, B 4 x S 2048, 8 steps each: starcoder2_3b's first 8 of
+#     30 layers, mamba2_370m at full depth (on its first batch every step),
+#     granite_moe_3b's first 4 of 32 layers: every loss and grad norm finite,
+#     the last loss below the first; each step's wall ms (synchronised) and
+#     tokens/s, one step's device ms (torch.profiler) and its forward /
+#     backward / optimizer split (CUDA events), peak memory, and the step's
+#     bound from its shapes (bf16 products at 989 TFLOP/s, f32 attention or
+#     SSD products at 67, the optimizer's 36 bytes a parameter at 3.35 TB/s,
+#     added: the step runs its kernels one after another);
+#   * bf16 against an f32 twin (the same weights, cast) on starcoder2_3b's
+#     first 2 layers at full width: the first loss within 1% and every
+#     gradient leaf's cosine >= 0.99;
+#   * restart and preemption: the ported `examples/train_pipeline.py`
+#     config (~100M, B 8 x S 256, compression, lr 3e-3) through
+#     `launch/train.train` in processes of their own.  An 8-step run; the
+#     same job stopped by a SIGTERM it raises at its 6th step (the
+#     reference's schedule spans the `steps` asked for, so the 8-step job
+#     is the one stopped), resumed with steps=6 (nothing to do) and to 8:
+#     steps run 6 / 0 / 2; and one stopped by a SIGTERM from this process
+#     mid-run and resumed in a new process.  Every loss and every leaf of
+#     the final checkpoint (params, AdamW state, residual) == the 8-step
+#     run's, bit for bit.
+# --------------------------------------------------------------------------
+
+TRAIN_T0 = time.perf_counter()
+CPU_DEV = torch.device("cpu")
+TRAIN_B, TRAIN_S = 4, 2048
+F32_FLOPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
+OPT_BYTES = 36                   # a parameter: g (2), residual, mu, nu and
+                                 # master (4 each) in, all but g out, and
+                                 # the bf16 param (2) out
+
+
+def train_batch(tcfg, b, s, step=0, device=DEV):
+    dcfg = DataConfig(vocab=tcfg.vocab, batch=b, seq_len=s,
+                      frontend=tcfg.frontend, d_model=tcfg.d_model)
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in synth_batch(dcfg, step).items()}
+
+
+def n_leaf_params(params) -> int:
+    return sum(t.numel() for t in ptree.leaves(params))
+
+
+def attention_pairs(s, q_tile=512, block=1024):
+    """Query-key pairs `blocked_attention` scores a head, causal: each
+    q tile against whole KV blocks up to its last query."""
+    block = min(block, s)
+    while s % block:
+        block -= 1
+    return sum((min(t0 + q_tile, s) - t0) * block
+               * max(1, -(-min(s, t0 + q_tile) // block))
+               for t0 in range(0, s, q_tile))
+
+
+def train_bound(tcfg, b, s, n_params):
+    """The step's least time from its shapes: (bf16 TFLOP, f32 TFLOP,
+    optimizer GB, their ms at the card's peaks).  A block's products run
+    4x their forward's FLOPs (the forward, its recomputation, a backward
+    of twice the work), the loss's tied-embedding product 3x (it is not
+    recomputed)."""
+    t, d = b * s, tcfg.d_model
+    blk_bf16 = blk_f32 = 0                    # a block's forward FLOPs
+    for pos, kind in enumerate(tcfg.block_pattern):
+        if kind == "mamba":
+            di, n, nh, p = (tcfg.d_inner, tcfg.ssm_state, tcfg.n_ssm_heads,
+                            tcfg.ssm_head_dim)
+            blk_bf16 += 2 * t * (d * (2 * di + 2 * n + nh) + di * d)
+            q = min(256, s)
+            # scores, intra-chunk y, chunk states, inter-chunk y
+            blk_f32 += 2 * b * (s // q) * (q * q * n + nh * q * q * p
+                                           + 2 * nh * q * p * n)
+        else:
+            hq = tcfg.n_heads * tcfg.head_dim_
+            hk = tcfg.n_kv_heads * tcfg.head_dim_
+            blk_bf16 += 2 * t * d * (2 * hq + 2 * hk)
+            blk_f32 += 4 * tcfg.head_dim_ * b * tcfg.n_heads \
+                * attention_pairs(s)
+        if tcfg.d_ff:
+            rows = t
+            if tcfg.is_moe and pos % tcfg.moe_every == 0:
+                rows = tcfg.n_experts * layers.moe_capacity(
+                    t, tcfg.top_k, tcfg.n_experts)
+            blk_bf16 += 2 * rows * 3 * d * tcfg.d_ff
+    bf16 = 4 * blk_bf16 * tcfg.n_blocks + 3 * 2 * t * tcfg.padded_vocab * d
+    f32 = 4 * blk_f32 * tcfg.n_blocks
+    opt = OPT_BYTES * n_params
+    ms = (bf16 / BF16_FLOPS_PER_S * 1e3, f32 / F32_FLOPS_PER_S * 1e3,
+          opt / HBM_BYTES_PER_S * 1e3)
+    return bf16 / 1e12, f32 / 1e12, opt / 1e9, ms
+
+
+def split_step(step_fn, state, batch):
+    """One train step with CUDA events at the forward's start and end, the
+    compression's start (the backward's end) and the optimizer's end.
+    Returns (new state, (forward, backward, optimizer) ms)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    real = (steps_lib.get_model, compression.compress_grads, adamw.apply)
+
+    def get_model_timed(tcfg):
+        fns = real[0](tcfg)
+
+        def loss_fn(*a, **k):
+            ev[0].record()
+            out = fns.loss_fn(*a, **k)
+            ev[1].record()
+            return out
+        return fns._replace(loss_fn=loss_fn)
+
+    def compress_timed(*a, **k):
+        ev[2].record()
+        return real[1](*a, **k)
+
+    def apply_timed(*a, **k):
+        out = real[2](*a, **k)
+        ev[3].record()
+        return out
+
+    steps_lib.get_model, compression.compress_grads, adamw.apply = (
+        get_model_timed, compress_timed, apply_timed)
+    try:
+        *state, _ = step_fn(*state, batch)
+        torch.cuda.synchronize()
+    finally:
+        steps_lib.get_model, compression.compress_grads, adamw.apply = real
+    return state, tuple(ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+
+
+def train_run(label, tcfg, n_steps, lr=1e-3, one_batch=False):
+    """`n_steps` steps of `make_train_step` (compression on, remat on, AdamW
+    lr `lr`, 2 warmup steps) on `make_pipeline`'s B 4 x S 2048 batches
+    (under `one_batch`, its first batch every step), weights from seed 0;
+    then one step under the profiler and one split by CUDA events.  Prints
+    a line a step and the summary."""
+    t0 = time.perf_counter()
+    params = get_model(tcfg).init_params(
+        tcfg, torch.Generator(device=DEV).manual_seed(0), DEV)
+    n_params = n_leaf_params(params)
+    opt_cfg = adamw.AdamWConfig(lr=lr, warmup_steps=2, total_steps=n_steps)
+    step_fn = steps_lib.make_train_step(tcfg, opt_cfg, compress_grads=True)
+    state = [params, adamw.init(params), compression.init(params)]
+    del params
+    pipe = make_pipeline(DataConfig(vocab=tcfg.vocab, batch=TRAIN_B,
+                                    seq_len=TRAIN_S), device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    first = next(pipe)
+    for i in range(n_steps):
+        step_i, batch = first if i == 0 or one_batch else next(pipe)
+        t1 = time.perf_counter()
+        *state, m = step_fn(*state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+        rows.append({k: float(m[k]) for k in ("loss", "grad_norm", "aux",
+                                                "lr")} | {"wall_ms": wall})
+        print(f"[train] {label} step {i} (batch {step_i}): loss "
+              f"{rows[-1]['loss']:.4f} "
+              f"grad norm {rows[-1]['grad_norm']:.4f} aux "
+              f"{rows[-1]['aux']:.4f} lr {rows[-1]['lr']:.2e}, wall "
+              f"{wall:.1f} ms ({TRAIN_B * TRAIN_S / wall * 1e3:.0f} "
+              f"tokens/s); {SMI_LINE}", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    _, batch = next(pipe)
+    box = {"state": state}
+
+    def one_step():
+        *box["state"], _ = step_fn(*box["state"], batch)
+
+    dev_ms, ev = busy_ms(one_step)
+    state, split = split_step(step_fn, box.pop("state"), batch)
+    losses = [r["loss"] for r in rows]
+    check(all(np.isfinite([r["loss"] for r in rows] +
+                          [r["grad_norm"] for r in rows])),
+          f"[train] {label}: a loss or grad norm is not finite: {rows}")
+    check(losses[-1] < losses[0],
+          f"[train] {label}: the loss did not fall: {losses}")
+    bf16_t, f32_t, opt_gb, (b_ms, f_ms, o_ms) = train_bound(
+        tcfg, TRAIN_B, TRAIN_S, n_params)
+    walls = [r["wall_ms"] for r in rows[1:]]
+    wall = statistics.median(walls)
+    print(f"[train] {label}: {n_params / 1e9:.3f} B params, B {TRAIN_B} x S "
+          f"{TRAIN_S}, {n_steps} steps: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; step wall {wall:.1f} ms (median of steps "
+          f"1-{n_steps - 1}; step 0 {rows[0]['wall_ms']:.1f}), "
+          f"{TRAIN_B * TRAIN_S / wall * 1e3:.0f} tokens/s; one step's "
+          f"device {dev_ms:.1f} ms over {sum(n for _, n, _ in ev)} kernels "
+          f"(busy {100 * dev_ms / wall:.1f}% of the wall); forward / "
+          f"backward (with the recomputation) / optimizer (compression + "
+          f"AdamW) {split[0]:.1f} / {split[1]:.1f} / {split[2]:.1f} ms; "
+          f"peak {peak / 1e9:.2f} GB; bound {b_ms + f_ms + o_ms:.1f} ms = "
+          f"bf16 products {bf16_t:.2f} TFLOP {b_ms:.1f} ms + f32 "
+          f"{f32_t:.2f} TFLOP {f_ms:.1f} ms + optimizer {opt_gb:.1f} GB "
+          f"{o_ms:.1f} ms (step / bound {wall / (b_ms + f_ms + o_ms):.2f}); "
+          f"kernels by device time: " + "; ".join(
+              f"{k[:40]} x{n} {t / 1e3:.1f} ms" for t, n, k in ev[:6])
+          + f"; {time.perf_counter() - t0:.1f} s; {SMI_LINE}", flush=True)
+    del state, box, batch, first, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# (1) f32 on the card == f32 on the CPU, smoke size
+for arch in (ARCH, MAMBA, GRANITE):
+    scfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cpu_params = get_model(scfg).init_params(
+        scfg, torch.Generator().manual_seed(0), CPU_DEV)
+    sbatch = train_batch(scfg, 2, 32, device=CPU_DEV)
+    c_loss, _, c_grads = steps_lib.loss_and_grads(scfg, cpu_params, sbatch)
+    g_loss, _, g_grads = steps_lib.loss_and_grads(
+        scfg, ptree.map_leaves(lambda t: t.to(DEV), cpu_params),
+        {k: v.to(DEV) for k, v in sbatch.items()})
+    rel = abs(float(g_loss) - float(c_loss)) / abs(float(c_loss))
+    worst = max((g.cpu() - c).abs().max().item()
+                / max(c.abs().max().item(), 1e-30)
+                for g, c in zip(ptree.leaves(g_grads),
+                                ptree.leaves(c_grads)))
+    check(rel <= 1e-5 and worst <= 1e-5,
+          f"[train] {arch} smoke f32: card vs CPU loss rel {rel:.3e}, "
+          f"gradient {worst:.3e} of a leaf's max (gate 1e-5)")
+    print(f"[train] {arch} smoke f32, B 2 x S 32: loss card "
+          f"{float(g_loss):.7f} CPU {float(c_loss):.7f} (rel {rel:.2e}); "
+          f"gradients max |card - CPU| / max |CPU| {worst:.2e} over "
+          f"{len(ptree.leaves(c_grads))} leaves (gate 1e-5); {SMI_LINE}",
+          flush=True)
+del cpu_params, sbatch, c_grads, g_grads
+
+# (2) starcoder2_3b at full width, its first 8 layers
+sc8 = dataclasses.replace(get_config(ARCH), arch_id=f"{ARCH}_first8",
+                          n_layers=8)
+train_run(f"{ARCH}, its first 8 of 30 layers", sc8, 8)
+
+# (3) bf16 against an f32 twin, starcoder2_3b's first 2 layers
+sc2 = dataclasses.replace(get_config(ARCH), arch_id=f"{ARCH}_first2",
+                          n_layers=2)
+p16 = get_model(sc2).init_params(
+    sc2, torch.Generator(device=DEV).manual_seed(0), DEV)
+p32 = ptree.map_leaves(lambda t: t.float(), p16)
+tbatch = train_batch(sc2, TRAIN_B, TRAIN_S)
+l16, _, g16 = steps_lib.loss_and_grads(sc2, p16, tbatch)
+l32, _, g32 = steps_lib.loss_and_grads(
+    dataclasses.replace(sc2, dtype="float32"), p32, tbatch)
+loss_rel = abs(float(l16) - float(l32)) / abs(float(l32))
+cosines = [float(torch.nn.functional.cosine_similarity(
+    a.float().flatten(), b.flatten(), dim=0))
+    for a, b in zip(ptree.leaves(g16), ptree.leaves(g32))]
+check(loss_rel <= 1e-2 and min(cosines) >= 0.99,
+      f"[train] {ARCH} bf16 vs f32 twin: loss rel {loss_rel:.3e}, "
+      f"cosines {cosines}")
+print(f"[train] {ARCH}, its first 2 layers at full width, bf16 vs an f32 "
+      f"twin on the same weights and batch (B {TRAIN_B} x S {TRAIN_S}): "
+      f"loss {float(l16):.5f} / {float(l32):.5f} (rel {loss_rel:.2e}, gate "
+      f"1e-2); gradient cosines min {min(cosines):.5f} median "
+      f"{statistics.median(cosines):.5f} over {len(cosines)} leaves (gate "
+      f"0.99); {SMI_LINE}", flush=True)
+del p16, p32, g16, g32, tbatch
+gc.collect()
+torch.cuda.empty_cache()
+
+# (4) mamba2_370m at full depth and width, on one batch: its 48 random
+# layers start at a grad norm of ~400, and over 16 fresh batches its loss
+# stays inside the batches' own spread (PERF.md section 6); on one batch
+# it falls.  (5) granite_moe_3b, its first 4 layers
+train_run(f"{MAMBA}, all 48 layers, its first batch every step",
+          get_config(MAMBA), 8, one_batch=True)
+gr4 = dataclasses.replace(get_config(GRANITE), arch_id=f"{GRANITE}_first4",
+                          n_layers=4)
+train_run(f"{GRANITE}, its first 4 of 32 layers", gr4, 8)
+
+# (6) restart and preemption of the example's config, in processes of
+# their own.  The child runs `train_pipeline.run` once per entry of its
+# argument's list; an entry with "stop" raises SIGTERM on its own process
+# when the pipeline hands out that step's batch.
+TRAIN_CHILD = """
+import json, signal, sys
+from repro_torch.examples import train_pipeline
+from repro_torch.launch import train as tr
+
+pipeline, stop = tr.make_pipeline, None
+
+
+def make_pipeline(*args, **kw):
+    it = pipeline(*args, **kw)
+
+    def gen():
+        for step, batch in it:
+            if step == stop:
+                signal.raise_signal(signal.SIGTERM)
+            yield step, batch
+    return gen()
+
+
+tr.make_pipeline = make_pipeline
+for run in json.loads(sys.argv[1]):
+    stop = run.pop("stop", None)
+    print(f"START {run.pop('label', '')}", flush=True)
+    print("RESULT " + json.dumps(train_pipeline.run(**run)), flush=True)
+"""
+CKPT_ROOT = ROOT / "build" / "train_ckpt"
+shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+CK = {k: str(CKPT_ROOT / k) for k in ("whole", "restart", "preempt")}
+CHILD_ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+
+def child(runs):
+    return subprocess.Popen(
+        [sys.executable, "-c", TRAIN_CHILD, json.dumps(runs)], cwd=ROOT,
+        env=CHILD_ENV, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def results(proc, head="", timeout=600):
+    """The RESULT lines of the child's runs (`head`: what this process has
+    already read of its output), and its whole output."""
+    out, err = proc.communicate(timeout=timeout)
+    out = head + out
+    check(proc.returncode == 0, f"[train] restart child failed with "
+          f"{proc.returncode}:\n{out[-3000:]}\n{err[-6000:]}")
+    return [json.loads(ln[7:]) for ln in out.splitlines()
+            if ln.startswith("RESULT ")], out
+
+
+RESTART_T0 = time.perf_counter()
+# the restart's job checkpoints every 3 steps; the other two at the end
+# and on the SIGTERM only (a checkpoint is 1.4 GB).  The first process
+# runs the 8-step job, the restart's three calls, then the preempted run,
+# which this process sends a SIGTERM once it has logged step 2; the
+# second process resumes it.
+run8 = dict(steps=8, ckpt_every=8, log_every=1)
+every3 = dict(run8, ckpt_dir=CK["restart"], ckpt_every=3)
+proc = child([dict(run8, ckpt_dir=CK["whole"]), dict(every3, stop=5),
+              dict(every3, steps=6), every3,
+              dict(run8, ckpt_dir=CK["preempt"], label="preempt")])
+seen = []
+for line in proc.stdout:
+    seen.append(line)
+    if line.startswith("[train] step 2 ") and "START preempt\n" in seen:
+        proc.send_signal(signal.SIGTERM)
+        break
+(whole, *restart, preempted), pre_out = results(proc, "".join(seen))
+(resumed,), _ = results(child([dict(run8, ckpt_dir=CK["preempt"])]))
+
+
+def final_leaves(d):
+    return torch.load(Path(d) / "step_00000008.ckpt", map_location="cpu",
+                      weights_only=True)["leaves"]
+
+
+want = final_leaves(CK["whole"])
+check(whole["steps_run"] == 8 and
+      [r["steps_run"] for r in restart] == [6, 0, 2],
+      f"[train] restart: steps run {whole['steps_run']} / "
+      f"{[r['steps_run'] for r in restart]}, not 8 / [6, 0, 2]")
+check(2 < preempted["steps_run"] < 8
+      and pre_out.count("[train] preempted at step") == 2 and
+      resumed["steps_run"] == 8 - preempted["steps_run"],
+      f"[train] preemption: steps run {preempted['steps_run']} + "
+      f"{resumed['steps_run']}")
+for label, losses, d in (
+        ("restart", restart[0]["losses"] + restart[2]["losses"],
+         CK["restart"]),
+        ("preemption", preempted["losses"] + resumed["losses"],
+         CK["preempt"])):
+    got = final_leaves(d)
+    same = len(got) == len(want) and all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want))
+    check(losses == whole["losses"] and same,
+          f"[train] {label}: losses {losses} vs {whole['losses']}, final "
+          f"checkpoint bitwise {same}")
+n_ckpt = len(want)
+shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+print(f"[train] restart and preemption, {train_pipeline.CONFIG.arch_id} "
+      f"(~{train_pipeline.CONFIG.n_params() / 1e6:.0f}M, B 8 x S 256, "
+      f"compression on) through launch/train.py in processes of their own: "
+      f"steps run 8; 6 / 0 / 2 (a SIGTERM raised at the 6th step, then "
+      f"steps=6, then 8); {preempted['steps_run']} + {resumed['steps_run']} "
+      f"(a SIGTERM sent after step 2's log line, resumed in a new process): "
+      f"every loss and all {n_ckpt} leaves of the final checkpoint == the "
+      f"uninterrupted run's, bitwise; loss {whole['losses'][0]:.4f} -> "
+      f"{whole['losses'][-1]:.4f}; {time.perf_counter() - RESTART_T0:.1f} s; "
+      f"{SMI_LINE}", flush=True)
+print(f"[train] phase {time.perf_counter() - TRAIN_T0:.1f} s; "
       f"{time.perf_counter() - T_START:.0f} s into the script", flush=True)
 
 # --------------------------------------------------------------------------

@@ -1,9 +1,11 @@
 """The weight bridge: JAX parameter and cache pytrees, handed over as numpy
-arrays, become the port's tensors.
+arrays, become the port's tensors; and the way back, the port's trees
+(parameters, optimizer state, gradients) as numpy arrays.
 
 The tests call it; nothing on the card does (that machine has no JAX).
 bf16 crosses as raw 16-bit words, so no bf16 numpy type is needed here:
-`arr.view(np.uint16)` on this side, `.view(torch.bfloat16)` on the other.
+`arr.view(np.uint16)` on this side, `.view(torch.bfloat16)` on the other;
+on the way back a bf16 tensor widens to f32, which is exact.
 The layout stays the reference's: `embed`, `final_ln`, and
 `blocks[i]["attn"|"ffn"][name]` stacked over n_blocks; an encoder-decoder's
 `enc_blocks` / `dec_blocks` the same way, its `cross` one dict of stacks,
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.quant import QTensor
+from repro_torch.tree import map_leaves
 
 
 def tensor_from_numpy(arr: np.ndarray,
@@ -68,3 +71,18 @@ def cache_from_jax(np_cache: Dict[str, Any],
     `repro.models.encdec.init_cache`'s (those plus the 5-dim cross_k /
     cross_v panels and the (B,) enc_pos clock), as numpy arrays."""
     return {k: tensor_from_numpy(v, device) for k, v in np_cache.items()}
+
+
+def tensor_to_numpy(x: torch.Tensor) -> np.ndarray:
+    """One tensor as a host numpy array; bf16 widened to f32 (exact)."""
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        x = x.float()
+    return x.numpy()
+
+
+def tree_to_numpy(params: Any) -> Any:
+    """The port's tree of tensors (dicts, lists, tuples and NamedTuples
+    such as `adamw.OptState`, None kept) as the same structure of numpy
+    arrays, so the tests can hold it against a JAX tree leaf by leaf."""
+    return map_leaves(tensor_to_numpy, params)

@@ -1,12 +1,14 @@
-"""Serving steps of the main path, ported from `repro/launch/steps.py`: the
-serving-time quantization choice, the device-side per-slot decode state
-(with each slot's PRNG key, sampling parameters and draft counters), slot
-admission, the prompt prefill, the multi-token decode segment, the
-truncated-layer self-draft, the speculative draft-and-verify segment, and
-for the host tier one slot's state saved and restored, its pages out of
-and into the cache, and the resume prefill behind restored prefix pages;
-and the chunked admission prefill (its first chunk through the prefill,
-every later one through the resume).
+"""Training and serving steps, ported from `repro/launch/steps.py`: the
+train step (the loss's gradients by autograd, optional int8
+error-feedback compression, AdamW); the serving-time quantization
+choice, the device-side per-slot decode state (with each slot's PRNG
+key, sampling parameters and draft counters), slot admission, the prompt
+prefill, the multi-token decode segment, the truncated-layer self-draft,
+the speculative draft-and-verify segment, and for the host tier one
+slot's state saved and restored, its pages out of and into the cache,
+and the resume prefill behind restored prefix pages; and the chunked
+admission prefill (its first chunk through the prefill, every later one
+through the resume).
 
 The reference's jitted `lax.scan` with a donated cache becomes a Python
 loop of `seg_len` decode steps that updates the cache IN PLACE; on the
@@ -24,12 +26,15 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
 
 import torch
 
+from repro_torch import tree
 from repro_torch.core import prng
 from repro_torch.kernels import ops
 from repro_torch.kernels.quant import QTensor
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import true_f32
 from repro_torch.models.registry import get_model
 from repro_torch.models.quantize import padded_rows
+from repro_torch.optim import adamw, compression
 from repro_torch.sharding import use_rules
 
 # stop-token slots per serving request (padded with -1)
@@ -219,6 +224,46 @@ def restore_slot(state: SlotState, slot: int,
     s = clone_state(state)
     _fill_row(s, slot, **{k: t.tolist() for k, t in saved.items()})
     return s
+
+
+def loss_and_grads(cfg: ArchConfig, params: Any,
+                   batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Any]:
+    """The model's loss and its gradient tree: the counterpart of
+    `jax.value_and_grad(loss_fn, has_aux=True)` is `torch.autograd.grad`
+    over the parameter tree's leaves (detached views that require grad;
+    the caller's tensors are left alone).  The forward and the backward
+    run in full f32 wherever a product is f32 (`layers.true_f32`: the
+    backward runs after the forward has left its own contexts).  Returns
+    (loss, {"ce", "aux"}, grads like params), all detached."""
+    leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
+    with true_f32():
+        loss, metrics = get_model(cfg).loss_fn(
+            cfg, tree.unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            tree.unflatten(params, list(grads)))
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
+                    compress_grads: bool = False) -> Callable:
+    """(params, opt_state, comp_state, batch) -> (params, opt_state,
+    comp_state, metrics {"loss", "ce", "aux", "grad_norm", "lr"}), f32
+    scalar tensors on the device: the step reads nothing back.  The
+    gradients (`loss_and_grads`), then the optional int8 error-feedback
+    compression, then AdamW (its state updated in place)."""
+
+    def train_step(params, opt_state, comp_state, batch):
+        loss, metrics, grads = loss_and_grads(cfg, params, batch)
+        if compress_grads:
+            grads, comp_state = compression.compress_grads(grads,
+                                                           comp_state)
+        params, opt_state, opt_metrics = adamw.apply(opt_cfg, params, grads,
+                                                     opt_state)
+        return (params, opt_state, comp_state,
+                {**metrics, **opt_metrics, "loss": loss})
+
+    return train_step
 
 
 def make_slot_page_fns(cfg: ArchConfig) -> Tuple[Callable, Callable]:

@@ -1,6 +1,8 @@
-"""Whisper-style encoder-decoder, the port of `repro/models/encdec.py`.
-The conv audio frontend is a stub: a request brings its frames as
-precomputed embeddings (e, d_model), e <= the config's enc_len.
+"""Whisper-style encoder-decoder, the port of `repro/models/encdec.py`:
+serving (the encoder, per-slot cross-K/V, decode) and training (the
+decoder forward, its loss and logits).  The conv audio frontend is a
+stub: a request brings its frames as precomputed embeddings (e,
+d_model), e <= the config's enc_len.
 
 The encoder is a bidirectional transformer (plain `layers.blocked_attention`,
 as the reference's is plain XLA).  The decoder adds a cross-attention
@@ -77,20 +79,27 @@ def _enc_attn(cfg: ArchConfig, p: Params, x: torch.Tensor,
     return x + matmul(o.reshape(b, s, -1), p["wo"])
 
 
-def encode(cfg: ArchConfig, params: Params,
-           embeds: torch.Tensor) -> torch.Tensor:
+def _enc_block(cfg: ArchConfig, x: torch.Tensor, block: List[Params],
+               positions: torch.Tensor) -> torch.Tensor:
+    for p in block:
+        x = _enc_attn(cfg, p["attn"], x, positions)
+        x = T.ffn_layer(cfg, p["ffn"], x, False)
+    return x
+
+
+def encode(cfg: ArchConfig, params: Params, embeds: torch.Tensor, *,
+           remat: bool = False) -> torch.Tensor:
     """The encoder over frame embeddings (B, e, D), any float dtype:
     RoPE'd bidirectional attention and the dense MLP per layer, then the
-    final norm.  Returns (B, e, D) in the model dtype."""
+    final norm; `remat` recomputes each block in the backward (the
+    training loss sets it, as the reference's default does).  Returns (B,
+    e, D) in the model dtype."""
     x = embeds.to(T._dtype(cfg.dtype))
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
-    for i in range(_n_enc_blocks(cfg)):
-        for block in params["enc_blocks"]:
-            p = T._layer(block, i)
-            x = _enc_attn(cfg, p["attn"], x, positions)
-            x = T.ffn_layer(cfg, p["ffn"], x, False)
+    for block in T.unstacked(params["enc_blocks"], _n_enc_blocks(cfg)):
+        x = T.run_block(_enc_block, remat, cfg, x, block, positions)
     return L.rms_norm(x, params["enc_final_ln"], cfg.norm_eps)
 
 
@@ -141,6 +150,78 @@ def _cross_decode(cfg: ArchConfig, cp: Params, x: torch.Tensor,
                 for j in range(t)]
     o = outs[0] if t == 1 else torch.cat(outs, dim=1)
     return x + matmul(o.reshape(b, t, -1), cp["wo"])
+
+
+# --------------------------------------------------------------------------
+# Decoder (training / evaluation): the loss and the full-sequence logits
+# --------------------------------------------------------------------------
+
+def _dec_block(cfg: ArchConfig, x: torch.Tensor, block: List[Params],
+               cp: Params, enc_out: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    for pos, kind in enumerate(cfg.block_pattern):
+        p = block[pos]
+        x = T.attn_layer(cfg, p["attn"], x, kind, positions)
+        x = _cross_attn(cfg, cp, x, *_cross_kv(cfg, cp, enc_out))
+        x = T.ffn_layer(cfg, p["ffn"], x, False)
+    return x
+
+
+def decoder_forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+                    enc_out: torch.Tensor, *, remat: bool = True
+                    ) -> torch.Tensor:
+    """The decoder over the whole text (B, S) against the encoder output
+    (B, e, D): causal self-attention (`transformer.attn_layer`), the
+    block's cross-attention and the dense MLP per layer, each block
+    recomputed in the backward under `remat`.  Returns the final-normed
+    hidden states (B, S, D)."""
+    x = params["embed"][tokens]
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s)
+    cross = T.unstacked([{"cross": params["cross"]}], cfg.n_blocks)
+    for block, cp in zip(T.unstacked(params["dec_blocks"], cfg.n_blocks),
+                         cross):
+        x = T.run_block(_dec_block, remat, cfg, x, block, cp[0]["cross"],
+                        enc_out, positions)
+    return L.rms_norm(x, params["final_ln"], cfg.norm_eps)
+
+
+def loss_fn(cfg: ArchConfig, params: Params,
+            batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The chunked cross-entropy of the decoder on batch["tokens"] /
+    ["labels"] over the encoding of batch["embeds"]; no aux loss.
+    Returns (loss, {"ce", "aux"})."""
+    enc_out = encode(cfg, params, batch["embeds"], remat=True)
+    x = decoder_forward(cfg, params, batch["tokens"], enc_out)
+    ce = L.xent_loss_chunked(x, params["embed"], batch["labels"],
+                             vocab=cfg.vocab)
+    return ce, {"ce": ce, "aux": ce.new_zeros(())}
+
+
+def logits_fn(cfg: ArchConfig, params: Params,
+              batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Full-sequence decoder logits (B, S, V) in the model dtype."""
+    enc_out = encode(cfg, params, batch["embeds"])
+    x = decoder_forward(cfg, params, batch["tokens"], enc_out, remat=False)
+    return matmul(x, params["embed"].T)
+
+
+def prefill_cross_cache(cfg: ArchConfig, params: Params,
+                        enc_out: torch.Tensor,
+                        cache: Dict[str, Any]) -> Dict[str, Any]:
+    """The whole-batch cross cache, the reference's: every decoder block's
+    cross K/V from one encoder output (B, e, D), each row valid up to e.
+    Returns a new cache dict sharing the other leaves, with `cross_k` /
+    `cross_v` (n_blocks, B, KH, e, hd) and `enc_pos` = e."""
+    kvs = [_cross_kv(cfg, cp[0]["cross"], enc_out) for cp in
+           T.unstacked([{"cross": params["cross"]}], cfg.n_blocks)]
+    out = dict(cache)
+    out["cross_k"] = torch.stack([k for k, _ in kvs])
+    out["cross_v"] = torch.stack([v for _, v in kvs])
+    out["enc_pos"] = torch.full_like(cache["enc_pos"], enc_out.shape[1])
+    return out
 
 
 # --------------------------------------------------------------------------

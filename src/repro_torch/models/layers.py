@@ -1,9 +1,13 @@
-"""Model layers of the ported serve paths, from `repro/models/layers.py`:
-norm, rotary embedding (and Qwen2-VL's multimodal M-RoPE), the decode
-token's own attention partial, the partial merge, the blocked attention
-of the enc-dec encoder and prefill cross-attention, the gated MLP, the
-top-k Mixture-of-Experts FFN, and the Mamba2 single-token SSD step and
-causal depthwise conv (plain XLA in the reference, plain torch here).
+"""Model layers of the ported serve and training paths, from
+`repro/models/layers.py`: norm, rotary embedding (and Qwen2-VL's
+multimodal M-RoPE), the decode token's own attention partial, the partial
+merge, the blocked attention (the enc-dec encoder, prefill
+cross-attention and the training forward) and the banded sliding-window
+attention, the gated MLP, the top-k Mixture-of-Experts FFN and its
+load-balancing loss, the Mamba2 chunked SSD scan and single-token step,
+the causal depthwise conv, and the chunked cross-entropy (plain XLA in the
+reference, plain torch here; autograd gives the training backward, as
+`jax.value_and_grad` does there).
 
 Conventions as in the reference: activations x (B, S, D) in the model
 dtype; attention q (B, S, H, hd), k/v (B, S, KH, hd); softmax and norm
@@ -170,7 +174,7 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf = k.float().transpose(1, 2).reshape(b, h, n_blocks, block, hd)
     vf = v.float().transpose(1, 2).reshape(b, h, n_blocks, block, hd)
     outs = []
-    with _true_f32():
+    with true_f32():
         for t0 in range(0, sq, q_tile):
             t1 = min(t0 + q_tile, sq)
             q_t = qf[:, :, t0:t1]
@@ -223,7 +227,7 @@ def moe_capacity(t: int, top_k: int, n_experts: int,
 
 
 @contextlib.contextmanager
-def _true_f32() -> Iterator[None]:
+def true_f32() -> Iterator[None]:
     """f32 products in full f32 (no TF32), whatever the global switch."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -241,7 +245,7 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, top_k: int
     ids (T, K) int64), best first.  The product runs over
     `quantize.invariant_rows` like every other, and only the real T rows
     reach the top-k."""
-    with _true_f32():
+    with true_f32():
         logits = matmul(x.float(), router.float())
     probs = torch.softmax(logits, dim=-1)
     vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -370,3 +374,168 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     # einsum may hand back a (b, c, s)-major layout; the SSD kernel reads
     # y as (b, s, h, p) rows
     return F.silu(y).to(x.dtype).contiguous(), xp[:, -(width - 1):]
+
+
+# --------------------------------------------------------------------------
+# Training: banded attention, the MoE balance loss, the chunked SSD scan,
+# the chunked cross-entropy
+# --------------------------------------------------------------------------
+
+def sliding_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      *, window: int) -> torch.Tensor:
+    """Banded causal attention, the reference's: block-local with exactly
+    one look-back block (block size == window), so O(S * 2W) products
+    instead of O(S^2), in full f32.  A query attends itself and the
+    window - 1 positions before it.  S <= window is causal
+    `blocked_attention`; a longer S must be a multiple of the window.
+    q: (B, S, H, hd); k / v: (B, S, KH, hd).  Returns (B, S, H, hd) in
+    q's dtype."""
+    b, s, h, hd = q.shape
+    k = repeat_kv(k, h // k.shape[2])
+    v = repeat_kv(v, h // v.shape[2])
+    if s <= window:
+        return blocked_attention(q, k, v, causal=True, block=min(s, 1024))
+    if s % window:
+        raise ValueError(f"sequence {s} is not a multiple of the window "
+                         f"{window}")
+    nb, dev = s // window, q.device
+    qb = (q.float() * (1.0 / math.sqrt(hd))).reshape(b, nb, window, h, hd)
+    kb = k.float().reshape(b, nb, window, h, hd)
+    vb = v.float().reshape(b, nb, window, h, hd)
+    # each block with the one before it (zeros before block 0)
+    kk = torch.cat([torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]],
+                              dim=1), kb], dim=2)         # (B,nb,2W,H,hd)
+    vv = torch.cat([torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]],
+                              dim=1), vb], dim=2)
+    qpos = torch.arange(window, device=dev)[:, None]
+    kpos = torch.arange(2 * window, device=dev)[None, :] - window
+    band = (kpos <= qpos) & (kpos > qpos - window)       # exact window band
+    # block 0 has no look-back block (its "previous" is the zero padding)
+    has_prev = (torch.arange(nb, device=dev) > 0)[None, :, None, None, None]
+    mask = band & (has_prev | (kpos >= 0))               # (1,nb,1,W,2W)
+    with true_f32():
+        sco = torch.einsum("bnqhd,bnkhd->bnhqk", qb, kk)  # (B,nb,H,W,2W)
+        p = torch.softmax(torch.where(mask, sco, NEG_INF), dim=-1)
+        out = torch.einsum("bnhqk,bnkhd->bnqhd", p, vv)
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def moe_aux_loss(x: torch.Tensor, router: torch.Tensor,
+                 top_k: int) -> torch.Tensor:
+    """The Switch-style load-balancing loss of the reference: E times the
+    sum over experts of (the share of rows routing to it in their top-k,
+    over k) x (its mean router probability).  x (T, D); router (D, E).
+    The top-k ties go to the lower expert id, as `lax.top_k` (and
+    `moe_route`).  Differentiable through the probabilities only."""
+    with true_f32():
+        logits = matmul(x.float(), router.float())
+    probs = torch.softmax(logits, dim=-1)
+    e = probs.shape[-1]
+    idx = torch.sort(probs, dim=-1, descending=True,
+                     stable=True).indices[:, :top_k]
+    frac_tokens = F.one_hot(idx, e).float().sum(dim=-2).mean(dim=0)
+    frac_probs = probs.mean(dim=0)
+    return e * torch.sum(frac_tokens * frac_probs) / top_k
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """Segment sums: out[..., i, j] = sum of x[..., k] for k in (j, i],
+    NEG_INF above the diagonal.  Each is summed over its own segment
+    (a cumulative sum of x masked to k > j), where the reference takes
+    the difference of two running sums, cs_i - cs_j: the same value, but
+    the difference cancels, so a unit in the last place of one x (as two
+    devices' exp or softplus give) moved mamba's f32 gradients by ~2e-5
+    of a leaf's max."""
+    q = x.shape[-1]
+    ones = torch.ones((q, q), dtype=torch.bool, device=x.device)
+    below = torch.tril(ones, diagonal=-1)                 # (k, j): k > j
+    xs = torch.where(below, x[..., :, None], 0.0)         # (..., k, j)
+    out = torch.cumsum(xs, dim=-2)                        # (..., i, j)
+    return torch.where(torch.tril(ones), out, NEG_INF)
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, *, chunk: int = 256,
+                init_state: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba2 SSD scan in its chunked form (Dao & Gu 2024), the
+    reference's, in f32: within a chunk a causal, decayed attention-like
+    product; across chunks a recurrence over the chunk states, in order.
+    The reference's three- and four-operand einsums run here as explicit
+    pairwise products (`torch.einsum` would pick a contraction order by
+    what the installation has), so the intermediates are fixed; the
+    segment sums within a chunk are summed over each segment
+    (`_segsum`) rather than as differences of running sums.
+
+    x: (b, s, h, p); dt: (b, s, h), softplus applied; A: (h,) negative;
+    B, C: (b, s, n), one group for every head; s a multiple of `chunk`
+    (or at most it); init_state (b, h, p, n) or None (zeros).  Returns
+    (y (b, s, h, p) in x's dtype, final state (b, h, p, n) f32)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the chunk "
+                         f"{chunk}")
+    nc = s // chunk
+    xf = x.float().reshape(b, nc, chunk, h, p)
+    dtf = dt.float().reshape(b, nc, chunk, h)
+    Bf = B.float().reshape(b, nc, chunk, n)
+    Cf = C.float().reshape(b, nc, chunk, n)
+    dA = dtf * A.float()                                  # (b,nc,q,h) <= 0
+    dA_cum = torch.cumsum(dA, dim=2)                      # within a chunk
+    with true_f32():
+        # intra-chunk: y[q] = sum_k L[h,q,k] (C_q . B_k) dt_k x_k
+        L = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))    # (b,nc,h,q,k)
+        scores = Cf @ Bf.transpose(-1, -2)                # (b,nc,q,k)
+        xdt = (xf * dtf[..., None]).permute(0, 1, 3, 2, 4)  # (b,nc,h,k,p)
+        y_intra = (L * scores[:, :, None]) @ xdt          # (b,nc,h,q,p)
+        # each chunk's state: sum_q dt_q decay(q -> end) x_q B_q^T, the
+        # decay the segment sum (q, end]: the reference's exp(cs_end -
+        # cs_q) without its cancellation
+        decay_to_end = L[:, :, :, -1, :].permute(0, 1, 3, 2)  # (b,nc,q,h)
+        xw = xf * (dtf * decay_to_end)[..., None]         # (b,nc,q,h,p)
+        states = xw.permute(0, 1, 3, 4, 2) @ Bf[:, :, None]  # (b,nc,h,p,n)
+        # inter-chunk recurrence, in chunk order
+        chunk_decay = torch.exp(dA_cum[:, :, -1, :])      # (b,nc,h)
+        state = (init_state.float() if init_state is not None
+                 else x.new_zeros((b, h, p, n), dtype=torch.float32))
+        prev = []
+        for c in range(nc):
+            prev.append(state)
+            state = state * chunk_decay[:, c, :, None, None] + states[:, c]
+        prev_states = torch.stack(prev, dim=1)            # (b,nc,h,p,n)
+        # inter-chunk output: decay(start -> q) C_q . state before chunk
+        y_inter = (Cf[:, :, None] @ prev_states.transpose(-1, -2)
+                   ) * torch.exp(dA_cum).permute(0, 1, 3, 2)[..., None]
+    y = (y_intra + y_inter).permute(0, 1, 3, 2, 4).reshape(b, s, h, p)
+    return y.to(x.dtype), state
+
+
+def xent_loss_chunked(x: torch.Tensor, emb: torch.Tensor,
+                      labels: torch.Tensor, *, chunk: int = 512,
+                      vocab: int = 0) -> torch.Tensor:
+    """Cross-entropy against the tied embedding, the reference's: the
+    (B, chunk, V) logits of one sequence chunk at a time, in x's dtype
+    then f32, the padded rows past `vocab` masked out, and the mean over
+    all B*S positions (the last label of each row, 0 in the data
+    pipeline, counts like the others).  x (B, S, D); emb (V, D); labels
+    (B, S) int.  Returns the f32 scalar."""
+    b, s, _ = x.shape
+    v = emb.shape[0]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the chunk "
+                         f"{chunk}")
+    pad = (torch.arange(v, device=x.device) >= vocab
+           if vocab and vocab < v else None)
+    total = x.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, s, chunk):
+        with true_f32():
+            logits = (x[:, c0:c0 + chunk] @ emb.T).float()   # (B,q,V)
+        if pad is not None:
+            logits = torch.where(pad, NEG_INF, logits)
+        gold = logits.gather(-1, labels[:, c0:c0 + chunk, None].long())
+        total = total + torch.sum(torch.logsumexp(logits, dim=-1)
+                                  - gold[..., 0])
+    return total / (b * s)

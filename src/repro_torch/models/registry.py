@@ -1,9 +1,8 @@
 """Arch -> model functions, the port of `repro/models/registry.py`:
 decoder-only configs take `models/transformer.py`, encoder-decoder ones
-`models/encdec.py`.  The fields keep the reference's names for what the
-port has (the loss and logits come with training).  The resume prefill
-is None for an encoder-decoder: its prompts are keyed on audio frames,
-not on token prefixes."""
+`models/encdec.py`.  The fields keep the reference's names.  The resume
+prefill is None for an encoder-decoder: its prompts are keyed on audio
+frames, not on token prefixes."""
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
@@ -15,6 +14,10 @@ from repro_torch.models.config import ArchConfig
 class ModelFns(NamedTuple):
     init_params: Callable         # (cfg, generator, device) -> params
     init_cache: Callable          # (cfg, batch, max_seq, *, device, ...)
+    # (cfg, params, batch) -> (loss, {"ce", "aux"}): the training loss
+    loss_fn: Callable
+    # (cfg, params, batch) -> logits (B, S, V): the full-sequence forward
+    logits_fn: Callable
     # (cfg, params, cache, tokens (B,1), positions, write_mask) ->
     # (logits (B,1,V), cache)
     decode_step: Callable
@@ -35,7 +38,8 @@ class ModelFns(NamedTuple):
 
 def get_model(cfg: ArchConfig) -> ModelFns:
     mod = encdec if cfg.enc_dec else transformer
-    return ModelFns(mod.init_params, mod.init_cache, mod.decode_step,
+    return ModelFns(mod.init_params, mod.init_cache, mod.loss_fn,
+                    mod.logits_fn, mod.decode_step,
                     mod.decode_verify, mod.prefill_into_cache,
                     mod.extract_slot_cache, mod.insert_slot_cache,
                     None if cfg.enc_dec

@@ -1,5 +1,6 @@
-"""Decoder-only models of the ported serve paths, from
-`repro/models/transformer.py`: init, the decode cache (a paged KV cache
+"""Decoder-only models of the ported paths, from
+`repro/models/transformer.py`: init, the training forward with its loss
+and the full-sequence logits, the decode cache (a paged KV cache
 for attention layers, conv and SSM states for mamba layers), the
 single-token decode step, the speculative verify forward over T tokens,
 the prompt prefill into one cache row, one slot's pages out of and back
@@ -37,6 +38,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.core.backstream import (cache_update_stacked,
@@ -300,18 +302,35 @@ def _mrope_sections(hd: int) -> Tuple[int, int, int]:
     return (t, half // 4, half // 4)
 
 
-def ffn_layer(cfg: ArchConfig, p: Params, x: torch.Tensor,
-              moe: bool) -> torch.Tensor:
-    """The FFN sublayer with its residual: the dense gated MLP, or (`moe`)
-    the MoE FFN over the B*S rows flattened row-major, as the reference
-    routes them (a verify's rows in (b, t) order)."""
-    hx = L.rms_norm(x, p["ln"], cfg.norm_eps)
+def _ffn(cfg: ArchConfig, p: Params, hx: torch.Tensor,
+         moe: bool) -> torch.Tensor:
+    """The FFN of the normed input: the dense gated MLP, or (`moe`) the MoE
+    FFN over the B*S rows flattened row-major, as the reference routes
+    them (a verify's rows in (b, t) order)."""
     if moe:
-        b, s, d = x.shape
+        b, s, d = hx.shape
         y = L.moe_ffn(hx.reshape(b * s, d), p["router"], p["w_gate"],
                       p["w_up"], p["w_down"], cfg.top_k)
-        return x + y.reshape(b, s, d)
-    return x + L.gated_mlp(hx, p["w_gate"], p["w_up"], p["w_down"])
+        return y.reshape(b, s, d)
+    return L.gated_mlp(hx, p["w_gate"], p["w_up"], p["w_down"])
+
+
+def ffn_layer(cfg: ArchConfig, p: Params, x: torch.Tensor,
+              moe: bool) -> torch.Tensor:
+    """The FFN sublayer with its residual (`_ffn`)."""
+    return x + _ffn(cfg, p, L.rms_norm(x, p["ln"], cfg.norm_eps), moe)
+
+
+def ffn_layer_aux(cfg: ArchConfig, p: Params, x: torch.Tensor,
+                  moe: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward's FFN sublayer, the reference's `ffn_layer`:
+    `ffn_layer`'s output and the MoE load-balancing loss of its B*S routed
+    rows (a zero f32 scalar for a dense FFN)."""
+    hx = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    aux = (L.moe_aux_loss(hx.reshape(-1, hx.shape[-1]), p["router"],
+                          cfg.top_k) if moe
+           else hx.new_zeros((), dtype=torch.float32))
+    return x + _ffn(cfg, p, hx, moe), aux
 
 
 def _mamba_proj(cfg: ArchConfig, p: Params, x: torch.Tensor
@@ -338,6 +357,131 @@ def _mamba_out(p: Params, x: torch.Tensor, y: torch.Tensor,
     y = y + xc.reshape(y.shape) * p["D"][:, None].to(xc.dtype)
     y = (y.reshape(b, s, -1) * z).to(x.dtype)
     return x + matmul(y, p["out_proj"])
+
+
+# --------------------------------------------------------------------------
+# Forward (training / evaluation): the loss and the full-sequence logits
+# --------------------------------------------------------------------------
+
+AUX_LOSS_COEF = 0.01
+
+
+def attn_layer(cfg: ArchConfig, p: Params, x: torch.Tensor, kind: str,
+               positions: torch.Tensor) -> torch.Tensor:
+    """The training forward's attention sublayer with its residual: a
+    "local" layer longer than its window on the banded
+    `sliding_attention`, every other one causal `blocked_attention`, both
+    in full f32 as the reference's plain XLA."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(cfg, p, x, positions)
+    if kind == "local" and s > cfg.sliding_window:
+        o = L.sliding_attention(q, k, v, window=cfg.sliding_window)
+    else:
+        o = L.blocked_attention(q, k, v, causal=True)
+    return x + matmul(o.reshape(b, s, cfg.n_heads * cfg.head_dim_), p["wo"])
+
+
+def mamba_layer(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The training forward's mamba sublayer: the conv over the whole
+    sequence from a zero state and the chunked SSD scan
+    (`layers.ssd_chunked`, plain torch: the reference's training path
+    reaches no kernel)."""
+    b, s, _ = x.shape
+    z, xin, Bm, Cm, dt_raw, A = _mamba_proj(cfg, p, x)
+    xc, _ = L.causal_conv1d(xin, p["conv_w"])
+    y, _ = L.ssd_chunked(xc.reshape(b, s, cfg.n_ssm_heads, cfg.ssm_head_dim),
+                         F.softplus(dt_raw), A, Bm, Cm)
+    return _mamba_out(p, x, y, xc, z)
+
+
+def unstacked(blocks: List[Params], n: int) -> List[List[Params]]:
+    """Layer i's weights for i < n, as `_layer` gives them, from ONE
+    `unbind` of each stacked leaf: under autograd one `stack` then
+    assembles a leaf's gradient, where a view a layer (`w[i]`) would add
+    each layer's gradient into a zero tensor of the whole stack."""
+    unbound = [{sub: {k: w.unbind(0) for k, w in leaves.items()}
+                for sub, leaves in block.items()} for block in blocks]
+    return [[{sub: {k: ws[i] for k, ws in leaves.items()}
+              for sub, leaves in block.items()} for block in unbound]
+            for i in range(n)]
+
+
+def run_block(fn, remat: bool, *args):
+    """fn(*args), under `remat` through `torch.utils.checkpoint` (the
+    reference's per-block `jax.checkpoint` with `nothing_saveable`): only
+    the block's inputs are kept for the backward, which runs the block's
+    forward again."""
+    if remat:
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
+def _embed(cfg: ArchConfig, params: Params,
+           batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The token embeddings, or a stub frontend's `embeds` (B, S, D) in
+    their place (qwen2_vl's patches), in the model dtype."""
+    if "embeds" in batch:
+        return batch["embeds"].to(_dtype(cfg.dtype))
+    return params["embed"][batch["tokens"]]
+
+
+def _block_fn(cfg: ArchConfig, x: torch.Tensor, block: List[Params],
+              positions: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block of the pattern: each position's attention or mamba
+    sublayer, then its FFN.  Returns (x, the block's MoE aux loss)."""
+    aux = x.new_zeros((), dtype=torch.float32)
+    for pos, kind in enumerate(cfg.block_pattern):
+        p = block[pos]
+        if kind == "mamba":
+            x = mamba_layer(cfg, p["mamba"], x)
+        else:
+            x = attn_layer(cfg, p["attn"], x, kind, positions)
+        if cfg.d_ff > 0:
+            x, a = ffn_layer_aux(cfg, p["ffn"], x, _is_moe_pos(cfg, pos))
+            aux = aux + a
+    return x, aux
+
+
+def forward(cfg: ArchConfig, params: Params,
+            batch: Dict[str, torch.Tensor], *, remat: bool = True
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The full-sequence forward: batch {"tokens" (B, S) | "embeds" (B, S,
+    D), optional "positions" (B, S)}.  `remat` recomputes each block in
+    the backward.  Returns (final hidden states (B, S, D), the total MoE
+    aux loss)."""
+    _check_supported(cfg)
+    x = _embed(cfg, params, batch)
+    b, s, _ = x.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device)[None].expand(b, s)
+    aux = x.new_zeros((), dtype=torch.float32)
+    for block in unstacked(params["blocks"], cfg.n_blocks):
+        x, a = run_block(_block_fn, remat, cfg, x, block, positions)
+        aux = aux + a
+    return L.rms_norm(x, params["final_ln"], cfg.norm_eps), aux
+
+
+def loss_fn(cfg: ArchConfig, params: Params,
+            batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training loss: the chunked cross-entropy against the tied
+    embedding on batch["labels"], plus AUX_LOSS_COEF x the MoE aux loss.
+    Returns (loss, {"ce", "aux"}), f32 scalars."""
+    x, aux = forward(cfg, params, batch)
+    ce = L.xent_loss_chunked(x, params["embed"], batch["labels"],
+                             vocab=cfg.vocab)
+    return ce + AUX_LOSS_COEF * aux, {"ce": ce, "aux": aux}
+
+
+def logits_fn(cfg: ArchConfig, params: Params,
+              batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Full-sequence logits (B, S, V) in the model dtype (no remat)."""
+    x, _ = forward(cfg, params, batch, remat=False)
+    return matmul(x, params["embed"].T)
 
 
 # --------------------------------------------------------------------------
