@@ -115,8 +115,8 @@ The `[chunked]` lines admit a long prompt in chunks, one between two
 decode segments (`prefill_chunk`), under axle, seg_len 8, streamed, each
 run against a twin without the long request and one that admits it in
 one shot, on the same weights from seed 0: starcoder2_3b fp (5 slots of
-10,240 rows, 4 greedy requests of 64-400 tokens x 64 in flight, then a
-10,000-token prompt x 32 in 20 chunks of 512), q8_0 + int8 KV (3 slots
+5,120 rows, 4 greedy requests of 64-400 tokens x 64 in flight, then a
+5,000-token prompt x 32 in 10 chunks of 512), q8_0 + int8 KV (3 slots
 of 2,304, 2 requests in flight, a 2,000-token prompt in 11 chunks of 192,
 starting mid-page) and mamba2_370m (the fp shape; in f32 the long
 request alone, chunked == one-shot bitwise): the in-flight tokens ==
@@ -155,12 +155,26 @@ full depth (on its first batch every step: over fresh batches its loss
 stays in their noise) and granite_moe_3b's first 4 of 32 layers, every
 loss and grad norm finite and the last loss below the first, with each
 step's wall ms and tokens/s, one step's device ms and forward / backward /
-optimizer split, peak memory and the step's bound from its shapes;
+optimizer split, peak memory and the step's bound from the dry-run's
+counter (`roofline/cost.py` on meta tensors, counted in a child process
+that starts after the build);
 starcoder2_3b's first 2 layers in bf16 against an f32 twin (loss within
 1%, every gradient's cosine >= 0.99); and the ported
-`examples/train_pipeline.py` config through `launch/train.py` in processes
+`examples/train_pipeline.py` config (its first 2 layers) through
+`launch/train.py` in processes
 of their own, restarted (steps 6 / 0 / 2) and preempted by a SIGTERM, each
 ending at the uninterrupted run's losses and final checkpoint bit for bit.
+The `[dryrun]` lines hold the dry-run (`launch/dryrun.py`) to the card:
+three starcoder2_3b cells (a decode of all 30 layers, 8 rows over
+32,768 slots; a prefill of the first 2 layers over 32,768 tokens; a train
+step of the first 8 layers, B 4 x S 2048) run once inside the cost
+counter and three times without it: the card's FLOPs, bytes and op count
+== the child's count of the same cells on meta tensors, the predicted
+peak within 10% of the growth of max_memory_allocated, the device time
+(CUDA events) beside the roofline bound and fraction; then three 2 x 16
+x 16 rows the child counted.  The `[knn_topk]` line holds `knn_topk` (the
+distance kernel, then the k smallest) to its plain version bitwise on
+integer-valued inputs full of ties.
 Before serving, it drives the paper's two offload workloads through
 `stream_offload` under BS, RP and AXLE, data from seed 0 on the card:
   * KNN (VectorDB): 256 queries against a 1,000,000 x 1024 bf16 database
@@ -275,12 +289,14 @@ Tolerances (bf16 inputs, f32 accumulation in both versions):
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import functools
 import gc
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -296,8 +312,8 @@ import torch
 
 T_START = time.perf_counter()
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet (as
+BF16_FLOPS_PER_S = 989e12        # src/repro_torch/roofline/analysis.py)
 ATOL_BF16 = 2e-2
 LOGIT_ATOL = 0.25
 LOGIT_ATOL_F32 = 1e-2
@@ -349,6 +365,9 @@ try:
     from repro_torch.models.quantize import padded_rows, quantize_params
     from repro_torch.models.registry import get_model
     from repro_torch.optim import adamw, compression
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import analysis
+    from repro_torch.roofline import cost as kcost
 except ImportError as exc:
     fail(f"the repro_torch package is not beside this script: {exc}")
 
@@ -457,6 +476,14 @@ def bound_ms(n_bytes: float, flops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernel_bound(name, *args, **kw) -> tuple:
+    """`bound_ms` of one kernel call from its formula in
+    `roofline/cost.py` (the dry-run's yardstick); the data's counts (valid
+    keys, pages, rows) as keywords."""
+    c = kcost.kernel_cost(name, *args, **kw)
+    return bound_ms(c.bytes, c.flops)
+
+
 KERNEL_KINDS = ("ssd_kernel", "ssd_chunk_tc_kernel", "ssd_pass_kernel",
                 "ssd_out_tc_kernel", "decode_split_tc_kernel",
                 "decode_split_kernel", "decode_merge_kernel", "flash_kernel",
@@ -557,6 +584,71 @@ print(f"[build] nvcc {lib.name} in {time.perf_counter() - t0:.2f} s; "
       f"ptxas: {ptxas_summary(lib.with_suffix('.log').read_text())}; "
       f"SASS: {sass_check(lib)}", flush=True)
 
+# the [dryrun] phase's meta-tensor counts, and the counts behind the
+# [train] bounds, in a process of its own (no card: it runs the port's
+# steps on meta tensors) while the phases below run; read at [train]
+DRY_CELLS = {   # name: (kind, arch, layers (None: all), batch, seq)
+    "decode": ("decode", ARCH, None, 8, 32768),
+    "prefill": ("prefill", ARCH, 2, 1, 32768),
+    "train": ("train", ARCH, 8, 4, 2048),
+}
+TRAIN_RUNS = {  # the [train] runs: arch, layers (None: all)
+    f"{ARCH}_first8": (ARCH, 8), MAMBA: (MAMBA, None),
+    "granite_moe_3b_first4": ("granite_moe_3b", 4),
+}
+DRY_ROWS = (("starcoder2_3b", "decode_32k"), ("mamba2_370m", "prefill_32k"),
+            ("starcoder2_3b", "train_4k"))
+DRY_CHILD = """
+import dataclasses, json, sys
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+spec = json.loads(sys.argv[1])
+def cut(arch, layers):
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(
+        cfg, arch_id=f"{arch}_first{layers}", n_layers=layers)
+out = {"cells": {}, "train": {}, "rows": []}
+for name, (kind, arch, layers, b, s) in spec["cells"].items():
+    out["cells"][name] = dryrun.counts(
+        dryrun.meta_device_cell(cut(arch, layers), kind, b, s))
+for name, (arch, layers) in spec["train"].items():
+    grads, update = dryrun.meta_train_parts(cut(arch, layers), 4, 2048)
+    out["train"][name] = {"grads": dryrun.counts(grads),
+                          "update": dryrun.counts(update)}
+for arch, shape in spec["rows"]:
+    out["rows"].append(dryrun.run_cell(arch, shape, multi_pod=True))
+with open(spec["out"], "w") as f:
+    json.dump(out, f)
+"""
+DRY_OUT = Path(__file__).resolve().parent / "build" / "dryrun_meta.json"
+DRY_OUT.parent.mkdir(exist_ok=True)
+DRY_OUT.unlink(missing_ok=True)
+DRY_ERR = open(DRY_OUT.with_suffix(".err"), "w")
+DRY_PROC = subprocess.Popen(
+    [sys.executable, "-c", DRY_CHILD, json.dumps(
+        {"cells": DRY_CELLS, "train": TRAIN_RUNS, "rows": DRY_ROWS,
+         "out": str(DRY_OUT)})],
+    env=dict(os.environ, PYTHONPATH=str(DRY_OUT.parents[1] / "src"),
+             CUDA_VISIBLE_DEVICES=""), stdout=DRY_ERR, stderr=DRY_ERR)
+atexit.register(lambda: DRY_PROC.poll() is None and DRY_PROC.kill())
+DRY: dict = {}
+
+
+def dry_meta() -> dict:
+    """The child's counts (waits for it the first time)."""
+    if not DRY:
+        try:
+            rc = DRY_PROC.wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            DRY_PROC.kill()
+            fail("[dryrun] the meta-count process outlasted 900 s")
+        DRY_ERR.close()
+        check(rc == 0, "[dryrun] the meta-count process failed: "
+              + DRY_OUT.with_suffix(".err").read_text()[-3000:])
+        DRY.update(json.loads(DRY_OUT.read_text()))
+    return DRY
+
+
 # --------------------------------------------------------------------------
 # 3. kernels against their plain versions, at main-path shapes
 # --------------------------------------------------------------------------
@@ -635,10 +727,8 @@ rows_alone(lambda b: fa.decode_attention_fused(
     *one_row(b, q, k_pool, v_pool, pos), one_row(b, *extra), window=300,
     blk_c=PAGE, pages=table[b:b + 1]), paged, "decode_attention_fused")
 valid_slots = int((pos + 1).sum())          # window 0: slots 0..pos
-dec_bytes = (nbytes(q, pos, table, *extra) + q.numel() * 2
-             + 2 * valid_slots * KH * HD * 2)
-dec_flops = 4 * valid_slots * H * HD
-bnd, by = bound_ms(dec_bytes, dec_flops)
+bnd, by = kernel_bound("decode_attention_fused", q, k_pool, v_pool, pos,
+                       extra, table, blk_c=PAGE, n_valid=valid_slots)
 k_gath = ref.gather_kv_pages(k_pool, table, PAGE)
 v_gath = ref.gather_kv_pages(v_pool, table, PAGE)
 sdpa_mask = ref.decode_valid_mask(pos, S, 0)[:, None, None, :]
@@ -711,8 +801,7 @@ for s, window in ((8, 0), (300, 0), (512, 300), (512, 0)):
     print(f"[kernel] flash_attention S={s} H={H} KH={KH} hd={HD} causal, "
           f"window {window}: max_abs_err {err:.3g} <= {ATOL_BF16}; launches "
           f"{variants}", flush=True)
-pairs = s * (s + 1) // 2                    # causal (q, k) pairs at S=512
-bnd, by = bound_ms(nbytes(qf, kf, vf) + nbytes(qf), 4 * pairs * H * HD)
+bnd, by = kernel_bound("flash_attention", qf, kf, vf, causal=True)
 records["flash_attention"] = dict(
     name="flash_attention", route="cuda",
     source="src/repro_torch/kernels/csrc/attention.cu",
@@ -725,7 +814,8 @@ records["flash_attention"] = dict(
         qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2),
         is_causal=True, enable_gqa=True)))
 rec = records["flash_attention"]
-flash_flops = 4 * pairs * H * HD
+flash_flops = kcost.kernel_cost("flash_attention", qf, kf, vf,
+                                causal=True).flops
 dev_k = device_ms(lambda: fa.flash_attention(qf, kf, vf, causal=True))
 dev_l = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
     qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2),
@@ -835,8 +925,8 @@ rows_alone(lambda b: fa.decode_attention_partial(
     *one_row(b, q, k_log, v_log, valid)), part, "decode_attention_partial")
 acc, m, l = part
 n_valid = int(valid.sum())
-bnd, by = bound_ms(nbytes(q, valid, acc, m, l) + 2 * n_valid * KH * HD * 2,
-                   4 * n_valid * H * HD)
+bnd, by = kernel_bound("decode_attention_partial", q, k_log, v_log, valid,
+                       n_valid=n_valid)
 records["decode_attention_partial"] = dict(
     name="decode_attention_partial", route="cuda",
     source="src/repro_torch/kernels/csrc/attention.cu",
@@ -944,13 +1034,7 @@ del x2, dt2, B2, C2, init2, both
 # timed and bounded in bf16, the main path's dtype
 sx, sdt, sA, sB, sC = ssd_inputs(torch.bfloat16)
 s_y, s_fin = kssd.ssd_scan(sx, sdt, sA, sB, sC)
-Q = 64                                   # the kernel's chunk length
-n_chunks = -(-SS // Q)
-# the chunked form's products: C B^T once per chunk (one group shared by
-# every head), then per head G x, C state^T and the state update
-ssd_flops = n_chunks * (Q * (Q + 1) * SN
-                        + SH * (Q * (Q + 1) * SP + 4 * Q * SN * SP))
-bnd, by = bound_ms(nbytes(sx, sdt, sA, sB, sC, s_y, s_fin), ssd_flops)
+bnd, by = kernel_bound("ssd_scan", sx, sdt, sA, sB, sC)
 records["ssd_scan"] = dict(
     name="ssd_scan", route="cuda",
     source="src/repro_torch/kernels/csrc/ssd.cu",
@@ -1009,9 +1093,9 @@ rows_alone(lambda b: fa.decode_attention_fused(
     blk_c=PAGE, pages=table[b:b + 1], kv_scales=one_row(b, *sc_pool)),
     paged, "decode_attention_fused[int8]")
 valid_pages = int(((pos + PAGE) // PAGE).sum())      # pages holding slots
-dec8_bytes = (nbytes(q, pos, table, *extra) + q.numel() * 2
-              + 2 * valid_slots * KH * HD + 2 * valid_pages * KH * 4)
-bnd, by = bound_ms(dec8_bytes, dec_flops)
+bnd, by = kernel_bound("decode_attention_fused", q, k8_pool, v8_pool, pos,
+                       extra, table, sc_pool, blk_c=PAGE,
+                       n_valid=valid_slots, n_pages=valid_pages)
 records["decode_attention_fused[int8]"] = dict(
     name="decode_attention_fused[int8]", route="cuda",
     source="src/repro_torch/kernels/csrc/attention.cu",
@@ -1124,9 +1208,8 @@ ex_g = (torch.randn(B, H // 2, HD, generator=G, device=DEV),
         torch.randn(B, H // 2, generator=G, device=DEV),
         torch.rand(B, H // 2, generator=G, device=DEV) + 0.5)
 fp_slots = int((posx + 1).sum())
-fp_bytes = (nbytes(q_g, posx, tbl, *ex_g) + B * (H // 2) * (HD + 2) * 4
-            + 2 * fp_slots * HD * 2)
-bnd, by = bound_ms(fp_bytes, 4 * fp_slots * (H // 2) * HD)
+bnd, by = kernel_bound("decode_attention_fused_partial", q_g, k_g, v_g, posx,
+                       ex_g, tbl, blk_c=PAGE, n_valid=fp_slots)
 records["decode_attention_fused_partial"] = dict(
     name="decode_attention_fused_partial", route="cuda",
     source="src/repro_torch/kernels/csrc/attention.cu",
@@ -1242,7 +1325,10 @@ def attention_at(label, h, kh, hd, served, window=W_WIN):
     mask = (qi[None, :] <= qi[:, None]) & (
         (qi[None, :] > qi[:, None] - window) | (window == 0))
     pairs = int(mask.sum())
-    bnd, by = bound_ms(2 * nbytes(qf) + nbytes(kf, vf), 4 * pairs * h * hd)
+    bnd, by = kernel_bound("flash_attention", qf, kf, vf, causal=True,
+                           window=window)
+    check(kcost.attention_pairs(W_S, W_S, True, window) == pairs,
+          f"flash_attention{tag}: the formula's pairs != the mask's")
 
     def sdpa_prefill():
         return torch.nn.functional.scaled_dot_product_attention(
@@ -1324,8 +1410,8 @@ def attention_at(label, h, kh, hd, served, window=W_WIN):
         *one_row(b, q, k_pool, v_pool, pos_w), one_row(b, *ex), window=win,
         blk_c=W_PAGE, pages=table[b:b + 1]), paged,
         f"decode_attention_fused{tag}")
-    bnd, by = bound_ms(nbytes(q, pos_w, table, *ex) + nbytes(q)
-                       + 2 * n_valid * kh * hd * 2, 4 * n_valid * h * hd)
+    bnd, by = kernel_bound("decode_attention_fused", q, k_pool, v_pool,
+                           pos_w, ex, table, blk_c=W_PAGE, n_valid=n_valid)
     k_gath = ref.gather_kv_pages(k_pool, table, W_PAGE)
     v_gath = ref.gather_kv_pages(v_pool, table, W_PAGE)
 
@@ -1409,9 +1495,9 @@ def attention_at(label, h, kh, hd, served, window=W_WIN):
         kv_scales=one_row(b, ksp, vsp)), paged8,
         f"decode_attention_fused[int8]{tag}")
     n_pages = int(((valid.reshape(B, -1, W_PAGE)).any(-1)).sum())
-    bnd8, by8 = bound_ms(nbytes(q, pos_w, table, *ex) + nbytes(q)
-                         + 2 * n_valid * kh * hd + 2 * n_pages * kh * 4,
-                         4 * n_valid * h * hd)
+    bnd8, by8 = kernel_bound("decode_attention_fused", q, k8p, v8p, pos_w,
+                             ex, table, (ksp, vsp), blk_c=W_PAGE,
+                             n_valid=n_valid, n_pages=n_pages)
     rec8 = out["int8"] = dict(
         name=f"decode_attention_fused[int8]{tag}", route="cuda",
         source="src/repro_torch/kernels/csrc/attention.cu",
@@ -1460,9 +1546,8 @@ def attention_at(label, h, kh, hd, served, window=W_WIN):
     rows_alone(lambda b: fa.decode_attention_partial(
         *one_row(b, q, k_log, v_log, pvalid)), part,
         f"decode_attention_partial{tag}")
-    bndp, byp = bound_ms(nbytes(q, pvalid, *part)
-                         + 2 * n_pvalid * kh * hd * 2,
-                         4 * n_pvalid * h * hd)
+    bndp, byp = kernel_bound("decode_attention_partial", q, k_log, v_log,
+                             pvalid, n_valid=n_pvalid)
     recp = out["partial"] = dict(
         name=f"decode_attention_partial{tag}", route="cuda",
         source="src/repro_torch/kernels/csrc/attention.cu",
@@ -1602,7 +1687,7 @@ for fmt in kquant.WEIGHT_FORMATS:
         err = quant_err(got, x, qt)
         w_bf16 = kquant.dequantize_tensor(qt).to(torch.bfloat16)
         flops = 2 * m * d * n
-        bnd, by = bound_ms(nbytes(x, got) + qt.nbytes, flops)
+        bnd, by = kernel_bound("quant_matmul", x, qt)
         # no PyTorch call dequantizes blocks: no library call; the
         # yardstick's times are printed
         rec = dict(max_abs_err=err, bound_ms=bnd, bound_by=by,
@@ -1701,9 +1786,8 @@ check(bool((diff <= tol).all()), f"knn_distances: err {diff.max().item()} "
       f"past 1e-5 (|q| + |x|)^2 by {(diff - tol).max().item()}")
 check(torch.equal(kknn.knn_distances(knn_q, chunk), got),
       "knn_distances: not repeatable")
-knn_flops = (2 * KNN_Q * KNN_CHUNK * KNN_D + 2 * (KNN_Q + KNN_CHUNK) * KNN_D
-             + 3 * KNN_Q * KNN_CHUNK)
-bnd, by = bound_ms(nbytes(knn_q, chunk, got), knn_flops)
+knn_flops = kcost.kernel_cost("knn_distances", knn_q, chunk).flops
+bnd, by = kernel_bound("knn_distances", knn_q, chunk)
 # the yardstick: one addmm (cuBLAS) on the bf16 q and x with an f32
 # output, on the tensor cores, the norms' sum q2 + x2 precomputed outside
 # the timed call (bf16 products are exact in f32, so this is the same
@@ -1816,8 +1900,8 @@ for label, table, w in (("f32, weighted", sls_table, sls_w),
 # (a row that two slots draw is read once; the timing runs with a cold
 # L2), every index, the weights of the valid slots and the output
 n_rows = int(torch.unique(sls_idx[sls_valid]).numel())
-bnd, by = bound_ms(n_rows * SLS_D * 4 + n_valid * 4
-                   + nbytes(sls_idx, sls_once), 2 * n_valid * SLS_D)
+bnd, by = kernel_bound("sls", sls_table, sls_idx, sls_w, rows=n_rows,
+                       n_valid=n_valid)
 flat_idx = sls_idx[sls_valid].long()
 offsets = torch.cat([torch.zeros(1, dtype=torch.long, device=DEV),
                      sls_valid.sum(1).cumsum(0)[:-1]])
@@ -1926,6 +2010,34 @@ print(f"[offload] knn Q={KNN_Q} N={KNN_N} D={KNN_D} bf16, top-{KNN_K}, "
       f"distances vs the plain path max_abs_err {d_err.max().item():.4g} "
       f"(<= 1e-5 (|q|+max|x|)^2); {n_diff} of {knn_out[1].numel()} ids "
       "differ from the plain path's, each at a near tie", flush=True)
+# knn_topk (the port of the reference's `knn.knn_topk`: the distance
+# kernel, then the k smallest on the device) against its plain version at
+# the offload's chunk, on integer-valued bf16 inputs: every distance is an
+# exact integer on both routes, so ids and distances must be equal, the
+# many ties broken lowest id first; rows 1..3 of the chunk repeat row 0
+ints = torch.randint(-2, 3, (KNN_Q + KNN_CHUNK, KNN_D), generator=G,
+                     device=DEV).to(torch.bfloat16)
+tq, tdb = ints[:KNN_Q], ints[KNN_Q:].clone()
+tdb[1:4] = tdb[0]
+tq[0] = tdb[0]
+kbuild.reset_launch_counts()
+top_d, top_i = ops.knn_topk(tq, tdb, KNN_K)
+topk_launches = {k: kbuild.LAUNCHES[k]
+                 for k in ("knn_distances", "knn_distances_wgmma")}
+ref_d, ref_i = ref.knn_topk_reference(tq, tdb, KNN_K)
+check(topk_launches == {"knn_distances": 1, "knn_distances_wgmma": 1},
+      f"knn_topk: launches {topk_launches}, not one wgmma distance kernel")
+check(torch.equal(top_i, ref_i) and torch.equal(top_d, ref_d),
+      "knn_topk: ids or distances != the plain version's on exact inputs")
+check(top_i[0, :4].tolist() == [0, 1, 2, 3] and top_d[0, 0].item() == 0,
+      f"knn_topk: the tied rows 0..3 came back as {top_i[0, :4].tolist()}")
+n_tied = int((top_d[:, 1:] == top_d[:, :-1]).sum())
+print(f"[knn_topk] Q={KNN_Q} N={KNN_CHUNK} D={KNN_D} bf16 integer-valued, "
+      f"top-{KNN_K}: ids and distances == the plain version's bitwise "
+      f"({n_tied} tied neighbours, lowest id first; query 0's four equal "
+      f"rows 0..3 in order); launches {topk_launches}; {SMI_LINE}",
+      flush=True)
+del ints, tq, tdb, top_d, top_i, ref_d, ref_i
 # one AXLE call under torch.profiler: where its wall goes
 with use_offload(OffloadConfig(protocol=OffloadProtocol.AXLE, ring_depth=2)):
     torch.cuda.synchronize()
@@ -3726,8 +3838,8 @@ rows_alone(lambda b: fa.decode_attention_fused(
     *one_row(b, q, k_enc, v_enc, pos_e), blk_c=128), got,
     "decode_attention_fused[enc1500]")
 n_valid = int(e_valid.sum())
-bnd, by = bound_ms(nbytes(q, pos_e) + nbytes(q) + 2 * n_valid * WKH * WHD * 2,
-                   4 * n_valid * WH * WHD)
+bnd, by = kernel_bound("decode_attention_fused", q, k_enc, v_enc, pos_e,
+                       blk_c=128, n_valid=n_valid)
 
 
 def sdpa_cross():
@@ -3799,8 +3911,8 @@ for fault, faulty in split_faults(q, k_enc, v_enc, e_valid,
 rows_alone(lambda b: fa.decode_attention_partial(
     *one_row(b, q, k_enc, v_enc, e_valid)), part,
     "decode_attention_partial[enc1500]")
-bndp, byp = bound_ms(nbytes(q, e_valid, *part) + 2 * n_valid * WKH * WHD * 2,
-                     4 * n_valid * WH * WHD)
+bndp, byp = kernel_bound("decode_attention_partial", q, k_enc, v_enc,
+                         e_valid, n_valid=n_valid)
 recp = records["decode_attention_partial[enc1500]"] = dict(
     name="decode_attention_partial[enc1500]", route="cuda",
     source="src/repro_torch/kernels/csrc/attention.cu",
@@ -3846,9 +3958,7 @@ for s_w in (8, 32, W_TEXT):
     check(errf <= ATOL_BF16, f"flash_attention[hd64mha] S={s_w}: err {errf}")
     check(variants == {"flash_attention": 1, "flash_attention_tc": 1},
           f"flash_attention[hd64mha] S={s_w}: launches {variants}")
-    pairs = s_w * (s_w + 1) // 2
-    bndf, byf = bound_ms(2 * nbytes(qf) + nbytes(kf, vf),
-                         4 * pairs * WH * WHD)
+    bndf, byf = kernel_bound("flash_attention", qf, kf, vf, causal=True)
 
     def sdpa_prefill():
         return torch.nn.functional.scaled_dot_product_attention(
@@ -4620,8 +4730,8 @@ print(f"[tier] peak pinned host memory held: {tier_peak['snapshots'] / 1e6:.1f}"
 # streamed: a long prompt admitted in chunks, one between two decode
 # segments, while greedy requests decode; each run against a twin without
 # the long request and one that admits it in one shot.  starcoder2_3b fp
-# (10,000 tokens in chunks of 512) and q8_0 + int8 KV (2,000 in chunks of
-# 192), mamba2_370m (10,000 in chunks of 512), each from seed 0; then the
+# (5,000 tokens in chunks of 512) and q8_0 + int8 KV (2,000 in chunks of
+# 192), mamba2_370m (5,000 in chunks of 512), each from seed 0; then the
 # ported quickstart
 # --------------------------------------------------------------------------
 
@@ -4796,13 +4906,14 @@ def chunk_line(label, base, chunked, one, rids, stream_ms, device, extra):
 
 # starcoder2_3b fp: 5 slots of 10,240 rows, 4 greedy requests of 64-400
 # tokens x 64 in flight (no stop tokens: only the reservation keeps the
-# plain graph away), then a 10,000-token prompt x 32 in 20 chunks of 512
-LONG, CHUNK, LONG_SEQ = 10_000, 512, 10_240
+# plain graph away), then a 5,000-token prompt x 32 in 10 chunks of 512
+# (10,000 tokens in 20 chunks before [dryrun] took its time)
+LONG, CHUNK, LONG_SEQ = 5_000, 512, 5_120
 c_reqs = make_requests(4, 64, 400, 64) + [Request(LONG_RID, rng.integers(
     1, cfg.vocab, LONG).astype(np.int32), 32)]
 cb, cc, co = chunk_serve(c_reqs, CHUNK, batch_slots=5, max_seq=LONG_SEQ,
                          protocol="axle", stream=True)
-N_CHUNKS = -(-LONG // CHUNK)                                    # 20
+N_CHUNKS = -(-LONG // CHUNK)                                    # 10
 c_rids, c_stream = chunk_checks(f"{ARCH} fp", cb, cc, co, N_CHUNKS, LONG)
 c_launches = cc[2]
 check(c_launches["flash_attention"] == 5 * n_layers
@@ -5020,14 +5131,16 @@ print(f"[mesh] phase {time.perf_counter() - MESH_T0:.1f} s; "
 #     the last loss below the first; each step's wall ms (synchronised) and
 #     tokens/s, one step's device ms (torch.profiler) and its forward /
 #     backward / optimizer split (CUDA events), peak memory, and the step's
-#     bound from its shapes (bf16 products at 989 TFLOP/s, f32 attention or
-#     SSD products at 67, the optimizer's 36 bytes a parameter at 3.35 TB/s,
-#     added: the step runs its kernels one after another);
+#     bound from the dry-run's counter (`roofline/cost.py` on meta tensors:
+#     the gradients' bf16 products at 989 TFLOP/s, f32 attention or SSD
+#     products at 67, the update's bytes at 3.35 TB/s, added: the step runs
+#     its kernels one after another);
 #   * bf16 against an f32 twin (the same weights, cast) on starcoder2_3b's
 #     first 2 layers at full width: the first loss within 1% and every
 #     gradient leaf's cosine >= 0.99;
 #   * restart and preemption: the ported `examples/train_pipeline.py`
-#     config (~100M, B 8 x S 256, compression, lr 3e-3) through
+#     config on its first 2 of 10 layers (~33M, B 8 x S 256,
+#     compression, lr 3e-3) through
 #     `launch/train.train` in processes of their own.  An 8-step run; the
 #     same job stopped by a SIGTERM it raises at its 6th step (the
 #     reference's schedule spans the `steps` asked for, so the 8-step job
@@ -5069,12 +5182,29 @@ def attention_pairs(s, q_tile=512, block=1024):
                for t0 in range(0, s, q_tile))
 
 
-def train_bound(tcfg, b, s, n_params):
-    """The step's least time from its shapes: (bf16 TFLOP, f32 TFLOP,
-    optimizer GB, their ms at the card's peaks).  A block's products run
-    4x their forward's FLOPs (the forward, its recomputation, a backward
-    of twice the work), the loss's tied-embedding product 3x (it is not
-    recomputed)."""
+def train_bound(tcfg):
+    """The step's least time from the dry-run's counter (`roofline/
+    cost.py`, on meta tensors in the child process): (bf16 TFLOP, f32
+    TFLOP, update GB, their ms at the card's peaks).  The gradients'
+    products by operand dtype (bf16 at 989 TFLOP/s, f32 at 67), the
+    update's bytes (compression + AdamW under the ideal-fusion model) at
+    3.35 TB/s; added, since the step runs its kernels one after
+    another."""
+    part = dry_meta()["train"][tcfg.arch_id]
+    by_dt = part["grads"]["flops_by_dtype"]
+    bf16, f32 = by_dt.get("bfloat16", 0.0), by_dt.get("float32", 0.0)
+    opt = part["update"]["bytes"]
+    ms = (bf16 / analysis.PEAKS["bfloat16"] * 1e3,
+          f32 / analysis.PEAKS["float32"] * 1e3, opt / analysis.HBM_BW * 1e3)
+    return bf16 / 1e12, f32 / 1e12, opt / 1e9, ms
+
+
+def hand_train_bound(tcfg, b, s, n_params):
+    """The same bound counted by hand from the shapes: a block's
+    products run 4x their forward's FLOPs (the forward, its
+    recomputation, a backward of twice the work), the loss's
+    tied-embedding product 3x (it is not recomputed); the optimizer's 36
+    bytes a parameter.  Printed beside the counter's in [dryrun]."""
     t, d = b * s, tcfg.d_model
     blk_bf16 = blk_f32 = 0                    # a block's forward FLOPs
     for pos, kind in enumerate(tcfg.block_pattern):
@@ -5191,8 +5321,7 @@ def train_run(label, tcfg, n_steps, lr=1e-3, one_batch=False):
           f"[train] {label}: a loss or grad norm is not finite: {rows}")
     check(losses[-1] < losses[0],
           f"[train] {label}: the loss did not fall: {losses}")
-    bf16_t, f32_t, opt_gb, (b_ms, f_ms, o_ms) = train_bound(
-        tcfg, TRAIN_B, TRAIN_S, n_params)
+    bf16_t, f32_t, opt_gb, (b_ms, f_ms, o_ms) = train_bound(tcfg)
     walls = [r["wall_ms"] for r in rows[1:]]
     wall = statistics.median(walls)
     print(f"[train] {label}: {n_params / 1e9:.3f} B params, B {TRAIN_B} x S "
@@ -5206,7 +5335,7 @@ def train_run(label, tcfg, n_steps, lr=1e-3, one_batch=False):
           f"AdamW) {split[0]:.1f} / {split[1]:.1f} / {split[2]:.1f} ms; "
           f"peak {peak / 1e9:.2f} GB; bound {b_ms + f_ms + o_ms:.1f} ms = "
           f"bf16 products {bf16_t:.2f} TFLOP {b_ms:.1f} ms + f32 "
-          f"{f32_t:.2f} TFLOP {f_ms:.1f} ms + optimizer {opt_gb:.1f} GB "
+          f"{f32_t:.2f} TFLOP {f_ms:.1f} ms + update {opt_gb:.1f} GB "
           f"{o_ms:.1f} ms (step / bound {wall / (b_ms + f_ms + o_ms):.2f}); "
           f"kernels by device time: " + "; ".join(
               f"{k[:40]} x{n} {t / 1e3:.1f} ms" for t, n, k in ev[:6])
@@ -5288,9 +5417,13 @@ train_run(f"{GRANITE}, its first 4 of 32 layers", gr4, 8)
 # argument's list; an entry with "stop" raises SIGTERM on its own process
 # when the pipeline hands out that step's batch.
 TRAIN_CHILD = """
-import json, signal, sys
+import dataclasses, json, signal, sys
 from repro_torch.examples import train_pipeline
 from repro_torch.launch import train as tr
+
+# the example's config cut to its first layers (argv[2])
+train_pipeline.CONFIG = dataclasses.replace(
+    train_pipeline.CONFIG, n_layers=int(sys.argv[2]))
 
 pipeline, stop = tr.make_pipeline, None
 
@@ -5312,6 +5445,9 @@ for run in json.loads(sys.argv[1]):
     print(f"START {run.pop('label', '')}", flush=True)
     print("RESULT " + json.dumps(train_pipeline.run(**run)), flush=True)
 """
+# the restart runs the example's config on its first 2 of 10 layers: a
+# checkpoint of the whole config is 1.4 GB, written and compressed 7 times
+RESTART_CFG = dataclasses.replace(train_pipeline.CONFIG, n_layers=2)
 CKPT_ROOT = ROOT / "build" / "train_ckpt"
 shutil.rmtree(CKPT_ROOT, ignore_errors=True)
 CK = {k: str(CKPT_ROOT / k) for k in ("whole", "restart", "preempt")}
@@ -5320,7 +5456,8 @@ CHILD_ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
 
 def child(runs):
     return subprocess.Popen(
-        [sys.executable, "-c", TRAIN_CHILD, json.dumps(runs)], cwd=ROOT,
+        [sys.executable, "-c", TRAIN_CHILD, json.dumps(runs),
+         str(RESTART_CFG.n_layers)], cwd=ROOT,
         env=CHILD_ENV, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)
 
@@ -5338,7 +5475,7 @@ def results(proc, head="", timeout=600):
 
 RESTART_T0 = time.perf_counter()
 # the restart's job checkpoints every 3 steps; the other two at the end
-# and on the SIGTERM only (a checkpoint is 1.4 GB).  The first process
+# and on the SIGTERM only.  The first process
 # runs the 8-step job, the restart's three calls, then the preempted run,
 # which this process sends a SIGTERM once it has logged step 2; the
 # second process resumes it.
@@ -5385,8 +5522,9 @@ for label, losses, d in (
           f"checkpoint bitwise {same}")
 n_ckpt = len(want)
 shutil.rmtree(CKPT_ROOT, ignore_errors=True)
-print(f"[train] restart and preemption, {train_pipeline.CONFIG.arch_id} "
-      f"(~{train_pipeline.CONFIG.n_params() / 1e6:.0f}M, B 8 x S 256, "
+print(f"[train] restart and preemption, {RESTART_CFG.arch_id} on its "
+      f"first {RESTART_CFG.n_layers} of {train_pipeline.CONFIG.n_layers} "
+      f"layers (~{RESTART_CFG.n_params() / 1e6:.0f}M, B 8 x S 256, "
       f"compression on) through launch/train.py in processes of their own: "
       f"steps run 8; 6 / 0 / 2 (a SIGTERM raised at the 6th step, then "
       f"steps=6, then 8); {preempted['steps_run']} + {resumed['steps_run']} "
@@ -5396,6 +5534,108 @@ print(f"[train] restart and preemption, {train_pipeline.CONFIG.arch_id} "
       f"{whole['losses'][-1]:.4f}; {time.perf_counter() - RESTART_T0:.1f} s; "
       f"{SMI_LINE}", flush=True)
 print(f"[train] phase {time.perf_counter() - TRAIN_T0:.1f} s; "
+      f"{time.perf_counter() - T_START:.0f} s into the script", flush=True)
+
+# --------------------------------------------------------------------------
+# 6i. the dry-run and the roofline held to the card (`launch/dryrun.py`,
+# `roofline/cost.py`, `roofline/analysis.py`).  Three single-device cells
+# of starcoder2_3b run for real, each once inside the cost counter and
+# three times without it (CUDA events, the median):
+#   * decode: the full 30 layers, 8 rows (a 16 x 16 rank's batch) over
+#     the whole 32,768-slot paged cache, every row at its last slot, so
+#     the fused decode's formula (the whole span) is the run's work;
+#   * prefill: `logits_fn` on 1 x 32,768 tokens, the first 2 of 30 layers
+#     (the plain blocked attention launches ~100,000 kernels a layer at
+#     this length; every layer has the same shapes, so the cut keeps a
+#     layer's counts);
+#   * train: the [train] phase's first 8 layers, B 4 x S 2048 (the loss,
+#     its gradients, AdamW; no compression).
+# Each cell's FLOPs, bytes and op count on the card == the child's count
+# of the same cell on meta tensors; the meta run's predicted peak (its
+# arguments plus the peak of what the step allocates) within 10% of the
+# growth of max_memory_allocated from before the cell's tensors were
+# made; the device time beside the roofline bound and the fraction.  The
+# child's 2 x 16 x 16 rows (a decode, a prefill, and the train row that
+# is not ported) are printed.
+# --------------------------------------------------------------------------
+
+DRY_T0 = time.perf_counter()
+meta = dry_meta()
+gc.collect()
+torch.cuda.empty_cache()
+for name, (kind, arch, layers, b, s) in DRY_CELLS.items():
+    dcfg = get_config(arch)
+    if layers is not None:
+        dcfg = dataclasses.replace(dcfg, arch_id=f"{arch}_first{layers}",
+                                   n_layers=layers)
+    got = dryrun.card_cell(dcfg, kind, b, s, device=DEV, iters=3)
+    want, card = meta["cells"][name], got["counts"]
+    same = all(card[k] == want[k] for k in ("flops", "bytes", "n_ops"))
+    if not same:
+        ops_apart = {k: (card["by_op"].get(k), want["by_op"].get(k))
+                     for k in set(card["by_op"]) | set(want["by_op"])
+                     if card["by_op"].get(k) != want["by_op"].get(k)}
+        print(f"[dryrun] {name}: card {card['flops']} FLOPs "
+              f"{card['bytes']} bytes {card['n_ops']} ops, meta "
+              f"{want['flops']} / {want['bytes']} / {want['n_ops']}; ops "
+              f"apart {ops_apart}; kernels card {card['kernels']} meta "
+              f"{want['kernels']}", flush=True)
+    check(same, f"[dryrun] {name}: the card's count != the meta count")
+    check(got["finite"], f"[dryrun] {name}: a non-finite output")
+    pred = want["memory"]["peak_bytes"]
+    meas = got["peak_bytes_measured"]
+    gap = meas / pred - 1
+    check(abs(gap) <= 0.10, f"[dryrun] {name}: measured peak {meas} vs "
+          f"predicted {pred} ({100 * gap:+.1f}%)")
+    rf = got["roofline"]
+    line = (f"[dryrun] {name} {dcfg.arch_id} ({dcfg.n_layers} layers), "
+            f"B {b} x {'1 token over ' if kind == 'decode' else 'S '}{s}"
+            f"{' slots' if kind == 'decode' else ''}: card == meta count: "
+            f"{card['flops'] / 1e12:.4f} TFLOP ("
+            + ", ".join(f"{k} {v / 1e12:.4f}"
+                        for k, v in card["flops_by_dtype"].items())
+            + f"), {card['bytes'] / 1e9:.3f} GB, {card['n_ops']} ops "
+            f"({sum(v[2] for v in card['kernels'].values())} kernel calls: "
+            + ", ".join(f"{k} x{v[2]}" for k, v in card["kernels"].items())
+            + f"); peak predicted {pred / 1e9:.3f} GB, measured "
+            f"{meas / 1e9:.3f} GB ({100 * gap:+.2f}%); device "
+            f"{got['ms']:.3f} ms (median of 3, CUDA events, no counter; "
+            f"runs {', '.join(f'{t:.3f}' for t in got['times_ms'])}); "
+            f"bound {got['bound_ms']:.3f} ms ({rf['dominant']}: compute "
+            f"{rf['t_compute_s'] * 1e3:.3f}, memory "
+            f"{rf['t_memory_s'] * 1e3:.3f} ms at published peaks), device / "
+            f"bound {got['ms'] / got['bound_ms']:.2f}, roofline_fraction "
+            f"{rf['roofline_fraction']:.4f} (useful FLOPs 2|6 N D at 989 "
+            f"TFLOP/s over the bound)")
+    if kind == "train":
+        hb, hf, hg, (hb_ms, hf_ms, ho_ms) = hand_train_bound(
+            dcfg, b, s, sum(math.prod(t.shape) for t in ptree.leaves(
+                get_model(dcfg).abstract_params(dcfg))))
+        line += (f"; the counter's compute term {rf['t_compute_s'] * 1e3:.1f}"
+                 f" ms beside the hand count's {hb_ms + hf_ms:.1f} ms (bf16 "
+                 f"{hb:.2f} / f32 {hf:.2f} TFLOP by hand)")
+    print(line + f"; {SMI_LINE}", flush=True)
+    del got
+    gc.collect()
+    torch.cuda.empty_cache()
+for row in meta["rows"]:
+    check(row["status"] in ("ok", "not_ported"),
+          f"[dryrun] {row['arch']} {row['shape']} {row['mesh']}: {row}")
+    if row["status"] != "ok":
+        print(f"[dryrun] {row['arch']} {row['shape']} {row['mesh']}: "
+              f"{row['status']} ({row['reason']})", flush=True)
+        continue
+    rf, mem = row["roofline"], row["memory"]
+    print(f"[dryrun] {row['arch']} {row['shape']} {row['mesh']} (meta "
+          f"tensors, rank 0 of {rf['chips']}): peak "
+          f"{mem['peak_bytes'] / 1e9:.3f} GB ({mem['argument_bytes'] / 1e9:.3f}"
+          f" GB of arguments); {rf['hlo_flops_per_chip'] / 1e12:.4f} TFLOP, "
+          f"{rf['hlo_bytes_per_chip'] / 1e9:.3f} GB, collective "
+          f"{rf['coll_bytes_per_chip'] / 1e6:.3f} MB {rf['coll_by_op']}; "
+          f"{rf['dominant']}-bound {max(rf['t_compute_s'], rf['t_memory_s'], rf['t_collective_s']) * 1e3:.3f} ms "
+          f"at published H100 peaks, roofline_fraction "
+          f"{rf['roofline_fraction']:.4f}", flush=True)
+print(f"[dryrun] phase {time.perf_counter() - DRY_T0:.1f} s; "
       f"{time.perf_counter() - T_START:.0f} s into the script", flush=True)
 
 # --------------------------------------------------------------------------

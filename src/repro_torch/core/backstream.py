@@ -198,18 +198,41 @@ def stream_offload(producer: Callable[[int], Any],
     return carry
 
 
+def seq_shard_start(s_local: int) -> Tuple[int, int]:
+    """(first logical slot, whole sequence length) of this rank's span of
+    a cache's sequence axis: under `seq_shard_attn` rules on a model axis
+    of n > 1 ranks a cache leaf holds S / n slots of S; else (0, its own
+    length)."""
+    rules = active_rules()
+    if rules is not None and rules.seq_shard_attn and rules.model_size() > 1:
+        n = rules.model_size()
+        return rules.rank(rules.model_axis) * s_local, n * s_local
+    return 0, s_local
+
+
 def cache_update_stacked(cache: torch.Tensor, new: torch.Tensor,
                          slot: torch.Tensor) -> torch.Tensor:
     """Ring-slot write of one token for ALL layers at once, IN PLACE:
     cache (L,B,KH,S,hd), new (L,B,KH,1,hd), slot a scalar or a (B,)
-    vector of per-row physical rows.  Returns `cache`."""
+    vector of per-row physical rows.  Under `seq_shard_attn` rules the
+    cache is this rank's span of the sequence and `slot` is logical: the
+    rank that owns a row's slot writes it there, every other rank
+    rewrites the value it holds at the clamped slot (`cache_update_
+    sharded`'s rule).  Returns `cache`."""
     nl, b, kh, s, hd = cache.shape
     slot = torch.as_tensor(slot, device=cache.device).long()
     if slot.dim() == 0:
         slot = slot.expand(b)
-    val = new.to(cache.dtype)[:, :, :, 0, :]              # (L,B,KH,hd)
+    val = new.to(cache.dtype)[:, :, :, 0, :].permute(1, 0, 2, 3)  # (B,L,..)
     rows = torch.arange(b, device=cache.device)
-    cache[:, rows, :, slot, :] = val.permute(1, 0, 2, 3)
+    start, whole = seq_shard_start(s)
+    if whole != s:
+        loc = (slot - start).clamp(0, s - 1)
+        mine = (slot >= start) & (slot < start + s)
+        val = torch.where(mine[:, None, None, None], val,
+                          cache[:, rows, :, loc, :])
+        slot = loc
+    cache[:, rows, :, slot, :] = val
     return cache
 
 
@@ -392,10 +415,18 @@ class WireCounters:
     broadcasts: int = 0
     bytes_sent: int = 0
     hop_ms: List[float] = dataclasses.field(default_factory=list)
+    # bytes_sent by collective: "all-gather", "send" (ring hops),
+    # "broadcast"
+    bytes_by_op: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def reset(self) -> None:
         self.gathers = self.hops = self.broadcasts = self.bytes_sent = 0
         self.hop_ms.clear()
+        self.bytes_by_op.clear()
+
+    def sent(self, op: str, n: int) -> None:
+        self.bytes_sent += n
+        self.bytes_by_op[op] = self.bytes_by_op.get(op, 0) + n
 
 
 WIRE = WireCounters()
@@ -404,8 +435,11 @@ WIRE = WireCounters()
 def _wire_out(t: torch.Tensor) -> torch.Tensor:
     """The host tensor gloo sends: `t` itself on the CPU; a CUDA tensor's
     copy in pinned memory, taken when the stream's work before it is
-    done (the copy waits for it)."""
+    done (the copy waits for it); for a meta tensor (the dry-run, over a
+    fake group) an uninitialised host tensor of its shape."""
     t = t.contiguous()
+    if t.is_meta:
+        return torch.empty(t.shape, dtype=t.dtype)
     if not t.is_cuda:
         return t
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -420,8 +454,11 @@ def _wire_buffer(like: torch.Tensor) -> torch.Tensor:
 
 
 def _wire_in(host: torch.Tensor, device: torch.device) -> torch.Tensor:
-    return host.to(device, non_blocking=True) if device.type == "cuda" \
-        else host
+    if device.type == "meta":
+        return torch.empty(host.shape, dtype=host.dtype, device=device)
+    if device.type != "cuda":
+        return host
+    return host.to(device, non_blocking=True)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -435,8 +472,15 @@ def _all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
     parts = [_wire_buffer(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     WIRE.gathers += 1
-    WIRE.bytes_sent += (n - 1) * _nbytes(src)
+    WIRE.sent("all-gather", (n - 1) * _nbytes(src))
     return [_wire_in(p, t.device) for p in parts]
+
+
+def all_gather_model(t: torch.Tensor) -> List[torch.Tensor]:
+    """Every model rank's `t` of this rank's line along the active rules'
+    model axis, in rank order (one all-gather; `WIRE` counts it)."""
+    rules = active_rules()
+    return _all_gather(t, rules.group(rules.model_axis))
 
 
 def _pack(acc, m, l) -> torch.Tensor:
@@ -545,7 +589,7 @@ def _seq_sharded_decode(q, k_l, v_l, pos_b, window, extra, kv_scales,
             for w in works:
                 w.wait()
             WIRE.hops += 1
-            WIRE.bytes_sent += _nbytes(send)
+            WIRE.sent("send", _nbytes(send))
             WIRE.hop_ms.append((time.perf_counter() - t0) * 1e3)
             arrived = send = recv
         if arrived is not None:
@@ -564,7 +608,7 @@ def _seq_sharded_decode(q, k_l, v_l, pos_b, window, extra, kv_scales,
             dist.broadcast(buf, dist.get_global_rank(group, j), group=group)
             WIRE.broadcasts += 1
             if j == r:
-                WIRE.bytes_sent += (n - 1) * _nbytes(buf)
+                WIRE.sent("broadcast", (n - 1) * _nbytes(buf))
             parts.append(_wire_in(buf, q.device))
     accs, ms, ls = _unpack(torch.cat(parts, dim=0))
     if extra is not None:

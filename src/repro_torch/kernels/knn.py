@@ -26,6 +26,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.build import (DTYPE_CODE, LAUNCHES, check,
                                        check_inputs, function, raise_on,
                                        stream)
@@ -95,3 +96,13 @@ def knn_distances(queries: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     if wgmma:
         LAUNCHES["knn_distances_wgmma"] += 1
     return out
+
+
+def knn_topk(queries: torch.Tensor, db: torch.Tensor, k: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The port of the reference's `knn.knn_topk`: the distance kernel
+    (`knn_distances`), then the k smallest of each row on the device
+    (`ref.smallest_k`: nearest first, ties lowest id first, as
+    `jax.lax.top_k(-d, k)`).  Returns (dists (Q,k) f32, ids (Q,k)
+    int64)."""
+    return _ref.smallest_k(knn_distances(queries, db), k)

@@ -9,6 +9,12 @@ Inside `reference_mode()` CUDA tensors take the plain versions too: that
 is how `chip_smoke.py` and the tests hold the kernel path against the
 plain path on the card.  The server never enters it.
 
+Every entry that wraps a kernel charges the active cost counter
+(`roofline/cost.py`) with the kernel's formula, from shapes alone, on
+every route, and the counter ignores the ops beneath it.  On meta tensors
+(the dry-run) the entry returns empty outputs of the kernel's shapes and
+dtypes and never loads the library.
+
 Per-slot sampling (`BatchedSampling`, `sample_tokens`) and speculative
 verification (`verify_tokens`) have no kernel: they are plain XLA in the
 reference and plain torch here, on every device.
@@ -28,6 +34,7 @@ from repro_torch.kernels import quant as _quant
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sls as _sls
 from repro_torch.kernels import ssd as _ssd
+from repro_torch.roofline import cost as _cost
 
 _state = threading.local()
 
@@ -47,12 +54,39 @@ def _use_kernel(t: torch.Tensor) -> bool:
     return t.is_cuda and not getattr(_state, "reference", False)
 
 
+@contextlib.contextmanager
+def _charged(name: str, *args, **kwargs) -> Iterator[Optional[object]]:
+    """One kernel entry's call: charge the active cost counter with the
+    kernel's formula and keep the ops beneath it out of the count; yields
+    the meta route's outputs (empty tensors of the kernel's shapes and
+    dtypes; a tuple when it has several) when the first argument is a
+    meta tensor, else None."""
+    counter = _cost.active()
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    if counter is not None:
+        counter.kernel(name, _cost.kernel_cost(name, *args, **kwargs),
+                       tensors)
+    with counter.quiet() if counter is not None else contextlib.nullcontext():
+        meta = None
+        if tensors[0].is_meta:
+            outs = [torch.empty(shape, dtype=dtype, device=tensors[0].device)
+                    for shape, dtype in _cost.kernel_outputs(name, *args,
+                                                             **kwargs)]
+            meta = outs[0] if len(outs) == 1 else tuple(outs)
+        yield meta
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B,S,H,hd); k,v: (B,S,KH,hd) -> (B,S,H,hd)."""
-    if _use_kernel(q):
-        return _fa.flash_attention(q, k, v, causal=causal, window=window)
-    return _ref.mha_reference(q, k, v, causal=causal, window=window)
+    with _charged("flash_attention", q, k, v, causal=causal,
+                  window=window) as meta:
+        if meta is not None:
+            return meta
+        if _use_kernel(q):
+            return _fa.flash_attention(q, k, v, causal=causal,
+                                       window=window)
+        return _ref.mha_reference(q, k, v, causal=causal, window=window)
 
 
 def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
@@ -60,9 +94,12 @@ def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """q: (B,1,H,hd); k,v: (B,KH,C,hd); valid (B,C) bool -> f32 (acc, m, l)."""
-    if _use_kernel(q):
-        return _fa.decode_attention_partial(q, k, v, valid)
-    return _ref.decode_partial_reference(q, k, v, valid)
+    with _charged("decode_attention_partial", q, k, v, valid) as meta:
+        if meta is not None:
+            return meta
+        if _use_kernel(q):
+            return _fa.decode_attention_partial(q, k, v, valid)
+        return _ref.decode_partial_reference(q, k, v, valid)
 
 
 def decode_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -82,18 +119,22 @@ def decode_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     v_scales), each (B,KH,S/page) f32 — k/v are then int8 pools
     dequantized per page; the scale page replaces `blk_c` when dense and
     must equal it when paged.  Returns (B,1,H,hd)."""
-    if _use_kernel(q):
-        return _fa.decode_attention_fused(q, k, v, pos, extra, window=window,
-                                          blk_c=blk_c, pages=pages,
-                                          kv_scales=kv_scales)
-    page_size = blk_c if pages is not None else 0
-    if page_size and kv_scales is not None \
-            and page_size != k.shape[2] // kv_scales[0].shape[-1]:
-        raise ValueError(f"page size {page_size} != S / n_scales "
-                         f"({k.shape[2]} / {kv_scales[0].shape[-1]})")
-    return _ref.decode_fused_reference(q, k, v, pos, extra, window=window,
-                                       pages=pages, page_size=page_size,
-                                       kv_scales=kv_scales)
+    with _charged("decode_attention_fused", q, k, v, pos, extra, pages,
+                  kv_scales, window=window, blk_c=blk_c) as meta:
+        if meta is not None:
+            return meta
+        if _use_kernel(q):
+            return _fa.decode_attention_fused(
+                q, k, v, pos, extra, window=window, blk_c=blk_c,
+                pages=pages, kv_scales=kv_scales)
+        page_size = blk_c if pages is not None else 0
+        if page_size and kv_scales is not None \
+                and page_size != k.shape[2] // kv_scales[0].shape[-1]:
+            raise ValueError(f"page size {page_size} != S / n_scales "
+                             f"({k.shape[2]} / {kv_scales[0].shape[-1]})")
+        return _ref.decode_fused_reference(
+            q, k, v, pos, extra, window=window, pages=pages,
+            page_size=page_size, kv_scales=kv_scales)
 
 
 def decode_attention_fused_partial(
@@ -110,18 +151,22 @@ def decode_attention_fused_partial(
     gives `decode_attention_fused`'s output, and for a head group's
     statistics gathered with the other groups' the whole output: the mesh
     decode's producer (`core/backstream.py`)."""
-    if _use_kernel(q):
-        return _fa.decode_attention_fused_partial(
-            q, k, v, pos, extra, window=window, blk_c=blk_c, pages=pages,
-            kv_scales=kv_scales)
-    page_size = blk_c if pages is not None else 0
-    if page_size and kv_scales is not None \
-            and page_size != k.shape[2] // kv_scales[0].shape[-1]:
-        raise ValueError(f"page size {page_size} != S / n_scales "
-                         f"({k.shape[2]} / {kv_scales[0].shape[-1]})")
-    return _ref.decode_fused_partial_reference(
-        q, k, v, pos, extra, window=window, pages=pages,
-        page_size=page_size, kv_scales=kv_scales)
+    with _charged("decode_attention_fused_partial", q, k, v, pos, extra,
+                  pages, kv_scales, window=window, blk_c=blk_c) as meta:
+        if meta is not None:
+            return meta
+        if _use_kernel(q):
+            return _fa.decode_attention_fused_partial(
+                q, k, v, pos, extra, window=window, blk_c=blk_c,
+                pages=pages, kv_scales=kv_scales)
+        page_size = blk_c if pages is not None else 0
+        if page_size and kv_scales is not None \
+                and page_size != k.shape[2] // kv_scales[0].shape[-1]:
+            raise ValueError(f"page size {page_size} != S / n_scales "
+                             f"({k.shape[2]} / {kv_scales[0].shape[-1]})")
+        return _ref.decode_fused_partial_reference(
+            q, k, v, pos, extra, window=window, pages=pages,
+            page_size=page_size, kv_scales=kv_scales)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -131,9 +176,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Mamba2 SSD scan.  x: (b,s,h,p); dt: (b,s,h) f32; A: (h,) f32;
     B, C: (b,s,n); init_state: optional (b,h,p,n) f32.  Returns
     (y (b,s,h,p) in x's dtype, final_state (b,h,p,n) f32)."""
-    if _use_kernel(x):
-        return _ssd.ssd_scan(x, dt, A, B, C, init_state)
-    return _ref.ssd_reference(x, dt, A, B, C, init_state)
+    with _charged("ssd_scan", x, dt, A, B, C, init_state) as meta:
+        if meta is not None:
+            return meta
+        if _use_kernel(x):
+            return _ssd.ssd_scan(x, dt, A, B, C, init_state)
+        return _ref.ssd_reference(x, dt, A, B, C, init_state)
 
 
 def quant_matmul(x: torch.Tensor, qt: "_quant.QTensor") -> torch.Tensor:
@@ -143,36 +191,51 @@ def quant_matmul(x: torch.Tensor, qt: "_quant.QTensor") -> torch.Tensor:
     in f32."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
-    if _use_kernel(x2):
-        out = _quant.quant_matmul(x2.contiguous(), qt)
-    else:
-        out = _ref.quant_matmul_reference(x2, qt)
+    with _charged("quant_matmul", x2, qt) as meta:
+        if meta is not None:
+            out = meta
+        elif _use_kernel(x2):
+            out = _quant.quant_matmul(x2.contiguous(), qt)
+        else:
+            out = _ref.quant_matmul_reference(x2, qt)
     return out.reshape(shape[:-1] + (out.shape[-1],))
 
 
 def knn_distances(queries: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     """Squared L2 distances.  queries (Q,D), db (N,D) -> (Q,N) f32."""
-    if _use_kernel(queries):
-        return _knn.knn_distances(queries, db)
-    return _ref.knn_distances_reference(queries, db)
+    with _charged("knn_distances", queries, db) as meta:
+        if meta is not None:
+            return meta
+        if _use_kernel(queries):
+            return _knn.knn_distances(queries, db)
+        return _ref.knn_distances_reference(queries, db)
 
 
 def knn_topk(queries: torch.Tensor, db: torch.Tensor, k: int
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The k nearest db rows of each query: the distances of
     `knn_distances`, then the k smallest of each row on the same device,
-    ties lowest id first as `jax.lax.top_k` breaks them.  Returns (dists
+    ties lowest id first as `jax.lax.top_k` breaks them (`knn.knn_topk`
+    on the card, `ref.knn_topk_reference` on the CPU).  Returns (dists
     (Q,k) f32, ids (Q,k) int64)."""
-    return _ref.smallest_k(knn_distances(queries, db), k)
+    with _charged("knn_topk", queries, db, k) as meta:
+        if meta is not None:
+            return meta
+        if _use_kernel(queries):
+            return _knn.knn_topk(queries, db, k)
+        return _ref.knn_topk_reference(queries, db, k)
 
 
 def sls(table: torch.Tensor, indices: torch.Tensor,
         weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Pooled embedding bags.  table (V,D); indices (B,L) int32, -1 pads;
     weights (B,L) f32 or None -> (B,D) f32."""
-    if _use_kernel(table):
-        return _sls.sls(table, indices, weights)
-    return _ref.sls_reference(table, indices, weights)
+    with _charged("sls", table, indices, weights) as meta:
+        if meta is not None:
+            return meta
+        if _use_kernel(table):
+            return _sls.sls(table, indices, weights)
+        return _ref.sls_reference(table, indices, weights)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,8 +13,17 @@ stages a CUDA tensor through host memory; every computation stays on the
 card.  The mesh is a CPU-typed DeviceMesh for that reason: its groups
 carry host tensors, whatever device the model runs on.
 
-`make_production_mesh` (the dry-run's 16 x 16 layout) comes with the
-dry-run (ROADMAP.md queue 1).
+`make_production_mesh` lays out the dry-run's production meshes, 16 x 16
+and 2 x 16 x 16, over torch's "fake" process group (`init_fake_group`):
+one per process, its collectives complete at once and move nothing.  It
+comes from a private torch module
+(`torch.testing._internal.distributed.fake_pg`), imported here and
+nowhere else.  The dry-run runs rank 0's program on meta tensors (shapes
+and dtypes, no storage): on this CPU-only build a fake CUDA tensor
+(`FakeTensorMode`) fails at a slice, an `expand` or a `clone` ("not
+linked with support for cuda devices"), and fake CPU tensors cost six
+times the meta ones' time an op; the model code takes no branch on the
+device, so the ops are the card's either way.
 """
 from __future__ import annotations
 
@@ -32,6 +41,7 @@ import torch.multiprocessing as mp
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 AXES = ("data", "model")
+PRODUCTION_AXES = ("pod", "data", "model")
 # a collective that waits longer than this fails its rank
 COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=600)
 
@@ -48,6 +58,42 @@ def make_debug_mesh(n_data: int = 2, n_model: int = 2) -> DeviceMesh:
         raise ValueError(f"a {n_data}x{n_model} mesh needs "
                          f"{n_data * n_model} ranks; the group has {world}")
     return init_device_mesh("cpu", (n_data, n_model), mesh_dim_names=AXES)
+
+
+# ranks of the fake group: the larger production mesh's
+FAKE_WORLD = 512
+
+
+def init_fake_group() -> None:
+    """Rank 0 of a FAKE_WORLD-rank "fake" process group: collectives
+    complete at once and move nothing.  One per process, as the
+    reference's placeholder device count is; raises if another group is
+    already initialised (a fake group would break a real mesh's ranks in
+    the same process)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        if dist.get_backend() == "fake":
+            return
+        raise RuntimeError("init_fake_group: a process group is already "
+                           "initialised in this process")
+    dist.init_process_group("fake", rank=0, world_size=FAKE_WORLD,
+                            store=FakeStore())
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """The dry-run's production layouts over the fake group, CPU-typed
+    like `make_debug_mesh`, rank 0 at coordinate 0: one pod (data 16,
+    model 16) over ranks 0..255, or two (pod 2, data 16, model 16) over
+    all 512, the pod axis joining data for the batch.  Sets up the fake
+    group when none is (`init_fake_group`)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = PRODUCTION_AXES if multi_pod else AXES
+    init_fake_group()
+    n = 1
+    for d in shape:
+        n *= d
+    return DeviceMesh("cpu", torch.arange(n).reshape(shape),
+                      mesh_dim_names=axes)
 
 
 def parse_mesh(text: str) -> tuple:

@@ -266,6 +266,33 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
     return train_step
 
 
+def make_prefill_step(cfg: ArchConfig) -> Callable:
+    """(params, batch) -> logits (B, S, V): the full-sequence forward, the
+    prefill shape the dry-run counts."""
+    model = get_model(cfg)
+
+    def prefill_step(params, batch):
+        return model.logits_fn(cfg, params, batch)
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ArchConfig) -> Callable:
+    """(params, cache, tokens (B, 1)[, positions (B,)]) -> (next tokens
+    (B, 1) int32, logits (B, 1, V), cache): one greedy decode step, the
+    decode shapes the dry-run counts.  Without `positions` the cache's
+    scalar clock places every row; the cache is updated IN PLACE."""
+    model = get_model(cfg)
+
+    def serve_step(params, cache, tokens, positions=None):
+        logits, cache = model.decode_step(cfg, params, cache, tokens,
+                                          positions)
+        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        return nxt, logits, cache
+
+    return serve_step
+
+
 def make_slot_page_fns(cfg: ArchConfig) -> Tuple[Callable, Callable]:
     """(extract, insert) of one slot's cache pages, every leaf kind (K/V
     page sets and their scales, conv windows, SSD states, cross-K/V and

@@ -25,6 +25,7 @@ server's captured CUDA graphs hold the cache's tensors.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -37,6 +38,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.quantize import matmul
+from repro_torch.sharding import active_rules, use_rules
 
 Params = Dict[str, Any]
 
@@ -58,6 +60,20 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
             "cross": T._init_attn(cfg, draw, cfg.n_blocks),
             "embed": draw.normal((cfg.padded_vocab, cfg.d_model),
                                  cfg.d_model ** -0.5),
+            "enc_final_ln": draw.zeros(cfg.d_model),
+            "final_ln": draw.zeros(cfg.d_model)}
+
+
+def abstract_params(cfg: ArchConfig,
+                    device: torch.device = torch.device("meta")) -> Params:
+    """`init_params`' tree of shapes and dtypes without a draw
+    (`transformer.AbstractDraw`): meta tensors by default."""
+    assert cfg.enc_dec, cfg.arch_id
+    draw = T.AbstractDraw(cfg, device)
+    return {"enc_blocks": T.init_block_params(cfg, draw, _n_enc_blocks(cfg)),
+            "dec_blocks": T.init_block_params(cfg, draw, cfg.n_blocks),
+            "cross": T._init_attn(cfg, draw, cfg.n_blocks),
+            "embed": draw.normal((cfg.padded_vocab, cfg.d_model), 0.0),
             "enc_final_ln": draw.zeros(cfg.d_model),
             "final_ln": draw.zeros(cfg.d_model)}
 
@@ -143,7 +159,12 @@ def _cross_decode(cfg: ArchConfig, cp: Params, x: torch.Tensor,
     b, t, _ = x.shape
     hx = L.rms_norm(x, cp["ln"], cfg.norm_eps)
     q = matmul(hx, cp["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim_)
-    with launch_site("cross"):
+    # the cross K/V is never split along its sequence (cache_specs): a
+    # sequence-sharded mesh reads it whole, as one device does
+    rules = active_rules()
+    whole = use_rules(None) if rules is not None and rules.seq_shard_attn \
+        else contextlib.nullcontext()
+    with launch_site("cross"), whole:
         outs = [decode_attention_combined(q[:, j:j + 1].contiguous(),
                                           cross_k, cross_v, cross_pos,
                                           n_chunks=1)
@@ -255,6 +276,17 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int, *,
     cache["enc_pos"] = torch.full((batch_size,), cfg.enc_len,
                                   dtype=torch.int32, device=device)
     return cache
+
+
+def abstract_cache(cfg: ArchConfig, batch_size: int, max_seq: int,
+                   page_size: Optional[int] = None,
+                   kv_quant: Optional[str] = None,
+                   device: torch.device = torch.device("meta")
+                   ) -> Dict[str, Any]:
+    """`init_cache`'s leaves as meta tensors by default: shapes and
+    dtypes, no storage."""
+    return init_cache(cfg, batch_size, max_seq, device=device,
+                      page_size=page_size, kv_quant=kv_quant)
 
 
 def prefill_into_cache(cfg: ArchConfig, params: Params,

@@ -34,6 +34,11 @@ class ModelFns(NamedTuple):
     # (cfg, params, cache, suffix (Ps,), row, length, start) -> (last
     # logits (V,), cache): the suffix prefill behind restored prefix pages
     resume_prefill: Optional[Callable]
+    # (cfg[, device]) -> params / (cfg, batch, max_seq[, page_size,
+    # kv_quant, device]) -> cache: shapes and dtypes only, meta tensors
+    # by default, for the dry-run
+    abstract_params: Callable
+    abstract_cache: Callable
 
 
 def get_model(cfg: ArchConfig) -> ModelFns:
@@ -43,4 +48,5 @@ def get_model(cfg: ArchConfig) -> ModelFns:
                     mod.decode_verify, mod.prefill_into_cache,
                     mod.extract_slot_cache, mod.insert_slot_cache,
                     None if cfg.enc_dec
-                    else transformer.resume_prefill_into_cache)
+                    else transformer.resume_prefill_into_cache,
+                    mod.abstract_params, mod.abstract_cache)

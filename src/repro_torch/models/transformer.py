@@ -41,14 +41,16 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from repro_torch.core.backstream import (cache_update_stacked,
+from repro_torch.core.backstream import (all_gather_model,
+                                         cache_update_stacked,
                                          decode_attention_combined,
-                                         physical_slots)
+                                         physical_slots, seq_shard_start)
 from repro_torch.kernels import ops
 from repro_torch.kernels.quant import QTensor
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.quantize import matmul
+from repro_torch.sharding import active_rules
 
 Params = Dict[str, Any]
 
@@ -121,6 +123,33 @@ class Draw:
         return torch.full(shape, value, dtype=torch.float32,
                           device=self.device)
 
+    def f32_normal(self, shape, scale) -> torch.Tensor:
+        return torch.randn(shape, generator=self.generator,
+                           device=self.device).mul_(scale)
+
+
+class AbstractDraw(Draw):
+    """`Draw`'s shapes and dtypes without a draw: uninitialised tensors
+    on `device` (on the meta device, no storage at all), for the dry-run.
+    No generator is touched."""
+
+    def __init__(self, cfg: ArchConfig, device: torch.device):
+        super().__init__(cfg, None, device)
+
+    def normal(self, shape, scale) -> torch.Tensor:
+        return torch.empty(shape, dtype=self.dt, device=self.device)
+
+    experts = normal
+
+    def zeros(self, *shape) -> torch.Tensor:
+        return torch.empty(shape, dtype=self.dt, device=self.device)
+
+    def f32(self, value, *shape) -> torch.Tensor:
+        return torch.empty(shape, dtype=torch.float32, device=self.device)
+
+    def f32_normal(self, shape, scale) -> torch.Tensor:
+        return torch.empty(shape, dtype=torch.float32, device=self.device)
+
 
 def _init_attn(cfg: ArchConfig, draw: Draw, nb: int) -> Params:
     """One attention sublayer's weights, stacked over nb blocks: {ln, wq,
@@ -154,9 +183,7 @@ def _init_ffn(cfg: ArchConfig, draw: Draw, nb: int, moe: bool) -> Params:
     if moe:
         e = cfg.n_experts
         return {"ln": draw.zeros(nb, d),
-                "router": torch.randn(
-                    (nb, d, e), generator=draw.generator,
-                    device=draw.device).mul_(d ** -0.5),
+                "router": draw.f32_normal((nb, d, e), d ** -0.5),
                 "w_gate": draw.experts((nb, e, d, f), d ** -0.5),
                 "w_up": draw.experts((nb, e, d, f), d ** -0.5),
                 "w_down": draw.experts((nb, e, f, d), f ** -0.5)}
@@ -195,6 +222,18 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return {"embed": draw.normal((cfg.padded_vocab, cfg.d_model),
                                  cfg.d_model ** -0.5),
             "blocks": blocks, "final_ln": draw.zeros(cfg.d_model)}
+
+
+def abstract_params(cfg: ArchConfig,
+                    device: torch.device = torch.device("meta")) -> Params:
+    """`init_params`' tree of shapes and dtypes without a draw: meta
+    tensors (no storage) by default, uninitialised ones on another
+    `device`."""
+    _check_supported(cfg)
+    draw = AbstractDraw(cfg, device)
+    return {"embed": draw.normal((cfg.padded_vocab, cfg.d_model), 0.0),
+            "blocks": init_block_params(cfg, draw, cfg.n_blocks),
+            "final_ln": draw.zeros(cfg.d_model)}
 
 
 class _QLeaf(nn.Module):
@@ -549,6 +588,17 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int, *,
     return cache
 
 
+def abstract_cache(cfg: ArchConfig, batch_size: int, max_seq: int,
+                   page_size: Optional[int] = None,
+                   kv_quant: Optional[str] = None,
+                   device: torch.device = torch.device("meta")
+                   ) -> Dict[str, Any]:
+    """`init_cache`'s leaves as meta tensors by default: shapes and
+    dtypes, no storage."""
+    return init_cache(cfg, batch_size, max_seq, device=device,
+                      page_size=page_size, kv_quant=kv_quant)
+
+
 def scale_key(kv_key: str) -> str:
     """The scale leaf of an int8 K/V leaf: k{i} -> kscale{i}."""
     return kv_key[0] + "scale" + kv_key[1:]
@@ -616,11 +666,52 @@ def _decode_mamba(cfg: ArchConfig, p: Params, x: torch.Tensor,
     b = x.shape[0]
     nh, hp = cfg.n_ssm_heads, cfg.ssm_head_dim
     z, xin, Bm, Cm, dt_raw, A = _mamba_proj(cfg, p, x)
+    nh_l = ssm_state.shape[1]
+    if nh_l != nh:
+        return _decode_mamba_heads(cfg, p, x, z, xin, Bm, Cm, dt_raw, A,
+                                   conv_state, ssm_state)
     xc, conv_state = L.causal_conv1d(xin, p["conv_w"], conv_state)
     y, ssm_state = L.ssd_decode_step(
         ssm_state, xc[:, 0].reshape(b, nh, hp), F.softplus(dt_raw)[:, 0], A,
         Bm[:, 0], Cm[:, 0])
     return (_mamba_out(p, x, y[:, None], xc, z), conv_state, ssm_state)
+
+
+def _decode_mamba_heads(cfg: ArchConfig, p: Params, x: torch.Tensor,
+                        z, xin, Bm, Cm, dt_raw, A, conv_state: torch.Tensor,
+                        ssm_state: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`_decode_mamba` over a model rank's head group: under
+    `partition.cache_specs` on a model axis of n ranks a mamba layer's
+    states are the rank's NH / n heads (SSM (B, NH/n, P, N)) and their
+    channels (conv (B, W-1, d_inner/n); d_inner = NH P, so the two
+    groups line up).  The rank runs the conv and the SSD step on its
+    group alone; the groups' outputs and conv outputs cross ranks in ONE
+    all-gather along the model axis, and every rank finishes the layer
+    on the whole of them."""
+    b = x.shape[0]
+    nh_l, hp = ssm_state.shape[1], cfg.ssm_head_dim
+    c_l = nh_l * hp
+    if conv_state.shape[-1] != c_l:
+        raise ValueError(
+            f"{cfg.arch_id}: the conv state's {conv_state.shape[-1]} "
+            f"channels are not the SSM state's {nh_l} heads x {hp}: "
+            f"cache_specs split them apart")
+    rules = active_rules()
+    r = rules.rank(rules.model_axis)
+    heads = slice(r * nh_l, (r + 1) * nh_l)
+    chans = slice(r * c_l, (r + 1) * c_l)
+    xc_l, conv_state = L.causal_conv1d(xin[..., chans].contiguous(),
+                                       p["conv_w"][:, chans], conv_state)
+    y_l, ssm_state = L.ssd_decode_step(
+        ssm_state, xc_l[:, 0].reshape(b, nh_l, hp),
+        F.softplus(dt_raw)[:, 0, heads], A[heads], Bm[:, 0], Cm[:, 0])
+    parts = all_gather_model(torch.cat([y_l.reshape(b, 1, c_l), xc_l],
+                                       dim=-1))
+    y = torch.cat([t[..., :c_l] for t in parts], dim=-1)
+    xc = torch.cat([t[..., c_l:] for t in parts], dim=-1)
+    return (_mamba_out(p, x, y.reshape(b, 1, cfg.n_ssm_heads, hp), xc, z),
+            conv_state, ssm_state)
 
 
 def _write_state(cache: torch.Tensor, new: torch.Tensor,
@@ -704,7 +795,8 @@ def write_decode_kv(cache: Dict[str, Any],
         return
     pages = cache.get("page_table")
     first = cache[next(iter(new_kv))]
-    b, max_seq = first.shape[1], first.shape[3]
+    b = first.shape[1]
+    _, max_seq = seq_shard_start(first.shape[3])
     slot = (pos % max_seq).to(torch.int32).reshape(-1).expand(b)
     if pages is not None:
         slot = physical_slots(pages, slot, max_seq // pages.shape[1])
