@@ -10,18 +10,21 @@ never runs more than `depth` batches ahead of consumption.
 `synth_batch` is a pure function of (seed, step), numpy's Philox stream
 at counter [0, 0, 0, step], the reference's code: the port's batches are
 the reference's bit for bit, so a restart resumes exactly from a step
-index.
+index.  On a training mesh each data rank takes its rows of the global
+batch (`specs=`, `launch/partition.batch_specs`), so a mesh run sees the
+single device's data bit for bit.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Dict, Iterator, Optional, Tuple, Union
+from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.launch.partition import local_shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,11 +67,14 @@ class PrefetchIterator:
     """Keeps up to `depth` batches in flight on `device`: each is copied
     from pinned host memory with `non_blocking=True` (on the card), so
     the copies queue behind the running step.  Yields (step, batch of
-    tensors)."""
+    tensors).  `specs` and `mesh`: each key's rows cut to this rank's
+    `local_shard` before the copy."""
 
     def __init__(self, cfg: DataConfig, start_step: int = 0, depth: int = 2,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 specs: Optional[Dict[str, Any]] = None, mesh: Any = None):
         self.cfg = cfg
+        self.specs, self.mesh = specs, mesh
         self.step = start_step
         self.depth = max(1, depth)
         self.device = resolve_device(device)
@@ -78,6 +84,9 @@ class PrefetchIterator:
         out = {}
         for key, arr in batch.items():
             host = torch.from_numpy(arr)
+            if self.specs is not None:
+                host = local_shard(host, self.specs[key],
+                                   self.mesh).contiguous()
             if self.device.type == "cuda":
                 host = host.pin_memory()
             out[key] = host.to(self.device, non_blocking=True)
@@ -100,8 +109,10 @@ class PrefetchIterator:
 
 
 def make_pipeline(cfg: DataConfig, start_step: int = 0, depth: int = 2,
-                  device: Optional[Union[str, torch.device]] = None
+                  device: Optional[Union[str, torch.device]] = None,
+                  specs: Optional[Dict[str, Any]] = None, mesh: Any = None
                   ) -> PrefetchIterator:
     """The prefetching iterator from `start_step` onto `device` (the GPU
-    unless the caller asks for the CPU)."""
-    return PrefetchIterator(cfg, start_step, depth, device)
+    unless the caller asks for the CPU); with `specs` and `mesh`, this
+    rank's rows of each batch."""
+    return PrefetchIterator(cfg, start_step, depth, device, specs, mesh)

@@ -19,13 +19,21 @@ H100 (`roofline/analysis.py`).
             schedules take each rank's span in logical order, so the
             cache has no page table (the reference's is the identity).
   prefill - rows over the data axes; `logits_fn`.
-  train   - "not_ported": training on a mesh is ROADMAP.md queue 1 item
-            24 (its `param_specs`, `opt_state_specs`, `batch_specs`).
+  train   - `steps.make_train_step` on the training layout: the
+            reference's dry-run rules (`seq_shard_acts`: the residual
+            stream's sequence over the model axis), `make_plan(train=True)`
+            (FSDP above 5e9 params), the parameters and AdamW's state under
+            `partition.param_specs` / `opt_state_specs`, the batch under
+            `batch_specs`; each block's weights gathered inside its
+            recomputation, MoE on the expert-parallel `moe_ffn_dist`.
 
-Parameters follow `partition.serve_param_specs`: replicated, since the
-port has no tensor-parallel products, so every rank holds (and reads) all
-of them.  The fake group is one per process: run the CLI, or `run_cell`
-in a process of its own.
+Decode and prefill parameters follow `partition.serve_param_specs`:
+replicated, since the port has no tensor-parallel products, so every
+rank holds (and reads) all of them.  Every cell counts rank 0's program;
+where ranks do unequal work (a causal span's attention grows with its
+offset, and rank 0's span is the first) the other ranks' counts differ.
+The fake group is one per process: run the CLI, or `run_cell` in a
+process of its own.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
         --shape all --mesh both
@@ -55,9 +63,9 @@ from repro_torch.models.registry import get_model
 from repro_torch.optim import adamw, compression
 from repro_torch.roofline import analysis
 from repro_torch.roofline.cost import CostCounter
-from repro_torch.sharding import ShardingRules, axis_sizes, use_rules
+from repro_torch.sharding import (ShardingRules, TrainLayout, axis_sizes,
+                                  use_rules)
 
-TRAIN_REASON = "training on a mesh: ROADMAP queue 1 item 24"
 META = torch.device("meta")
 
 
@@ -125,29 +133,40 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
         row["status"] = "skipped"
         row["reason"] = skip
         return row
-    if kind == "train":
-        row["status"] = "not_ported"
-        row["reason"] = TRAIN_REASON
-        return row
 
     mesh = make_production_mesh(multi_pod=multi_pod)
     chips = mesh.size()
     sizes = axis_sizes(mesh)
     model = get_model(cfg)
-    rules = ShardingRules(mesh, seq_shard_attn=(kind == "decode"))
-    plan = partition.make_plan(cfg, rules, train=False)
+    rules = ShardingRules(mesh, seq_shard_attn=(kind == "decode"),
+                          seq_shard_acts=(kind == "train"))
+    plan = partition.make_plan(cfg, rules, train=(kind == "train"))
     t0 = time.time()
-    with use_rules(rules), torch.no_grad():
+    grad = (contextlib.nullcontext() if kind == "train"
+            else torch.no_grad())
+    with use_rules(rules), grad:
         ab_params = model.abstract_params(cfg)
-        params = local_tensors(
-            ab_params, partition.serve_param_specs(ab_params, cfg, plan),
-            sizes, META)
         specs_in = input_specs(cfg, shape_name)
+        if kind == "train":
+            p_specs = partition.param_specs(ab_params, cfg, plan)
+            params = local_tensors(ab_params, p_specs, sizes, META)
+            b_specs = partition.batch_specs(specs_in, plan)
+            batch_in = {k: local_tensors(v, b_specs[k], sizes, META)
+                        for k, v in specs_in.items()}
+            step = steps_lib.make_train_step(
+                cfg, adamw.AdamWConfig(),
+                layout=TrainLayout(rules, p_specs, b_specs))
+            args = (params, adamw.init(params), None, batch_in)
+            row["fsdp"] = plan.fsdp
+        else:
+            params = local_tensors(
+                ab_params, partition.serve_param_specs(ab_params, cfg, plan),
+                sizes, META)
         if kind == "prefill":
             batch_in = {k: local_tensors(v, _batch_spec(v, rules), sizes,
                                          META) for k, v in specs_in.items()}
             step, args = steps_lib.make_prefill_step(cfg), (params, batch_in)
-        else:
+        elif kind == "decode":
             ab_cache = model.abstract_cache(cfg, batch, seq)
             ab_cache.pop("page_table", None)
             cache = local_tensors(

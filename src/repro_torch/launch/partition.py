@@ -12,10 +12,21 @@ of replicated operands are bit-copies.  `cache_specs` is the
 sequence-sharded layout of the AXLE ring, with its guard against a split
 that would cut a page.
 
-The training specs (`param_specs`, `opt_state_specs`, `batch_specs`) come
-with training (ROADMAP.md queue 1).  A spec maps a full tensor to a
-rank's slice with `local_shard`, where the reference commits a
-`NamedSharding`.
+The training specs map every leaf of the model state onto the mesh:
+
+  TP    ("model")        — attention projections, FFN hidden, vocab,
+                           experts (EP) when they divide, SSM heads.
+  FSDP  ("pod","data")   — the d_model dim of the big archs' weights
+                           (`make_plan(train=True)`: above 5e9 params).
+  batch ("pod","data")   — the batch rows.
+
+`param_specs` classifies each leaf by its name and rank, so one rule set
+covers the decoder-only, enc-dec, MoE and hybrid trees; `opt_state_specs`
+gives AdamW's moments and master the parameters' specs.  A spec maps a
+full tensor to a rank's slice with `local_shard`, where the reference
+commits a `NamedSharding`: a training rank stores exactly its
+`local_shard` of every parameter, moment, master, residual and batch
+leaf (`launch/train.py`).
 """
 from __future__ import annotations
 
@@ -24,7 +35,10 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
+from repro_torch import tree
+from repro_torch.kernels.quant import QTensor
 from repro_torch.models.config import ArchConfig
+from repro_torch.optim import adamw
 from repro_torch.sharding import ShardingRules, Spec, axis_sizes
 
 
@@ -60,6 +74,107 @@ class PartitionPlan:
     @property
     def fsdp_axes(self) -> Optional[Tuple[str, ...]]:
         return self.rules.batch_axes if self.fsdp else None
+
+
+def _leaf_spec(plan: PartitionPlan, cfg: ArchConfig, name: str,
+               leaf: Any) -> Spec:
+    """The spec of one stacked parameter leaf (a leading n_blocks dim for
+    block params; the embedding and the final norms are unstacked)."""
+    del cfg
+    mesh, tp, fs = plan.mesh, plan.tp, plan.fsdp_axes
+    shape = tuple(leaf.shape)
+    nd = len(shape)
+
+    def ax(dim_size, axes):
+        return axes if (axes and _divisible(dim_size, mesh, axes)) else None
+
+    if name == "embed":                                  # (V, D)
+        return Spec(ax(shape[0], tp), None)
+    if name in ("ln", "final_ln", "enc_final_ln", "dt_bias", "A_log", "D"):
+        return Spec(*([None] * nd))
+    if name == "router":                                 # (nb, d, e)
+        return Spec(*([None] * nd))
+    if name in ("wq", "wk", "wv", "w_z", "w_x"):         # (nb, d, out)
+        return Spec(None, ax(shape[1], fs), ax(shape[2], tp))
+    if name in ("wo", "out_proj"):                       # (nb, in, d)
+        return Spec(None, ax(shape[1], tp), ax(shape[2], fs))
+    if name in ("w_gate", "w_up"):
+        if nd == 4:                                      # MoE (nb, e, d, f)
+            if tp and _divisible(shape[1], mesh, tp):    # EP over experts
+                return Spec(None, tp, ax(shape[2], fs), None)
+            return Spec(None, None, ax(shape[2], fs), ax(shape[3], tp))
+        return Spec(None, ax(shape[1], fs), ax(shape[2], tp))  # (nb, d, f)
+    if name == "w_down":
+        if nd == 4:                                      # MoE (nb, e, f, d)
+            if tp and _divisible(shape[1], mesh, tp):
+                return Spec(None, tp, None, ax(shape[3], fs))
+            return Spec(None, None, ax(shape[2], tp), ax(shape[3], fs))
+        return Spec(None, ax(shape[1], tp), ax(shape[2], fs))  # (nb, f, d)
+    if name in ("w_B", "w_C", "w_dt"):                   # (nb, d, n)
+        return Spec(None, ax(shape[1], fs), None)
+    if name == "conv_w":                                 # (nb, w, di)
+        return Spec(None, None, ax(shape[2], tp))
+    return Spec(*([None] * nd))
+
+
+def _quant_leaf_spec(plan: PartitionPlan, name: str, leaf: Any) -> Spec:
+    """The spec of one tensor of a block-quantized `QTensor` leaf.  The
+    packed input-block axis cannot split without tearing quant blocks, so
+    only the out-column axis (the last, of the scales, mins and quants
+    alike) is sharded: over tp where the fp rule split the projection's
+    output, over the fsdp axes where it put the weight's d_model output
+    (wo / out_proj / w_down)."""
+    mesh, tp, fs = plan.mesh, plan.tp, plan.fsdp_axes
+    last = leaf.shape[-1]
+    axes = fs if name in ("wo", "out_proj", "w_down") else tp
+    if not (axes and _divisible(last, mesh, axes)):
+        axes = None
+    return Spec(*([None] * (leaf.dim() - 1) + [axes]))
+
+
+def param_specs(abstract_params: Any, cfg: ArchConfig,
+                plan: PartitionPlan) -> Any:
+    """The Spec tree of a parameter tree (real or meta tensors): each
+    leaf by the name of its innermost dict key; a `QTensor` leaf becomes
+    a QTensor of its tensors' specs."""
+
+    def walk(tree, name):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, name) for v in tree)
+        if isinstance(tree, QTensor):
+            return QTensor(
+                _quant_leaf_spec(plan, name, tree.scales),
+                _quant_leaf_spec(plan, name, tree.quants),
+                None if tree.mins is None
+                else _quant_leaf_spec(plan, name, tree.mins),
+                tree.fmt, tree.d_in)
+        return _leaf_spec(plan, cfg, name, tree)
+
+    return walk(abstract_params, "")
+
+
+def opt_state_specs(abstract_opt: Any, p_specs: Any) -> Any:
+    """AdamW's state mirrors the parameters: the step replicated, mu / nu
+    / master the parameters' specs."""
+    del abstract_opt
+    return adamw.OptState(step=Spec(), mu=p_specs, nu=p_specs,
+                          master=p_specs)
+
+
+def batch_specs(abstract_batch: Mapping[str, Any],
+                plan: PartitionPlan) -> Dict[str, Spec]:
+    """Rows over the batch axes; a batch of one row, or one that does not
+    divide, replicated (the batch-1 long-context cells)."""
+    b_axes = plan.rules.batch_axes
+    out = {}
+    for k, v in abstract_batch.items():
+        spec = [b_axes] + [None] * (len(v.shape) - 1)
+        if v.shape[0] == 1 or not _divisible(v.shape[0], plan.mesh, b_axes):
+            spec[0] = None
+        out[k] = Spec(*spec)
+    return out
 
 
 def cache_specs(abstract_cache: Mapping[str, Any], cfg: ArchConfig,
@@ -210,6 +325,14 @@ def local_shard(tensor: torch.Tensor, spec: Spec, mesh,
         step = n // parts
         out = out.narrow(dim, idx * step, step)
     return out
+
+
+def shard_tree(full: Any, specs: Any, mesh) -> Any:
+    """This rank's shards of a tree of full tensors under a spec tree of
+    the same structure, each a copy (so the rank stores only its slice,
+    not a view that keeps the full tensor alive)."""
+    return tree.map_leaves(
+        lambda t, sp: local_shard(t, sp, mesh).clone(), full, specs)
 
 
 def make_plan(cfg: ArchConfig, rules: ShardingRules, *,

@@ -27,6 +27,7 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
 import torch
 
 from repro_torch import tree
+from repro_torch.core import collectives as C
 from repro_torch.core import prng
 from repro_torch.kernels import ops
 from repro_torch.kernels.quant import QTensor
@@ -35,7 +36,7 @@ from repro_torch.models.layers import true_f32
 from repro_torch.models.registry import get_model
 from repro_torch.models.quantize import padded_rows
 from repro_torch.optim import adamw, compression
-from repro_torch.sharding import use_rules
+from repro_torch.sharding import TrainLayout, use_rules, use_train_layout
 
 # stop-token slots per serving request (padded with -1)
 MAX_STOP_TOKENS = 4
@@ -227,7 +228,8 @@ def restore_slot(state: SlotState, slot: int,
 
 
 def loss_and_grads(cfg: ArchConfig, params: Any,
-                   batch: Dict[str, torch.Tensor]
+                   batch: Dict[str, torch.Tensor],
+                   layout: Optional[TrainLayout] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Any]:
     """The model's loss and its gradient tree: the counterpart of
     `jax.value_and_grad(loss_fn, has_aux=True)` is `torch.autograd.grad`
@@ -235,32 +237,64 @@ def loss_and_grads(cfg: ArchConfig, params: Any,
     the caller's tensors are left alone).  The forward and the backward
     run in full f32 wherever a product is f32 (`layers.true_f32`: the
     backward runs after the forward has left its own contexts).  Returns
-    (loss, {"ce", "aux"}, grads like params), all detached."""
+    (loss, {"ce", "aux"}, grads like params), all detached.
+
+    On a mesh (`layout`): params and batch are the rank's shards, and so
+    are the gradients it returns.  The loss and its metrics are the
+    global ones on every rank (summed over the mesh inside the loss), so
+    each rank's backward starts from loss / n_ranks, and the sums'
+    backward adds every rank's share back.  A leaf's gradient reaches
+    its shard through its gather's reduce-scatter, then is summed over
+    the axes the leaf is replicated over; replicated compute (a sequence
+    that does not split, replicated rows) is counted once, since every
+    replica's share of the loss is already divided among them."""
     leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
-    with true_f32():
+    with true_f32(), use_train_layout(layout):
         loss, metrics = get_model(cfg).loss_fn(
             cfg, tree.unflatten(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
+        seed = loss if layout is None else loss / layout.world()
+        grads = list(torch.autograd.grad(seed, leaves))
+        if layout is not None:
+            grads = C.sum_over_replicas(grads, tree.leaves(layout.params))
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-            tree.unflatten(params, list(grads)))
+            tree.unflatten(params, grads))
+
+
+def apply_update(opt_cfg: adamw.AdamWConfig, params: Any, grads: Any,
+                 opt_state: adamw.OptState, comp_state: Any,
+                 layout: Optional[TrainLayout] = None) -> Tuple[Any, ...]:
+    """A train step's update of its gradients: the int8 error-feedback
+    compression when `comp_state` is given, then AdamW (the state
+    updated in place).  Returns (params, opt_state, comp_state,
+    {"grad_norm", "lr"}); on a mesh (`layout`) of the rank's shards."""
+    specs = None if layout is None else layout.params
+    with use_train_layout(layout):
+        if comp_state is not None:
+            grads, comp_state = compression.compress_grads(
+                grads, comp_state, specs)
+        params, opt_state, opt_metrics = adamw.apply(
+            opt_cfg, params, grads, opt_state, specs)
+    return params, opt_state, comp_state, opt_metrics
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
-                    compress_grads: bool = False) -> Callable:
+                    compress_grads: bool = False,
+                    layout: Optional[TrainLayout] = None) -> Callable:
     """(params, opt_state, comp_state, batch) -> (params, opt_state,
     comp_state, metrics {"loss", "ce", "aux", "grad_norm", "lr"}), f32
     scalar tensors on the device: the step reads nothing back.  The
-    gradients (`loss_and_grads`), then the optional int8 error-feedback
-    compression, then AdamW (its state updated in place)."""
+    gradients (`loss_and_grads`), then `apply_update` (the optional int8
+    error-feedback compression, then AdamW).  On a mesh (`layout`:
+    `sharding.TrainLayout`) every tree is the rank's shards under
+    `layout.params` (the batch under `layout.batch`), and the metrics
+    are the global ones on every rank."""
 
     def train_step(params, opt_state, comp_state, batch):
-        loss, metrics, grads = loss_and_grads(cfg, params, batch)
-        if compress_grads:
-            grads, comp_state = compression.compress_grads(grads,
-                                                           comp_state)
-        params, opt_state, opt_metrics = adamw.apply(opt_cfg, params, grads,
-                                                     opt_state)
-        return (params, opt_state, comp_state,
+        loss, metrics, grads = loss_and_grads(cfg, params, batch, layout)
+        params, opt_state, comp, opt_metrics = apply_update(
+            opt_cfg, params, grads, opt_state,
+            comp_state if compress_grads else None, layout)
+        return (params, opt_state, comp if compress_grads else comp_state,
                 {**metrics, **opt_metrics, "loss": loss})
 
     return train_step

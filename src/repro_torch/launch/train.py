@@ -1,5 +1,5 @@
 """Fault-tolerant training driver, the port of `repro/launch/train.py`, on
-one device.
+one device or on a DATAxMODEL mesh of ranks.
 
   * checkpoint / restart: atomic checkpoints every --ckpt-every steps and
     at the end, resume from the latest on start (the data pipeline
@@ -16,8 +16,21 @@ one device.
         --arch mamba2_370m --smoke --steps 6 --ckpt-dir /tmp/ck
 
 It runs on the GPU unless `--device cpu` is given, and raises when no GPU
-is present and none was asked for.  Training on a mesh is not ported
-(the reference's `mesh` argument): one device.
+is present and none was asked for.
+
+On a mesh (`train(..., mesh=)`, `--mesh DATAxMODEL` under torchrun, one
+process a rank, gloo) every rank draws the weights from seed 0 and keeps
+its shards (`partition.param_specs` under `make_plan(train=True)`; the
+rules `ShardingRules(mesh, seq_shard_acts=True)`), takes its rows of each
+global batch (`partition.batch_specs`) and steps on them
+(`steps.make_train_step(layout=)`): the loss, gradients and updated state
+are the single device's within f32 rounding, except where the
+reference's expert-parallel MoE (`layers.moe_ffn_dist`) changes them.
+The checkpoint holds whole leaves (a mesh-agnostic file, written by rank
+0), and every rank restores its shards from it.
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --device cpu --mesh 2x2 --steps 6 --batch 4 --seq-len 32
 """
 from __future__ import annotations
 
@@ -30,15 +43,21 @@ import time
 from typing import Any, Dict, List, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.data.pipeline import DataConfig, make_pipeline
+from repro_torch.core.backstream import WIRE
+from repro_torch.data.pipeline import DataConfig, make_pipeline, synth_batch
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import partition
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.mesh import rank_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.registry import get_model
 from repro_torch.optim import adamw, compression
+from repro_torch.sharding import ShardingRules, TrainLayout
 
 
 class StragglerWatchdog:
@@ -96,22 +115,22 @@ class TrainState:
 
 def train(arch_id: str, *, smoke: bool = True, steps: int = 50,
           batch: int = 8, seq_len: int = 128, ckpt_dir: Optional[str] = None,
-          ckpt_every: int = 20, compress: bool = False, lr: float = 1e-3,
-          log_every: int = 10,
+          ckpt_every: int = 20, compress: bool = False, mesh: Any = None,
+          lr: float = 1e-3, log_every: int = 10,
           device: Optional[Union[str, torch.device]] = None,
           cfg: Optional[ArchConfig] = None) -> Dict[str, Any]:
     """Train `arch_id` (its smoke or full config, or `cfg` when given:
     the example's ~100M config) for `steps` steps from the latest
-    checkpoint in `ckpt_dir`, weights drawn from seed 0.  Returns the
+    checkpoint in `ckpt_dir`, weights drawn from seed 0, on one device or
+    as this rank of `mesh` (a ("data", "model") DeviceMesh).  Returns the
     summary {"arch", "steps_run", "first_loss", "last_loss",
     "stragglers_flagged", "losses"}."""
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else rank_device(device)
     if cfg is None:
         cfg = get_smoke_config(arch_id) if smoke else get_config(arch_id)
     model = get_model(cfg)
     opt_cfg = adamw.AdamWConfig(lr=lr, warmup_steps=max(2, steps // 10),
                                 total_steps=steps)
-    step_fn = steps_lib.make_train_step(cfg, opt_cfg, compress_grads=compress)
     dcfg = DataConfig(vocab=cfg.vocab, batch=batch, seq_len=seq_len,
                       frontend=cfg.frontend, d_model=cfg.d_model,
                       enc_dec=cfg.enc_dec,
@@ -119,19 +138,37 @@ def train(arch_id: str, *, smoke: bool = True, steps: int = 50,
 
     params = model.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    layout = state_specs = b_specs = None
+    if mesh is not None:
+        layout = mesh_layout(cfg, mesh, params, synth_batch(dcfg, 0))
+        b_specs = layout.batch
+        params = partition.shard_tree(params, layout.params, mesh)
+        state_specs = {"params": layout.params,
+                       "opt": partition.opt_state_specs(None, layout.params),
+                       "comp": compression.CompressionState(layout.params)}
+    step_fn = steps_lib.make_train_step(cfg, opt_cfg, compress_grads=compress,
+                                        layout=layout)
     state = TrainState(params, adamw.init(params),
                        compression.init(params) if compress else None)
+    say = mesh is None or dist.get_rank() == 0
+
+    def tree_specs():
+        if state_specs is None:
+            return None
+        return {k: state_specs[k] for k in state.tree()}
 
     start_step = 0
     if ckpt_dir:
-        got = ckpt_lib.restore(ckpt_dir, state.tree(), device=dev)
+        got = ckpt_lib.restore(ckpt_dir, state.tree(), device=dev,
+                               shardings=tree_specs(), mesh=mesh)
         if got is not None:
             start_step, restored = got
             state.params, state.opt_state = (restored["params"],
                                              restored["opt"])
             if compress:
                 state.comp_state = restored.get("comp", state.comp_state)
-            print(f"[train] resumed from step {start_step}", flush=True)
+            if say:
+                print(f"[train] resumed from step {start_step}", flush=True)
 
     # preemption safety: checkpoint on SIGTERM / SIGINT, then stop
     preempted = threading.Event()
@@ -145,7 +182,8 @@ def train(arch_id: str, *, smoke: bool = True, steps: int = 50,
             old_handlers[sig] = signal.signal(sig, _on_signal)
 
     watchdog = StragglerWatchdog()
-    pipe = make_pipeline(dcfg, start_step=start_step, device=dev)
+    pipe = make_pipeline(dcfg, start_step=start_step, device=dev,
+                         specs=b_specs, mesh=mesh)
     losses: List[float] = []
     try:
         for _ in range(start_step, steps):
@@ -158,16 +196,23 @@ def train(arch_id: str, *, smoke: bool = True, steps: int = 50,
             loss = float(metrics["loss"])         # the step's one sync
             watchdog.step_finished(time.monotonic() - t0)
             losses.append(loss)
-            if step_i % log_every == 0:
+            if step_i % log_every == 0 and say:
                 print(f"[train] step {step_i} loss {loss:.4f} "
                       f"gnorm {float(metrics['grad_norm']):.3f}", flush=True)
             done = step_i + 1
+            stop = preempted.is_set()
+            if mesh is not None:           # every rank stops at one step
+                flag = torch.tensor([int(stop)])
+                dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+                stop = bool(flag.item())
             if ckpt_dir and (done % ckpt_every == 0 or done == steps
-                             or preempted.is_set()):
-                ckpt_lib.save(ckpt_dir, done, state.tree())
-            if preempted.is_set():
-                print(f"[train] preempted at step {done}; "
-                      "checkpoint written", flush=True)
+                             or stop):
+                ckpt_lib.save(ckpt_dir, done, state.tree(),
+                              shardings=tree_specs(), mesh=mesh)
+            if stop:
+                if say:
+                    print(f"[train] preempted at step {done}; "
+                          "checkpoint written", flush=True)
                 break
     finally:
         watchdog.close()
@@ -179,6 +224,20 @@ def train(arch_id: str, *, smoke: bool = True, steps: int = 50,
             "last_loss": losses[-1] if losses else None,
             "stragglers_flagged": watchdog.flagged,
             "losses": losses}
+
+
+def mesh_layout(cfg: ArchConfig, mesh: Any, params: Any,
+                batch: Dict[str, Any], fsdp: Optional[bool] = None
+                ) -> TrainLayout:
+    """The training layout of `cfg` on `mesh`: the reference's dry-run
+    rules (`seq_shard_acts`), `make_plan(train=True)`'s FSDP choice
+    (`fsdp` forces it), the parameters' and the batch's specs."""
+    rules = ShardingRules(mesh, seq_shard_acts=True)
+    plan = partition.make_plan(cfg, rules, train=True)
+    if fsdp is not None:
+        plan = partition.PartitionPlan(rules=rules, fsdp=fsdp)
+    return TrainLayout(rules, partition.param_specs(params, cfg, plan),
+                       partition.batch_specs(batch, plan))
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -195,11 +254,29 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--device", default=None,
                     help="cpu to run on the CPU (default: the GPU)")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="train SPMD over a DATAxMODEL mesh of ranks, one "
+                         "process a rank: run under torchrun "
+                         "--nproc-per-node DATA*MODEL (e.g. 2x2)")
     args = ap.parse_args(argv)
-    out = train(args.arch, smoke=args.smoke, steps=args.steps,
-                batch=args.batch, seq_len=args.seq_len,
-                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                compress=args.compress, lr=args.lr, device=args.device)
+    mesh, rank = None, 0
+    if args.mesh is not None:
+        mesh = mesh_lib.init_from_env(*mesh_lib.parse_mesh(args.mesh))
+        rank = dist.get_rank()
+    try:
+        out = train(args.arch, smoke=args.smoke, steps=args.steps,
+                    batch=args.batch, seq_len=args.seq_len,
+                    ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                    compress=args.compress, mesh=mesh, lr=args.lr,
+                    device=args.device)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+    if rank != 0:
+        return 0
+    if mesh is not None:
+        print(f"[train] mesh={args.mesh} ranks={mesh.size()} "
+              f"wire_bytes={WIRE.bytes_sent}")
     if out["steps_run"]:
         print(f"[train] done: {out['steps_run']} steps, "
               f"loss {out['first_loss']:.4f} -> {out['last_loss']:.4f}")

@@ -38,7 +38,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.quantize import matmul
-from repro_torch.sharding import active_rules, use_rules
+from repro_torch.core import collectives as C
+from repro_torch.sharding import active_rules, train_layout, use_rules
 
 Params = Dict[str, Any]
 
@@ -88,18 +89,28 @@ def _cross_layer(cross: Params, i: int) -> Params:
 # --------------------------------------------------------------------------
 
 def _enc_attn(cfg: ArchConfig, p: Params, x: torch.Tensor,
-              positions: torch.Tensor) -> torch.Tensor:
+              positions: torch.Tensor, act=None) -> torch.Tensor:
+    """The bidirectional encoder attention with its residual; on a mesh
+    whose layout `act` splits the frames, the span's queries against the
+    K/V gathered over the model axis."""
     b, s, _ = x.shape
     q, k, v = T._qkv(cfg, p, x, positions)
+    if act is not None and act.seq:
+        k = C.all_gather(k, 1, act.seq, act.rules)
+        v = C.all_gather(v, 1, act.seq, act.rules)
     o = L.blocked_attention(q, k, v, causal=False)
     return x + matmul(o.reshape(b, s, -1), p["wo"])
 
 
 def _enc_block(cfg: ArchConfig, x: torch.Tensor, block: List[Params],
-               positions: torch.Tensor) -> torch.Tensor:
-    for p in block:
-        x = _enc_attn(cfg, p["attn"], x, positions)
-        x = T.ffn_layer(cfg, p["ffn"], x, False)
+               positions: torch.Tensor, act=None,
+               specs: Optional[List[Params]] = None) -> torch.Tensor:
+    for pos, p in enumerate(block):
+        sp = specs[pos] if specs is not None else {}
+        x = _enc_attn(cfg, T.gathered(p["attn"], sp.get("attn"), act), x,
+                      positions, act)
+        x = T.ffn_layer(cfg, T.gathered(p["ffn"], sp.get("ffn"), act), x,
+                        False)
     return x
 
 
@@ -109,14 +120,28 @@ def encode(cfg: ArchConfig, params: Params, embeds: torch.Tensor, *,
     RoPE'd bidirectional attention and the dense MLP per layer, then the
     final norm; `remat` recomputes each block in the backward (the
     training loss sets it, as the reference's default does).  Returns (B,
-    e, D) in the model dtype."""
+    e, D) in the model dtype.  On a training mesh (`train_layout()`) the
+    embeds are the rank's rows, its frame span taken when the frames
+    split over the model axis (whisper's 1,500 do not over 16: they stay
+    replicated), and the output gathered whole for the cross-attention."""
+    layout = train_layout()
+    act = specs = None
+    if layout is not None:
+        act = layout.act(embeds.shape[1])
+        embeds = embeds.narrow(1, act.start, act.length)
+        specs = T.layer_specs(layout.params["enc_blocks"])
     x = embeds.to(T._dtype(cfg.dtype))
     b, s, _ = x.shape
-    positions = torch.arange(s, dtype=torch.int32,
+    start = act.start if act is not None else 0
+    positions = torch.arange(start, start + s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
     for block in T.unstacked(params["enc_blocks"], _n_enc_blocks(cfg)):
-        x = T.run_block(_enc_block, remat, cfg, x, block, positions)
-    return L.rms_norm(x, params["enc_final_ln"], cfg.norm_eps)
+        x = T.run_block(_enc_block, remat, cfg, x, block, positions, act,
+                        specs)
+    x = L.rms_norm(x, params["enc_final_ln"], cfg.norm_eps)
+    if act is not None and act.seq:
+        x = C.all_gather(x, 1, act.seq, act.rules)
+    return x
 
 
 # --------------------------------------------------------------------------
@@ -179,13 +204,46 @@ def _cross_decode(cfg: ArchConfig, cp: Params, x: torch.Tensor,
 
 def _dec_block(cfg: ArchConfig, x: torch.Tensor, block: List[Params],
                cp: Params, enc_out: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor, act=None,
+               specs: Optional[List[Params]] = None,
+               cross_specs: Optional[Params] = None) -> torch.Tensor:
+    cp = T.gathered(cp, cross_specs, act)
     for pos, kind in enumerate(cfg.block_pattern):
-        p = block[pos]
-        x = T.attn_layer(cfg, p["attn"], x, kind, positions)
+        p, sp = block[pos], (specs[pos] if specs is not None else {})
+        x = T.attn_layer(cfg, T.gathered(p["attn"], sp.get("attn"), act),
+                         x, kind, positions, act)
         x = _cross_attn(cfg, cp, x, *_cross_kv(cfg, cp, enc_out))
-        x = T.ffn_layer(cfg, p["ffn"], x, False)
+        x = T.ffn_layer(cfg, T.gathered(p["ffn"], sp.get("ffn"), act), x,
+                        False)
     return x
+
+
+def _decoder_forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+                     enc_out: torch.Tensor, remat: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
+    """`decoder_forward`, and the embedding table it used and the text's
+    layout on a training mesh (the rank's span of its rows' tokens, its
+    `embed` gathered from the vocab shards)."""
+    layout = train_layout()
+    act = specs = cross_specs = None
+    emb = params["embed"]
+    if layout is not None:
+        act = layout.act(tokens.shape[1])
+        tokens = tokens.narrow(1, act.start, act.length)
+        emb = C.gather(emb, layout.params["embed"], rules=layout.rules)
+        specs = T.layer_specs(layout.params["dec_blocks"])
+        cross_specs = T.layer_specs(layout.params["cross"])
+    x = emb[tokens]
+    b, s, _ = x.shape
+    start = act.start if act is not None else 0
+    positions = torch.arange(start, start + s, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s)
+    cross = T.unstacked([{"cross": params["cross"]}], cfg.n_blocks)
+    for block, cp in zip(T.unstacked(params["dec_blocks"], cfg.n_blocks),
+                         cross):
+        x = T.run_block(_dec_block, remat, cfg, x, block, cp[0]["cross"],
+                        enc_out, positions, act, specs, cross_specs)
+    return L.rms_norm(x, params["final_ln"], cfg.norm_eps), emb, act
 
 
 def decoder_forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
@@ -195,17 +253,8 @@ def decoder_forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     (B, e, D): causal self-attention (`transformer.attn_layer`), the
     block's cross-attention and the dense MLP per layer, each block
     recomputed in the backward under `remat`.  Returns the final-normed
-    hidden states (B, S, D)."""
-    x = params["embed"][tokens]
-    b, s, _ = x.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device)[None].expand(b, s)
-    cross = T.unstacked([{"cross": params["cross"]}], cfg.n_blocks)
-    for block, cp in zip(T.unstacked(params["dec_blocks"], cfg.n_blocks),
-                         cross):
-        x = T.run_block(_dec_block, remat, cfg, x, block, cp[0]["cross"],
-                        enc_out, positions)
-    return L.rms_norm(x, params["final_ln"], cfg.norm_eps)
+    hidden states (B, S, D); on a training mesh, its rows' span."""
+    return _decoder_forward(cfg, params, tokens, enc_out, remat)[0]
 
 
 def loss_fn(cfg: ArchConfig, params: Params,
@@ -213,11 +262,15 @@ def loss_fn(cfg: ArchConfig, params: Params,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The chunked cross-entropy of the decoder on batch["tokens"] /
     ["labels"] over the encoding of batch["embeds"]; no aux loss.
-    Returns (loss, {"ce", "aux"})."""
+    Returns (loss, {"ce", "aux"}): on a training mesh the global ones."""
     enc_out = encode(cfg, params, batch["embeds"], remat=True)
-    x = decoder_forward(cfg, params, batch["tokens"], enc_out)
-    ce = L.xent_loss_chunked(x, params["embed"], batch["labels"],
-                             vocab=cfg.vocab)
+    x, emb, act = _decoder_forward(cfg, params, batch["tokens"], enc_out,
+                                   True)
+    labels = batch["labels"]
+    if act is not None:
+        labels = labels.narrow(1, act.start, act.length)
+    ce = L.xent_loss_chunked(x, emb, labels, vocab=cfg.vocab,
+                             rules=T._rules(act))
     return ce, {"ce": ce, "aux": ce.new_zeros(())}
 
 

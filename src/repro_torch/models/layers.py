@@ -3,7 +3,8 @@
 multimodal M-RoPE), the decode token's own attention partial, the partial
 merge, the blocked attention (the enc-dec encoder, prefill
 cross-attention and the training forward) and the banded sliding-window
-attention, the gated MLP, the top-k Mixture-of-Experts FFN and its
+attention, the gated MLP, the top-k Mixture-of-Experts FFN (and its
+expert-parallel form on a training mesh, `moe_ffn_dist`) and its
 load-balancing loss, the Mamba2 chunked SSD scan and single-token step,
 the causal depthwise conv, and the chunked cross-entropy (plain XLA in the
 reference, plain torch here; autograd gives the training backward, as
@@ -11,13 +12,16 @@ reference, plain torch here; autograd gives the training backward, as
 
 Conventions as in the reference: activations x (B, S, D) in the model
 dtype; attention q (B, S, H, hd), k/v (B, S, KH, hd); softmax and norm
-statistics in float32.
+statistics in float32.  On a training mesh (`sharding.TrainLayout`) the
+MoE FFN, its balance loss and the cross-entropy take the rank's local
+rows and span and reduce over the mesh (`core/collectives.py`, imported
+where used: it imports `core/backstream.py`, which imports this module).
 """
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Iterator, NamedTuple, Optional, Tuple
+from typing import Any, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -152,7 +156,8 @@ def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       *, causal: bool = True, q_offset: int = 0,
-                      block: int = 1024, q_tile: int = 512) -> torch.Tensor:
+                      block: int = 1024, q_tile: int = 512,
+                      window: int = 0) -> torch.Tensor:
     """Flash-style attention in plain torch, with the reference's
     arithmetic (plain XLA there, no kernel): queries scaled in f32, K / V
     taken to f32, an online softmax over KV blocks (the block the largest
@@ -160,7 +165,10 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     positions), queries in tiles of `q_tile` rows, and under `causal` only
     the blocks up to a tile's last query.  q: (B, Sq, H, hd); k / v: (B,
     Sk, KH, hd); `q_offset` places the queries in the KV sequence.
-    Returns (B, Sq, H, hd) in q's dtype."""
+    `window` > 0 (with `causal`) also masks the keys window or more
+    positions behind a query, and skips the blocks wholly behind a tile's
+    first query's window (a training rank's sliding-window span against
+    the gathered K/V).  Returns (B, Sq, H, hd) in q's dtype."""
     b, sq, h, hd = q.shape
     sk, kh = k.shape[1], k.shape[2]
     k = repeat_kv(k, h // kh)
@@ -182,17 +190,21 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             pos_t = q_offset + torch.arange(t0, t1, device=q.device)
             n_kv = (max(1, -(-min(sk, q_offset + t1) // block)) if causal
                     else n_blocks)
+            first = (max(0, q_offset + t0 - window + 1) // block
+                     if causal and window else 0)
             m = torch.full((b, h, tq, 1), NEG_INF, dtype=torch.float32,
                            device=q.device)
             l = torch.zeros((b, h, tq, 1), dtype=torch.float32,
                             device=q.device)
             acc = torch.zeros((b, h, tq, hd), dtype=torch.float32,
                               device=q.device)
-            for j in range(n_kv):
+            for j in range(first, n_kv):
                 s = torch.einsum("bhqd,bhkd->bhqk", q_t, kf[:, :, j])
                 if causal:
                     kv_pos = j * block + torch.arange(block, device=q.device)
                     mask = pos_t[:, None] >= kv_pos[None, :]
+                    if window:
+                        mask &= pos_t[:, None] - kv_pos[None, :] < window
                     s = torch.where(mask[None, None], s, NEG_INF)
                 m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
                 p = torch.exp(s - m_new)
@@ -237,16 +249,20 @@ def true_f32() -> Iterator[None]:
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def moe_route(x: torch.Tensor, router: torch.Tensor, top_k: int
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_route(x: torch.Tensor, router: torch.Tensor, top_k: int,
+              n_real: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The router: x (T, D) @ router (D, E) in f32, softmax, the top_k
     experts of each row (ties to the lower expert id, as `lax.top_k`),
     their gates renormalized in f32.  Returns (gates (T, K) f32, expert
     ids (T, K) int64), best first.  The product runs over
     `quantize.invariant_rows` like every other, and only the real T rows
-    reach the top-k."""
+    reach the top-k.  `n_real` < E: the router's columns from n_real on
+    are padding (the expert-parallel branch's), their logits -inf."""
     with true_f32():
         logits = matmul(x.float(), router.float())
+    if 0 < n_real < logits.shape[-1]:
+        real = torch.arange(logits.shape[-1], device=x.device) < n_real
+        logits = torch.where(real, logits, -math.inf)
     probs = torch.softmax(logits, dim=-1)
     vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates = vals[:, :top_k]
@@ -273,7 +289,8 @@ class MoEDispatch(NamedTuple):
 
 
 def moe_dispatch(expert_ids: torch.Tensor, gates: torch.Tensor,
-                 n_experts: int, cap: int) -> MoEDispatch:
+                 n_experts: int, cap: int, *,
+                 first: Optional[int] = None) -> MoEDispatch:
     """The reference's capacity-bounded dispatch, computed without a
     scatter whose duplicate indices race.  A pair's queue position is the
     count of earlier pairs (flat order) routed to its expert; a pair at
@@ -283,15 +300,30 @@ def moe_dispatch(expert_ids: torch.Tensor, gates: torch.Tensor,
     scatter's order), so a dropped pair after the kept occupant of
     (E - 1, cap - 1) takes that occupant's output away.  Here each slot's
     last writer is the largest flat index that writes it (an `amax`
-    reduction, which no order changes).  No host sync."""
+    reduction, which no order changes).  No host sync.
+
+    `first` (the expert-parallel branch of `moe_ffn_dist`): this
+    dispatch's experts are the n_experts from expert id `first` on, the
+    slots local to them; a pair routed to any other expert is never kept
+    here, and every pair not kept writes local slot (0, cap - 1), as the
+    reference's shard-local dispatch does."""
     t, k = expert_ids.shape
     dev = expert_ids.device
     flat = expert_ids.reshape(-1)
-    onehot = F.one_hot(flat, num_classes=n_experts)        # (T*K, E)
-    pos = (onehot.cumsum(dim=0) * onehot).sum(dim=-1) - 1
-    keep = pos < cap
-    dest = torch.where(keep, flat * cap + pos,
-                       torch.full_like(flat, n_experts * cap - 1))
+    if first is None:
+        onehot = F.one_hot(flat, num_classes=n_experts)    # (T*K, E)
+        pos = (onehot.cumsum(dim=0) * onehot).sum(dim=-1) - 1
+        keep = pos < cap
+        drop = n_experts * cap - 1
+    else:
+        flat = flat - first
+        mine = (flat >= 0) & (flat < n_experts)
+        flat = torch.where(mine, flat, 0)
+        onehot = F.one_hot(flat, num_classes=n_experts) * mine[:, None]
+        pos = (onehot.cumsum(dim=0) * onehot).sum(dim=-1) - 1
+        keep = mine & (pos < cap)
+        drop = cap - 1
+    dest = torch.where(keep, flat * cap + pos, torch.full_like(flat, drop))
     order = torch.arange(t * k, device=dev)
     writer = torch.full((n_experts * cap,), -1, dtype=torch.int64,
                         device=dev).scatter_reduce(0, dest, order, "amax")
@@ -320,15 +352,26 @@ def moe_ffn(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
     its routed slots.  The experts' silu rounds per op, as the
     reference's (`silu_per_op`).  No host sync: it runs inside a captured
     graph."""
-    t, d = x.shape
+    t = x.shape[0]
     e = router.shape[-1]
     gates, ids = moe_route(x, router, top_k)
-    cap = moe_capacity(t, top_k, e, capacity_factor)
-    dp = moe_dispatch(ids, gates, e, cap)
+    _trace(0, x, router, ids)
+    dp = moe_dispatch(ids, gates, e, moe_capacity(t, top_k, e,
+                                                  capacity_factor))
+    return _moe_experts(x, ids, dp, w_gate, w_up, w_down).to(x.dtype)
+
+
+def _moe_experts(x: torch.Tensor, ids: torch.Tensor, dp: MoEDispatch,
+                 w_gate: torch.Tensor, w_up: torch.Tensor,
+                 w_down: torch.Tensor) -> torch.Tensor:
+    """The experts' slots of a dispatch (the expert stacks `dp` is over)
+    and the ordered f32 combine into (T, D) f32."""
+    t, d = x.shape
+    top_k = ids.shape[-1]
     x_pad = torch.cat([x, x.new_zeros((1, d))])
     xe = x_pad[dp.slot_token]                             # (E, cap, D)
     h = silu_per_op(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up)
-    ye = torch.bmm(h, w_down).reshape(e * cap, d)
+    ye = torch.bmm(h, w_down).reshape(-1, d)
     # each token's pairs in ascending expert order
     by_expert = ids.argsort(dim=-1)
     dest = dp.dest.reshape(t, top_k).gather(1, by_expert)
@@ -338,7 +381,210 @@ def moe_ffn(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
         s = dest[:, j]
         part = ye[s].float() * dp.slot_gate.reshape(-1)[s][:, None]
         y = y + torch.where(owns[:, j, None], part, 0.0)
-    return y.to(x.dtype)
+    return y
+
+
+def _data_index(rules) -> int:
+    """This rank's index over the batch axes (the first major)."""
+    idx = 0
+    for a in rules.batch_axes:
+        idx = idx * rules.size(a) + rules.rank(a)
+    return idx
+
+
+def _local_rows(y: torch.Tensor, act) -> torch.Tensor:
+    """This rank's (rows, span) of a (B, S, D) activation under `act`."""
+    if act.rows:
+        b_l = y.shape[0] // act.rules.data_size()
+        y = y.narrow(0, _data_index(act.rules) * b_l, b_l)
+    return y.narrow(1, act.start, act.length)
+
+
+# the fewest tokens a data shard routes on the expert-parallel branch
+EP_MIN_TOKENS = 512
+# process-wide, not thread-local: on the card a checkpointed block's
+# recomputation runs on the autograd engine's own thread
+_EP_TWIN: Dict[str, Optional[Tuple[int, int]]] = {"shape": None}
+_ROUTES: Dict[str, Optional[list]] = {"log": None}
+
+
+@contextlib.contextmanager
+def trace_routes() -> Iterator[list]:
+    """Within the block, every forward routing of the expert-parallel
+    branch (its first model shard's) and of `moe_ffn` appends (data
+    shard, expert ids (T, K), each row's k-th minus (k+1)-th router
+    logit) to the list it yields: where a mesh's routing parts from its
+    single-device twin's, how near a tie the parted rows were."""
+    prev = _ROUTES["log"]
+    _ROUTES["log"] = log = []
+    try:
+        yield log
+    finally:
+        _ROUTES["log"] = prev
+
+
+def _trace(data_shard: int, x: torch.Tensor, router: torch.Tensor,
+           ids: torch.Tensor, n_real: int = 0) -> None:
+    log = _ROUTES["log"]
+    k = ids.shape[-1]
+    if log is None or not torch.is_grad_enabled() or k >= router.shape[-1]:
+        return
+    with torch.no_grad(), true_f32():
+        logits = matmul(x.float(), router.float())
+        if 0 < n_real < logits.shape[-1]:
+            logits = logits[:, :n_real]
+        top = torch.sort(logits, dim=-1, descending=True).values
+    log.append((data_shard, ids.cpu(), (top[:, k - 1] - top[:, k]).cpu()))
+
+
+@contextlib.contextmanager
+def expert_parallel_twin(n_data: int, n_model: int) -> Iterator[None]:
+    """Within the block, `moe_ffn_dist` without a mesh computes what an
+    n_data x n_model mesh's expert-parallel branch would (`moe_ffn_ep`)
+    wherever that mesh would take the branch: the single-device twin of
+    a mesh run, on its numbers rather than `moe_ffn`'s."""
+    prev = _EP_TWIN["shape"]
+    _EP_TWIN["shape"] = (n_data, n_model)
+    try:
+        yield
+    finally:
+        _EP_TWIN["shape"] = prev
+
+
+def _takes_ep(t: int, n_data: int, top_k: int) -> bool:
+    return t % n_data == 0 and t // n_data >= max(EP_MIN_TOKENS, top_k)
+
+
+def _pad_experts(w: torch.Tensor, e_pad: int, dim: int = 0) -> torch.Tensor:
+    """An expert stack (or, dim=1, the router) padded with zero experts
+    to e_pad."""
+    e = w.shape[dim]
+    if e_pad == e:
+        return w
+    shape = list(w.shape)
+    shape[dim] = e_pad - e
+    return torch.cat([w, w.new_zeros(shape)], dim=dim)
+
+
+def _ep_partial(tokens: torch.Tensor, router: torch.Tensor,
+                w_local: Tuple[torch.Tensor, ...], top_k: int,
+                capacity_factor: float, e: int, shard: int,
+                data_shard: int = 0) -> torch.Tensor:
+    """One model shard's partial output of the expert-parallel branch:
+    the data shard's tokens routed over the padded experts, dispatched to
+    this shard's E_pad / n_model experts (`w_local`) at the capacity of
+    the shard's token count, in x's dtype."""
+    e_local = w_local[0].shape[0]
+    gates, ids = moe_route(tokens, router, top_k, n_real=e)
+    if shard == 0:
+        _trace(data_shard, tokens, router, ids, e)
+    dp = moe_dispatch(ids, gates, e_local,
+                      moe_capacity(tokens.shape[0], top_k, e,
+                                   capacity_factor),
+                      first=shard * e_local)
+    return _moe_experts(tokens, ids, dp, *w_local).to(tokens.dtype)
+
+
+def moe_ffn_ep(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
+               w_up: torch.Tensor, w_down: torch.Tensor, top_k: int,
+               capacity_factor: float, n_data: int, n_model: int
+               ) -> torch.Tensor:
+    """The expert-parallel branch of `moe_ffn_dist` on one device: x (T,
+    D), the full expert stacks; the T rows cut into n_data contiguous
+    data shards, each shard's partials of the n_model model shards (the
+    experts padded to a multiple of n_model) summed in rank order."""
+    t, _ = x.shape
+    e = router.shape[-1]
+    e_pad = -(-e // n_model) * n_model
+    e_local = e_pad // n_model
+    router = _pad_experts(router, e_pad, dim=1)
+    ws = [_pad_experts(w, e_pad) for w in (w_gate, w_up, w_down)]
+    out = []
+    for d, tokens in enumerate(x.split(t // n_data)):
+        y = None
+        for m in range(n_model):
+            part = _ep_partial(tokens, router, tuple(
+                w[m * e_local:(m + 1) * e_local] for w in ws), top_k,
+                capacity_factor, e, m, d)
+            y = part if y is None else y + part
+        out.append(y)
+    return torch.cat(out)
+
+
+def moe_ffn_dist(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
+                 w_up: torch.Tensor, w_down: torch.Tensor, top_k: int,
+                 capacity_factor: float = 1.25, *, act=None,
+                 w_specs: Optional[Tuple[Any, Any, Any]] = None
+                 ) -> torch.Tensor:
+    """The MoE FFN of a training rank, the reference's `moe_ffn_dist`.
+    x: the rank's (rows, span) (B_l, S_l, D) of the global (B, S, D)
+    activation whose layout `act` (`sharding.Act`) gives; the expert
+    stacks as this rank stores them, under `w_specs` (None: whole).
+    Without `act` it is `moe_ffn` over the rows flattened.  Returns (B_l,
+    S_l, D).
+
+    With fewer than max(EP_MIN_TOKENS, top_k) tokens a data shard (or T
+    not dividing over the data axes) it is `moe_ffn` over the GLOBAL B*S
+    rows in their flat (b, s) order: the rows gathered over the model
+    and data axes, the full expert stacks, the rank's rows taken back.
+    From there on it is the expert-parallel branch, whose numbers part
+    from `moe_ffn`'s: the experts padded to a multiple of n_model, each
+    model rank routing its data shard's tokens (the flat global rows cut
+    into n_data contiguous parts: its rows, or with replicated rows its
+    part of them) to its own E_pad / n_model experts at a capacity taken
+    from the shard's token count; every pair not kept there (dropped or
+    routed to another rank's experts) writes local slot (0, cap - 1)
+    (`moe_dispatch(first=)`); each rank's partial, cast to x's dtype,
+    summed over the model axis."""
+    from repro_torch.core import collectives as C
+    b_l, s_l, d = x.shape
+    if act is None:
+        flat = x.reshape(b_l * s_l, d)
+        twin = _EP_TWIN["shape"]
+        if twin is not None and _takes_ep(b_l * s_l, twin[0], top_k):
+            y = moe_ffn_ep(flat, router, w_gate, w_up, w_down, top_k,
+                           capacity_factor, *twin)
+        else:
+            y = moe_ffn(flat, router, w_gate, w_up, w_down, top_k,
+                        capacity_factor)
+        return y.reshape(b_l, s_l, d)
+    rules = act.rules
+    specs = w_specs or (None, None, None)
+    n_data, n_model = rules.data_size(), rules.model_size()
+    b = b_l * n_data if act.rows else b_l
+    t, e = b * act.s, router.shape[-1]
+    # this data shard's rows, their whole sequence
+    xs = C.all_gather(x, 1, act.seq, rules) if act.seq else x
+    if not _takes_ep(t, n_data, top_k):
+        xg = C.all_gather(xs, 0, act.rows, rules) if act.rows else xs
+        ws = [C.gather(w, sp, rules=rules)
+              for w, sp in zip((w_gate, w_up, w_down), specs)]
+        y = moe_ffn(xg.reshape(t, d), router, *ws, top_k, capacity_factor)
+        return _local_rows(y.reshape(b, act.s, d), act)
+
+    tl = t // n_data
+    tokens = xs.reshape(-1, d)
+    if not act.rows:                        # the shard's part of all rows
+        tokens = tokens.narrow(0, _data_index(rules) * tl, tl)
+    e_pad = -(-e // n_model) * n_model
+    e_local = e_pad // n_model
+    shard = rules.rank(rules.model_axis) if rules.model_axis else 0
+    local = []
+    for w, sp in zip((w_gate, w_up, w_down), specs):
+        if sp is not None and sp[0] == rules.model_axis:
+            local.append(C.gather(w, sp, (rules.model_axis,), rules))
+            continue
+        local.append(_pad_experts(C.gather(w, sp, rules=rules),
+                                  e_pad).narrow(
+            0, shard * e_local, e_local))
+    y = _ep_partial(tokens, _pad_experts(router, e_pad, dim=1),
+                    tuple(local), top_k, capacity_factor, e, shard,
+                    _data_index(rules))
+    if rules.model_axis:
+        y = C.all_reduce_sum(y, rules.model_axis, rules)
+    if not act.rows:                        # every shard's part, in order
+        y = C.all_gather(y, 0, rules.batch_axes, rules)
+    return y.reshape(b_l, act.s, d).narrow(1, act.start, act.length)
 
 
 def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
@@ -421,20 +667,33 @@ def sliding_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def moe_aux_loss(x: torch.Tensor, router: torch.Tensor,
-                 top_k: int) -> torch.Tensor:
+                 top_k: int, rules=None) -> torch.Tensor:
     """The Switch-style load-balancing loss of the reference: E times the
     sum over experts of (the share of rows routing to it in their top-k,
     over k) x (its mean router probability).  x (T, D); router (D, E).
     The top-k ties go to the lower expert id, as `lax.top_k` (and
-    `moe_route`).  Differentiable through the probabilities only."""
+    `moe_route`).  Differentiable through the probabilities only.  On a
+    training mesh (its `rules`) x is the rank's rows, and
+    both shares are means over all B*S rows: their sums all-reduced
+    (the probabilities' with its gradient) before the product, never a
+    sum of per-rank losses."""
     with true_f32():
         logits = matmul(x.float(), router.float())
     probs = torch.softmax(logits, dim=-1)
     e = probs.shape[-1]
     idx = torch.sort(probs, dim=-1, descending=True,
                      stable=True).indices[:, :top_k]
-    frac_tokens = F.one_hot(idx, e).float().sum(dim=-2).mean(dim=0)
-    frac_probs = probs.mean(dim=0)
+    counts = F.one_hot(idx, e).float().sum(dim=-2)
+    if rules is None:
+        frac_tokens = counts.mean(dim=0)
+        frac_probs = probs.mean(dim=0)
+    else:
+        # the means over every rank's rows, replicated rows counted on
+        # each replica in both the sums and the count
+        from repro_torch.core import collectives as C
+        n = x.shape[0] * rules.data_size() * rules.model_size()
+        frac_tokens = C.all_reduce_sum(counts.sum(dim=0), None, rules) / n
+        frac_probs = C.all_reduce_sum(probs.sum(dim=0), None, rules) / n
     return e * torch.sum(frac_tokens * frac_probs) / top_k
 
 
@@ -514,16 +773,22 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 def xent_loss_chunked(x: torch.Tensor, emb: torch.Tensor,
                       labels: torch.Tensor, *, chunk: int = 512,
-                      vocab: int = 0) -> torch.Tensor:
+                      vocab: int = 0, rules=None) -> torch.Tensor:
     """Cross-entropy against the tied embedding, the reference's: the
     (B, chunk, V) logits of one sequence chunk at a time, in x's dtype
     then f32, the padded rows past `vocab` masked out, and the mean over
     all B*S positions (the last label of each row, 0 in the data
     pipeline, counts like the others).  x (B, S, D); emb (V, D); labels
-    (B, S) int.  Returns the f32 scalar."""
+    (B, S) int.  Returns the f32 scalar.  On a training mesh (its
+    `rules`) x and labels are the rank's rows and span, the chunk
+    the largest divisor of the span not above `chunk`, and the total is
+    summed over the mesh and divided by the global B*S (each replica of
+    replicated rows counted in the sum and the count)."""
     b, s, _ = x.shape
     v = emb.shape[0]
     chunk = min(chunk, s)
+    if rules is not None:
+        chunk = math.gcd(chunk, s)
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of the chunk "
                          f"{chunk}")
@@ -538,4 +803,8 @@ def xent_loss_chunked(x: torch.Tensor, emb: torch.Tensor,
         gold = logits.gather(-1, labels[:, c0:c0 + chunk, None].long())
         total = total + torch.sum(torch.logsumexp(logits, dim=-1)
                                   - gold[..., 0])
+    if rules is not None:
+        from repro_torch.core import collectives as C
+        world = rules.data_size() * rules.model_size()
+        return C.all_reduce_sum(total, None, rules) / (b * s * world)
     return total / (b * s)

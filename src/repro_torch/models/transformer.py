@@ -41,6 +41,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch.core import collectives as C
 from repro_torch.core.backstream import (all_gather_model,
                                          cache_update_stacked,
                                          decode_attention_combined,
@@ -50,7 +51,7 @@ from repro_torch.kernels.quant import QTensor
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.quantize import matmul
-from repro_torch.sharding import active_rules
+from repro_torch.sharding import Act, Spec, active_rules, train_layout
 
 Params = Dict[str, Any]
 
@@ -361,15 +362,26 @@ def ffn_layer(cfg: ArchConfig, p: Params, x: torch.Tensor,
 
 
 def ffn_layer_aux(cfg: ArchConfig, p: Params, x: torch.Tensor,
-                  moe: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                  moe: bool, act: Optional[Act] = None,
+                  specs: Optional[Params] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training forward's FFN sublayer, the reference's `ffn_layer`:
     `ffn_layer`'s output and the MoE load-balancing loss of its B*S routed
-    rows (a zero f32 scalar for a dense FFN)."""
+    rows (a zero f32 scalar for a dense FFN).  On a mesh (`act`: x's
+    layout) an MoE FFN is `layers.moe_ffn_dist` on the expert stacks as
+    the rank stores them (under `specs`), and the loss is the global
+    one."""
     hx = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    aux = (L.moe_aux_loss(hx.reshape(-1, hx.shape[-1]), p["router"],
-                          cfg.top_k) if moe
-           else hx.new_zeros((), dtype=torch.float32))
-    return x + _ffn(cfg, p, hx, moe), aux
+    if not moe:
+        return (x + _ffn(cfg, p, hx, False),
+                hx.new_zeros((), dtype=torch.float32))
+    aux = L.moe_aux_loss(hx.reshape(-1, hx.shape[-1]), p["router"],
+                         cfg.top_k, _rules(act))
+    w_specs = None if specs is None else tuple(
+        specs[k] for k in ("w_gate", "w_up", "w_down"))
+    y = L.moe_ffn_dist(hx, p["router"], p["w_gate"], p["w_up"],
+                       p["w_down"], cfg.top_k, act=act, w_specs=w_specs)
+    return x + y, aux
 
 
 def _mamba_proj(cfg: ArchConfig, p: Params, x: torch.Tensor
@@ -406,25 +418,43 @@ AUX_LOSS_COEF = 0.01
 
 
 def attn_layer(cfg: ArchConfig, p: Params, x: torch.Tensor, kind: str,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor, act: Optional[Act] = None
+               ) -> torch.Tensor:
     """The training forward's attention sublayer with its residual: a
     "local" layer longer than its window on the banded
     `sliding_attention`, every other one causal `blocked_attention`, both
-    in full f32 as the reference's plain XLA."""
+    in full f32 as the reference's plain XLA.  On a mesh whose layout
+    `act` splits the sequence, x is the rank's span: its queries attend
+    the K/V gathered over the model axis, masked by global position
+    (causal, and the window of a "local" layer)."""
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, p, x, positions)
-    if kind == "local" and s > cfg.sliding_window:
+    if act is not None and act.seq:
+        k = C.all_gather(k, 1, act.seq, act.rules)
+        v = C.all_gather(v, 1, act.seq, act.rules)
+        window = (cfg.sliding_window
+                  if kind == "local" and act.s > cfg.sliding_window else 0)
+        o = L.blocked_attention(q, k, v, causal=True, q_offset=act.start,
+                                window=window)
+    elif kind == "local" and s > cfg.sliding_window:
         o = L.sliding_attention(q, k, v, window=cfg.sliding_window)
     else:
         o = L.blocked_attention(q, k, v, causal=True)
     return x + matmul(o.reshape(b, s, cfg.n_heads * cfg.head_dim_), p["wo"])
 
 
-def mamba_layer(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+def mamba_layer(cfg: ArchConfig, p: Params, x: torch.Tensor,
+                act: Optional[Act] = None) -> torch.Tensor:
     """The training forward's mamba sublayer: the conv over the whole
     sequence from a zero state and the chunked SSD scan
     (`layers.ssd_chunked`, plain torch: the reference's training path
-    reaches no kernel)."""
+    reaches no kernel).  On a mesh whose layout `act` splits the
+    sequence, the rank gathers the whole sequence of its rows, runs the
+    sublayer over it in order and keeps its span: n_model ranks repeat
+    one row's scan (a state pass between spans would not)."""
+    if act is not None and act.seq:
+        whole = mamba_layer(cfg, p, C.all_gather(x, 1, act.seq, act.rules))
+        return whole.narrow(1, act.start, act.length)
     b, s, _ = x.shape
     z, xin, Bm, Cm, dt_raw, A = _mamba_proj(cfg, p, x)
     xc, _ = L.causal_conv1d(xin, p["conv_w"])
@@ -465,22 +495,97 @@ def _embed(cfg: ArchConfig, params: Params,
     return params["embed"][batch["tokens"]]
 
 
+def layer_specs(stacked: Any) -> Any:
+    """The specs of one layer's leaves from a stacked tree's specs (the
+    leading n_blocks dim dropped; it is never split)."""
+    if isinstance(stacked, dict):
+        return {k: layer_specs(v) for k, v in stacked.items()}
+    if isinstance(stacked, Spec):
+        return Spec(*stacked[1:])
+    return type(stacked)(layer_specs(v) for v in stacked)
+
+
+def gathered(p: Params, specs: Optional[Params], act: Optional[Act],
+             keep: Tuple[str, ...] = ()) -> Params:
+    """A sublayer's weights gathered from the rank's shards (with their
+    gradients: a reduce-scatter in the backward), the leaves named in
+    `keep` left as stored (the MoE expert stacks, which `moe_ffn_dist`
+    gathers as its branch needs).  `specs` None: the weights as given."""
+    if specs is None:
+        return p
+    return {k: w if k in keep else C.gather(w, specs[k], rules=act.rules)
+            for k, w in p.items()}
+
+
+_EXPERTS = ("w_gate", "w_up", "w_down")
+
+
 def _block_fn(cfg: ArchConfig, x: torch.Tensor, block: List[Params],
-              positions: torch.Tensor
+              positions: torch.Tensor, act: Optional[Act] = None,
+              specs: Optional[List[Params]] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block of the pattern: each position's attention or mamba
-    sublayer, then its FFN.  Returns (x, the block's MoE aux loss)."""
+    sublayer, then its FFN.  Returns (x, the block's MoE aux loss).  On a
+    mesh (`act`, the rank's layer `specs`) each sublayer's weights are
+    gathered here, inside the recomputed block: its backward gathers
+    them again, and nothing gathered outlives the block."""
     aux = x.new_zeros((), dtype=torch.float32)
     for pos, kind in enumerate(cfg.block_pattern):
-        p = block[pos]
+        p, sp = block[pos], (specs[pos] if specs is not None else {})
         if kind == "mamba":
-            x = mamba_layer(cfg, p["mamba"], x)
+            x = mamba_layer(cfg, gathered(p["mamba"], sp.get("mamba"), act),
+                            x, act)
         else:
-            x = attn_layer(cfg, p["attn"], x, kind, positions)
+            x = attn_layer(cfg, gathered(p["attn"], sp.get("attn"), act),
+                           x, kind, positions, act)
         if cfg.d_ff > 0:
-            x, a = ffn_layer_aux(cfg, p["ffn"], x, _is_moe_pos(cfg, pos))
+            moe = _is_moe_pos(cfg, pos)
+            x, a = ffn_layer_aux(
+                cfg, gathered(p["ffn"], sp.get("ffn"), act,
+                              _EXPERTS if moe else ()),
+                x, moe, act, sp.get("ffn"))
             aux = aux + a
     return x, aux
+
+
+def _span(t: Optional[torch.Tensor], act: Optional[Act]
+          ) -> Optional[torch.Tensor]:
+    """The rank's span of a (B, S, ...) batch tensor."""
+    if t is None or act is None:
+        return t
+    return t.narrow(1, act.start, act.length)
+
+
+def _forward(cfg: ArchConfig, params: Params,
+             batch: Dict[str, torch.Tensor], remat: bool
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                        Optional[Act]]:
+    """`forward`, and the embedding table it used and the activations'
+    layout: on a training mesh (`sharding.train_layout()`) the rank's
+    rows and span, its `embed` gathered from the vocab shards."""
+    _check_supported(cfg)
+    layout = train_layout()
+    specs = act = None
+    emb = params["embed"]
+    if layout is not None:
+        specs = layout.params
+        act = layout.act(next(iter(batch.values())).shape[1])
+        batch = {k: _span(v, act) for k, v in batch.items()}
+        emb = C.gather(emb, specs["embed"], rules=layout.rules)
+    x = _embed(cfg, {"embed": emb}, batch)
+    b, s, _ = x.shape
+    positions = batch.get("positions")
+    if positions is None:
+        start = act.start if act is not None else 0
+        positions = torch.arange(start, start + s, dtype=torch.int32,
+                                 device=x.device)[None].expand(b, s)
+    block_specs = None if specs is None else layer_specs(specs["blocks"])
+    aux = x.new_zeros((), dtype=torch.float32)
+    for block in unstacked(params["blocks"], cfg.n_blocks):
+        x, a = run_block(_block_fn, remat, cfg, x, block, positions, act,
+                         block_specs)
+        aux = aux + a
+    return L.rms_norm(x, params["final_ln"], cfg.norm_eps), aux, emb, act
 
 
 def forward(cfg: ArchConfig, params: Params,
@@ -489,19 +594,12 @@ def forward(cfg: ArchConfig, params: Params,
     """The full-sequence forward: batch {"tokens" (B, S) | "embeds" (B, S,
     D), optional "positions" (B, S)}.  `remat` recomputes each block in
     the backward.  Returns (final hidden states (B, S, D), the total MoE
-    aux loss)."""
-    _check_supported(cfg)
-    x = _embed(cfg, params, batch)
-    b, s, _ = x.shape
-    positions = batch.get("positions")
-    if positions is None:
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=x.device)[None].expand(b, s)
-    aux = x.new_zeros((), dtype=torch.float32)
-    for block in unstacked(params["blocks"], cfg.n_blocks):
-        x, a = run_block(_block_fn, remat, cfg, x, block, positions)
-        aux = aux + a
-    return L.rms_norm(x, params["final_ln"], cfg.norm_eps), aux
+    aux loss).  On a training mesh (`sharding.train_layout()`): the
+    batch holds the rank's rows (`partition.batch_specs`), the
+    parameters its shards, and it returns its rows' span and the global
+    aux loss."""
+    x, aux, _, _ = _forward(cfg, params, batch, remat)
+    return x, aux
 
 
 def loss_fn(cfg: ArchConfig, params: Params,
@@ -509,11 +607,17 @@ def loss_fn(cfg: ArchConfig, params: Params,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The training loss: the chunked cross-entropy against the tied
     embedding on batch["labels"], plus AUX_LOSS_COEF x the MoE aux loss.
-    Returns (loss, {"ce", "aux"}), f32 scalars."""
-    x, aux = forward(cfg, params, batch)
-    ce = L.xent_loss_chunked(x, params["embed"], batch["labels"],
-                             vocab=cfg.vocab)
+    Returns (loss, {"ce", "aux"}), f32 scalars: on a training mesh the
+    global ones, the same on every rank."""
+    x, aux, emb, act = _forward(cfg, params, batch, True)
+    ce = L.xent_loss_chunked(x, emb, _span(batch["labels"], act),
+                             vocab=cfg.vocab, rules=_rules(act))
     return ce + AUX_LOSS_COEF * aux, {"ce": ce, "aux": aux}
+
+
+def _rules(act: Optional[Act]):
+    """The rules of a training mesh (None: one device)."""
+    return None if act is None else act.rules
 
 
 def logits_fn(cfg: ArchConfig, params: Params,

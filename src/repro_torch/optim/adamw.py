@@ -6,9 +6,12 @@ step, the f32 moments and the f32 master, from which each update casts
 the parameters back to their dtype (bf16 params, f32 master).  The
 schedule and the bias corrections are f32 tensors on the parameters'
 device, as the reference computes them under jit, so a step reads
-nothing back to the host.  `apply` updates the moments and the master IN
-PLACE (the port's idiom for state it owns, as the decode caches) and
-returns new parameter tensors.
+nothing back to the host.  `apply` updates the moments and the master
+IN PLACE (the port's idiom for state it owns, as the decode caches) and
+returns new parameter tensors.  On a training mesh every leaf is the
+rank's shard (`launch/partition.opt_state_specs`): the update is
+elementwise, and only the clipping norm crosses ranks
+(`global_norm(specs=)`).
 """
 from __future__ import annotations
 
@@ -66,21 +69,31 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def global_norm(grads: Any) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    return torch.sqrt(torch.sum(torch.stack(
-        [torch.sum(torch.square(g.float())) for g in tree.leaves(grads)])))
+def global_norm(grads: Any, specs: Any = None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares.
+    With `specs` (the gradients' spec tree, under the active mesh's
+    rules) each leaf is the rank's shard: its sum of squares is divided
+    by the number of ranks holding the same shard and summed over the
+    mesh, so each element of the global tree counts once."""
+    sums = [torch.sum(torch.square(g.float())) for g in tree.leaves(grads)]
+    if specs is None:
+        return torch.sqrt(torch.sum(torch.stack(sums)))
+    from repro_torch.core import collectives as C
+    sums = [s / C.replicas(sp) for s, sp in zip(sums, tree.leaves(specs))]
+    return torch.sqrt(C.all_reduce_sum(torch.sum(torch.stack(sums))))
 
 
 @torch.no_grad()
-def apply(cfg: AdamWConfig, params: Any, grads: Any, state: OptState
+def apply(cfg: AdamWConfig, params: Any, grads: Any, state: OptState,
+          specs: Any = None
           ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW update: the gradients clipped to `clip_norm` by their
     global norm, the bias-corrected step and the decoupled weight decay
     applied to the f32 master.  Returns (new params in each leaf's dtype,
     the state, {"grad_norm", "lr"}); `state`'s moments and master are
-    updated in place."""
-    gnorm = global_norm(grads)
+    updated in place.  `specs`: the leaves are a mesh rank's shards
+    under this spec tree (`global_norm`)."""
+    gnorm = global_norm(grads, specs)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     step = state.step + 1

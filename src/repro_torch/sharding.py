@@ -16,8 +16,9 @@ schedules of `core/backstream.py` move data between ranks themselves.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -25,7 +26,9 @@ import torch
 class Spec(tuple):
     """A partition spec: one entry a tensor dim, None (replicated), an
     axis name or a tuple of axis names (the dim split over their
-    product, the first axis major)."""
+    product, the first axis major).  A leaf of `repro_torch.tree`."""
+
+    tree_leaf = True
 
     def __new__(cls, *axes):
         return super().__new__(cls, axes)
@@ -123,11 +126,79 @@ def use_rules(rules: Optional[ShardingRules]) -> Iterator[None]:
         _state.rules = prev
 
 
+def seq_axis(rules: Optional[ShardingRules], s: int) -> Optional[str]:
+    """The axis a (B, S, D) training activation splits its sequence over,
+    the reference's `seq_shard_acts` rule for "batch": the model axis when
+    S % n_model == 0 and S >= n_model, else None (S replicated over
+    model)."""
+    if rules is None or not rules.seq_shard_acts or not rules.model_axis:
+        return None
+    n = rules.model_size()
+    return rules.model_axis if s % n == 0 and s >= n else None
+
+
+@dataclasses.dataclass(frozen=True)
+class Act:
+    """The layout of one global (B, S, D) training activation on a mesh:
+    the axes its rows split over (None: replicated, as the batch's
+    `partition.batch_specs` say), the axis its sequence splits over
+    (`seq_axis`; None: replicated), the global S and this rank's span of
+    it."""
+    rules: ShardingRules
+    rows: Optional[Tuple[str, ...]]
+    seq: Optional[str]
+    s: int
+    start: int
+    length: int
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainLayout:
+    """What the training step needs on a mesh: the rules, the parameters'
+    spec tree (`partition.param_specs`: each rank holds `local_shard` of
+    every leaf) and the batch's specs (`partition.batch_specs`).  The
+    loss functions read it (`train_layout()`) to take their rank's span,
+    to gather each block's weights and to reduce over the mesh."""
+    rules: ShardingRules
+    params: Any
+    batch: Dict[str, Spec]
+
+    def act(self, s: int) -> Act:
+        """The layout of a (B, S, D) activation of this batch's rows."""
+        spec = next(iter(self.batch.values()))
+        rows = spec[0] if spec else None
+        seq = seq_axis(self.rules, s)
+        length = s // self.rules.model_size() if seq else s
+        start = self.rules.rank(seq) * length if seq else 0
+        return Act(self.rules, rows, seq, s, start, length)
+
+    def world(self) -> int:
+        return self.rules.data_size() * self.rules.model_size()
+
+
+def train_layout() -> Optional[TrainLayout]:
+    return getattr(_state, "layout", None)
+
+
+@contextlib.contextmanager
+def use_train_layout(layout: Optional[TrainLayout]) -> Iterator[None]:
+    """The training layout (and its rules) for the block: both restored
+    on exit."""
+    prev = getattr(_state, "layout", None)
+    _state.layout = layout
+    try:
+        with use_rules(layout.rules if layout is not None
+                       else active_rules()):
+            yield
+    finally:
+        _state.layout = prev
+
+
 def constrain(x: torch.Tensor, kind: str) -> torch.Tensor:
     """The identity.  In the reference this pins a jit value's layout for
-    the compiler; here each rank holds plain local tensors, and what a
-    rank holds is decided where the tensor is made, so there is nothing
-    to pin.  `kind` is still checked against the reference's kinds."""
+    the compiler; here each rank holds plain local tensors, made where
+    the layout decides (`TrainLayout.act`), so there is nothing to pin.
+    `kind` is still checked against the reference's kinds."""
     if kind not in ("batch", "batch_seq", "attn_in", "kv", "logits"):
         raise ValueError(kind)
     return x

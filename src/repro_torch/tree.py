@@ -1,7 +1,8 @@
 """Nested containers of tensors (parameters, optimizer state, gradients,
 batches), walked in `jax.tree`'s leaf order: a dict's values by sorted
 key, a list's or tuple's (a NamedTuple's fields included) in order.
-None is an empty subtree; anything else is a leaf."""
+None is an empty subtree; anything else is a leaf, and so is a tuple
+whose class sets `tree_leaf` (a partition spec, `sharding.Spec`)."""
 from __future__ import annotations
 
 import itertools
@@ -10,6 +11,11 @@ from typing import Any, Callable, Iterator, List
 
 def _is_namedtuple(x: Any) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _container(x: Any) -> bool:
+    return isinstance(x, (list, tuple)) and not getattr(x, "tree_leaf",
+                                                        False)
 
 
 def leaves(tree: Any) -> List[Any]:
@@ -23,7 +29,7 @@ def _walk(tree: Any) -> Iterator[Any]:
     if isinstance(tree, dict):
         for key in sorted(tree):
             yield from _walk(tree[key])
-    elif isinstance(tree, (list, tuple)):
+    elif _container(tree):
         for sub in tree:
             yield from _walk(sub)
     else:
@@ -41,7 +47,7 @@ def map_leaves(fn: Callable, tree: Any, *rest: Any) -> Any:
     if _is_namedtuple(tree):
         return type(tree)(*(map_leaves(fn, v, *(r[i] for r in rest))
                             for i, v in enumerate(tree)))
-    if isinstance(tree, (list, tuple)):
+    if _container(tree):
         return type(tree)(map_leaves(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
     return fn(tree, *rest)
@@ -69,7 +75,7 @@ def _number(like: Any) -> Any:
             return {k: out[k] for k in tree}
         if _is_namedtuple(tree):
             return type(tree)(*(walk(v) for v in tree))
-        if isinstance(tree, (list, tuple)):
+        if _container(tree):
             return type(tree)(walk(v) for v in tree)
         return next(counter)
 

@@ -391,7 +391,8 @@ def test_knn_topk_matches_the_reference_with_ties():
 def test_production_mesh_cells():
     """mamba2_370m decode_32k on the 2x16x16 mesh (the reference's
     `test_production_mesh_cell_compiles`), one prefill row and one train
-    row, in a process of their own (the fake group is one a process)."""
+    row, all counted with their roofline, in a process of their own (the
+    fake group is one a process)."""
     code = (
         "import json;"
         "from repro_torch.launch.dryrun import run_cell;"
@@ -403,7 +404,7 @@ def test_production_mesh_cells():
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-2000:]
     dec, pre, train = json.loads(out.stdout.strip().splitlines()[-1])
-    for row in (dec, pre):
+    for row in (dec, pre, train):
         assert row["status"] == "ok", row
         assert row["mesh"] == "2x16x16" and row["roofline"]["chips"] == 512
         mem = row["memory"]
@@ -415,8 +416,15 @@ def test_production_mesh_cells():
     assert dec["roofline"]["coll_by_op"]["all-gather"] == \
         cfg.n_blocks * 15 * 4 * 2 * (2 * 64) * 2
     assert dec["roofline"]["dominant"] == "memory"
-    assert train["status"] == "not_ported"
-    assert train["reason"] == dryrun.TRAIN_REASON
+    # train: the step on rank 0's shards (mamba2_370m is under 5e9
+    # params: no FSDP), its weights gathered and their gradients
+    # reduce-scattered over the model axis, replicated leaves' gradients
+    # all-reduced over the data axes
+    assert train["fsdp"] is False
+    assert train["roofline"]["model_flops"] > 0
+    coll = train["roofline"]["coll_by_op"]
+    assert coll["all-gather"] > 0 and coll["reduce-scatter"] > 0
+    assert coll["all-reduce"] > 0
 
 
 # --------------------------------------------------------------------------
