@@ -31,14 +31,16 @@ id), half greedy, one of those with stop tokens: seg_len 8 == per-token
 == each request alone, the greedy rows == the greedy serve's, and the
 sampling epilogue's device time at B = 4 over the padded vocabulary.
 The `[spec]` lines serve by speculative draft-and-verify (spec_k 3, a
-segment of 8 rounds): the 8 starcoder2_3b requests with the self:7 draft
-(tokens == the `[serve]` greedy tokens bitwise, graph == eager with the
-draft cache too, fused decode launches == rounds x 4 x (7 + 30)), a
-full-depth self:30 draft (accept rate exactly 1, more tokens a sync),
-the `[sampling]` requests (budgets and stops, 8 rounds == 1 round a
-segment == alone, greedy rows == the greedy spec serve's), q8_0 + int8
-KV (every draft and verify product on the skinny route) and mamba2_370m
-with the self:12 draft (tokens == its `[serve]` tokens).
+segment of 8 rounds), starcoder2_3b on its first 8 of 30 layers (views
+of the `[serve]` weights): the 8 `[serve]` requests with the self:2
+draft (tokens == the non-spec serve's at the verify's row count
+bitwise, graph == eager with the draft cache too, fused decode launches
+== rounds x 4 x (2 + 8)), the whole-target self:8 draft (accept rate
+exactly 1, more tokens a sync), the `[sampling]` requests (budgets and
+stops, 8 rounds == 1 round a segment == alone, greedy rows == the greedy
+spec serve's); then at full depth q8_0 + int8 KV (every draft and verify
+product on the skinny route) and mamba2_370m with the self:12 draft
+(tokens == its `[serve]` tokens).
 The `[archs]` lines serve the other dense attention archs at full width,
 each model freed before the next: gemma3_12b (five sliding-window layers
 of 1024 to one full layer, head dim 256 on the tensor-core kernels) on 8
@@ -89,7 +91,7 @@ with tok/s, the decode step's device ms and kernels, its bound (decoder
 weights, cross-K/V and self-K/V bytes), one admission's ms and device
 busy share, and peak memory.  Its `[kernel]` rows hold the cross read at
 whisper's shapes (dense S 1500, clips of 1, 600, 1499 and 1500 frames:
-60 splits of 25 rows) fused and partial, and the MHA hd 64 prefill, each
+12 splits of 125 rows) fused and partial, and the MHA hd 64 prefill, each
 against its plain version, beside SDPA.
 The `[tier]` lines serve through the host tier and the prefix cache at
 full width, each run against a non-evicting (or no-cache) twin of the
@@ -332,6 +334,15 @@ LOGIT_ATOL_F32 = 1e-2
 NEAR_TIE = 0.1
 
 
+PHASE_T = []                      # (section, its start)
+
+
+def phase(section: str) -> None:
+    """Section `section` starts here; the seconds of each are printed at
+    the end."""
+    PHASE_T.append((section, time.perf_counter()))
+
+
 def fail(msg: str) -> None:
     print(f"FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -408,15 +419,16 @@ def time_ms(fn, iters: int = 20) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int = 20, attempts: int = 5):
-    """Device time of one call: every kernel, memset and copy it runs, from
-    torch.profiler over `iters` back-to-back calls (warm L2), divided by
-    `iters`; no host time in it, where time_ms's events also see the
-    host's launch when it is slower than the device.  The profiler now and
-    then drops part of a window, or all of it: a window is kept only when
-    every kernel in it ran a whole multiple of `iters` times (each call
-    launches the same kernels), else it is taken again, up to `attempts`
-    times, and None ("not measured") is returned if none was whole."""
+def device_by_name(fn, iters: int = 20, attempts: int = 5):
+    """Device time of one call by kernel name: every kernel, memset and
+    copy it runs, from torch.profiler over `iters` back-to-back calls
+    (warm L2), divided by `iters`; no host time in it, where time_ms's
+    events also see the host's launch when it is slower than the device.
+    The profiler now and then drops part of a window, or all of it: a
+    window is kept only when every kernel in it ran a whole multiple of
+    `iters` times (each call launches the same kernels), else it is taken
+    again, up to `attempts` times, and None ("not measured") is returned
+    if none was whole."""
     fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
@@ -429,8 +441,29 @@ def device_ms(fn, iters: int = 20, attempts: int = 5):
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         total_us = sum(e.self_device_time_total for e in events)
         if total_us > 0 and all(e.count % iters == 0 for e in events):
-            return total_us / iters / 1e3
+            return {e.key: e.self_device_time_total / iters / 1e3
+                    for e in events}
     return None
+
+
+def device_ms(fn, iters: int = 20, attempts: int = 5):
+    """`device_by_name`'s times summed: the device time of one call."""
+    parts = device_by_name(fn, iters, attempts)
+    return None if parts is None else sum(parts.values())
+
+
+def split_parts(fn, split, n_split):
+    """One decode call's device time by kernel and its plan, for a
+    `[kernel]` row: the split kernel and the merge kernel."""
+    parts = device_by_name(fn)
+    if parts is None:
+        return f"parts not measured; {n_split} splits of {split} rows"
+    got = {k: sum(t for n, t in parts.items() if k in n.lower())
+           for k in ("decode_split", "decode_merge")}
+    return (f"split kernel {got['decode_split']:.4f} ms + merge kernel "
+            f"{got['decode_merge']:.4f} ms; plan {n_split} splits a row of "
+            f"{split} rows, {-(-split // fa.DECODE_TILE)} tile(s) of "
+            f"{fa.DECODE_TILE} a split")
 
 
 def show(x, spec: str = ".4f") -> str:
@@ -574,6 +607,8 @@ def nbytes(*ts) -> int:
 # 1. device
 # --------------------------------------------------------------------------
 
+phase("1")
+
 smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                       "--format=csv,noheader"], capture_output=True,
                      text=True, timeout=60)
@@ -589,6 +624,8 @@ print(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}"
 # --------------------------------------------------------------------------
 # 2. build
 # --------------------------------------------------------------------------
+
+phase("2")
 
 t0 = time.perf_counter()
 lib = kbuild.build()
@@ -664,6 +701,8 @@ def dry_meta() -> dict:
 # --------------------------------------------------------------------------
 # 3. kernels against their plain versions, at main-path shapes
 # --------------------------------------------------------------------------
+
+phase("3")
 
 cfg = get_config(ARCH)
 B, H, KH, HD = 4, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
@@ -757,7 +796,7 @@ records["decode_attention_fused"] = dict(
             q.transpose(1, 2), k_gath, v_gath, attn_mask=sdpa_mask,
             enable_gqa=True)))
 rec = records["decode_attention_fused"]
-split, n_split = fa.decode_split(S, PAGE)
+split, n_split = fa.decode_split(S, PAGE, HD)
 print(f"[kernel] decode_attention_fused B={B} H={H} KH={KH} hd={HD} S={S} "
       f"page={PAGE} permuted table, pos={pos.tolist()}, window 0 and 300, "
       f"extra on/off: max_abs_err {worst:.3g} <= {ATOL_BF16}; paged == dense "
@@ -1257,6 +1296,8 @@ del qx, kx, vx, k8x, v8x, q_g, k_g, v_g, full, raw
 # ones in f32
 # --------------------------------------------------------------------------
 
+phase("3a")
+
 W_S, W_PAGE, W_WIN = 2048, 128, 1024
 W_POS = [300, 1023, 1024, 2047]
 
@@ -1445,7 +1486,10 @@ def attention_at(label, h, kh, hd, served, window=W_WIN):
                 page_size=W_PAGE),
             sdpa_decode))
     backend = sdpa_backend(sdpa_decode)
-    split, n_split = fa.decode_split(W_S, W_PAGE)
+    split, n_split = fa.decode_split(W_S, W_PAGE, hd)
+    fused_parts = split_parts(lambda: fa.decode_attention_fused(
+        q, k_pool, v_pool, pos_w, ex, window=win, blk_c=W_PAGE, pages=table),
+        split, n_split)
     q32, kl32, vl32, kp32, vp32 = (t.float() for t in (q, k_log, v_log,
                                                        k_pool, v_pool))
     (out32, dense32), var32 = on_cuda_cores(
@@ -1474,8 +1518,9 @@ def attention_at(label, h, kh, hd, served, window=W_WIN):
           f"SDPA's {show(rec['library_device_ms'])} ms on its {backend[0]} "
           f"backend ({backend[1]}): "
           f"{show(div(rec['device_ms'], rec['library_device_ms']), '.2f')}x "
-          f"it; f32 copies on the CUDA-core split: max_abs_err {err32:.3g} "
-          f"<= 1e-5, paged == dense bitwise, launches {var32}", flush=True)
+          f"it; {fused_parts}; f32 copies on the CUDA-core split: "
+          f"max_abs_err {err32:.3g} <= 1e-5, paged == dense bitwise, "
+          f"launches {var32}", flush=True)
 
     # int8 pools of the same data (quantization is page-local: the
     # physical pool's quants and scales are the logical ones, permuted)
@@ -1521,6 +1566,9 @@ def attention_at(label, h, kh, hd, served, window=W_WIN):
             lambda: ref.decode_fused_reference(
                 q, k8p, v8p, pos_w, ex, window=win, pages=table,
                 page_size=W_PAGE, kv_scales=(ksp, vsp))))
+    int8_parts = split_parts(lambda: fa.decode_attention_fused(
+        q, k8p, v8p, pos_w, ex, window=win, blk_c=W_PAGE, pages=table,
+        kv_scales=(ksp, vsp)), split, n_split)
     q32 = q.float()
     got32, var32 = on_cuda_cores(
         f"decode_attention_fused[int8]{tag}",
@@ -1537,9 +1585,10 @@ def attention_at(label, h, kh, hd, served, window=W_WIN):
           f"each row alone == its row in the batch bitwise; launches "
           f"{variants8} (the {droute} split); {rec8['ms']:.4f} ms, bound "
           f"{bnd8:.6f} ms ({by8}), plain {rec8['plain_ms']:.4f} ms, device "
-          f"{show(rec8['device_ms'])} ms; no library call (int8 pages with "
-          f"scales); f32 q on the CUDA-core split: max_abs_err {err32:.3g} "
-          f"<= 1e-5, launches {var32}; {serving('int8')}", flush=True)
+          f"{show(rec8['device_ms'])} ms ({int8_parts}); no library call "
+          f"(int8 pages with scales); f32 q on the CUDA-core split: "
+          f"max_abs_err {err32:.3g} <= 1e-5, launches {var32}; "
+          f"{serving('int8')}", flush=True)
 
     # partial: one chunk over the cache, the window's mask, row 1 empty
     pvalid = valid.clone()
@@ -1569,6 +1618,9 @@ def attention_at(label, h, kh, hd, served, window=W_WIN):
                                                       pvalid),
                   lambda: ref.decode_partial_reference(q, k_log, v_log,
                                                        pvalid)))
+    part_parts = split_parts(
+        lambda: fa.decode_attention_partial(q, k_log, v_log, pvalid),
+        *fa.decode_split(W_S, fa.PARTIAL_CHUNK, hd))
     kl32, vl32 = k_log.float(), v_log.float()
     got32, var32 = on_cuda_cores(
         f"decode_attention_partial{tag}",
@@ -1582,9 +1634,10 @@ def attention_at(label, h, kh, hd, served, window=W_WIN):
           f"+ 1e-4|plain|); empty row m=-inf; each row alone == its row in "
           f"the batch bitwise; launches {variantsp} (the {droute} split); "
           f"{recp['ms']:.4f} ms, bound {bndp:.6f} ms ({byp}), plain "
-          f"{recp['plain_ms']:.4f} ms, device {show(recp['device_ms'])} ms; "
-          f"no library call; f32 copies on the CUDA-core split: max_abs_err "
-          f"{err32:.3g}, launches {var32}; {serving('partial')}", flush=True)
+          f"{recp['plain_ms']:.4f} ms, device {show(recp['device_ms'])} ms "
+          f"({part_parts}); no library call; f32 copies on the CUDA-core "
+          f"split: max_abs_err {err32:.3g}, launches {var32}; "
+          f"{serving('partial')}", flush=True)
     return out
 
 
@@ -1941,6 +1994,8 @@ del flat_idx, offsets, flat_w
 # 3b. the paper's offload workloads through stream_offload
 # --------------------------------------------------------------------------
 
+phase("3b")
+
 PROTOCOLS = (OffloadProtocol.BS, OffloadProtocol.RP, OffloadProtocol.AXLE)
 
 
@@ -2107,6 +2162,8 @@ print("[example] python -m repro_torch.examples.knn_offload: "
 # --------------------------------------------------------------------------
 # 4. serve: the starcoder2_3b path at full width
 # --------------------------------------------------------------------------
+
+phase("4")
 
 rng = np.random.default_rng(0)
 
@@ -2392,6 +2449,8 @@ streamed = streamed_equals_per_token(ARCH, params, pair)
 # 5. reference check at full width
 # --------------------------------------------------------------------------
 
+phase("5")
+
 
 def logits_along(prompts, steps, reference, arch_cfg=cfg, weights=None,
                  kv_quant=None, feed=None, max_seq=S, frames=None):
@@ -2546,19 +2605,21 @@ print(f"[reference] protocol rp, same 2 requests: launches {rp_launches}; "
 # 5a. sampling: the same 8 requests, half sampled, one greedy with stops
 # --------------------------------------------------------------------------
 
+phase("5a")
+
 SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
 # request 1 (greedy) stops at the EOS id or at the 10th token of its
 # greedy stream, whichever it emits first: the stop fires on the card
 STOPS = (cfg.eos_token, axle_toks[1][9])
 
 
-def sampled_requests():
+def sampled_requests(stops=STOPS):
     out = []
     for r in main_reqs:
         if r.rid % 2 == 0:
             sp = SamplingParams(seed=1000 + r.rid, **SAMPLED)
         else:
-            sp = SamplingParams(stop_tokens=STOPS if r.rid == 1 else ())
+            sp = SamplingParams(stop_tokens=stops if r.rid == 1 else ())
         out.append(Request(r.rid, r.prompt, r.max_new, sampling=sp))
     return out
 
@@ -2663,6 +2724,8 @@ print(f"[sampling] {ARCH} full width, 8 requests (4 sampled T "
 # 5c. speculative decoding: the [serve] and [sampling] requests again
 # --------------------------------------------------------------------------
 
+phase("5c")
+
 SPEC_K = 3
 SPEC = dict(spec=True, spec_k=SPEC_K)
 
@@ -2709,107 +2772,126 @@ def spec_line(label, srv, toks, dt, base_tps, base_dt=None):
     return rate, tps
 
 
+# the starcoder2_3b spec serves run its first 8 of 30 layers, views of the
+# [serve] weights, with the self:2 draft and the whole-target self:8: the
+# routes and widths of the full depth at about a quarter of its time; each
+# is held to the non-spec serves of the same 8 layers
+SC8 = dataclasses.replace(cfg, arch_id=f"{ARCH}_first8", n_layers=8)
+SC = dict(params=self_draft_params(cfg, params, SC8.n_layers), cfg=SC8)
+SC_LOGITS = dict(arch_cfg=SC8, weights=SC["params"])
+SC_DRAFT = "self:2"
+b8_srv, b8_toks, _, b8_dt = serve(copies(main_reqs), protocol="axle",
+                                  stream=True, **SC)
+b8_tps = sum(len(t) for t in b8_toks.values()) / b8_srv.decode_syncs
+del b8_srv
+_, p8_toks, _, _ = serve(copies(pair), protocol="axle", stream=True, **SC)
 torch.cuda.reset_peak_memory_stats()
 sp_srv, sp_toks, sp_launches, sp_dt = serve(
-    copies(main_reqs), params=params, protocol="axle", stream=True,
-    draft_arch="self:7", **SPEC)
+    copies(main_reqs), protocol="axle", stream=True, draft_arch=SC_DRAFT,
+    **SC, **SPEC)
 d_layers = sp_srv.draft_cfg.n_layers
 rounds = spec_rounds(sp_srv)
 check(rounds == sp_srv.segments_dispatched * sp_srv.seg_len,
       f"[spec] {rounds} rounds in {sp_srv.segments_dispatched} segments")
 check(sp_launches["decode_attention_fused"]
-      == rounds * (SPEC_K + 1) * (d_layers + n_layers)
+      == rounds * (SPEC_K + 1) * (d_layers + SC8.n_layers)
       and sp_launches["decode_attention_fused_tc"]
       == sp_launches["decode_attention_fused"],
       f"[spec] fused launches {sp_launches} != {rounds} rounds x "
-      f"{SPEC_K + 1} x ({d_layers} + {n_layers}), all on the tensor-core "
-      "split")
+      f"{SPEC_K + 1} x ({d_layers} + {SC8.n_layers}), all on the "
+      "tensor-core split")
 check(sp_launches["flash_attention"]
-      == sp_srv.prefill_forwards * (n_layers + d_layers)
+      == sp_srv.prefill_forwards * (SC8.n_layers + d_layers)
       and sp_launches["flash_attention_tc"] == sp_launches["flash_attention"],
       f"[spec] flash launches {sp_launches} != {sp_srv.prefill_forwards} x "
-      f"({n_layers} + {d_layers}), all on the tensor-core kernel")
+      f"({SC8.n_layers} + {d_layers}), all on the tensor-core kernel")
 spec_rate, spec_tps = spec_line(
-    f"{ARCH} fp, axle, draft self:7, spec_k {SPEC_K}, the 8 [serve] "
-    "requests, seg_len 8 rounds", sp_srv, sp_toks, sp_dt,
-    sum(len(t) for t in axle_toks.values()) / main_syncs, main_dt)
+    f"{ARCH} fp (its first {SC8.n_layers} layers), axle, draft "
+    f"{SC_DRAFT}, spec_k {SPEC_K}, the 8 [serve] requests, seg_len 8 "
+    "rounds", sp_srv, sp_toks, sp_dt, b8_tps, b8_dt)
 print(f"[spec] {ARCH}: fused decode launches {sp_launches['decode_attention_fused']} = {rounds} "
-      f"rounds x {SPEC_K + 1} x ({d_layers} draft + {n_layers} verify "
+      f"rounds x {SPEC_K + 1} x ({d_layers} draft + {SC8.n_layers} verify "
       f"layers); flash {sp_launches['flash_attention']} = "
-      f"{sp_srv.prefill_forwards} prefills x ({n_layers} + {d_layers}); "
+      f"{sp_srv.prefill_forwards} prefills x ({SC8.n_layers} + {d_layers}); "
       f"launches {sp_launches}", flush=True)
-replay_profile(sp_srv, f"{ARCH} fp, axle, spec self:7")
+replay_profile(sp_srv, f"{ARCH} fp, first {SC8.n_layers} layers, axle, "
+               f"spec {SC_DRAFT}")
 del sp_srv
 # the verify's products run over 4 x (k + 1) rows, a decode step's over 4:
 # cuBLAS picks its kernel by the row count, so a greedy spec stream equals
 # the non-spec one bitwise only with the decode padded to the verify's
-# rows, and the [serve] stream up to partings at near ties (gated, printed)
-check(sp_toks == padded_twin(main_reqs, params=params, protocol="axle",
-                             stream=True),
+# rows, and the plain non-spec stream up to partings at near ties (gated,
+# printed)
+check(sp_toks == padded_twin(main_reqs, protocol="axle", stream=True,
+                             **SC),
       "[spec] greedy spec tokens != the non-spec serve's at the verify's "
       "row count")
 print(f"[spec] {ARCH}: tokens == the non-spec serve's at the verify's row "
       "count, bitwise, and "
-      + near_tie_agrees("[spec] greedy spec vs the [serve] greedy tokens",
-                        sp_toks, axle_toks, main_reqs)
-      + " the [serve] greedy tokens", flush=True)
-# graph == eager on the 2 short requests: an eager round launches ~10,000
-# kernels from the host
+      + near_tie_agrees("[spec] greedy spec vs the non-spec greedy tokens",
+                        sp_toks, b8_toks, main_reqs, **SC_LOGITS)
+      + " the non-spec greedy tokens", flush=True)
+# graph == eager on the 2 short requests: an eager round launches
+# thousands of kernels from the host
 g_srv, g_toks, g_launches, g_dt = serve(
-    copies(pair), params=params, protocol="axle", stream=True,
-    draft_arch="self:7", **SPEC)
+    copies(pair), protocol="axle", stream=True, draft_arch=SC_DRAFT, **SC,
+    **SPEC)
 g_agree = near_tie_agrees("[spec] 2 requests, spec vs non-spec", g_toks,
-                          streamed, pair)
-graph_equals_eager(f"{ARCH} fp, axle, spec self:7", g_srv, g_toks,
-                   g_launches, g_dt, pair, protocol="axle", stream=True,
-                   draft_arch="self:7", **SPEC)
+                          p8_toks, pair, **SC_LOGITS)
+graph_equals_eager(f"{ARCH} fp, first {SC8.n_layers} layers, axle, spec "
+                   f"{SC_DRAFT}", g_srv, g_toks, g_launches, g_dt, pair,
+                   protocol="axle", stream=True, draft_arch=SC_DRAFT,
+                   cfg=SC8, **SPEC)
 print(f"[spec] {ARCH} fp, the 2 requests: spec tokens {g_agree} non-spec; "
       f"profile, padded twin and graph == eager phase {lap():.1f} s", flush=True)
 del g_srv
 
-# the full-depth self-draft computes what the target does (its steps run
-# padded to the verify's rows): every greedy draft is accepted; budgets
-# of 1 + 12 rounds x (k + 1) tokens, so a row dies inside its second
-# segment, where non-spec takes six
+# the whole-target self-draft computes what the target does (its steps
+# run padded to the verify's rows): every greedy draft is accepted;
+# budgets of 1 + 12 rounds x (k + 1) tokens, so a row dies inside its
+# second segment, where non-spec takes six
 spec_rng = np.random.default_rng(1)       # the later phases keep `rng`
 full_reqs = [Request(i, spec_rng.integers(1, cfg.vocab, int(
     spec_rng.integers(64, 201))).astype(np.int32), 1 + 12 * (SPEC_K + 1))
     for i in range(2)]
-b_srv, b_toks, _, _ = serve(copies(full_reqs), params=params,
-                            protocol="axle", stream=True)
+b_srv, b_toks, _, _ = serve(copies(full_reqs), protocol="axle", stream=True,
+                            **SC)
 base_tps = b_srv.tokens_emitted / b_srv.decode_syncs
 del b_srv
-f_srv, f_toks, _, f_dt = serve(copies(full_reqs), params=params,
-                               protocol="axle", stream=True,
-                               draft_arch=f"self:{n_layers}", **SPEC)
+f_srv, f_toks, _, f_dt = serve(copies(full_reqs), protocol="axle",
+                               stream=True, draft_arch=f"self:{SC8.n_layers}",
+                               **SC, **SPEC)
 f_agree = near_tie_agrees("[spec] full-depth draft vs non-spec", f_toks,
-                          b_toks, full_reqs)
+                          b_toks, full_reqs, **SC_LOGITS)
 check(f_srv.draft_accepted == f_srv.draft_proposed > 0,
       f"[spec] full-depth draft: accepted {f_srv.draft_accepted} of "
       f"{f_srv.draft_proposed}")
 check(f_srv.tokens_emitted / f_srv.decode_syncs > base_tps,
       "[spec] full-depth draft: tokens per sync not above non-spec")
-spec_line(f"{ARCH} fp, draft self:{n_layers} (the whole target), 2 "
-          f"requests x {full_reqs[0].max_new} tokens, tokens {f_agree} "
-          "non-spec", f_srv, f_toks, f_dt, base_tps)
+spec_line(f"{ARCH} fp (its first {SC8.n_layers} layers), draft "
+          f"self:{SC8.n_layers} (the whole target), 2 requests x "
+          f"{full_reqs[0].max_new} tokens, tokens {f_agree} non-spec", f_srv,
+          f_toks, f_dt, base_tps)
 del f_srv
 
-# sampled: the [sampling] request set under speculation
-ss_srv, ss_toks, _, ss_dt = serve(sampled_requests(), params=params,
+# sampled: the [sampling] request set under speculation, request 1
+# stopping at the EOS id or the 10th token of its greedy spec stream
+SC_STOPS = (cfg.eos_token, sp_toks[1][9])
+_, s8_toks, _, _ = serve(sampled_requests(SC_STOPS), protocol="axle",
+                         stream=True, **SC)
+ss_srv, ss_toks, _, ss_dt = serve(sampled_requests(SC_STOPS),
                                   protocol="axle", stream=True,
-                                  draft_arch="self:7", **SPEC)
+                                  draft_arch=SC_DRAFT, **SC, **SPEC)
 ss_rate = ss_srv.draft_accepted / max(1, ss_srv.draft_proposed)
 del ss_srv
-_, ss_rounds1, _, _ = serve(sampled_requests(), params=params,
-                            protocol="axle", stream=False,
-                            draft_arch="self:7", **SPEC)
+_, ss_rounds1, _, _ = serve(sampled_requests(SC_STOPS), protocol="axle",
+                            stream=False, draft_arch=SC_DRAFT, **SC, **SPEC)
 check(ss_rounds1 == ss_toks, "[spec] sampled: seg_len 8 != 1 round a "
       "segment")
 alone_srv = BatchedServer(ARCH, smoke=False, device="cuda", batch_slots=4,
-                          max_seq=S, seg_len=8, params=params,
-                          protocol="axle", stream=True, draft_arch="self:7",
-                          **SPEC)
-for r in sampled_requests()[:2]:      # one sampled, one greedy with stops
+                          max_seq=S, seg_len=8, protocol="axle", stream=True,
+                          draft_arch=SC_DRAFT, **SC, **SPEC)
+for r in sampled_requests(SC_STOPS)[:2]:   # one sampled, one greedy, stops
     alone_srv.submit(r)
     alone_srv.run_until_drained()
 alone = {r.rid: r.generated for r in alone_srv.completed}
@@ -2821,7 +2903,7 @@ check(alone == {rid: ss_toks[rid] for rid in alone}, "[spec] sampled: a "
 for rid, toks in ss_toks.items():
     check(all(0 <= t < cfg.vocab for t in toks), "[spec] id >= vocab")
     if rid == 1:
-        check(toks[-1] in STOPS and toks == sp_toks[1][:len(toks)],
+        check(toks[-1] in SC_STOPS and toks == sp_toks[1][:len(toks)],
               f"[spec] request 1 did not stop as its greedy stream says: "
               f"{toks}")
     elif rid % 2:
@@ -2830,22 +2912,25 @@ for rid, toks in ss_toks.items():
               "spec serve's")
     else:
         check(len(toks) == 64, f"[spec] request {rid}: short stream")
-print(f"[spec] {ARCH} sampled, the 8 [sampling] requests, draft self:7: "
+print(f"[spec] {ARCH} sampled (its first {SC8.n_layers} layers), the 8 "
+      f"[sampling] requests, draft {SC_DRAFT}: "
       f"{sum(len(t) for t in ss_toks.values())} tokens in {ss_dt:.3f} s; "
       f"accept rate {ss_rate:.4f}; seg_len 8 == 1 round a segment, and "
       "requests 0 (sampled) and 1 (greedy, stops) alone == in the batch, "
       "bitwise; budgets and stops hold (request 1 stopped "
       f"at token {len(ss_toks[1])}); greedy rows == the greedy spec "
-      f"serve's; {sum(ss_toks[r] != s_toks[r] for r in ss_toks if r % 2 == 0)}"
+      f"serve's; {sum(ss_toks[r] != s8_toks[r] for r in ss_toks if r % 2 == 0)}"
       " of 4 sampled streams differ from the non-spec sampled serve's "
       "(spec draws once a round, non-spec once a token); phase "
       f"{lap():.1f} s, {time.perf_counter() - T_START:.0f} s into the "
       "script", flush=True)
-del params
+del params, SC, SC_LOGITS
 
 # --------------------------------------------------------------------------
 # 5b. serve: the quantized starcoder2_3b path at full width
 # --------------------------------------------------------------------------
+
+phase("5b")
 
 Q8_INT8 = QuantConfig(weights="q8_0", kv="int8")
 n_proj = 7                   # wq wk wv wo w_gate w_up w_down in every layer
@@ -3066,6 +3151,8 @@ print(f"[serve] {ARCH} full width, axle, q4_k weights + int8 KV, 2 requests "
 # [tier] and [chunked] phases serve all 48)
 # --------------------------------------------------------------------------
 
+phase("6")
+
 mcfg6 = dataclasses.replace(mcfg, arch_id=f"{MAMBA}_first24", n_layers=24)
 M6 = dict(arch=MAMBA, cfg=mcfg6)
 M6_LABEL = f"{MAMBA} (its first 24 of 48 layers)"
@@ -3171,6 +3258,8 @@ kernels_against_plain(f"{M6_LABEL} in f32 arithmetic", mprompts,
 # example, opt_2_7b, minitron_4b, qwen2_vl_2b; each phase frees its model
 # before the next
 # --------------------------------------------------------------------------
+
+phase("6b")
 
 ARCHS_T0 = time.perf_counter()
 
@@ -3465,6 +3554,8 @@ print(f"[archs] the five archs took {time.perf_counter() - ARCHS_T0:.1f} s; "
 # is plain XLA: its dispatch multiplies every expert over its capacity
 # slots, so a decode step reads every expert's weights
 # --------------------------------------------------------------------------
+
+phase("6c")
 
 MOE_T0 = time.perf_counter()
 # what the earlier phases still hold (mamba2_370m's weights, the KNN
@@ -3799,6 +3890,8 @@ print(f"[moe] the three archs took {time.perf_counter() - MOE_T0:.1f} s; "
 # frames.  First the attention kernels at its shapes
 # --------------------------------------------------------------------------
 
+phase("6d")
+
 ENCDEC_T0 = time.perf_counter()
 WHISPER = "whisper_large_v3"
 wcfg = get_config(WHISPER)
@@ -3811,13 +3904,14 @@ E_POS = [0, 599, 1498, 1499]     # the last frames of clips of 1, 600,
 # decode_attention_fused[enc1500]: a decode step's cross read, q (4, 1, 20,
 # 64) against the dense cross-K/V (4, 20, 1500, 64), each row up to its
 # clip's last frame, no extra, no pages, as `decode_attention_combined(...,
-# n_chunks=1)` calls it (blk_c 128 -> a dense chunk of 125, splits of 25)
+# n_chunks=1)` calls it (blk_c 128 -> a dense chunk of 125, at hd 64 one
+# split a chunk: 12 of 125 rows, each walked in tiles of 64 and 61)
 q = randn(B, 1, WH, WHD)
 k_enc, v_enc = randn(B, WKH, WE, WHD), randn(B, WKH, WE, WHD)
 pos_e = torch.tensor(E_POS, dtype=torch.int32, device=DEV)
 blk = fa.dense_chunk(WE, 128)
-split, n_split = fa.decode_split(WE, blk)
-check((blk, split, n_split) == (125, 25, 60),
+split, n_split = fa.decode_split(WE, blk, WHD)
+check((blk, split, n_split) == (125, 125, 12),
       f"[kernel] enc1500: chunk {blk}, splits {n_split} of {split}")
 kbuild.reset_launch_counts()
 got = fa.decode_attention_fused(q, k_enc, v_enc, pos_e, blk_c=128)
@@ -3876,6 +3970,8 @@ rec = records["decode_attention_fused[enc1500]"] = dict(
               lambda: ref.decode_fused_reference(q, k_enc, v_enc, pos_e),
               sdpa_cross))
 backend = sdpa_backend(sdpa_cross)
+enc_parts = split_parts(lambda: fa.decode_attention_fused(
+    q, k_enc, v_enc, pos_e, blk_c=128), split, n_split)
 q32, k32, v32 = q.float(), k_enc.float(), v_enc.float()
 got32, var32 = on_cuda_cores(
     "decode_attention_fused[enc1500]",
@@ -3901,9 +3997,9 @@ print(f"[kernel] decode_attention_fused[enc1500] {WHISPER} cross-attention: "
       f"({show(div(bnd, rec['device_ms']), '.2f')} of the bound), SDPA's "
       f"{show(rec['library_device_ms'])} ms on its {backend[0]} backend "
       f"({backend[1]}): "
-      f"{show(div(rec['device_ms'], rec['library_device_ms']), '.2f')}x it; "
-      f"f32 copies on the CUDA-core split: max_abs_err {err32:.3g} <= 1e-5, "
-      f"launches {var32}", flush=True)
+      f"{show(div(rec['device_ms'], rec['library_device_ms']), '.2f')}x it "
+      f"({enc_parts}); f32 copies on the CUDA-core split: max_abs_err "
+      f"{err32:.3g} <= 1e-5, launches {var32}", flush=True)
 
 # decode_attention_partial[enc1500]: the rp schedule's one chunk over the
 # whole encoder output (n_chunks=1), its (B, C) mask from enc_pos
@@ -3917,7 +4013,7 @@ errp = partial_err(part, ref.decode_partial_reference(q, k_enc, v_enc,
 check(variants == {"decode_attention_partial": 1,
                    "decode_attention_partial_tc": 1},
       f"decode_attention_partial[enc1500]: launches {variants}")
-p_split, p_n = fa.decode_split(WE, 64)
+p_split, p_n = fa.decode_split(WE, fa.PARTIAL_CHUNK, WHD)
 plain_p = ref.decode_partial_reference(q, k_enc, v_enc, e_valid)
 p_multi = e_valid.sum(dim=1) > p_split
 p_fault = {}
@@ -3940,6 +4036,9 @@ recp = records["decode_attention_partial[enc1500]"] = dict(
     **timings(lambda: fa.decode_attention_partial(q, k_enc, v_enc, e_valid),
               lambda: ref.decode_partial_reference(q, k_enc, v_enc,
                                                    e_valid)))
+encp_parts = split_parts(
+    lambda: fa.decode_attention_partial(q, k_enc, v_enc, e_valid), p_split,
+    p_n)
 got32, var32 = on_cuda_cores(
     "decode_attention_partial[enc1500]",
     lambda: fa.decode_attention_partial(q32, k32, v32, e_valid),
@@ -3957,9 +4056,9 @@ print(f"[kernel] decode_attention_partial[enc1500] {WHISPER}: B={B} C={WE}, "
       f"launches {variants} ({p_n} splits of {p_split} rows, the last "
       f"ragged, the tensor-core split); {recp['ms']:.4f} ms, bound "
       f"{bndp:.6f} ms ({byp}), plain {recp['plain_ms']:.4f} ms, device "
-      f"{show(recp['device_ms'])} ms; no library call; f32 copies on the "
-      f"CUDA-core split: max_abs_err {err32:.3g}, launches {var32}",
-      flush=True)
+      f"{show(recp['device_ms'])} ms ({encp_parts}); no library call; f32 "
+      f"copies on the CUDA-core split: max_abs_err {err32:.3g}, launches "
+      f"{var32}", flush=True)
 del q, k_enc, v_enc, q32, k32, v32, got, got32, combined, plain, part, \
     plain32, plain_p
 
@@ -4255,6 +4354,8 @@ print(f"[encdec] {WHISPER}, its first {n_w8} decoder layers, the same 2 "
 # weights 6d holds; then starcoder2_3b (fp, q8_0 + int8 KV, self:7 spec,
 # the prefix cache) and mamba2_370m (its first 24 layers), each from seed 0
 # --------------------------------------------------------------------------
+
+phase("6e")
 
 TIER_T0 = time.perf_counter()
 PCIE_GB_S = 64.0         # PCIe Gen5 x16, one direction: the data sheet's
@@ -4756,6 +4857,8 @@ print(f"[tier] peak pinned host memory held: {tier_peak['snapshots'] / 1e6:.1f}"
 # ported quickstart
 # --------------------------------------------------------------------------
 
+phase("6f")
+
 CHUNK_T0 = time.perf_counter()
 LONG_RID = 99
 
@@ -5075,6 +5178,8 @@ print(f"[quickstart] workload (e) PageRank: AXLE reduces the simulated "
 # in the last place below 4; 1e-4 in f32, a summation order apart)
 # --------------------------------------------------------------------------
 
+phase("6g")
+
 def holds_cuda(x, depth=0) -> bool:
     """A server, or a CUDA tensor alone or inside dicts, lists and
     tuples."""
@@ -5222,6 +5327,8 @@ mesh_results(start_child("mesh_serve", [
 #     the final checkpoint (params, AdamW state, residual) == the 8-step
 #     run's, bit for bit.
 # --------------------------------------------------------------------------
+
+phase("6h")
 
 TRAIN_T0 = time.perf_counter()
 CPU_DEV = torch.device("cpu")
@@ -5639,6 +5746,8 @@ print(f"[train] phase {time.perf_counter() - TRAIN_T0:.1f} s; "
 # reference's training path reaches no Pallas kernel: no kernel record.
 # --------------------------------------------------------------------------
 
+phase("6h2")
+
 mt_stdout, mt_secs = finish_child("[mesh_train]", MESH_TRAIN)
 for line in mt_stdout.splitlines():
     if line.startswith("[mesh_train]"):
@@ -5684,6 +5793,8 @@ print(f"[mesh_train] phase {mt_secs:.1f} s (its process, beside [train]'s "
 # child's 2 x 16 x 16 rows (a decode, a prefill, and the train row that
 # is not ported) are printed.
 # --------------------------------------------------------------------------
+
+phase("6i")
 
 DRY_T0 = time.perf_counter()
 meta = dry_meta()
@@ -5806,6 +5917,10 @@ records["decode_attention_fused_partial"]["launches"] = \
     mesh_launches["decode_attention_fused_partial"]
 for name, rec in records.items():
     check(rec["launches"] > 0, f"{name} never launched on the main path")
+PHASE_T.append(("end", time.perf_counter()))
+print("[phases] seconds by section: " + ", ".join(
+    f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(PHASE_T, PHASE_T[1:]))
+    + f"; {time.perf_counter() - T_START:.0f} s in all", flush=True)
 keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
         "library_device_ms")

@@ -3,7 +3,7 @@
 // Each is the port of one Pallas TPU kernel in
 // src/repro/kernels/flash_attention.py:
 //
-//   decode_split_tc_kernel<HD, KV, PARTIAL>, decode_split_kernel<T, KV,
+//   decode_split_tc_kernel<HD, KV, PARTIAL> or decode_split_kernel<T, KV,
 //   PARTIAL>, then decode_merge_kernel<T, PARTIAL>
 //       <- _decode_fused_kernel / decode_attention_fused (PARTIAL = false)
 //       <- _decode_partial_kernel / decode_attention_partial (PARTIAL)
@@ -49,8 +49,9 @@
 // few hundred KB, far too few for the bound to show: one block per
 // (row, KV head) walking the whole cache left 124 of 132 SMs idle, so the
 // split puts every 64-row split on a block of its own (up to 128 blocks),
-// and a block's latency (copies, a few dozen mmas, barriers) and the two
-// launches set the time.  Prefill is bound by operations (989 TFLOP/s
+// and a block's latency (copies, a few dozen mmas, barriers) sets the
+// time; at hd 64 a split holds a whole chunk of up to 128 rows (see the
+// split's note).  Prefill is bound by operations (989 TFLOP/s
 // bf16 on the tensor cores); flash_kernel does its products on the CUDA
 // cores in f32, far below that bound, and flash_tc_kernel on the tensor
 // cores.
@@ -648,26 +649,27 @@ __global__ void __launch_bounds__(TC_NT) flash_tc_kernel(FlashArgs a) {
 
 // --------------------------------------------------------------------------
 // Decode, split over the KV sequence: decode_split_tc_kernel (bf16 q, bf16
-// or int8 pools, HD 64 / 80 / 128 / 256, G <= 16) or decode_split_kernel (the
-// rest),
-// then decode_merge_kernel.
+// or int8 pools, HD 64 / 80 / 128 / 256, G <= 16) or decode_split_kernel
+// (the rest), then decode_merge_kernel.
 //
 // The grid is (B * KH, n_split): block (b kh, j) owns the logical KV rows
 // [j split, j split + split) of row b, KV head kh, for the G = H / KH query
-// heads of the group.  split = decode_tile(blk_c) divides the page, so a
-// split lies inside one page: one page-table lookup gives its physical
-// base, and an int8 split has one K and one V scale.  n_split =
-// ceil(rows / split) comes from the cache's length alone, never from B or
-// from pos, so every decode step launches the same grid.  Each block writes
-// its split's raw (acc, m, l) to a workspace.  A block whose rows all lie
-// outside the row's [lo, hi) (for the partial: whose rows the mask
-// empties) writes the empty partial m = NEG_INF, l = 0, acc = 0 and reads
-// nothing else.  decode_merge_kernel then folds the splits of each (row,
-// head) in split order, skipping the empty ones; the fused variant merges
-// `extra` and normalises, the partial writes the raw (acc, m, l).  No
-// float atomics: the order of every sum is fixed by the logical rows, so a
-// paged and a dense walk over the same logical data give the same bits,
-// and a row's output does not depend on the other rows of the batch.
+// heads of the group.  split = decode_split_rows(blk_c, HD) divides the
+// page, so a split lies inside one page: one page-table lookup gives its
+// physical base, and an int8 split has one K and one V scale.  n_split =
+// ceil(rows / split) comes from the cache's length, its chunk and HD
+// alone, never from B, KH, G or pos, so every decode step launches the
+// same grid and a head group of the mesh splits as the whole does.  Each
+// block writes its split's raw (acc, m, l) to a workspace.  A block whose
+// rows all lie outside the row's [lo, hi) (for the partial: whose rows
+// the mask empties) writes the empty partial m = NEG_INF, l = 0, acc = 0
+// and reads nothing else.  decode_merge_kernel then folds the splits of
+// each (row, head) in split order, an empty one weighted by 0
+// (merge_dim).  The fused variant merges `extra` and
+// normalises, the partial writes the raw (acc, m, l).  No float atomics:
+// the order of every sum is fixed by the logical rows, so a paged and a
+// dense walk over the same logical data give the same bits, and a row's
+// output does not depend on the other rows of the batch.
 // --------------------------------------------------------------------------
 
 struct DecodeArgs {
@@ -693,13 +695,17 @@ struct DecodeArgs {
   float* ws_l;                 // (B, KH, n_split, G)
   int H, KH, S, HD;
   int blk_c;                   // fused: chunk (= page) length
-  int split, n_split;          // rows per split (<= 64, divides blk_c)
+  int split, n_split;          // rows per split (<= 128, divides blk_c)
   int window;                  // fused: 0 = no lower bound
   float scale;
 };
 
-constexpr int DS_ROWS = 64;          // most rows a split holds
-constexpr int DS_NT = 128;           // tensor-core split: 4 warps x 16 rows
+constexpr int DS_TILE = 64;          // KV rows a tile: 4 warps x 16
+constexpr int DS_SPLIT_MAX = 2 * DS_TILE;   // most rows a split holds
+// tiles a tensor-core split may hold: two at HD 64, one at the others
+// (their O accumulators, 2 to 8 times HD 64's, stay out of a tile loop)
+__host__ __device__ constexpr int ds_tiles(int hd) { return hd == 64 ? 2 : 1; }
+constexpr int DS_NT = 128;           // tensor-core split: 4 warps
 constexpr int DS_GMAX = 16;          // query heads of a group, padded to 16
 
 // Block (blockIdx.x, blockIdx.y)'s rows: logical [L0, L0 + len) of row b,
@@ -760,6 +766,80 @@ __device__ __forceinline__ void write_empty(const DecodeArgs& a, size_t part0,
     a.ws_m[part0 + g] = NEG_INF;
     a.ws_l[part0 + g] = 0.f;
   }
+}
+
+// Splits whose m, l and acc a merge thread loads in one round.
+constexpr int DM_BATCH = 8;
+
+// The splits of one (row b, head h), dim d, in split order: the largest m
+// (exact in any order), then acc and l of every split weighted by
+// exp(m_j - m), an empty split (m_j = NEG_INF, acc and l 0) by 0, so that
+// adding it changes no bit and no load waits on a branch; the loads go
+// out DM_BATCH splits at a time.  Fused: the current token's (acc, m, l)
+// merged, then normalised, or with acc_out set (the fused partial)
+// written raw; partial: the raw (acc, m, l).  A raw m is -inf when
+// nothing was attended.
+template <typename T, bool PARTIAL>
+__device__ __forceinline__ void merge_dim(const DecodeArgs& a, int b, int h,
+                                          int d) {
+  const int G = a.H / a.KH, kh = h / G, g = h % G, n = a.n_split;
+  const size_t first = ((size_t)b * a.KH + kh) * n * G + g;
+  const size_t head = (size_t)b * a.H + h;
+  const float* m_j = a.ws_m + first;
+  const float* l_j = a.ws_l + first;
+  const float* x_j = a.ws_acc + first * a.HD + d;
+  float m = NEG_INF;
+#pragma unroll 8
+  for (int j = 0; j < n; ++j) m = fmaxf(m, m_j[(size_t)j * G]);
+  float acc = 0.f, l = 0.f;
+  for (int j0 = 0; j0 < n; j0 += DM_BATCH) {
+    float mj[DM_BATCH], lj[DM_BATCH], xj[DM_BATCH];
+#pragma unroll
+    for (int k = 0; k < DM_BATCH; ++k) {
+      const size_t p = (size_t)min(j0 + k, n - 1) * G;
+      mj[k] = m_j[p];
+      lj[k] = l_j[p];
+      xj[k] = x_j[p * a.HD];
+    }
+#pragma unroll
+    for (int k = 0; k < DM_BATCH; ++k) {
+      if (j0 + k < n) {
+        const float w = mj[k] <= NEG_INF / 2 ? 0.f : expf(mj[k] - m);
+        acc = fmaf(xj[k], w, acc);
+        l = fmaf(lj[k], w, l);
+      }
+    }
+  }
+  if (PARTIAL) {
+    a.acc_out[head * a.HD + d] = acc;
+    if (d == 0) {
+      // NEG_INF sentinel -> -inf so a merge ignores empty partials
+      a.m_out[head] = m <= NEG_INF / 2 ? -INFINITY : m;
+      a.l_out[head] = l;
+    }
+    return;
+  }
+  float mr = m;
+  if (a.acc_e) {
+    // the current token's (acc, m, l), merged before normalisation
+    const float me = a.m_e[head];
+    const float mm = fmaxf(m, me);
+    const float a1 = expf(m - mm), a2 = expf(me - mm);
+    acc = acc * a1 + a.acc_e[head * a.HD + d] * a2;
+    l = l * a1 + a.l_e[head] * a2;
+    mr = mm;
+  }
+  if (a.acc_out) {
+    // the fused partial: a head group's statistics, normalised by the
+    // caller after they are gathered (the same division as below)
+    a.acc_out[head * a.HD + d] = acc;
+    if (d == 0) {
+      a.m_out[head] = mr <= NEG_INF / 2 ? -INFINITY : mr;
+      a.l_out[head] = l;
+    }
+    return;
+  }
+  static_cast<T*>(a.out)[head * a.HD + d] = from_f<T>(acc / fmaxf(l, 1e-20f));
 }
 
 // CUDA-core split: the f32 route (and the shapes the tensor-core kernel
@@ -858,38 +938,80 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(DecodeArgs a) {
   }
 }
 
-// Tensor-core split, after flash_tc_kernel: 4 warps, warp w owns the
-// split's KV rows 16 w .. 16 w + 15.
+// cp.async.wait_group with a count known only at run time (0 to 3: the
+// K and V groups of a split's at most two tiles).
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n >= 3) cp_async_wait<3>();
+  else if (n == 2) cp_async_wait<2>();
+  else if (n == 1) cp_async_wait<1>();
+  else cp_async_wait<0>();
+}
+
+// The tensor-core split's shared memory: the Q tile (G heads padded to 16
+// rows), the max partials of two tiles and the sum partials of the 4
+// warps, then one stage per tile of the split: the bf16 K and V tiles
+// and, for int8 pools, the int8 rows they are widened from.
+constexpr int DS_RED_BYTES = (2 * 4 * 16 + 4 * 16) * 4;
+template <int HD>
+__host__ __device__ constexpr int ds_stage0() {
+  return DS_GMAX * tc_row_bytes<HD>() + DS_RED_BYTES;
+}
+template <int HD, bool I8>
+__host__ __device__ constexpr int ds_stage_bytes() {
+  return 2 * DS_TILE * tc_row_bytes<HD>() + (I8 ? 2 * DS_TILE * (HD + 16) : 0);
+}
+
+// Tensor-core split, after flash_tc_kernel: 4 warps; the split's rows are
+// walked in tiles of 64, and warp w owns rows 16 w .. 16 w + 15 of each.
 //   * The G query heads, padded with zero rows to 16, are the A operand of
 //     mma.sync m16n8k16 (bf16 in, f32 accumulators); K and V come from
 //     shared memory through ldmatrix (V transposed), rows padded by 16
-//     bytes.  Q and K arrive by 16-byte cp.async in one group, V in a
-//     second, so V lands while the scores are formed; rows past the split
-//     are zero-filled.
+//     bytes.  Every tile's K and V are issued up front by 16-byte cp.async,
+//     one copy group each (Q goes with tile 0's K) into a stage of their
+//     own: tile 1 lands while tile 0 is multiplied, and V while the scores
+//     are formed.  Rows past the split are zero-filled.
 //   * int8 pools: the int8 rows are copied as they are and widened to bf16
 //     in shared memory (exact: int8 values are bf16 integers).  The
 //     split's page has one K and one V scale: the K scale multiplies the
 //     f32 scores after the product, the V scale the split's f32 P V.  No
 //     dequantized q * scale is ever rounded to bf16.
 //   * The scores are multiplied by hd^-0.5 after the product (the plain
-//     version scales q in f32 first: one f32 rounding apart).  The row
-//     max and sum of the 64 scores go over a quad by shuffles, then over
-//     the 4 warps through shared memory, in warp order.
+//     version scales q in f32 first: one f32 rounding apart).  A tile's row
+//     max goes over a quad by shuffles, then over the 4 warps through
+//     shared memory, in warp order; the running m, and the warp's l and O,
+//     are rescaled by exp(m_old - m_new) at each tile (the online softmax;
+//     with one tile it is the plain softmax of the split, bit for bit).
 //   * P V keeps P's precision as flash_tc_kernel does: p_hi = bf16(p) and
 //     p_lo = bf16(p - p_hi) through two mmas into one f32 accumulator.
-//     Each warp's 16 x HD product over its 16 rows is summed with the
-//     other warps' through shared memory in warp order.
-// What bounds it: at the main path's shapes (a 64-row split, 32 KB of K/V
-// in bf16) one block's latency: its copies, then ~50 mmas per warp and
-// three block barriers.  The merge is a second, small launch.  At HD 256 the
-// layout is the same: Q's fragments are already read per k step, and the
-// warp's O (128 f32 a thread) is the one large register array; the 4 x 16
-// f32 rows of the O reduction fill the K and V tiles exactly.  HD 80 is
-// 5 k steps and 5 n-tile pairs of the same code: its copies already walk
-// the chunks flat, an int8 row is 5 chunks, and the O reduction again
-// fills the K and V tiles exactly (4 x 16 rows of 88 f32 = 22,528 bytes).
-// opt_2_7b is MHA, so its one query head fills 1 of the mma's 16 rows:
-// the split is bound by its bytes and latency, not by the mmas.
+//     The 4 warps' O and l are summed through shared memory in warp order.
+// What bounds it: the K/V bytes it must read (4 flops a byte pair, far
+// under the ridge) and, at the main path's shapes, one block's chain of
+// latencies.  At hd 64 the two shapes that lost to cuDNN were set by that
+// chain and by the merge: whisper's dense cross read (B 4, 20 heads on 20
+// KV heads, 1,500 frames in chunks of 125) ran 60 splits of 25 rows a row,
+// 4,800 blocks each paying the copies, three barriers and the O reduction
+// for 6.4 KB of K/V with 39 of 64 tile rows zero, and a merge whose threads
+// walked the 60 splits as a chain of dependent L2 reads (half the device
+// time: PERF.md, Findings); granite_moe_3b (24 heads on 8, page 128) ran
+// 1,024 blocks of 16 KB and a merge over 32 splits.  So at hd 64 a split is
+// a whole chunk of up to 128 rows (whisper: one split of 125 rows a chunk,
+// 12 a row, 960 blocks of 32 KB; granite: 16 splits of 128), walked in two
+// tiles, and the merge loads DM_BATCH splits at a time with no branch
+// before them.  Two ways of folding the merge into this launch were built
+// and measured slower (PERF.md, Findings): a ticket a (row, KV head), the
+// last block to finish merging (every block's fence and ticket atomic add
+// two L2 round trips to its life, and the tickets' memset is a launch too),
+// and the splits of a (row, KV head) as one thread-block cluster merging
+// through distributed shared memory (80 clusters of 12 blocks do not fit
+// one wave).  At HD 80, 128 and 256 a split is one tile of at most 64 rows,
+// as before: their O accumulators, 2 to 8 times HD 64's, stay out of a tile
+// loop, and their code is the earlier kernel's.  HD 256 keeps the layout:
+// Q's fragments are read per k step, the warp's O (128 f32 a thread) is the
+// one large register array, and the 4 x 16 f32 rows of the O reduction fill
+// stage 0's K and V tiles exactly; HD 80 is 5 k steps and 5 n-tile pairs of
+// the same code, an int8 row 5 chunks.  MHA (whisper, opt_2_7b) fills 1 of
+// the mma's 16 rows: there the split is bound by its bytes and latency, not
+// by the mmas.
 template <int HD, typename KV, bool PARTIAL>
 __global__ void __launch_bounds__(DS_NT) decode_split_tc_kernel(DecodeArgs a) {
   static_assert(HD == 64 || HD == 80 || HD == 128 || HD == 256,
@@ -900,23 +1022,22 @@ __global__ void __launch_bounds__(DS_NT) decode_split_tc_kernel(DecodeArgs a) {
   constexpr int KSTEP = HD / 16;               // k steps of Q K^T
   constexpr int RB8 = HD + 16;                 // padded int8 row
   constexpr int CH8 = HD / 16;                 // 16-byte chunks, int8 row
-  constexpr int TILE = DS_ROWS * RB;
+  constexpr int TILE = DS_TILE * RB;           // a bf16 K or V tile
+  constexpr int STAGE = ds_stage_bytes<HD, I8>();
   constexpr int OLD = HD + 8;                  // padded f32 row of O
-  // Q tile, K tile, V tile (bf16), int8 staging (K, V), max and sum
-  // partials per warp; O's per-warp products reuse the K and V tiles
-  constexpr int K_OFF = DS_GMAX * RB, V_OFF = K_OFF + TILE;
-  constexpr int ST_OFF = V_OFF + TILE;
-  constexpr int RED_OFF = ST_OFF + (I8 ? 2 * DS_ROWS * RB8 : 0);
+  // stage t: K tile, V tile, then (int8) the int8 K and V rows
+  constexpr int RED_OFF = DS_GMAX * RB, ST_OFF = ds_stage0<HD>();
   static_assert(4 * 16 * OLD * 4 <= 2 * TILE, "O reduction fits K and V");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const uint32_t sa = smem_u32(smem_raw);
-  float* red_m = reinterpret_cast<float*>(smem_raw + RED_OFF);   // [4][16]
-  float* red_l = red_m + 4 * 16;                                 // [4][16]
+  float* red_m = reinterpret_cast<float*>(smem_raw + RED_OFF);   // [2][4][16]
+  float* red_l = red_m + 2 * 4 * 16;                             // [4][16]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.x / a.KH, kh = blockIdx.x % a.KH;
   const int G = a.H / a.KH;
   const size_t part0 = ((size_t)blockIdx.x * a.n_split + blockIdx.y) * G;
 
+  constexpr int TILES = ds_tiles(HD);
   int L0, len, lo, hi;
   split_rows<PARTIAL>(a, b, L0, len, lo, hi);
   if (!split_any<PARTIAL>(a, b, L0, len, lo, hi)) {
@@ -925,6 +1046,7 @@ __global__ void __launch_bounds__(DS_NT) decode_split_tc_kernel(DecodeArgs a) {
   }
   int phys0;
   const int page = split_page(a, !PARTIAL && a.pages, b, L0, phys0);
+  const int n_tiles = TILES == 1 ? 1 : (len + DS_TILE - 1) / DS_TILE;
 
   const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q) +
                             ((size_t)b * a.H + (size_t)kh * G) * HD;
@@ -935,32 +1057,37 @@ __global__ void __launch_bounds__(DS_NT) decode_split_tc_kernel(DecodeArgs a) {
                ok);
   }
   const size_t base = (((size_t)b * a.KH + kh) * a.S + phys0) * HD;
-  auto load = [&](const void* src, int off) {
+  // tile t's rows of K or V into shared memory at `off`
+  auto load = [&](const void* src, int t, int off) {
+    const int r0 = t * DS_TILE;
     if (I8) {
       const int8_t* g = static_cast<const int8_t*>(src) + base;
-      for (int c = tid; c < DS_ROWS * CH8; c += DS_NT) {
+      for (int c = tid; c < DS_TILE * CH8; c += DS_NT) {
         const int r = c / CH8, cc = c % CH8;
-        const bool ok = r < len;
+        const bool ok = r0 + r < len;
         cp_async16(sa + off + r * RB8 + cc * 16,
-                   g + (size_t)(ok ? r : 0) * HD + cc * 16, ok);
+                   g + (size_t)(ok ? r0 + r : 0) * HD + cc * 16, ok);
       }
     } else {
       const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(src) + base;
-      for (int c = tid; c < DS_ROWS * CH; c += DS_NT) {
+      for (int c = tid; c < DS_TILE * CH; c += DS_NT) {
         const int r = c / CH, cc = c % CH;
-        const bool ok = r < len;
+        const bool ok = r0 + r < len;
         cp_async16(sa + off + r * RB + cc * 16,
-                   g + (size_t)(ok ? r : 0) * HD + cc * 8, ok);
+                   g + (size_t)(ok ? r0 + r : 0) * HD + cc * 8, ok);
       }
     }
   };
-  load(a.k, I8 ? ST_OFF : K_OFF);
-  cp_async_commit();                           // Q and K
-  load(a.v, I8 ? ST_OFF + DS_ROWS * RB8 : V_OFF);
-  cp_async_commit();                           // V
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = ST_OFF + t * STAGE;
+    load(a.k, t, I8 ? st + 2 * TILE : st);
+    cp_async_commit();                       // (Q and) tile t's K
+    load(a.v, t, I8 ? st + 2 * TILE + DS_TILE * RB8 : st + TILE);
+    cp_async_commit();                       // tile t's V
+  }
   // int8 rows -> bf16 rows, 16 values a step
   auto widen = [&](int src_off, int dst_off) {
-    for (int c = tid; c < DS_ROWS * CH8; c += DS_NT) {
+    for (int c = tid; c < DS_TILE * CH8; c += DS_NT) {
       const int r = c / CH8, cc = c % CH8;
       const uint4 w = *reinterpret_cast<const uint4*>(
           smem_raw + src_off + r * RB8 + cc * 16);
@@ -986,93 +1113,124 @@ __global__ void __launch_bounds__(DS_NT) decode_split_tc_kernel(DecodeArgs a) {
     ksc = a.k_scale[si];
     vsc = a.v_scale[si];
   }
-  cp_async_wait<1>();
-  __syncthreads();
-  if (I8) {
-    widen(ST_OFF, K_OFF);
-    __syncthreads();
-  }
 
-  // S = Q K^T over the warp's 16 rows: 2 n-tiles of 8
   const int mi = lane >> 3, l7 = lane & 7;
-  float s[2][4];
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-  {
-    const uint32_t qa = sa + ((mi & 1) * 8 + l7) * RB + (mi >> 1) * 16;
-    const uint32_t ka =
-        sa + K_OFF + (warp * 16 + (mi >> 1) * 8 + l7) * RB + (mi & 1) * 16;
-#pragma unroll
-    for (int kk = 0; kk < KSTEP; ++kk) {
-      uint32_t qf[4], kf[4];
-      ldsm_x4(qa + kk * 32, qf);
-      ldsm_x4(ka + kk * 32, kf);
-      mma_bf16(s[0], qf, kf[0], kf[1]);
-      mma_bf16(s[1], qf, kf[2], kf[3]);
-    }
-  }
-  // element e of n-tile j: head (lane >> 2) + 8 (e >> 1), split row
+  // element e of n-tile j: head row[e >> 1], tile row
   // 16 warp + 8 j + 2 (lane & 3) + (e & 1)
-  const float qk = a.scale;
-  bool ok[2][4];
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = warp * 16 + 8 * j + 2 * (lane & 3) + (e & 1);
-      ok[j][e] = c < len && slot_valid<PARTIAL>(a, b, L0 + c, lo, hi);
-      s[j][e] = ok[j][e] ? (I8 ? s[j][e] * ksc * qk : s[j][e] * qk) : NEG_INF;
-    }
   const int row[2] = {lane >> 2, (lane >> 2) + 8};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float mx = fmaxf(fmaxf(s[0][2 * i], s[0][2 * i + 1]),
-                     fmaxf(s[1][2 * i], s[1][2 * i + 1]));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    if ((lane & 3) == 0) red_m[warp * 16 + row[i]] = mx;
-  }
-  __syncthreads();
-  float m_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    m_r[i] = fmaxf(fmaxf(red_m[row[i]], red_m[16 + row[i]]),
-                   fmaxf(red_m[32 + row[i]], red_m[48 + row[i]]));
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      s[j][e] = ok[j][e] ? expf(s[j][e] - m_r[e >> 1]) : 0.f;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float sum = (s[0][2 * i] + s[0][2 * i + 1]) + (s[1][2 * i] + s[1][2 * i + 1]);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    if ((lane & 3) == 0) red_l[warp * 16 + row[i]] = sum;
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  if (I8) {
-    widen(ST_OFF + DS_ROWS * RB8, V_OFF);
-    __syncthreads();
-  }
-
-  // O_w = P V over the warp's 16 rows (one k step), P split into hi / lo
-  uint32_t ph[4], pl[4];
-  split_bf16(s[0][0], s[0][1], ph[0], pl[0]);
-  split_bf16(s[0][2], s[0][3], ph[1], pl[1]);
-  split_bf16(s[1][0], s[1][1], ph[2], pl[2]);
-  split_bf16(s[1][2], s[1][3], ph[3], pl[3]);
+  const float qk = a.scale;
+  float m_run[2], l_w[2];
   float o[2 * KSTEP][4];
 #pragma unroll
   for (int j = 0; j < 2 * KSTEP; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  {
-    const uint32_t va =
-        sa + V_OFF + (warp * 16 + (mi & 1) * 8 + l7) * RB + (mi >> 1) * 16;
+  // tile 0 sets (m, l) and O; a later tile rescales them first (its
+  // copy of the unrolled body knows t)
+#pragma unroll
+  for (int t = 0; t < TILES; ++t) {
+    if (TILES > 1 && t == n_tiles) break;
+    const int st = ST_OFF + t * STAGE;
+    if constexpr (TILES == 1)
+      cp_async_wait<1>();                    // Q and K
+    else
+      cp_async_wait_upto(2 * (n_tiles - 1 - t) + 1);   // Q, tile t's K
+    __syncthreads();
+    if (I8) {
+      widen(st + 2 * TILE, st);
+      __syncthreads();
+    }
+    // S = Q K^T over the warp's 16 rows of the tile: 2 n-tiles of 8
+    float s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    {
+      const uint32_t qa = sa + ((mi & 1) * 8 + l7) * RB + (mi >> 1) * 16;
+      const uint32_t ka = sa + st + (warp * 16 + (mi >> 1) * 8 + l7) * RB +
+                          (mi & 1) * 16;
+#pragma unroll
+      for (int kk = 0; kk < KSTEP; ++kk) {
+        uint32_t qf[4], kf[4];
+        ldsm_x4(qa + kk * 32, qf);
+        ldsm_x4(ka + kk * 32, kf);
+        mma_bf16(s[0], qf, kf[0], kf[1]);
+        mma_bf16(s[1], qf, kf[2], kf[3]);
+      }
+    }
+    bool ok[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = t * DS_TILE + warp * 16 + 8 * j + 2 * (lane & 3) + (e & 1);
+        ok[j][e] = c < len && slot_valid<PARTIAL>(a, b, L0 + c, lo, hi);
+        s[j][e] = ok[j][e] ? (I8 ? s[j][e] * ksc * qk : s[j][e] * qk)
+                           : NEG_INF;
+      }
+    float* rm = red_m + (t & 1) * 64;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = fmaxf(fmaxf(s[0][2 * i], s[0][2 * i + 1]),
+                       fmaxf(s[1][2 * i], s[1][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      if ((lane & 3) == 0) rm[warp * 16 + row[i]] = mx;
+    }
+    __syncthreads();
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float mt = fmaxf(fmaxf(rm[row[i]], rm[16 + row[i]]),
+                             fmaxf(rm[32 + row[i]], rm[48 + row[i]]));
+      if (t == 0) {
+        m_run[i] = mt;
+      } else {
+        const float m_new = fmaxf(m_run[i], mt);
+        alpha[i] = expf(m_run[i] - m_new);
+        m_run[i] = m_new;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = ok[j][e] ? expf(s[j][e] - m_run[e >> 1]) : 0.f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float sum = (s[0][2 * i] + s[0][2 * i + 1]) +
+                  (s[1][2 * i] + s[1][2 * i + 1]);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_w[i] = t == 0 ? sum : l_w[i] * alpha[i] + sum;
+    }
+    if constexpr (TILES == 1)
+      cp_async_wait<0>();                    // V
+    else
+      cp_async_wait_upto(2 * (n_tiles - 1 - t));     // tile t's V
+    __syncthreads();
+    if (I8) {
+      widen(st + 2 * TILE + DS_TILE * RB8, st + TILE);
+      __syncthreads();
+    }
+
+    // O_w = O_w alpha + P V over the warp's 16 rows (one k step), P split
+    // into hi / lo
+    uint32_t ph[4], pl[4];
+    split_bf16(s[0][0], s[0][1], ph[0], pl[0]);
+    split_bf16(s[0][2], s[0][3], ph[1], pl[1]);
+    split_bf16(s[1][0], s[1][1], ph[2], pl[2]);
+    split_bf16(s[1][2], s[1][3], ph[3], pl[3]);
+    if (t > 0) {
+#pragma unroll
+      for (int j = 0; j < 2 * KSTEP; ++j) {
+        o[j][0] *= alpha[0]; o[j][1] *= alpha[0];
+        o[j][2] *= alpha[1]; o[j][3] *= alpha[1];
+      }
+    }
+    const uint32_t va = sa + st + TILE +
+                        (warp * 16 + (mi & 1) * 8 + l7) * RB + (mi >> 1) * 16;
 #pragma unroll
     for (int p = 0; p < KSTEP; ++p) {
       uint32_t vf[4];
@@ -1083,8 +1241,8 @@ __global__ void __launch_bounds__(DS_NT) decode_split_tc_kernel(DecodeArgs a) {
       mma_bf16(o[2 * p + 1], pl, vf[2], vf[3]);
     }
   }
-  __syncthreads();                             // K and V are read
-  float* red_o = reinterpret_cast<float*>(smem_raw + K_OFF);   // [4][16][OLD]
+  __syncthreads();                           // every tile is read
+  float* red_o = reinterpret_cast<float*>(smem_raw + ST_OFF);  // [4][16][OLD]
 #pragma unroll
   for (int j = 0; j < 2 * KSTEP; ++j) {
     const int col = 8 * j + 2 * (lane & 3);
@@ -1092,6 +1250,16 @@ __global__ void __launch_bounds__(DS_NT) decode_split_tc_kernel(DecodeArgs a) {
         make_float2(o[j][0], o[j][1]);
     *reinterpret_cast<float2*>(red_o + (warp * 16 + row[1]) * OLD + col) =
         make_float2(o[j][2], o[j][3]);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if ((lane & 3) == 0) red_l[warp * 16 + row[i]] = l_w[i];
+  // every thread holds its rows' m (one tile: the max of red_m, below);
+  // warp 0's quad leaders write it
+  if (TILES > 1 && warp == 0 && (lane & 3) == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (row[i] < G) a.ws_m[part0 + row[i]] = m_run[i];
   }
   __syncthreads();
   for (int i = tid; i < G * HD; i += DS_NT) {
@@ -1102,70 +1270,23 @@ __global__ void __launch_bounds__(DS_NT) decode_split_tc_kernel(DecodeArgs a) {
     a.ws_acc[part0 * HD + i] = I8 ? acc * vsc : acc;
   }
   for (int g = tid; g < G; g += DS_NT) {
-    a.ws_m[part0 + g] = fmaxf(fmaxf(red_m[g], red_m[16 + g]),
-                              fmaxf(red_m[32 + g], red_m[48 + g]));
+    if (TILES == 1)
+      a.ws_m[part0 + g] = fmaxf(fmaxf(red_m[g], red_m[16 + g]),
+                                fmaxf(red_m[32 + g], red_m[48 + g]));
     a.ws_l[part0 + g] = ((red_l[g] + red_l[16 + g]) + red_l[32 + g]) +
                         red_l[48 + g];
   }
 }
 
-// The splits of one (row b, head h), in split order: the largest m, then
-// acc and l of every non-empty split weighted by exp(m_j - m).  Fused: the
-// current token's (acc, m, l) merged, then normalised, or with acc_out set
-// (the fused partial) written raw; partial: the raw (acc, m, l).  A raw m
-// is -inf when nothing was attended.  One block per (b, h).
+// The merge of either split kernel's splits: one block per (b, h), a
+// thread per dim (merge_dim).
 constexpr int DM_NT = 128;
 
 template <typename T, bool PARTIAL>
 __global__ void __launch_bounds__(DM_NT) decode_merge_kernel(DecodeArgs a) {
   const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
-  const int G = a.H / a.KH, kh = h / G, g = h % G;
-  const size_t first = ((size_t)b * a.KH + kh) * a.n_split * G + g;
-  const size_t head = (size_t)b * a.H + h;
-  float m = NEG_INF;
-  for (int j = 0; j < a.n_split; ++j)
-    m = fmaxf(m, a.ws_m[first + (size_t)j * G]);
-  for (int d = threadIdx.x; d < a.HD; d += DM_NT) {
-    float acc = 0.f, l = 0.f;
-    for (int j = 0; j < a.n_split; ++j) {
-      const size_t p = first + (size_t)j * G;
-      const float mj = a.ws_m[p];
-      if (mj <= NEG_INF / 2) continue;         // an empty split
-      const float w = expf(mj - m);
-      acc = fmaf(a.ws_acc[p * a.HD + d], w, acc);
-      l = fmaf(a.ws_l[p], w, l);
-    }
-    if (PARTIAL) {
-      a.acc_out[head * a.HD + d] = acc;
-      if (d == 0) {
-        // NEG_INF sentinel -> -inf so a merge ignores empty partials
-        a.m_out[head] = m <= NEG_INF / 2 ? -INFINITY : m;
-        a.l_out[head] = l;
-      }
-      continue;
-    }
-    float mr = m;
-    if (a.acc_e) {
-      // the current token's (acc, m, l), merged before normalisation
-      const float me = a.m_e[head];
-      const float mm = fmaxf(m, me);
-      const float a1 = expf(m - mm), a2 = expf(me - mm);
-      acc = acc * a1 + a.acc_e[head * a.HD + d] * a2;
-      l = l * a1 + a.l_e[head] * a2;
-      mr = mm;
-    }
-    if (a.acc_out) {
-      // the fused partial: a head group's statistics, normalised by the
-      // caller after they are gathered (the same division as below)
-      a.acc_out[head * a.HD + d] = acc;
-      if (d == 0) {
-        a.m_out[head] = mr <= NEG_INF / 2 ? -INFINITY : mr;
-        a.l_out[head] = l;
-      }
-      continue;
-    }
-    static_cast<T*>(a.out)[head * a.HD + d] = from_f<T>(acc / fmaxf(l, 1e-20f));
-  }
+  for (int d = threadIdx.x; d < a.HD; d += DM_NT)
+    merge_dim<T, PARTIAL>(a, b, h, d);
 }
 
 // Shared memory above 48 KB must be opted into per kernel.
@@ -1181,35 +1302,38 @@ size_t decode_smem(int G, int HD, int TK) {
                           (size_t)G * TK + 2 * (size_t)G);
 }
 
+// The tensor-core split's shared memory for splits of `split` rows: one
+// stage per 64-row tile.
 template <int HD, bool I8>
-constexpr size_t decode_tc_smem() {
-  return (size_t)(DS_GMAX + 2 * DS_ROWS) * tc_row_bytes<HD>() +
-         (I8 ? (size_t)2 * DS_ROWS * (HD + 16) : 0) + 2 * 4 * 16 * sizeof(float);
+size_t decode_tc_smem(int split) {
+  return (size_t)ds_stage0<HD>() +
+         (size_t)((split + DS_TILE - 1) / DS_TILE) * ds_stage_bytes<HD, I8>();
 }
 
 // The split kernel on the grid (B * KH, n_split), then the merge on B * H
 // blocks.  tc: the tensor-core split (bf16 q, HD 64, 80, 128 or 256,
-// G <= 16);
-// anything else it is asked for is refused with cudaErrorInvalidValue.
+// G <= 16, at most ds_tiles(HD) tiles a split); anything else it is asked
+// for is refused with cudaErrorInvalidValue.
 template <typename T, typename KV, bool PARTIAL>
 int run_decode(const DecodeArgs& a, int B, int tc, cudaStream_t stream) {
   const dim3 grid(B * a.KH, a.n_split);
   cudaError_t err;
-  if (a.split < 1 || a.split > DS_ROWS) return (int)cudaErrorInvalidValue;
+  if (a.split < 1 || a.split > DS_SPLIT_MAX) return (int)cudaErrorInvalidValue;
   if (tc) {
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
       constexpr bool I8 = std::is_same<KV, int8_t>::value;
       if (a.H / a.KH > DS_GMAX ||
-          (a.HD != 64 && a.HD != 80 && a.HD != 128 && a.HD != 256))
+          (a.HD != 64 && a.HD != 80 && a.HD != 128 && a.HD != 256) ||
+          a.split > ds_tiles(a.HD) * DS_TILE)
         return (int)cudaErrorInvalidValue;
       auto kernel = a.HD == 256   ? decode_split_tc_kernel<256, KV, PARTIAL>
                     : a.HD == 128 ? decode_split_tc_kernel<128, KV, PARTIAL>
                     : a.HD == 80  ? decode_split_tc_kernel<80, KV, PARTIAL>
                                   : decode_split_tc_kernel<64, KV, PARTIAL>;
-      const size_t smem = a.HD == 256   ? decode_tc_smem<256, I8>()
-                          : a.HD == 128 ? decode_tc_smem<128, I8>()
-                          : a.HD == 80  ? decode_tc_smem<80, I8>()
-                                        : decode_tc_smem<64, I8>();
+      const size_t smem = a.HD == 256   ? decode_tc_smem<256, I8>(a.split)
+                          : a.HD == 128 ? decode_tc_smem<128, I8>(a.split)
+                          : a.HD == 80  ? decode_tc_smem<80, I8>(a.split)
+                                        : decode_tc_smem<64, I8>(a.split);
       err = allow_smem(kernel, smem);
       if (err != cudaSuccess) return (int)err;
       kernel<<<grid, DS_NT, smem, stream>>>(a);
@@ -1269,7 +1393,8 @@ extern "C" {
 
 // k_scale / v_scale non-null: k and v are int8 pools with n_sc scales per
 // (row, KV head), one per physical page of blk_c rows.  ws: f32 workspace
-// of B * KH * n_split * G * (hd + 2) floats.  tc: 1 = the tensor-core split.
+// of B * KH * n_split * G * (hd + 2) floats.  tc: 1 = the tensor-core
+// split.
 int rt_decode_fused(int dtype, int tc, const void* q, const void* k,
                     const void* v, const int* pos, const int* pages, int n_log,
                     const float* acc_e, const float* m_e, const float* l_e,

@@ -60,28 +60,39 @@ TC_HEAD_DIMS = (64, 80, 128, 256)
 # query heads per KV head the tensor-core decode split takes (the mma's 16
 # rows)
 DECODE_TC_MAX_GROUP = 16
+# KV rows of a tile of the tensor-core decode split, and the most a split
+# holds at a head dim where it is not one tile: at hd 64 a whole chunk of
+# up to 128 rows, walked in two tiles (csrc/attention.cu)
+DECODE_TILE = 64
+DECODE_SPLIT_ROWS = {64: 128}
+# the chunk the partial's splits are cut from (its mask has no pages)
+PARTIAL_CHUNK = 128
 
 
 def _fn(name: str):
     return function(name, _SIGNATURES[name])
 
 
-def decode_tile(blk_c: int) -> int:
+def decode_split_rows(blk_c: int, hd: int) -> int:
     """KV rows per split of the decode kernels: the largest divisor of the
-    chunk not above 64, so that a split never straddles a page."""
-    tile = min(64, blk_c)
-    while blk_c % tile:
-        tile -= 1
-    return tile
+    chunk not above DECODE_SPLIT_ROWS at this head dim (64 where it names
+    none), so that a split never straddles a page."""
+    rows = min(DECODE_SPLIT_ROWS.get(hd, DECODE_TILE), blk_c)
+    while blk_c % rows:
+        rows -= 1
+    return rows
 
 
-def decode_split(n_rows: int, blk_c: int) -> Tuple[int, int]:
+def decode_split(n_rows: int, blk_c: int, hd: int) -> Tuple[int, int]:
     """The decode kernels' split of the KV range, a function of the cache's
-    logical length and its chunk (page) alone: (rows per split, n_split).
-    Split j holds logical rows [j split, min((j + 1) split, n_rows)); the
-    kernels put each on a block of its own and merge the splits in this
-    order."""
-    split = decode_tile(blk_c)
+    logical length, its chunk (page) and the head dim alone: (rows per
+    split, n_split).  Split j holds logical rows [j split, min((j + 1)
+    split, n_rows)); the kernels put each on a block of its own and merge
+    the splits in this order.  Neither B, the heads nor `pos` enter it,
+    so a row alone, a head group of the mesh and a paged walk split as the
+    whole batch, the whole head set and the dense walk of the same chunk
+    do."""
+    split = decode_split_rows(blk_c, hd)
     return split, -(-n_rows // split)
 
 
@@ -213,7 +224,7 @@ def _decode_fused(q, k, v, pos, extra, window, blk_c, pages, kv_scales, *,
                    and tuple(t.shape) == shape and t.is_contiguous(),
                    f"{name}: extra must be contiguous f32 CUDA "
                    "(B,H,hd), (B,H), (B,H)")
-    split, n_split = decode_split(n_log * blk_c if n_log else s, blk_c)
+    split, n_split = decode_split(n_log * blk_c if n_log else s, blk_c, hd)
     ws = _workspace(b, kh, n_split, h // kh, hd, q.device)
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
     tc = decode_route(q.dtype, hd, h // kh,
@@ -265,7 +276,7 @@ def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
     acc = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
     m = torch.empty((b, h), dtype=torch.float32, device=q.device)
     l = torch.empty((b, h), dtype=torch.float32, device=q.device)
-    split, n_split = decode_split(c, 64)
+    split, n_split = decode_split(c, PARTIAL_CHUNK, hd)
     ws = _workspace(b, kh, n_split, h // kh, hd, q.device)
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
     tc = decode_route(q.dtype, hd, h // kh,

@@ -242,7 +242,8 @@ def _split_case(dev, dtype, hd, group, seed, kv="fp", s=1024, page=128):
 @pytest.mark.parametrize("kv", ["fp", "int8"])
 @pytest.mark.parametrize("dtype,hd,group", [
     (torch.bfloat16, 128, 12),      # starcoder2_3b: the tensor-core split
-    (torch.bfloat16, 64, 1),
+    (torch.bfloat16, 64, 1),        # two-tile splits of 128 rows
+    (torch.bfloat16, 64, 3),        # granite_moe_3b's group
     (torch.bfloat16, 128, 20),      # more heads than the mma's 16 rows
     (torch.bfloat16, 96, 4),        # no tensor-core instantiation
     (torch.float32, 128, 12),       # the f32 CUDA-core split
@@ -252,8 +253,9 @@ def _split_case(dev, dtype, hd, group, seed, kv="fp", s=1024, page=128):
 ])
 @pytest.mark.parametrize("window", [0, 100])
 def test_decode_split_edges(cuda, kv, dtype, hd, group, window):
-    """pos on both sides of the 64-row splits and the 128-row pages, a
-    window crossing splits: paged == dense bitwise, each row run alone ==
+    """pos on both sides of the 64-row splits (tiles at hd 64) and the
+    128-row pages (splits at hd 64), a window crossing splits: paged ==
+    dense bitwise, each row run alone ==
     that row in the batch bitwise, close to the plain version; the route
     is the one decode_route names."""
     q, k, v, pk, pv, table, extra, sc, psc = _split_case(
@@ -289,10 +291,11 @@ def test_decode_split_edges(cuda, kv, dtype, hd, group, window):
 
 
 # whisper_large_v3's cross read: a dense cache of 1500 encoder frames, a
-# chunk of 125 (the largest divisor not above 128) and splits of 25 rows,
-# each row up to its clip's last frame: the first frame, both sides of a
+# chunk of 125 (the largest divisor not above 128) and, at hd 64, one
+# split a chunk, walked in tiles of 64 and 61 rows; each row up to its
+# clip's last frame: the first frame, both sides of a tile and of a
 # split, a short clip, and the last two frames
-CROSS_POS = (0, 24, 25, 599, 1498, 1499)
+CROSS_POS = (0, 63, 64, 124, 125, 599, 1498, 1499)
 
 
 def _out_excess(got, want32):
@@ -320,15 +323,16 @@ def _split_faults(q, k, v, valid, split):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_dense_cross_read_at_25_row_splits(cuda, dtype):
-    """MHA (4 heads), hd 64, S 1500: the fused decode (60 splits of 25
-    rows) and the partial over the same mask, each close to the plain
-    version (bf16: within a limit scaled to the output, which a dropped or
-    twice-read split breaks on every row of two splits or more), each row
-    alone == its row in the batch, bitwise; the launches inside the cross
-    site counted there too."""
+def test_decode_dense_cross_read_at_125_row_splits(cuda, dtype):
+    """MHA (4 heads), hd 64, S 1500: the fused decode (12 splits of 125
+    rows) and the partial over the same mask (12 splits of 128, the last
+    of 92), each close to the plain version (bf16: within a limit scaled
+    to the output, which a dropped or twice-read split breaks on every
+    row of two splits or more), each row alone == its row in the batch,
+    bitwise; the launches inside the cross site counted there too."""
     assert fa.dense_chunk(1500, 128) == 125
-    assert fa.decode_split(1500, 125) == (25, 60)
+    split = fa.decode_split(1500, 125, 64)[0]
+    assert (split, fa.decode_split(1500, 125, 64)[1]) == (125, 12)
     gen = torch.Generator(device=cuda).manual_seed(23)
     b, h, s, hd = len(CROSS_POS), 4, 1500, 64
     q = _rand(gen, (b, 1, h, hd), dtype, cuda)
@@ -351,8 +355,9 @@ def test_decode_dense_cross_read_at_25_row_splits(cuda, dtype):
     if dtype == torch.bfloat16:
         want32 = ref.normalize_fused_partial(acc_r, l_r, torch.float32)
         assert (_out_excess(out, want32) <= 1).all()
-        multi = valid.sum(dim=1) > 25
-        for acc_f, _, l_f in _split_faults(q, k, v, valid, 25):
+        multi = valid.sum(dim=1) > split
+        assert int(multi.sum()) == 4
+        for acc_f, _, l_f in _split_faults(q, k, v, valid, split):
             faulty = ref.normalize_fused_partial(acc_f, l_f, dtype)
             assert (_out_excess(faulty, want32)[multi] > 1).all()
     for r in range(b):
@@ -414,7 +419,7 @@ def test_decode_kernels_refuse_the_tensor_core_route_for_f32(cuda):
     q, k, v, _, _, _, _ = _paged_case(cuda, torch.float32, 4, 2)
     pos = torch.zeros(B, dtype=torch.int32, device=cuda)
     out = torch.empty_like(q)
-    split, n_split = fa.decode_split(S, PAGE)
+    split, n_split = fa.decode_split(S, PAGE, HD)
     ws = torch.empty(B * KH * n_split * 4 * (HD + 2), device=cuda)
     err = fa._fn("rt_decode_fused")(
         0, 1, q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
@@ -422,6 +427,178 @@ def test_decode_kernels_refuse_the_tensor_core_route_for_f32(cuda):
         ws.data_ptr(), B, 4 * KH, KH, S, HD, PAGE, split, n_split, 0,
         HD ** -0.5, kbuild.stream())
     assert err != 0
+
+
+# --------------------------------------- the head-dim-64 split route
+
+def _hd64_case(dev, shape, kv, seed):
+    """One of the two hd-64 shapes at test size: "cross" (whisper: MHA, 4
+    heads, a dense S 1500 in chunks of 125) or "paged" (granite_moe_3b's
+    group of 3 on 2 KV heads, S 2048 in pages of 128 under a shuffled
+    table).  Returns (q, k, v as the kernel reads them, the logical k, v,
+    pos, extra, the call's keywords, the plain version's keywords, the
+    keywords of the dense walk over the logical k, v); int8 pools
+    (kv="int8") from quantize_kv_pages."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if shape == "cross":
+        kh, group, s, page = 4, 1, 1500, 125
+        pos = (0, 63, 64, 124, 125, 599, 1498, 1499)
+    else:
+        kh, group, s, page = 2, 3, 2048, 128
+        pos = (0, 127, 128, 300, 1023, 2047)
+    b, h = len(pos), kh * group
+    q = _rand(gen, (b, 1, h, 64), torch.bfloat16, dev)
+    k, v = (_rand(gen, (b, kh, s, 64), torch.bfloat16, dev)
+            for _ in range(2))
+    sc = None
+    if kv == "int8":
+        (k, ks), (v, vs) = (ref.quantize_kv_pages(t, page) for t in (k, v))
+        sc = (ks, vs)
+    kw, pkw = dict(blk_c=page, kv_scales=sc), dict(kv_scales=sc)
+    dense_kw = dict(kw)
+    pk, pv = k, v
+    if shape == "paged":
+        n = s // page
+        table = torch.stack([torch.randperm(n, generator=gen, device=dev)
+                             for _ in range(b)]).to(torch.int32)
+        pk, pv = torch.empty_like(k), torch.empty_like(v)
+        psc = None if sc is None else tuple(torch.empty_like(t) for t in sc)
+        for r in range(b):
+            for j in range(n):
+                p = int(table[r, j])
+                pk[r, :, p * page:(p + 1) * page] = \
+                    k[r, :, j * page:(j + 1) * page]
+                pv[r, :, p * page:(p + 1) * page] = \
+                    v[r, :, j * page:(j + 1) * page]
+                if sc is not None:
+                    for t, lt in zip(psc, sc):
+                        t[r, :, p] = lt[r, :, j]
+        kw.update(pages=table, kv_scales=psc)
+        pkw.update(pages=table, page_size=page, kv_scales=psc)
+    extra = (torch.randn((b, h, 64), generator=gen, device=dev),
+             torch.randn((b, h), generator=gen, device=dev),
+             torch.rand((b, h), generator=gen, device=dev) + 0.5)
+    pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    return q, pk, pv, k, v, pos, extra, kw, pkw, dense_kw
+
+
+@pytest.mark.parametrize("shape", ["cross", "paged"])
+@pytest.mark.parametrize("kv", ["fp", "int8"])
+@pytest.mark.parametrize("window", [0, 300])
+def test_hd64_split_route_against_plain(cuda, shape, kv, window):
+    """hd 64 on the tensor-core route at its two shapes (MHA over a dense
+    S 1500: 12 splits of 125 rows; a group of 3 over a paged S 2048: 16
+    splits of 128), bf16 or int8 pools, with and without a window, extra
+    merged: the fused decode within the bf16 tolerance of its plain
+    version and (paged) == its dense walk bitwise; the fused partial's
+    raw statistics within the partial tolerance, and normalised == the
+    fused decode bitwise; (bf16 pools) the partial over the same mask
+    within its tolerance; every launch on the tensor-core route."""
+    q, k, v, k_log, v_log, pos, extra, kw, pkw, dense_kw = _hd64_case(
+        cuda, shape, kv, seed=window + (kv == "int8") + 2 * (shape == "paged"))
+    name = "decode_attention_fused" + ("[int8]" if kv == "int8" else "")
+    counted = (name, name + "_tc", name.replace("fused", "fused_partial")
+               + "_tc", "decode_attention_partial_tc")
+    before = [kbuild.LAUNCHES[n] for n in counted]
+    out = fa.decode_attention_fused(q, k, v, pos, extra, window=window, **kw)
+    raw = fa.decode_attention_fused_partial(q, k, v, pos, extra,
+                                            window=window, **kw)
+    want = ref.decode_fused_reference(q, k, v, pos, extra, window=window,
+                                      **pkw)
+    want_raw = ref.decode_fused_partial_reference(q, k, v, pos, extra,
+                                                  window=window, **pkw)
+    torch.cuda.synchronize()
+    _close(out, want, torch.bfloat16)
+    for g, w in zip(raw, want_raw):
+        assert bool(((g - w).abs() <= 1e-4 + 1e-5 * w.abs()).all())
+    assert torch.equal(ref.normalize_fused_partial(raw[0], raw[2],
+                                                   torch.bfloat16), out)
+    fused = 1
+    if "pages" in kw:
+        dense = fa.decode_attention_fused(q, k_log, v_log, pos, extra,
+                                          window=window, **dense_kw)
+        assert torch.equal(dense, out)
+        fused += 1
+    if kv == "fp":
+        valid = ref.decode_valid_mask(pos, k.shape[2], window)
+        part = fa.decode_attention_partial(q, k_log, v_log, valid)
+        want_p = ref.decode_partial_reference(q, k_log, v_log, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isinf(part[1]), torch.isinf(want_p[1]))
+        fin = torch.isfinite(want_p[1])
+        for g, w in ((part[0], want_p[0]), (part[1][fin], want_p[1][fin]),
+                     (part[2], want_p[2])):
+            assert torch.allclose(g, w, atol=1e-4, rtol=1e-5)
+    got = [kbuild.LAUNCHES[n] - c for n, c in zip(counted, before)]
+    assert got == [fused, fused, 1, int(kv == "fp")], got
+
+
+def test_hd64_route_bitwise_across_calls_and_graph_replays(cuda):
+    """The route's workspace is the call's own and carries nothing from
+    one call to the next: a workspace block left full of garbage by its
+    last user, two calls back to back, and one captured graph replayed
+    twice all give the eager call's bits, for the fused decode, the fused
+    partial and the partial."""
+    q, k, v, _, _, pos, extra, kw, _, _ = _hd64_case(cuda, "paged", "fp", 5)
+    valid = ref.decode_valid_mask(pos, k.shape[2], 0)
+    b, kh, s, hd = k.shape
+    n_split = fa.decode_split(s, kw["blk_c"], hd)[1]
+    ws_floats = b * kh * n_split * (q.shape[2] // kh) * (hd + 2)
+
+    def calls():
+        return (fa.decode_attention_fused(q, k, v, pos, extra, **kw),
+                *fa.decode_attention_fused_partial(q, k, v, pos, extra, **kw),
+                *fa.decode_attention_partial(q, k, v, valid))
+
+    eager = calls()
+    junk = [torch.full((ws_floats,), -1, dtype=torch.int32, device=cuda)
+            for _ in range(4)]
+    del junk                          # their blocks go back to the cache
+    again = calls()
+    twice = calls()
+    torch.cuda.synchronize()
+    for outs in (again, twice):
+        assert all(torch.equal(a, b) for a, b in zip(outs, eager))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()                       # warm up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = calls()
+    for _ in range(2):
+        for t in captured:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, eager))
+
+
+def test_hd64_route_on_two_streams_at_once(cuda):
+    """Two streams running the route at once, on different inputs, with
+    no sync between their launches: each call gives its own inputs' bits
+    (a call's splits and merge share no buffer with another call)."""
+    cases = [_hd64_case(cuda, shape, "fp", 11 + i)
+             for i, shape in enumerate(("paged", "cross"))]
+
+    def call(c):
+        q, k, v, _, _, pos, extra, kw, _, _ = c
+        return fa.decode_attention_fused(q, k, v, pos, extra, **kw)
+
+    want = [call(c) for c in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in cases]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(20):
+        for i, (st, c) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(st):
+                got[i].append(call(c))
+    torch.cuda.synchronize()
+    for i, outs in enumerate(got):
+        assert all(torch.equal(o, want[i]) for o in outs), i
 
 
 def _flash_case(dev, dtype, s, window, hd=HD, causal=True, kh=2, group=12,

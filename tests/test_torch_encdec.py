@@ -291,15 +291,17 @@ def test_cross_attention_n_chunks_1_matches_reference(protocol):
 
 
 def test_cross_decode_split_rule_scaled_down():
-    """The dense cross read's split: 1500 frames take chunks of 125 and
-    splits of 25 (60 a row); 150 take chunks of 75 and splits of 25.  At
-    S = 150 (MHA, hd 64, the last valid frame e - 1 for e in {1, 60, 149,
-    150}) the port's plain fused decode and partial, which the card holds
-    the kernels to, against the Pallas kernels in interpret mode."""
-    assert fa.dense_chunk(1500, 128) == 125 and fa.decode_tile(125) == 25
-    assert fa.decode_split(1500, 125) == (25, 60)
+    """The dense cross read's split at hd 64: 1500 frames take chunks of
+    125 and one split a chunk (12 a row); 150 take chunks of 75 and one
+    split a chunk (2).  At S = 150 (MHA, hd 64, the last valid frame e - 1
+    for e in {1, 60, 149, 150}) the port's plain fused decode and partial,
+    which the card holds the kernels to, against the Pallas kernels in
+    interpret mode."""
+    assert fa.dense_chunk(1500, 128) == 125
+    assert fa.decode_split_rows(125, 64) == 125
+    assert fa.decode_split(1500, 125, 64) == (125, 12)
     assert fa.dense_chunk(150, 128) == 75
-    assert fa.decode_split(150, 75) == (25, 6)
+    assert fa.decode_split(150, 75, 64) == (75, 2)
     rng = np.random.default_rng(13)
     q, k, v = (rng.standard_normal(s).astype(np.float32) for s in
                ((4, 1, 2, 64), (4, 2, 150, 64), (4, 2, 150, 64)))
