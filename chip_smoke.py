@@ -144,9 +144,18 @@ beside the ledger's formula (24,960 B a merge, 30 merges a step), each
 rank's fused-partial launches and eager decode step device ms; then in
 the same group BS, AXLE and RP over a sequence-sharded cache of 8192
 slots in bf16 and f32, each held to the fused decode, with each AXLE
-hop's ms.  The `[kernel] decode_attention_fused_partial` row holds the
-mesh decode's producer: normalised, and as head groups concatenated,
-the fused decode's bits.
+hop's ms.  The `[mesh] tier` lines then run the example again at 2x1 (2
+slot rows a rank), on starcoder2_3b's first 8 layers: a churn serve (6 requests on 4 slots, evicted after a
+segment), a prefix serve (a prompt served, repeated and extended) and a
+chunked serve (a 900-token prompt in chunks of 256 beside 3 streams),
+each bitwise the graphed single-device server (tokens, decode syncs,
+ledger, evictions, restores, prefix hits, chunks) on both ranks, the
+churn and prefix serves moving snapshots between the data groups
+(`tier_moves` > 0), with each rank's bytes moved, a restore's host ms
+moved and local beside the single device's, and its cache bytes.  The
+`[kernel] decode_attention_fused_partial` row holds the mesh decode's
+producer: normalised, and as head groups concatenated, the fused
+decode's bits.
 The `[train]` lines train on the one card (`launch/steps.make_train_step`:
 autograd over the plain-torch forward, as the reference's training path
 reaches no Pallas kernel, so they launch none of ours): the smoke
@@ -3008,18 +3017,25 @@ print(f"[reference] {ARCH} q8_0 + int8 KV, protocol rp (pools dequantized up "
       f"{near_tie_agrees('quantized rp vs axle', q_rp_toks, q_streamed, pair, weights=q_params, kv_quant='int8')}"
       " the axle run's", flush=True)
 
-# speculation over the quantized weights and the int8 cache: the draft
-# (self:7) is sliced from the quantized stacks and keeps an fp cache
+# speculation over the quantized weights and the int8 cache, on the
+# target's first 8 layers (views of the quantized stacks), as section 5c
+# runs the fp spec serves: the draft (self:7) is sliced from them and
+# keeps an fp cache; its tokens are set beside a non-spec serve of the
+# same 8 layers
 lap()
+SQ = dict(params=self_draft_params(cfg, q_params, SC8.n_layers), cfg=SC8)
+sq_layers = SC8.n_layers
+_, sq_plain_toks, _, _ = serve(copies(pair), protocol="axle", stream=True,
+                               **SQ, **INT8)
 sq_srv, sq_toks, sq_launches, sq_dt = serve(
-    copies(pair), params=q_params, protocol="axle", stream=True,
-    draft_arch="self:7", **INT8, **SPEC)
+    copies(pair), protocol="axle", stream=True, draft_arch="self:7",
+    **SQ, **INT8, **SPEC)
 rounds = spec_rounds(sq_srv)
 d_layers = sq_srv.draft_cfg.n_layers
 check(sq_launches["quant_matmul[q8_0]_skinny"]
-      == rounds * n_proj * ((SPEC_K + 1) * d_layers + n_layers)
+      == rounds * n_proj * ((SPEC_K + 1) * d_layers + sq_layers)
       and sq_launches["quant_matmul[q8_0]_tc"]
-      == sq_srv.prefill_forwards * n_proj * (n_layers + d_layers)
+      == sq_srv.prefill_forwards * n_proj * (sq_layers + d_layers)
       and sq_launches["quant_matmul[q8_0]"]
       == sq_launches["quant_matmul[q8_0]_skinny"]
       + sq_launches["quant_matmul[q8_0]_tc"]
@@ -3027,28 +3043,30 @@ check(sq_launches["quant_matmul[q8_0]_skinny"]
       <= sq_launches["quant_matmul[q8_0]_tc"],
       f"[spec] quantized launches {sq_launches}: not every draft and "
       f"verify product ({rounds} rounds x {n_proj} x ({SPEC_K + 1} x "
-      f"{d_layers} + {n_layers})) on the skinny kernel, or a split-K pass "
+      f"{d_layers} + {sq_layers})) on the skinny kernel, or a split-K pass "
       "outside the prefills")
 check(sq_launches["decode_attention_fused[int8]"]
-      == rounds * (SPEC_K + 1) * n_layers
+      == rounds * (SPEC_K + 1) * sq_layers
       and sq_launches["decode_attention_fused"]
       == rounds * (SPEC_K + 1) * d_layers,
       f"[spec] quantized decode launches {sq_launches}: not {rounds} rounds "
-      f"x {SPEC_K + 1} x ({n_layers} int8 verify + {d_layers} fp draft)")
-graph_equals_eager(f"{ARCH} q8_0 + int8 KV, spec self:7", sq_srv, sq_toks,
-                   sq_launches, sq_dt, pair, protocol="axle", stream=True,
-                   draft_arch="self:7", **INT8, **SPEC)
-print(f"[spec] {ARCH} q8_0 + int8 KV, draft self:7 (q8_0 views, fp KV), 2 "
+      f"x {SPEC_K + 1} x ({sq_layers} int8 verify + {d_layers} fp draft)")
+graph_equals_eager(f"{ARCH} q8_0 + int8 KV (its first {sq_layers} "
+                   "layers), spec self:7", sq_srv, sq_toks, sq_launches,
+                   sq_dt, pair, protocol="axle", stream=True,
+                   draft_arch="self:7", cfg=SC8, **INT8, **SPEC)
+print(f"[spec] {ARCH} q8_0 + int8 KV (its first {sq_layers} layers), draft "
+      f"self:7 (q8_0 views, fp KV), 2 "
       f"requests x 16 tokens: every draft and verify product on the skinny "
       f"kernel ({sq_launches['quant_matmul[q8_0]_skinny']} launches, the "
       f"verify's at m = {4 * (SPEC_K + 1)}), split-K passes "
       f"{sq_launches['quant_matmul[q8_0]_splitk']} all in prefills; accept "
       f"rate {sq_srv.draft_accepted / max(1, sq_srv.draft_proposed):.4f}; "
-      f"tokens vs non-spec: {describe(partings(sq_toks, q_streamed, pair, weights=q_params, kv_quant='int8')) or 'equal'}"
+      f"tokens vs the non-spec serve of those layers: {describe(partings(sq_toks, sq_plain_toks, pair, arch_cfg=SC8, weights=SQ['params'], kv_quant='int8')) or 'equal'}"
       " (not required: the reference's own spec stream parts from its "
       f"non-spec one under an int8 cache); phase {lap():.1f} s, "
       f"{time.perf_counter() - T_START:.0f} s into the script", flush=True)
-del sq_srv
+del sq_srv, SQ
 
 # bf16: every quant_matmul and int8 fused-decode launch of the served
 # model against its plain version on that launch's own inputs (these
@@ -5287,6 +5305,70 @@ def mesh_results(child):
 mesh_results(start_child("mesh_serve", [
     "repro_torch.examples.mesh_serve", "--full", "--mesh", "1x2",
     "--ring-seq", "8192", "--json", str(mesh_json)]))
+
+# the host tier, the prefix cache and chunked admission under a data split:
+# the same example at 2x1 (two ranks of 2 slot rows each on the one card,
+# as [mesh_train]'s 2x1 case), full width on starcoder2_3b's first 8
+# layers (the eager gloo segments cost ~4x at all 30), 24 tokens a
+# request: its churn serve (6
+# requests on 4 slots, each evictable after a segment: 4 of the 6
+# restores land in the other group's rows, 2 in their own), its prefix
+# serve (a prompt of 64-512 tokens served, repeated and extended: the
+# extension and the second repeat land in group 1, the entry in group 0)
+# and its chunked serve (a 900-token prompt in chunks of 256 beside 3
+# streams), each held by the example to the graphed single-device
+# server: tokens, decode syncs, the ledger, the tier's counts and its
+# host bytes on both ranks
+tier_json = ROOT / "build" / "mesh_tier.json"
+
+
+def tier_results(child):
+    """The [mesh] tier lines and checks of the 2x1 mesh_serve child."""
+    stdout, secs = finish_child("[mesh]", child)
+    for line in stdout.splitlines():
+        if line.startswith("[mesh]"):
+            print(f"{line}; {SMI_LINE}", flush=True)
+    res = json.loads(tier_json.read_text())
+    base, ranks = res["base"]["serves"], res["ranks"]
+    check(len(ranks) == 2, f"[mesh] tier: {len(ranks)} ranks reported")
+    check(base["churn"]["evictions"] > 0 and base["churn"]["restores"] > 0,
+          f"[mesh] tier churn: {base['churn']['evictions']} evictions")
+    full, partial, _ = base["prefix"]["prefix"]
+    check(full >= 1 and partial >= 1, f"[mesh] tier prefix: {full} full, "
+          f"{partial} partial hits")
+    check(base["chunked"]["prefill_chunks"] >= 4,
+          f"[mesh] tier chunked: {base['chunked']['prefill_chunks']} chunks")
+    for rep in ranks:
+        for name, srv in rep["serves"].items():
+            ml = srv["launches"]
+            check(ml["decode_attention_fused"] > 0
+                  and ml["decode_attention_fused_tc"]
+                  == ml["decode_attention_fused"]
+                  and ml["flash_attention"] > 0
+                  and ml["flash_attention_tc"] == ml["flash_attention"],
+                  f"[mesh] tier {name} rank {rep['rank']}: launches {ml}")
+            if name in ("churn", "prefix"):
+                check(srv["tier_moves"] > 0 and srv["tier_bytes_moved"] > 0,
+                      f"[mesh] tier {name} rank {rep['rank']}: "
+                      f"{srv['tier_moves']} moves")
+        # every eviction's snapshot is a whole row: a move carries one
+        churn = rep["serves"]["churn"]
+        evicted = base["churn"]["host_bytes"][0] // base["churn"]["evictions"]
+        check(churn["tier_bytes_moved"] == churn["tier_moves"] * evicted
+              and 0 < churn["restores_moved"] < churn["restores"],
+              f"[mesh] tier churn rank {rep['rank']}: "
+              f"{churn['tier_bytes_moved']} B in {churn['tier_moves']} "
+              f"moves of {evicted} B, {churn['restores_moved']} of "
+              f"{churn['restores']} restores moved")
+    print(f"[mesh] tier phase {secs:.1f} s; "
+          f"{time.perf_counter() - T_START:.0f} s into the script",
+          flush=True)
+
+
+tier_results(start_child("mesh_tier", [
+    "repro_torch.examples.mesh_serve", "--full", "--layers", "8", "--mesh",
+    "2x1", "--serves", "churn,prefix,chunked", "--max-new", "24",
+    "--ring-seq", "0", "--json", str(tier_json)]))
 
 # --------------------------------------------------------------------------
 # 6h. training on the one card (`launch/steps.make_train_step`: autograd

@@ -24,7 +24,9 @@ torch, as the reference does in plain XLA.
 The host tier (`stream_offload_to_host` / `stream_offload_to_device`,
 `HostTier`, `PrefixCache`) moves one slot's cache pages between the device
 and pinned host memory on the side stream, for the server's eviction and
-prefix reuse.
+prefix reuse; under a data split `move_snapshot` carries a snapshot to
+another data group and `broadcast_leaves` shares one group's small
+tensors (a first token's logits, a restored slot-state row) with all.
 
 Under a mesh (`sharding.use_rules`, one process a shard over
 `torch.distributed`) the decode takes the mesh schedules:
@@ -645,6 +647,10 @@ def _seq_sharded_decode(q, k_l, v_l, pos_b, window, extra, kv_scales,
 # CUDA leaf bound for a host tensor that cannot be pinned, or a host leaf
 # bound for the card that is not pinned, raises.
 
+# a snapshot's leaves: (key, shape, dtype) each, in order
+Layout = Tuple[Tuple[str, Tuple[int, ...], torch.dtype], ...]
+
+
 def _chunk_starts(n: int, chunks: int) -> List[Tuple[int, int]]:
     """Split [0, n) into <= `chunks` contiguous spans (last one ragged)."""
     chunks = max(1, min(chunks, n))
@@ -667,16 +673,23 @@ class HostSnapshot:
     host tensor a leaf (pinned when the pages come from the card), filled
     chunk by chunk on the side stream.  `nbytes` comes from shapes alone,
     so the byte accounting never waits on a copy; `materialize()` waits
-    on the copies' event (the one host sync) and returns the leaves."""
+    on the copies' event (the one host sync) and returns the leaves.
+    `holder` is the data rank whose group took it (0 off a data split)."""
 
     def __init__(self, host: Dict[str, torch.Tensor],
-                 done: Optional["torch.cuda.Event"] = None):
+                 done: Optional["torch.cuda.Event"] = None, *,
+                 holder: int = 0):
         self._host = host
         self._done = done
+        self.holder = holder
 
     @property
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self._host.values())
+
+    @property
+    def layout(self) -> Layout:
+        return snapshot_layout(self._host)
 
     @property
     def event(self) -> Optional["torch.cuda.Event"]:
@@ -690,17 +703,42 @@ class HostSnapshot:
         return self._host
 
 
+class SnapshotStub(HostSnapshot):
+    """Another data group's snapshot, as a rank that does not hold its
+    bytes keeps it: the leaves' layout and the holder, no tensor.  Its
+    `nbytes` is the holder's, so the stores' byte counts and capacity
+    evictions run alike on every rank."""
+
+    def __init__(self, layout: Layout, holder: int):
+        super().__init__({}, holder=holder)
+        self._layout = layout
+
+    @property
+    def nbytes(self) -> int:
+        return sum(_leaf_bytes(shape, dtype) for _, shape, dtype
+                   in self._layout)
+
+    @property
+    def layout(self) -> Layout:
+        return self._layout
+
+    def materialize(self) -> Dict[str, torch.Tensor]:
+        raise RuntimeError(f"this snapshot's bytes are on data rank "
+                           f"{self.holder}'s group")
+
+
 def stream_offload_to_host(leaves: Dict[str, torch.Tensor], *,
-                           chunks: int = 2) -> HostSnapshot:
+                           chunks: int = 2, holder: int = 0) -> HostSnapshot:
     """Evict one slot's pages to the host tier: `chunks` `non_blocking`
     copies a leaf into pinned host tensors on the side stream, behind an
     event of the serving stream, so the copies overlap whatever the
     serving stream runs next.  `leaves` must not be written afterwards
     (the server hands over fresh staging tensors).  Returns a lazy
-    `HostSnapshot`: nothing here waits."""
+    `HostSnapshot` (of data rank `holder`): nothing here waits."""
     cuda = [t for t in leaves.values() if t.is_cuda]
     if not cuda:
-        return HostSnapshot({k: t.clone() for k, t in leaves.items()})
+        return HostSnapshot({k: t.clone() for k, t in leaves.items()},
+                            holder=holder)
     dev = cuda[0].device
     main = torch.cuda.current_stream(dev)
     side = _side_stream(dev)
@@ -715,7 +753,7 @@ def stream_offload_to_host(leaves: Dict[str, torch.Tensor], *,
             t.record_stream(side)
         done = torch.cuda.Event(enable_timing=True)
         done.record(side)
-    return HostSnapshot(host, done)
+    return HostSnapshot(host, done, holder=holder)
 
 
 def stream_offload_to_device(leaves: Dict[str, torch.Tensor],
@@ -747,11 +785,130 @@ def stream_offload_to_device(leaves: Dict[str, torch.Tensor],
     return out
 
 
+# --------------------------------------------------------------------------
+# Snapshots across data groups
+# --------------------------------------------------------------------------
+#
+# Under a data split a slot's row, and every snapshot taken of it, lives on
+# the data group that owns the slot.  A restore or a prefix hit may land in
+# another group's slot: the snapshot then moves there, point to point over
+# the data axis (`move_snapshot`).  The first token's logits and a
+# restored slot-state row, which one group computes or holds and every
+# rank needs, go out in one broadcast (`broadcast_leaves`).  Both carry a
+# snapshot as ONE byte buffer: its leaves packed by their layout (key,
+# shape, dtype), each at a 16-byte-aligned offset, which the receiving
+# ranks know from the cache's shapes alone.  Neither is counted in `WIRE`,
+# which holds the attention merges' bytes; the server counts its moves.
+
+_ALIGN = 16
+
+
+def snapshot_layout(leaves: Dict[str, torch.Tensor]) -> Layout:
+    """The (key, shape, dtype) of every leaf, in order."""
+    return tuple((k, tuple(t.shape), t.dtype) for k, t in leaves.items())
+
+
+def _leaf_bytes(shape: Tuple[int, ...], dtype: torch.dtype) -> int:
+    n = dtype.itemsize
+    for d in shape:
+        n *= d
+    return n
+
+
+def _offsets(layout: Layout) -> Tuple[List[int], int]:
+    """Each leaf's byte offset in the packed buffer, and its size."""
+    offs, end = [], 0
+    for _, shape, dtype in layout:
+        offs.append(end)
+        end += -(-_leaf_bytes(shape, dtype) // _ALIGN) * _ALIGN
+    return offs, end
+
+
+def pack_leaves(leaves: Dict[str, torch.Tensor], layout: Layout,
+                size: Optional[int] = None) -> torch.Tensor:
+    """The leaves as one zero-padded uint8 host tensor of `size` bytes
+    (default: the layout's); raises if a leaf is not as the layout says."""
+    offs, end = _offsets(layout)
+    buf = torch.zeros((size or end,), dtype=torch.uint8)
+    for (key, shape, dtype), off in zip(layout, offs):
+        t = leaves[key]
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"leaf {key!r}: {tuple(t.shape)} {t.dtype}, "
+                             f"the layout says {shape} {dtype}")
+        n = _leaf_bytes(shape, dtype)
+        buf[off:off + n].copy_(t.reshape(-1).view(torch.uint8))
+    return buf
+
+
+def unpack_leaves(buf: torch.Tensor, layout: Layout
+                  ) -> Dict[str, torch.Tensor]:
+    """`pack_leaves`' inverse: views of `buf`, one a leaf."""
+    offs, _ = _offsets(layout)
+    return {key: buf[off:off + _leaf_bytes(shape, dtype)].view(dtype)
+            .view(shape) for (key, shape, dtype), off in zip(layout, offs)}
+
+
+def move_snapshot(leaves: Optional[Dict[str, torch.Tensor]],
+                  layout: Layout, src: int, dst: int, rules: ShardingRules,
+                  *, pin: bool = False) -> Optional[Dict[str, torch.Tensor]]:
+    """Carry one host snapshot from data group `src` to data group `dst`.
+    Each rank of `src` (holding `leaves`) sends the share of the packed
+    bytes its model index names to the rank of `dst` with the same model
+    index, over this rank's data line; under a model split each rank so
+    moves 1/n of the bytes, and the ranks of `dst` join the shares with
+    one all-gather over the model axis.  Called by the ranks of both
+    groups: `src`'s return None, `dst`'s the leaves, views of one host
+    buffer (pinned with `pin`, for `stream_offload_to_device`).  A failed
+    send or receive raises."""
+    data = rules.group("data")
+    me = rules.rank("data")
+    n, m = rules.model_size(), rules.rank(rules.model_axis)
+    _, size = _offsets(layout)
+    share = -(-size // (n * _ALIGN)) * _ALIGN
+    if me == src:
+        buf = pack_leaves(leaves, layout, share * n)
+        dist.send(buf[m * share:(m + 1) * share],
+                  dist.get_global_rank(data, dst), group=data)
+        return None
+    if me != dst:
+        raise ValueError(f"data rank {me} neither sends ({src}) nor "
+                         f"receives ({dst}) this snapshot")
+    buf = torch.empty((share * n,), dtype=torch.uint8, pin_memory=pin)
+    if n == 1:
+        dist.recv(buf, dist.get_global_rank(data, src), group=data)
+    else:
+        mine = torch.empty((share,), dtype=torch.uint8)
+        dist.recv(mine, dist.get_global_rank(data, src), group=data)
+        dist.all_gather(list(buf.view(n, share)), mine,
+                        group=rules.group(rules.model_axis))
+    return unpack_leaves(buf, layout)
+
+
+def broadcast_leaves(leaves: Optional[Dict[str, torch.Tensor]],
+                     layout: Layout, src: int, group
+                     ) -> Dict[str, torch.Tensor]:
+    """Group rank `src`'s leaves on every rank of `group`: one broadcast
+    of their packed bytes.  `src` passes its leaves and gets them back as
+    they are; the others get views of one host buffer.  A failed
+    broadcast raises."""
+    root = dist.get_global_rank(group, src)
+    if dist.get_rank(group) == src:
+        dist.broadcast(pack_leaves(leaves, layout), root, group=group)
+        return leaves
+    buf = torch.empty((_offsets(layout)[1],), dtype=torch.uint8)
+    dist.broadcast(buf, root, group=group)
+    return unpack_leaves(buf, layout)
+
+
 class HostTier:
     """Host-memory store of evicted slot snapshots, keyed by request id:
     the expanded-memory tier the server spills cold slots into.  Tracks
     the bytes moved each way and the peak resident bytes; capacity is the
-    host's (the paper's premise is that this tier is the big one)."""
+    host's (the paper's premise is that this tier is the big one).  Under
+    a data split each entry's snapshots carry the data rank that holds
+    their bytes (`HostSnapshot.holder`); every other rank stores a
+    `SnapshotStub` of the same size under the same id, so the counts are
+    alike on every rank."""
 
     def __init__(self) -> None:
         self._store: Dict[int, Tuple[HostSnapshot, HostSnapshot]] = {}
@@ -810,7 +967,10 @@ class PrefixCache:
     `capacity_bytes` is passed (None: no cap), and their trie branches
     pruned.  The pages are exact for any continuation: K/V rows [0, L)
     and the recurrent state after token L - 1 depend only on tokens
-    [0, L)."""
+    [0, L).  Under a data split a rank that does not hold an entry's
+    bytes stores a `SnapshotStub` of the holder's size under the same
+    key: the trie, the LRU order, `bytes_stored`, the capacity evictions
+    and `lookup` are then the same on every rank."""
 
     def __init__(self, capacity_bytes: Optional[int] = 256 << 20) -> None:
         self._root = _TrieNode()

@@ -1,7 +1,9 @@
 """Mesh-sharded serving on this host's ranks, held to the single device.
 
     PYTHONPATH=src python -m repro_torch.examples.mesh_serve \\
-        [--full] [--device cpu] [--mesh 1x2] [--json out.json]
+        [--full] [--layers N] [--device cpu] [--mesh 1x2] [--json out.json] \\
+        [--serves plain,churn,prefix,chunked] [--offload] \\
+        [--evict-after N] [--prefix-cache] [--prefill-chunk C]
 
 First the single-device server serves the requests (on the card its
 segments are CUDA graph replays) and one of its decode steps is timed;
@@ -17,6 +19,24 @@ seq S` runs the sequence-sharded schedules (BS, AXLE, RP) of
 model ranks, in bf16 and f32, each held to the single-device fused
 decode on every rank, with each AXLE hop's wall ms.
 
+`--serves` names the serves, each on its own server (the weights drawn
+once a process and shared), each held to its single-device twin:
+
+  plain    the requests below, on a server with the serving CLI's
+           `--offload`, `--evict-after`, `--prefix-cache` and
+           `--prefill-chunk` when given;
+  churn    the host tier, every slot evictable after one segment, two
+           more requests than slots;
+  prefix   the prefix cache: one prompt served, repeated and extended;
+  chunked  chunked admission (`--prefill-chunk`, default 256): a
+           `--long-prompt`-token prompt third in the queue, beside the
+           streams in flight.
+
+Under a data split a restore or a prefix hit that lands in another data
+group's slot moves its snapshot there: each rank reports its evictions,
+restores, prefix hits, chunks, `tier_moves` and `tier_bytes_moved`, the
+restores' host ms (moved and local) and its resident cache bytes.
+
 It runs on the GPU unless `--device cpu` is given, and raises when no GPU
 is present and none was asked for.  The requests: half greedy, half
 sampled (temperature 0.8, top_p 0.95), prompts of `--prompt-lo` to
@@ -25,21 +45,24 @@ sampled (temperature 0.8, top_p 0.95), prompts of `--prompt-lo` to
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import backstream
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.serve import BatchedServer, Request, SamplingParams
+from repro_torch.models.config import ArchConfig
 from repro_torch.sharding import ShardingRules, use_rules
 
 # the sequence-sharded schedules' tolerance against the fused decode:
@@ -63,18 +86,73 @@ def make_requests(vocab: int, n: int, lo: int, hi: int, max_new: int,
     return reqs
 
 
-def _server(opts: Dict[str, Any], device, mesh=None) -> BatchedServer:
-    return BatchedServer(opts["arch"], smoke=not opts["full"], device=device,
+SERVES = ("plain", "churn", "prefix", "chunked")
+# what a serve on the mesh must equal on the single device
+EQUAL = ("tokens", "syncs", "ledger", "evictions", "restores", "prefix",
+         "prefill_chunks", "host_bytes")
+
+
+def serve_setup(name: str, vocab: int, opts: Dict[str, Any]
+                ) -> Tuple[Dict[str, Any], List[Request]]:
+    """Serve `name`'s server options and requests (see the module's
+    docstring)."""
+    lo, hi, new = opts["prompt_lo"], opts["prompt_hi"], opts["max_new"]
+    if name == "plain":
+        kw = dict(host_offload=opts["offload"],
+                  evict_after=opts["evict_after"],
+                  prefix_cache=opts["prefix_cache"],
+                  prefill_chunk=opts["prefill_chunk"])
+        return kw, make_requests(vocab, opts["requests"], lo, hi, new)
+    if name == "churn":
+        # two more requests than slots: at 2 rows a group every restore
+        # lands in the other group's slots (four more keep each request
+        # in its own group)
+        return (dict(host_offload=True, evict_after=1),
+                make_requests(vocab, opts["slots"] + 2, lo, hi, new))
+    if name == "prefix":
+        # at 2 rows a group, slots 0 and 1 lie in group 0: the first
+        # prompt's entry is a miss there, its repeat in slot 1 a full hit
+        # in place; its extension in slot 2 and its second repeat in
+        # slot 3 move the entry to group 1
+        reqs = make_requests(vocab, 6, lo, hi, new, seed=1)
+        first = reqs[0].prompt
+        for i, prompt in ((1, first), (3, first), (2, np.concatenate(
+                [first, reqs[2].prompt[:lo]])), (5, np.concatenate(
+                    [first, reqs[5].prompt[:lo]]))):
+            reqs[i].prompt = prompt
+        return dict(prefix_cache=True), reqs
+    if name == "chunked":
+        reqs = make_requests(vocab, 4, lo, hi, new, seed=2)
+        rng = np.random.default_rng(3)
+        reqs[2].prompt = rng.integers(1, vocab, opts["long_prompt"]).astype(
+            np.int32)
+        return dict(prefill_chunk=opts["prefill_chunk"] or 256), reqs
+    raise ValueError(f"unknown serve {name!r}; want one of {SERVES}")
+
+
+def _config(opts: Dict[str, Any]) -> ArchConfig:
+    """The served config: the arch's (full or smoke), its first
+    `--layers` layers when given."""
+    cfg = (get_config if opts["full"] else get_smoke_config)(opts["arch"])
+    if opts["layers"]:
+        cfg = dataclasses.replace(cfg, arch_id=f"{cfg.arch_id}_first"
+                                  f"{opts['layers']}", n_layers=opts["layers"])
+    return cfg
+
+
+def _server(opts: Dict[str, Any], device, mesh=None, params=None,
+            **kw) -> BatchedServer:
+    return BatchedServer(opts["arch"], cfg=_config(opts), device=device,
                          batch_slots=opts["slots"], max_seq=opts["max_seq"],
                          protocol=opts["protocol"], stream=True,
-                         seg_len=opts["seg_len"], mesh=mesh)
+                         seg_len=opts["seg_len"], mesh=mesh, params=params,
+                         **kw)
 
 
-def _serve(server: BatchedServer, opts: Dict[str, Any]) -> Dict[str, Any]:
-    """Serve the requests; tokens, syncs, ledger, wall."""
-    for req in make_requests(server.cfg.vocab, opts["requests"],
-                             opts["prompt_lo"], opts["prompt_hi"],
-                             opts["max_new"]):
+def _serve(server: BatchedServer, reqs: List[Request]) -> Dict[str, Any]:
+    """Serve the requests; tokens, syncs, ledger, the host tier's counts,
+    wall."""
+    for req in reqs:
         server.submit(req)
     _sync(server.device)
     t0 = time.perf_counter()
@@ -83,13 +161,86 @@ def _serve(server: BatchedServer, opts: Dict[str, Any]) -> Dict[str, Any]:
     wall = time.perf_counter() - t0
     server.assert_ledger()
     n_tok = sum(len(r.generated) for r in server.completed)
+    s = server
+    local = s.restores - s.restores_moved
+    tier, prefix = s.host_tier, s.prefix
     return dict(tokens={r.rid: list(map(int, r.generated))
                         for r in server.completed},
                 syncs=server.decode_syncs,
                 ledger=(server.pages_allocated, server.pages_freed,
                         server.pages_resident_peak),
+                evictions=s.evictions, restores=s.restores,
+                prefix=(s.prefix_hits_full, s.prefix_hits_partial,
+                        s.prefix_misses),
+                prefill_chunks=s.prefill_chunks,
+                # host bytes evicted and restored, the prefix cache's peak
+                # (a rank's stubs count the holder's bytes)
+                host_bytes=(tier.bytes_evicted if tier is not None else 0,
+                            tier.bytes_restored if tier is not None else 0,
+                            prefix.bytes_stored_peak if prefix is not None
+                            else 0),
+                tier_moves=s.tier_moves,
+                tier_bytes_moved=s.tier_bytes_moved,
+                restores_moved=s.restores_moved,
+                restore_ms=(1e3 * s.restore_dispatch_time / s.restores
+                            if s.restores else None),
+                restore_moved_ms=(1e3 * s.restore_moved_time
+                                  / s.restores_moved
+                                  if s.restores_moved else None),
+                restore_local_ms=(1e3 * (s.restore_dispatch_time
+                                         - s.restore_moved_time) / local
+                                  if local else None),
+                cache_bytes=_cache_bytes(s),
                 wall_s=wall, tok_s=n_tok / wall, tokens_n=n_tok,
                 graph_replays=server.graph_replays)
+
+
+def _cache_bytes(server: BatchedServer) -> int:
+    """The bytes of this rank's device cache (and the draft's)."""
+    caches = [server.cache] + ([server.draft_cache] if server.spec else [])
+    return sum(t.numel() * t.element_size() for c in caches
+               for t in c.values())
+
+
+def serve_all(opts: Dict[str, Any], device: torch.device, mesh=None,
+              step: bool = True) -> Dict[str, Any]:
+    """Every serve of `opts["serves"]` on a server of its own, the weights
+    drawn once (seed 0) and shared, each server freed before the next;
+    with the launch counts set to 0 just before each serve and read just
+    after.  The plain serve's report is the result's top level (with one
+    decode step's times when `step`), every serve's under "serves"."""
+    out: Dict[str, Any] = {"serves": {}}
+    params = None
+    for name in opts["serves"]:
+        kw, reqs = serve_setup(name, _config(opts).vocab, opts)
+        server = _server(opts, device, mesh, params, **kw)
+        params = server.params
+        kbuild.reset_launch_counts()
+        backstream.WIRE.reset()
+        rep = _serve(server, reqs)
+        rep["launches"] = dict(kbuild.LAUNCHES)
+        rep["gathers"] = backstream.WIRE.gathers
+        rep["bytes_sent"] = backstream.WIRE.bytes_sent
+        out["serves"][name] = rep
+        if name == "plain":
+            out.update(rep)
+            w = server.wire
+            out.update(
+                wire=server.wire_bytes_per_shard,
+                wire_model=dict(n_shards=w.n_shards,
+                                rows_local=w.rows_local,
+                                heads_local=w.heads_local,
+                                head_dim=w.head_dim, merges=w.merges,
+                                bytes_per_merge=w.bytes_per_merge),
+                merges_per_step=server.merges_per_round)
+            if step:
+                out["step"] = step_times(server)
+        del server
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
 
 
 def _sync(device: torch.device) -> None:
@@ -106,7 +257,7 @@ def step_times(server: BatchedServer) -> Dict[str, Any]:
     args = (server.params, server.cache, server.state)
 
     def step():
-        with backstream.use_offload(server.offload), use_rules(server.rules):
+        with server.segment_scope():
             server.step_fn(*args)
 
     step()
@@ -188,34 +339,17 @@ def ring_run(mesh, device: torch.device, cfg,
 
 
 def rank_main(mesh, device: str, opts: Dict[str, Any]) -> List[Dict]:
-    """One rank: build the mesh server, serve with the launch counts set
-    to 0 just before and read just after, time one eager decode step,
-    run the sequence-sharded schedules; every rank's report, gathered."""
+    """One rank: every serve on a mesh server (`serve_all`: the launch
+    counts set to 0 just before each serve and read just after), one
+    eager decode step of the plain serve timed, the sequence-sharded
+    schedules; every rank's report, gathered."""
     dev = mesh_lib.rank_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    server = _server(opts, dev, mesh)
-    kbuild.reset_launch_counts()
-    backstream.WIRE.reset()
-    report = _serve(server, opts)
-    report["launches"] = dict(kbuild.LAUNCHES)
-    w = server.wire
-    report.update(
-        rank=dist.get_rank(), wire=server.wire_bytes_per_shard,
-        wire_model=dict(n_shards=w.n_shards, rows_local=w.rows_local,
-                        heads_local=w.heads_local, head_dim=w.head_dim,
-                        merges=w.merges, bytes_per_merge=w.bytes_per_merge),
-        gathers=backstream.WIRE.gathers,
-        bytes_sent=backstream.WIRE.bytes_sent,
-        merges_per_step=server.merges_per_round)
-    report["step"] = step_times(server)
-    cfg = server.cfg
-    del server
-    gc.collect()
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    report = serve_all(opts, dev, mesh)
+    report["rank"] = dist.get_rank()
     if opts["ring_seq"]:
-        report["ring"] = ring_run(mesh, dev, cfg, opts)
+        report["ring"] = ring_run(mesh, dev, _config(opts), opts)
     every: List[Optional[Dict]] = [None] * dist.get_world_size()
     dist.all_gather_object(every, report)
     return every
@@ -226,13 +360,7 @@ def run(opts: Dict[str, Any]) -> Dict[str, Any]:
     syncs or ledger part from the single device's, or a ring schedule
     passes its tolerance.  Returns both sides' reports."""
     device = resolve_device(opts["device"])
-    base_server = _server(opts, device)
-    base = _serve(base_server, opts)
-    base["step"] = step_times(base_server)
-    del base_server
-    gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
+    base = serve_all(opts, device)
     n_data, n_model = mesh_lib.parse_mesh(opts["mesh"])
     t0 = time.perf_counter()
     ranks = mesh_lib.spawn(rank_main, n_data, n_model,
@@ -240,14 +368,16 @@ def run(opts: Dict[str, Any]) -> Dict[str, Any]:
                            threads=opts["threads"])
     group_s = time.perf_counter() - t0
     for rep in ranks:
-        for key in ("tokens", "syncs", "ledger"):
-            if rep[key] != base[key]:
-                raise AssertionError(
-                    f"mesh {opts['mesh']} rank {rep['rank']}: {key} "
-                    f"{rep[key]} != the single device's {base[key]}")
-        wm = rep["wire_model"]
-        if rep["wire"] != wm["merges"] * wm["bytes_per_merge"] \
-                or rep["bytes_sent"] != rep["wire"]:
+        for name, srv in rep["serves"].items():
+            for key in EQUAL:
+                if srv[key] != base["serves"][name][key]:
+                    raise AssertionError(
+                        f"mesh {opts['mesh']} rank {rep['rank']} serve "
+                        f"{name}: {key} {srv[key]} != the single device's "
+                        f"{base['serves'][name][key]}")
+        wm = rep.get("wire_model")
+        if wm and (rep["wire"] != wm["merges"] * wm["bytes_per_merge"]
+                   or rep["bytes_sent"] != rep["wire"]):
             raise AssertionError(f"rank {rep['rank']}: wire {rep['wire']} "
                                  f"sent {rep['bytes_sent']} model {wm}")
         for name, row in rep.get("ring", {}).items():
@@ -259,7 +389,13 @@ def run(opts: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def report_lines(res: Dict[str, Any], opts: Dict[str, Any]) -> List[str]:
-    """The `[mesh]` lines of a run."""
+    """The `[mesh]` lines of a run: the plain serve's, then the tier's."""
+    lines = plain_lines(res, opts) if "plain" in opts["serves"] else []
+    return lines + tier_lines(res, opts)
+
+
+def plain_lines(res: Dict[str, Any], opts: Dict[str, Any]) -> List[str]:
+    """The plain serve's line, its decode step's and the ring's."""
     base, ranks = res["base"], res["ranks"]
     wm = ranks[0]["wire_model"]
     lines = [
@@ -306,6 +442,39 @@ def report_lines(res: Dict[str, Any], opts: Dict[str, Any]) -> List[str]:
     return lines
 
 
+def tier_lines(res: Dict[str, Any], opts: Dict[str, Any]) -> List[str]:
+    """One `[mesh] tier` line a serve that evicted, hit the prefix cache
+    or admitted by chunks: its counts (equal on the single device and
+    every rank), each rank's moves, bytes moved, restore host ms (moved /
+    local) and resident cache bytes, beside the single device's."""
+    base, ranks = res["base"], res["ranks"]
+    lines = []
+    for name, b in base["serves"].items():
+        if not (b["evictions"] or any(b["prefix"]) or b["prefill_chunks"]):
+            continue
+        per_rank = []
+        for rep in ranks:
+            r = rep["serves"][name]
+            per_rank.append(
+                f"rank {rep['rank']}: {r['tier_moves']} moves "
+                f"{r['tier_bytes_moved']} B, restore ms moved "
+                f"{_ms(r['restore_moved_ms'])} local "
+                f"{_ms(r['restore_local_ms'])}, cache "
+                f"{r['cache_bytes']} B, {r['tok_s']:.1f} tok/s")
+        full, partial, miss = b["prefix"]
+        lines.append(
+            f"[mesh] tier {name} {opts['mesh']} {_config(opts).arch_id}: "
+            f"tokens, decode syncs "
+            f"({b['syncs']}), ledger {tuple(b['ledger'])}, evictions "
+            f"{b['evictions']}, restores {b['restores']}, prefix "
+            f"{full}full+{partial}partial+{miss}miss, chunks "
+            f"{b['prefill_chunks']} == the single device's on every rank; "
+            + "; ".join(per_rank) + f"; the single device: restore ms "
+            f"{_ms(b['restore_ms'])}, cache {b['cache_bytes']} B, "
+            f"{b['tok_s']:.1f} tok/s ({b['graph_replays']} graph replays)")
+    return lines
+
+
 def _ms(x) -> str:
     return "not measured" if x is None else f"{x:.3f}"
 
@@ -315,6 +484,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--arch", default="starcoder2_3b")
     ap.add_argument("--full", action="store_true",
                     help="the full-width config (default: the smoke one)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the config's first N layers (default all)")
     ap.add_argument("--device", default=None,
                     help="torch device type (default cuda; 'cpu' to run "
                          "here)")
@@ -332,10 +503,24 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                          "(0: skip them)")
     ap.add_argument("--threads", type=int, default=1,
                     help="torch threads a rank")
+    ap.add_argument("--serves", default="plain",
+                    help="comma-separated serves: " + ", ".join(SERVES))
+    ap.add_argument("--offload", action="store_true",
+                    help="the plain serve's host tier (as the serving CLI)")
+    ap.add_argument("--evict-after", type=int, default=1,
+                    help="segments a slot decodes before it may be evicted")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="the plain serve's prefix cache")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="the plain serve's chunked admission; the chunked "
+                         "serve's chunk (default 256)")
+    ap.add_argument("--long-prompt", type=int, default=900,
+                    help="tokens of the chunked serve's long prompt")
     ap.add_argument("--json", default=None,
                     help="write both sides' reports here")
     args = ap.parse_args(argv)
     opts = {k.replace("-", "_"): v for k, v in vars(args).items()}
+    opts["serves"] = opts["serves"].split(",")
     res = run(opts)
     for line in report_lines(res, opts):
         print(line, flush=True)

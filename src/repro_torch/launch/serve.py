@@ -77,25 +77,31 @@ run eagerly.  Both loops emit identical tokens.
 `--mesh DATAxMODEL` (`mesh=`, a `launch/mesh.py` DeviceMesh) serves
 SPMD over `torch.distributed`, one process a shard, every rank running
 the same host loop on the same requests: the slots split over `data`
-(each data group holds its rows' cache and slot state, and gathers its
-rows' tokens and verdicts at every decode sync, so every rank's scheduler
-decides alike), the parameters are replicated (every rank draws them
-from the same seed), and the decode attention splits by head group over
-`model` (`core/backstream.py`), its statistics crossing ranks in one
-all-gather a merge.  Tokens, decode syncs and the page ledger are
-bitwise the single-device server's for every mesh shape;
-`wire_bytes_per_shard` counts the statistics' bytes (`core/ring.py`
-`WireLedger`).  Gloo's collectives cannot be captured in a CUDA graph,
-so under a mesh the segments run eagerly on the card too.  Run it with
-`torchrun --nproc-per-node N -m repro_torch.launch.serve --mesh DxM`.
+(each data group holds its rows' cache and slot state, runs its products
+padded to the whole batch's rows, and gathers its rows' tokens and
+verdicts at every decode sync, so every rank's scheduler decides alike),
+the parameters are replicated (every rank draws them from the same
+seed), and the decode attention splits by head group over `model`
+(`core/backstream.py`), its statistics crossing ranks in one all-gather
+a merge.  Tokens, decode syncs and the page ledger are bitwise the
+single-device server's for every mesh shape, with the host tier, the
+prefix cache and chunked admission too (a snapshot moves between data
+groups when a restore or a hit lands in another group's slot:
+`tier_moves`, `tier_bytes_moved`); `wire_bytes_per_shard` counts the
+attention statistics' bytes (`core/ring.py` `WireLedger`).  Gloo's
+collectives cannot be captured in a CUDA graph, so under a mesh the
+segments run eagerly on the card too.  Run it with `torchrun
+--nproc-per-node N -m repro_torch.launch.serve --mesh DxM`.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
 import sys
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,8 +109,11 @@ import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.core.backstream import (HostTier, OffloadConfig,
-                                         OffloadProtocol, PrefixCache,
+from repro_torch.core.backstream import (HostSnapshot, HostTier, Layout,
+                                         OffloadConfig, OffloadProtocol,
+                                         PrefixCache, SnapshotStub,
+                                         broadcast_leaves, move_snapshot,
+                                         snapshot_layout,
                                          stream_offload_to_device,
                                          stream_offload_to_host,
                                          use_offload)
@@ -117,7 +126,7 @@ from repro_torch.launch import partition
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.quantize import quantize_params
+from repro_torch.models.quantize import padded_rows, quantize_params
 from repro_torch.models.registry import get_model
 from repro_torch.sharding import ShardingRules, use_rules
 
@@ -302,15 +311,26 @@ class BatchedServer:
     False)`: parameters replicated (checked at construction by one
     gathered checksum), slot rows split over `data` (`batch_slots` must
     divide), the decode attention split by head group over `model`.
-    Every rank runs every admission's prefill, for its first token; only
-    the data group that owns the slot keeps the cache writes (the others
-    prefill into a one-row scratch cache).  At each decode sync a data
-    group gathers the rows' tokens, emit masks and verdicts.  The
-    segments run eagerly (no CUDA graph), and a speculative draft decodes
-    with its attention whole on every rank.  The host tier, the prefix
-    cache and chunked admission move one slot's pages between a row and
-    the host, so they need every row on every rank: they are refused
-    under a data split (n_data > 1)."""
+    Every rank runs every plain admission's prefill, for its first token;
+    only the data group that owns the slot keeps the cache writes (the
+    others prefill into a one-row scratch cache).  At each decode sync a
+    data group gathers the rows' tokens, emit masks and verdicts.  The
+    segments run eagerly (no CUDA graph), under a data split with every
+    product padded to the whole batch's rows (`segment_scope`), and a
+    speculative draft decodes with its attention whole on every rank.
+
+    Under a data split the host tier, the prefix cache and chunked
+    admission keep one host loop on every rank (the same queue, eviction
+    choice, prefix keys and LRU, chunk plan, ledger and counters); the
+    device work and the bytes belong to the slot's data group alone.  A
+    snapshot is held by the group that took it (`HostSnapshot.holder`;
+    the other ranks store a `SnapshotStub` of its size under the same
+    key), and a restore or a prefix hit into another group's slot moves
+    it there first (`_fetch`: `tier_moves`, `tier_bytes_moved`).  What
+    one group computes or holds and every rank needs, a hit's or a last
+    chunk's logits and a restored slot-state row, it broadcasts over the
+    data axis: one small tensor an admission or restore.  Tokens, decode
+    syncs, the ledger and the tier's counts stay the single device's."""
 
     def __init__(self, arch_id: str, *, smoke: bool = True,
                  device: Optional[str] = None, batch_slots: int = 4,
@@ -329,8 +349,7 @@ class BatchedServer:
         self.device = resolve_device(device)
         self.cfg = cfg or (get_smoke_config(arch_id) if smoke
                            else get_config(arch_id))
-        self._init_mesh(mesh, batch_slots, host_offload, prefix_cache,
-                        prefill_chunk)
+        self._init_mesh(mesh, batch_slots)
         if prefill_chunk is not None:
             _check_prefill_chunk(self.cfg, prefill_chunk, spec, prefix_cache)
         if prefix_cache and spec:
@@ -426,14 +445,13 @@ class BatchedServer:
         self.tokens_emitted = 0
         self._init_wire()
 
-    def _init_mesh(self, mesh, batch_slots: int, host_offload: bool,
-                   prefix_cache: bool, prefill_chunk: Optional[int]) -> None:
-        """The serving rules and plan under a mesh, this rank's slot rows
-        [row0, row0 + rows_local), and the data group whose rows a decode
-        sync gathers (None without a data split)."""
+    def _init_mesh(self, mesh, batch_slots: int) -> None:
+        """The serving rules and plan under a mesh, this rank's data rank
+        and slot rows [row0, row0 + rows_local), and the data group whose
+        rows a decode sync gathers (None without a data split)."""
         self.mesh = mesh
         self.rules = self.plan = self._data_group = None
-        self.row0, self.rows_local = 0, batch_slots
+        self.row0, self.rows_local, self.data_rank = 0, batch_slots, 0
         if mesh is None:
             return
         self.rules = ShardingRules(mesh, head_shard_attn=True)
@@ -443,16 +461,9 @@ class BatchedServer:
             raise ValueError(f"{batch_slots} slots do not split over "
                              f"{n_data} data ranks")
         if n_data > 1:
-            for flag, what in ((host_offload, "host_offload"),
-                               (prefix_cache, "prefix_cache"),
-                               (prefill_chunk is not None, "prefill_chunk")):
-                if flag:
-                    raise ValueError(
-                        f"{what} under a data split ({n_data} data ranks): "
-                        "its slot pages move between one row and the "
-                        "host, and another data group may hold the row")
             self.rows_local = batch_slots // n_data
-            self.row0 = self.rules.rank("data") * self.rows_local
+            self.data_rank = self.rules.rank("data")
+            self.row0 = self.data_rank * self.rows_local
             self._data_group = self.rules.group("data")
 
     def _init_wire(self) -> None:
@@ -513,6 +524,86 @@ class BatchedServer:
         another data group holds it."""
         row = slot - self.row0
         return row if 0 <= row < self.rows_local else None
+
+    def _owner(self, slot: int) -> int:
+        """The data rank whose group holds `slot`'s row (0 off a data
+        split)."""
+        return slot // self.rows_local
+
+    def _layout(self, upto: Optional[int] = None) -> Layout:
+        """The leaves of a snapshot of one row, alike on every rank (the
+        cache's shapes are): an eviction's (`upto` None: the whole row,
+        under speculation with the draft's under "draft/" keys) or a
+        prefix entry's (the pages of the first `upto` rows and the
+        prompt's last-token logits).  Traced once on meta tensors."""
+        if upto not in self._layouts:
+            def meta(cache):
+                return {k: torch.empty_like(v, device="meta")
+                        for k, v in cache.items()}
+            leaves = self.extract_fn(meta(self.cache), 0, upto)
+            if upto is None and self.spec:
+                leaves.update({"draft/" + k: v for k, v in
+                               self.draft_extract_fn(meta(self.draft_cache),
+                                                     0).items()})
+            self._layouts[upto] = snapshot_layout(leaves) + (
+                () if upto is None else self._logits_layout)
+        return self._layouts[upto]
+
+    @functools.cached_property
+    def _logits_layout(self) -> Layout:
+        """A prompt's last-token logits: (V,) in the embedding's dtype,
+        which the output product keeps."""
+        embed = self.params["embed"]
+        return (("logits", tuple(embed.shape[:1]), embed.dtype),)
+
+    @functools.cached_property
+    def _state_layout(self) -> Layout:
+        """A saved slot-state row (`steps.save_slot_state`)."""
+        return snapshot_layout(steps_lib.save_slot_state(
+            steps_lib.init_slot_state(1, torch.device("meta")), 0))
+
+    def _share(self, leaves: Optional[Dict[str, torch.Tensor]],
+               layout: Layout, src: int) -> Dict[str, torch.Tensor]:
+        """Data rank `src`'s leaves on every rank of this rank's data line:
+        one broadcast over the data axis (host tensors on the receivers);
+        the leaves themselves off a data split."""
+        if self._data_group is None:
+            return leaves
+        return broadcast_leaves(leaves if self.data_rank == src else None,
+                                layout, src, self._data_group)
+
+    def _share_logits(self, logits: Optional[torch.Tensor],
+                      slot: int) -> torch.Tensor:
+        """A prompt's last-token logits, computed by `slot`'s data group
+        alone, on every rank's device: the owner's bits."""
+        leaves = None if logits is None else {"logits": logits}
+        return self._share(leaves, self._logits_layout,
+                           self._owner(slot))["logits"].to(self.device)
+
+    def _fetch(self, snap: HostSnapshot, slot: int
+               ) -> Optional[Dict[str, torch.Tensor]]:
+        """`snap`'s leaves streamed to the device of the ranks of `slot`'s
+        data group (None on every other rank).  When another group holds
+        them they move there first (`move_snapshot`), counted in
+        `tier_moves` and `tier_bytes_moved` on every rank."""
+        src, dst = snap.holder, self._owner(slot)
+        if src != dst:
+            self.tier_moves += 1
+            self.tier_bytes_moved += snap.nbytes
+        if self.data_rank not in (src, dst):
+            return None
+        if src == dst:
+            host = snap.materialize()
+        else:
+            host = move_snapshot(
+                snap.materialize() if self.data_rank == src else None,
+                snap.layout, src, dst, self.rules,
+                pin=self.device.type == "cuda")
+            if host is None:
+                return None
+        with use_offload(self.offload):
+            return stream_offload_to_device(host, self.device,
+                                            chunks=self.offload_chunks)
 
     def _scratch_cache(self) -> Dict[str, Any]:
         """The one-row cache the prefill of another data group's slot
@@ -588,6 +679,14 @@ class BatchedServer:
         self.prefill_tokens_skipped = 0
         self.evict_dispatch_time = 0.0     # host seconds, all evictions
         self.restore_dispatch_time = 0.0   # host seconds, all restores
+        # under a data split: snapshots carried to another data group (a
+        # restore's or a prefix hit's) and their bytes; the restores among
+        # them and their host seconds
+        self.tier_moves = 0
+        self.tier_bytes_moved = 0
+        self.restores_moved = 0
+        self.restore_moved_time = 0.0
+        self._layouts: Dict[Optional[int], Layout] = {}
 
     def _segment_fns(self, fns: List[Any], params: Tuple[Any, ...],
                      caches: Tuple[Dict[str, Any], ...]) -> List[Any]:
@@ -754,13 +853,15 @@ class BatchedServer:
             return self._prefill(slot, req)
         plen = len(req.prompt)
         hit = self.prefix.lookup(req.prompt)
+        row = self._row(slot)
         if hit is not None and hit.length == plen:
-            with use_offload(self.offload):
-                dev = stream_offload_to_device(hit.pages.materialize(),
-                                               self.device,
-                                               chunks=self.offload_chunks)
+            dev = self._fetch(hit.pages, slot)
+            logits = None
+            if dev is not None:
                 logits = dev.pop("logits")
-                self.cache = self.insert_fn(self.cache, dev, slot)
+                with use_offload(self.offload):
+                    self.cache = self.insert_fn(self.cache, dev, row)
+            logits = self._share_logits(logits, slot)
             self.prefix_hits_full += 1
             self.prefill_tokens_skipped += plen
             return logits
@@ -770,16 +871,17 @@ class BatchedServer:
             if start + sbucket <= self.max_seq:
                 suffix = np.zeros((sbucket,), np.int32)
                 suffix[:plen - start] = req.prompt[start:]
-                with use_offload(self.offload):
-                    dev = stream_offload_to_device(
-                        hit.pages.materialize(), self.device,
-                        chunks=self.offload_chunks)
+                dev = self._fetch(hit.pages, slot)
+                logits = None
+                if dev is not None:
                     dev.pop("logits")
-                    self.cache = self.insert_fn(self.cache, dev, slot)
-                    logits, self.cache = self.resume_fn(
-                        self.params, self.cache,
-                        torch.from_numpy(suffix).to(self.device), slot,
-                        plen, start)
+                    with use_offload(self.offload):
+                        self.cache = self.insert_fn(self.cache, dev, row)
+                        logits, self.cache = self.resume_fn(
+                            self.params, self.cache,
+                            torch.from_numpy(suffix).to(self.device), row,
+                            plen, start)
+                logits = self._share_logits(logits, slot)
                 self.prefix_hits_partial += 1
                 self.prefill_tokens_skipped += start
                 self.prefill_forwards += 1
@@ -798,11 +900,16 @@ class BatchedServer:
         post-prompt recurrent state and the last-token logits, streamed
         to the host as an eviction's are: no sync."""
         bucket = _prefill_bucket(len(req.prompt), self.max_seq)
+        row = self._row(slot)
+        if row is None:     # another data group holds the pages
+            self.prefix.put(req.prompt, SnapshotStub(self._layout(bucket),
+                                                     self._owner(slot)))
+            return
         with use_offload(self.offload):
-            pages = self.extract_fn(self.cache, slot, bucket)
+            pages = self.extract_fn(self.cache, row, bucket)
         pages["logits"] = logits
         self.prefix.put(req.prompt, stream_offload_to_host(
-            pages, chunks=self.offload_chunks))
+            pages, chunks=self.offload_chunks, holder=self.data_rank))
 
     # -- host tier: eviction and restore -------------------------------------
 
@@ -819,16 +926,26 @@ class BatchedServer:
         req = self.active[slot]
         assert req is not None
         t0 = time.perf_counter()
-        with use_offload(self.offload):
-            pages = self.extract_fn(self.cache, slot)
-            if self.spec:
-                dpages = self.draft_extract_fn(self.draft_cache, slot)
-                pages.update({"draft/" + k: v for k, v in dpages.items()})
-        snap = stream_offload_to_host(pages, chunks=self.offload_chunks)
-        saved = stream_offload_to_host(
-            steps_lib.save_slot_state(self.state, slot))
-        # the row stops decoding on the device (its state is saved)
-        self.state = steps_lib.freeze_slot(self.state, slot)
+        row = self._row(slot)
+        if row is None:
+            # another data group's row: stubs of its snapshots' sizes
+            owner = self._owner(slot)
+            snap = SnapshotStub(self._layout(), owner)
+            saved = SnapshotStub(self._state_layout, owner)
+        else:
+            with use_offload(self.offload):
+                pages = self.extract_fn(self.cache, row)
+                if self.spec:
+                    dpages = self.draft_extract_fn(self.draft_cache, row)
+                    pages.update({"draft/" + k: v
+                                  for k, v in dpages.items()})
+            snap = stream_offload_to_host(pages, chunks=self.offload_chunks,
+                                          holder=self.data_rank)
+            saved = stream_offload_to_host(
+                steps_lib.save_slot_state(self.state, row),
+                holder=self.data_rank)
+            # the row stops decoding on the device (its state is saved)
+            self.state = steps_lib.freeze_slot(self.state, row)
         self.host_tier.put(req.rid, snap, saved)
         self.active[slot] = None
         self._free_pages(slot)
@@ -850,7 +967,10 @@ class BatchedServer:
         delivered there."""
         t0 = time.perf_counter()
         snap, saved_snap = self.host_tier.pop(req.rid)
-        saved = saved_snap.materialize()
+        holder = saved_snap.holder
+        saved = self._share(
+            saved_snap.materialize() if holder == self.data_rank else None,
+            self._state_layout, holder)
         self.host_syncs += 1
         if not bool(saved["alive"]):
             if self.spec:
@@ -859,26 +979,30 @@ class BatchedServer:
             self.restored_dead += 1
             self.restore_dispatch_time += time.perf_counter() - t0
             return False
-        with use_offload(self.offload):
-            pages = stream_offload_to_device(snap.materialize(),
-                                             self.device,
-                                             chunks=self.offload_chunks)
+        pages = self._fetch(snap, slot)
+        row = self._row(slot)
+        if row is not None:
             draft = {k[len("draft/"):]: v for k, v in pages.items()
                      if k.startswith("draft/")}
             pages = {k: v for k, v in pages.items()
                      if not k.startswith("draft/")}
-            self.cache = self.insert_fn(self.cache, pages, slot)
-            if self.spec:
-                self.draft_cache = self.draft_insert_fn(self.draft_cache,
-                                                        draft, slot)
-        self.state = steps_lib.restore_slot(self.state, slot, saved)
+            with use_offload(self.offload):
+                self.cache = self.insert_fn(self.cache, pages, row)
+                if self.spec:
+                    self.draft_cache = self.draft_insert_fn(
+                        self.draft_cache, draft, row)
+            self.state = steps_lib.restore_slot(self.state, row, saved)
         self.positions[slot] = int(saved["position"])
         self.remaining[slot] = int(saved["remaining"])
         # the restored clock's pages; the eviction freed as many
         self._set_pages(slot, self._pages_for(self.positions[slot]))
         self.slot_age[slot] = 0
         self.restores += 1
-        self.restore_dispatch_time += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.restore_dispatch_time += dt
+        if snap.holder != self._owner(slot):
+            self.restores_moved += 1
+            self.restore_moved_time += dt
         return True
 
     def _evict_for_demand(self) -> None:
@@ -970,11 +1094,14 @@ class BatchedServer:
         padded = np.zeros((len(plan) * self.prefill_chunk,), np.int32)
         padded[:plen] = req.prompt
         tokens = torch.from_numpy(padded)
-        if self.device.type == "cuda":
-            tokens = tokens.pin_memory()
-        self.prefilling[slot] = {
-            "req": req, "plan": plan, "next": 0,
-            "tokens": tokens.to(self.device, non_blocking=True)}
+        if self._row(slot) is None:
+            tokens = None       # another data group runs the chunks
+        else:
+            if self.device.type == "cuda":
+                tokens = tokens.pin_memory()
+            tokens = tokens.to(self.device, non_blocking=True)
+        self.prefilling[slot] = {"req": req, "plan": plan, "next": 0,
+                                 "tokens": tokens}
 
     def _pump_prefill(self) -> None:
         """Dispatch AT MOST ONE prefill chunk, of the lowest reserved slot:
@@ -991,23 +1118,28 @@ class BatchedServer:
         req = st["req"]
         start, size = st["plan"][st["next"]]
         c = self.prefill_chunk
-        chunk = st["tokens"][start:start + c]
+        row = self._row(slot)
+        logits = None
         t0 = time.perf_counter()
-        with use_offload(self.offload):
-            if start == 0:
-                logits, self.cache = self.chunked.first(
-                    self.params, self.cache, chunk, slot, size)
-            else:
-                logits, self.cache = self.chunked.resume(
-                    self.params, self.cache, chunk, slot, start + size,
-                    start)
+        if row is not None:
+            chunk = st["tokens"][start:start + c]
+            with use_offload(self.offload):
+                if start == 0:
+                    logits, self.cache = self.chunked.first(
+                        self.params, self.cache, chunk, row, size)
+                else:
+                    logits, self.cache = self.chunked.resume(
+                        self.params, self.cache, chunk, row, start + size,
+                        start)
         self.prefill_chunk_time += time.perf_counter() - t0
         self.prefill_chunks += 1
         self._set_pages(slot, self._pages_for(start + size))
         st["next"] += 1
         if st["next"] < len(st["plan"]):
             return
-        # the last chunk's logits are the prompt's last-token logits
+        # the last chunk's logits are the prompt's last-token logits (the
+        # owning data group's, on every rank)
+        logits = self._share_logits(logits, slot)
         del self.prefilling[slot]
         self.prefill_forwards += 1
         if self._finish_admit(slot, req, logits):
@@ -1114,12 +1246,25 @@ class BatchedServer:
                 self._free_pages(s)
         return rows, plain
 
+    @contextlib.contextmanager
+    def segment_scope(self) -> Iterator[None]:
+        """What a decode segment runs under: the offload protocol, the
+        mesh's rules and, under a data split, every fp product and norm
+        padded to the whole batch's rows (a round's under speculation):
+        on the card cuBLAS picks its kernel by the row count, and a data
+        group's rows then take the single device's bits."""
+        pad = (self.batch * self._tokens_per_step
+               if self._data_group is not None else 0)
+        with use_offload(self.offload), use_rules(self.rules), \
+                padded_rows(pad):
+            yield
+
     def _run_segment(self, fn) -> Tuple[Any, ...]:
         """Dispatch one segment and queue the copy of what the host needs
         from it (tokens, emit masks, alive, remaining, positions; under
         speculation also the accept lengths and the draft counters) to
         host memory.  Returns (host tensors, event to wait on or None)."""
-        with use_offload(self.offload), use_rules(self.rules):
+        with self.segment_scope():
             if self.spec:
                 seg, emit, alens, self.state, self.cache, \
                     self.draft_cache = fn(self.params, self.draft_params,
@@ -1418,6 +1563,9 @@ def _serve_cli(args: argparse.Namespace, mesh, device: Optional[str]) -> int:
             return 0
         spec += (f"mesh={args.mesh} eager "
                  f"wire_bytes_per_shard={server.wire_bytes_per_shard} ")
+        if args.offload or args.prefix_cache:
+            spec += (f"tier_moves={server.tier_moves} "
+                     f"tier_bytes_moved={server.tier_bytes_moved} ")
     print(f"[serve] arch={server.cfg.arch_id} protocol={args.protocol} "
           f"quant={args.quant_weights or 'fp'}/{args.quant_kv or 'fp'} "
           f"mode={mode} requests={len(server.completed)} tokens={toks} "

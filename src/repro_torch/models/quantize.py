@@ -17,7 +17,10 @@ products of starcoder2_3b do).  Inside `padded_rows(n)` every fp product
 and norm over fewer than n rows runs padded with zero rows to n
 (`invariant_rows`): the speculative segment runs its draft steps so, at
 the verify's row count, and a draft of the target's own blocks then
-computes the verify's bits.  Outside it nothing is padded.
+computes the verify's bits; a server under a data split runs its
+segments so, at the whole batch's row count, and each data group's rows
+then take the single device's bits.  A nested `padded_rows` keeps the
+larger count.  Outside them nothing is padded.
 """
 from __future__ import annotations
 
@@ -64,8 +67,9 @@ _PAD_ROWS: contextvars.ContextVar[int] = contextvars.ContextVar(
 
 @contextlib.contextmanager
 def padded_rows(n: int) -> Iterator[None]:
-    """Run every fp product and norm of fewer than n rows padded to n."""
-    token = _PAD_ROWS.set(n)
+    """Run every fp product and norm of fewer than n rows padded to n (or
+    to an enclosing `padded_rows`' count, when that is larger)."""
+    token = _PAD_ROWS.set(max(n, _PAD_ROWS.get()))
     try:
         yield
     finally:

@@ -288,16 +288,20 @@ def test_head_groups_concatenate_to_the_fused_decode(n, regime, dtype):
 # Part 2: served through gloo ranks
 # ===========================================================================
 
-def _workload(vocab, n=6, seed=7):
+def _workload(vocab, n=6, seed=7, prompts="", new=(2, 9)):
     """The reference mesh test's workload: greedy, fixed-seed sampled, and
-    sampled with a stop token, in turn."""
+    sampled with a stop token, in turn.  `prompts` "prefix": every third
+    request from the second on repeats the first prompt (a full hit),
+    every third from the third on extends it by 4 tokens (a partial hit);
+    "long": a 21-token prompt second in the queue (6 chunks of 4).
+    Budgets are drawn from [new[0], new[1])."""
     from repro_torch.launch.serve import Request, SamplingParams
     rng = np.random.default_rng(seed)
     reqs = []
     for i in range(n):
         prompt = rng.integers(1, min(vocab, 512),
                               rng.integers(3, 9)).astype(np.int32)
-        max_new = int(rng.integers(2, 9))
+        max_new = int(rng.integers(*new))
         kind = i % 3
         if kind == 0:
             sampling = None
@@ -308,27 +312,40 @@ def _workload(vocab, n=6, seed=7):
             sampling = SamplingParams(
                 temperature=1.1, top_k=16, seed=200 + i,
                 stop_tokens=(int(rng.integers(vocab)),))
+        if prompts == "prefix" and i % 3 and reqs:
+            first = reqs[0].prompt
+            prompt = first if i % 3 == 1 else np.concatenate(
+                [first, rng.integers(1, min(vocab, 512), 4).astype(
+                    np.int32)])
+        if prompts == "long" and i == 1:
+            prompt = rng.integers(1, min(vocab, 512), 21).astype(np.int32)
         reqs.append(Request(rid=i, prompt=prompt, max_new=max_new,
                             sampling=sampling))
     return reqs
 
 
-def _serve(arch, mesh=None, **kw):
+def _serve(arch, mesh=None, slots=2, requests=6, prompts="", new=(2, 9),
+           **kw):
     """Serve the workload; what the checks compare."""
     from repro_torch.core import backstream
     from repro_torch.launch.serve import BatchedServer
     backstream.WIRE.reset()
     kw = dict(dict(protocol="bs"), **kw)
-    server = BatchedServer(arch, smoke=True, device="cpu", batch_slots=2,
-                           max_seq=64, stream=True, seg_len=4, mesh=mesh,
-                           **kw)
+    server = BatchedServer(arch, smoke=True, device="cpu",
+                           batch_slots=slots, max_seq=64, stream=True,
+                           seg_len=4, mesh=mesh, **kw)
     kinds = {}
-    for req in _workload(server.cfg.vocab):
+    reqs = _workload(server.cfg.vocab, requests, prompts=prompts, new=new)
+    for req in reqs:
         kinds[req.rid] = 0 if req.sampling is None else 1
         server.submit(req)
     server.run_until_drained(max_steps=100_000)
     assert not server.queue and all(r is None for r in server.active)
+    assert not server.suspended and not server.prefilling
     w = server.wire
+    tier = server.host_tier
+    entry = (server.prefix.lookup(reqs[0].prompt)
+             if server.prefix is not None else None)
     return dict(
         tokens={r.rid: list(map(int, r.generated))
                 for r in server.completed},
@@ -340,7 +357,18 @@ def _serve(arch, mesh=None, **kw):
         bytes_sent=backstream.WIRE.bytes_sent,
         pages_allocated=server.pages_allocated,
         pages_freed=server.pages_freed,
-        evictions=server.evictions, restores=server.restores)
+        evictions=server.evictions, restores=server.restores,
+        prefix=(server.prefix_hits_full, server.prefix_hits_partial,
+                server.prefix_misses),
+        prefill_chunks=server.prefill_chunks,
+        tier_moves=server.tier_moves,
+        tier_bytes_moved=server.tier_bytes_moved,
+        restores_moved=server.restores_moved,
+        # the bytes of one eviction's snapshot (every one is a whole row)
+        # and of the first prompt's prefix entry (every hit's)
+        evicted_bytes=tier.bytes_evicted // max(1, server.evictions)
+        if tier is not None else 0,
+        entry_bytes=entry.pages.nbytes if entry is not None else 0)
 
 
 # the sequence-sharded schedules: benchmarks/tpu_backstream.py's shapes
@@ -398,27 +426,67 @@ def _ring_job(mesh):
     return every
 
 
+def _build_job(mesh):
+    """Servers with the host tier and the prefix cache, and with the host
+    tier and chunked admission, built on this data split: each rank's
+    rows and data rank, its features, and the row count its segments'
+    products are padded to."""
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import quantize
+    out = []
+    for kw in (dict(host_offload=True, prefix_cache=True),
+               dict(host_offload=True, prefill_chunk=4)):
+        server = BatchedServer("starcoder2_3b", smoke=True, device="cpu",
+                               batch_slots=4, max_seq=64, mesh=mesh, **kw)
+        with server.segment_scope():
+            pad = quantize._PAD_ROWS.get()
+        out.append((server.rows_local, server.row0, server.data_rank,
+                    server.host_tier is not None, server.prefix is not None,
+                    server.prefill_chunk, pad))
+    return out
+
+
 def _cell_main(mesh, device, jobs):
     """One mesh shape's cell: the serves, then the ring job if asked."""
     out = {}
     for key, arch, kw in jobs:
-        out[key] = _ring_job(mesh) if arch == "ring" else \
-            _serve(arch, mesh, **kw)
+        out[key] = (_ring_job(mesh) if arch == "ring" else
+                    _build_job(mesh) if arch == "build" else
+                    _serve(arch, mesh, **kw))
     return out
 
 
 SPEC = dict(spec=True, spec_k=2)
-CHURN = dict(host_offload=True, evict_after=1)
+# 4 slots, 6 requests of 6-19 tokens, evicted after one segment: under
+# a data split most restores land in the other group's slots (a spec
+# round emits up to 3 tokens: its requests take 12-24, so that rows live
+# through their restores)
+CHURN = dict(host_offload=True, evict_after=1, slots=4, requests=6,
+             new=(6, 20))
+SPEC_CHURN = dict(SPEC, **dict(CHURN, new=(12, 25)))
 RP = dict(protocol="rp")
+PREFIX = dict(prefix_cache=True, requests=8, prompts="prefix")
+CHUNKED = dict(prefill_chunk=4, prompts="long")
+# the single-device twin of each job key
+_KW = {"": {}, "spec": SPEC, "churn": CHURN, "rp": RP,
+       "spec_churn": SPEC_CHURN, "prefix": PREFIX,
+       "chunked": CHUNKED}
 _JOBS = {
     "1x2": [(a, a, {}) for a in SERVE_ARCHES]
     + [("spec", "starcoder2_3b", SPEC), ("churn", "starcoder2_3b", CHURN),
        ("rp", "starcoder2_3b", RP), ("encdec", "whisper_large_v3", {}),
        ("ring", "ring", {})],
     "1x4": [(a, a, {}) for a in SERVE_ARCHES] + [("ring", "ring", {})],
-    "2x1": [(a, a, {}) for a in SERVE_ARCHES],
+    "2x1": [(a, a, {}) for a in SERVE_ARCHES]
+    + [("churn", "starcoder2_3b", CHURN),
+       ("churn_mamba", "mamba2_370m", CHURN),
+       ("prefix", "starcoder2_3b", PREFIX),
+       ("chunked", "starcoder2_3b", CHUNKED),
+       ("build", "build", {})],
     "2x2": [(a, a, {}) for a in SERVE_ARCHES]
-    + [("spec", "starcoder2_3b", SPEC)],
+    + [("spec", "starcoder2_3b", SPEC), ("churn", "starcoder2_3b", CHURN),
+       ("spec_churn", "starcoder2_3b", SPEC_CHURN),
+       ("chunked", "starcoder2_3b", CHUNKED)],
 }
 
 
@@ -435,8 +503,7 @@ def _base(arch, key=""):
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        return _serve(arch, **{"": {}, "spec": SPEC, "churn": CHURN,
-                               "rp": RP}[key])
+        return _serve(arch, **_KW[key])
     finally:
         torch.set_num_threads(threads)
 
@@ -446,6 +513,8 @@ def _assert_bitwise(base, run):
     assert run["syncs"] == base["syncs"]
     assert run["pages_allocated"] == base["pages_allocated"]
     assert run["pages_freed"] == base["pages_freed"]
+    for key in ("evictions", "restores", "prefix", "prefill_chunks"):
+        assert run[key] == base[key], key
 
 
 @pytest.mark.parametrize("arch", SERVE_ARCHES)
@@ -500,13 +569,59 @@ def test_spec_serve_is_bitwise_on_the_mesh(shape):
     assert run["gathers"] == run["wire_model"][-1]
 
 
-def test_host_tier_churn_is_bitwise_on_the_mesh():
-    """Evictions to the host tier and restores under 1x2: the same tokens
-    and ledger, and the churn really happened on both sides."""
-    base, run = _base("starcoder2_3b", "churn"), _cell("1x2")["churn"]
+def _assert_moved(run, per_move):
+    """Snapshots crossed data groups, and the bytes counted are theirs."""
+    assert run["tier_moves"] > 0
+    assert run["tier_bytes_moved"] == run["tier_moves"] * per_move > 0
+
+
+@pytest.mark.parametrize("shape, arch, key", [
+    ("1x2", "starcoder2_3b", "churn"), ("2x1", "starcoder2_3b", "churn"),
+    ("2x2", "starcoder2_3b", "churn"), ("2x1", "mamba2_370m", "churn_mamba"),
+    ("2x2", "starcoder2_3b", "spec_churn")])
+def test_host_tier_churn_is_bitwise_on_the_mesh(shape, arch, key):
+    """Evictions to the host tier and restores (4 slots, 6 requests,
+    evicted after a segment): the same tokens, syncs, ledger and tier
+    counts as the single device, and the churn really happened on both
+    sides.  Under a data split a restore into the other group's slot
+    moves the snapshot (every one a whole row's bytes: mamba2's
+    recurrent states; under speculation the draft's row with the
+    target's); on one data group nothing moves."""
+    base = _base(arch, "churn" if key == "churn_mamba" else key)
+    run = _cell(shape)[key]
     _assert_bitwise(base, run)
     assert run["evictions"] == base["evictions"] > 0
-    assert run["restores"] == base["restores"]
+    assert run["restores"] == base["restores"] > 0
+    assert base["tier_moves"] == 0
+    if shape.startswith("1x"):
+        assert run["tier_moves"] == 0
+    else:
+        _assert_moved(run, base["evicted_bytes"])
+        assert 0 < run["restores_moved"] <= run["tier_moves"]
+
+
+def test_prefix_serve_is_bitwise_on_the_mesh():
+    """The prefix cache at 2x1: repeated and extended prompts give full
+    and partial hits, bitwise the single device's (tokens, syncs, ledger,
+    hit counts); a hit lands in the other group's slot and moves the
+    first prompt's entry there."""
+    base, run = _base("starcoder2_3b", "prefix"), _cell("2x1")["prefix"]
+    _assert_bitwise(base, run)
+    full, partial, miss = run["prefix"]
+    assert full >= 1 and partial >= 1 and miss >= 1
+    assert run["entry_bytes"] == base["entry_bytes"]
+    _assert_moved(run, base["entry_bytes"])
+
+
+@pytest.mark.parametrize("shape", ["2x1", "2x2"])
+def test_chunked_serve_is_bitwise_on_the_mesh(shape):
+    """Chunked admission (chunks of 4; a 21-token prompt in 6 beside the
+    streams in flight): each chunk runs on the slot's data group alone,
+    the last chunk's logits go to every rank, and tokens, syncs, ledger
+    and chunk count are the single device's."""
+    base, run = _base("starcoder2_3b", "chunked"), _cell(shape)["chunked"]
+    _assert_bitwise(base, run)
+    assert run["prefill_chunks"] == base["prefill_chunks"] >= 6
 
 
 def test_rp_and_encdec_serves_are_bitwise_on_the_mesh():
@@ -523,13 +638,100 @@ def test_rp_and_encdec_serves_are_bitwise_on_the_mesh():
         assert run["bytes_sent"] == run["wire"]
 
 
-def test_data_split_refuses_the_host_tier():
-    layout = types.SimpleNamespace(mesh_dim_names=("data", "model"),
-                                   shape=(2, 1))
+def test_data_split_builds_the_host_tier():
+    """A 2x1 layout builds with the host tier and the prefix cache, and
+    with the host tier and chunked admission: each rank holds its half
+    of the 4 slots, and its segments pad their products to all 4 rows."""
+    built = _cell("2x1")["build"]
+    assert built == [(2, 0, 0, True, True, None, 4),
+                     (2, 0, 0, True, False, 4, 4)]
+
+
+def test_nested_padded_rows_keep_the_larger_count():
+    """A data split's segment pads to the batch's rows; a speculative
+    draft's own `padded_rows` inside it keeps the larger count."""
+    from repro_torch.models.quantize import invariant_rows, padded_rows
+    x = torch.ones(2, 3)
+    with padded_rows(8):
+        with padded_rows(6):
+            inner = invariant_rows(x)[0].shape[0]
+        outer = invariant_rows(x)[0].shape[0]
+    with padded_rows(4):
+        with padded_rows(6):
+            wider = invariant_rows(x)[0].shape[0]
+    assert (inner, outer, wider, invariant_rows(x)[0].shape[0]) == \
+        (8, 8, 6, 2)
+
+
+class _SplitLayout(_Layout):
+    """A 2x1 mesh's shape and rank 0's coordinates, without a group."""
+
+    def __init__(self):
+        super().__init__(2, 1)
+
+    def get_local_rank(self, axis):
+        return 0
+
+    def get_group(self, axis):
+        return None
+
+
+@pytest.mark.parametrize("arch, kw, match", [
+    ("starcoder2_3b", dict(prefix_cache=True, spec=True), "spec"),
+    ("starcoder2_3b", dict(prefill_chunk=4, prefix_cache=True),
+     "prefix_cache"),
+    ("starcoder2_3b", dict(prefill_chunk=4, spec=True), "spec"),
+    ("whisper_large_v3", dict(prefix_cache=True), "encoder-decoder"),
+    ("whisper_large_v3", dict(prefill_chunk=4), "encoder-decoder")])
+def test_data_split_keeps_the_reference_refusals(arch, kw, match):
+    """The reference's own refusals raise under a data split as off it."""
     from repro_torch.launch.serve import BatchedServer
-    with pytest.raises(ValueError, match="data split"):
-        BatchedServer("starcoder2_3b", device="cpu", batch_slots=2,
-                      max_seq=64, mesh=layout, host_offload=True)
+    with pytest.raises(ValueError, match=match):
+        BatchedServer(arch, device="cpu", batch_slots=2, max_seq=64,
+                      mesh=_SplitLayout(), **kw)
+
+
+def _stub_twin(cache_bytes, sizes, order):
+    """Two PrefixCaches of `cache_bytes`: one holding every entry's bytes,
+    one holding stubs of the same sizes; the same puts and lookups in
+    `order` on both.  Their keys, byte counts and evictions after each."""
+    from repro_torch.core.backstream import (HostSnapshot, PrefixCache,
+                                             SnapshotStub, snapshot_layout)
+    caches = [PrefixCache(capacity_bytes=cache_bytes) for _ in range(2)]
+    seen = [[], []]
+    for op, key in order:
+        if op == "put":
+            leaves = {"k": torch.zeros(sizes[key], dtype=torch.bfloat16),
+                      "logits": torch.zeros(7)}
+            snaps = [HostSnapshot(leaves, holder=1),
+                     SnapshotStub(snapshot_layout(leaves), 1)]
+        for i, cache in enumerate(caches):
+            if op == "put":
+                cache.put(key, snaps[i])
+            else:
+                hit = cache.lookup(key)
+                seen[i].append(None if hit is None else
+                               (hit.tokens, hit.pages.nbytes,
+                                hit.pages.holder))
+            seen[i].append((list(cache._lru), cache.bytes_stored,
+                            cache.entries_evicted))
+    return seen
+
+
+@pytest.mark.parametrize("cache_bytes", [0, 50, 100, 150, 250, None])
+def test_prefix_stubs_evict_the_holders_keys(cache_bytes):
+    """A rank that keeps only stubs evicts the same keys at the same puts
+    as the rank that holds the bytes, and looks up the same entries, for
+    a capacity below one entry, between one and all, and none."""
+    sizes = {(1, 2): 8, (1, 2, 3): 20, (4,): 3, (1,): 30, (4, 5, 6): 12}
+    order = [("put", (1, 2)), ("put", (4,)), ("get", (1, 2, 3, 9)),
+             ("put", (1, 2, 3)), ("put", (1,)), ("get", (4, 5)),
+             ("put", (4, 5, 6)), ("get", (1, 2, 3)), ("put", (1, 2)),
+             ("get", (4, 5, 6, 7))]
+    holder, stub = _stub_twin(cache_bytes, sizes, order)
+    assert holder == stub
+    assert holder[-1][2] == 0 if cache_bytes is None else \
+        holder[-1][2] > 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -593,6 +795,13 @@ def test_cache_update_sharded_writes_the_owner_span(shape):
     assert len(spans) == n and np.array_equal(got, want)
 
 
+_EXAMPLE = dict(arch="starcoder2_3b", full=False, layers=None, device="cpu",
+                requests=4, max_new=6, prompt_lo=4, prompt_hi=20, slots=4,
+                max_seq=64, seg_len=4, protocol="bs", threads=1, json=None,
+                offload=False, evict_after=1, prefix_cache=False,
+                prefill_chunk=None, long_prompt=40)
+
+
 def test_mesh_serve_example_on_the_cpu():
     """`examples/mesh_serve.py` (chip_smoke.py's [mesh] phase at full
     width on the card) at smoke size: the single-device serve, a 1x2
@@ -601,10 +810,7 @@ def test_mesh_serve_example_on_the_cpu():
     and the sequence-sharded schedules within tolerance of the fused
     decode, AXLE in one hop."""
     from repro_torch.examples import mesh_serve
-    opts = dict(arch="starcoder2_3b", full=False, device="cpu", mesh="1x2",
-                requests=4, max_new=6, prompt_lo=4, prompt_hi=20, slots=4,
-                max_seq=64, seg_len=4, protocol="bs", ring_seq=256,
-                threads=1, json=None)
+    opts = dict(_EXAMPLE, mesh="1x2", serves=["plain"], ring_seq=256)
     res = mesh_serve.run(opts)
     base, ranks = res["base"], res["ranks"]
     assert len(ranks) == 2
@@ -622,3 +828,35 @@ def test_mesh_serve_example_on_the_cpu():
         assert len(ring["axle/float32"]["hop_ms"]) == 1
     lines = mesh_serve.report_lines(res, opts)
     assert [ln.split()[1] for ln in lines] == ["serve", "step:", "ring"]
+
+
+def test_mesh_serve_example_tier_serves_on_the_cpu():
+    """The example's churn, prefix and chunked serves (chip_smoke.py's
+    [mesh] tier phase at full width on the card) at smoke size on a 2x1
+    group: every serve's tokens, syncs, ledger and tier counts equal the
+    single device's on both ranks (the example raises otherwise); the
+    churn and prefix serves move snapshots between the groups, the
+    same count on both ranks; each rank holds half the single device's
+    cache rows; the chunked serve admits its 40-token prompt in 5 chunks of
+    8."""
+    from repro_torch.examples import mesh_serve
+    opts = dict(_EXAMPLE, mesh="2x1", serves=["churn", "prefix", "chunked"],
+                prefill_chunk=8, max_new=12, ring_seq=0)
+    res = mesh_serve.run(opts)
+    base, ranks = res["base"]["serves"], res["ranks"]
+    assert len(ranks) == 2
+    assert base["churn"]["evictions"] > 0
+    full, partial, _ = base["prefix"]["prefix"]
+    assert full >= 2 and partial >= 1
+    assert base["chunked"]["prefill_chunks"] >= 5
+    for name in ("churn", "prefix"):
+        moves = {rep["serves"][name]["tier_moves"] for rep in ranks}
+        assert len(moves) == 1 and moves.pop() > 0, name
+    for rep in ranks:
+        for name in opts["serves"]:
+            srv = rep["serves"][name]
+            # the slot rows split; the scalar int32 clock does not
+            assert 2 * srv["cache_bytes"] - base[name]["cache_bytes"] == 4
+            assert srv["launches"]["decode_attention_fused"] == 0
+    lines = mesh_serve.report_lines(res, opts)
+    assert [ln.split()[2] for ln in lines] == opts["serves"]
