@@ -131,7 +131,21 @@ ties (printed for q8_0 and bf16 mamba); with a chunk's host ms, its span
 on the stream and its device ms, the in-flight rows' longest gap between
 segments and their tok/s in all three runs, and peak memory.  Inside
 `[archs]`, gemma3_12b admits two 1,500-token prompts in chunks of 512
-across its window, held to its one-shot serve by the near-tie gate.  The
+across its window, held to its one-shot serve by the near-tie gate, and
+serves 4 of its requests x 48 through the routes no other serve runs at
+head dim 256: an int8 KV cache (every decode step 48 tensor-core int8
+fused decodes; graph == eager, streamed == per-token, logits across the
+window's edge within LOGIT_ATOL of the plain path, each int8 decode
+within ATOL_BF16 of its plain version, pools and scales at most 0.55 of
+the bf16 pools), `rp` over the fp cache (tensor-core partials; tokens
+== the axle serve's bitwise) and, on 2 requests x 16, over the int8
+cache (the f32 CUDA-core partial; the near-tie gate), then 2 slots of
+4,096 positions with prompts of 2,040 and 3,500 tokens (graph == eager,
+request 0 alone == its row, logits within LOGIT_ATOL of the plain path);
+the int8 and rp serves print `[archs]` lines like the others.  Section
+3a's `rp vs bs` rows hold the chunked schedule with one chunk to the
+fused one bitwise (gemma3_12b's local and global layers, starcoder2_3b,
+mistral_nemo_12b) and print how far 4 chunks part.  The
 `[quickstart]` line runs the ported quickstart on the card: the
 simulator's AXLE runtime reduction on workload (e), and BS vs AXLE decode
 attention within 1e-5.
@@ -337,6 +351,7 @@ T_START = time.perf_counter()
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet (as
 BF16_FLOPS_PER_S = 989e12        # src/repro_torch/roofline/analysis.py)
+F32_FLOPS_PER_S = 67e12          # f32 outside the tensor cores
 ATOL_BF16 = 2e-2
 LOGIT_ATOL = 0.25
 LOGIT_ATOL_F32 = 1e-2
@@ -524,18 +539,20 @@ def f32_err(got, want, what):
     return err
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple:
+def bound_ms(n_bytes: float, flops: float,
+             flops_per_s: float = BF16_FLOPS_PER_S) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_bound(name, *args, **kw) -> tuple:
+def kernel_bound(name, *args, flops_per_s=BF16_FLOPS_PER_S, **kw) -> tuple:
     """`bound_ms` of one kernel call from its formula in
     `roofline/cost.py` (the dry-run's yardstick); the data's counts (valid
-    keys, pages, rows) as keywords."""
+    keys, pages, rows) as keywords; `flops_per_s` the peak of the inputs'
+    type (F32_FLOPS_PER_S for f32 on the CUDA cores)."""
     c = kcost.kernel_cost(name, *args, **kw)
-    return bound_ms(c.bytes, c.flops)
+    return bound_ms(c.bytes, c.flops, flops_per_s)
 
 
 KERNEL_KINDS = ("ssd_kernel", "ssd_chunk_tc_kernel", "ssd_pass_kernel",
@@ -1346,18 +1363,22 @@ def sdpa_backend(fn):
     return backend, top[:60]
 
 
-def attention_at(label, h, kh, hd, served, window=W_WIN):
+def attention_at(label, h, kh, hd, served, window=W_WIN, s=W_S, pos=W_POS,
+                 full=True):
     """flash_attention, decode_attention_fused (bf16 and int8 pools) and
     decode_attention_partial at head dim `hd`, H = h, KH = kh: each held
     to its plain version within the hd 128 rows' tolerances, on the route
     `flash_route` / `decode_route` names for bf16, timed beside its bound
     and SDPA with an explicit boolean mask, and again on f32 copies of the
     same inputs, which take the CUDA-core kernels.  `window` is the
-    prefill's (W - 1 cached slots in the decode; 0: causal, no window).
-    Returns the records ("flash", "fused", "int8", "partial"); `served`
-    names those a serve of this script takes (their launches come from
-    it, below)."""
-    tag = f"[hd{hd}]"
+    prefill's (W - 1 cached slots in the decode; 0: causal, no window);
+    `s` the prompt and the cache's length, `pos` the decode rows' last
+    slots.  Returns the records ("flash", "fused", "int8", "partial", and
+    "partial32": the partial timed on the f32 copies, the route of `rp`
+    over an int8 cache); with `full` False only "flash" and "fused".
+    `served` names those a serve of this script takes (their launches come
+    from it, below)."""
+    tag = f"[hd{hd}]" if s == W_S else f"[hd{hd}s{s}]"
     tc_flash = fa.flash_route(torch.bfloat16, hd) == "tensor_core"
     tc_dec = fa.decode_route(torch.bfloat16, hd, h // kh) == "tensor_core"
     route = "tensor-core" if tc_flash else "CUDA-core"
@@ -1370,8 +1391,8 @@ def attention_at(label, h, kh, hd, served, window=W_WIN):
     wtext = f"window {window}" if window else "no window"
 
     out = {}
-    # flash: one 2048-token prompt, causal, under the window
-    qf, kf, vf = (randn(1, W_S, n, hd) for n in (h, kh, kh))
+    # flash: one s-token prompt, causal, under the window
+    qf, kf, vf = (randn(1, s, n, hd) for n in (h, kh, kh))
     kbuild.reset_launch_counts()
     got = fa.flash_attention(qf, kf, vf, causal=True, window=window)
     variants = routes("flash_attention")
@@ -1383,13 +1404,13 @@ def attention_at(label, h, kh, hd, served, window=W_WIN):
                        "flash_attention_tc": int(tc_flash)},
           f"flash_attention{tag}: launches {variants}, not the {route} "
           "kernel")
-    qi = torch.arange(W_S, device=DEV)
+    qi = torch.arange(s, device=DEV)
     mask = (qi[None, :] <= qi[:, None]) & (
         (qi[None, :] > qi[:, None] - window) | (window == 0))
     pairs = int(mask.sum())
     bnd, by = kernel_bound("flash_attention", qf, kf, vf, causal=True,
                            window=window)
-    check(kcost.attention_pairs(W_S, W_S, True, window) == pairs,
+    check(kcost.attention_pairs(s, s, True, window) == pairs,
           f"flash_attention{tag}: the formula's pairs != the mask's")
 
     def sdpa_prefill():
@@ -1419,7 +1440,7 @@ def attention_at(label, h, kh, hd, served, window=W_WIN):
     dev32 = device_ms(lambda: fa.flash_attention(q32, k32, v32, causal=True,
                                                  window=window))
     del q32, k32, v32, got32
-    print(f"[kernel] flash_attention{tag} {label}: B=1 S={W_S} H={h} KH={kh} "
+    print(f"[kernel] flash_attention{tag} {label}: B=1 S={s} H={h} KH={kh} "
           f"hd={hd} causal, {wtext}: max_abs_err {err:.3g} <= "
           f"{ATOL_BF16}; launches {variants} (the {route} kernel); "
           f"{rec['ms']:.4f} ms, bound {bnd:.5f} ms ({by}), plain "
@@ -1433,22 +1454,22 @@ def attention_at(label, h, kh, hd, served, window=W_WIN):
           f"<= 1e-5, launches {var32}, device {show(dev32)} ms", flush=True)
     del qf, kf, vf, got, plain, mask
 
-    # decode: 4 rows at pos W_POS over a 2048-slot cache in 16 pages under a
-    # permuted table, extra merged, window - 1 cached slots (a local
+    # decode: 4 rows at `pos` over an s-slot cache in pages of W_PAGE under
+    # a permuted table, extra merged, window - 1 cached slots (a local
     # layer's), or all of them
     win = max(0, window - 1)
     q = randn(B, 1, h, hd)
-    k_log, v_log = randn(B, kh, W_S, hd), randn(B, kh, W_S, hd)
-    table = torch.stack([torch.randperm(W_S // W_PAGE, generator=G,
+    k_log, v_log = randn(B, kh, s, hd), randn(B, kh, s, hd)
+    table = torch.stack([torch.randperm(s // W_PAGE, generator=G,
                                         device=DEV)
                          for _ in range(B)]).to(torch.int32)
     k_pool, v_pool = to_pool(k_log, table, W_PAGE), to_pool(v_log, table,
                                                             W_PAGE)
-    pos_w = torch.tensor(W_POS, dtype=torch.int32, device=DEV)
+    pos_w = torch.tensor(pos, dtype=torch.int32, device=DEV)
     ex = (torch.randn(B, h, hd, generator=G, device=DEV),
           torch.randn(B, h, generator=G, device=DEV),
           torch.rand(B, h, generator=G, device=DEV) + 0.5)
-    valid = ref.decode_valid_mask(pos_w, W_S, win)
+    valid = ref.decode_valid_mask(pos_w, s, win)
     n_valid = int(valid.sum())
     kbuild.reset_launch_counts()
     dense = fa.decode_attention_fused(q, k_log, v_log, pos_w, ex, window=win,
@@ -1495,7 +1516,7 @@ def attention_at(label, h, kh, hd, served, window=W_WIN):
                 page_size=W_PAGE),
             sdpa_decode))
     backend = sdpa_backend(sdpa_decode)
-    split, n_split = fa.decode_split(W_S, W_PAGE, hd)
+    split, n_split = fa.decode_split(s, W_PAGE, hd)
     fused_parts = split_parts(lambda: fa.decode_attention_fused(
         q, k_pool, v_pool, pos_w, ex, window=win, blk_c=W_PAGE, pages=table),
         split, n_split)
@@ -1516,7 +1537,7 @@ def attention_at(label, h, kh, hd, served, window=W_WIN):
           f"decode_attention_fused{tag} f32: paged != dense")
     del q32, kl32, vl32, kp32, vp32, out32, dense32
     print(f"[kernel] decode_attention_fused{tag} {label}: B={B} H={h} KH={kh} "
-          f"hd={hd} S={W_S} page={W_PAGE} permuted table, pos={W_POS}, "
+          f"hd={hd} S={s} page={W_PAGE} permuted table, pos={pos}, "
           f"window {win}, extra: max_abs_err {err:.3g} <= {ATOL_BF16}; "
           f"paged == dense bitwise; each row alone == its row in the batch "
           f"bitwise; launches {variants} ({n_split} splits of {split} rows, "
@@ -1530,6 +1551,8 @@ def attention_at(label, h, kh, hd, served, window=W_WIN):
           f"it; {fused_parts}; f32 copies on the CUDA-core split: "
           f"max_abs_err {err32:.3g} <= 1e-5, paged == dense bitwise, "
           f"launches {var32}", flush=True)
+    if not full:
+        return out
 
     # int8 pools of the same data (quantization is page-local: the
     # physical pool's quants and scales are the logical ones, permuted)
@@ -1629,7 +1652,7 @@ def attention_at(label, h, kh, hd, served, window=W_WIN):
                                                        pvalid)))
     part_parts = split_parts(
         lambda: fa.decode_attention_partial(q, k_log, v_log, pvalid),
-        *fa.decode_split(W_S, fa.PARTIAL_CHUNK, hd))
+        *fa.decode_split(s, fa.PARTIAL_CHUNK, hd))
     kl32, vl32 = k_log.float(), v_log.float()
     got32, var32 = on_cuda_cores(
         f"decode_attention_partial{tag}",
@@ -1637,32 +1660,109 @@ def attention_at(label, h, kh, hd, served, window=W_WIN):
         "decode_attention_partial")
     err32 = partial_err(got32, ref.decode_partial_reference(
         q32, kl32, vl32, pvalid), f"decode_attention_partial{tag} f32")
+    bnd32, by32 = kernel_bound("decode_attention_partial", q32, kl32, vl32,
+                               pvalid, n_valid=n_pvalid,
+                               flops_per_s=F32_FLOPS_PER_S)
+    rec32 = out["partial32"] = dict(
+        name=f"decode_attention_partial{tag}[f32]", route="cuda",
+        source="src/repro_torch/kernels/csrc/attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:192",
+        max_abs_err=err32, bound_ms=bnd32, bound_by=by32,
+        **timings(lambda: fa.decode_attention_partial(q32, kl32, vl32,
+                                                      pvalid),
+                  lambda: ref.decode_partial_reference(q32, kl32, vl32,
+                                                       pvalid)))
     del q32, kl32, vl32, got32
-    print(f"[kernel] decode_attention_partial{tag} {label}: B={B} C={W_S}, "
+    print(f"[kernel] decode_attention_partial{tag} {label}: B={B} C={s}, "
           f"the window's mask, row 1 empty: max_abs_err {errp:.3g} (<= 1e-3 "
           f"+ 1e-4|plain|); empty row m=-inf; each row alone == its row in "
           f"the batch bitwise; launches {variantsp} (the {droute} split); "
           f"{recp['ms']:.4f} ms, bound {bndp:.6f} ms ({byp}), plain "
           f"{recp['plain_ms']:.4f} ms, device {show(recp['device_ms'])} ms "
           f"({part_parts}); no library call; f32 copies on the CUDA-core "
-          f"split: max_abs_err {err32:.3g}, launches {var32}; "
-          f"{serving('partial')}", flush=True)
+          f"split: max_abs_err {err32:.3g}, launches {var32}, "
+          f"{rec32['ms']:.4f} ms, bound {bnd32:.6f} ms ({by32}, f32), plain "
+          f"{rec32['plain_ms']:.4f} ms, device {show(rec32['device_ms'])} ms "
+          f"({serving('partial32')}); {serving('partial')}", flush=True)
     return out
 
 
-# the records a serve of this script takes at each head dim: gemma3_12b
-# serves fp axle only; opt_2_7b and granite_moe_3b (hd 64, full causal
-# layers: no window) also serve rp and an int8 KV cache
+# the records a serve of this script takes at each head dim: gemma3_12b,
+# opt_2_7b and granite_moe_3b (hd 64, full causal layers: no window) serve
+# fp axle, rp and an int8 KV cache; gemma3_12b also rp over an int8 cache
+# (the f32 partial) and prompts past 2,048 positions at max_seq 4096 (its
+# global layers: no window, 64 splits a decode row)
 g3cfg, optcfg = get_config("gemma3_12b"), get_config("opt_2_7b")
 gcfg = get_config("granite_moe_3b")
 ALL4 = ("flash", "fused", "int8", "partial")
-for arch_cfg, served, window in ((g3cfg, ("flash", "fused"), W_WIN),
-                                 (optcfg, ALL4, W_WIN), (gcfg, ALL4, 0)):
+G3_S4K = 4096
+for arch_cfg, served, window, s_kw in (
+        (g3cfg, ALL4 + ("partial32",), W_WIN, {}),
+        (g3cfg, ("flash", "fused"), 0,
+         dict(s=G3_S4K, pos=[2040, 2048, 3500, 4095], full=False)),
+        (optcfg, ALL4, W_WIN, {}), (gcfg, ALL4, 0, {})):
     recs = attention_at(arch_cfg.arch_id, arch_cfg.n_heads,
                         arch_cfg.n_kv_heads, arch_cfg.head_dim_, served,
-                        window)
+                        window, **s_kw)
     for key in served:
         records[recs[key]["name"]] = recs[key]
+
+
+# rp (the chunked schedule) against bs (the fused one) on the same paged
+# inputs and the current token's partial: with one chunk the partial runs
+# the fused route's splits (the same plan and tile arithmetic) and torch
+# merges the chunk with the current token's partial as the fused epilogue
+# does, each product rounded: bitwise equal.  With more chunks each chunk
+# is merged under its own maximum first (exp(m_j - m_c) exp(m_c - m) is
+# not exp(m_j - m) in f32) and a chunk shorter than a split is a tile of
+# its own: not held bitwise, printed
+def rp_against_bs(label, arch_cfg, s, window, n_chunks):
+    h, kh, hd = arch_cfg.n_heads, arch_cfg.n_kv_heads, arch_cfg.head_dim_
+    page = min(W_PAGE, s)
+    q = randn(B, 1, h, hd)
+    k_log, v_log = randn(B, kh, s, hd), randn(B, kh, s, hd)
+    table = torch.stack([torch.randperm(s // page, generator=G, device=DEV)
+                         for _ in range(B)]).to(torch.int32)
+    k_pool, v_pool = to_pool(k_log, table, page), to_pool(v_log, table, page)
+    pos_r = torch.tensor([s // 8, s // 2 - 1, s // 2, s - 2],
+                         dtype=torch.int32, device=DEV)
+    # rows 0 and 2: the current token's key along its group's mean query,
+    # so that its score (~8) holds the row's maximum, where the fused
+    # epilogue rescales the cache's sum (exp(m - m_e) < 1); rows 1 and 3:
+    # a random key, the cache holding the maximum
+    k_new = randn(B, 1, kh, hd)
+    g = h // kh
+    k_new[0::2, 0] = (q[0::2, 0].float().reshape(-1, kh, g, hd).mean(2)
+                      * (8 * g / hd ** 0.5)).to(k_new.dtype)
+    ex = layers.single_kv_partial(q, k_new, randn(B, 1, kh, hd))
+    out = {}
+    for proto in (OffloadProtocol.BS, OffloadProtocol.RP):
+        with use_offload(OffloadConfig(protocol=proto,
+                                       chunks_per_shard=n_chunks)):
+            out[proto] = decode_attention_combined(
+                q, k_pool, v_pool, pos_r, window=window, extra=ex,
+                pages=table)
+    a, b = out[OffloadProtocol.BS], out[OffloadProtocol.RP]
+    same = int((a.view(torch.int16) == b.view(torch.int16)).sum())
+    apart = (a.float() - b.float()).abs().max().item()
+    if n_chunks == 1:
+        check(torch.equal(a, b), f"[kernel] rp vs bs {label}: one chunk, "
+              f"{a.numel() - same} of {a.numel()} outputs apart (by {apart})")
+    print(f"[kernel] rp vs bs {label} (H {h}, KH {kh}, hd {hd}, S {s}, page "
+          f"{page}, window {window}, {n_chunks} chunk(s)): {same} of "
+          f"{a.numel()} bf16 outputs bitwise equal, max |diff| {apart:.3g}"
+          f"{' (held bitwise)' if n_chunks == 1 else ' (not held)'}",
+          flush=True)
+
+
+for label, arch_cfg, s_rp, window, chunks in (
+        ("gemma3_12b local", g3cfg, W_S, W_WIN - 1, (1, 4)),
+        ("gemma3_12b global", g3cfg, W_S, 0, (1,)),
+        (ARCH, cfg, S, 0, (1,)),
+        ("mistral_nemo_12b (serve_offload)",
+         get_config("mistral_nemo_12b"), 128, 0, (4, 1))):
+    for n_chunks in chunks:
+        rp_against_bs(label, arch_cfg, s_rp, window, n_chunks)
 
 
 def quant_err(got, x, qt):
@@ -2605,10 +2705,12 @@ def near_tie_agrees(what, toks, ref_toks, reqs, **kw):
             else f"near-tie equal to ({describe(parts)})")
 
 
-print(f"[reference] protocol rp, same 2 requests: launches {rp_launches}; "
-      f"tokens {near_tie_agrees('rp vs axle', rp_toks, streamed, pair)} "
-      "the axle run's",
-      flush=True)
+# one chunk (chunks_per_shard 1): the partial and its merge give the fused
+# route's bits (section 3a, rp vs bs), so the tokens are equal
+rp_vs = near_tie_agrees('rp vs axle', rp_toks, streamed, pair)
+check(rp_toks == streamed, f"rp tokens != axle's: {rp_vs}")
+print(f"[reference] protocol rp (one chunk), same 2 requests: launches "
+      f"{rp_launches}; tokens {rp_vs} the axle run's, bitwise", flush=True)
 
 # --------------------------------------------------------------------------
 # 5a. sampling: the same 8 requests, half sampled, one greedy with stops
@@ -3415,6 +3517,201 @@ print(f"[chunked] {G3}: two {G3_LONG}-token prompts x 16 in chunks of "
       f"the {W}-token window): tokens {g3c_vs} the one-shot serve's "
       f"(near-tie gate {NEAR_TIE}); a chunk's host dispatch {g3c_host:.2f} "
       f"ms (mean); {g3c_dt:.3f} s chunked, {g3o_dt:.3f} s one-shot; phase "
+      f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+# gemma3_12b through the routes no other serve runs at hd 256: an int8 KV
+# cache (the int8 fused decode under the moving window, per-page scales),
+# rp over the fp cache (the hd 256 partial) and over the int8 cache (the
+# pools dequantized up front, q in f32: the CUDA-core partial), then
+# prompts past 2,048 positions at max_seq 4096.  Four of the [archs]
+# requests, 48 new tokens, so that the 980- and 1,000-token prompts both
+# decode across position 1024
+t0 = time.perf_counter()
+G3_NEW = 48
+g3_four = [Request(r.rid, r.prompt, G3_NEW) for r in g3_reqs
+           if len(r.prompt) in (1500, 980, 600, 1000)]
+G3_KW = dict(arch=G3, max_seq=G3_SEQ, stream=True)
+
+
+def step_ops(replays=3, **kw):
+    """A greedy decode step of a fresh gemma3_12b EagerServer (`kw`: its
+    protocol and quant) run under the profiler: device ms by the PyTorch
+    op that launched each kernel (a graph replay shows kernels, not ops;
+    our kernels, launched through ctypes, have no op and are left out)."""
+    e = EagerServer(G3, smoke=False, device="cuda", batch_slots=4,
+                    max_seq=G3_SEQ, seg_len=8, params=g3_params, stream=True,
+                    **kw)
+    args = segment_args(e)
+    with e.segment_scope():          # its protocol, as a segment runs
+        e.step_plain_fn(*args)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(replays):
+                e.step_plain_fn(*args)
+            torch.cuda.synchronize()
+    del e
+    return {ev.key: ev.self_device_time_total / (replays * 1e3)
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CPU
+            and ev.self_device_time_total > 0}
+
+
+def step_delta(label, by_op, base):
+    """The ops that add most to an eager step's device ms over `base`'s."""
+    d = sorted(((by_op.get(k, 0.0) - base.get(k, 0.0), k)
+                for k in set(by_op) | set(base)), reverse=True)
+    print(f"[archs] {label}: an eager greedy step's PyTorch ops "
+          f"{sum(by_op.values()):.3f} ms device against the fp axle "
+          f"step's {sum(base.values()):.3f}; most added, by op: " + "; ".join(
+              f"{k} {t:+.3f} ms" for t, k in d[:6]), flush=True)
+
+
+_, g3_fp, _, _ = serve(copies(g3_four), params=g3_params, protocol="axle",
+                       **G3_KW)
+fp_by_op = step_ops(protocol="axle")
+# 1. the int8 KV cache under axle, streamed
+torch.cuda.reset_peak_memory_stats()
+srv, g3_i8, i8_launches_g3, dt = serve(copies(g3_four), params=g3_params,
+                                       protocol="axle", **INT8, **G3_KW)
+attention_launches(f"{G3} int8 KV", srv, i8_launches_g3, g3cfg.n_layers,
+                   True, decode="decode_attention_fused[int8]")
+check(i8_launches_g3["decode_attention_fused"] == 0
+      and srv.cache["k0"].dtype == torch.int8
+      and all(len(t) == G3_NEW for t in g3_i8.values()),
+      f"[archs] {G3} int8 KV: launches {i8_launches_g3}, cache "
+      f"{srv.cache['k0'].dtype}")
+i8_bytes = sum(nbytes(t) for k, t in srv.cache.items() if k[0] in "kv")
+bf16_bytes = sum(t.numel() * 2 for k, t in srv.cache.items()
+                 if k[0] in "kv" and k[1:].isdigit())
+check(i8_bytes <= 0.55 * bf16_bytes, f"[archs] {G3} int8 KV: {i8_bytes} B "
+      f"of pools and scales against {bf16_bytes} B of bf16 pools")
+graph_equals_eager(f"{G3} int8 KV, axle", srv, g3_i8, i8_launches_g3, dt,
+                   g3_four, protocol="axle", **INT8, **G3_KW)
+parts, weights = replay_profile(srv, f"{G3} int8 KV, axle", steps_only=True)
+step_delta(f"{G3} int8 KV", step_ops(protocol="axle", **INT8), fp_by_op)
+arch_line(f"{G3} full width, int8 KV, axle, streamed, prompts "
+          f"{tuple(len(r.prompt) for r in g3_four)}, max_new {G3_NEW}, 4 "
+          f"slots, max_seq {G3_SEQ}, seg_len 8", srv, g3_i8, dt, parts,
+          weights, t0)
+del srv
+_, g3_i8_pt, _, _ = serve(copies(g3_four), params=g3_params,
+                          protocol="axle", **INT8,
+                          **dict(G3_KW, stream=False))
+check(g3_i8_pt == g3_i8, f"[archs] {G3} int8 KV: streamed != per-token")
+# logits against the plain path over the int8 cache, across the window's
+# edge, with each int8 fused decode of the kernel path held to its plain
+# version on its own inputs (held_decode, section 5b)
+held_q["decode_attention_fused[int8]"] = []
+fa.decode_attention_fused = held_decode
+try:
+    kernels_against_plain(f"{G3} int8 KV (window {W})", g3_prompts,
+                          arch_cfg=g3cfg, weights=g3_params,
+                          max_seq=G3_SEQ, kv_quant="int8")
+finally:
+    fa.decode_attention_fused = served_kernels[1]
+g3_held = held_q["decode_attention_fused[int8]"]
+check(len(g3_held) == 4 * g3cfg.n_layers,
+      f"[archs] {G3} int8 KV: {len(g3_held)} held decodes")
+same = sum(g3_i8[r] == g3_fp[r] for r in g3_fp)
+print(f"[archs] {G3} int8 KV: int8 fused launches "
+      f"{routes_of(i8_launches_g3, 'decode_attention_fused[int8]')} = "
+      f"{i8_launches_g3['decode_attention_fused[int8]'] // g3cfg.n_layers} "
+      f"steps x {g3cfg.n_layers}, every one on the tensor-core split, no fp "
+      f"fused decode; graphed == eager and streamed == per-token, bitwise; "
+      f"each of the {len(g3_held)} int8 fused decodes of the logits run "
+      f"within {max(g3_held):.3g} <= {ATOL_BF16} of its plain version; "
+      f"pools and scales {i8_bytes / 1e9:.3f} GB against "
+      f"{bf16_bytes / 1e9:.3f} GB of bf16 pools "
+      f"({i8_bytes / bf16_bytes:.4f}x); {same} of {len(g3_fp)} streams "
+      "equal to the fp cache's (not gated: int8 KV changes the logits)",
+      flush=True)
+# 2. rp over the fp cache: one chunk (chunks_per_shard 1), so its
+# partials and merge give the fused route's bits (section 3a, rp vs bs)
+t0 = time.perf_counter()
+torch.cuda.reset_peak_memory_stats()
+srv, g3_rp, rp_launches_g3, dt = serve(copies(g3_four), params=g3_params,
+                                       protocol="rp", **G3_KW)
+steps_g3 = srv.steps
+check(rp_launches_g3["decode_attention_partial"] == steps_g3 * g3cfg.n_layers
+      and rp_launches_g3["decode_attention_partial_tc"]
+      == rp_launches_g3["decode_attention_partial"]
+      and rp_launches_g3["decode_attention_fused"] == 0
+      and rp_launches_g3["decode_attention_fused[int8]"] == 0,
+      f"[archs] {G3} rp launches {rp_launches_g3}: not {steps_g3} steps x "
+      f"{g3cfg.n_layers} partials on the tensor-core split")
+rp_vs = near_tie_agrees(f"{G3} rp vs axle", g3_rp, g3_fp, g3_four,
+                        arch_cfg=g3cfg, weights=g3_params, max_seq=G3_SEQ)
+check(g3_rp == g3_fp, f"[archs] {G3}: rp tokens != axle's, {rp_vs}")
+parts, weights = replay_profile(srv, f"{G3} rp", steps_only=True)
+step_delta(f"{G3} rp", step_ops(protocol="rp"), fp_by_op)
+arch_line(f"{G3} full width, rp (one chunk), fp KV, streamed, the same 4 "
+          f"requests", srv, g3_rp, dt, parts, weights, t0)
+del srv
+print(f"[archs] {G3} rp: partial launches "
+      f"{routes_of(rp_launches_g3, 'decode_attention_partial')} = "
+      f"{steps_g3} steps x {g3cfg.n_layers}, all on the tensor-core split, "
+      f"no fused decode; tokens {rp_vs} the axle serve's, bitwise",
+      flush=True)
+# 3. rp over the int8 cache: 2 of the requests x 16 tokens
+g3_two = [Request(r.rid, r.prompt, 16) for r in g3_four
+          if len(r.prompt) in (1500, 1000)]
+_, g3_rp8, rp8_launches_g3, _ = serve(copies(g3_two), params=g3_params,
+                                      protocol="rp", **INT8, **G3_KW)
+check(rp8_launches_g3["decode_attention_partial"] > 0
+      and rp8_launches_g3["decode_attention_partial_tc"] == 0
+      and rp8_launches_g3["decode_attention_fused"] == 0
+      and rp8_launches_g3["decode_attention_fused[int8]"] == 0,
+      f"[archs] {G3} rp int8 launches {rp8_launches_g3}: the partials not "
+      "all on the f32 CUDA-core split")
+rp8_vs = near_tie_agrees(f"{G3} rp int8 vs axle int8", g3_rp8,
+                         {r: g3_i8[r][:16] for r in g3_rp8}, g3_two,
+                         arch_cfg=g3cfg, weights=g3_params, max_seq=G3_SEQ,
+                         kv_quant="int8")
+print(f"[archs] {G3} rp over the int8 cache (pools dequantized up front, q "
+      f"in f32), 2 requests x 16 tokens: partial launches "
+      f"{routes_of(rp8_launches_g3, 'decode_attention_partial')}, all on "
+      f"the f32 CUDA-core split, no fused decode; tokens {rp8_vs} the int8 "
+      f"axle serve's first 16 (near-tie gate {NEAR_TIE}); phase "
+      f"{time.perf_counter() - t0:.1f} s", flush=True)
+# 4. past 2,048 positions: 2 slots of 4096, prompts of 2,040 (decoding
+# across 2,048) and 3,500 tokens x 16; the global layers' decode runs 64
+# splits of 64 rows, flash_tc_kernel<256> prefills past S 2048
+t0 = time.perf_counter()
+torch.cuda.reset_peak_memory_stats()
+G4_KW = dict(arch=G3, max_seq=G3_S4K, batch_slots=2, protocol="axle",
+             stream=True)
+g3_long4 = arch_requests(g3cfg.vocab, (2040, 3500), 16, 25)
+srv, g3_4k, g3_4k_launches, dt = serve(g3_long4, params=g3_params, **G4_KW)
+attention_launches(f"{G3} max_seq {G3_S4K}", srv, g3_4k_launches,
+                   g3cfg.n_layers, True)
+check(srv.prefill_forwards == 2
+      and all(len(t) == 16 for t in g3_4k.values()),
+      f"[archs] {G3} max_seq {G3_S4K}: {srv.prefill_forwards} prefills, "
+      f"{ {r: len(t) for r, t in g3_4k.items()} } tokens")
+graph_equals_eager(f"{G3} max_seq {G3_S4K}, prompts 2040 and 3500", srv,
+                   g3_4k, g3_4k_launches, dt, g3_long4, **G4_KW)
+del srv
+alone_srv = BatchedServer(G3, smoke=False, device="cuda", batch_slots=2,
+                          max_seq=G3_S4K, seg_len=8, params=g3_params,
+                          protocol="axle", stream=True)
+alone_srv.submit(copies(g3_long4[:1])[0])
+alone_srv.run_until_drained()
+check(alone_srv.completed[0].generated == g3_4k[0],
+      f"[archs] {G3} max_seq {G3_S4K}: request 0 alone != its row")
+del alone_srv
+kernels_against_plain(f"{G3} max_seq {G3_S4K} (prompts 2040, 3500)",
+                      [r.prompt for r in g3_long4], arch_cfg=g3cfg,
+                      weights=g3_params, max_seq=G3_S4K)
+print(f"[archs] {G3} max_seq {G3_S4K}, 2 slots, prompts 2040 and 3500 x 16: "
+      f"flash launches {routes_of(g3_4k_launches, 'flash_attention')} (2 "
+      f"prefills x {g3cfg.n_layers}), fused decodes "
+      f"{routes_of(g3_4k_launches, 'decode_attention_fused')} "
+      f"({g3_4k_launches['decode_attention_fused'] // g3cfg.n_layers} steps "
+      f"x {g3cfg.n_layers}), all on the tensor cores; graphed == eager and "
+      f"request 0 alone == its row, bitwise; peak device memory "
+      f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; phase "
       f"{time.perf_counter() - t0:.1f} s", flush=True)
 del g3_params, g3_kern, nowin
 
@@ -5976,6 +6273,15 @@ for name, counts in (("[hd256]", g3_launches),
                      ("[hd80]", arch_launches["opt_2_7b"])):
     for fn in ("flash_attention", "decode_attention_fused"):
         records[fn + name]["launches"] = counts[fn]
+# gemma3_12b's int8-KV, rp, rp-over-int8 and max_seq 4096 serves (6b)
+records["decode_attention_fused[int8][hd256]"]["launches"] = \
+    i8_launches_g3["decode_attention_fused[int8]"]
+records["decode_attention_partial[hd256]"]["launches"] = \
+    rp_launches_g3["decode_attention_partial"]
+records["decode_attention_partial[hd256][f32]"]["launches"] = \
+    rp8_launches_g3["decode_attention_partial"]
+for fn in ("flash_attention", "decode_attention_fused"):
+    records[f"{fn}[hd256s{G3_S4K}]"]["launches"] = g3_4k_launches[fn]
 records["decode_attention_fused[int8][hd80]"]["launches"] = \
     i8_launches_o["decode_attention_fused[int8]"]
 records["decode_attention_partial[hd80]"]["launches"] = \

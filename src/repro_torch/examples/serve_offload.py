@@ -9,7 +9,9 @@ prefill-into-cache admission and streamed decode loop.
 
 On one device BS and AXLE take the same fused decode kernel, so their
 tokens are equal bit for bit.  RP runs the per-chunk partial kernel and
-a merge (`chunks_per_shard=4`): the same sums in another order.  At
+a merge (`chunks_per_shard=4`): the same sums in another order, each
+chunk's statistics scaled by its own maximum before the merge rescales
+them (with one chunk RP gives the fused route's bits on the card too).  At
 smoke size its tokens are BS's; at full width with random weights a
 stream can meet an exact or near tie of the two best logits, where that
 last-bit difference picks the other token.  So `main` requires RP to

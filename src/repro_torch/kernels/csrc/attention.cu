@@ -821,12 +821,16 @@ __device__ __forceinline__ void merge_dim(const DecodeArgs& a, int b, int h,
   }
   float mr = m;
   if (a.acc_e) {
-    // the current token's (acc, m, l), merged before normalisation
+    // the current token's (acc, m, l), merged before normalisation; each
+    // product rounded before the sum, as the plain version's and the
+    // chunked schedule's torch merges round them, whatever the compiler
+    // would contract: with one chunk that schedule's output is this one's,
+    // bit for bit (chip_smoke.py, rp vs bs)
     const float me = a.m_e[head];
     const float mm = fmaxf(m, me);
     const float a1 = expf(m - mm), a2 = expf(me - mm);
-    acc = acc * a1 + a.acc_e[head * a.HD + d] * a2;
-    l = l * a1 + a.l_e[head] * a2;
+    acc = __fadd_rn(__fmul_rn(acc, a1), __fmul_rn(a.acc_e[head * a.HD + d], a2));
+    l = __fadd_rn(__fmul_rn(l, a1), __fmul_rn(a.l_e[head], a2));
     mr = mm;
   }
   if (a.acc_out) {
